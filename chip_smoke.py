@@ -1,0 +1,314 @@
+#!/usr/bin/env python3
+"""Smoke test of makani_tpu_torch on one NVIDIA GPU (written for an H100).
+
+    python3 chip_smoke.py [--record PATH]
+
+Phases, in order; any failure exits non-zero:
+  1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
+  2. build the Hopper kernels from makani_tpu_torch/csrc/ into build/kernels/;
+  3. each kernel at the flagship SFNO's shapes, passes 3 and 1: against a
+     float64 product on the card (5e-5 / 5e-2 relative, the bounds of
+     tests/test_pallas_mm.py) and against its plain PyTorch twin (TWIN_TOL),
+     timed with CUDA events beside the twin and one PyTorch library call
+     (float32 bmm for legmm, complex64 matmul for dhconv_mm, TF32 off);
+  4. the flagship_synth_drive_bare SFNO at full width (73 channels on
+     721x1440, embed 384, 8 blocks, random weights from a seed): one forward
+     through the kernels with its launch counts, against one through the plain
+     twins (FORWARD_TOL); and a 3-block SFNO at 36x72 on the card against the
+     same weights on the CPU (SMALL_TOL);
+  5. the serving path: an Inferencer lite rollout of 4 steps at batch 1,
+     kernel launch counts read around it, finite outputs, ms per step and
+     peak device memory.
+The last two lines are the kernels' JSON record and the result line.
+--record PATH also writes every measurement of the run to PATH as JSON.
+
+TF32 is off for matmuls and cuDNN (torch.backends.cuda.matmul.allow_tf32 and
+torch.backends.cudnn.allow_tf32 = False): the float32 references, the
+longitude DFT and the 1x1 channel mixes run in full float32. Serving
+precision is "high", i.e. 3 bf16 passes in the kernels.
+"""
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# kernel vs plain twin: the same bf16 operand parts and exact float32 products,
+# summed in another order; the gap is a few ulps of the largest partial sum
+TWIN_TOL = 1e-5
+# vs a float64 product (tests/test_pallas_mm.py:27,56)
+F64_TOL = {3: 5e-5, 1: 5e-2}
+# full-width forward, kernels vs twins: the per-contraction ordering gap
+# (~1e-6) passes through 26 contractions and 16 instance norms
+FORWARD_TOL = 1e-3
+# small SFNO, card (kernels) vs CPU (twins): the same arithmetic, other
+# summation orders in every matmul
+SMALL_TOL = 1e-4
+
+# published H100 SXM peaks (dense): HBM bytes/s and bf16 tensor FLOP/s
+HBM_BPS = 3.35e12
+BF16_FLOPS = 989e12
+
+ROLLOUT_STEPS = 4
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def cuda_ms(fn, reps):
+    """Median milliseconds of `fn` over `reps` runs, CUDA events around each."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(nbytes, flops):
+    t_bytes, t_ops = nbytes / HBM_BPS, flops / BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def rel_err(got, ref):
+    return float((got.double() - ref).abs().max() / ref.abs().max())
+
+
+def phase_kernels(torch, spectral_mm, dev, gen):
+    """Each kernel at the flagship shapes; returns rows of measurements."""
+    rows = []
+    mmax, C, Lin, Kfull = 241, 384, 240, 721
+    cases = [("full analysis", Kfull, "k"), ("full synthesis", Kfull, "l"),
+             ("inner analysis", Lin, "k"), ("inner synthesis", Lin, "l")]
+    for label, K, contract in cases:
+        D = K if contract == "k" else Lin
+        z = torch.randn((2 * mmax, C, D), device=dev, generator=gen)
+        p = torch.randn((mmax, Lin, K), device=dev, generator=gen)
+        zs = z.view(2, mmax, C, D)
+        table = p.transpose(-1, -2) if contract == "k" else p
+        ref = torch.matmul(zs.double(), table.double()).reshape(2 * mmax, C, -1)
+        # the library yardstick: one float32 bmm against the table repeated
+        # for the re and im rows (prepared outside the timing)
+        tables = torch.cat([table, table])
+        for passes in (3, 1):
+            got = spectral_mm.legmm(z, p, passes, contract)
+            torch.cuda.synchronize()
+            plain = spectral_mm.legmm_plain(z, p, passes, contract)
+            e64, etwin = rel_err(got, ref), rel_err(got, plain.double())
+            check(e64 < F64_TOL[passes], f"legmm {label} p{passes} vs f64: {e64}")
+            check(etwin < TWIN_TOL, f"legmm {label} p{passes} vs twin: {etwin}")
+            nbytes = (z.numel() + p.numel() + got.numel()) * 4
+            flops = 2 * 2 * mmax * C * Lin * K * passes
+            b_ms, b_by = bound(nbytes, flops)
+            rows.append(dict(
+                name="legmm", shape=f"{label} z{tuple(z.shape)} p{tuple(p.shape)}",
+                passes=passes, max_abs_err=float((got - plain).abs().max()),
+                rel_err_twin=etwin, rel_err_f64=e64,
+                ms=cuda_ms(lambda: spectral_mm.legmm(z, p, passes, contract), 20),
+                plain_ms=cuda_ms(lambda: spectral_mm.legmm_plain(z, p, passes, contract), 5),
+                library_ms=cuda_ms(lambda: torch.bmm(z, tables), 20),
+                bound_ms=b_ms, bound_by=b_by, gbytes=nbytes / 1e9, gflop=flops / 1e9))
+            del got, plain
+        del z, p, zs, table, tables, ref
+
+    B, L, M = 1, Lin, mmax
+    x = torch.randn((2, B, L, C, M), device=dev, generator=gen)
+    w = torch.randn((2, L, C, C), device=dev, generator=gen)
+    # the library yardstick: one complex64 matmul (a float32 bmm cannot form
+    # the complex product in one call)
+    xc = torch.complex(x[0], x[1])
+    wct = torch.complex(w[0], w[1]).transpose(-1, -2)  # (L, O, C)
+    ref = torch.matmul(wct.to(torch.complex128), xc.to(torch.complex128))
+    for passes in (3, 1):
+        got = spectral_mm.dhconv_mm(x, w, passes)
+        torch.cuda.synchronize()
+        plain = spectral_mm.dhconv_mm_plain(x, w, passes)
+        e64 = max(float((got[0].double() - ref.real).abs().max()),
+                  float((got[1].double() - ref.imag).abs().max())) / float(ref.abs().max())
+        etwin = rel_err(got, plain.double())
+        check(e64 < F64_TOL[passes], f"dhconv_mm p{passes} vs f64: {e64}")
+        check(etwin < TWIN_TOL, f"dhconv_mm p{passes} vs twin: {etwin}")
+        nbytes = (x.numel() + w.numel() + got.numel()) * 4
+        flops = 2 * B * L * C * C * M * 3 * passes  # 3M: three real products
+        b_ms, b_by = bound(nbytes, flops)
+        rows.append(dict(
+            name="dhconv_mm", shape=f"x{tuple(x.shape)} w{tuple(w.shape)}", passes=passes,
+            max_abs_err=float((got - plain).abs().max()), rel_err_twin=etwin, rel_err_f64=e64,
+            ms=cuda_ms(lambda: spectral_mm.dhconv_mm(x, w, passes), 20),
+            plain_ms=cuda_ms(lambda: spectral_mm.dhconv_mm_plain(x, w, passes), 5),
+            library_ms=cuda_ms(lambda: torch.matmul(wct, xc), 20),
+            bound_ms=b_ms, bound_by=b_by, gbytes=nbytes / 1e9, gflop=flops / 1e9))
+        del got, plain
+    return rows
+
+
+def flagship_params(steps):
+    from makani_tpu_torch.models.model_registry import update_channel_params
+    from makani_tpu_torch.utils.yparams import YParams
+    params = YParams(str(ROOT / "config" / "sfnonet.yaml"), "flagship_synth_drive_bare")
+    params["valid_autoreg_steps"] = steps - 1
+    return update_channel_params(params, n_channels=73)
+
+
+def phase_small(torch, dev):
+    """A 3-block SFNO on the card (kernels) against the same weights on the
+    CPU (plain twins)."""
+    from makani_tpu_torch.models.model_registry import get_model
+    params = flagship_params(1)
+    params.update_params(dict(img_shape_x=36, img_shape_y=72, img_crop_shape_x=36,
+                              img_crop_shape_y=72, embed_dim=32, num_layers=3,
+                              scale_factor=2))
+    cpu = get_model(params, device="cpu", generator=torch.Generator().manual_seed(5))
+    gpu = get_model(params, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.randn((2, 73, 36, 72), generator=torch.Generator().manual_seed(6))
+    with torch.inference_mode():
+        want = cpu(x)
+        got = gpu(x.to(dev)).cpu()
+    err = rel_err(got, want.double())
+    check(err < SMALL_TOL, f"small SFNO card vs CPU: {err}")
+    return err
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--record", type=Path, help="write every measurement to this JSON file")
+    args = ap.parse_args(argv)
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    from makani_tpu_torch.ops import sht, spectral_mm
+    from makani_tpu_torch.utils.inferencer import Inferencer
+
+    # phase 1: card, versions, numerics
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("TF32 off for matmuls and cuDNN; serving precision "
+          f"{sht.get_transform_precision()!r} ({sht._coeff_passes()} bf16 passes)", flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    record = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
+
+    # phase 2: build
+    t0 = time.perf_counter()
+    reports = spectral_mm.build()
+    record["build_s"] = time.perf_counter() - t0
+    print(f"[build] {record['build_s']:.1f} s into {spectral_mm.BUILD_DIR}")
+    for name, log in reports.items():
+        print(f"[build {name}] " + " | ".join(
+            line.strip() for line in log.splitlines() if "registers" in line or "spill" in line))
+
+    # phase 3: kernels at the flagship shapes
+    rows = phase_kernels(torch, spectral_mm, dev, gen)
+    record["kernels"] = rows
+    print("[kernels] name | shape | passes | rel err vs twin | vs f64 | ms | plain ms | "
+          "library ms | bound ms (by)")
+    for r in rows:
+        print(f"  {r['name']} | {r['shape']} | p{r['passes']} | {r['rel_err_twin']:.3g} | "
+              f"{r['rel_err_f64']:.3g} | {r['ms']:.4f} | {r['plain_ms']:.4f} | "
+              f"{r['library_ms']:.4f} | {r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+
+    # phase 4: full-width forward, kernels vs twins; small SFNO card vs CPU
+    from makani_tpu_torch.models.model_registry import get_model
+    params = flagship_params(ROLLOUT_STEPS)
+    model = get_model(params, device=dev)
+    model.eval()
+    x = torch.randn((1, params.N_in_channels, 721, 1440), device=dev, generator=gen)
+    with torch.inference_mode():
+        model(x)  # warm-up: cuBLAS handles and workspaces
+        torch.cuda.synchronize()
+        spectral_mm.reset_launches()
+        t0 = time.perf_counter()
+        y_kernel = model(x)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        per_forward = dict(spectral_mm.launches)
+        sht.set_coeff_engine("stacked")
+        t0 = time.perf_counter()
+        y_plain = model(x)
+        torch.cuda.synchronize()
+        fwd_plain_ms = (time.perf_counter() - t0) * 1e3
+        sht.set_coeff_engine("kernel")
+    check(per_forward == {"legmm": 18, "dhconv_mm": 8},
+          f"launches per forward {per_forward}, expected 18 legmm and 8 dhconv_mm")
+    check(tuple(y_kernel.shape) == (1, 73, 721, 1440), f"forward shape {tuple(y_kernel.shape)}")
+    fwd_err = rel_err(y_kernel, y_plain.double())
+    check(bool(torch.isfinite(y_kernel).all()), "forward output not finite")
+    check(fwd_err < FORWARD_TOL, f"forward kernels vs twins: {fwd_err}")
+    del y_kernel, y_plain
+    small_err = phase_small(torch, dev)
+    record.update(forward_ms=fwd_ms, forward_plain_ms=fwd_plain_ms, forward_rel_err=fwd_err,
+                  launches_per_forward=per_forward, small_rel_err=small_err)
+    print(f"[forward] flagship 73ch 721x1440 edim384 x8: {fwd_ms:.1f} ms with kernels, "
+          f"{fwd_plain_ms:.1f} ms with twins; rel err {fwd_err:.3g}; launches {per_forward}; "
+          f"small SFNO card vs CPU rel err {small_err:.3g}", flush=True)
+
+    # phase 5: the serving path, an Inferencer lite rollout
+    inferencer = Inferencer(params, weights=model.state_dict(), device=dev)
+    del model
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    spectral_mm.reset_launches()
+    t0 = time.perf_counter()
+    preds = inferencer._rollout_lite(x)
+    rollout_s = time.perf_counter() - t0
+    launches = dict(spectral_mm.launches)
+    peak = torch.cuda.max_memory_allocated()
+    check(preds.shape == (ROLLOUT_STEPS, 1, 73, 721, 1440), f"rollout shape {preds.shape}")
+    check(bool(np.isfinite(preds).all()), "rollout output not finite")
+    check(launches == {"legmm": 18 * ROLLOUT_STEPS, "dhconv_mm": 8 * ROLLOUT_STEPS},
+          f"rollout launches {launches}")
+    step_ms = rollout_s * 1e3 / ROLLOUT_STEPS
+    record.update(rollout_steps=ROLLOUT_STEPS, step_ms=step_ms, peak_bytes=peak,
+                  rollout_launches=launches)
+    print(f"[rollout] {ROLLOUT_STEPS} steps at batch 1: {step_ms:.1f} ms per step (host clock, "
+          f"prediction copied to the host each step); peak device memory "
+          f"{peak / 2**30:.2f} GiB; launches {launches}", flush=True)
+
+    # results
+    if args.record is not None:
+        args.record.parent.mkdir(parents=True, exist_ok=True)
+        args.record.write_text(json.dumps(record, indent=1))
+    main_rows = {"legmm": ("full analysis", 3), "dhconv_mm": (None, 3)}
+    sources = {"legmm": ("makani_tpu_torch/csrc/legmm.cu", "makani_tpu/ops/pallas_mm.py:130"),
+               "dhconv_mm": ("makani_tpu_torch/csrc/dhconv_mm.cu",
+                             "makani_tpu/ops/pallas_mm.py:195")}
+    kernels = []
+    for name, (label, passes) in main_rows.items():
+        r = next(r for r in rows if r["name"] == name and r["passes"] == passes
+                 and (label is None or r["shape"].startswith(label)))
+        kernels.append(dict(
+            name=name, route="cuda", source=sources[name][0], replaces=sources[name][1],
+            launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], shape=r["shape"], passes=passes))
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
