@@ -8,6 +8,15 @@ zero biases, drawn from the caller's torch.Generator.
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+
+def remat(fn, *args):
+    """fn(*args), its activations recomputed in backward instead of saved
+    (makani_tpu's nn.remat); a plain call when no gradient is recorded."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 def normal_param(shape, std, device, generator):
@@ -39,7 +48,8 @@ class Conv1x1(nn.Module):
 
 def _eval_only(drop_rate, deterministic, what):
     if drop_rate > 0.0 and not deterministic:
-        raise NotImplementedError(f"{what} in training mode waits for the training slice")
+        raise NotImplementedError(f"{what} at a nonzero rate in training is not ported yet "
+                                  "(ROADMAP: Queue 1, dropout in training)")
 
 
 class DropPath(nn.Module):
@@ -56,11 +66,14 @@ class DropPath(nn.Module):
 
 class MLP(nn.Module):
     """Two-layer channel MLP on NCHW tensors (dropout is the identity when
-    deterministic)."""
+    deterministic). checkpointing >= 2 recomputes its activations in
+    backward instead of saving them."""
 
     def __init__(self, in_features, hidden_features=None, out_features=None, act_layer=None,
-                 output_bias=True, drop_rate=0.0, gain=1.0, device="cpu", generator=None):
+                 output_bias=True, drop_rate=0.0, gain=1.0, checkpointing=0, device="cpu",
+                 generator=None):
         super().__init__()
+        self.checkpointing = checkpointing
         out_features = out_features or in_features
         hidden_features = hidden_features or in_features
         self.act_layer = act_layer
@@ -70,9 +83,12 @@ class MLP(nn.Module):
         self.fc2 = Conv1x1(hidden_features, out_features, use_bias=output_bias, gain=gain,
                            device=device, generator=generator)
 
+    def _body(self, x):
+        return self.fc2(self.act_layer(self.fc1(x)))
+
     def forward(self, x, deterministic=True):
         _eval_only(self.drop_rate, deterministic, "MLP dropout")
-        return self.fc2(self.act_layer(self.fc1(x)))
+        return remat(self._body, x) if self.checkpointing >= 2 else self._body(x)
 
 
 class EncoderDecoder(nn.Module):

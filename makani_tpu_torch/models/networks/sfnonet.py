@@ -1,11 +1,13 @@
 """Spherical Fourier Neural Operator network.
 
-Counterpart of makani_tpu/models/networks/sfnonet.py for the serving path:
-encoder -> blocks (spectral filter, instance norm, GELU, MLP, linear outer
-skip) -> decoder, plus the big-skip residual transform. The blocks run as a
-plain loop. Not ported yet (ROADMAP, Queue 1): scan_layers, position
-embeddings, factorized filters, the non-linear spectral filter and the FFT
-(planar FNO) transforms.
+Counterpart of makani_tpu/models/networks/sfnonet.py: encoder -> blocks
+(spectral filter, instance norm, GELU, MLP, linear outer skip) -> decoder,
+plus the big-skip residual transform. The blocks run as a plain loop.
+Activation checkpointing follows makani_tpu's levels: checkpointing >= 1
+recomputes the encoder and decoder in backward, >= 2 the block MLPs, >= 3
+whole blocks (torch.utils.checkpoint, non-reentrant). Not ported yet
+(ROADMAP, Queue 1): scan_layers, position embeddings, factorized filters, the
+non-linear spectral filter and the FFT (planar FNO) transforms.
 """
 
 import math
@@ -25,7 +27,7 @@ from makani_tpu_torch.models.common import (
     SpectralConv,
     get_activation,
 )
-from makani_tpu_torch.models.common.layers import normal_param
+from makani_tpu_torch.models.common.layers import normal_param, remat
 from makani_tpu_torch.ops import InverseRealSHT, RealSHT
 
 
@@ -73,7 +75,7 @@ class FourierNeuralOperatorBlock(nn.Module):
                  operator_type="diagonal", mlp_ratio=2.0, mlp_drop_rate=0.0,
                  path_drop_rate=0.0, act_name="gelu", norm_layer="instance_norm",
                  factorization=None, separable=False, use_mlp=False, bias=False,
-                 device="cpu", generator=None):
+                 checkpointing=0, device="cpu", generator=None):
         super().__init__()
         self.act = get_activation(act_name)
         # gain bookkeeping of the reference init scheme: the filter feeds an
@@ -85,7 +87,8 @@ class FourierNeuralOperatorBlock(nn.Module):
             generator=generator)
         self.norm0 = self._norm(norm_layer, embed_dim, device)
         self.mlp = (MLP(embed_dim, int(embed_dim * mlp_ratio), act_layer=self.act,
-                        drop_rate=mlp_drop_rate, gain=0.5, device=device, generator=generator)
+                        drop_rate=mlp_drop_rate, gain=0.5, checkpointing=checkpointing,
+                        device=device, generator=generator)
                     if use_mlp else None)
         self.norm1 = self._norm(norm_layer, embed_dim, device)
         self.drop_path = DropPath(path_drop_rate)
@@ -130,7 +133,7 @@ class SphericalFourierNeuralOperatorNet(nn.Module):
             raise _not_ported(f"pos_embed {pos_embed!r}")
         if scan_layers and num_layers > 2 and repeat_layers == 1:
             raise _not_ported("scan_layers")
-        # checkpointing (rematerialization) only matters for training
+        self.checkpointing = checkpointing
         self.inp_shape = tuple(inp_shape)
         self.out_shape = tuple(out_shape)
         self.big_skip = big_skip
@@ -165,8 +168,8 @@ class SphericalFourierNeuralOperatorNet(nn.Module):
                 mlp_ratio=mlp_ratio, mlp_drop_rate=mlp_drop_rate,
                 path_drop_rate=float(dpr[i]), act_name=activation_function,
                 norm_layer=normalization_layer, factorization=factorization,
-                separable=separable, use_mlp=use_mlp, bias=bias, device=device,
-                generator=generator)
+                separable=separable, use_mlp=use_mlp, bias=bias,
+                checkpointing=checkpointing, device=device, generator=generator)
             for i in range(num_layers)])
         self.decoder = EncoderDecoder(encoder_layers, embed_dim, out_chans,
                                       int(decoder_ratio * embed_dim), self.act,
@@ -183,13 +186,16 @@ class SphericalFourierNeuralOperatorNet(nn.Module):
             else:
                 residual = x
         if self.pos_drop_rate > 0.0 and not deterministic:
-            raise NotImplementedError("position dropout in training mode waits for the "
-                                      "training slice")
-        x = self.encoder(x)
+            raise NotImplementedError("position dropout in training is not ported yet "
+                                      "(ROADMAP: Queue 1, dropout in training)")
+        x = remat(self.encoder, x) if self.checkpointing >= 1 else self.encoder(x)
         for _ in range(self.repeat_layers):
             for blk in self.blocks:
-                x = blk(x, deterministic=deterministic)
-        x = self.decoder(x)
+                if self.checkpointing >= 3:
+                    x = remat(blk, x, deterministic)
+                else:
+                    x = blk(x, deterministic=deterministic)
+        x = remat(self.decoder, x) if self.checkpointing >= 1 else self.decoder(x)
         if self.big_skip:
             b, c, h, w = residual.shape
             rw = self.residual_transform.to(residual.dtype).expand(b, -1, -1)

@@ -2,8 +2,8 @@
 
 Counterpart of makani_tpu/models/stepper.py: preprocess -> model ->
 denormalize, with the configurable land-sea-mask gate (`lsm_mask_channels`).
-The training unroll of MultiStepWrapper waits for the training slice; its
-eval path (one step) is ported.
+The multi-step training unroll of MultiStepWrapper (n_future > 0) is not
+ported yet; its eval path (one step) is.
 """
 
 from torch import nn
@@ -55,6 +55,6 @@ class MultiStepWrapper(SingleStepWrapper):
 
     def forward(self, inp, unpredicted_inp=None, unpredicted_tar=None, deterministic=True):
         if not deterministic:
-            raise NotImplementedError("the multi-step training unroll waits for the "
-                                      "training slice (ROADMAP: Queue 1)")
+            raise NotImplementedError("the multi-step training unroll is not ported yet "
+                                      "(ROADMAP: Queue 1)")
         return self._single(inp, unpredicted_inp, deterministic)

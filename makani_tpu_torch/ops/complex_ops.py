@@ -1,6 +1,6 @@
 """Complex helpers and the stacked-real dhconv contraction.
 
-Counterpart of makani_tpu/ops/complex_ops.py for the serving path: complex
+Counterpart of makani_tpu/ops/complex_ops.py for the SFNO's path: complex
 weights are stored as real planes and the dhconv channel mixing runs on the
 stacked-real l-major layout through ops/spectral_mm.dhconv_mm.
 """
@@ -29,11 +29,10 @@ def contract_dhconv_stacked(x, w):
     """dhconv on stacked-real l-major layouts: x (2, B, L, C, M) x
     w (2, L, C, O) -> (2, B, L, O, M); plane 0 = real, plane 1 = imag.
 
-    The "kernel" coefficient engine runs the dhconv_mm kernel (its plain twin
-    for CPU tensors); the "stacked" engine runs the plain twin on any device.
+    Differentiable (spectral_mm.dhconv): the "kernel" coefficient engine runs
+    the dhconv_mm and dhconv_dw kernels (their plain twins for CPU tensors);
+    the "stacked" engine runs the plain twins on any device.
     """
     from makani_tpu_torch.ops import sht
-    passes = sht._coeff_passes()
-    if sht.get_coeff_engine() == "kernel":
-        return spectral_mm.dhconv_mm(x, w, passes=passes, m3=_USE_3M)
-    return spectral_mm.dhconv_mm_plain(x, w, passes=passes, m3=_USE_3M)
+    return spectral_mm.dhconv(x, w, sht._coeff_passes(), _USE_3M,
+                              plain=sht.get_coeff_engine() == "stacked")

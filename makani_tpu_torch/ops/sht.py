@@ -54,9 +54,11 @@ def _coeff_passes():
 
 
 # Coefficient engine: how the Legendre contractions and the dhconv channel
-# mixing execute.
-#   "kernel"  — the Hopper kernels of ops/spectral_mm (their plain twins for
-#               CPU tensors); the serving default
+# mixing execute. Both go through the differentiable wrappers of
+# ops/spectral_mm (legdot, dhconv), so gradients are the multi-pass products
+# of the cotangents on either engine.
+#   "kernel"  — the Hopper kernels (their plain twins for CPU tensors); the
+#               default
 #   "stacked" — the plain PyTorch twins on any device (the reference the
 #               kernels are held against on the card)
 # The complex einsum engine ("xla" in makani_tpu) is not ported yet.
@@ -79,9 +81,7 @@ def get_coeff_engine():
 
 def _legendre_dot(z, p, contract):
     """(2*mmax, R, K|L) x (mmax, L, K) per-m contraction on the active engine."""
-    if _COEFF_ENGINE == "kernel":
-        return spectral_mm.legmm(z, p, passes=_coeff_passes(), contract=contract)
-    return spectral_mm.legmm_plain(z, p, passes=_coeff_passes(), contract=contract)
+    return spectral_mm.legdot(z, p, contract, _coeff_passes(), plain=_COEFF_ENGINE == "stacked")
 
 
 @lru_cache(maxsize=None)

@@ -1,13 +1,21 @@
 """Multi-pass bf16 matmuls of the SFNO's coefficient stage, as Hopper kernels.
 
-Counterpart of makani_tpu/ops/pallas_mm.py. Two kernels carry the serving
-path, each written in CUDA C++ for sm_90a (makani_tpu_torch/csrc/) and bound
-through a plain C interface loaded with ctypes:
+Counterpart of makani_tpu/ops/pallas_mm.py. Three kernels carry the spectral
+filter forward and backward, each written in CUDA C++ for sm_90a
+(makani_tpu_torch/csrc/) and bound through a plain C interface loaded with
+ctypes:
 
   legmm      per-m Legendre contraction of every SHT and inverse SHT
              (replaces pallas_mm.legmm / _legmm_kernel)
-  dhconv_mm  per-l complex channel mixing of the dhconv filter
+  dhconv_mm  per-l complex channel mixing of the dhconv filter, and its dx
              (replaces pallas_mm.dhconv_mm / _dhconv_mm_kernel)
+  dhconv_dw  the dhconv filter's weight gradient
+             (replaces pallas_mm.dhconv_dw / _dhconv_dw_kernel)
+
+`legdot` and `dhconv` are the differentiable wrappers, the counterparts of
+pallas_mm's custom VJPs: torch.autograd.Functions whose forward and backward
+both run the kernels. The raw wrappers carry no gradient and raise when asked
+to.
 
 `passes` selects the accuracy point of the bf16 operand split
 (hi = bf16(a), lo = bf16(a - hi)), products accumulated in float32:
@@ -16,87 +24,15 @@ through a plain C interface loaded with ctypes:
   3 = ah*bh + (ah*bl + al*bh), about 16 bits per operand
 
 Each wrapper runs its kernel on a CUDA tensor or raises; on a CPU tensor it
-runs the plain PyTorch twin (`legmm_plain`, `dhconv_mm_plain`), which repeats
-the kernel's arithmetic. `launches` counts kernel launches per wrapper.
-The kernels are compiled with nvcc at first use into build/kernels/ at the
-root of the checkout (one nvcc per source, started together).
+runs the plain PyTorch twin (`legmm_plain`, `dhconv_mm_plain`,
+`dhconv_dw_plain`), which repeats the kernel's arithmetic. ops/kernels.py
+builds the kernels and counts their launches.
 """
 
-import ctypes
-import os
-import subprocess
-from pathlib import Path
-
 import torch
+from torch.autograd.function import once_differentiable
 
-_CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-_SOURCES = {"legmm": "legmm.cu", "dhconv_mm": "dhconv_mm.cu"}
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-# kernel launches per wrapper; callers reset and read these around a run
-launches = {"legmm": 0, "dhconv_mm": 0}
-
-_libs = {}
-
-
-def reset_launches():
-    for k in launches:
-        launches[k] = 0
-
-
-def _nvcc():
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    path = Path(home) / "bin" / "nvcc"
-    return str(path) if path.exists() else "nvcc"
-
-
-def build():
-    """Compile every kernel source that is not loaded yet, one nvcc each, all
-    started together; load the libraries and declare their C signatures.
-    Returns the compiler's resource report (-Xptxas -v) per kernel."""
-    todo = [name for name in _SOURCES if name not in _libs]
-    if not todo:
-        return {}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in todo:
-        out = BUILD_DIR / f"lib{name}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(out),
-               str(_CSRC / _SOURCES[name])]
-        procs[name] = (out, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    reports = {}
-    failed = []
-    for name, (out, proc) in procs.items():
-        log, _ = proc.communicate()
-        reports[name] = log
-        if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
-    if failed:
-        raise RuntimeError("kernel build failed\n" + "\n".join(failed))
-    for name, (out, _) in procs.items():
-        _libs[name] = _declare(name, ctypes.CDLL(str(out)))
-    return reports
-
-
-def _declare(name, lib):
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    if name == "legmm":
-        fn = lib.legmm_launch
-        fn.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
-    else:
-        fn = lib.dhconv_mm_launch
-        fn.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
-    fn.restype = ci
-    return fn
-
-
-def _launcher(name):
-    if name not in _libs:
-        build()
-    return _libs[name]
+from makani_tpu_torch.ops.kernels import dispatch, launcher, launches, raise_on
 
 
 def _check_cuda(*tensors):
@@ -110,18 +46,13 @@ def _check_cuda(*tensors):
             raise ValueError("kernel takes contiguous tensors")
 
 
-def _raise_on(rc, name):
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-
-
-def _dispatch(x):
-    """True to launch the kernel, False to run the plain twin (CPU tensors)."""
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise ValueError(f"no kernel for device {x.device}")
+def _no_grad_through(name, wrapper, *tensors):
+    """The raw wrappers and twins carry no gradient: a kernel's output has no
+    grad_fn, and autograd through a twin would round every gradient to bf16
+    in `_split`. Differentiate through `wrapper` instead."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} carries no gradient; call spectral_mm.{wrapper}, "
+                           "whose backward runs the kernels")
 
 
 # --------------------------------------------------------------------------
@@ -162,6 +93,7 @@ def _legmm_shapes(z, p, contract):
 
 def legmm_plain(z, p, passes=3, contract="k"):
     """Plain twin of `legmm`."""
+    _no_grad_through("legmm_plain", "legdot", z, p)
     M2, mmax, C, L, K = _legmm_shapes(z, p, contract)
     zs = z.reshape(2, mmax, C, z.shape[-1])
     table = p.transpose(-1, -2) if contract == "k" else p
@@ -176,8 +108,9 @@ def legmm(z, p, passes=3, contract="k"):
     contract="k": analysis  (2*mmax, C, K) x (mmax, L, K) -> (2*mmax, C, L)
     contract="l": synthesis (2*mmax, C, L) x (mmax, L, K) -> (2*mmax, C, K)
     """
+    _no_grad_through("legmm", "legdot", z, p)
     M2, mmax, C, L, K = _legmm_shapes(z, p, contract)
-    if not _dispatch(z):
+    if not dispatch(z):
         return legmm_plain(z, p, passes, contract)
     _check_cuda(z, p)
     if passes not in (1, 2, 3):
@@ -186,11 +119,11 @@ def legmm(z, p, passes=3, contract="k"):
         raise ValueError(f"2*mmax = {M2} exceeds the kernel's grid limit")
     out = torch.empty((M2, C, L if contract == "k" else K), device=z.device,
                       dtype=torch.float32)
-    launch = _launcher("legmm")
+    launch = launcher("legmm")
     with torch.cuda.device(z.device):
         rc = launch(z.data_ptr(), p.data_ptr(), out.data_ptr(), M2, mmax, C, L, K,
                     int(contract == "k"), passes, torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "legmm")
+    raise_on(rc, "legmm")
     launches["legmm"] += 1
     return out
 
@@ -210,6 +143,7 @@ def _dhconv_shapes(x, w, wdim):
 
 def dhconv_mm_plain(x, w, passes=3, m3=True, wdim=0, conj_w=False):
     """Plain twin of `dhconv_mm`."""
+    _no_grad_through("dhconv_mm_plain", "dhconv", x, w)
     _dhconv_shapes(x, w, wdim)
     wr, wi = w[0], (-w[1] if conj_w else w[1])
     xr, xi = x[0], x[1]
@@ -235,8 +169,9 @@ def dhconv_mm(x, w, passes=3, m3=True, wdim=0, conj_w=False):
     conj_w negates w's imaginary plane in the kernel (cotangent rules).
     m3 selects the 3-multiplication complex product, else 4.
     """
+    _no_grad_through("dhconv_mm", "dhconv", x, w)
     B, L, C, O, M = _dhconv_shapes(x, w, wdim)
-    if not _dispatch(x):
+    if not dispatch(x):
         return dhconv_mm_plain(x, w, passes, m3, wdim, conj_w)
     _check_cuda(x, w)
     if passes not in (1, 2, 3):
@@ -245,10 +180,130 @@ def dhconv_mm(x, w, passes=3, m3=True, wdim=0, conj_w=False):
         raise ValueError(f"B*L = {B * L} exceeds the kernel's grid limit")
     co = O if wdim == 0 else C
     out = torch.empty((2, B, L, co, M), device=x.device, dtype=torch.float32)
-    launch = _launcher("dhconv_mm")
+    launch = launcher("dhconv_mm")
     with torch.cuda.device(x.device):
         rc = launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), B, L, C, O, M, wdim,
                     int(conj_w), int(m3), passes, torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "dhconv_mm")
+    raise_on(rc, "dhconv_mm")
     launches["dhconv_mm"] += 1
     return out
+
+
+def _dhconv_dw_shapes(x, g):
+    if x.ndim != 5 or g.ndim != 5 or x.shape[0] != 2 or g.shape[0] != 2:
+        raise ValueError(f"expected x (2,B,L,C,M) and g (2,B,L,O,M), got "
+                         f"{tuple(x.shape)} and {tuple(g.shape)}")
+    _, B, L, C, M = x.shape
+    if (g.shape[1], g.shape[2], g.shape[4]) != (B, L, M):
+        raise ValueError(f"x {tuple(x.shape)} does not contract with g {tuple(g.shape)}")
+    return B, L, C, g.shape[3], M
+
+
+def dhconv_dw_plain(x, g, passes=3, m3=True):
+    """Plain twin of `dhconv_dw`: the per-b products of _dhconv_dw_kernel,
+    summed over b in order."""
+    _no_grad_through("dhconv_dw_plain", "dhconv", x, g)
+    B = _dhconv_dw_shapes(x, g)[0]
+
+    def mp(a, b):
+        # x (L, C, M) as the first operand, contracted with g (L, O, M) over M
+        return _mp_matmul(a, b.transpose(-1, -2), passes)
+
+    out = None
+    for b in range(B):
+        xr, xi, gr, gi = x[0, b], x[1, b], g[0, b], g[1, b]
+        rr = mp(xr, gr)
+        ii = mp(xi, gi)
+        if m3:
+            part = torch.stack([rr + ii, mp(xr - xi, gr + gi) - rr + ii])
+        else:
+            part = torch.stack([rr + ii, mp(xr, gi) - mp(xi, gr)])
+        out = part if out is None else out + part
+    return out
+
+
+def dhconv_dw(x, g, passes=3, m3=True):
+    """Weight gradient of the dhconv filter: x (2, B, L, C, M), g (2, B, L, O, M)
+    -> dw (2, L, C, O), dw[l] = sum over b, m of conj(x[b, l]) . g[b, l]^T."""
+    _no_grad_through("dhconv_dw", "dhconv", x, g)
+    B, L, C, O, M = _dhconv_dw_shapes(x, g)
+    if not dispatch(x):
+        return dhconv_dw_plain(x, g, passes, m3)
+    _check_cuda(x, g)
+    if passes not in (1, 2, 3):
+        raise ValueError(f"passes must be 1, 2 or 3, got {passes}")
+    if L > 65535:
+        raise ValueError(f"L = {L} exceeds the kernel's grid limit")
+    out = torch.empty((2, L, C, O), device=x.device, dtype=torch.float32)
+    launch = launcher("dhconv_dw")
+    with torch.cuda.device(x.device):
+        rc = launch(x.data_ptr(), g.data_ptr(), out.data_ptr(), B, L, C, O, M, int(m3), passes,
+                    torch.cuda.current_stream().cuda_stream)
+    raise_on(rc, "dhconv_dw")
+    launches["dhconv_dw"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# differentiable wrappers: torch.autograd.Functions over the raw wrappers
+# (pallas_mm.legdot / pallas_mm.dhconv custom VJPs). Forward and backward both
+# run the kernels on CUDA tensors and the twins on CPU tensors; autograd never
+# enters a twin. Cotangents can arrive as non-contiguous views and are made
+# contiguous here: the kernels take contiguous tensors only.
+# --------------------------------------------------------------------------
+
+class _LegDot(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, z, p, contract, passes, plain):
+        ctx.save_for_backward(p)
+        ctx.contract, ctx.passes, ctx.plain = contract, passes, plain
+        return (legmm_plain if plain else legmm)(z, p, passes, contract)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        # the contraction is linear in z; its transpose is the opposite-direction
+        # contraction against the same table. The table is a constant of the
+        # transform and gets no gradient.
+        (p,) = ctx.saved_tensors
+        dz = None
+        if ctx.needs_input_grad[0]:
+            other = "l" if ctx.contract == "k" else "k"
+            dz = (legmm_plain if ctx.plain else legmm)(g.contiguous(), p, ctx.passes, other)
+        return dz, None, None, None, None
+
+
+def legdot(z, p, contract="k", passes=3, plain=False):
+    """Differentiable `legmm` (pallas_mm.legdot). plain=True runs the twin on
+    any device (the "stacked" coefficient engine)."""
+    return _LegDot.apply(z, p, contract, passes, plain)
+
+
+class _DhConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, passes, m3, plain):
+        ctx.save_for_backward(x, w)
+        ctx.passes, ctx.m3, ctx.plain = passes, m3, plain
+        return (dhconv_mm_plain if plain else dhconv_mm)(x, w, passes, m3)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        # complex-linear cotangents: dx = g . conj(w) (contract O),
+        # dw = conj(x) . g (contract B and M)
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        mm, dw_fn = (dhconv_mm_plain, dhconv_dw_plain) if ctx.plain else (dhconv_mm, dhconv_dw)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = mm(g, w, ctx.passes, ctx.m3, wdim=1, conj_w=True)
+        if ctx.needs_input_grad[1]:
+            dw = dw_fn(x, g, ctx.passes, ctx.m3)
+        return dx, dw, None, None, None
+
+
+def dhconv(x, w, passes=3, m3=True, plain=False):
+    """Differentiable `dhconv_mm` (pallas_mm.dhconv): x (2, B, L, C, M),
+    w (2, L, C, O) -> (2, B, L, O, M). plain=True runs the twins on any
+    device (the "stacked" coefficient engine)."""
+    return _DhConv.apply(x, w, passes, m3, plain)

@@ -1,4 +1,4 @@
-"""Carry makani_tpu (flax) weights into the port's modules.
+"""Carry makani_tpu (flax) weights and Adam state into the port.
 
 `load_jax_params(model, flat)` takes the flax parameter tree flattened with
 ``flax.traverse_util.flatten_dict(params, sep="/")`` as numpy arrays, e.g.
@@ -12,46 +12,55 @@
 
 and copies them into `model` (a stepper from get_model). Every parameter of
 the model must be covered and every given array used; otherwise it raises.
-"""
 
-import re
+`load_jax_opt_state(opt_state, model, flat_state)` does the same for the
+Adam state of utils/optimizers: `flat_state` holds makani_tpu's ``count`` and
+its ``mu`` and ``nu`` trees flattened like the parameters (bf16 moments given
+as float32 numpy).
+"""
 
 import numpy as np
 import torch
 
-_FILTER_WEIGHT = "filter_layer.filter.weight"
+from makani_tpu_torch.utils.param_layout import jax_key_to_torch, to_port_layout
 
 
-def jax_key_to_torch(key: str) -> str:
-    parts = []
-    for part in key.split("/"):
-        m = re.fullmatch(r"blocks_(\d+)", part)
-        if m:
-            parts += ["blocks", m.group(1)]
-        elif part == "SpectralFilterLayer_0":
-            parts.append("filter_layer")
-        else:
-            parts.append(part)
-    return ".".join(parts)
-
-
-def load_jax_params(model, flat):
-    state = model.state_dict()
+def _map_flat(state, flat, what):
+    """{port name: float32 numpy in the port's layout} for a flattened
+    makani_tpu tree; raises on a missing or unused key or a wrong shape."""
     mapped, unused = {}, []
     for key, value in flat.items():
         tkey = jax_key_to_torch(key)
         if tkey not in state:
             unused.append(key)
             continue
-        arr = np.asarray(value, dtype=np.float32)
-        if tkey.endswith(_FILTER_WEIGHT):
-            arr = arr.transpose(3, 2, 0, 1)  # (C, O, L, 2) -> (2, L, C, O)
+        arr = to_port_layout(tkey, np.asarray(value, dtype=np.float32))
         if arr.shape != tuple(state[tkey].shape):
             raise ValueError(f"{key}: shape {arr.shape} does not fit {tkey} "
                              f"{tuple(state[tkey].shape)}")
-        mapped[tkey] = torch.tensor(arr)
+        mapped[tkey] = arr
     missing = sorted(set(state) - set(mapped))
     if missing or unused:
-        raise KeyError(f"parameters not covered: {missing}; arrays not used: {sorted(unused)}")
-    model.load_state_dict(mapped)
+        raise KeyError(f"{what} not covered: {missing}; arrays not used: {sorted(unused)}")
+    return mapped
+
+
+def load_jax_params(model, flat):
+    mapped = _map_flat(model.state_dict(), flat, "parameters")
+    model.load_state_dict({k: torch.tensor(v) for k, v in mapped.items()})
     return model
+
+
+def load_jax_opt_state(opt_state, model, flat_state):
+    """Copy makani_tpu's Adam state into `opt_state` (an AdamState of
+    utils/optimizers keyed like model.named_parameters()), in place; the
+    moments keep the dtype of `opt_state`."""
+    params = dict(model.named_parameters())
+    for name in ("mu", "nu"):
+        moments = getattr(opt_state, name)
+        if set(moments) != set(params):
+            raise KeyError(f"opt_state.{name} is not keyed like the model's parameters")
+        for key, arr in _map_flat(moments, flat_state[name], f"opt_state.{name}").items():
+            moments[key].copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+    opt_state.count = int(flat_state["count"])
+    return opt_state

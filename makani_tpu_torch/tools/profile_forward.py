@@ -1,24 +1,83 @@
-"""Where the time of one flagship SFNO forward goes, on the GPU.
+"""Where the time of one flagship SFNO forward, or one train step, goes on
+the GPU.
 
-    python3 -m makani_tpu_torch.tools.profile_forward [--top 15] [--trace PATH]
+    python3 -m makani_tpu_torch.tools.profile_forward [--train] [--top 15] [--trace PATH]
 
 Builds flagship_synth_drive_bare at full width (random weights from a seed),
-warms up, then runs one forward under torch.profiler (CPU and CUDA
-activities) and prints the device time by operator and by kernel, the
-forward's wall time and the device's busy share of it. --trace PATH writes
-the Chrome trace to PATH.
+warms up, then runs one forward (or, with --train, one step of the Trainer on
+a resident synthetic batch: forward, backward and the fused Adam update, at
+checkpointing 0) under torch.profiler (CPU and CUDA activities). From the
+Chrome trace it prints the wall time, the device's busy time (the union of
+kernel, copy and set intervals) and its share of the wall, the device time by
+phase (with --train: the kernels inside the step's forward and optimizer
+ranges, the rest is backward) and by category (the port's four kernels by
+name, cuBLAS products by the operator that launched them, copies, and the
+rest: elementwise and reductions), then PyTorch's table by operator and
+kernel. --trace PATH keeps the trace at PATH (default
+build/profile_trace.json).
 """
 
 import argparse
+import json
 import sys
 import time
+from collections import defaultdict
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 
+_OWN = {"legmm_kernel": "legmm", "dhconv_kernel": "dhconv_mm", "dhconv_dw_kernel": "dhconv_dw",
+        "fused_adam_kernel": "fused_adam"}
+_GEMM_OPS = {"aten::bmm": "1x1 channel mixes (cuBLAS bmm)",
+             "aten::mm": "longitude DFT (cuBLAS mm)", "aten::addmm": "longitude DFT (cuBLAS mm)"}
+
+
+def _category(event, op_names):
+    name = event["name"]
+    for key, label in _OWN.items():
+        if key + "<" in name or key + "(" in name:
+            return label
+    if event["cat"] != "kernel":
+        return "copies and sets"
+    if "gemm" in name:
+        op = op_names.get(event["args"].get("External id"), "")
+        return _GEMM_OPS.get(op, f"other cuBLAS ({op or 'no operator'})")
+    return "elementwise, reductions and copies"
+
+
+def summarize(trace_path, wall_ms):
+    """Device time of a Chrome trace by phase and by category, in ms."""
+    events = json.loads(Path(trace_path).read_text())["traceEvents"]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    op_names = {e["args"].get("External id"): e["name"] for e in events
+                if e.get("cat") == "cpu_op" and "args" in e}
+    phases = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("cat") == "gpu_user_annotation"}
+    busy, end = 0.0, float("-inf")
+    for e in sorted(device, key=lambda e: e["ts"]):
+        start, stop = e["ts"], e["ts"] + e["dur"]
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    by_phase, by_category = defaultdict(float), defaultdict(float)
+    for e in device:
+        phase = "forward"
+        if phases:
+            phase = next((name.split(".")[-1] for name, (a, b) in phases.items()
+                          if a <= e["ts"] <= b and not name.endswith("backward")), "backward")
+        by_phase[phase] += e["dur"] / 1e3
+        by_category[_category(e, op_names)] += e["dur"] / 1e3
+    print(f"wall {wall_ms:.1f} ms; device busy {busy / 1e3:.1f} ms "
+          f"({100 * busy / 1e3 / wall_ms:.1f}% of wall)")
+    for title, table in (("phase", by_phase), ("category", by_category)):
+        print(f"device ms by {title}:")
+        for k, v in sorted(table.items(), key=lambda kv: -kv[1]):
+            print(f"  {k}: {v:.1f}")
+    return busy / 1e3, dict(by_phase), dict(by_category)
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--train", action="store_true", help="profile one train step")
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--trace", type=Path, help="write the Chrome trace to this file")
     args = ap.parse_args(argv)
@@ -38,26 +97,40 @@ def main(argv=None):
         YParams(str(ROOT / "config" / "sfnonet.yaml"), "flagship_synth_drive_bare"),
         n_channels=73)
     dev = torch.device("cuda")
-    model = get_model(params, device=dev).eval()
-    x = torch.randn((1, params.N_in_channels, 721, 1440), device=dev,
-                    generator=torch.Generator(device=dev).manual_seed(0))
-    with torch.inference_mode():
-        model(x)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            model(x)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if args.train:
+        from makani_tpu_torch.utils.trainer import Trainer
+        params.update_params(dict(enable_synthetic_data=True, n_train_samples_per_epoch=1,
+                                  optimizer_fused=True, skip_validation=True,
+                                  save_checkpoint="none", checkpointing=0))
+        trainer = Trainer(params, device=dev)
+        inp = torch.randn((1, params.N_in_channels, 721, 1440), device=dev, generator=gen)
+        tar = torch.randn((1, params.N_out_channels, 721, 1440), device=dev, generator=gen)
 
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    print(f"forward wall {wall_ms:.1f} ms; device busy {device_ms:.1f} ms "
-          f"({100 * device_ms / wall_ms:.1f}% of wall)")
+        def run():
+            trainer.train_step(inp, tar, None, None, 1e-3)
+    else:
+        model = get_model(params, device=dev).eval()
+        x = torch.randn((1, params.N_in_channels, 721, 1440), device=dev, generator=gen)
+
+        @torch.inference_mode()
+        def run():
+            model(x)
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    trace = args.trace or ROOT / "build" / "profile_trace.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    print("train step" if args.train else "forward", end=": ")
+    summarize(trace, wall_ms)
     print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=args.top))
-    if args.trace is not None:
-        args.trace.parent.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(args.trace))
     return 0
 
 

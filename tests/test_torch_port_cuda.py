@@ -11,13 +11,18 @@ kernels' zero-filled loads and masked stores are exercised at every edge.
 Tolerance: kernel and twin split the same operands into the same bf16 parts,
 and every bf16 product is exact in float32; they differ only in the order of
 the float32 sums, so the gap is a few ulps of the largest partial sum —
-bounded here at 1e-5 relative to the output's largest magnitude.
+bounded here at 1e-5 relative to the output's largest magnitude. The same
+bound holds the differentiable wrappers' gradients on the card against the
+twins on the CPU. The fused Adam kernel and its twin perform the same
+correctly rounded operations in the same order: bit-identical.
 """
 
+import numpy as np
 import pytest
 import torch
 
-from makani_tpu_torch.ops import spectral_mm
+from makani_tpu_torch.ops import fused_adam, kernels, spectral_mm
+from makani_tpu_torch.utils.optimizers import AdamState
 
 TOL = 1e-5
 
@@ -43,10 +48,10 @@ def test_legmm_kernel_matches_plain(cuda, passes, contract, C, K, L):
     mmax = 5
     z = torch.randn((2 * mmax, C, K if contract == "k" else L), device=cuda, generator=g)
     p = torch.randn((mmax, L, K), device=cuda, generator=g)
-    before = spectral_mm.launches["legmm"]
+    before = kernels.launches["legmm"]
     got = spectral_mm.legmm(z, p, passes=passes, contract=contract)
     torch.cuda.synchronize()
-    assert spectral_mm.launches["legmm"] == before + 1
+    assert kernels.launches["legmm"] == before + 1
     want = spectral_mm.legmm_plain(z, p, passes=passes, contract=contract)
     assert _rel(got, want) < TOL
 
@@ -60,10 +65,10 @@ def test_dhconv_mm_kernel_matches_plain(cuda, passes, m3, wdim, conj_w):
     B, L, C, O, M = 2, 3, 70, 45, 130
     x = torch.randn((2, B, L, C if wdim == 0 else O, M), device=cuda, generator=g)
     w = torch.randn((2, L, C, O), device=cuda, generator=g)
-    before = spectral_mm.launches["dhconv_mm"]
+    before = kernels.launches["dhconv_mm"]
     got = spectral_mm.dhconv_mm(x, w, passes=passes, m3=m3, wdim=wdim, conj_w=conj_w)
     torch.cuda.synchronize()
-    assert spectral_mm.launches["dhconv_mm"] == before + 1
+    assert kernels.launches["dhconv_mm"] == before + 1
     want = spectral_mm.dhconv_mm_plain(x, w, passes=passes, m3=m3, wdim=wdim, conj_w=conj_w)
     assert _rel(got, want) < TOL
 
@@ -76,3 +81,102 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         spectral_mm.legmm(z.transpose(1, 2).contiguous().transpose(1, 2), p)
     with pytest.raises(TypeError):
         spectral_mm.legmm(z.double(), p.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [1, 2, 3])
+@pytest.mark.parametrize("m3", [True, False])
+@pytest.mark.parametrize("B,L,C,O,M", [(2, 3, 70, 45, 130), (1, 2, 33, 64, 241)])
+def test_dhconv_dw_kernel_matches_plain(cuda, passes, m3, B, L, C, O, M):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((2, B, L, C, M), device=cuda, generator=g)
+    cot = torch.randn((2, B, L, O, M), device=cuda, generator=g)
+    before = kernels.launches["dhconv_dw"]
+    got = spectral_mm.dhconv_dw(x, cot, passes=passes, m3=m3)
+    torch.cuda.synchronize()
+    assert kernels.launches["dhconv_dw"] == before + 1
+    want = spectral_mm.dhconv_dw_plain(x, cot, passes=passes, m3=m3)
+    assert _rel(got, want) < TOL
+
+
+def _adam_leaves(gen, device):
+    """Odd leaf sizes, a scalar-like leaf and a dhconv weight in the port's
+    (2, L, C, O) layout, whose dither index follows makani_tpu's layout."""
+    shapes = {"a": (7,), "b.w": (3, 65), "b.v": (2, 3, 129), "c": (1,),
+              "model.blocks.0.filter_layer.filter.weight": (2, 5, 6, 7)}
+    return {k: torch.randn(s, device=device, generator=gen) for k, s in shapes.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moments,stochastic,wd", [
+    (torch.bfloat16, True, 0.0), (torch.bfloat16, False, 0.01), (torch.float32, False, 0.0)])
+def test_fused_adam_kernel_bitwise_against_plain(cuda, moments, stochastic, wd):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    params = _adam_leaves(gen, cuda)
+    twin = {k: v.clone() for k, v in params.items()}
+
+    def state():
+        return AdamState(0, {k: torch.zeros_like(v, dtype=moments) for k, v in params.items()},
+                         {k: torch.zeros_like(v, dtype=moments) for k, v in params.items()})
+
+    s_kernel, s_twin = state(), state()
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=wd, stochastic_rounding=stochastic,
+              seed=340)
+    for step in range(2):
+        grads = {k: 0.1 * torch.randn(v.shape, device=cuda, generator=gen)
+                 for k, v in params.items()}
+        before = kernels.launches["fused_adam"]
+        fused_adam.fused_adam_apply(params, grads, s_kernel, 1e-3, **kw)
+        torch.cuda.synchronize()
+        assert kernels.launches["fused_adam"] == before + len(params)
+        fused_adam.fused_adam_apply_plain(twin, grads, s_twin, 1e-3, **kw)
+    for k in params:
+        assert torch.equal(params[k], twin[k]), k
+        assert torch.equal(s_kernel.mu[k], s_twin.mu[k]), k
+        assert torch.equal(s_kernel.nu[k], s_twin.nu[k]), k
+    assert s_kernel.count == s_twin.count == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("contract", ["k", "l"])
+def test_legdot_backward_on_card_matches_cpu(cuda, contract):
+    rng = np.random.RandomState(4)
+    mmax, C, K, L = 5, 70, 97, 33
+    z = rng.randn(2 * mmax, C, K if contract == "k" else L).astype(np.float32)
+    p = torch.from_numpy(rng.randn(mmax, L, K).astype(np.float32))
+    cot = torch.from_numpy(rng.randn(2 * mmax, C, L if contract == "k" else K).astype(np.float32))
+    grads = []
+    for dev in ("cpu", cuda):
+        zt = torch.from_numpy(z).to(dev).requires_grad_()
+        spectral_mm.legdot(zt, p.to(dev), contract, 3).backward(cot.to(dev))
+        grads.append(zt.grad.cpu())
+    assert _rel(grads[1], grads[0]) < TOL
+
+
+@pytest.mark.cuda
+def test_dhconv_backward_on_card_matches_cpu(cuda):
+    rng = np.random.RandomState(5)
+    B, L, C, O, M = 2, 3, 70, 45, 130
+    x = rng.randn(2, B, L, C, M).astype(np.float32)
+    w = rng.randn(2, L, C, O).astype(np.float32)
+    cot = torch.from_numpy(rng.randn(2, B, L, O, M).astype(np.float32))
+    grads = []
+    for dev in ("cpu", cuda):
+        xt = torch.from_numpy(x).to(dev).requires_grad_()
+        wt = torch.from_numpy(w).to(dev).requires_grad_()
+        spectral_mm.dhconv(xt, wt, 3).backward(cot.to(dev))
+        grads.append((xt.grad.cpu(), wt.grad.cpu()))
+    assert _rel(grads[1][0], grads[0][0]) < TOL
+    assert _rel(grads[1][1], grads[0][1]) < TOL
+
+
+@pytest.mark.cuda
+def test_raw_wrappers_refuse_gradients_on_card(cuda):
+    z = torch.randn((4, 8, 6), device=cuda, requires_grad=True)
+    p = torch.randn((2, 5, 6), device=cuda)
+    x = torch.randn((2, 1, 5, 4, 9), device=cuda, requires_grad=True)
+    w = torch.randn((2, 5, 4, 3), device=cuda)
+    with pytest.raises(RuntimeError, match="legdot"):
+        spectral_mm.legmm(z, p)
+    with pytest.raises(RuntimeError, match="dhconv"):
+        spectral_mm.dhconv_mm(x, w)

@@ -16,6 +16,12 @@ Tolerances, relative to the largest magnitude of the reference:
     bf16 splits, ~2^-16 relative per operand.
   - SpectralConv: 1e-4, two Legendre contractions and the channel mixing in
     series, each within the 3-pass bound.
+  - gradients of legdot / dhconv against jax.vjp of pallas_mm's custom VJPs
+    (interpret mode): 1e-5, the twin bound. Both run the multi-pass products
+    on the cotangent; autograd through the twins' bf16 splits would round
+    every gradient to bf16 (~1e-3).
+  - dhconv_dw against the complex einsum in float64: 5e-5 (3 passes) and
+    5e-2 (1 pass), the bounds of tests/test_pallas_mm.py.
 """
 
 import numpy as np
@@ -30,7 +36,7 @@ from makani_tpu.ops import sht as jsht
 from makani_tpu.ops import complex_ops as jcomplex
 from makani_tpu.ops import dft as jdft, legendre as jlegendre, quadrature as jquadrature
 
-from makani_tpu_torch.ops import spectral_mm, sht as tsht
+from makani_tpu_torch.ops import kernels, spectral_mm, sht as tsht
 from makani_tpu_torch.ops import dft as tdft, legendre as tlegendre, quadrature as tquadrature
 from makani_tpu_torch.ops.complex_ops import contract_dhconv_stacked
 
@@ -101,14 +107,119 @@ def test_wrappers_take_the_twin_on_cpu_without_counting():
     p = torch.from_numpy(rng.randn(3, 5, 7).astype(np.float32))
     x = torch.from_numpy(rng.randn(2, 1, 5, 4, 9).astype(np.float32))
     w = torch.from_numpy(rng.randn(2, 5, 4, 3).astype(np.float32))
-    before = dict(spectral_mm.launches)
+    before = dict(kernels.launches)
     assert torch.equal(spectral_mm.legmm(z, p), spectral_mm.legmm_plain(z, p))
     assert torch.equal(spectral_mm.dhconv_mm(x, w), spectral_mm.dhconv_mm_plain(x, w))
-    assert spectral_mm.launches == before
+    assert kernels.launches == before
     with pytest.raises(ValueError):
         spectral_mm.legmm(z[:4], p)  # 2*mmax rows required
     with pytest.raises(ValueError):
         spectral_mm.dhconv_mm(x, w, wdim=1)  # Ci must equal O for wdim=1
+
+
+# --------------------------------------------------------------------------
+# gradients: legdot / dhconv against pallas_mm's custom VJPs, dhconv_dw
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("plain", [False, True])
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("contract", ["k", "l"])
+def test_legdot_vjp_matches_pallas(contract, passes, plain):
+    rng = np.random.RandomState(11)
+    mmax, C, K, L = 5, 7, 23, 9
+    z = rng.randn(2 * mmax, C, K if contract == "k" else L).astype(np.float32)
+    p = rng.randn(mmax, L, K).astype(np.float32)
+    g = rng.randn(2 * mmax, C, L if contract == "k" else K).astype(np.float32)
+    want, vjp = jax.vjp(lambda a: pallas_mm.legdot(a, jnp.asarray(p), contract, passes, True),
+                        jnp.asarray(z))
+    (want_dz,) = vjp(jnp.asarray(g))
+
+    zt = torch.from_numpy(z).requires_grad_()
+    pt = torch.from_numpy(p)
+    got = spectral_mm.legdot(zt, pt, contract, passes, plain=plain)
+    got.backward(torch.from_numpy(g))
+    assert _rel(got.detach(), want) < TWIN_TOL
+    assert _rel(zt.grad, want_dz) < TWIN_TOL
+    assert pt.grad is None
+
+
+@pytest.mark.parametrize("plain", [False, True])
+@pytest.mark.parametrize("passes", [1, 3])
+def test_dhconv_vjp_matches_pallas(passes, plain):
+    rng = np.random.RandomState(12)
+    B, L, C, O, M = 2, 3, 6, 5, 11
+    x = rng.randn(2, B, L, C, M).astype(np.float32)
+    w = rng.randn(2, L, C, O).astype(np.float32)
+    g = rng.randn(2, B, L, O, M).astype(np.float32)
+    want, vjp = jax.vjp(lambda a, b: pallas_mm.dhconv(a, b, passes, True),
+                        jnp.asarray(x), jnp.asarray(w))
+    want_dx, want_dw = vjp(jnp.asarray(g))
+
+    xt = torch.from_numpy(x).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    got = spectral_mm.dhconv(xt, wt, passes, plain=plain)
+    # a permuted, non-contiguous cotangent, as SpectralConv's views give it
+    gt = torch.from_numpy(np.ascontiguousarray(g.transpose(0, 1, 2, 4, 3))).transpose(-1, -2)
+    got.backward(gt)
+    assert _rel(got.detach(), want) < TWIN_TOL
+    assert _rel(xt.grad, want_dx) < TWIN_TOL
+    assert _rel(wt.grad, want_dw) < TWIN_TOL
+
+
+def test_dhconv_skips_gradients_nobody_asks_for():
+    rng = np.random.RandomState(13)
+    x = torch.from_numpy(rng.randn(2, 1, 3, 4, 5).astype(np.float32))
+    w = torch.from_numpy(rng.randn(2, 3, 4, 2).astype(np.float32)).requires_grad_()
+    spectral_mm.dhconv(x, w).sum().backward()
+    assert x.grad is None and w.grad is not None
+
+
+@pytest.mark.parametrize("passes", [1, 2, 3])
+@pytest.mark.parametrize("m3", [True, False])
+@pytest.mark.parametrize("B", [1, 3])
+def test_dhconv_dw_plain_matches_pallas(passes, m3, B):
+    rng = np.random.RandomState(14)
+    L, C, O, M = 3, 6, 5, 130
+    x = rng.randn(2, B, L, C, M).astype(np.float32)
+    g = rng.randn(2, B, L, O, M).astype(np.float32)
+    want = pallas_mm.dhconv_dw(jnp.asarray(x), jnp.asarray(g), passes=passes, m3=m3,
+                               interpret=True)
+    got = spectral_mm.dhconv_dw(torch.from_numpy(x), torch.from_numpy(g), passes, m3)
+    assert got.shape == want.shape == (2, L, C, O)
+    assert _rel(got, want) < TWIN_TOL
+    # against the complex product in float64
+    xc, gc = x[0] + 1j * x[1], g[0] + 1j * g[1]
+    ref = np.einsum("blcm,blom->lco", np.conj(xc).astype(np.complex128), gc)
+    err = max(_rel(got[0], ref.real), _rel(got[1], ref.imag))
+    assert err < {1: 5e-2, 2: 5e-2, 3: 5e-5}[passes]
+
+
+def test_dhconv_dw_accumulates_over_batch():
+    """B=3 equals the sum of three B=1 calls (tests/test_pallas_mm.py:81-93)."""
+    rng = np.random.RandomState(15)
+    x = torch.from_numpy(rng.randn(2, 3, 4, 6, 33).astype(np.float32))
+    g = torch.from_numpy(rng.randn(2, 3, 4, 5, 33).astype(np.float32))
+    full = spectral_mm.dhconv_dw(x, g)
+    parts = sum(spectral_mm.dhconv_dw(x[:, b:b + 1], g[:, b:b + 1]) for b in range(3))
+    assert _rel(full, parts) < TWIN_TOL
+
+
+def test_raw_wrappers_refuse_gradients():
+    rng = np.random.RandomState(16)
+    z = torch.from_numpy(rng.randn(6, 4, 7).astype(np.float32)).requires_grad_()
+    p = torch.from_numpy(rng.randn(3, 5, 7).astype(np.float32))
+    x = torch.from_numpy(rng.randn(2, 1, 5, 4, 9).astype(np.float32)).requires_grad_()
+    w = torch.from_numpy(rng.randn(2, 5, 4, 3).astype(np.float32))
+    for fn, args, name in [(spectral_mm.legmm, (z, p), "legdot"),
+                           (spectral_mm.legmm_plain, (z, p), "legdot"),
+                           (spectral_mm.dhconv_mm, (x, w), "dhconv"),
+                           (spectral_mm.dhconv_mm_plain, (x, w), "dhconv"),
+                           (spectral_mm.dhconv_dw, (x, x), "dhconv")]:
+        with pytest.raises(RuntimeError, match=name):
+            fn(*args)
+    with torch.no_grad():
+        spectral_mm.legmm(z, p)
+        spectral_mm.dhconv_mm(x, w)
 
 
 # --------------------------------------------------------------------------
