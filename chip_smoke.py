@@ -5,8 +5,8 @@
 
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the four Hopper kernels from makani_tpu_torch/csrc/ into
-     build/kernels/;
+  2. build the five Hopper kernels from makani_tpu_torch/csrc/ into
+     build/kernels/, one nvcc per source, all started together;
   3. each matmul kernel at the flagship SFNO's shapes, passes 3 and 1:
      against a float64 product on the card (5e-5 / 5e-2 relative, the bounds
      of tests/test_pallas_mm.py) and against its plain PyTorch twin
@@ -33,7 +33,20 @@ Phases, in order; any failure exits non-zero:
      after a warm-up) with its peak device memory; the full-width gradients
      through the kernels against those through the twins (FORWARD_TOL per
      leaf), and a 3-block SFNO's gradients on the card against the same
-     weights and batch on the CPU (SMALL_TOL per leaf).
+     weights and batch on the CPU (SMALL_TOL per leaf);
+  7. the complex coefficient engine ("xla", makani_tpu's default) with the
+     complex dhconv kernel on (complex_ops.enable_pallas_kernels), at full
+     width: the kernel at x (1, 384, 240, 241) and w (384, 384, 240)
+     complex64, forward and dx (conj(w) transposed), passes 3 and 1, against
+     its twin (TWIN_TOL) and float64 (F64_TOL), timed beside the twin and a
+     complex64 torch.matmul batched over l; one flagship forward (8
+     dhconv_complex launches, no other matmul kernel) against the same
+     weights on the "kernel" engine and on "xla" without the kernel
+     (FORWARD_TOL); a 4-step Inferencer rollout; a Trainer epoch of 3 steps
+     with coefficient_engine "xla" (16 dhconv_complex and 87 fused_adam
+     launches per step), its step time and peak memory, and its full-width
+     gradients against the kernel engine's (FORWARD_TOL per leaf). The
+     engine, precisions and kernel toggle are restored afterwards.
 The last two lines are the kernels' JSON record and the result line.
 --record PATH also writes every measurement of the run to PATH as JSON.
 
@@ -77,6 +90,10 @@ TRAIN_STEPS = 3
 # 8 dw; one fused Adam launch per parameter leaf (10 per block, 3 in the
 # encoder and the decoder each, the residual transform)
 TRAIN_LAUNCHES = {"legmm": 36, "dhconv_mm": 16, "dhconv_dw": 8, "fused_adam": 87}
+# on the complex engine with the kernel on: 8 forward contractions and their 8
+# dx; dw is an einsum, and the Legendre contractions are float32 einsums
+COMPLEX_FORWARD_LAUNCHES = {"dhconv_complex": 8}
+COMPLEX_TRAIN_LAUNCHES = {"dhconv_complex": 16, "fused_adam": 87}
 # the MLP's output bias feeds an instance norm, which removes it: its exact
 # gradient is zero, and its rounding noise is measured against the largest
 # gradient of the model instead of its own
@@ -112,6 +129,17 @@ def bound(nbytes, flops):
 
 def rel_err(got, ref):
     return float((got.double() - ref).abs().max() / ref.abs().max())
+
+
+def rel_err_c(got, ref):
+    """rel_err for complex tensors, in complex128."""
+    import torch
+    return float((got.to(torch.complex128) - ref).abs().max() / ref.abs().max())
+
+
+def launch_counts(kernels, expected):
+    """`expected` with every other kernel at zero launches."""
+    return {k: expected.get(k, 0) for k in kernels.launches}
 
 
 def phase_kernels(torch, spectral_mm, dev, gen):
@@ -331,7 +359,8 @@ def phase_train(torch, sht, kernels, dev):
     losses = trainer.last_logs["train"]["step losses"]
     check(len(losses) == TRAIN_STEPS and all(math.isfinite(v) for v in losses),
           f"train losses {losses}")
-    check(total == {k: v * TRAIN_STEPS for k, v in TRAIN_LAUNCHES.items()},
+    check(total == launch_counts(kernels,
+                                 {k: v * TRAIN_STEPS for k, v in TRAIN_LAUNCHES.items()}),
           f"launches over {TRAIN_STEPS} train steps {total}, expected {TRAIN_LAUNCHES} per step")
     rec.update(train_losses=losses, train_launches=total,
                train_launches_per_step={k: v // TRAIN_STEPS for k, v in total.items()},
@@ -380,6 +409,153 @@ def phase_train(torch, sht, kernels, dev):
     return rec
 
 
+def phase_complex_kernel(torch, dev, gen):
+    """The complex dhconv kernel at the flagship shapes: the forward and the
+    backward's dx (the same kernel on conj(w) transposed), passes 3 and 1."""
+    from makani_tpu_torch.ops import complex_kernels
+    rows = []
+    B, C, L, M = 1, 384, 240, 241
+
+    def cplx(shape):
+        return torch.complex(torch.randn(shape, device=dev, generator=gen),
+                             torch.randn(shape, device=dev, generator=gen))
+
+    x = cplx((B, C, L, M))          # the activation, or the cotangent g for dx
+    w = cplx((C, C, L))
+    for label, wop in (("forward", w), ("dx", w.conj().transpose(0, 1))):
+        # the library yardstick and the float64 reference: one complex matmul
+        # batched over l, (L, O, C) x (L, C, B*M), operands prepared outside
+        # the timing
+        wl = wop.resolve_conj().permute(2, 1, 0).contiguous()
+        xl = x.permute(2, 1, 0, 3).reshape(L, C, B * M).contiguous()
+        ref = torch.matmul(wl.to(torch.complex128), xl.to(torch.complex128))
+        ref = ref.view(L, C, B, M).permute(2, 1, 0, 3)
+        for passes in (3, 1):
+            got = complex_kernels.contract_dhconv_raw(x, wop, passes)
+            torch.cuda.synchronize()
+            plain = complex_kernels.contract_dhconv_plain(x, wop, passes)
+            e64, etwin = rel_err_c(got, ref), rel_err_c(got, plain.to(torch.complex128))
+            check(e64 < F64_TOL[passes], f"dhconv_complex {label} p{passes} vs f64: {e64}")
+            check(etwin < TWIN_TOL, f"dhconv_complex {label} p{passes} vs twin: {etwin}")
+            nbytes = (x.numel() + w.numel() + got.numel()) * 8
+            flops = 2 * B * L * C * C * M * 3 * passes  # 3M: three real products
+            b_ms, b_by = bound(nbytes, flops)
+            rows.append(dict(
+                name="dhconv_complex", shape=f"{label} x{tuple(x.shape)} w{tuple(wop.shape)}",
+                passes=passes, max_abs_err=float((got - plain).abs().max()),
+                rel_err_twin=etwin, rel_err_f64=e64,
+                ms=cuda_ms(lambda: complex_kernels.contract_dhconv_raw(x, wop, passes), 20),
+                # the wrapper's per-call copy of the weight to (L, C, O), inside ms
+                permute_ms=cuda_ms(lambda: wop.resolve_conj().permute(2, 0, 1).contiguous(), 20),
+                plain_ms=cuda_ms(lambda: complex_kernels.contract_dhconv_plain(x, wop, passes), 5),
+                library_ms=cuda_ms(lambda: torch.matmul(wl, xl), 20),
+                bound_ms=b_ms, bound_by=b_by, gbytes=nbytes / 1e9, gflop=flops / 1e9))
+            del got, plain
+        del wl, xl, ref
+    del x, w
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_complex(torch, np, sht, complex_ops, kernels, dev, gen):
+    """The complex coefficient engine with the kernel on, at full width:
+    kernel checks, a forward, a rollout and a training epoch."""
+    from makani_tpu_torch.models.model_registry import get_model
+    from makani_tpu_torch.utils.inferencer import Inferencer
+    from makani_tpu_torch.utils.trainer import Trainer
+    rec = {"kernels": phase_complex_kernel(torch, dev, gen)}
+    params = flagship_params(ROLLOUT_STEPS)
+    model = get_model(params, device=dev)
+    model.eval()
+    x = torch.randn((1, params.N_in_channels, 721, 1440), device=dev, generator=gen)
+    with torch.inference_mode():
+        model(x)  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        y = model(x)
+        torch.cuda.synchronize()
+        rec["forward_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["launches_per_forward"] = dict(kernels.launches)
+        complex_ops.enable_pallas_kernels(False)
+        y_einsum = model(x)
+        complex_ops.enable_pallas_kernels(True)
+        sht.set_coeff_engine("kernel")
+        y_kernel_engine = model(x)
+        sht.set_coeff_engine("xla")
+    check(rec["launches_per_forward"] == launch_counts(kernels, COMPLEX_FORWARD_LAUNCHES),
+          f"complex engine launches per forward {rec['launches_per_forward']}")
+    check(bool(torch.isfinite(y).all()), "complex engine forward not finite")
+    rec["forward_rel_err_einsum"] = rel_err(y, y_einsum.double())
+    rec["forward_rel_err_kernel_engine"] = rel_err(y, y_kernel_engine.double())
+    check(rec["forward_rel_err_einsum"] < FORWARD_TOL,
+          f"complex engine forward, kernel vs einsum: {rec['forward_rel_err_einsum']}")
+    check(rec["forward_rel_err_kernel_engine"] < FORWARD_TOL,
+          f"complex engine vs kernel engine forward: {rec['forward_rel_err_kernel_engine']}")
+    del y, y_einsum, y_kernel_engine
+
+    # serving: the Inferencer's lite rollout
+    inferencer = Inferencer(params, weights=model.state_dict(), device=dev)
+    del model
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    preds = inferencer._rollout_lite(x)
+    rec["step_ms"] = (time.perf_counter() - t0) * 1e3 / ROLLOUT_STEPS
+    rec["rollout_launches"] = dict(kernels.launches)
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    check(preds.shape == (ROLLOUT_STEPS, 1, 73, 721, 1440), f"rollout shape {preds.shape}")
+    check(bool(np.isfinite(preds).all()), "complex engine rollout not finite")
+    check(rec["rollout_launches"] == launch_counts(
+        kernels, {k: v * ROLLOUT_STEPS for k, v in COMPLEX_FORWARD_LAUNCHES.items()}),
+        f"complex engine rollout launches {rec['rollout_launches']}")
+    del inferencer, preds, x
+    torch.cuda.empty_cache()
+
+    # training: a Trainer with coefficient_engine "xla", the kernel toggle on
+    trainer = Trainer(train_params(coefficient_engine="xla"), device=dev)
+    check(sht.get_coeff_engine() == "xla", "the Trainer did not select the complex engine")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    trainer.train()
+    torch.cuda.synchronize()
+    total = dict(kernels.launches)
+    rec["train_peak_bytes"] = torch.cuda.max_memory_allocated()
+    losses = trainer.last_logs["train"]["step losses"]
+    check(len(losses) == TRAIN_STEPS and all(math.isfinite(v) for v in losses),
+          f"complex engine train losses {losses}")
+    check(total == launch_counts(
+        kernels, {k: v * TRAIN_STEPS for k, v in COMPLEX_TRAIN_LAUNCHES.items()}),
+        f"complex engine launches over {TRAIN_STEPS} train steps {total}")
+    rec.update(train_losses=losses, train_launches=total,
+               train_launches_per_step={k: v // TRAIN_STEPS for k, v in total.items()})
+    inp, tar = (torch.from_numpy(a[None]).to(dev) for a in trainer.train_dataset[0])
+    times = []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(inp, tar, None, None, 1e-3)
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+    rec["train_step_ms"] = statistics.median(times)
+    rec["train_step_ms_all"] = times
+    _, g_complex = trainer.loss_and_grads(inp, tar)
+    g_complex = {k: v.cpu() for k, v in g_complex.items()}
+    sht.set_coeff_engine("kernel")
+    _, g_kernel = trainer.loss_and_grads(inp, tar)
+    sht.set_coeff_engine("xla")
+    errs = leaf_errors(g_complex, {k: v.cpu() for k, v in g_kernel.items()})
+    worst = max(errs, key=errs.get)
+    check(errs[worst] < FORWARD_TOL, f"complex vs kernel engine gradient {worst}: {errs[worst]}")
+    rec.update(grad_rel_err_max=errs[worst], grad_rel_err_leaf=worst)
+    del trainer, inp, tar, g_complex, g_kernel
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--record", type=Path, help="write every measurement to this JSON file")
@@ -389,7 +565,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    from makani_tpu_torch.ops import kernels, sht, spectral_mm
+    from makani_tpu_torch.ops import complex_ops, kernels, sht, spectral_mm
     from makani_tpu_torch.utils.inferencer import Inferencer
 
     # phase 1: card, versions, numerics
@@ -453,7 +629,7 @@ def main(argv=None):
         torch.cuda.synchronize()
         fwd_plain_ms = (time.perf_counter() - t0) * 1e3
         sht.set_coeff_engine("kernel")
-    check(per_forward == {"legmm": 18, "dhconv_mm": 8, "dhconv_dw": 0, "fused_adam": 0},
+    check(per_forward == launch_counts(kernels, {"legmm": 18, "dhconv_mm": 8}),
           f"launches per forward {per_forward}, expected 18 legmm and 8 dhconv_mm")
     check(tuple(y_kernel.shape) == (1, 73, 721, 1440), f"forward shape {tuple(y_kernel.shape)}")
     fwd_err = rel_err(y_kernel, y_plain.double())
@@ -480,8 +656,9 @@ def main(argv=None):
     peak = torch.cuda.max_memory_allocated()
     check(preds.shape == (ROLLOUT_STEPS, 1, 73, 721, 1440), f"rollout shape {preds.shape}")
     check(bool(np.isfinite(preds).all()), "rollout output not finite")
-    check(launches == {"legmm": 18 * ROLLOUT_STEPS, "dhconv_mm": 8 * ROLLOUT_STEPS,
-                       "dhconv_dw": 0, "fused_adam": 0}, f"rollout launches {launches}")
+    check(launches == launch_counts(kernels, {"legmm": 18 * ROLLOUT_STEPS,
+                                              "dhconv_mm": 8 * ROLLOUT_STEPS}),
+          f"rollout launches {launches}")
     step_ms = rollout_s * 1e3 / ROLLOUT_STEPS
     record.update(rollout_steps=ROLLOUT_STEPS, step_ms=step_ms, peak_bytes=peak,
                   rollout_launches=launches)
@@ -503,6 +680,43 @@ def main(argv=None):
           f"{train['grad_rel_err_max']:.3g} ({train['grad_rel_err_leaf']}); small SFNO "
           f"gradients card vs CPU {train['small_grad_rel_err_max']:.3g} "
           f"({train['small_grad_rel_err_leaf']})", flush=True)
+
+    # phase 7: the complex coefficient engine with the complex dhconv kernel
+    settings = (sht.get_coeff_engine(), sht.get_transform_precision(),
+                complex_ops.get_contraction_precision(), complex_ops._USE_PALLAS_DHCONV)
+    sht.set_coeff_engine("xla")
+    sht.set_transform_precision("high")
+    complex_ops.set_contraction_precision("high")
+    complex_ops.enable_pallas_kernels(True)
+    try:
+        cplx = phase_complex(torch, np, sht, complex_ops, kernels, dev, gen)
+    finally:
+        sht.set_coeff_engine(settings[0])
+        sht.set_transform_precision(settings[1])
+        complex_ops.set_contraction_precision(settings[2])
+        complex_ops.enable_pallas_kernels(settings[3])
+    record["complex"] = cplx
+    print("[complex kernel] name | shape | passes | rel err vs twin | vs f64 | ms (weight "
+          "permute ms inside) | plain ms | library ms | bound ms (by)")
+    for r in cplx["kernels"]:
+        print(f"  {r['name']} | {r['shape']} | p{r['passes']} | {r['rel_err_twin']:.3g} | "
+              f"{r['rel_err_f64']:.3g} | {r['ms']:.4f} ({r['permute_ms']:.4f}) | "
+              f"{r['plain_ms']:.4f} | {r['library_ms']:.4f} | {r['bound_ms']:.4f} "
+              f"({r['bound_by']})", flush=True)
+    print(f"[complex forward] flagship on the 'xla' engine with the kernel: "
+          f"{cplx['forward_ms']:.1f} ms (kernel engine, phase 4: {fwd_ms:.1f} ms); rel err "
+          f"vs 'xla' without the kernel {cplx['forward_rel_err_einsum']:.3g}, vs the kernel "
+          f"engine {cplx['forward_rel_err_kernel_engine']:.3g}; launches "
+          f"{cplx['launches_per_forward']}", flush=True)
+    print(f"[complex rollout] {ROLLOUT_STEPS} steps at batch 1: {cplx['step_ms']:.1f} ms per "
+          f"step; peak device memory {cplx['peak_bytes'] / 2**30:.2f} GiB; launches "
+          f"{cplx['rollout_launches']}", flush=True)
+    print(f"[complex train] losses {cplx['train_losses']}; train step "
+          f"{cplx['train_step_ms']:.1f} ms (median of {cplx['train_step_ms_all']}; kernel "
+          f"engine, phase 6: {train['train_step_ms']:.1f} ms); peak device memory "
+          f"{cplx['train_peak_bytes'] / 2**30:.2f} GiB; launches per step "
+          f"{cplx['train_launches_per_step']}; gradients vs the kernel engine rel err "
+          f"{cplx['grad_rel_err_max']:.3g} ({cplx['grad_rel_err_leaf']})", flush=True)
 
     # results
     if args.record is not None:
@@ -532,6 +746,18 @@ def main(argv=None):
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             shape=r["shape"], passes=passes))
+    # the complex dhconv kernel: launches over phase 7's training epoch, the
+    # path that runs it forward and backward
+    r = next(r for r in cplx["kernels"] if r["shape"].startswith("forward") and r["passes"] == 3)
+    kernels.append(dict(
+        name="dhconv_complex", route="cuda", source="makani_tpu_torch/csrc/dhconv_complex.cu",
+        replaces="makani_tpu/ops/pallas_kernels.py:101",
+        launches=cplx["train_launches"]["dhconv_complex"],
+        launches_per_train_step=cplx["train_launches_per_step"]["dhconv_complex"],
+        launches_rollout=cplx["rollout_launches"]["dhconv_complex"],
+        max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+        bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+        shape=r["shape"], passes=3))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

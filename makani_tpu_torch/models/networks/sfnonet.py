@@ -5,7 +5,8 @@ Counterpart of makani_tpu/models/networks/sfnonet.py: encoder -> blocks
 plus the big-skip residual transform. The blocks run as a plain loop.
 Activation checkpointing follows makani_tpu's levels: checkpointing >= 1
 recomputes the encoder and decoder in backward, >= 2 the block MLPs, >= 3
-whole blocks (torch.utils.checkpoint, non-reentrant). Not ported yet
+whole blocks (torch.utils.checkpoint, non-reentrant). The linear filter
+takes the dhconv and diagonal operators, separable or not. Not ported yet
 (ROADMAP, Queue 1): scan_layers, position embeddings, factorized filters, the
 non-linear spectral filter and the FFT (planar FNO) transforms.
 """

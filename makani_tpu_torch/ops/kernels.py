@@ -16,7 +16,7 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _SOURCES = {"legmm": "legmm.cu", "dhconv_mm": "dhconv_mm.cu", "dhconv_dw": "dhconv_dw.cu",
-            "fused_adam": "fused_adam.cu"}
+            "fused_adam": "fused_adam.cu", "dhconv_complex": "dhconv_complex.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -76,6 +76,8 @@ def _declare(name, lib):
         # two salts, moment kind, stream
         "fused_adam": [vp, vp, vp, vp, cu, cu, cu, cu, cu, cu, cu, cu,
                        cf, cf, cf, cf, cf, cf, cf, cf, cf, cu, cu, ci, vp],
+        # x, w, out, b, c, o, l, m, passes, stream
+        "dhconv_complex": [vp, vp, vp, ci, ci, ci, ci, ci, ci, vp],
     }[name]
     fn.restype = ci
     return fn

@@ -46,12 +46,12 @@ def _check_cuda(*tensors):
             raise ValueError("kernel takes contiguous tensors")
 
 
-def _no_grad_through(name, wrapper, *tensors):
+def no_grad_through(name, wrapper, *tensors):
     """The raw wrappers and twins carry no gradient: a kernel's output has no
     grad_fn, and autograd through a twin would round every gradient to bf16
-    in `_split`. Differentiate through `wrapper` instead."""
+    in `split_bf16`. Differentiate through `wrapper` instead."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name} carries no gradient; call spectral_mm.{wrapper}, "
+        raise RuntimeError(f"{name} carries no gradient; call {wrapper}, "
                            "whose backward runs the kernels")
 
 
@@ -59,7 +59,8 @@ def _no_grad_through(name, wrapper, *tensors):
 # plain twins: the kernels' arithmetic in PyTorch
 # --------------------------------------------------------------------------
 
-def _split(a):
+def split_bf16(a):
+    """hi = bf16(a), lo = bf16(a - hi), both returned as float32."""
     hi = a.to(torch.bfloat16)
     lo = (a - hi.float()).to(torch.bfloat16)
     return hi.float(), lo.float()
@@ -70,8 +71,8 @@ def _mp_matmul(a, b, passes):
     (exact for bf16 x bf16) and float32 sums, in the order of the kernels."""
     if passes not in (1, 2, 3):
         raise ValueError(f"passes must be 1, 2 or 3, got {passes}")
-    ah, al = _split(a)
-    bh, bl = _split(b)
+    ah, al = split_bf16(a)
+    bh, bl = split_bf16(b)
     if passes == 1:
         return torch.matmul(ah, bh)
     if passes == 2:
@@ -93,7 +94,7 @@ def _legmm_shapes(z, p, contract):
 
 def legmm_plain(z, p, passes=3, contract="k"):
     """Plain twin of `legmm`."""
-    _no_grad_through("legmm_plain", "legdot", z, p)
+    no_grad_through("legmm_plain", "spectral_mm.legdot", z, p)
     M2, mmax, C, L, K = _legmm_shapes(z, p, contract)
     zs = z.reshape(2, mmax, C, z.shape[-1])
     table = p.transpose(-1, -2) if contract == "k" else p
@@ -108,7 +109,7 @@ def legmm(z, p, passes=3, contract="k"):
     contract="k": analysis  (2*mmax, C, K) x (mmax, L, K) -> (2*mmax, C, L)
     contract="l": synthesis (2*mmax, C, L) x (mmax, L, K) -> (2*mmax, C, K)
     """
-    _no_grad_through("legmm", "legdot", z, p)
+    no_grad_through("legmm", "spectral_mm.legdot", z, p)
     M2, mmax, C, L, K = _legmm_shapes(z, p, contract)
     if not dispatch(z):
         return legmm_plain(z, p, passes, contract)
@@ -143,7 +144,7 @@ def _dhconv_shapes(x, w, wdim):
 
 def dhconv_mm_plain(x, w, passes=3, m3=True, wdim=0, conj_w=False):
     """Plain twin of `dhconv_mm`."""
-    _no_grad_through("dhconv_mm_plain", "dhconv", x, w)
+    no_grad_through("dhconv_mm_plain", "spectral_mm.dhconv", x, w)
     _dhconv_shapes(x, w, wdim)
     wr, wi = w[0], (-w[1] if conj_w else w[1])
     xr, xi = x[0], x[1]
@@ -169,7 +170,7 @@ def dhconv_mm(x, w, passes=3, m3=True, wdim=0, conj_w=False):
     conj_w negates w's imaginary plane in the kernel (cotangent rules).
     m3 selects the 3-multiplication complex product, else 4.
     """
-    _no_grad_through("dhconv_mm", "dhconv", x, w)
+    no_grad_through("dhconv_mm", "spectral_mm.dhconv", x, w)
     B, L, C, O, M = _dhconv_shapes(x, w, wdim)
     if not dispatch(x):
         return dhconv_mm_plain(x, w, passes, m3, wdim, conj_w)
@@ -202,7 +203,7 @@ def _dhconv_dw_shapes(x, g):
 def dhconv_dw_plain(x, g, passes=3, m3=True):
     """Plain twin of `dhconv_dw`: the per-b products of _dhconv_dw_kernel,
     summed over b in order."""
-    _no_grad_through("dhconv_dw_plain", "dhconv", x, g)
+    no_grad_through("dhconv_dw_plain", "spectral_mm.dhconv", x, g)
     B = _dhconv_dw_shapes(x, g)[0]
 
     def mp(a, b):
@@ -225,7 +226,7 @@ def dhconv_dw_plain(x, g, passes=3, m3=True):
 def dhconv_dw(x, g, passes=3, m3=True):
     """Weight gradient of the dhconv filter: x (2, B, L, C, M), g (2, B, L, O, M)
     -> dw (2, L, C, O), dw[l] = sum over b, m of conj(x[b, l]) . g[b, l]^T."""
-    _no_grad_through("dhconv_dw", "dhconv", x, g)
+    no_grad_through("dhconv_dw", "spectral_mm.dhconv", x, g)
     B, L, C, O, M = _dhconv_dw_shapes(x, g)
     if not dispatch(x):
         return dhconv_dw_plain(x, g, passes, m3)

@@ -7,6 +7,7 @@
   model/blocks_3/SpectralFilterLayer_0/filter/weight (C, O, L, 2)
                                          -> model.blocks.3.filter_layer.filter.weight
                                             (2, L, C, O), the dhconv kernel layout
+                                            (other filter operators: unchanged)
   model/blocks_3/norm0/weight            -> model.blocks.3.norm0.weight
   model/residual_transform (O, I)        -> model.residual_transform
 
@@ -34,7 +35,7 @@ def _map_flat(state, flat, what):
         if tkey not in state:
             unused.append(key)
             continue
-        arr = to_port_layout(tkey, np.asarray(value, dtype=np.float32))
+        arr = to_port_layout(tkey, np.asarray(value, dtype=np.float32), state[tkey].shape)
         if arr.shape != tuple(state[tkey].shape):
             raise ValueError(f"{key}: shape {arr.shape} does not fit {tkey} "
                              f"{tuple(state[tkey].shape)}")

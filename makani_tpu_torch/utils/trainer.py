@@ -4,7 +4,9 @@ Counterpart of makani_tpu/utils/trainer.py for a single device: the train
 step of `_build_steps` (augmentation, forward, loss, backward, optimizer
 update), `train_one_epoch`, and `train()` without validation or checkpoints.
 The forward and backward run eagerly; the spectral filter's contractions go
-through the differentiable kernel wrappers (ops/spectral_mm legdot, dhconv).
+through the differentiable kernel wrappers (ops/spectral_mm legdot, dhconv on
+the "kernel" coefficient engine; complex_kernels.contract_dhconv_kernel on the
+"xla" engine under complex_ops.enable_pallas_kernels).
 The update is the fused Adam kernel (ops/fused_adam, one launch per parameter
 leaf, in place; its twin on the CPU) wherever the kernel can express the
 config's optimizer (Adam or AdamW, float32 or bf16 moments, no clipping),
@@ -33,7 +35,7 @@ from torch.profiler import record_function
 
 from makani_tpu_torch.data.dataloader import get_dataloader
 from makani_tpu_torch.models.model_registry import as_params, get_model, update_channel_params
-from makani_tpu_torch.ops import sht
+from makani_tpu_torch.ops import complex_ops, sht
 from makani_tpu_torch.ops.fused_adam import fused_adam_apply
 from makani_tpu_torch.utils.device import resolve_device
 from makani_tpu_torch.utils.losses import LossHandler
@@ -103,11 +105,16 @@ class Trainer:
 
         self.train_dataloader, self.train_dataset = get_dataloader(params)
 
-        # spectral precision: "high" (3 bf16 passes) without AMP, as makani_tpu
-        sht.set_transform_precision(params.get("transform_precision", None) or "high")
+        # spectral precision of the transforms and of the contractions, both
+        # set as makani_tpu's Trainer sets them: "high" (3 bf16 passes in the
+        # kernels) without AMP; "highest" runs the complex path in float32
+        tp = params.get("transform_precision", None) or "high"
+        sht.set_transform_precision(tp)
+        complex_ops.set_contraction_precision(tp)
         engine = params.get("coefficient_engine", None)
         if engine is not None:
-            # makani_tpu's "pallas" engine is the port's kernel engine
+            # makani_tpu's "pallas" engine is the port's kernel engine; "xla"
+            # and "stacked" keep their names
             sht.set_coeff_engine("kernel" if engine == "pallas" else engine)
 
         self.model = get_model(params, device=self.device, generator=generator)

@@ -231,6 +231,10 @@ def test_unported_features_and_models_raise():
     _, tp = _configs(nettype="AFNO")
     with pytest.raises(NotImplementedError, match="SFNO"):
         tregistry.get_model(tp, device="cpu")
+    for override in (dict(filter_type="non-linear"), dict(factorization="cp")):
+        _, tp = _configs(**override)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tregistry.get_model(tp, device="cpu")
 
 
 def test_multistep_wrapper_evaluates_one_step(matched):

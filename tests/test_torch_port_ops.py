@@ -286,13 +286,19 @@ def test_synthesis_matches_jax(grid, nlat, nlon):
 
 
 def test_transform_precision_sets_passes():
-    assert tsht._coeff_passes() == 3
+    assert tsht._coeff_passes() == 3 and tsht._stacked_engine_active()
     tsht.set_transform_precision("default")
     assert tsht._coeff_passes() == 1
+    # "highest" has no kernel pass count: the complex path runs on any engine
+    tsht.set_transform_precision("highest")
+    assert tsht._coeff_passes() is None and not tsht._stacked_engine_active()
     with pytest.raises(ValueError):
-        tsht.set_transform_precision("highest")
-    with pytest.raises(NotImplementedError):
-        tsht.set_coeff_engine("xla")
+        tsht.set_transform_precision("bf16")
+    tsht.set_transform_precision("high")
+    tsht.set_coeff_engine("xla")
+    assert tsht.get_coeff_engine() == "xla" and not tsht._stacked_engine_active()
+    with pytest.raises(ValueError):
+        tsht.set_coeff_engine("pallas")
 
 
 # --------------------------------------------------------------------------
