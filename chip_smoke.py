@@ -5,7 +5,7 @@
 
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the five Hopper kernels from makani_tpu_torch/csrc/ into
+  2. build the Hopper kernels from makani_tpu_torch/csrc/ into
      build/kernels/, one nvcc per source, all started together;
   3. each matmul kernel at the flagship SFNO's shapes, passes 3 and 1:
      against a float64 product on the card (5e-5 / 5e-2 relative, the bounds
@@ -46,7 +46,19 @@ Phases, in order; any failure exits non-zero:
      with coefficient_engine "xla" (16 dhconv_complex and 87 fused_adam
      launches per step), its step time and peak memory, and its full-width
      gradients against the kernel engine's (FORWARD_TOL per leaf). The
-     engine, precisions and kernel toggle are restored afterwards.
+     engine, precisions and kernel toggle are restored afterwards;
+  8. the kernel-benchmark and probe path: gridmm at the flagship longitude
+     DFT's shapes (analysis 276,864 x 1440 @ 1440 x 482 with a bf16 x at 2
+     passes and a float32 x at 3 and 1; synthesis 276,864 x 482 @ 482 x 1440
+     at 3 passes to float32 and to bf16; the inner-grid pair with K or N 480)
+     and grid_dot at tools/bench_gridmm.py's shapes, against float64 and
+     their twins, timed beside the twin, a float32 torch.mm (TF32 off) and a
+     bf16 torch.mm with float32 sums; the seven probe kernels at
+     scripts/pallas_isolate.py's shapes against their twins, timed beside
+     one PyTorch call each; then the three tools end to end
+     (tools/bench_spectral_mm.py all, tools/bench_gridmm.py,
+     tools/kernel_isolate.py: nine PASS), each returning 0, with the launches
+     of every kernel counted over them and asserted.
 The last two lines are the kernels' JSON record and the result line.
 --record PATH also writes every measurement of the run to PATH as JSON.
 
@@ -70,8 +82,9 @@ ROOT = Path(__file__).resolve().parent
 # kernel vs plain twin: the same bf16 operand parts and exact float32 products,
 # summed in another order; the gap is a few ulps of the largest partial sum
 TWIN_TOL = 1e-5
-# vs a float64 product (tests/test_pallas_mm.py:27,56)
-F64_TOL = {3: 5e-5, 1: 5e-2}
+# vs a float64 product (tests/test_pallas_mm.py:27,56); 2 passes on a bf16 x
+# split the table alone, as exact as 3
+F64_TOL = {3: 5e-5, 2: 5e-5, 1: 5e-2}
 # full-width forward, kernels vs twins: the per-contraction ordering gap
 # (~1e-6) passes through 26 contractions and 16 instance norms
 FORWARD_TOL = 1e-3
@@ -79,12 +92,19 @@ FORWARD_TOL = 1e-3
 # summation orders in every matmul
 SMALL_TOL = 1e-4
 
-# published H100 SXM peaks (dense): HBM bytes/s and bf16 tensor FLOP/s
+# published H100 SXM peaks (dense): HBM bytes/s, bf16 tensor FLOP/s, and
+# float32 FLOP/s outside the tensor cores
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+# a bf16 output rounds the float32 sum once: up to half a bf16 ulp, 2**-8 of
+# the element, on top of the product's own error
+BF16_OUT = 2.0 ** -8
 
 ROLLOUT_STEPS = 4
 TRAIN_STEPS = 3
+# timed runs of each line of the bench tools in phase 8
+TOOL_REPS = 3
 # launches per train step at checkpointing 0, read from the code: 18 forward
 # Legendre contractions and their 18 transposes; 8 dhconv forwards, 8 dx and
 # 8 dw; one fused Adam launch per parameter leaf (10 per block, 3 in the
@@ -122,8 +142,8 @@ def cuda_ms(fn, reps):
     return statistics.median(times)
 
 
-def bound(nbytes, flops):
-    t_bytes, t_ops = nbytes / HBM_BPS, flops / BF16_FLOPS
+def bound(nbytes, flops, rate=BF16_FLOPS):
+    t_bytes, t_ops = nbytes / HBM_BPS, flops / rate
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -556,6 +576,196 @@ def phase_complex(torch, np, sht, complex_ops, kernels, dev, gen):
     return rec
 
 
+def bf16_ulp(v):
+    """The spacing of bf16 values at |v| (8 significant bits): 2**(e - 8)
+    for |v| in [2**(e-1), 2**e). frexp gives e exactly, where a float log2
+    can fall just below an exact power of two."""
+    import torch
+    return torch.ldexp(torch.ones_like(v), torch.frexp(v).exponent - 8)
+
+
+def phase_grid(torch, spectral_mm, kernels, dev, gen):
+    """gridmm at the flagship longitude DFT's shapes and grid_dot at
+    tools/bench_gridmm.py's, against float64 and their twins, timed; the
+    seven probe kernels against their twins, timed. Returns rows."""
+    from makani_tpu_torch.tools.bench_gridmm import grid_dot, grid_dot_plain, split_table
+    from makani_tpu_torch.tools.bench_spectral_mm import bf16_mm_f32
+    from makani_tpu_torch.tools import kernel_isolate
+    f32, bf16 = torch.float32, torch.bfloat16
+    R, Rin, K, Kin, N = 384 * 721, 384 * 240, 1440, 480, 2 * 241
+    rows = []
+
+    def grid_row(name, label, x, tables, passes, out, fn, plain_fn, ref):
+        got = fn()
+        torch.cuda.synchronize()
+        plain = plain_fn()
+        e64 = rel_err(got, ref)
+        tol = F64_TOL[passes] + (BF16_OUT if out == bf16 else 0.0)
+        g, w = got.double(), plain.double()
+        slack = TWIN_TOL * w.abs().max() + (bf16_ulp(w) if out == bf16 else 0.0)
+        twin_ratio = float(((g - w).abs() / slack).max())
+        etwin = rel_err(got, w)
+        check(e64 < tol, f"{name} {label} p{passes} vs f64: {e64}")
+        check(twin_ratio <= 1.0, f"{name} {label} p{passes} vs twin: {etwin} (ratio {twin_ratio})")
+        Rr, Kk = x.shape
+        Nn = tables[0].shape[1]
+        nbytes = (x.numel() * x.element_size() + sum(t.numel() * t.element_size() for t in tables)
+                  + Rr * Nn * got.element_size())
+        flops = 2 * Rr * Kk * Nn * passes
+        b_ms, b_by = bound(nbytes, flops)
+        x32 = x.float()
+        xb, tb = x.to(bf16), tables[0].float().to(bf16)
+        t32 = tables[0].float() if len(tables) == 1 else (tables[0].float() + tables[1].float())
+        row = dict(name=name, shape=f"{label} x{tuple(x.shape)} {str(x.dtype)[6:]} "
+                                    f"t({Kk}, {Nn}) -> {str(out)[6:]}",
+                   passes=passes, max_abs_err=float((g - w).abs().max()), rel_err_twin=etwin,
+                   twin_ratio=twin_ratio, rel_err_f64=e64,
+                   ms=cuda_ms(fn, 10), plain_ms=cuda_ms(plain_fn, 3),
+                   library_ms=cuda_ms(lambda: torch.mm(x32, t32), 10),
+                   bf16_ms=cuda_ms(lambda: bf16_mm_f32(xb, tb), 10),
+                   bound_ms=b_ms, bound_by=b_by, gbytes=nbytes / 1e9, gflop=flops / 1e9)
+        del got, plain, g, w, x32, xb, tb, t32
+        return row
+
+    # gridmm: (label, rows, K, N, x dtype, passes, out dtype)
+    cases = [("full analysis", R, K, N, f32, 3, f32), ("full analysis", R, K, N, bf16, 2, f32),
+             ("full analysis", R, K, N, f32, 1, f32), ("full synthesis", R, N, K, f32, 3, f32),
+             ("full synthesis", R, N, K, f32, 3, bf16), ("inner analysis", Rin, Kin, N, f32, 3, f32),
+             ("inner synthesis", Rin, N, Kin, f32, 3, f32)]
+    shape = None
+    for label, Rr, Kk, Nn, xdt, passes, out in cases:
+        if (label, Rr, Kk, Nn) != shape:  # new operands; float64 references per x dtype
+            x32 = t = x = ref = None
+            refs = {}
+            torch.cuda.empty_cache()
+            shape = (label, Rr, Kk, Nn)
+            x32 = torch.randn((Rr, Kk), device=dev, generator=gen)
+            t = torch.randn((Kk, Nn), device=dev, generator=gen)
+        if xdt not in refs:
+            x = x32.to(xdt)
+            refs[xdt] = (x, torch.mm(x.double(), t.double()))
+        x, ref = refs[xdt]
+        rows.append(grid_row("gridmm", label, x, (t,), passes, out,
+                             lambda: spectral_mm.gridmm(x, t, passes, out),
+                             lambda: spectral_mm.gridmm_plain(x, t, passes, out), ref))
+    del x32, t, refs, x, ref
+    torch.cuda.empty_cache()
+
+    # grid_dot at the script's shapes: analysis with a bf16 x, synthesis with
+    # a float32 x to a bf16 output
+    Rs = 320 * 721
+    for label, Kk, Nn, xdt, out in (("analysis", K, N, bf16, f32), ("synthesis", N, K, f32, bf16)):
+        x = torch.randn((Rs, Kk), device=dev, generator=gen).to(xdt)
+        th, tl = split_table(torch.randn((Kk, Nn), device=dev, generator=gen))
+        ref = torch.mm(x.double(), th.double() + tl.double())
+        passes = 2 if xdt == bf16 else 3
+        rows.append(grid_row("grid_dot", label, x, (th, tl), passes, out,
+                             lambda: grid_dot(x, th, tl, out),
+                             lambda: grid_dot_plain(x, th, tl, out), ref))
+        del x, th, tl, ref
+    torch.cuda.empty_cache()
+
+    # the probes at scripts/pallas_isolate.py's shapes, each beside one
+    # PyTorch call of the same function
+    for name, shapes, kernel, twin in kernel_isolate.CASES[:7]:
+        inputs = kernel_isolate.case_inputs(shapes, 0, dev)
+        got, want = kernel(*inputs), twin(*inputs)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        etwin = max(rel_err(g, w.double()) for g, w in zip(got, want))
+        check(etwin < TWIN_TOL, f"probe {name} vs twin: {etwin}")
+        nbytes = 4 * (sum(t.numel() for t in inputs) + sum(g.numel() for g in got))
+        if name == "copy":
+            flops, rate = inputs[0].numel(), F32_FLOPS
+        elif name in ("dot_plain", "dot_transposed", "bf16_split"):
+            o, m = got[0].shape
+            flops = 2 * o * inputs[1].shape[0] * m * (3 if name == "bf16_split" else 1)
+            rate = BF16_FLOPS if name == "bf16_split" else F32_FLOPS
+        else:
+            b, l, o, m = want[0].shape[-4:]
+            flops, rate = 2 * b * l * o * inputs[1].shape[1] * m, F32_FLOPS
+        b_ms, b_by = bound(nbytes, flops, rate)
+        rows.append(dict(
+            name=kernel.__name__, shape=" ".join(str(tuple(t.shape)) for t in inputs),
+            passes=3 if name == "bf16_split" else None,
+            max_abs_err=max(float((g - w).abs().max()) for g, w in zip(got, want)),
+            rel_err_twin=etwin, rel_err_f64=None,
+            ms=cuda_ms(lambda: kernel(*inputs), 50), plain_ms=cuda_ms(lambda: twin(*inputs), 50),
+            library_ms=cuda_ms(probe_library(torch, name, *inputs), 50),
+            bound_ms=b_ms, bound_by=b_by, gbytes=nbytes / 1e9, gflop=flops / 1e9))
+    return rows
+
+
+def probe_library(torch, name, a, b=None):
+    """One PyTorch call of probe `name`'s function, its operands prepared
+    here, outside the timing."""
+    if name == "copy":
+        return lambda: torch.mul(a, 2.0)
+    if name == "dot_plain":
+        return lambda: torch.matmul(a, b)
+    if name in ("dot_transposed", "bf16_split"):
+        return lambda: torch.matmul(a.T, b)
+    wt = b.transpose(-1, -2)
+    if name == "grid_blocks":
+        return lambda: torch.matmul(wt, a)
+    # stacked_output_5d and multi_output: r and -r from one product with
+    # [w^T, -w^T]
+    w2 = torch.stack([wt, -wt]).unsqueeze(1)
+    return lambda: torch.matmul(w2, a)
+
+
+def tool_launches(reps, probes):
+    """Launches of each kernel over the three tools, read from their code:
+    `timeit` runs its function reps + 1 times (one warm-up) on the card."""
+    n = reps + 1
+    return {
+        # bench_spectral_mm: legendre times 4 legmm calls and checks 1;
+        # legendre2 times 3 and checks 1
+        "legmm": 4 * n + 1 + 3 * n + 1,
+        # dhconv: p1 and p3 forward and the p3 dx timed, p1 and p3 checked;
+        # dw timed
+        "dhconv_mm": 3 * n + 2, "dhconv_dw": n,
+        # grid, per shape (two): p2 and p3 analysis and the p3 synthesis
+        # timed, two checks
+        "gridmm": 2 * (3 * n + 2),
+        # bench_gridmm: analysis and synthesis each timed and checked once
+        "grid_dot": 2 * n + 2,
+        # kernel_isolate: one launch per probe; dhconv_tiny's forward,
+        # dhconv_grad's forward and dx
+        **{name: 1 for name in probes}, "dhconv_complex": 3,
+    }
+
+
+def phase_tools(torch, kernels):
+    """The three tools end to end on the card, their launches counted."""
+    import contextlib
+    import io
+    from makani_tpu_torch.tools import bench_gridmm, bench_spectral_mm, kernel_isolate
+    rec, logs = {}, {}
+    kernels.reset_launches()
+    for name, fn in (("bench_spectral_mm", lambda: bench_spectral_mm.run("all", "cuda", TOOL_REPS)),
+                     ("bench_gridmm", lambda: bench_gridmm.run("cuda", TOOL_REPS)),
+                     ("kernel_isolate", lambda: kernel_isolate.main([]))):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = fn()
+        torch.cuda.synchronize()
+        rec[f"{name}_s"] = time.perf_counter() - t0
+        logs[name] = buf.getvalue()
+        print(f"[tool {name}] rc {rc}, {rec[f'{name}_s']:.1f} s")
+        for line in logs[name].splitlines():
+            print(f"  {line}")
+        check(rc == 0, f"{name} returned {rc}")
+    launched = dict(kernels.launches)
+    check(logs["kernel_isolate"].count("PASS") == 9, "the probe battery did not give nine PASS")
+    expected = launch_counts(kernels, tool_launches(TOOL_REPS, kernels.PROBES))
+    check(launched == expected, f"tool launches {launched}, expected {expected}")
+    rec.update(launches=launched, logs=logs)
+    return rec
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--record", type=Path, help="write every measurement to this JSON file")
@@ -718,6 +928,25 @@ def main(argv=None):
           f"{cplx['train_launches_per_step']}; gradients vs the kernel engine rel err "
           f"{cplx['grad_rel_err_max']:.3g} ({cplx['grad_rel_err_leaf']})", flush=True)
 
+    # phase 8: the kernel-benchmark and probe path
+    grid_rows = phase_grid(torch, spectral_mm, kernels, dev, gen)
+    record["grid_kernels"] = grid_rows
+    print("[grid kernels] name | shape | passes | rel err vs twin | vs f64 | ms | plain ms | "
+          "float32 torch.mm ms | bf16 torch.mm ms | bound ms (by)")
+    for r in grid_rows:
+        f64 = "-" if r["rel_err_f64"] is None else f"{r['rel_err_f64']:.3g}"
+        bf = f"{r['bf16_ms']:.4f}" if "bf16_ms" in r else "-"
+        passes = "-" if r["passes"] is None else f"p{r['passes']}"
+        print(f"  {r['name']} | {r['shape']} | {passes} | {r['rel_err_twin']:.3g} | {f64} | "
+              f"{r['ms']:.4f} | {r['plain_ms']:.4f} | {r['library_ms']:.4f} | {bf} | "
+              f"{r['bound_ms']:.6f} ({r['bound_by']})", flush=True)
+    tools = phase_tools(torch, kernels)
+    record["tools"] = tools
+    print(f"[tools] bench_spectral_mm all, bench_gridmm, kernel_isolate: all returned 0 in "
+          f"{tools['bench_spectral_mm_s']:.1f} + {tools['bench_gridmm_s']:.1f} + "
+          f"{tools['kernel_isolate_s']:.1f} s; nine PASS; launches {tools['launches']}",
+          flush=True)
+
     # results
     if args.record is not None:
         args.record.parent.mkdir(parents=True, exist_ok=True)
@@ -758,6 +987,27 @@ def main(argv=None):
         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
         shape=r["shape"], passes=3))
+    # the kernel-benchmark and probe path: launches counted over phase 8's
+    # run of the three tools; no model path runs these kernels
+    grid_sources = {"gridmm": ("makani_tpu_torch/csrc/gridmm.cu",
+                               "makani_tpu/ops/pallas_mm.py:82"),
+                    "grid_dot": ("makani_tpu_torch/csrc/gridmm.cu", "scripts/bench_gridmm.py:63")}
+    probe_calls = {"probe_copy": 41, "probe_dot_plain": 54, "probe_dot_transposed": 67,
+                   "probe_grid_blocks": 82, "probe_stacked_output": 103,
+                   "probe_multi_output": 125, "probe_bf16_split": 149}
+    grid_sources.update({name: ("makani_tpu_torch/csrc/probes.cu",
+                                f"scripts/pallas_isolate.py:{line}")
+                         for name, line in probe_calls.items()})
+    for name, (source, replaces) in grid_sources.items():
+        # gridmm: the flagship analysis with a float32 x at 3 passes (its
+        # bound's shape); grid_dot: the script's bf16 analysis
+        r = next(r for r in grid_rows if r["name"] == name)
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=tools["launches"][name], launches_per_train_step=0, launches_rollout=0,
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+            shape=r["shape"], passes=r["passes"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,13 @@
 """Build, load and count the port's Hopper kernels.
 
-Every kernel is a CUDA C++ source in makani_tpu_torch/csrc/ for sm_90a with a
-plain C launcher (`<name>_launch`, returning cudaGetLastError()), loaded with
-ctypes. `build()` compiles them with nvcc at first use into build/kernels/ at
-the root of the checkout, one nvcc per source, all started together.
-`launches` counts kernel launches per wrapper: each wrapper adds one where it
-launches its kernel, and callers reset and read the counts around a run.
+Every kernel has a plain C launcher (`<name>_launch`, returning
+cudaGetLastError()) in a CUDA C++ source in makani_tpu_torch/csrc/ for sm_90a,
+loaded with ctypes; one source may hold several kernels (gridmm.cu holds
+gridmm and grid_dot, probes.cu the seven probes). `build()` compiles the
+sources with nvcc at first use into build/kernels/ at the root of the
+checkout, one nvcc per source, all started together. `launches` counts kernel
+launches per wrapper: each wrapper adds one where it launches its kernel, and
+callers reset and read the counts around a run.
 """
 
 import ctypes
@@ -15,8 +17,13 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+PROBES = ("probe_copy", "probe_dot_plain", "probe_dot_transposed", "probe_grid_blocks",
+          "probe_stacked_output", "probe_multi_output", "probe_bf16_split")
+# kernel -> its source
 _SOURCES = {"legmm": "legmm.cu", "dhconv_mm": "dhconv_mm.cu", "dhconv_dw": "dhconv_dw.cu",
-            "fused_adam": "fused_adam.cu", "dhconv_complex": "dhconv_complex.cu"}
+            "fused_adam": "fused_adam.cu", "dhconv_complex": "dhconv_complex.cu",
+            "gridmm": "gridmm.cu", "grid_dot": "gridmm.cu",
+            **{name: "probes.cu" for name in PROBES}}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -38,30 +45,32 @@ def _nvcc():
 
 def build():
     """Compile every kernel source that is not loaded yet, one nvcc each, all
-    started together; load the libraries and declare their C signatures.
-    Returns the compiler's resource report (-Xptxas -v) per kernel."""
-    todo = [name for name in _SOURCES if name not in _libs]
+    started together; load the libraries and declare their kernels' C
+    signatures. Returns the compiler's resource report (-Xptxas -v) per
+    source."""
+    todo = sorted({src for name, src in _SOURCES.items() if name not in _libs})
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in todo:
-        out = BUILD_DIR / f"lib{name}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(out),
-               str(_CSRC / _SOURCES[name])]
-        procs[name] = (out, subprocess.Popen(
+    for src in todo:
+        out = BUILD_DIR / f"lib{Path(src).stem}.so"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(out), str(_CSRC / src)]
+        procs[src] = (out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     reports = {}
     failed = []
-    for name, (out, proc) in procs.items():
+    for src, (out, proc) in procs.items():
         log, _ = proc.communicate()
-        reports[name] = log
+        reports[Path(src).stem] = log
         if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
+            failed.append(f"{src}:\n{log}")
     if failed:
         raise RuntimeError("kernel build failed\n" + "\n".join(failed))
-    for name, (out, _) in procs.items():
-        _libs[name] = _declare(name, ctypes.CDLL(str(out)))
+    for src, (out, _) in procs.items():
+        lib = ctypes.CDLL(str(out))
+        for name in (n for n, s in _SOURCES.items() if s == src):
+            _libs[name] = _declare(name, lib)
     return reports
 
 
@@ -78,6 +87,21 @@ def _declare(name, lib):
                        cf, cf, cf, cf, cf, cf, cf, cf, cf, cu, cu, ci, vp],
         # x, w, out, b, c, o, l, m, passes, stream
         "dhconv_complex": [vp, vp, vp, ci, ci, ci, ci, ci, ci, vp],
+        # x, t, out, r, k, n, x_bf16, out_bf16, passes, stream
+        "gridmm": [vp, vp, vp, ci, ci, ci, ci, ci, ci, vp],
+        # x, th, tl, out, r, k, n, x_bf16, out_bf16, stream
+        "grid_dot": [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp],
+        # x, out, n, stream
+        "probe_copy": [vp, vp, ci, vp],
+        # a, b, out, o, c, m, stream
+        "probe_dot_plain": [vp, vp, vp, ci, ci, ci, vp],
+        "probe_dot_transposed": [vp, vp, vp, ci, ci, ci, vp],
+        "probe_bf16_split": [vp, vp, vp, ci, ci, ci, vp],
+        # x, w, out, b, l, c, o, m, stream
+        "probe_grid_blocks": [vp, vp, vp, ci, ci, ci, ci, ci, vp],
+        "probe_stacked_output": [vp, vp, vp, ci, ci, ci, ci, ci, vp],
+        # x, w, out1, out2, b, l, c, o, m, stream
+        "probe_multi_output": [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp],
     }[name]
     fn.restype = ci
     return fn

@@ -1,9 +1,9 @@
 """Multi-pass bf16 matmuls of the SFNO's coefficient stage, as Hopper kernels.
 
 Counterpart of makani_tpu/ops/pallas_mm.py. Three kernels carry the spectral
-filter forward and backward, each written in CUDA C++ for sm_90a
-(makani_tpu_torch/csrc/) and bound through a plain C interface loaded with
-ctypes:
+filter forward and backward, and a fourth is the grid-side matmul of the
+longitude DFT, each written in CUDA C++ for sm_90a (makani_tpu_torch/csrc/)
+and bound through a plain C interface loaded with ctypes:
 
   legmm      per-m Legendre contraction of every SHT and inverse SHT
              (replaces pallas_mm.legmm / _legmm_kernel)
@@ -11,6 +11,9 @@ ctypes:
              (replaces pallas_mm.dhconv_mm / _dhconv_mm_kernel)
   dhconv_dw  the dhconv filter's weight gradient
              (replaces pallas_mm.dhconv_dw / _dhconv_dw_kernel)
+  gridmm     (R, K) @ (K, N) with a resident table, bf16 or float32 in and out
+             (replaces pallas_mm.gridmm / _gridmm_kernel; no model path of
+             makani_tpu calls it, the kernel benchmarks do)
 
 `legdot` and `dhconv` are the differentiable wrappers, the counterparts of
 pallas_mm's custom VJPs: torch.autograd.Functions whose forward and backward
@@ -25,8 +28,8 @@ to.
 
 Each wrapper runs its kernel on a CUDA tensor or raises; on a CPU tensor it
 runs the plain PyTorch twin (`legmm_plain`, `dhconv_mm_plain`,
-`dhconv_dw_plain`), which repeats the kernel's arithmetic. ops/kernels.py
-builds the kernels and counts their launches.
+`dhconv_dw_plain`, `gridmm_plain`), which repeats the kernel's arithmetic.
+ops/kernels.py builds the kernels and counts their launches.
 """
 
 import torch
@@ -49,8 +52,11 @@ def _check_cuda(*tensors):
 def no_grad_through(name, wrapper, *tensors):
     """The raw wrappers and twins carry no gradient: a kernel's output has no
     grad_fn, and autograd through a twin would round every gradient to bf16
-    in `split_bf16`. Differentiate through `wrapper` instead."""
+    in `split_bf16`. Differentiate through `wrapper` instead, where there is
+    one (None: the kernel has no VJP, as in makani_tpu)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        if wrapper is None:
+            raise RuntimeError(f"{name} carries no gradient (no VJP, as in makani_tpu)")
         raise RuntimeError(f"{name} carries no gradient; call {wrapper}, "
                            "whose backward runs the kernels")
 
@@ -83,31 +89,35 @@ def _mp_matmul(a, b, passes):
 def _legmm_shapes(z, p, contract):
     if contract not in ("k", "l"):
         raise ValueError(f"contract must be 'k' or 'l', got {contract!r}")
+    if z.ndim != 3 or p.ndim != 3 or z.shape[0] < 1:
+        raise ValueError(f"expected z (M2, C, D) and p (mmax, L, K), got {tuple(z.shape)} and "
+                         f"{tuple(p.shape)}")
     M2, C, D = z.shape
     mmax, L, K = p.shape
-    if M2 != 2 * mmax:
-        raise ValueError(f"z has {M2} rows, expected 2*mmax = {2 * mmax}")
     if D != (K if contract == "k" else L):
         raise ValueError(f"z {tuple(z.shape)} does not contract with p {tuple(p.shape)}")
     return M2, mmax, C, L, K
 
 
 def legmm_plain(z, p, passes=3, contract="k"):
-    """Plain twin of `legmm`."""
+    """Plain twin of `legmm`: row g of z against table g % mmax."""
     no_grad_through("legmm_plain", "spectral_mm.legdot", z, p)
     M2, mmax, C, L, K = _legmm_shapes(z, p, contract)
-    zs = z.reshape(2, mmax, C, z.shape[-1])
-    table = p.transpose(-1, -2) if contract == "k" else p
-    out = _mp_matmul(zs, table, passes)
-    return out.reshape(M2, C, out.shape[-1])
+    table = p[torch.arange(M2, device=p.device) % mmax]
+    if contract == "k":
+        table = table.transpose(-1, -2)
+    return _mp_matmul(z, table, passes)
 
 
 def legmm(z, p, passes=3, contract="k"):
-    """Per-m Legendre contraction; the table is indexed m % mmax, so the re and
-    im rows of the stacked activation share one (mmax, L, K) table.
+    """Per-m Legendre contraction; row g of z meets table g % mmax, as in
+    pallas_mm.legmm. The stacked layout (M2 = 2*mmax: re rows, then im rows)
+    shares one (mmax, L, K) table between the re and im rows; the paired
+    layout (M2 = mmax, re and im side by side in C) is a plain batched
+    product. Any M2 >= 1 is taken.
 
-    contract="k": analysis  (2*mmax, C, K) x (mmax, L, K) -> (2*mmax, C, L)
-    contract="l": synthesis (2*mmax, C, L) x (mmax, L, K) -> (2*mmax, C, K)
+    contract="k": analysis  (M2, C, K) x (mmax, L, K) -> (M2, C, L)
+    contract="l": synthesis (M2, C, L) x (mmax, L, K) -> (M2, C, K)
     """
     no_grad_through("legmm", "spectral_mm.legdot", z, p)
     M2, mmax, C, L, K = _legmm_shapes(z, p, contract)
@@ -117,7 +127,7 @@ def legmm(z, p, passes=3, contract="k"):
     if passes not in (1, 2, 3):
         raise ValueError(f"passes must be 1, 2 or 3, got {passes}")
     if M2 > 65535:
-        raise ValueError(f"2*mmax = {M2} exceeds the kernel's grid limit")
+        raise ValueError(f"M2 = {M2} exceeds the kernel's grid limit")
     out = torch.empty((M2, C, L if contract == "k" else K), device=z.device,
                       dtype=torch.float32)
     launch = launcher("legmm")
@@ -242,6 +252,58 @@ def dhconv_dw(x, g, passes=3, m3=True):
                     torch.cuda.current_stream().cuda_stream)
     raise_on(rc, "dhconv_dw")
     launches["dhconv_dw"] += 1
+    return out
+
+
+_GRID_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _gridmm_checks(x, t, passes, out_dtype):
+    if x.ndim != 2 or t.ndim != 2 or x.shape[1] != t.shape[0]:
+        raise ValueError(f"expected x (R, K) and t (K, N), got {tuple(x.shape)} and "
+                         f"{tuple(t.shape)}")
+    if x.dtype not in _GRID_DTYPES or t.dtype != torch.float32 or out_dtype not in _GRID_DTYPES:
+        raise TypeError(f"gridmm takes x float32 or bfloat16, t float32 and out_dtype float32 or "
+                        f"bfloat16, got {x.dtype}, {t.dtype} and {out_dtype}")
+    if passes not in (1, 2, 3):
+        raise ValueError(f"passes must be 1, 2 or 3, got {passes}")
+
+
+def gridmm_plain(x, t, passes=3, out_dtype=torch.float32):
+    """Plain twin of `gridmm`: _mp_matmul's sum hh + (hl + lh) in float32 (a
+    bf16 x splits with lo = 0), rounded once to `out_dtype`."""
+    no_grad_through("gridmm_plain", None, x, t)
+    _gridmm_checks(x, t, passes, out_dtype)
+    return _mp_matmul(x.float(), t, passes).to(out_dtype)
+
+
+def gridmm(x, t, passes=3, out_dtype=torch.float32):
+    """(R, K) @ (K, N) -> (R, N) in multi-pass bf16 with float32 accumulation,
+    the table resident (pallas_mm.gridmm): x float32 or bfloat16, t float32,
+    the output float32 or bfloat16, rounded once from the float32 sum.
+
+    pallas_mm.gridmm's row tile `tr` has no counterpart: the kernel tiles the
+    rows itself (64 a block) and masks the ragged edges of R, K and N, so
+    nothing is padded or copied. No VJP, as in makani_tpu: the wrapper
+    refuses inputs that require grad.
+    """
+    no_grad_through("gridmm", None, x, t)
+    _gridmm_checks(x, t, passes, out_dtype)
+    if not dispatch(x):
+        return gridmm_plain(x, t, passes, out_dtype)
+    if t.device != x.device:
+        raise ValueError(f"tensors on different devices: {t.device} vs {x.device}")
+    if not (x.is_contiguous() and t.is_contiguous()):
+        raise ValueError("kernel takes contiguous tensors")
+    (R, K), N = x.shape, t.shape[1]
+    out = torch.empty((R, N), device=x.device, dtype=out_dtype)
+    launch = launcher("gridmm")
+    with torch.cuda.device(x.device):
+        rc = launch(x.data_ptr(), t.data_ptr(), out.data_ptr(), R, K, N,
+                    int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), passes,
+                    torch.cuda.current_stream().cuda_stream)
+    raise_on(rc, "gridmm")
+    launches["gridmm"] += 1
     return out
 
 

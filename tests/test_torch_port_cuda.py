@@ -14,7 +14,10 @@ the float32 sums, so the gap is a few ulps of the largest partial sum —
 bounded here at 1e-5 relative to the output's largest magnitude. The same
 bound holds the differentiable wrappers' gradients on the card against the
 twins on the CPU. The fused Adam kernel and its twin perform the same
-correctly rounded operations in the same order: bit-identical.
+correctly rounded operations in the same order: bit-identical. A bf16
+output (gridmm, grid_dot) rounds the float32 sum once, so kernel and twin may
+round to neighbouring bf16 values: they are held to one bf16 ulp of each
+element on top of the float32 bound.
 """
 
 import numpy as np
@@ -22,6 +25,7 @@ import pytest
 import torch
 
 from makani_tpu_torch.ops import complex_kernels, fused_adam, kernels, spectral_mm
+from makani_tpu_torch.tools import bench_gridmm, bench_spectral_mm, kernel_isolate
 from makani_tpu_torch.utils.optimizers import AdamState
 
 TOL = 1e-5
@@ -247,3 +251,116 @@ def test_dhconv_complex_raw_wrapper_refuses_gradients_on_card(cuda):
         complex_kernels.contract_dhconv_raw(x, w)
     with torch.no_grad():
         complex_kernels.contract_dhconv_raw(x, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [1, 2, 3])
+@pytest.mark.parametrize("contract", ["k", "l"])
+def test_legmm_kernel_paired_layout(cuda, passes, contract):
+    """M2 = mmax: row g against table g, the paired layout."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    mmax, C, K, L = 7, 70, 97, 33
+    z = torch.randn((mmax, C, K if contract == "k" else L), device=cuda, generator=g)
+    p = torch.randn((mmax, L, K), device=cuda, generator=g)
+    before = kernels.launches["legmm"]
+    got = spectral_mm.legmm(z, p, passes=passes, contract=contract)
+    torch.cuda.synchronize()
+    assert kernels.launches["legmm"] == before + 1
+    assert _rel(got, spectral_mm.legmm_plain(z, p, passes=passes, contract=contract)) < TOL
+
+
+def _bf16_ulp(v):
+    """The spacing of bf16 values at |v| (8 significant bits): 2**(e - 8)
+    for |v| in [2**(e-1), 2**e), e from frexp (exact at powers of two)."""
+    return torch.ldexp(torch.ones_like(v), torch.frexp(v).exponent - 8)
+
+
+def _check_grid(got, want):
+    """TOL of the largest magnitude, plus one bf16 ulp of each element for a
+    bf16 output."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    g, w = got.double(), want.double()
+    slack = TOL * w.abs().max()
+    if want.dtype == torch.bfloat16:
+        slack = slack + _bf16_ulp(w)
+    assert bool(((g - w).abs() <= slack).all()), float((g - w).abs().max() / w.abs().max())
+
+
+GRID_SHAPES = [(300, 97, 201), (1000, 482, 1440)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("passes", [1, 2, 3])
+@pytest.mark.parametrize("R,K,N", GRID_SHAPES)
+def test_gridmm_kernel_matches_plain(cuda, R, K, N, passes, xdtype, out):
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x = torch.randn((R, K), device=cuda, generator=g).to(xdtype)
+    t = torch.randn((K, N), device=cuda, generator=g)
+    before = kernels.launches["gridmm"]
+    got = spectral_mm.gridmm(x, t, passes, out)
+    torch.cuda.synchronize()
+    assert kernels.launches["gridmm"] == before + 1
+    _check_grid(got, spectral_mm.gridmm_plain(x, t, passes, out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,K,N", GRID_SHAPES)
+def test_grid_dot_kernel_matches_plain(cuda, R, K, N, xdtype, out):
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn((R, K), device=cuda, generator=g).to(xdtype)
+    th, tl = bench_gridmm.split_table(torch.randn((K, N), device=cuda, generator=g))
+    before = kernels.launches["grid_dot"]
+    got = bench_gridmm.grid_dot(x, th, tl, out)
+    torch.cuda.synchronize()
+    assert kernels.launches["grid_dot"] == before + 1
+    _check_grid(got, bench_gridmm.grid_dot_plain(x, th, tl, out))
+
+
+@pytest.mark.cuda
+def test_grid_kernels_refuse_what_they_do_not_take(cuda):
+    x, t = torch.randn((8, 6), device=cuda), torch.randn((6, 5), device=cuda)
+    with pytest.raises(ValueError):
+        spectral_mm.gridmm(x.T.contiguous().T, t)
+    with pytest.raises(ValueError):
+        spectral_mm.gridmm(x, t.cpu())
+    with pytest.raises(RuntimeError, match="no VJP"):
+        spectral_mm.gridmm(x.requires_grad_(), t)
+    th, tl = bench_gridmm.split_table(t)
+    with pytest.raises(ValueError):
+        bench_gridmm.grid_dot(x.detach(), th.T.contiguous().T, tl)
+
+
+@pytest.mark.cuda
+def test_probe_battery_nine_pass(cuda, capsys):
+    before = dict(kernels.launches)
+    assert kernel_isolate.main([]) == 0
+    out = capsys.readouterr().out
+    assert out.count("PASS") == 9 and "FAIL" not in out, out
+    for name in kernels.PROBES:
+        assert kernels.launches[name] == before[name] + 1, name
+    # dhconv_tiny's forward, dhconv_grad's forward and dx
+    assert kernels.launches["dhconv_complex"] == before["dhconv_complex"] + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probe,shapes", [
+    ("dot_plain", [(33, 70), (70, 130)]), ("dot_transposed", [(70, 33), (70, 130)]),
+    ("bf16_split", [(70, 33), (70, 130)]), ("grid_blocks", [(3, 2, 70, 130), (2, 70, 33)]),
+    ("stacked_output_5d", [(3, 2, 70, 130), (2, 70, 33)]),
+    ("multi_output", [(3, 2, 70, 130), (2, 70, 33)]), ("copy", [(5, 1031)])])
+def test_probe_kernels_at_ragged_shapes(cuda, probe, shapes):
+    _, _, kernel, twin = next(c for c in kernel_isolate.CASES if c[0] == probe)
+    assert kernel_isolate.run_case(probe, shapes, kernel, twin, cuda, seed=12)
+
+
+@pytest.mark.cuda
+def test_bench_tools_run_on_card(cuda):
+    shapes = dict(dhconv=dict(B=2, L=3, C=70, O=45, M=130), legendre=dict(mmax=5, C=70, K=97, L=33),
+                  legendre2=dict(mmax=5, C=70, K=97, L=33),
+                  grid=dict(shapes=((300, 97, 202, "a"),), rows=128))
+    assert bench_spectral_mm.run("all", "cuda", 2, **shapes) == 0
+    assert bench_gridmm.run("cuda", 2, R=300, K=97, N=202, rows=128, legendre=(30, 24, 17)) == 0

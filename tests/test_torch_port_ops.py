@@ -111,8 +111,11 @@ def test_wrappers_take_the_twin_on_cpu_without_counting():
     assert torch.equal(spectral_mm.legmm(z, p), spectral_mm.legmm_plain(z, p))
     assert torch.equal(spectral_mm.dhconv_mm(x, w), spectral_mm.dhconv_mm_plain(x, w))
     assert kernels.launches == before
+    # any M2 is taken (row g meets table g % mmax, as in pallas_mm.legmm);
+    # the contracted extents must agree
+    assert spectral_mm.legmm(z[:4], p).shape == (4, 4, 5)
     with pytest.raises(ValueError):
-        spectral_mm.legmm(z[:4], p)  # 2*mmax rows required
+        spectral_mm.legmm(z[..., :6], p)
     with pytest.raises(ValueError):
         spectral_mm.dhconv_mm(x, w, wdim=1)  # Ci must equal O for wdim=1
 
