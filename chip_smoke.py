@@ -23,8 +23,10 @@ Phases, in order; any failure exits non-zero:
      twins (FORWARD_TOL); and a 3-block SFNO at 36x72 on the card against the
      same weights on the CPU (SMALL_TOL);
   5. the serving path: an Inferencer lite rollout of 4 steps at batch 1,
-     kernel launch counts read around it, finite outputs, ms per step and
-     peak device memory;
+     one untimed (it pays the page-locked host buffer and cuBLAS's set-up),
+     then 3 timed: the median ms per step and all three, kernel launch
+     counts read around the first timed one, finite outputs, and the peak
+     device memory of the phase;
   6. the training path: a Trainer of flagship_synth_drive_bare on synthetic
      data (fused Adam, checkpointing 0, no validation or checkpoints) runs
      one epoch of 3 steps at batch 1 with finite losses and its launch
@@ -42,9 +44,10 @@ Phases, in order; any failure exits non-zero:
      complex64 torch.matmul batched over l; one flagship forward (8
      dhconv_complex launches, no other matmul kernel) against the same
      weights on the "kernel" engine and on "xla" without the kernel
-     (FORWARD_TOL); a 4-step Inferencer rollout; a Trainer epoch of 3 steps
-     with coefficient_engine "xla" (16 dhconv_complex and 87 fused_adam
-     launches per step), its step time and peak memory, and its full-width
+     (FORWARD_TOL); 4-step Inferencer rollouts timed as in phase 5; a
+     Trainer epoch of 3 steps with coefficient_engine "xla" (16
+     dhconv_complex and 87 fused_adam launches per step), its step time and
+     peak memory, and its full-width
      gradients against the kernel engine's (FORWARD_TOL per leaf). The
      engine, precisions and kernel toggle are restored afterwards;
   8. the kernel-benchmark and probe path: gridmm at the flagship longitude
@@ -102,6 +105,8 @@ F32_FLOPS = 67e12
 BF16_OUT = 2.0 ** -8
 
 ROLLOUT_STEPS = 4
+# timed rollouts of phases 5 and 7, after one untimed
+ROLLOUT_REPS = 3
 TRAIN_STEPS = 3
 # timed runs of each line of the bench tools in phase 8
 TOOL_REPS = 3
@@ -160,6 +165,30 @@ def rel_err_c(got, ref):
 def launch_counts(kernels, expected):
     """`expected` with every other kernel at zero launches."""
     return {k: expected.get(k, 0) for k in kernels.launches}
+
+
+def timed_rollouts(torch, np, kernels, inferencer, x, label):
+    """One untimed rollout, which pays the page-locked host buffer and
+    cuBLAS's set-up, then ROLLOUT_REPS timed ones (host clock; the rollout
+    ends with its predictions on the host). Returns the launch counts of the
+    first timed rollout, whose predictions are checked, and the ms per step
+    of each."""
+    inferencer._rollout_lite(x)
+    launches, times = None, []
+    for _ in range(ROLLOUT_REPS):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        preds = inferencer._rollout_lite(x)
+        times.append((time.perf_counter() - t0) * 1e3 / ROLLOUT_STEPS)
+        if launches is None:
+            launches = dict(kernels.launches)
+            check(preds.shape == (ROLLOUT_STEPS, 1, 73, 721, 1440),
+                  f"{label} shape {preds.shape}")
+            check(bool(np.isfinite(preds).all()), f"{label} not finite")
+        # the predictions alias the rollout's page-locked buffer: freed here,
+        # the next rollout takes it from PyTorch's host cache
+        del preds
+    return launches, times
 
 
 def phase_kernels(torch, spectral_mm, dev, gen):
@@ -519,18 +548,14 @@ def phase_complex(torch, np, sht, complex_ops, kernels, dev, gen):
     del model
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    preds = inferencer._rollout_lite(x)
-    rec["step_ms"] = (time.perf_counter() - t0) * 1e3 / ROLLOUT_STEPS
-    rec["rollout_launches"] = dict(kernels.launches)
+    rec["rollout_launches"], rec["step_ms_all"] = timed_rollouts(
+        torch, np, kernels, inferencer, x, "complex engine rollout")
+    rec["step_ms"] = statistics.median(rec["step_ms_all"])
     rec["peak_bytes"] = torch.cuda.max_memory_allocated()
-    check(preds.shape == (ROLLOUT_STEPS, 1, 73, 721, 1440), f"rollout shape {preds.shape}")
-    check(bool(np.isfinite(preds).all()), "complex engine rollout not finite")
     check(rec["rollout_launches"] == launch_counts(
         kernels, {k: v * ROLLOUT_STEPS for k, v in COMPLEX_FORWARD_LAUNCHES.items()}),
         f"complex engine rollout launches {rec['rollout_launches']}")
-    del inferencer, preds, x
+    del inferencer, x
     torch.cuda.empty_cache()
 
     # training: a Trainer with coefficient_engine "xla", the kernel toggle on
@@ -858,25 +883,20 @@ def main(argv=None):
     del model
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    preds = inferencer._rollout_lite(x)
-    rollout_s = time.perf_counter() - t0
-    launches = dict(kernels.launches)
+    launches, step_all = timed_rollouts(torch, np, kernels, inferencer, x, "rollout")
     peak = torch.cuda.max_memory_allocated()
-    check(preds.shape == (ROLLOUT_STEPS, 1, 73, 721, 1440), f"rollout shape {preds.shape}")
-    check(bool(np.isfinite(preds).all()), "rollout output not finite")
     check(launches == launch_counts(kernels, {"legmm": 18 * ROLLOUT_STEPS,
                                               "dhconv_mm": 8 * ROLLOUT_STEPS}),
           f"rollout launches {launches}")
-    step_ms = rollout_s * 1e3 / ROLLOUT_STEPS
-    record.update(rollout_steps=ROLLOUT_STEPS, step_ms=step_ms, peak_bytes=peak,
-                  rollout_launches=launches)
-    print(f"[rollout] {ROLLOUT_STEPS} steps at batch 1: {step_ms:.1f} ms per step (host clock, "
-          f"prediction copied to the host each step); peak device memory "
+    step_ms = statistics.median(step_all)
+    record.update(rollout_steps=ROLLOUT_STEPS, step_ms=step_ms, step_ms_all=step_all,
+                  peak_bytes=peak, rollout_launches=launches)
+    print(f"[rollout] {ROLLOUT_STEPS} steps at batch 1: {step_ms:.1f} ms per step, median of "
+          f"{ROLLOUT_REPS} warm rollouts ({', '.join(f'{t:.1f}' for t in step_all)}; host "
+          f"clock, prediction copied to the host each step); peak device memory "
           f"{peak / 2**30:.2f} GiB; launches {launches}", flush=True)
 
-    del inferencer, preds, x
+    del inferencer, x
     torch.cuda.empty_cache()
 
     # phase 6: the training path
@@ -919,8 +939,10 @@ def main(argv=None):
           f"engine {cplx['forward_rel_err_kernel_engine']:.3g}; launches "
           f"{cplx['launches_per_forward']}", flush=True)
     print(f"[complex rollout] {ROLLOUT_STEPS} steps at batch 1: {cplx['step_ms']:.1f} ms per "
-          f"step; peak device memory {cplx['peak_bytes'] / 2**30:.2f} GiB; launches "
-          f"{cplx['rollout_launches']}", flush=True)
+          f"step, median of {ROLLOUT_REPS} warm rollouts "
+          f"({', '.join(f'{t:.1f}' for t in cplx['step_ms_all'])}); peak device memory "
+          f"{cplx['peak_bytes'] / 2**30:.2f} GiB; launches {cplx['rollout_launches']}",
+          flush=True)
     print(f"[complex train] losses {cplx['train_losses']}; train step "
           f"{cplx['train_step_ms']:.1f} ms (median of {cplx['train_step_ms_all']}; kernel "
           f"engine, phase 6: {train['train_step_ms']:.1f} ms); peak device memory "

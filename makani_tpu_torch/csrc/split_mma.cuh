@@ -1,4 +1,6 @@
-// Shared pieces of the multi-pass bf16 matmul kernels (legmm.cu, dhconv_mm.cu).
+// Shared pieces of the multi-pass bf16 WMMA kernels (dhconv_mm.cu, dhconv_dw.cu,
+// dhconv_complex.cu, gridmm.cu, probes.cu); legmm.cu's pipeline is in
+// cp_async_ring.cuh.
 //
 // A float32 operand a is split into two bfloat16 values,
 //   hi = bf16_rn(a),  lo = bf16_rn(a - float(hi)),

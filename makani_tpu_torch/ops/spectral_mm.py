@@ -126,8 +126,6 @@ def legmm(z, p, passes=3, contract="k"):
     _check_cuda(z, p)
     if passes not in (1, 2, 3):
         raise ValueError(f"passes must be 1, 2 or 3, got {passes}")
-    if M2 > 65535:
-        raise ValueError(f"M2 = {M2} exceeds the kernel's grid limit")
     out = torch.empty((M2, C, L if contract == "k" else K), device=z.device,
                       dtype=torch.float32)
     launch = launcher("legmm")

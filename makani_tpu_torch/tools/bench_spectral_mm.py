@@ -2,6 +2,7 @@
 scripts/bench_pallas_mm.py.
 
     python3 -m makani_tpu_torch.tools.bench_spectral_mm [family] [--reps N] [--device cpu]
+                                                        [--full]
 
 family: dhconv, legendre, legendre2, grid or all (default all). Each family
 times the port's multi-pass kernels at the script's shapes (the flagship's
@@ -12,7 +13,9 @@ activation; 5e-2 at 1 pass: tests/test_pallas_mm.py:27,56):
   dhconv     dhconv_mm (1 and 3 passes, the forward; dx), dhconv_dw, against
              the 3M product as float32 and bf16 einsums
   legendre   legmm, analysis and synthesis, 1 and 3 passes, against a float32
-             bmm over the table repeated for the re and im rows
+             bmm over the table repeated for the re and im rows; --full at
+             the flagship's full grid instead (mmax 241, C 384, K 721, L 240:
+             the first block's analysis and the last block's synthesis)
   legendre2  legmm on the paired layout z (mmax, 2C, K): M2 = mmax, row g
              meets table g (2 and 3 passes), against float32 bmm and einsum
   grid       gridmm, the longitude DFT: bf16 x at 2 and 3 passes, a float32 x
@@ -42,6 +45,8 @@ from makani_tpu_torch.utils.device import resolve_device
 
 FAMILIES = ("dhconv", "legendre", "legendre2", "grid")
 F64_TOL = {1: 5e-2, 2: 5e-5, 3: 5e-5}
+# legendre --full: the flagship's full-grid Legendre contraction (embed 384)
+LEGENDRE_FULL = dict(mmax=241, C=384, K=721, L=240)
 # the script's grid shapes: (R, K, N) at the full and the inner grid, embed 320
 GRID_SHAPES = ((320 * 721, 1440, 482, "full-res"), (320 * 240, 480, 482, "inner"))
 
@@ -225,8 +230,11 @@ def main(argv=None):
     ap.add_argument("family", nargs="?", default="all", choices=(*FAMILIES, "all"))
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--full", action="store_true",
+                    help="legendre at the flagship's full grid (K = 721)")
     args = ap.parse_args(argv)
-    return run(args.family, args.device, args.reps)
+    return run(args.family, args.device, args.reps,
+               **({"legendre": LEGENDRE_FULL} if args.full else {}))
 
 
 if __name__ == "__main__":

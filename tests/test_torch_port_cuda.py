@@ -43,14 +43,25 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
+# (C, K, L) across legmm's 128 x 128 tiles: count * C not a multiple of 128
+# (C = 130, 200); synthesis N = K > 256 (several column tiles); K and L of a
+# pitch that is not a multiple of 4 floats (rows moved by their misalignment
+# in shared memory) and of one that is (rows on 16 bytes), in both directions
+LEGMM_SHAPES = [(70, 25, 19), (130, 97, 33), (200, 101, 240), (130, 96, 240), (200, 301, 33),
+                (130, 300, 240)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("passes", [1, 2, 3])
 @pytest.mark.parametrize("contract", ["k", "l"])
-@pytest.mark.parametrize("C,K,L", [(70, 25, 19), (130, 97, 33)])
-def test_legmm_kernel_matches_plain(cuda, passes, contract, C, K, L):
+@pytest.mark.parametrize("C,K,L", LEGMM_SHAPES)
+@pytest.mark.parametrize("rows", ["2mmax", "2mmax-1"])
+def test_legmm_kernel_matches_plain(cuda, passes, contract, C, K, L, rows):
+    """M2 = 2*mmax (the stacked layout) and 2*mmax - 1 (the last m has one row)."""
     g = torch.Generator(device=cuda).manual_seed(0)
     mmax = 5
-    z = torch.randn((2 * mmax, C, K if contract == "k" else L), device=cuda, generator=g)
+    M2 = 2 * mmax if rows == "2mmax" else 2 * mmax - 1
+    z = torch.randn((M2, C, K if contract == "k" else L), device=cuda, generator=g)
     p = torch.randn((mmax, L, K), device=cuda, generator=g)
     before = kernels.launches["legmm"]
     got = spectral_mm.legmm(z, p, passes=passes, contract=contract)
@@ -256,10 +267,11 @@ def test_dhconv_complex_raw_wrapper_refuses_gradients_on_card(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("passes", [1, 2, 3])
 @pytest.mark.parametrize("contract", ["k", "l"])
-def test_legmm_kernel_paired_layout(cuda, passes, contract):
+@pytest.mark.parametrize("C,K,L", [(70, 97, 33), *LEGMM_SHAPES[2:]])
+def test_legmm_kernel_paired_layout(cuda, passes, contract, C, K, L):
     """M2 = mmax: row g against table g, the paired layout."""
     g = torch.Generator(device=cuda).manual_seed(9)
-    mmax, C, K, L = 7, 70, 97, 33
+    mmax = 7
     z = torch.randn((mmax, C, K if contract == "k" else L), device=cuda, generator=g)
     p = torch.randn((mmax, L, K), device=cuda, generator=g)
     before = kernels.launches["legmm"]
