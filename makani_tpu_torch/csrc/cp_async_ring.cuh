@@ -1,9 +1,10 @@
-// The staging pipeline of the multi-pass bf16 matmul kernels (legmm.cu; the
-// grid matmul is to take it next): float32 source tiles arrive in a
-// shared-memory ring through cp.async, all threads split each arrived tile
-// once into bf16 hi/lo tiles, and the tensor cores read the split tiles with
-// ldmatrix into mma.sync m16n8k16 (bf16 in, float32 accumulate). Nothing
-// here knows a kernel's indexing: the kernel locates the rows of each tile.
+// The staging pipeline of the multi-pass bf16 matmul kernels (legmm.cu,
+// gridmm.cu): float32 or bf16 source tiles arrive in a shared-memory ring
+// through cp.async; legmm's threads split each arrived tile once into bf16
+// hi/lo tiles, and the tensor cores read the split tiles with ldmatrix into
+// mma.sync m16n8k16 (bf16 in, float32 accumulate). gridmm splits in
+// registers instead (split_gemm.cuh). Nothing here knows a kernel's
+// indexing: the kernel locates the rows of each tile.
 //
 // Global rows whose pitch is not a multiple of 16 bytes (721 floats in the
 // SFNO's full grid) cannot be copied 16 bytes at a time into aligned rows
@@ -29,7 +30,7 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 
 // 16 bytes to shared memory, the first `bytes` (0-16) from src and the rest
 // zero; src and dst 16-byte aligned
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
                "r"(bytes)
                : "memory");
@@ -66,9 +67,10 @@ __device__ __forceinline__ void split_store4(float4 v, bf16* hi, bf16* lo) {
   }
 }
 
-// The staged copy of a TR x TC float32 tile of rows that are contiguous in
-// device memory, and its split. Each row is held by TC / 4 consecutive
-// threads, one 16-byte chunk (four columns) each, so a warp's copy covers
+// The staged copy of a TR x TC tile of T (float32 by default, or bf16) of
+// rows that are contiguous in device memory, and, for float32, its split.
+// Each row is held by TC / EPC consecutive threads, one 16-byte chunk (EPC =
+// four float32 or eight bf16 columns) each, so a warp's copy covers
 // whole stretches of a few rows and lands in contiguous shared memory. A
 // thread holds RPT rows, row(i) for i < RPT; the caller locates them once a
 // step (row_at(i): a Row, the address of chunk 0, the shift and the valid
@@ -76,21 +78,26 @@ __device__ __forceinline__ void split_store4(float4 v, bf16* hi, bf16* lo) {
 //
 // SHIFT: rows need not start on 16 bytes (a pitch of 721 floats). A 16-byte
 // copy needs 16-byte aligned source and destination, so each row lands in
-// shared memory at pitch TC + 4, moved right by its misalignment s =
-// (address of its first column) / 4 % 4: chunk j holds columns -s + 4j ..
-// -s + 4j + 3, and a last chunk brings the row's last s columns. The s
-// columns before the first are read but never used; they lie in the 16
-// aligned bytes that hold the first column, inside the tensor's allocation.
-// Without SHIFT every row starts on 16 bytes (pitch TC). Either way columns
-// past a row's valid extent are zero-filled by the copy (src-size below 16),
-// so nothing past a row's end is read.
-template <int TR, int TC, bool SHIFT, int THREADS>
+// shared memory at pitch TC + EPC (or the PITCH_ given), moved right by its
+// misalignment s = (address of its first column) / sizeof(T) % EPC: chunk j
+// holds columns -s + EPC j .. -s + EPC (j + 1) - 1, and a last chunk brings
+// the row's last s columns. The s columns before the first are read but
+// never used; they lie in the 16 aligned bytes that hold the first column,
+// inside the tensor's allocation. Without SHIFT every row starts on 16
+// bytes (pitch TC). Either way columns past a row's valid extent are
+// zero-filled by the copy (src-size below 16), so nothing past a row's end
+// is read.
+template <int TR, int TC, bool SHIFT, int THREADS, typename T = float,
+          int PITCH_ = SHIFT ? TC + 16 / (int)sizeof(T) : TC>
 struct StagedTile {
-  static constexpr int PITCH = SHIFT ? TC + 4 : TC;
-  static constexpr int TPR = TC / 4;              // threads a row
-  static constexpr int RPT = TR * TPR / THREADS;  // rows a thread
-  static_assert(TC % 4 == 0 && THREADS % TPR == 0 && (TR * TPR) % THREADS == 0,
+  static constexpr int EPC = 16 / (int)sizeof(T);  // columns a 16-byte chunk
+  static constexpr int PITCH = PITCH_;
+  static constexpr int TPR = TC / EPC;             // threads a row
+  static constexpr int RPT = TR * TPR / THREADS;   // rows a thread
+  static_assert(TC % EPC == 0 && THREADS % TPR == 0 && (TR * TPR) % THREADS == 0,
                 "tile must split over the threads");
+  static_assert(PITCH >= (SHIFT ? TC + EPC : TC) && (PITCH * (int)sizeof(T)) % 16 == 0,
+                "rows must hold their chunks and start on 16 bytes");
 
   // row i of this thread's rows
   __device__ __forceinline__ static int row(int i) {
@@ -100,28 +107,30 @@ struct StagedTile {
   // the address of chunk 0 (null: a row of zeros), the shift s and the
   // valid columns counted from chunk 0
   struct Row {
-    const float* chunk0;
+    const T* chunk0;
     int s, lim;
   };
 
   // A row whose first column is at `first` (null: zeros), with `ncols`
   // valid columns from there.
-  __device__ __forceinline__ static Row locate(const float* first, int ncols) {
+  __device__ __forceinline__ static Row locate(const T* first, int ncols) {
     if (first == nullptr || ncols <= 0) return {nullptr, 0, 0};
-    const int s = SHIFT ? static_cast<int>((reinterpret_cast<uintptr_t>(first) >> 2) & 3) : 0;
+    const int s = SHIFT ? static_cast<int>((reinterpret_cast<uintptr_t>(first) / sizeof(T)) &
+                                           (EPC - 1))
+                        : 0;
     return {first - s, s, ncols + s};
   }
 
-  __device__ __forceinline__ static void copy_chunk(float* dst, const Row& w, int j,
-                                                    const float* any) {
-    const int n = min(4, max(0, w.lim - 4 * j));
-    cp_async16(dst + 4 * j, n > 0 ? w.chunk0 + 4 * j : any, 4 * n);
+  // `any`: a 16-byte aligned address, the source of a copy that reads nothing
+  __device__ __forceinline__ static void copy_chunk(T* dst, const Row& w, int j, const void* any) {
+    const int n = min(EPC, max(0, w.lim - EPC * j));
+    cp_async16(dst + EPC * j, n > 0 ? w.chunk0 + EPC * j : any, n * (int)sizeof(T));
   }
 
   // Issues this thread's copies into the tile at dst: chunk q of each of its
   // rows, and with SHIFT the last chunk of a misaligned row by q == 0.
   template <class RowAt>
-  __device__ __forceinline__ static void copy(float* dst, RowAt row_at, const float* any) {
+  __device__ __forceinline__ static void copy(T* dst, RowAt row_at, const void* any) {
     const int q = threadIdx.x % TPR;
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {

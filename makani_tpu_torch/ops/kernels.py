@@ -87,10 +87,10 @@ def _declare(name, lib):
                        cf, cf, cf, cf, cf, cf, cf, cf, cf, cu, cu, ci, vp],
         # x, w, out, b, c, o, l, m, passes, stream
         "dhconv_complex": [vp, vp, vp, ci, ci, ci, ci, ci, ci, vp],
-        # x, t, out, r, k, n, x_bf16, out_bf16, passes, stream
-        "gridmm": [vp, vp, vp, ci, ci, ci, ci, ci, ci, vp],
-        # x, th, tl, out, r, k, n, x_bf16, out_bf16, stream
-        "grid_dot": [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp],
+        # x, t, scratch, out, r, k, n, x_bf16, out_bf16, passes, stream
+        "gridmm": [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp],
+        # x, th, tl, scratch, out, r, k, n, x_bf16, out_bf16, stream
+        "grid_dot": [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp],
         # x, out, n, stream
         "probe_copy": [vp, vp, ci, vp],
         # a, b, out, o, c, m, stream

@@ -275,14 +275,23 @@ def gridmm_plain(x, t, passes=3, out_dtype=torch.float32):
     return _mp_matmul(x.float(), t, passes).to(out_dtype)
 
 
+def grid_table_scratch(K, N, parts, device):
+    """Scratch for csrc/gridmm.cu's prepared table: the bf16 hi (and, with
+    parts 2, lo) slabs of 256 columns x 16 depths for 2 ceil(K / 32) steps
+    of each 256-column block."""
+    return torch.empty(-(-N // 256) * 2 * -(-K // 32) * parts * 4096, device=device,
+                       dtype=torch.bfloat16)
+
+
 def gridmm(x, t, passes=3, out_dtype=torch.float32):
     """(R, K) @ (K, N) -> (R, N) in multi-pass bf16 with float32 accumulation,
     the table resident (pallas_mm.gridmm): x float32 or bfloat16, t float32,
     the output float32 or bfloat16, rounded once from the float32 sum.
 
     pallas_mm.gridmm's row tile `tr` has no counterpart: the kernel tiles the
-    rows itself (64 a block) and masks the ragged edges of R, K and N, so
-    nothing is padded or copied. No VJP, as in makani_tpu: the wrapper
+    rows itself (128 x 256 a block) and masks the ragged edges of R, K and N,
+    so nothing of x is padded or copied; the table is split once a call into
+    scratch (`grid_table_scratch`). No VJP, as in makani_tpu: the wrapper
     refuses inputs that require grad.
     """
     no_grad_through("gridmm", None, x, t)
@@ -295,9 +304,10 @@ def gridmm(x, t, passes=3, out_dtype=torch.float32):
         raise ValueError("kernel takes contiguous tensors")
     (R, K), N = x.shape, t.shape[1]
     out = torch.empty((R, N), device=x.device, dtype=out_dtype)
+    scratch = grid_table_scratch(K, N, 2 if passes >= 2 else 1, x.device)
     launch = launcher("gridmm")
     with torch.cuda.device(x.device):
-        rc = launch(x.data_ptr(), t.data_ptr(), out.data_ptr(), R, K, N,
+        rc = launch(x.data_ptr(), t.data_ptr(), scratch.data_ptr(), out.data_ptr(), R, K, N,
                     int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), passes,
                     torch.cuda.current_stream().cuda_stream)
     raise_on(rc, "gridmm")

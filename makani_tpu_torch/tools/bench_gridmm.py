@@ -73,7 +73,8 @@ def grid_dot_plain(x, th, tl, out_dtype=torch.float32):
 def grid_dot(x, th, tl, out_dtype=torch.float32):
     """x (R, K) float32 or bfloat16 against the pre-split table th, tl (K, N)
     bfloat16 -> (R, N) out_dtype (grid_dot_pallas of scripts/bench_gridmm.py).
-    Rows are tiled by the kernel (no `tr`, no padding)."""
+    Rows are tiled by the kernel (no `tr`, no padding of x); the table is
+    copied once a call into scratch in the kernel's layout."""
     spectral_mm.no_grad_through("grid_dot", None, x, th, tl)
     _grid_dot_checks(x, th, tl, out_dtype)
     if not dispatch(x):
@@ -84,9 +85,11 @@ def grid_dot(x, th, tl, out_dtype=torch.float32):
         raise ValueError("kernel takes contiguous tensors")
     (R, K), N = x.shape, th.shape[1]
     out = torch.empty((R, N), device=x.device, dtype=out_dtype)
+    scratch = spectral_mm.grid_table_scratch(K, N, 2, x.device)
     launch = launcher("grid_dot")
     with torch.cuda.device(x.device):
-        rc = launch(x.data_ptr(), th.data_ptr(), tl.data_ptr(), out.data_ptr(), R, K, N,
+        rc = launch(x.data_ptr(), th.data_ptr(), tl.data_ptr(), scratch.data_ptr(),
+                    out.data_ptr(), R, K, N,
                     int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
                     torch.cuda.current_stream().cuda_stream)
     raise_on(rc, "grid_dot")

@@ -298,7 +298,14 @@ def _check_grid(got, want):
     assert bool(((g - w).abs() <= slack).all()), float((g - w).abs().max() / w.abs().max())
 
 
-GRID_SHAPES = [(300, 97, 201), (1000, 482, 1440)]
+# (R, K, N) across gridmm.cu's 128 x 256 blocks and 32-deep stages: R not a
+# multiple of 128; N = 482 (two column blocks, the second ragged), 1440, 256
+# (one whole block), 257 (one column past it), 200 and 201 (one ragged
+# block, odd N stored element by element); K = 482 (rows off 16 bytes in
+# float32 and in bf16), 97 (odd: rows at every misalignment) and 1440
+# (aligned)
+GRID_SHAPES = [(300, 97, 201), (1000, 482, 1440), (129, 482, 482), (383, 1440, 256),
+               (257, 97, 257), (130, 482, 200)]
 
 
 @pytest.mark.cuda
@@ -330,6 +337,26 @@ def test_grid_dot_kernel_matches_plain(cuda, R, K, N, xdtype, out):
     torch.cuda.synchronize()
     assert kernels.launches["grid_dot"] == before + 1
     _check_grid(got, bench_gridmm.grid_dot_plain(x, th, tl, out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["gridmm", "grid_dot"])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [482, 97, 1440])
+def test_grid_kernels_read_a_slice_at_an_odd_row(cuda, kernel, xdtype, K):
+    """x a contiguous slice from row 1: its base is off 16 bytes unless K
+    elements are a multiple of 16 bytes."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    x = torch.randn((301, K), device=cuda, generator=g).to(xdtype)[1:]
+    t = torch.randn((K, 482), device=cuda, generator=g)
+    assert x.is_contiguous()
+    if kernel == "gridmm":
+        got, want = spectral_mm.gridmm(x, t, 3), spectral_mm.gridmm_plain(x, t, 3)
+    else:
+        th, tl = bench_gridmm.split_table(t)
+        got, want = bench_gridmm.grid_dot(x, th, tl), bench_gridmm.grid_dot_plain(x, th, tl)
+    torch.cuda.synchronize()
+    _check_grid(got, want)
 
 
 @pytest.mark.cuda
