@@ -494,8 +494,6 @@ def phase_complex_kernel(torch, dev, gen):
                 passes=passes, max_abs_err=float((got - plain).abs().max()),
                 rel_err_twin=etwin, rel_err_f64=e64,
                 ms=cuda_ms(lambda: complex_kernels.contract_dhconv_raw(x, wop, passes), 20),
-                # the wrapper's per-call copy of the weight to (L, C, O), inside ms
-                permute_ms=cuda_ms(lambda: wop.resolve_conj().permute(2, 0, 1).contiguous(), 20),
                 plain_ms=cuda_ms(lambda: complex_kernels.contract_dhconv_plain(x, wop, passes), 5),
                 library_ms=cuda_ms(lambda: torch.matmul(wl, xl), 20),
                 bound_ms=b_ms, bound_by=b_by, gbytes=nbytes / 1e9, gflop=flops / 1e9))
@@ -748,9 +746,9 @@ def tool_launches(reps, probes):
         # bench_spectral_mm: legendre times 4 legmm calls and checks 1;
         # legendre2 times 3 and checks 1
         "legmm": 4 * n + 1 + 3 * n + 1,
-        # dhconv: p1 and p3 forward and the p3 dx timed, p1 and p3 checked;
-        # dw timed
-        "dhconv_mm": 3 * n + 2, "dhconv_dw": n,
+        # dhconv: p1 and p3 forward and dx timed, p1 and p3 forward checked,
+        # for dhconv_mm and dhconv_complex; dw timed
+        "dhconv_mm": 4 * n + 2, "dhconv_dw": n,
         # grid, per shape (two): p2 and p3 analysis and the p3 synthesis
         # timed, two checks
         "gridmm": 2 * (3 * n + 2),
@@ -758,7 +756,7 @@ def tool_launches(reps, probes):
         "grid_dot": 2 * n + 2,
         # kernel_isolate: one launch per probe; dhconv_tiny's forward,
         # dhconv_grad's forward and dx
-        **{name: 1 for name in probes}, "dhconv_complex": 3,
+        **{name: 1 for name in probes}, "dhconv_complex": 4 * n + 2 + 3,
     }
 
 
@@ -926,11 +924,11 @@ def main(argv=None):
         complex_ops.set_contraction_precision(settings[2])
         complex_ops.enable_pallas_kernels(settings[3])
     record["complex"] = cplx
-    print("[complex kernel] name | shape | passes | rel err vs twin | vs f64 | ms (weight "
-          "permute ms inside) | plain ms | library ms | bound ms (by)")
+    print("[complex kernel] name | shape | passes | rel err vs twin | vs f64 | ms | plain ms | "
+          "library ms | bound ms (by)")
     for r in cplx["kernels"]:
         print(f"  {r['name']} | {r['shape']} | p{r['passes']} | {r['rel_err_twin']:.3g} | "
-              f"{r['rel_err_f64']:.3g} | {r['ms']:.4f} ({r['permute_ms']:.4f}) | "
+              f"{r['rel_err_f64']:.3g} | {r['ms']:.4f} | "
               f"{r['plain_ms']:.4f} | {r['library_ms']:.4f} | {r['bound_ms']:.4f} "
               f"({r['bound_by']})", flush=True)
     print(f"[complex forward] flagship on the 'xla' engine with the kernel: "

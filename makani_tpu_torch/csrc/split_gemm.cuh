@@ -1,9 +1,9 @@
-// The consumer side of the multi-pass bf16 matmul kernels (gridmm.cu first;
-// the dhconv kernels are to take it next): A fragments read from a staged
-// float32 or bf16 tile and split into bf16 hi/lo in registers, so the split
-// writes nothing back to shared memory, and Hopper's warpgroup product
-// wgmma.mma_async m64n256k16 (bf16 in, float32 accumulate) with A from those
-// registers and B, a prepared bf16 table tile, from shared memory through a
+// The consumer side of the multi-pass bf16 matmul kernels (gridmm.cu and
+// dhconv_gemm.cuh): A fragments read from a staged float32 or bf16 tile and
+// split into bf16 hi/lo in registers, so the split writes nothing back to
+// shared memory, and Hopper's warpgroup product wgmma.mma_async m64n256k16
+// (gridmm) or m64n96k16 (dhconv), bf16 in, float32 accumulate, with A from
+// those registers and B, a prepared bf16 tile, from shared memory through a
 // matrix descriptor; and the mbarrier and bulk copy that bring such a tile.
 //
 // B layout ("core matrices", no swizzle): a 16-deep B tile of BN columns is
@@ -126,6 +126,30 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       "r"(parity)
       : "memory");
 }
+// a warpgroup's registers a thread, lowered or raised to N (all its warps
+// execute it)
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+// one arrival on bar's current phase
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+// waits until `count` threads of the block have reached named barrier `id`
+// (1-15; __syncthreads is barrier 0)
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+// orders this thread's generic-proxy writes to shared memory before later
+// async-proxy accesses (bulk copies, wgmma) of the same bytes
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 // `bytes` (a multiple of 16) from global src to shared dst, both 16-byte
 // aligned, by the bulk copy engine (the async proxy, as wgmma reads), counted
 // by bar
@@ -161,6 +185,22 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], const uint32_t
       : MAKANI_D8(0), MAKANI_D8(8), MAKANI_D8(16), MAKANI_D8(24), MAKANI_D8(32), MAKANI_D8(40),
         MAKANI_D8(48), MAKANI_D8(56), MAKANI_D8(64), MAKANI_D8(72), MAKANI_D8(80), MAKANI_D8(88),
         MAKANI_D8(96), MAKANI_D8(104), MAKANI_D8(112), MAKANI_D8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 96, this thread's 48) += a (64 x 16, registers) . b (16 x 96, the
+// descriptor's tile), bf16 in, float32 accumulate; asynchronous until
+// wgmma_wait
+__device__ __forceinline__ void wgmma_m64n96k16(float (&d)[48], const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, {%48, %49, %50, %51}, %52, p, 1, 1, 0;\n"
+      "}\n"
+      : MAKANI_D8(0), MAKANI_D8(8), MAKANI_D8(16), MAKANI_D8(24), MAKANI_D8(32), MAKANI_D8(40)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 

@@ -1,6 +1,6 @@
-// Shared pieces of the multi-pass bf16 WMMA kernels (dhconv_mm.cu, dhconv_dw.cu,
-// dhconv_complex.cu, gridmm.cu, probes.cu); legmm.cu's pipeline is in
-// cp_async_ring.cuh.
+// Shared pieces of the multi-pass bf16 WMMA kernels (dhconv_dw.cu, probes.cu);
+// legmm.cu's pipeline is in cp_async_ring.cuh, the wgmma consumer of
+// gridmm.cu and the dhconv kernels in split_gemm.cuh.
 //
 // A float32 operand a is split into two bfloat16 values,
 //   hi = bf16_rn(a),  lo = bf16_rn(a - float(hi)),

@@ -10,8 +10,8 @@ w (C, O, L), giving (B, O, L, M), in the 3M form of `_dhconv_kernel`:
 each real product split into bf16 parts and summed as (hh + hl) + lh
 (passes 3) or hh alone (passes 1), the weight the first operand. The kernel
 is csrc/dhconv_complex.cu (CUDA C++ for sm_90a), which reads x and writes the
-output in their complex64 layouts; the weight is permuted once per call to
-(L, C, O).
+output in their complex64 layouts and reads the weight in place, through its
+strides and its conjugate bit, into a prepared copy in scratch once a call.
 
   contract_dhconv_plain   the plain PyTorch twin: the same splits, products
                           and sums in the same order, on any device
@@ -26,16 +26,17 @@ precision: 3 under every mode but "default", which gives 1.
 
 Gradients follow PyTorch's convention for complex tensors, the conjugate of
 JAX's cotangents (which is why makani_tpu's `_dhconv_bwd` transposes without
-conjugating): dx = sum_o g . conj(w), the kernel on conj(w) transposed to
-(O, C, L); dw = sum_{b,m} conj(x) . g, a complex64 einsum in float32, as
-makani_tpu's dw is an einsum outside the kernel.
+conjugating): dx = sum_o g . conj(w), the kernel on the lazy view
+w.conj().transpose(0, 1), which it reads without a copy; dw = sum_{b,m}
+conj(x) . g, a complex64 einsum in float32, as makani_tpu's dw is an einsum
+outside the kernel.
 """
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from makani_tpu_torch.ops.kernels import dispatch, launcher, launches, raise_on
-from makani_tpu_torch.ops.spectral_mm import no_grad_through, split_bf16
+from makani_tpu_torch.ops.spectral_mm import dhconv_weight_scratch, no_grad_through, split_bf16
 
 _WRAPPER = "complex_kernels.contract_dhconv_kernel"
 
@@ -84,8 +85,9 @@ def contract_dhconv_plain(x, w, passes=3):
 
 def contract_dhconv_raw(x, w, passes=3):
     """The kernel on CUDA tensors (its twin on CPU tensors): x (B, C, L, M),
-    w (C, O, L) complex64 -> (B, O, L, M) complex64. Conjugate-bit and
-    strided inputs are resolved into contiguous copies first."""
+    w (C, O, L) complex64 -> (B, O, L, M) complex64. The kernel reads w in
+    place through its strides and its conjugate bit; a conjugated or strided
+    x is resolved into a contiguous copy first."""
     no_grad_through("contract_dhconv_raw", _WRAPPER, x, w)
     B, C, O, L, M = _shapes(x, w)
     _check_passes(passes)
@@ -93,16 +95,18 @@ def contract_dhconv_raw(x, w, passes=3):
         return contract_dhconv_plain(x, w, passes)
     if w.device != x.device:
         raise ValueError(f"tensors on different devices: {w.device} vs {x.device}")
-    if B * L > 65535:
-        raise ValueError(f"B*L = {B * L} exceeds the kernel's grid limit")
-    # the kernel reads memory: a lazy conjugation or a strided view would be
-    # read as the plain values of the underlying storage
+    # the kernel reads memory: x's lazy conjugation or strides would be read
+    # as the plain values of the underlying storage; w's are passed to it
     x = x.resolve_conj().contiguous()
-    wl = w.resolve_conj().permute(2, 0, 1).contiguous()   # (L, C, O)
+    w = w.resolve_neg()
+    if max(abs(s) for s in w.stride()) >= 2**31:
+        raise ValueError(f"w's strides {w.stride()} exceed the kernel's 32-bit indices")
     out = torch.empty((B, O, L, M), device=x.device, dtype=torch.complex64)
+    scratch = dhconv_weight_scratch(L, C, O, 3, 2 if passes == 3 else 1, x.device)
     launch = launcher("dhconv_complex")
     with torch.cuda.device(x.device):
-        rc = launch(x.data_ptr(), wl.data_ptr(), out.data_ptr(), B, C, O, L, M, passes,
+        rc = launch(x.data_ptr(), w.data_ptr(), scratch.data_ptr(), out.data_ptr(), B, C, O, L, M,
+                    *w.stride(), int(w.is_conj()), passes,
                     torch.cuda.current_stream().cuda_stream)
     raise_on(rc, "dhconv_complex")
     launches["dhconv_complex"] += 1

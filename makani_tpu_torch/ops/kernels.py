@@ -79,14 +79,15 @@ def _declare(name, lib):
     fn = getattr(lib, f"{name}_launch")
     fn.argtypes = {
         "legmm": [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp],
-        "dhconv_mm": [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp],
+        # x, w, scratch, out, b, l, c, o, m, wdim, conj_w, m3, passes, stream
+        "dhconv_mm": [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp],
         "dhconv_dw": [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp],
         # p, g, mu, nu, n, sizes[3], index strides[4], the nine float scalars,
         # two salts, moment kind, stream
         "fused_adam": [vp, vp, vp, vp, cu, cu, cu, cu, cu, cu, cu, cu,
                        cf, cf, cf, cf, cf, cf, cf, cf, cf, cu, cu, ci, vp],
-        # x, w, out, b, c, o, l, m, passes, stream
-        "dhconv_complex": [vp, vp, vp, ci, ci, ci, ci, ci, ci, vp],
+        # x, w, scratch, out, b, c, o, l, m, w's strides (c, o, l), conj_w, passes, stream
+        "dhconv_complex": [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp],
         # x, t, scratch, out, r, k, n, x_bf16, out_bf16, passes, stream
         "gridmm": [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp],
         # x, th, tl, scratch, out, r, k, n, x_bf16, out_bf16, stream

@@ -170,6 +170,15 @@ def dhconv_mm_plain(x, w, passes=3, m3=True, wdim=0, conj_w=False):
     return torch.stack([rr - ii, mp(wr, xi) + mp(wi, xr)])
 
 
+def dhconv_weight_scratch(L, Ci, Co, planes, parts, device):
+    """Scratch for csrc/dhconv_gemm.cuh's prepared weight: for each l, each
+    96-channel output block and each of 2 ceil(Ci / 32) 16-deep steps, the
+    weight planes (wr, wi and, for 3M, wr + wi) as bf16 hi (and, with parts
+    2, lo) slabs of 96 x 16."""
+    return torch.empty(L * -(-Co // 96) * 2 * -(-Ci // 32) * planes * parts * 1536, device=device,
+                       dtype=torch.bfloat16)
+
+
 def dhconv_mm(x, w, passes=3, m3=True, wdim=0, conj_w=False):
     """x (2, B, L, Cin, M) [stacked re/im], w (2, L, C, O) -> (2, B, L, Cout, M).
 
@@ -177,6 +186,9 @@ def dhconv_mm(x, w, passes=3, m3=True, wdim=0, conj_w=False):
     wdim=1 contracts w's O dim (backward dx: Cin=O, Cout=C).
     conj_w negates w's imaginary plane in the kernel (cotangent rules).
     m3 selects the 3-multiplication complex product, else 4.
+    The kernel prepares the weight once a call into scratch
+    (`dhconv_weight_scratch`), reading it through the strides of `wdim` with
+    conj_w as the sign of its imaginary plane, so dx copies nothing.
     """
     no_grad_through("dhconv_mm", "spectral_mm.dhconv", x, w)
     B, L, C, O, M = _dhconv_shapes(x, w, wdim)
@@ -185,14 +197,13 @@ def dhconv_mm(x, w, passes=3, m3=True, wdim=0, conj_w=False):
     _check_cuda(x, w)
     if passes not in (1, 2, 3):
         raise ValueError(f"passes must be 1, 2 or 3, got {passes}")
-    if B * L > 65535:
-        raise ValueError(f"B*L = {B * L} exceeds the kernel's grid limit")
-    co = O if wdim == 0 else C
+    ci, co = (C, O) if wdim == 0 else (O, C)
     out = torch.empty((2, B, L, co, M), device=x.device, dtype=torch.float32)
+    scratch = dhconv_weight_scratch(L, ci, co, 3 if m3 else 2, 2 if passes == 3 else 1, x.device)
     launch = launcher("dhconv_mm")
     with torch.cuda.device(x.device):
-        rc = launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), B, L, C, O, M, wdim,
-                    int(conj_w), int(m3), passes, torch.cuda.current_stream().cuda_stream)
+        rc = launch(x.data_ptr(), w.data_ptr(), scratch.data_ptr(), out.data_ptr(), B, L, C, O, M,
+                    wdim, int(conj_w), int(m3), passes, torch.cuda.current_stream().cuda_stream)
     raise_on(rc, "dhconv_mm")
     launches["dhconv_mm"] += 1
     return out

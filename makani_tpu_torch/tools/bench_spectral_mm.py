@@ -10,8 +10,12 @@ inner grid, embed 320) beside PyTorch calls of the same product, and checks
 the kernels against float64 (5e-5 at 3 passes, and at 2 passes on a bf16
 activation; 5e-2 at 1 pass: tests/test_pallas_mm.py:27,56):
 
-  dhconv     dhconv_mm (1 and 3 passes, the forward; dx), dhconv_dw, against
-             the 3M product as float32 and bf16 einsums
+  dhconv     dhconv_mm (1 and 3 passes, the forward and dx), dhconv_dw, against
+             the 3M product as float32 and bf16 einsums; dhconv_complex on
+             the same values in the complex64 layout (1 and 3 passes, the
+             forward and dx on the lazily conjugated transpose), against one
+             complex64 matmul batched over l; --full at the flagship's
+             shapes instead (C = O = 384)
   legendre   legmm, analysis and synthesis, 1 and 3 passes, against a float32
              bmm over the table repeated for the re and im rows; --full at
              the flagship's full grid instead (mmax 241, C 384, K 721, L 240:
@@ -40,13 +44,15 @@ import sys
 import numpy as np
 import torch
 
-from makani_tpu_torch.ops import spectral_mm
+from makani_tpu_torch.ops import complex_kernels, spectral_mm
 from makani_tpu_torch.utils.device import resolve_device
 
 FAMILIES = ("dhconv", "legendre", "legendre2", "grid")
 F64_TOL = {1: 5e-2, 2: 5e-5, 3: 5e-5}
 # legendre --full: the flagship's full-grid Legendre contraction (embed 384)
 LEGENDRE_FULL = dict(mmax=241, C=384, K=721, L=240)
+# dhconv --full: the flagship's spectral filter (embed 384, lmax 240, mmax 241)
+DHCONV_FULL = dict(B=1, L=240, C=384, O=384, M=241)
 # the script's grid shapes: (R, K, N) at the full and the inner grid, embed 320
 GRID_SHAPES = ((320 * 721, 1440, 482, "full-res"), (320 * 240, 480, 482, "inner"))
 
@@ -117,13 +123,36 @@ def bench_dhconv(dev, reps, B=1, L=240, C=320, O=320, M=241):
     timeit("torch bf16 3M fwd (DEFAULT)", lambda: product_3m(xb, wb), dev, reps)
     for p in (1, 3):
         timeit(f"dhconv_mm p{p} fwd", lambda p=p: spectral_mm.dhconv_mm(xs, ws, p), dev, reps)
-    timeit("dhconv_mm p3 dx", lambda: spectral_mm.dhconv_mm(gs, ws, 3, wdim=1, conj_w=True),
-           dev, reps)
+    for p in (1, 3):
+        timeit(f"dhconv_mm p{p} dx", lambda p=p: spectral_mm.dhconv_mm(gs, ws, p, wdim=1,
+                                                                      conj_w=True), dev, reps)
     timeit("dhconv_dw p3", lambda: spectral_mm.dhconv_dw(xs, gs, 3), dev, reps)
     eq = "blcm,blom->lco"
     timeit("torch float32 dw (HIGH)", lambda: torch.stack([
         torch.einsum(eq, xs[0], gs[0]) + torch.einsum(eq, xs[1], gs[1]),
         torch.einsum(eq, xs[0], gs[1]) - torch.einsum(eq, xs[1], gs[0])]), dev, reps)
+
+
+    # the complex64 layout: x (B, C, L, M), w (C, O, L), g (B, O, L, M); the
+    # library yardstick (L, O, C) . (L, C, B*M), operands prepared outside
+    # the timing, and for dx conj(w) as (L, C, O)
+    print(f"== dhconv B{B} L{L} C{C} O{O} M{M} (complex64 layout)", flush=True)
+    xc = torch.complex(xs[0], xs[1]).permute(0, 2, 1, 3).contiguous()
+    wc = torch.complex(ws[0], ws[1]).permute(1, 2, 0).contiguous()
+    gc = torch.complex(gs[0], gs[1]).permute(0, 2, 1, 3).contiguous()
+    wdx = wc.conj().transpose(0, 1)  # the backward's lazy view, read in place
+    wl = wc.permute(2, 1, 0).contiguous()
+    xl = xc.permute(2, 1, 0, 3).reshape(L, C, B * M).contiguous()
+    wdl = wdx.resolve_conj().permute(2, 1, 0).contiguous()
+    gl = gc.permute(2, 1, 0, 3).reshape(L, O, B * M).contiguous()
+    timeit("torch complex64 matmul fwd", lambda: torch.matmul(wl, xl), dev, reps)
+    timeit("torch complex64 matmul dx", lambda: torch.matmul(wdl, gl), dev, reps)
+    for p in (1, 3):
+        timeit(f"dhconv_complex p{p} fwd",
+               lambda p=p: complex_kernels.contract_dhconv_raw(xc, wc, p), dev, reps)
+    for p in (1, 3):
+        timeit(f"dhconv_complex p{p} dx",
+               lambda p=p: complex_kernels.contract_dhconv_raw(gc, wdx, p), dev, reps)
 
     ref = torch.einsum("blcm,lco->blom", torch.complex(xs[0].double(), xs[1].double()),
                        torch.complex(ws[0].double(), ws[1].double()))
@@ -133,6 +162,11 @@ def bench_dhconv(dev, reps, B=1, L=240, C=320, O=320, M=241):
         err = max(float((got[0] - ref.real).abs().max()),
                   float((got[1] - ref.imag).abs().max())) / float(ref.abs().max())
         ok &= report(f"dhconv_mm p{p} fwd maxrel", err, F64_TOL[p])
+    ref = ref.permute(0, 2, 1, 3)  # (B, O, L, M)
+    for p in (1, 3):
+        got = complex_kernels.contract_dhconv_raw(xc, wc, p).to(torch.complex128)
+        ok &= report(f"dhconv_complex p{p} fwd maxrel",
+                     float((got - ref).abs().max() / ref.abs().max()), F64_TOL[p])
     return ok
 
 
@@ -231,10 +265,11 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--full", action="store_true",
-                    help="legendre at the flagship's full grid (K = 721)")
+                    help="legendre at the flagship's full grid (K = 721), dhconv at the "
+                         "flagship's filter (C = O = 384)")
     args = ap.parse_args(argv)
     return run(args.family, args.device, args.reps,
-               **({"legendre": LEGENDRE_FULL} if args.full else {}))
+               **({"legendre": LEGENDRE_FULL, "dhconv": DHCONV_FULL} if args.full else {}))
 
 
 if __name__ == "__main__":

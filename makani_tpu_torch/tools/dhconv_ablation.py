@@ -1,0 +1,135 @@
+"""Where the time of the dhconv kernels goes on the card: csrc/dhconv_mm.cu
+rebuilt with parts of its work switched off, timed at the flagship's
+spectral-filter shapes.
+
+    python3 -m makani_tpu_torch.tools.dhconv_ablation [--reps N]
+
+Variants, each a text edit of csrc/dhconv_mm.cu's sources (dhconv_gemm.cuh,
+split_gemm.cuh) built with nvcc into build/kernels/ablation_dhconv/:
+
+  kernel     the kernel as it is: the weight prep, then the GEMM
+  prep_only  the weight prep alone
+  gemm_only  the GEMM alone (it reads the scratch the last prep left)
+  no_mma     the prep and the GEMM without its wgmma instructions
+  no_split   the GEMM's A fragments not read or split (constants)
+  no_xcopy   the GEMM's x rows not copied (the split reads stale tiles)
+  no_wcopy   the GEMM's weight tiles not copied (wgmma reads stale tiles)
+
+A variant with a part switched off computes nothing meaningful: only
+"kernel" is checked, against the plain twin (TWIN_TOL). Shapes (flagship
+SFNO, batch 1, embed 384, lmax 240, mmax 241): x (2, 1, 240, 384, 241),
+w (2, 240, 384, 384); the forward at passes 3 and 1 and dx (wdim 1,
+conj_w) at passes 3, 3M. CUDA-event medians over --reps runs after one
+warm-up. Exits 1 without a card or when "kernel" misses its twin.
+"""
+
+import argparse
+import ctypes
+import subprocess
+import sys
+
+import torch
+
+from makani_tpu_torch.ops import kernels, spectral_mm
+from makani_tpu_torch.tools.legmm_ablation import TWIN_TOL, cuda_ms
+
+_NO_PREP = [("dhconv_gemm.cuh", "  prep_weight<NPL, PARTS><<<",
+             "  if (false) prep_weight<NPL, PARTS><<<")]
+_NO_GEMM = [("dhconv_gemm.cuh", "  return launch_gemm<CPLX, M3, PASSES>(p, (unsigned)blocks, s);",
+             "  return 0;")]
+_NO_MMA = [("split_gemm.cuh", '  asm volatile(\n      "{\\n.reg .pred p;\\nsetp.ne.b32 p, %53',
+            '  if (false) asm volatile(\n      "{\\n.reg .pred p;\\nsetp.ne.b32 p, %53')]
+_NO_SPLIT = [("dhconv_gemm.cuh", "re[d][r] = xs[c * S::XPITCH + sh[0][d % 2] + m];",
+              "re[d][r] = 1.f;"),
+             ("dhconv_gemm.cuh", "im[d][r] = xs[(BK + c) * S::XPITCH + sh[1][d % 2] + m];",
+              "im[d][r] = 2.f;")]
+_NO_XCOPY = [("dhconv_gemm.cuh", "      if (bytes != 0) bulk_copy(", "      if (false) bulk_copy("),
+             ("dhconv_gemm.cuh", "mbar_expect_tx(full + slot, bytes + ",
+              "mbar_expect_tx(full + slot, 0 * bytes + ")]
+_NO_WCOPY = [("dhconv_gemm.cuh", "(r == 0 ? S::T_BYTES : 0)", "0"),
+             ("dhconv_gemm.cuh", "      if (r == 0)\n        bulk_copy(",
+              "      if (false)\n        bulk_copy(")]
+VARIANTS = {"kernel": [], "prep_only": _NO_GEMM, "gemm_only": _NO_PREP, "no_mma": _NO_MMA,
+            "no_split": _NO_SPLIT, "no_xcopy": _NO_XCOPY, "no_wcopy": _NO_WCOPY}
+SOURCES = ("dhconv_mm.cu", "dhconv_gemm.cuh", "split_gemm.cuh", "cp_async_ring.cuh")
+# (label, passes, wdim, conj_w)
+CASES = (("forward", 3, 0, False), ("forward", 1, 0, False), ("dx", 3, 1, True))
+
+
+def edited_sources(variant):
+    """{file name: text} of the variant's sources."""
+    texts = {f: (kernels._CSRC / f).read_text() for f in SOURCES}
+    for f, old, new in VARIANTS[variant]:
+        if texts[f].count(old) != 1:
+            raise RuntimeError(f"{variant}: {old!r} is not once in {f}")
+        texts[f] = texts[f].replace(old, new)
+    return texts
+
+
+def build_variants():
+    """Builds every variant, all nvcc started together; returns their
+    dhconv_mm launchers."""
+    root = kernels.BUILD_DIR / "ablation_dhconv"
+    procs = {}
+    for variant in VARIANTS:
+        d = root / variant
+        d.mkdir(parents=True, exist_ok=True)
+        for f, text in edited_sources(variant).items():
+            (d / f).write_text(text)
+        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(d), "-o",
+               str(d / "libdhconv_mm.so"), str(d / "dhconv_mm.cu")]
+        procs[variant] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                          text=True)
+    launchers = {}
+    for variant, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"{variant} build failed\n{log}")
+        lib = ctypes.CDLL(str(root / variant / "libdhconv_mm.so"))
+        launchers[variant] = kernels._declare("dhconv_mm", lib)
+    return launchers
+
+
+def run(reps=20):
+    dev = torch.device("cuda")
+    print(f"device: {torch.cuda.get_device_name(dev)}", flush=True)
+    launchers = build_variants()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    B, L, C, M = 1, 240, 384, 241
+    x = torch.randn((2, B, L, C, M), device=dev, generator=gen)
+    w = torch.randn((2, L, C, C), device=dev, generator=gen)
+    out = torch.empty_like(x)
+    scratch = spectral_mm.dhconv_weight_scratch(L, C, C, 3, 2, dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    ok = True
+    for label, passes, wdim, conj_w in CASES:
+        cells = []
+        for variant, launch in launchers.items():
+            def call(launch=launch):
+                rc = launch(x.data_ptr(), w.data_ptr(), scratch.data_ptr(), out.data_ptr(), B, L,
+                            C, C, M, wdim, int(conj_w), 1, passes, stream)
+                kernels.raise_on(rc, f"dhconv_mm {variant}")
+            ms = cuda_ms(call, reps)
+            if variant == "kernel":
+                want = spectral_mm.dhconv_mm_plain(x, w, passes, True, wdim, conj_w)
+                err = float((out - want).abs().max() / want.abs().max())
+                ok &= err < TWIN_TOL
+                cells.append(f"kernel {ms:.3f} (vs twin {err:.1e})")
+            else:
+                cells.append(f"{variant} {ms:.3f}")
+        print(f"{label} p{passes} ms: " + ", ".join(cells), flush=True)
+    return 0 if ok else 1
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("dhconv_ablation: CUDA is not available", file=sys.stderr)
+        return 1
+    return run(args.reps)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

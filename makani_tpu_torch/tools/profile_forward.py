@@ -30,8 +30,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 
-_OWN = {"legmm_kernel": "legmm", "dhconv_kernel": "dhconv_mm", "dhconv_dw_kernel": "dhconv_dw",
-        "fused_adam_kernel": "fused_adam", "dhconv_complex_kernel": "dhconv_complex"}
+# the port's kernels by name (csrc/dhconv_gemm.cuh's GEMM serves dhconv_mm on
+# stacked planes and dhconv_complex on complex64; each prepares its weight
+# with prep_weight first)
+_OWN = {"legmm_kernel": "legmm", "dhconv_dw_kernel": "dhconv_dw",
+        "fused_adam_kernel": "fused_adam", "dhconv_gemm<false": "dhconv_mm",
+        "dhconv_gemm<true": "dhconv_complex", "prep_weight": "dhconv weight prep"}
 _EINSUM = "einsums (cuBLAS): the complex engine's Legendre contractions and dhconv dw"
 _GEMM_OPS = {"aten::bmm": "1x1 channel mixes (cuBLAS bmm)",
              "aten::mm": "longitude DFT (cuBLAS mm)", "aten::addmm": "longitude DFT (cuBLAS mm)"}
@@ -40,7 +44,7 @@ _GEMM_OPS = {"aten::bmm": "1x1 channel mixes (cuBLAS bmm)",
 def _category(event, ops, einsums):
     name = event["name"]
     for key, label in _OWN.items():
-        if key + "<" in name or key + "(" in name:
+        if any(key + end in name for end in "<(,"):
             return label
     if event["cat"] != "kernel":
         return "copies and sets"

@@ -71,14 +71,33 @@ def test_legmm_kernel_matches_plain(cuda, passes, contract, C, K, L, rows):
     assert _rel(got, want) < TOL
 
 
+def _sliced_randn(shape, device, gen, dtype=torch.float32):
+    """A contiguous tensor whose base lies one element past an allocation's
+    start: rows off 16 bytes (float32) or pairs on 8 bytes (complex64)."""
+    n = int(np.prod(shape))
+    return torch.randn(n + 1, device=device, generator=gen, dtype=dtype)[1:].view(shape)
+
+
+# (B, L, C, O, M, sliced) across dhconv_gemm.cuh's 128 m x 96 channel blocks
+# and 32-deep stages, for wdim 0 (Ci = C, Co = O) and 1 (Ci = O, Co = C):
+# Co of 45, 200 and 257 (ragged blocks, one channel past a block) and 70, 97;
+# Ci of 70, 97 (ragged stages) and 45, 200, 257; M of 1, 130, 241 (rows off 16
+# bytes) and 257 (three m blocks); x sliced from an odd offset
+DHCONV_SHAPES = [(2, 3, 70, 45, 130, False), (2, 2, 97, 200, 241, False),
+                 (1, 2, 70, 257, 257, False), (2, 3, 97, 45, 1, False),
+                 (2, 2, 97, 200, 241, True)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("passes", [1, 2, 3])
 @pytest.mark.parametrize("m3", [True, False])
 @pytest.mark.parametrize("wdim,conj_w", [(0, False), (1, True), (1, False)])
-def test_dhconv_mm_kernel_matches_plain(cuda, passes, m3, wdim, conj_w):
+@pytest.mark.parametrize("B,L,C,O,M,sliced", DHCONV_SHAPES)
+def test_dhconv_mm_kernel_matches_plain(cuda, passes, m3, wdim, conj_w, B, L, C, O, M, sliced):
     g = torch.Generator(device=cuda).manual_seed(1)
-    B, L, C, O, M = 2, 3, 70, 45, 130
-    x = torch.randn((2, B, L, C if wdim == 0 else O, M), device=cuda, generator=g)
+    shape = (2, B, L, C if wdim == 0 else O, M)
+    x = (_sliced_randn(shape, cuda, g) if sliced
+         else torch.randn(shape, device=cuda, generator=g))
     w = torch.randn((2, L, C, O), device=cuda, generator=g)
     before = kernels.launches["dhconv_mm"]
     got = spectral_mm.dhconv_mm(x, w, passes=passes, m3=m3, wdim=wdim, conj_w=conj_w)
@@ -204,10 +223,17 @@ def _cplx(gen, shape, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("passes", [1, 3])
-@pytest.mark.parametrize("B,C,O,L,M", [(2, 70, 45, 3, 130), (3, 33, 64, 2, 241)])
-def test_dhconv_complex_kernel_matches_plain(cuda, passes, B, C, O, L, M):
+@pytest.mark.parametrize("B,C,O,L,M,sliced", [(2, 70, 45, 3, 130, False),
+                                              (3, 33, 64, 2, 241, False),
+                                              (2, 97, 200, 2, 241, False),
+                                              (1, 70, 257, 2, 257, False),
+                                              (2, 97, 45, 3, 1, False),
+                                              (2, 97, 200, 2, 241, True)])
+def test_dhconv_complex_kernel_matches_plain(cuda, passes, B, C, O, L, M, sliced):
+    """The shapes of DHCONV_SHAPES; sliced: x's pairs start on 8 bytes, not 16."""
     g = torch.Generator(device=cuda).manual_seed(6)
-    x = _cplx(g, (B, C, L, M), cuda)
+    x = (_sliced_randn((B, C, L, M), cuda, g, torch.complex64) if sliced
+         else _cplx(g, (B, C, L, M), cuda))
     w = _cplx(g, (C, O, L), cuda)
     before = kernels.launches["dhconv_complex"]
     got = complex_kernels.contract_dhconv_raw(x, w, passes)
@@ -219,16 +245,35 @@ def test_dhconv_complex_kernel_matches_plain(cuda, passes, B, C, O, L, M):
 
 
 @pytest.mark.cuda
-def test_dhconv_complex_reads_conj_bit_and_strided_inputs(cuda):
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("case", ["strided x", "dx view"])
+def test_dhconv_complex_reads_conj_bit_and_strided_inputs(cuda, case, passes):
+    """w.conj().transpose(0, 1), the backward's dx weight, is lazily
+    conjugated and strided. "strided x": x a strided view of its values too
+    (the wrapper copies x). "dx view": x contiguous, and the weight reaches
+    the kernel without a copy: the call allocates the output and the
+    prepared weight's scratch, and less than the weight's bytes besides."""
     g = torch.Generator(device=cuda).manual_seed(7)
     x = _cplx(g, (2, 70, 3, 130), cuda)
     w = _cplx(g, (45, 70, 3), cuda)
     wt = w.conj().transpose(0, 1)               # lazily conjugated, strided (70, 45, 3)
-    xs = x.transpose(2, 3).contiguous().transpose(2, 3)   # strided view of x's values
-    assert wt.is_conj() and not wt.is_contiguous() and not xs.is_contiguous()
-    got = complex_kernels.contract_dhconv_raw(xs, wt, 3)
+    assert wt.is_conj() and not wt.is_contiguous()
+    if case == "strided x":
+        xs = x.transpose(2, 3).contiguous().transpose(2, 3)   # strided view of x's values
+        assert not xs.is_contiguous()
+        got = complex_kernels.contract_dhconv_raw(xs, wt, passes)
+    else:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = complex_kernels.contract_dhconv_raw(x, wt, passes)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - before
+        scratch = spectral_mm.dhconv_weight_scratch(3, 70, 45, 3, 2 if passes == 3 else 1, "meta")
+        w_bytes = w.numel() * w.element_size()
+        assert extra < got.numel() * got.element_size() + scratch.numel() * 2 + w_bytes, extra
     want = complex_kernels.contract_dhconv_plain(
-        x, w.conj().resolve_conj().transpose(0, 1).contiguous(), 3)
+        x, w.conj().resolve_conj().transpose(0, 1).contiguous(), passes)
     assert _rel(got, want) < TOL
 
 

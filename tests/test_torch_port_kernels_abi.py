@@ -15,7 +15,7 @@ from types import SimpleNamespace
 import pytest
 
 from makani_tpu_torch.ops import kernels
-from makani_tpu_torch.tools import legmm_ablation
+from makani_tpu_torch.tools import dhconv_ablation, legmm_ablation
 
 _LAUNCHER = re.compile(r'extern "C" int (\w+)_launch\(([^)]*)\)')
 _SCALARS = {"int": ctypes.c_int, "uint32_t": ctypes.c_uint32, "unsigned": ctypes.c_uint32,
@@ -85,3 +85,13 @@ def test_ablation_edits_apply_to_the_sources(variant):
     originals = {f: (kernels._CSRC / f).read_text() for f in legmm_ablation.SOURCES}
     changed = {f for f in texts if texts[f] != originals[f]}
     assert changed == {f for f, _, _ in legmm_ablation.VARIANTS[variant]}
+
+
+@pytest.mark.parametrize("variant", sorted(dhconv_ablation.VARIANTS))
+def test_dhconv_ablation_edits_apply_to_the_sources(variant):
+    """tools/dhconv_ablation.py rebuilds dhconv_mm with parts switched off in
+    the same way: each edit must find its text exactly once."""
+    texts = dhconv_ablation.edited_sources(variant)
+    originals = {f: (kernels._CSRC / f).read_text() for f in dhconv_ablation.SOURCES}
+    changed = {f for f in texts if texts[f] != originals[f]}
+    assert changed == {f for f, _, _ in dhconv_ablation.VARIANTS[variant]}
