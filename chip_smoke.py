@@ -58,7 +58,9 @@ Phases, in order; any failure exits non-zero:
      their twins, timed beside the twin, a float32 torch.mm (TF32 off) and a
      bf16 torch.mm with float32 sums; the seven probe kernels at
      scripts/pallas_isolate.py's shapes against their twins, timed beside
-     one PyTorch call each; then the three tools end to end
+     one PyTorch call each, with CUDA events around a call (the host's launch
+     path, at these few-KB inputs) and on the device (torch.profiler's kernel
+     records over 50 calls); then the three tools end to end
      (tools/bench_spectral_mm.py all, tools/bench_gridmm.py,
      tools/kernel_isolate.py: nine PASS), each returning 0, with the launches
      of every kernel counted over them and asserted.
@@ -145,6 +147,29 @@ def cuda_ms(fn, reps):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps):
+    """Device time of `fn` a call: the summed durations of the kernels, copies
+    and sets it ran on the card, from torch.profiler's CUDA records over
+    `reps` calls after one warm-up (for calls so short that CUDA events
+    around one call time the host's launch path)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    trace = ROOT / "build" / "chip_smoke_probe_trace.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    trace.unlink()
+    us = sum(e["dur"] for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    check(us > 0, "the profiler recorded no device time")
+    return us / 1e3 / reps
 
 
 def bound(nbytes, flops, rate=BF16_FLOPS):
@@ -716,6 +741,8 @@ def phase_grid(torch, spectral_mm, kernels, dev, gen):
             rel_err_twin=etwin, rel_err_f64=None,
             ms=cuda_ms(lambda: kernel(*inputs), 50), plain_ms=cuda_ms(lambda: twin(*inputs), 50),
             library_ms=cuda_ms(probe_library(torch, name, *inputs), 50),
+            device_ms=device_ms(lambda: kernel(*inputs), 50),
+            library_device_ms=device_ms(probe_library(torch, name, *inputs), 50),
             bound_ms=b_ms, bound_by=b_by, gbytes=nbytes / 1e9, gflop=flops / 1e9))
     return rows
 
@@ -952,14 +979,17 @@ def main(argv=None):
     grid_rows = phase_grid(torch, spectral_mm, kernels, dev, gen)
     record["grid_kernels"] = grid_rows
     print("[grid kernels] name | shape | passes | rel err vs twin | vs f64 | ms | plain ms | "
-          "float32 torch.mm ms | bf16 torch.mm ms | bound ms (by)")
+          "library ms (float32 torch.mm, or the probe's call) | bf16 torch.mm ms | bound ms (by) "
+          "| probes: device ms, library device ms (profiler)")
     for r in grid_rows:
         f64 = "-" if r["rel_err_f64"] is None else f"{r['rel_err_f64']:.3g}"
         bf = f"{r['bf16_ms']:.4f}" if "bf16_ms" in r else "-"
         passes = "-" if r["passes"] is None else f"p{r['passes']}"
+        dev_ms = (f" | {r['device_ms']:.6f}, {r['library_device_ms']:.6f}"
+                  if "device_ms" in r else "")
         print(f"  {r['name']} | {r['shape']} | {passes} | {r['rel_err_twin']:.3g} | {f64} | "
               f"{r['ms']:.4f} | {r['plain_ms']:.4f} | {r['library_ms']:.4f} | {bf} | "
-              f"{r['bound_ms']:.6f} ({r['bound_by']})", flush=True)
+              f"{r['bound_ms']:.6f} ({r['bound_by']}){dev_ms}", flush=True)
     tools = phase_tools(torch, kernels)
     record["tools"] = tools
     print(f"[tools] bench_spectral_mm all, bench_gridmm, kernel_isolate: all returned 0 in "
@@ -1027,7 +1057,8 @@ def main(argv=None):
             launches=tools["launches"][name], launches_per_train_step=0, launches_rollout=0,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
-            shape=r["shape"], passes=r["passes"]))
+            shape=r["shape"], passes=r["passes"],
+            **{k: r[k] for k in ("device_ms", "library_device_ms") if k in r}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

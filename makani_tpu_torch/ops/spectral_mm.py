@@ -252,8 +252,6 @@ def dhconv_dw(x, g, passes=3, m3=True):
     _check_cuda(x, g)
     if passes not in (1, 2, 3):
         raise ValueError(f"passes must be 1, 2 or 3, got {passes}")
-    if L > 65535:
-        raise ValueError(f"L = {L} exceeds the kernel's grid limit")
     out = torch.empty((2, L, C, O), device=x.device, dtype=torch.float32)
     launch = launcher("dhconv_dw")
     with torch.cuda.device(x.device):

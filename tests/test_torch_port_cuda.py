@@ -71,11 +71,13 @@ def test_legmm_kernel_matches_plain(cuda, passes, contract, C, K, L, rows):
     assert _rel(got, want) < TOL
 
 
-def _sliced_randn(shape, device, gen, dtype=torch.float32):
-    """A contiguous tensor whose base lies one element past an allocation's
-    start: rows off 16 bytes (float32) or pairs on 8 bytes (complex64)."""
+def _sliced_randn(shape, device, gen, dtype=torch.float32, offset=1):
+    """A contiguous tensor whose base lies `offset` elements past an
+    allocation's start (odd: rows off 16 bytes (float32) or pairs on 8 bytes
+    (complex64))."""
     n = int(np.prod(shape))
-    return torch.randn(n + 1, device=device, generator=gen, dtype=dtype)[1:].view(shape)
+    return torch.randn(n + offset, device=device, generator=gen,
+                       dtype=dtype)[offset:].view(shape)
 
 
 # (B, L, C, O, M, sliced) across dhconv_gemm.cuh's 128 m x 96 channel blocks
@@ -117,18 +119,74 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         spectral_mm.legmm(z.double(), p.double())
 
 
+# (B, L, C, O, M, cut) across dhconv_dw.cu's 128 x 96 tiles and 32-deep
+# stages: C and O of 33, 97, 200 and 384 (ragged and whole tiles); M of 1, 16
+# and 17 (one 16-deep step, or a second holding one m), 241 (the flagship:
+# rows off 16 bytes, a last step of one m) and 257; B = 3, so the sum over b
+# crosses stages; L = 1, and L = 300, more tiles than the persistent grid has
+# blocks; x and g cut from a larger contiguous tensor at l = 1 with C M and
+# O M odd, so their bases are not on 16 bytes
+DW_SHAPES = [(2, 3, 70, 45, 130, False), (1, 2, 33, 64, 241, False), (1, 2, 33, 97, 1, False),
+             (1, 2, 97, 33, 16, False), (3, 2, 200, 200, 17, False),
+             (1, 1, 384, 384, 241, False), (1, 300, 33, 97, 17, False),
+             (2, 2, 97, 200, 257, False), (3, 2, 33, 97, 241, True),
+             (1, 3, 97, 33, 257, True)]
+
+
+def _dw_inputs(B, L, C, O, M, cut, device, gen):
+    if not cut:
+        return (torch.randn((2, B, L, C, M), device=device, generator=gen),
+                torch.randn((2, B, L, O, M), device=device, generator=gen))
+    assert (C * M) % 2 == 1 and (O * M) % 2 == 1
+    return (_sliced_randn((2, B, L, C, M), device, gen, offset=C * M),
+            _sliced_randn((2, B, L, O, M), device, gen, offset=O * M))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("passes", [1, 2, 3])
 @pytest.mark.parametrize("m3", [True, False])
-@pytest.mark.parametrize("B,L,C,O,M", [(2, 3, 70, 45, 130), (1, 2, 33, 64, 241)])
-def test_dhconv_dw_kernel_matches_plain(cuda, passes, m3, B, L, C, O, M):
+@pytest.mark.parametrize("B,L,C,O,M,cut", DW_SHAPES)
+def test_dhconv_dw_kernel_matches_plain(cuda, passes, m3, B, L, C, O, M, cut):
     g = torch.Generator(device=cuda).manual_seed(2)
-    x = torch.randn((2, B, L, C, M), device=cuda, generator=g)
-    cot = torch.randn((2, B, L, O, M), device=cuda, generator=g)
+    x, cot = _dw_inputs(B, L, C, O, M, cut, cuda, g)
     before = kernels.launches["dhconv_dw"]
     got = spectral_mm.dhconv_dw(x, cot, passes=passes, m3=m3)
     torch.cuda.synchronize()
     assert kernels.launches["dhconv_dw"] == before + 1
+    want = spectral_mm.dhconv_dw_plain(x, cot, passes=passes, m3=m3)
+    assert _rel(got, want) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m3", [True, False])
+def test_dhconv_dw_kernel_is_deterministic(cuda, m3):
+    """The sum over b and m runs inside one accumulator: no atomics, the same
+    bits every run."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x, cot = _dw_inputs(3, 40, 200, 200, 241, False, cuda, g)
+    first = spectral_mm.dhconv_dw(x, cot, passes=3, m3=m3)
+    second = spectral_mm.dhconv_dw(x, cot, passes=3, m3=m3)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("m3", [True, False])
+def test_dhconv_dw_ignores_stale_shared_memory(cuda, passes, m3):
+    """A NaN-filled call at M = 256 leaves NaN in every staged row; the next
+    call, at M = 241 on the same stream and the same blocks, zeroes the depth
+    past M in both operands and masks the rows past C: finite, and the twin's
+    value."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    B, L, C, O = 1, 64, 200, 200
+    nan_x = torch.full((2, B, L, C, 256), float("nan"), device=cuda)
+    nan_g = torch.full((2, B, L, O, 256), float("nan"), device=cuda)
+    x, cot = _dw_inputs(B, L, C, O, 241, False, cuda, g)
+    spectral_mm.dhconv_dw(nan_x, nan_g, passes=passes, m3=m3)
+    got = spectral_mm.dhconv_dw(x, cot, passes=passes, m3=m3)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
     want = spectral_mm.dhconv_dw_plain(x, cot, passes=passes, m3=m3)
     assert _rel(got, want) < TOL
 

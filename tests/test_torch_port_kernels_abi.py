@@ -95,3 +95,13 @@ def test_dhconv_ablation_edits_apply_to_the_sources(variant):
     originals = {f: (kernels._CSRC / f).read_text() for f in dhconv_ablation.SOURCES}
     changed = {f for f in texts if texts[f] != originals[f]}
     assert changed == {f for f, _, _ in dhconv_ablation.VARIANTS[variant]}
+
+
+@pytest.mark.parametrize("variant", sorted(dhconv_ablation.DW_VARIANTS))
+def test_dhconv_dw_ablation_edits_apply_to_the_sources(variant):
+    """tools/dhconv_ablation.py dw rebuilds dhconv_dw with parts switched off
+    in the same way: each edit must find its text exactly once."""
+    texts = dhconv_ablation.edited_sources(variant, "dw")
+    originals = {f: (kernels._CSRC / f).read_text() for f in dhconv_ablation.DW_SOURCES}
+    changed = {f for f in texts if texts[f] != originals[f]}
+    assert changed == {f for f, _, _ in dhconv_ablation.DW_VARIANTS[variant]}
