@@ -60,7 +60,10 @@ Phases, in order; any failure exits non-zero:
      scripts/pallas_isolate.py's shapes against their twins, timed beside
      one PyTorch call each, with CUDA events around a call (the host's launch
      path, at these few-KB inputs) and on the device (torch.profiler's kernel
-     records over 50 calls); then the three tools end to end
+     records over kernel_isolate.DEVICE_REPS calls, three times for each
+     probe and each call, the median kept and the spread printed beside
+     probe_copy's device time, the launch floor); then the three tools end
+     to end
      (tools/bench_spectral_mm.py all, tools/bench_gridmm.py,
      tools/kernel_isolate.py: nine PASS), each returning 0, with the launches
      of every kernel counted over them and asserted.
@@ -112,6 +115,8 @@ ROLLOUT_REPS = 3
 TRAIN_STEPS = 3
 # timed runs of each line of the bench tools in phase 8
 TOOL_REPS = 3
+# phase 8: device times taken of each probe and its PyTorch call, the median kept
+DEVICE_RUNS = 3
 # launches per train step at checkpointing 0, read from the code: 18 forward
 # Legendre contractions and their 18 transposes; 8 dhconv forwards, 8 dx and
 # 8 dw; one fused Adam launch per parameter leaf (10 per block, 3 in the
@@ -147,29 +152,6 @@ def cuda_ms(fn, reps):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
-
-
-def device_ms(fn, reps):
-    """Device time of `fn` a call: the summed durations of the kernels, copies
-    and sets it ran on the card, from torch.profiler's CUDA records over
-    `reps` calls after one warm-up (for calls so short that CUDA events
-    around one call time the host's launch path)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    trace = ROOT / "build" / "chip_smoke_probe_trace.json"
-    trace.parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(trace))
-    events = json.loads(trace.read_text())["traceEvents"]
-    trace.unlink()
-    us = sum(e["dur"] for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
-    check(us > 0, "the profiler recorded no device time")
-    return us / 1e3 / reps
 
 
 def bound(nbytes, flops, rate=BF16_FLOPS):
@@ -741,9 +723,12 @@ def phase_grid(torch, spectral_mm, kernels, dev, gen):
             rel_err_twin=etwin, rel_err_f64=None,
             ms=cuda_ms(lambda: kernel(*inputs), 50), plain_ms=cuda_ms(lambda: twin(*inputs), 50),
             library_ms=cuda_ms(probe_library(torch, name, *inputs), 50),
-            device_ms=device_ms(lambda: kernel(*inputs), 50),
-            library_device_ms=device_ms(probe_library(torch, name, *inputs), 50),
             bound_ms=b_ms, bound_by=b_by, gbytes=nbytes / 1e9, gflop=flops / 1e9))
+        for key, fn in (("device_ms", lambda: kernel(*inputs)),
+                        ("library_device_ms", probe_library(torch, name, *inputs))):
+            runs = [kernel_isolate.device_ms(fn, kernel_isolate.DEVICE_REPS)
+                    for _ in range(DEVICE_RUNS)]
+            rows[-1].update({key: statistics.median(runs), f"{key}_runs": runs})
     return rows
 
 
@@ -826,6 +811,7 @@ def main(argv=None):
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from makani_tpu_torch.ops import complex_ops, kernels, sht, spectral_mm
+    from makani_tpu_torch.tools import kernel_isolate
     from makani_tpu_torch.utils.inferencer import Inferencer
 
     # phase 1: card, versions, numerics
@@ -990,6 +976,18 @@ def main(argv=None):
         print(f"  {r['name']} | {r['shape']} | {passes} | {r['rel_err_twin']:.3g} | {f64} | "
               f"{r['ms']:.4f} | {r['plain_ms']:.4f} | {r['library_ms']:.4f} | {bf} | "
               f"{r['bound_ms']:.6f} ({r['bound_by']}){dev_ms}", flush=True)
+    probe_rows = [r for r in grid_rows if "device_ms" in r]
+    copy_ms = next(r["device_ms"] for r in probe_rows if r["name"] == "probe_copy")
+
+    def spread(r, key):
+        runs = r[f"{key}_runs"]
+        return f"{1e3 * r[key]:.3f} ({1e3 * min(runs):.3f}-{1e3 * max(runs):.3f})"
+    print(f"[probe device time] us a call, median (spread) of {DEVICE_RUNS} runs of "
+          f"{kernel_isolate.DEVICE_REPS} calls, the kernel / its PyTorch call: " + "; ".join(
+              f"{r['name']} {spread(r, 'device_ms')} / {spread(r, 'library_device_ms')}"
+              for r in probe_rows)
+          + f"; probe_copy {1e3 * copy_ms:.3f} (the launch floor); profiler sessions discarded "
+          f"for lost records: {kernel_isolate.discarded_sessions}", flush=True)
     tools = phase_tools(torch, kernels)
     record["tools"] = tools
     print(f"[tools] bench_spectral_mm all, bench_gridmm, kernel_isolate: all returned 0 in "

@@ -16,15 +16,21 @@
 //
 // What bounds them on an H100: at the script's shapes a probe moves at most
 // 197 KB (stacked_output: x 64 KB, w 4 KB, out 128 KB) and does at most
-// 0.5 MFLOP, well under a microsecond of either; a call costs its launch.
+// 0.5 MFLOP, well under a microsecond of either; a call costs its launch and
+// a memory latency or two.
 //
 // Design: the float32 dot probes give one thread to each output element,
-// which sums over the contraction with fused multiply-adds in order of c; the
-// gridded probes give one block to each (b, l), as the Pallas grid (B, L, 1)
-// does. probe_bf16_split goes through split_mma.cuh: one warp per 16 x 16
-// output tile splits both operands into bf16 hi/lo in shared memory (zero
-// beyond the edges) and keeps hh, hl and lh in three WMMA accumulators,
+// which sums over the contraction with fused multiply-adds in order of c.
+// probe_grid_blocks and probe_stacked_output share one body, gridded_kernel
+// (below): the (b, l) work spread over many blocks, the operands staged in
+// shared memory once a block, r and -r stored from the same registers.
+// probe_multi_output still gives one block to each (b, l), as the Pallas grid
+// (B, L, 1) does. probe_bf16_split goes through split_mma.cuh: one warp per
+// 16 x 16 output tile splits both operands into bf16 hi/lo in shared memory
+// (zero beyond the edges) and keeps hh, hl and lh in three WMMA accumulators,
 // added once as (hh + hl) + lh, the probe's left-to-right order.
+
+#include <climits>
 
 #include "split_mma.cuh"
 
@@ -73,22 +79,83 @@ __device__ __forceinline__ float blocks_r(const float* __restrict__ x,
                 i % M);
 }
 
-__global__ void probe_grid_blocks_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                                         float* __restrict__ out, int L, int C, int O, int M) {
-  float* ob = out + ((long long)blockIdx.x * L + blockIdx.y) * O * M;
-  for (int i = threadIdx.x; i < O * M; i += THREADS) ob[i] = blocks_r(x, w, L, C, O, M, i);
-}
+// The gridded product r[b, l] = w[l]^T x[b, l], x (B, L, C, M), w (L, C, O),
+// r (B, L, O, M). One block a (b, l, O tile, M tile), the grid flattened
+// (M tiles fastest). A block stages its window of x (CK x TM) and its
+// columns of w[l] (CK x OB) in shared memory, CK rows of c at a time, all of
+// a chunk's loads issued before one barrier; zeros stand past C, O and M, so
+// nothing a kernel left in shared memory is read. Lanes run along m: x loads
+// and the stores are coalesced scalar accesses at any M and any alignment.
+// Warps run along o, so a w read is a broadcast, and each thread keeps OT
+// outputs, o = o0 + OT * (thread / TM) + j, so one x value read serves OT
+// products. Each output is summed with fused multiply-adds in order of c,
+// dot_om's order.
+namespace gridded {
+// the tile measured fastest at the script's shapes (tools/probe_ablation.py)
+constexpr int TM = 32;       // columns of m a block
+constexpr int OT = 2;        // outputs along o a thread
+constexpr int OG = 8;        // thread groups along o
+constexpr int CK = 16;       // rows of c staged at once
+constexpr int NT = TM * OG;  // threads a block
+constexpr int OB = OT * OG;  // columns of o a block
+constexpr int XL = CK * TM / NT;         // x loads a thread a chunk
+constexpr int WL = (CK * OB + NT - 1) / NT;  // w loads a thread a chunk
+static_assert(CK * TM % NT == 0, "x chunk not a whole number of loads a thread");
+}  // namespace gridded
 
-// out (2, B, L, O, M): plane 0 r, plane 1 -r
-__global__ void probe_stacked_output_kernel(const float* __restrict__ x,
-                                            const float* __restrict__ w, float* __restrict__ out,
-                                            int B, int L, int C, int O, int M) {
-  const long long plane = (long long)B * L * O * M;
-  float* ob = out + ((long long)blockIdx.x * L + blockIdx.y) * O * M;
-  for (int i = threadIdx.x; i < O * M; i += THREADS) {
-    const float r = blocks_r(x, w, L, C, O, M, i);
-    ob[i] = r;
-    ob[plane + i] = -r;
+// NEG: also store -r at neg (stacked_output: plane 1 of its output)
+template <bool NEG>
+__global__ void __launch_bounds__(gridded::NT)
+gridded_kernel(const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ out,
+               float* __restrict__ neg, int L, int C, int O, int M, int mtiles, int otiles) {
+  using namespace gridded;
+  __shared__ float xs[CK][TM];
+  __shared__ __align__(16) float ws[CK][OB];
+  const int t = threadIdx.x;
+  const int m0 = (blockIdx.x % mtiles) * TM;
+  const int o0 = (blockIdx.x / mtiles % otiles) * OB;
+  const long long bl = blockIdx.x / mtiles / otiles;
+  const float* xb = x + bl * C * M + m0;
+  const float* wl = w + (bl % L) * C * O + o0;
+  const int mi = t % TM, oi = t / TM * OT;
+  float acc[OT] = {};
+  for (int c0 = 0; c0 < C; c0 += CK) {
+    if (c0 > 0) __syncthreads();  // every read of the last chunk is done
+    float xv[XL], wv[WL];
+#pragma unroll
+    for (int i = 0; i < XL; ++i) {
+      const int e = t + i * NT, c = c0 + e / TM, m = e % TM;
+      xv[i] = c < C && m0 + m < M ? xb[(long long)c * M + m] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < WL; ++i) {
+      const int e = t + i * NT, c = c0 + e / OB, o = e % OB;
+      wv[i] = e < CK * OB && c < C && o0 + o < O ? wl[(long long)c * O + o] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < XL; ++i) xs[(t + i * NT) / TM][(t + i * NT) % TM] = xv[i];
+#pragma unroll
+    for (int i = 0; i < WL; ++i)
+      if (t + i * NT < CK * OB) ws[(t + i * NT) / OB][(t + i * NT) % OB] = wv[i];
+    __syncthreads();
+    const int cn = min(CK, C - c0);
+#pragma unroll 4
+    for (int c = 0; c < cn; ++c) {
+      const float xc = xs[c][mi];
+#pragma unroll
+      for (int j = 0; j < OT; ++j) acc[j] = fmaf(ws[c][oi + j], xc, acc[j]);
+    }
+  }
+  const int m = m0 + mi;
+  if (m >= M) return;
+#pragma unroll
+  for (int j = 0; j < OT; ++j) {
+    const int o = o0 + oi + j;
+    if (o < O) {
+      const long long i = (bl * O + o) * M + m;
+      out[i] = acc[j];
+      if constexpr (NEG) neg[i] = -acc[j];
+    }
   }
 }
 
@@ -150,6 +217,20 @@ int blocks(int n) { return (n + THREADS - 1) / THREADS; }
 
 int done() { return static_cast<int>(cudaGetLastError()); }
 
+template <bool NEG>
+int launch_gridded(const void* x, const void* w, void* out, void* neg, int b, int l, int c, int o,
+                   int m, void* stream) {
+  using namespace gridded;
+  const int mtiles = (m + TM - 1) / TM, otiles = (o + OB - 1) / OB;
+  const long long n = (long long)b * l * mtiles * otiles;
+  if (n == 0) return done();  // nothing to compute: an empty grid is no launch
+  if (n > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  gridded_kernel<NEG><<<static_cast<unsigned>(n), NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(out),
+      static_cast<float*>(neg), l, c, o, m, mtiles, otiles);
+  return done();
+}
+
 }  // namespace
 
 // Every tensor float32 and contiguous; each launcher returns
@@ -179,18 +260,14 @@ extern "C" int probe_dot_transposed_launch(const void* a, const void* b, void* o
 
 extern "C" int probe_grid_blocks_launch(const void* x, const void* w, void* out, int b, int l,
                                         int c, int o, int m, void* stream) {
-  probe_grid_blocks_kernel<<<dim3(b, l), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(out), l, c,
-      o, m);
-  return done();
+  return launch_gridded<false>(x, w, out, nullptr, b, l, c, o, m, stream);
 }
 
+// out (2, B, L, O, M): plane 0 r, plane 1 -r
 extern "C" int probe_stacked_output_launch(const void* x, const void* w, void* out, int b, int l,
                                            int c, int o, int m, void* stream) {
-  probe_stacked_output_kernel<<<dim3(b, l), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(out), b, l,
-      c, o, m);
-  return done();
+  float* r = static_cast<float*>(out);
+  return launch_gridded<true>(x, w, r, r + (long long)b * l * o * m, b, l, c, o, m, stream);
 }
 
 extern "C" int probe_multi_output_launch(const void* x, const void* w, void* out1, void* out2,

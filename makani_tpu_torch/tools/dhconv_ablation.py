@@ -34,13 +34,12 @@ card or when "kernel" misses its twin.
 """
 
 import argparse
-import ctypes
-import subprocess
 import sys
 
 import torch
 
 from makani_tpu_torch.ops import kernels, spectral_mm
+from makani_tpu_torch.tools import _ablation
 from makani_tpu_torch.tools.legmm_ablation import TWIN_TOL, cuda_ms
 
 _NO_PREP = [("dhconv_gemm.cuh", "  prep_weight<NPL, PARTS><<<",
@@ -86,42 +85,6 @@ MM_CASES = (("forward", 3, 0, False), ("forward", 1, 0, False), ("dx", 3, 1, Tru
 DW_CASES = (("dw", 3), ("dw", 1))
 
 
-def edited_sources(variant, family="mm"):
-    """{file name: text} of the variant's sources."""
-    _, sources, variants = FAMILIES[family]
-    texts = {f: (kernels._CSRC / f).read_text() for f in sources}
-    for f, old, new in variants[variant]:
-        if texts[f].count(old) != 1:
-            raise RuntimeError(f"{variant}: {old!r} is not once in {f}")
-        texts[f] = texts[f].replace(old, new)
-    return texts
-
-
-def build_variants(family):
-    """Builds every variant of the family, all nvcc started together; returns
-    their launchers."""
-    name, sources, variants = FAMILIES[family]
-    root = kernels.BUILD_DIR / ("ablation_dhconv" if family == "mm" else "ablation_dw")
-    procs = {}
-    for variant in variants:
-        d = root / variant
-        d.mkdir(parents=True, exist_ok=True)
-        for f, text in edited_sources(variant, family).items():
-            (d / f).write_text(text)
-        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(d), "-o",
-               str(d / f"lib{name}.so"), str(d / sources[0])]
-        procs[variant] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                          text=True)
-    launchers = {}
-    for variant, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"{variant} build failed\n{log}")
-        lib = ctypes.CDLL(str(root / variant / f"lib{name}.so"))
-        launchers[variant] = kernels._declare(name, lib)
-    return launchers
-
-
 def _line(label, launchers, call, check, reps):
     """One line of times, the kernel's checked against its twin."""
     cells, ok = [], True
@@ -140,7 +103,10 @@ def _line(label, launchers, call, check, reps):
 def run(family="mm", reps=20):
     dev = torch.device("cuda")
     print(f"device: {torch.cuda.get_device_name(dev)}", flush=True)
-    launchers = build_variants(family)
+    name, sources, variants = FAMILIES[family]
+    subdir = "ablation_dhconv" if family == "mm" else "ablation_dw"
+    launchers = {v: ls[name] for v, ls in
+                 _ablation.build_variants(subdir, sources, variants, [name])[0].items()}
     gen = torch.Generator(device=dev).manual_seed(0)
     B, L, C, M = 1, 240, 384, 241
     x = torch.randn((2, B, L, C, M), device=dev, generator=gen)

@@ -19,13 +19,14 @@ tensors (device="cpu", as the tests run it).
 """
 
 import argparse
+import json
 import sys
 
 import numpy as np
 import torch
 
 from makani_tpu_torch.ops import complex_kernels
-from makani_tpu_torch.ops.kernels import dispatch, launcher, launches, raise_on
+from makani_tpu_torch.ops.kernels import BUILD_DIR, dispatch, launcher, launches, raise_on
 from makani_tpu_torch.ops.spectral_mm import split_bf16
 from makani_tpu_torch.utils.device import resolve_device
 
@@ -34,6 +35,12 @@ B, L = 2, 4
 # kernel vs twin: the same float32 products (bf16 parts for bf16_split)
 # summed in another order, a few ulps of the largest partial sum
 TWIN_TOL = 1e-5
+# calls a device time is summed over (device_ms)
+DEVICE_REPS = 200
+# profiler sessions device_ms threw away for lost records
+discarded_sessions = 0
+# the spin kernel that opens and closes a profiler session (_device_records)
+SPIN_CYCLES = 1000
 
 
 def _launch(name, inputs, outputs, *dims):
@@ -227,6 +234,58 @@ def case_inputs(shapes, seed, dev):
     return [torch.from_numpy(rng.randn(*s).astype(np.float32)).to(dev) for s in shapes]
 
 
+def rel_err(got, want):
+    """Largest difference relative to the largest magnitude of `want` (0 for
+    empty tensors)."""
+    if want.numel() == 0:
+        return 0.0
+    return float((got.double() - want.double()).abs().max() / want.abs().max())
+
+
+def _device_records(fn, reps):
+    """The durations (us) of the kernels, copies and sets that `reps` calls
+    of `fn` ran on the card, one torch.profiler session. The session starts
+    and ends with a short spin kernel (torch.cuda._sleep), left out of the
+    records: the profiler can lose the first or the last record of a
+    session, and then it is one of these."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(SPIN_CYCLES)
+        for _ in range(reps):
+            fn()
+        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda.synchronize()
+    trace = BUILD_DIR / "device_ms_trace.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    trace.unlink()
+    return [e["dur"] for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+            and "spin_kernel" not in e.get("name", "")]
+
+
+def device_ms(fn, reps):
+    """Device time of `fn` a call: the summed durations of the kernels, copies
+    and sets it ran on the card, from torch.profiler's CUDA records over
+    `reps` calls after one warm-up (for calls so short that CUDA events
+    around one call time the host's launch path). A session of one call
+    gives the records a call leaves; a session of `reps` calls that did not
+    keep reps times as many lost records, and is discarded (counted in
+    `discarded_sessions`) and taken again, three tries at most: a dropped
+    record raises instead of lowering the time."""
+    global discarded_sessions
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        per_call = len(_device_records(fn, 1))
+        durs = _device_records(fn, reps)
+        if per_call > 0 and len(durs) == reps * per_call:
+            return sum(durs) / 1e3 / reps
+        discarded_sessions += 1
+    raise RuntimeError(f"the profiler kept {len(durs)} device records of {reps} calls, "
+                       f"{per_call} a call, three times")
+
+
 def run_case(name, shapes, kernel, twin, dev, seed=0):
     """Runs one case, prints PASS or FAIL; True when it passed."""
     try:
@@ -240,7 +299,7 @@ def run_case(name, shapes, kernel, twin, dev, seed=0):
         for g, w in zip(got, want, strict=True):
             if g.shape != w.shape:
                 raise AssertionError(f"shape {tuple(g.shape)}, twin {tuple(w.shape)}")
-            err = max(err, float((g.double() - w.double()).abs().max() / w.abs().max()))
+            err = max(err, rel_err(g, w))
         if not err < TWIN_TOL:
             raise AssertionError(f"rel err vs twin {err:.3g} >= {TWIN_TOL:g}")
         print(f"PASS {name}: " + ", ".join(str(tuple(g.shape)) for g in got)

@@ -29,14 +29,13 @@ warm-up. Exits 1 without a card or when "kernel" misses its twin.
 """
 
 import argparse
-import ctypes
 import statistics
-import subprocess
 import sys
 
 import torch
 
 from makani_tpu_torch.ops import kernels, spectral_mm
+from makani_tpu_torch.tools import _ablation
 
 TWIN_TOL = 1e-5
 # variant -> edits (file, text, replacement), each text present once
@@ -53,40 +52,6 @@ SOURCES = ("legmm.cu", "cp_async_ring.cuh")
 SHAPES = (("full analysis", 721, "k"), ("full synthesis", 721, "l"),
           ("analysis, K = 720", 720, "k"), ("synthesis, K = 720", 720, "l"),
           ("inner analysis", 240, "k"))
-
-
-def edited_sources(variant):
-    """{file name: text} of the variant's sources."""
-    texts = {f: (kernels._CSRC / f).read_text() for f in SOURCES}
-    for f, old, new in VARIANTS[variant]:
-        if texts[f].count(old) != 1:
-            raise RuntimeError(f"{variant}: {old!r} is not once in {f}")
-        texts[f] = texts[f].replace(old, new)
-    return texts
-
-
-def build_variants():
-    """Builds every variant, all nvcc started together; returns their
-    legmm launchers."""
-    root = kernels.BUILD_DIR / "ablation"
-    procs = {}
-    for variant in VARIANTS:
-        d = root / variant
-        d.mkdir(parents=True, exist_ok=True)
-        for f, text in edited_sources(variant).items():
-            (d / f).write_text(text)
-        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(d), "-o", str(d / "liblegmm.so"),
-               str(d / "legmm.cu")]
-        procs[variant] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                          text=True)
-    launchers = {}
-    for variant, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"{variant} build failed\n{log}")
-        lib = ctypes.CDLL(str(root / variant / "liblegmm.so"))
-        launchers[variant] = kernels._declare("legmm", lib)
-    return launchers
 
 
 def cuda_ms(fn, reps):
@@ -107,7 +72,8 @@ def run(reps=20):
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"device: {torch.cuda.get_device_name(dev)}", flush=True)
-    launchers = build_variants()
+    launchers = {v: ls["legmm"] for v, ls in
+                 _ablation.build_variants("ablation", SOURCES, VARIANTS, ["legmm"])[0].items()}
     gen = torch.Generator(device=dev).manual_seed(0)
     mmax, C, L = 241, 384, 240
     ok = True

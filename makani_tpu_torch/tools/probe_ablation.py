@@ -1,0 +1,181 @@
+"""Where the device time of the gridded probes goes on the card, and how they
+compare with another tree's: csrc/probes.cu rebuilt with parts of
+gridded_kernel switched off or its tile changed, timed at
+scripts/pallas_isolate.py's shapes (B = 2, L = 4, C = O = 16, M = 128).
+
+    python3 -m makani_tpu_torch.tools.probe_ablation [--parent DIR]
+
+Variants, each a text edit of csrc/probes.cu built with nvcc into
+build/kernels/ablation_probes/, all nvcc started together; ptxas's registers
+and spill stores are printed for each instantiation of gridded_kernel
+(<false>, grid_blocks, mangled ILb0E; <true>, stacked_output, ILb1E):
+
+  kernel       the kernel as it is
+  no_store     r and -r not stored (a test on the sums that never holds
+               keeps the products)
+  no_products  no products (0 x stored; the staging and the reads of x stay)
+  no_loads     x and w not read from device memory (constants staged)
+  empty        the grid launched with an empty body
+  tm64         64 columns of m and 4 groups along o a block (O tiles of 8)
+  og4          4 groups along o: O tiles of 8, twice the blocks
+  ot1          1 output along o a thread, 16 groups (512 threads a block)
+  ot4          4 outputs along o a thread, 4 groups (128 threads a block)
+  ck32         32 rows of c staged at once
+
+With --parent DIR, DIR/makani_tpu_torch/csrc/probes.cu (another checkout,
+e.g. the parent commit unpacked with `git archive`) is built as "parent".
+
+Each of ROUNDS rounds times every variant, in turns (the order reversed
+every other round), as device time a call: the summed kernel durations of
+torch.profiler over DEVICE_REPS calls after a warm-up
+(kernel_isolate.device_ms). The variants
+that compute (kernel, the tile variants, parent) must give the same bits as
+the reference ("parent" if given, else "kernel") at the script's shapes and
+at a ragged one (B 3, L 2, C 70, O 33, M 130), and "kernel" must agree with
+the plain twins (TWIN_TOL). Exits 1 without a card or when a check fails.
+"""
+
+import argparse
+import statistics
+import sys
+from pathlib import Path
+
+import torch
+
+from makani_tpu_torch.ops import kernels
+from makani_tpu_torch.tools import _ablation, kernel_isolate
+
+SOURCES = ("probes.cu", "split_mma.cuh")
+PROBES = ("probe_grid_blocks", "probe_stacked_output")
+ROUNDS = 3
+_STORES = "      out[i] = acc[j];\n      if constexpr (NEG) neg[i] = -acc[j];"
+_TILE = {k: f"constexpr int {k} = {v};" for k, v in (("TM", 32), ("OT", 2), ("OG", 8), ("CK", 16))}
+
+
+def _tile(**sizes):
+    """The edits that set gridded's tile constants to `sizes`."""
+    return [("probes.cu", _TILE[k], f"constexpr int {k} = {v};") for k, v in sizes.items()]
+
+
+# variant -> edits (file, text, replacement), each text present once
+VARIANTS = {
+    "kernel": [],
+    "no_store": [("probes.cu", _STORES, "      if (acc[j] == -1.2345e-30f) out[i] = acc[j];")],
+    "no_products": [("probes.cu", "acc[j] = fmaf(ws[c][oi + j], xc, acc[j]);",
+                     "acc[j] = 0.f * xc;")],
+    "no_loads": [("probes.cu", "xv[i] = c < C && m0 + m < M ? xb[(long long)c * M + m] : 0.f;",
+                  "xv[i] = c < C && m0 + m < M ? 1.f : 0.f;"),
+                 ("probes.cu",
+                  "wv[i] = e < CK * OB && c < C && o0 + o < O ? wl[(long long)c * O + o] : 0.f;",
+                  "wv[i] = e < CK * OB && c < C && o0 + o < O ? 2.f : 0.f;")],
+    "empty": [("probes.cu", "  using namespace gridded;\n  __shared__",
+               "  return;\n  using namespace gridded;\n  __shared__")],
+    "tm64": _tile(TM=64, OG=4),
+    "og4": _tile(OG=4),
+    "ot1": _tile(OT=1, OG=16),
+    "ot4": _tile(OT=4, OG=4),
+    "ck32": _tile(CK=32),
+}
+# the variants that compute r
+COMPUTING = ("kernel", "tm64", "og4", "ot1", "ot4", "ck32", "parent")
+SCRIPT = ((kernel_isolate.B, kernel_isolate.L, kernel_isolate.C, kernel_isolate.M),
+          (kernel_isolate.L, kernel_isolate.C, kernel_isolate.O))
+RAGGED = ((3, 2, 70, 130), (2, 70, 33))
+
+
+def build_variants(parent=None):
+    """Builds every variant (and with `parent`, a checkout, its probes.cu),
+    all nvcc started together; prints ptxas's report for each instantiation
+    of gridded_kernel; returns {variant: {probe: launcher}}."""
+    csrc = None if parent is None else Path(parent).resolve() / "makani_tpu_torch" / "csrc"
+    launchers, logs = _ablation.build_variants("ablation_probes", SOURCES, VARIANTS, PROBES, csrc)
+    for variant, log in logs.items():
+        for entry, regs, spill in _ablation.ptxas_usage(log, "gridded_kernel"):
+            print(f"[ptxas {variant}] {entry}: {regs} registers, {spill} bytes spill stores",
+                  flush=True)
+    return launchers
+
+
+def _call(launch, name, x, w, out):
+    b, l, c, m = x.shape
+    rc = launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), b, l, c, w.shape[2], m,
+                torch.cuda.current_stream().cuda_stream)
+    kernels.raise_on(rc, name)
+
+
+def _outputs(x, w):
+    b, l, _, m = x.shape
+    o = w.shape[2]
+    return {"probe_grid_blocks": torch.empty((b, l, o, m), device=x.device),
+            "probe_stacked_output": torch.empty((2, b, l, o, m), device=x.device)}
+
+
+def check_bits(launchers, dev):
+    """True when every computing variant gives the reference's bits and
+    "kernel" agrees with the twins; prints one line a shape."""
+    ref = "parent" if "parent" in launchers else "kernel"
+    twins = {"probe_grid_blocks": kernel_isolate.grid_blocks_plain,
+             "probe_stacked_output": kernel_isolate.stacked_output_plain}
+    ok = True
+    for shapes in (SCRIPT, RAGGED):
+        x, w = kernel_isolate.case_inputs(shapes, 3, dev)
+        got = {}
+        for variant in (v for v in COMPUTING if v in launchers):
+            outs = _outputs(x, w)
+            for name, out in outs.items():
+                out.fill_(float("nan"))
+                _call(launchers[variant][name], f"{name} {variant}", x, w, out)
+            got[variant] = outs
+        torch.cuda.synchronize()
+        same = {v: all(torch.equal(o.view(torch.int32), got[ref][n].view(torch.int32))
+                       for n, o in outs.items()) for v, outs in got.items()}
+        err = max(kernel_isolate.rel_err(got["kernel"][n], twin(x, w)) for n, twin in twins.items())
+        ok &= all(same.values()) and err < kernel_isolate.TWIN_TOL
+        print(f"bits x{tuple(x.shape)} w{tuple(w.shape)}: "
+              + ", ".join(f"{v} {'=' if s else '!='} {ref}" for v, s in same.items())
+              + f"; kernel vs twin {err:.1e}", flush=True)
+    return ok
+
+
+def run(parent=None):
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"device: {torch.cuda.get_device_name(dev)}", flush=True)
+    launchers = build_variants(parent)
+    ok = check_bits(launchers, dev)
+    x, w = kernel_isolate.case_inputs(SCRIPT, 0, dev)
+    (xc,) = kernel_isolate.case_inputs(kernel_isolate.CASES[0][1], 0, dev)
+    outs = _outputs(x, w)
+    order = list(launchers)
+    us = {(v, p): [] for v in order for p in PROBES}
+    floor = []
+    reps = kernel_isolate.DEVICE_REPS
+    for r in range(ROUNDS):
+        for variant in order if r % 2 == 0 else order[::-1]:
+            for name in PROBES:
+                launch, out = launchers[variant][name], outs[name]
+                us[variant, name].append(1e3 * kernel_isolate.device_ms(
+                    lambda: _call(launch, name, x, w, out), reps))
+        floor.append(1e3 * kernel_isolate.device_ms(lambda: kernel_isolate.probe_copy(xc), reps))
+    print(f"device us a call, {ROUNDS} rounds of {reps} calls, median (all); x{tuple(x.shape)} "
+          f"w{tuple(w.shape)}; probe_copy at its script shape (the launch floor) "
+          f"{statistics.median(floor):.3f} ({', '.join(f'{t:.3f}' for t in floor)})", flush=True)
+    for variant in order:
+        cells = [f"{name[6:]} {statistics.median(us[variant, name]):.3f} "
+                 f"({', '.join(f'{t:.3f}' for t in us[variant, name])})" for name in PROBES]
+        print(f"  {variant}: " + "; ".join(cells), flush=True)
+    return 0 if ok else 1
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", type=Path, help="a checkout whose probes.cu is built as 'parent'")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("probe_ablation: CUDA is not available", file=sys.stderr)
+        return 1
+    return run(args.parent)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -488,15 +488,69 @@ def test_probe_battery_nine_pass(cuda, capsys):
     assert kernels.launches["dhconv_complex"] == before["dhconv_complex"] + 3
 
 
+# (B, L, C, O, M) against the gridded probes' tiles (32 columns of m, 16 of
+# o in pairs, 16 rows of c a staged chunk): M = 1, 31, 33, 130; O = 1, 33;
+# C = 1 and 257 (17 chunks); B * L = 1 and 210; M, O and B empty (no blocks)
+GRIDDED_SHAPES = [(1, 1, 16, 16, 1), (2, 4, 16, 16, 31), (2, 4, 16, 16, 33),
+                  (3, 2, 70, 33, 130), (2, 3, 1, 1, 130), (1, 2, 257, 33, 33),
+                  (3, 70, 16, 5, 64), (2, 4, 16, 16, 0), (2, 4, 16, 0, 128),
+                  (0, 4, 16, 16, 128)]
+GRIDDED = ("grid_blocks", "stacked_output_5d")
+
+
+def _gridded_inputs(shape):
+    b, l, c, o, m = shape
+    return [(b, l, c, m), (l, c, o)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("probe,shapes", [
     ("dot_plain", [(33, 70), (70, 130)]), ("dot_transposed", [(70, 33), (70, 130)]),
     ("bf16_split", [(70, 33), (70, 130)]), ("grid_blocks", [(3, 2, 70, 130), (2, 70, 33)]),
     ("stacked_output_5d", [(3, 2, 70, 130), (2, 70, 33)]),
-    ("multi_output", [(3, 2, 70, 130), (2, 70, 33)]), ("copy", [(5, 1031)])])
+    ("multi_output", [(3, 2, 70, 130), (2, 70, 33)]), ("copy", [(5, 1031)]),
+    *((p, _gridded_inputs(s)) for p in GRIDDED for s in GRIDDED_SHAPES)])
 def test_probe_kernels_at_ragged_shapes(cuda, probe, shapes):
     _, _, kernel, twin = next(c for c in kernel_isolate.CASES if c[0] == probe)
+    before = kernels.launches[kernel.__name__]
     assert kernel_isolate.run_case(probe, shapes, kernel, twin, cuda, seed=12)
+    assert kernels.launches[kernel.__name__] == before + 1
+
+
+def _gridded_case(probe, x, w):
+    """Runs a gridded probe once on x and w; checks its launch and its twin."""
+    _, _, kernel, twin = next(c for c in kernel_isolate.CASES if c[0] == probe)
+    before = kernels.launches[kernel.__name__]
+    got = kernel(x, w)
+    torch.cuda.synchronize()
+    assert kernels.launches[kernel.__name__] == before + 1
+    want = twin(x, w)
+    assert got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, want) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probe", GRIDDED)
+def test_gridded_probes_read_x_off_16_bytes(cuda, probe):
+    """x taken from a larger buffer, 4 bytes past a 16-byte boundary."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = _sliced_randn((2, 3, 17, 130), cuda, g)
+    assert x.data_ptr() % 16 == 4
+    _gridded_case(probe, x, torch.randn((3, 17, 33), device=cuda, generator=g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probe", GRIDDED)
+def test_gridded_probes_after_a_nan_call(cuda, probe):
+    """A NaN-filled call fills every staged tile with NaN; a finite call at
+    a ragged shape after it must read none of it."""
+    _, _, kernel, _ = next(c for c in kernel_isolate.CASES if c[0] == probe)
+    kernel(torch.full((2, 3, 300, 130), float("nan"), device=cuda),
+           torch.full((3, 300, 40), float("nan"), device=cuda))
+    g = torch.Generator(device=cuda).manual_seed(6)
+    _gridded_case(probe, torch.randn((2, 3, 17, 33), device=cuda, generator=g),
+                  torch.randn((3, 17, 5), device=cuda, generator=g))
 
 
 @pytest.mark.cuda

@@ -1,6 +1,8 @@
 """The ctypes signatures of ops/kernels.py against the C launchers in
 makani_tpu_torch/csrc/, read from the sources: no nvcc, no card. Also the
-source edits of tools/legmm_ablation.py against the kernel's sources.
+source edits of the ablation tools (tools/*_ablation.py) against the
+kernels' sources, their reading of ptxas's report, and the check of
+kernel_isolate.device_ms on the profiler's records.
 
 Each kernel's `<name>_launch` is bound through ctypes with the argument types
 that `kernels._declare` sets. A launcher whose C signature changes on one
@@ -15,7 +17,7 @@ from types import SimpleNamespace
 import pytest
 
 from makani_tpu_torch.ops import kernels
-from makani_tpu_torch.tools import dhconv_ablation, legmm_ablation
+from makani_tpu_torch.tools import _ablation, dhconv_ablation, legmm_ablation, probe_ablation
 
 _LAUNCHER = re.compile(r'extern "C" int (\w+)_launch\(([^)]*)\)')
 _SCALARS = {"int": ctypes.c_int, "uint32_t": ctypes.c_uint32, "unsigned": ctypes.c_uint32,
@@ -81,7 +83,7 @@ def test_parser_reads_pointer_and_scalar_types():
 def test_ablation_edits_apply_to_the_sources(variant):
     """tools/legmm_ablation.py rebuilds legmm with parts switched off by text
     edits of its sources: each edit must find its text exactly once."""
-    texts = legmm_ablation.edited_sources(variant)
+    texts = _ablation.edited_sources(legmm_ablation.SOURCES, legmm_ablation.VARIANTS[variant])
     originals = {f: (kernels._CSRC / f).read_text() for f in legmm_ablation.SOURCES}
     changed = {f for f in texts if texts[f] != originals[f]}
     assert changed == {f for f, _, _ in legmm_ablation.VARIANTS[variant]}
@@ -91,7 +93,7 @@ def test_ablation_edits_apply_to_the_sources(variant):
 def test_dhconv_ablation_edits_apply_to_the_sources(variant):
     """tools/dhconv_ablation.py rebuilds dhconv_mm with parts switched off in
     the same way: each edit must find its text exactly once."""
-    texts = dhconv_ablation.edited_sources(variant)
+    texts = _ablation.edited_sources(dhconv_ablation.SOURCES, dhconv_ablation.VARIANTS[variant])
     originals = {f: (kernels._CSRC / f).read_text() for f in dhconv_ablation.SOURCES}
     changed = {f for f in texts if texts[f] != originals[f]}
     assert changed == {f for f, _, _ in dhconv_ablation.VARIANTS[variant]}
@@ -101,7 +103,60 @@ def test_dhconv_ablation_edits_apply_to_the_sources(variant):
 def test_dhconv_dw_ablation_edits_apply_to_the_sources(variant):
     """tools/dhconv_ablation.py dw rebuilds dhconv_dw with parts switched off
     in the same way: each edit must find its text exactly once."""
-    texts = dhconv_ablation.edited_sources(variant, "dw")
+    texts = _ablation.edited_sources(dhconv_ablation.DW_SOURCES,
+                                     dhconv_ablation.DW_VARIANTS[variant])
     originals = {f: (kernels._CSRC / f).read_text() for f in dhconv_ablation.DW_SOURCES}
     changed = {f for f in texts if texts[f] != originals[f]}
     assert changed == {f for f, _, _ in dhconv_ablation.DW_VARIANTS[variant]}
+
+
+@pytest.mark.parametrize("variant", sorted(probe_ablation.VARIANTS))
+def test_probe_ablation_edits_apply_to_the_source(variant):
+    """tools/probe_ablation.py rebuilds probes.cu with gridded_kernel's parts
+    switched off or its tile changed: each edit must find its text once."""
+    texts = _ablation.edited_sources(probe_ablation.SOURCES, probe_ablation.VARIANTS[variant])
+    originals = {f: (kernels._CSRC / f).read_text() for f in probe_ablation.SOURCES}
+    changed = {f for f in texts if texts[f] != originals[f]}
+    assert changed == {f for f, _, _ in probe_ablation.VARIANTS[variant]}
+
+
+def test_ptxas_usage_reads_each_instantiation():
+    """The ablation tools print ptxas's registers and spills for every
+    instantiation of a kernel, not the first one the log names."""
+    log = """ptxas info    : Compiling entry function '_Z14gridded_kernelILb1EEvPKfS1_PfS2_iiiiii' for 'sm_90a'
+ptxas info    : Function properties for _Z14gridded_kernelILb1EEvPKfS1_PfS2_iiiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 0 barriers
+ptxas info    : Compiling entry function '_Z17probe_copy_kernelPKfPfi' for 'sm_90a'
+ptxas info    : Used 8 registers
+ptxas info    : Compiling entry function '_Z14gridded_kernelILb0EEvPKfS1_PfS2_iiiiii' for 'sm_90a'
+ptxas info    : Function properties for _Z14gridded_kernelILb0EEvPKfS1_PfS2_iiiiii
+    0 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 30 registers, used 1 barriers
+"""
+    assert _ablation.ptxas_usage(log, "gridded_kernel") == [
+        ("_Z14gridded_kernelILb1EEvPKfS1_PfS2_iiiiii", 32, 0),
+        ("_Z14gridded_kernelILb0EEvPKfS1_PfS2_iiiiii", 30, 12)]
+
+
+@pytest.mark.parametrize("sessions,want", [
+    # (records of one call, durations of the reps calls) per try
+    ([(1, [2.0] * 4)], 2e-3),
+    ([(1, [2.0] * 2), (1, [3.0] * 4)], 3e-3),
+    ([(2, [1.0] * 8)], 2e-3),
+    ([(0, []), (1, [2.0] * 4)], 2e-3),
+    ([(1, [2.0] * 3)] * 3, None)])
+def test_device_ms_discards_sessions_that_lost_records(monkeypatch, sessions, want):
+    """device_ms keeps a profiler session only when its 4 calls left 4 times
+    the records of one call; else it takes another, and raises after three."""
+    from makani_tpu_torch.tools import kernel_isolate
+    queue = [r for n, durs in sessions for r in ([1.0] * n, durs)]
+    monkeypatch.setattr(kernel_isolate, "_device_records", lambda fn, reps: queue.pop(0))
+    monkeypatch.setattr(kernel_isolate.torch.cuda, "synchronize", lambda: None)
+    before = kernel_isolate.discarded_sessions
+    if want is None:
+        with pytest.raises(RuntimeError, match="three times"):
+            kernel_isolate.device_ms(lambda: None, 4)
+    else:
+        assert kernel_isolate.device_ms(lambda: None, 4) == pytest.approx(want)
+        assert kernel_isolate.discarded_sessions == before + len(sessions) - 1
