@@ -17,6 +17,10 @@ Phases, in order; any failure exits non-zero:
      rounding): bit-identical to its twin after 2 steps, timed per full
      update beside the twin and torch.optim.Adam(fused=True) on float32
      state (context only: no PyTorch call rounds moments stochastically);
+     and the bf16 GELU kernels, forward and gradient, at the blocks' MLP
+     activation (1, 768, 240, 480) and the encoder's (1, 384, 721, 1440):
+     bit-identical to their twins, timed at the second beside the twin and
+     PyTorch's fused tanh-form GELU and its gradient on bf16;
   4. the flagship_synth_drive_bare SFNO at full width (73 channels on
      721x1440, embed 384, 8 blocks, random weights from a seed): one forward
      through the kernels with its launch counts, against one through the plain
@@ -66,8 +70,27 @@ Phases, in order; any failure exits non-zero:
      to end
      (tools/bench_spectral_mm.py all, tools/bench_gridmm.py,
      tools/kernel_isolate.py: nine PASS), each returning 0, with the launches
-     of every kernel counted over them and asserted.
-The last two lines are the kernels' JSON record and the result line.
+     of every kernel counted over them and asserted;
+  9. bf16 AMP at full width (amp_mode "bf16", precision "default": every
+     kernel launch at 1 bf16 pass, checked by kernels.launches_by_passes;
+     cuBLAS's bf16 reduced-precision reductions off): one forward through the
+     kernels (18 legmm, 8 dhconv_mm, 18 gelu_bf16), its deviation from one
+     through the twins and from phase 4's float32 forward of the same
+     weights and input, both below AMP_DEV_MAX; every legmm and dhconv_mm
+     call of an AMP forward against its twin on the same inputs (TWIN_TOL);
+     each block and the decoder on the kernels' own input to it, kernels
+     against twins below BLOCK_SHARE of the twins' own AMP deviation from
+     float32 there; a 4-step
+     Inferencer lite rollout timed as in phase 5 with its peak memory; a
+     Trainer epoch of 3 steps with finite losses and phase 6's launch counts
+     per step, plus 18 gelu_bf16 and 18 gelu_bf16_grad; the train step timed
+     on a resident batch with its peak memory; on the "xla" engine with its
+     kernel, one forward (8 dhconv_complex) and one train step (16
+     dhconv_complex, 87 fused_adam), then that step timed (median of 3). The
+     engine, precisions, kernel toggle and cuBLAS setting are restored
+     afterwards.
+The last two lines are the kernels' JSON record (the AMP path's launches in
+each row's *_amp fields) and the result line.
 --record PATH also writes every measurement of the run to PATH as JSON.
 
 TF32 is off for matmuls and cuDNN (torch.backends.cuda.matmul.allow_tf32 and
@@ -126,6 +149,22 @@ TRAIN_LAUNCHES = {"legmm": 36, "dhconv_mm": 16, "dhconv_dw": 8, "fused_adam": 87
 # dx; dw is an einsum, and the Legendre contractions are float32 einsums
 COMPLEX_FORWARD_LAUNCHES = {"dhconv_complex": 8}
 COMPLEX_TRAIN_LAUNCHES = {"dhconv_complex": 16, "fused_adam": 87}
+# bf16 AMP's forward against float32, norm-wise: makani_tpu/utils/trainer.py
+# puts AMP's model-level deviation at ~1.5e-2; a deviation past this is a
+# fault, not rounding
+AMP_DEV_MAX = 5e-2
+# under AMP, each block and the decoder on the kernels' own input to it:
+# kernels against twins below this share of the twins' own AMP deviation
+# from float32 on that input (the block's AMP rounding). Kernels and twins
+# differ by float32 ulps (each call is held to TWIN_TOL on the path's own
+# inputs), but the 1-pass operand roundings and the bf16 activations turn
+# them into flipped bf16 roundings, and the MLP's dense mixes spread those:
+# the blocks read 0.57-0.58 (PERF.md)
+BLOCK_SHARE = 1.0
+# the bf16 GELU kernels under AMP: 2 a block (after norm0, in the MLP), 1 in
+# the encoder and the decoder each; the gradient as many in a train step
+AMP_FORWARD_GELU = {"gelu_bf16": 18}
+AMP_TRAIN_GELU = {"gelu_bf16": 18, "gelu_bf16_grad": 18}
 # the MLP's output bias feeds an instance norm, which removes it: its exact
 # gradient is zero, and its rounding noise is measured against the largest
 # gradient of the model instead of its own
@@ -161,6 +200,11 @@ def bound(nbytes, flops, rate=BF16_FLOPS):
 
 def rel_err(got, ref):
     return float((got.double() - ref).abs().max() / ref.abs().max())
+
+
+def dev_norm(got, ref):
+    """Norm-wise deviation ||got - ref|| / ||ref|| over the whole tensor."""
+    return float((got - ref).norm() / ref.norm())
 
 
 def rel_err_c(got, ref):
@@ -348,6 +392,38 @@ def phase_adam(torch, dev, gen, shapes):
                 max_abs_err=diff, rel_err_twin=diff,
                 ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
                 gbytes=nbytes / 1e9, elements=n, leaves=len(shapes))
+
+
+def phase_gelu(torch, dev, gen):
+    """The bf16 GELU kernels at the blocks' MLP activation and the AMP path's
+    largest (the encoder's hidden layer): bit-identical to their twins, then
+    timed at the largest beside the twin and PyTorch's fused tanh-form GELU
+    and its gradient on bf16 (the same function, rounded once)."""
+    import torch.nn.functional as F
+
+    from makani_tpu_torch.ops import gelu
+    for shape in ((1, 768, 240, 480), (1, 384, 721, 1440)):
+        x = (3 * torch.randn(shape, device=dev, generator=gen)).bfloat16()
+        g = torch.randn(shape, device=dev, generator=gen).bfloat16()
+        for name, got, plain in (
+                ("gelu_bf16", gelu.gelu_bf16_forward(x), gelu.gelu_bf16_plain(x)),
+                ("gelu_bf16_grad", gelu.gelu_bf16_backward(x, g), gelu.gelu_bf16_grad_plain(x, g))):
+            check(torch.equal(got, plain),
+                  f"{name} {shape} vs twin: {int((got != plain).sum())} elements differ")
+    n = x.numel()
+    rows = []
+    for name, fn, plain, library, nbytes, flops in (
+            ("gelu_bf16", lambda: gelu.gelu_bf16_forward(x), lambda: gelu.gelu_bf16_plain(x),
+             lambda: F.gelu(x, approximate="tanh"), 4 * n, 9 * n),
+            ("gelu_bf16_grad", lambda: gelu.gelu_bf16_backward(x, g),
+             lambda: gelu.gelu_bf16_grad_plain(x, g),
+             lambda: torch.ops.aten.gelu_backward(g, x, approximate="tanh"), 6 * n, 21 * n)):
+        b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+        rows.append(dict(
+            name=name, shape=f"x{tuple(x.shape)} bf16", passes=None, max_abs_err=0.0,
+            ms=cuda_ms(fn, 20), plain_ms=cuda_ms(plain, 5), library_ms=cuda_ms(library, 20),
+            bound_ms=b_ms, bound_by=b_by, gbytes=nbytes / 1e9, gflop=flops / 1e9))
+    return rows
 
 
 def flagship_params(steps):
@@ -801,6 +877,234 @@ def phase_tools(torch, kernels):
     return rec
 
 
+def amp_forward(torch, kernels, model, xb, label):
+    """One synchronized AMP forward after a warm-up: (output, ms, launches)."""
+    with torch.inference_mode():
+        model(xb)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        y = model(xb)
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    check(y.dtype == torch.bfloat16 and tuple(y.shape) == (1, 73, 721, 1440),
+          f"{label} forward {y.dtype} {tuple(y.shape)}")
+    check(bool(torch.isfinite(y).all()), f"{label} forward not finite")
+    return y, ms, dict(kernels.launches)
+
+
+def amp_kernel_calls(torch, model, xb):
+    """Every legmm and dhconv_mm call of an AMP forward of `xb` against its
+    twin on the same inputs: the largest relative error of each kernel over
+    its calls, and the count of calls checked."""
+    from makani_tpu_torch.ops import spectral_mm
+    kernels = {"legmm": spectral_mm.legmm_plain, "dhconv_mm": spectral_mm.dhconv_mm_plain}
+    worst, calls = dict.fromkeys(kernels, 0.0), dict.fromkeys(kernels, 0)
+    launch = {name: getattr(spectral_mm, name) for name in kernels}
+
+    def checked(name):
+        def call(*args, **kwargs):
+            out = launch[name](*args, **kwargs)
+            worst[name] = max(worst[name], rel_err(out, kernels[name](*args, **kwargs).double()))
+            calls[name] += 1
+            return out
+        return call
+    for name in kernels:
+        setattr(spectral_mm, name, checked(name))
+    try:
+        with torch.inference_mode():
+            model(xb)
+    finally:
+        for name, fn in launch.items():
+            setattr(spectral_mm, name, fn)
+    return worst, calls
+
+
+def amp_blocks(torch, sht, model, xb):
+    """Kernels against twins under AMP block by block: each block, and the
+    decoder, given the kernels' own input to it in a forward of `xb`. Returns
+    per stage the norm-wise deviation of the kernels' output from the twins'
+    and that of the twins' output from their float32 output on the same
+    input (the stage's AMP rounding)."""
+    net = model.model
+    stages = [*net.blocks, net.decoder]
+    inputs = []
+    hooks = [m.register_forward_pre_hook(lambda m, args: inputs.append(args[0]))
+             for m in stages]
+    with torch.inference_mode():
+        model(xb)
+    for h in hooks:
+        h.remove()
+    dev_twin, dev_f32 = [], []
+    with torch.inference_mode():
+        for m, inp in zip(stages, inputs, strict=True):
+            y = m(inp).float()
+            sht.set_coeff_engine("stacked")
+            y_twin, y_f32 = m(inp).float(), m(inp.float())
+            sht.set_coeff_engine("kernel")
+            dev_twin.append(dev_norm(y, y_twin))
+            dev_f32.append(dev_norm(y_twin, y_f32))
+    return dev_twin, dev_f32
+
+
+def at_one_pass(kernels):
+    """True when every launch of a kernel that takes a pass count ran at 1."""
+    return all(p == 1 for (_, p), n in kernels.launches_by_passes.items() if n)
+
+
+def phase_amp(torch, np, sht, complex_ops, kernels, dev, x, y_f32):
+    """bf16 AMP at full width (amp_mode "bf16", precision "default": 1 bf16
+    pass in the kernels): forward through the kernels against the twins and
+    against phase 4's float32 forward (`y_f32`, on the host, of the same
+    weights and input `x`), a lite rollout, a Trainer epoch and the timed
+    train step on the kernel engine; one forward and one train step on the
+    complex "xla" engine with its kernel."""
+    from makani_tpu_torch.models.model_registry import get_model
+    from makani_tpu_torch.utils.inferencer import Inferencer
+    from makani_tpu_torch.utils.trainer import Trainer
+    rec = {}
+    params = flagship_params(ROLLOUT_STEPS)
+    params["amp_mode"] = "bf16"
+    model = get_model(params, device=dev)  # phase 4's weights: the same seed
+    model.eval()
+    xd = x.to(dev)
+    with torch.inference_mode():
+        same = rel_err(model(xd).cpu(), y_f32.double())
+    check(same < TWIN_TOL, f"phase 9's model is not phase 4's: forward rel err {same}")
+    sht.set_transform_precision("default")
+    complex_ops.set_contraction_precision("default")
+    xb = xd.to(torch.bfloat16)
+
+    y, rec["forward_ms"], rec["launches_per_forward"] = amp_forward(
+        torch, kernels, model, xb, "AMP")
+    check(rec["launches_per_forward"] == launch_counts(
+        kernels, {"legmm": 18, "dhconv_mm": 8, **AMP_FORWARD_GELU}) and at_one_pass(kernels),
+          f"AMP launches per forward {rec['launches_per_forward']}, "
+          f"by passes {dict(kernels.launches_by_passes)}")
+    sht.set_coeff_engine("stacked")
+    with torch.inference_mode():
+        y_twin = model(xb)
+    sht.set_coeff_engine("kernel")
+    yf = y.float().cpu().double()
+    y_ref = y_f32.double()
+    twin = y_twin.float().cpu().double()
+    rec["forward_dev_twin"] = dev_norm(yf, twin)
+    rec["forward_dev_f32"] = dev_norm(yf, y_ref)
+    rec["twin_dev_f32"] = dev_norm(twin, y_ref)
+    rec["forward_rel_err_twin"] = rel_err(yf, twin)
+    rec["forward_rel_err_f32"] = rel_err(yf, y_ref)
+    check(rec["forward_dev_f32"] < AMP_DEV_MAX and rec["forward_dev_twin"] < AMP_DEV_MAX,
+          f"AMP forward deviates from float32 by {rec['forward_dev_f32']}, from the twins by "
+          f"{rec['forward_dev_twin']}")
+    del y, y_twin, yf, twin
+    rec["call_rel_err_twin"], rec["calls_checked"] = amp_kernel_calls(torch, model, xb)
+    check(rec["calls_checked"] == {"legmm": 18, "dhconv_mm": 8}
+          and max(rec["call_rel_err_twin"].values()) < TWIN_TOL,
+          f"AMP forward's kernel calls against their twins {rec['call_rel_err_twin']} over "
+          f"{rec['calls_checked']} calls")
+    rec["block_dev_twin"], rec["block_dev_f32"] = amp_blocks(torch, sht, model, xb)
+    check(all(d < BLOCK_SHARE * f for d, f in zip(rec["block_dev_twin"], rec["block_dev_f32"])),
+          f"AMP blocks, kernels vs twins {rec['block_dev_twin']}, not below {BLOCK_SHARE} of "
+          f"the twins' deviation from float32 {rec['block_dev_f32']}")
+
+    # the complex engine with its kernel: one AMP forward
+    sht.set_coeff_engine("xla")
+    complex_ops.enable_pallas_kernels(True)
+    y_xla, rec["xla_forward_ms"], rec["xla_launches_per_forward"] = amp_forward(
+        torch, kernels, model, xb, "AMP 'xla' engine")
+    check(rec["xla_launches_per_forward"] == launch_counts(
+        kernels, {**COMPLEX_FORWARD_LAUNCHES, **AMP_FORWARD_GELU}) and at_one_pass(kernels),
+          f"AMP 'xla' launches {rec['xla_launches_per_forward']}")
+    rec["xla_forward_dev_f32"] = dev_norm(y_xla.float().cpu().double(), y_ref)
+    check(rec["xla_forward_dev_f32"] < AMP_DEV_MAX,
+          f"AMP 'xla' forward deviates from float32 by {rec['xla_forward_dev_f32']}")
+    sht.set_coeff_engine("kernel")
+    complex_ops.enable_pallas_kernels(False)
+    del y_xla, xb
+
+    # serving: the Inferencer's lite rollout under AMP (its host buffer
+    # float32), with phase 5's memory in use: the Inferencer's weights and
+    # the float32 input
+    inferencer = Inferencer(params, weights=model.state_dict(), device=dev)
+    check(inferencer.amp_dtype == torch.bfloat16, "the Inferencer did not take amp_mode bf16")
+    del model
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rec["rollout_launches"], rec["step_ms_all"] = timed_rollouts(
+        torch, np, kernels, inferencer, xd, "AMP rollout")
+    rec["step_ms"] = statistics.median(rec["step_ms_all"])
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    per_step = {"legmm": 18, "dhconv_mm": 8, **AMP_FORWARD_GELU}
+    check(rec["rollout_launches"] == launch_counts(
+        kernels, {k: v * ROLLOUT_STEPS for k, v in per_step.items()}),
+          f"AMP rollout launches {rec['rollout_launches']}")
+    del inferencer, xd
+    torch.cuda.empty_cache()
+
+    # training: a Trainer under AMP resolves the precision to "default"
+    trainer = Trainer(train_params(amp_mode="bf16"), device=dev)
+    check(sht.get_transform_precision() == "default" and sht._coeff_passes() == 1
+          and complex_ops.contraction_passes() == 1, "the AMP Trainer did not resolve 1 pass")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    trainer.train()
+    torch.cuda.synchronize()
+    total = dict(kernels.launches)
+    rec["train_peak_bytes"] = torch.cuda.max_memory_allocated()
+    losses = trainer.last_logs["train"]["step losses"]
+    check(len(losses) == TRAIN_STEPS and all(math.isfinite(v) for v in losses),
+          f"AMP train losses {losses}")
+    check(total == launch_counts(kernels, {
+        k: v * TRAIN_STEPS for k, v in {**TRAIN_LAUNCHES, **AMP_TRAIN_GELU}.items()})
+          and at_one_pass(kernels), f"AMP launches over {TRAIN_STEPS} train steps {total}, "
+          f"by passes {dict(kernels.launches_by_passes)}")
+    rec.update(train_losses=losses, train_launches=total,
+               train_launches_per_step={k: v // TRAIN_STEPS for k, v in total.items()})
+    inp, tar = (torch.from_numpy(a[None]).to(dev) for a in trainer.train_dataset[0])
+    times = []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(inp, tar, None, None, 1e-3)
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+    rec["train_step_ms"] = statistics.median(times)
+    rec["train_step_ms_all"] = times
+    check(all(p.dtype == torch.float32 for p in trainer.model_params.values()),
+          "AMP parameters are not float32")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # training on the complex engine with its kernel: one AMP step with its
+    # launches counted, then the step timed as above
+    trainer = Trainer(train_params(amp_mode="bf16", coefficient_engine="xla"), device=dev)
+    complex_ops.enable_pallas_kernels(True)
+    inp, tar = (torch.from_numpy(a[None]).to(dev) for a in trainer.train_dataset[0])
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    loss = float(trainer.train_step(inp, tar, None, None, 1e-3))
+    rec["xla_train_launches"] = dict(kernels.launches)
+    check(math.isfinite(loss), f"AMP 'xla' train loss {loss}")
+    check(rec["xla_train_launches"] == launch_counts(
+        kernels, {**COMPLEX_TRAIN_LAUNCHES, **AMP_TRAIN_GELU}) and at_one_pass(kernels),
+          f"AMP 'xla' train step launches {rec['xla_train_launches']}")
+    rec["xla_train_loss"] = loss
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(inp, tar, None, None, 1e-3)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    rec["xla_train_step_ms"] = statistics.median(times)
+    rec["xla_train_step_ms_all"] = times
+    del trainer, inp, tar
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--record", type=Path, help="write every measurement to this JSON file")
@@ -856,6 +1160,12 @@ def main(argv=None):
           f"{adam['max_abs_err']}) | - | {adam['ms']:.4f} | {adam['plain_ms']:.4f} | "
           f"{adam['library_ms']:.4f} (torch fused Adam, f32 moments) | {adam['bound_ms']:.4f} "
           f"({adam['bound_by']})", flush=True)
+    gelu_rows = phase_gelu(torch, dev, gen)
+    record["gelu_kernels"] = gelu_rows
+    for r in gelu_rows:
+        print(f"  {r['name']} | {r['shape']} | - | bit-identical | - | {r['ms']:.4f} | "
+              f"{r['plain_ms']:.4f} | {r['library_ms']:.4f} (PyTorch's fused GELU, rounded "
+              f"once) | {r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
 
     # phase 4: full-width forward, kernels vs twins; small SFNO card vs CPU
     model.eval()
@@ -881,6 +1191,8 @@ def main(argv=None):
     fwd_err = rel_err(y_kernel, y_plain.double())
     check(bool(torch.isfinite(y_kernel).all()), "forward output not finite")
     check(fwd_err < FORWARD_TOL, f"forward kernels vs twins: {fwd_err}")
+    # phase 9 holds the AMP forward against this one, on the same input
+    x_host, y_f32 = x.cpu(), y_kernel.cpu()
     del y_kernel, y_plain
     small_err = phase_small(torch, dev)
     record.update(forward_ms=fwd_ms, forward_plain_ms=fwd_plain_ms, forward_rel_err=fwd_err,
@@ -995,6 +1307,51 @@ def main(argv=None):
           f"{tools['kernel_isolate_s']:.1f} s; nine PASS; launches {tools['launches']}",
           flush=True)
 
+    # phase 9: bf16 AMP at full width. cuBLAS may reduce bf16 products in
+    # bf16 unless told not to; makani_tpu accumulates them in float32
+    settings = (sht.get_coeff_engine(), sht.get_transform_precision(),
+                complex_ops.get_contraction_precision(), complex_ops._USE_PALLAS_DHCONV,
+                torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        amp = phase_amp(torch, np, sht, complex_ops, kernels, dev, x_host, y_f32)
+    finally:
+        sht.set_coeff_engine(settings[0])
+        sht.set_transform_precision(settings[1])
+        complex_ops.set_contraction_precision(settings[2])
+        complex_ops.enable_pallas_kernels(settings[3])
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = settings[4]
+    del x_host, y_f32
+    record["amp"] = amp
+    print(f"[amp forward] bf16 AMP, precision 'default' (1 bf16 pass), bf16 reduced-precision "
+          f"reductions off: {amp['forward_ms']:.1f} ms (float32, phase 4: {fwd_ms:.1f} ms); "
+          f"norm-wise deviation vs the twins {amp['forward_dev_twin']:.3g} (the twins' from "
+          f"float32 {amp['twin_dev_f32']:.3g}), vs phase 4's float32 forward "
+          f"{amp['forward_dev_f32']:.3g} (largest element {amp['forward_rel_err_f32']:.3g}); "
+          f"launches {amp['launches_per_forward']}", flush=True)
+    print(f"[amp kernel calls] each call of the AMP forward against its twin on its inputs, "
+          f"largest relative error {amp['call_rel_err_twin']} over {amp['calls_checked']} "
+          f"calls", flush=True)
+    print("[amp blocks] each block and the decoder on the kernels' own input, kernels vs twins "
+          "(the twins' AMP vs float32): " + "; ".join(
+              f"{d:.3g} ({f:.3g}, {d / f:.3f})"
+              for d, f in zip(amp["block_dev_twin"], amp["block_dev_f32"])), flush=True)
+    print(f"[amp rollout] {ROLLOUT_STEPS} steps at batch 1: {amp['step_ms']:.1f} ms per step, "
+          f"median of {ROLLOUT_REPS} warm rollouts "
+          f"({', '.join(f'{t:.1f}' for t in amp['step_ms_all'])}); peak device memory "
+          f"{amp['peak_bytes'] / 2**30:.2f} GiB; launches {amp['rollout_launches']}", flush=True)
+    print(f"[amp train] losses {amp['train_losses']}; train step {amp['train_step_ms']:.1f} ms "
+          f"(median of {amp['train_step_ms_all']}; float32, phase 6: "
+          f"{train['train_step_ms']:.1f} ms); peak device memory "
+          f"{amp['train_peak_bytes'] / 2**30:.2f} GiB; launches per step "
+          f"{amp['train_launches_per_step']}, all at 1 pass", flush=True)
+    print(f"[amp xla] the 'xla' engine with its kernel: forward {amp['xla_forward_ms']:.1f} ms, "
+          f"deviation vs float32 {amp['xla_forward_dev_f32']:.3g}, launches "
+          f"{amp['xla_launches_per_forward']}; train step {amp['xla_train_step_ms']:.1f} ms "
+          f"(median of {amp['xla_train_step_ms_all']} after the counted one, loss "
+          f"{amp['xla_train_loss']:.6g}, launches {amp['xla_train_launches']})",
+          flush=True)
+
     # results
     if args.record is not None:
         args.record.parent.mkdir(parents=True, exist_ok=True)
@@ -1012,6 +1369,8 @@ def main(argv=None):
                "fused_adam": ("makani_tpu_torch/csrc/fused_adam.cu",
                               "makani_tpu/ops/pallas_adam.py:124")}
     kernels = []
+    # *_amp: the same counts on phase 9's AMP path, where every pass-taking
+    # launch ran at 1 pass (the "xla" engine's kernel: over its one train step)
     for name, (label, passes) in main_rows.items():
         r = next(r for r in rows if r["name"] == name and r["passes"] == passes
                  and (label is None or r["shape"].startswith(label)))
@@ -1020,6 +1379,9 @@ def main(argv=None):
             launches=train["train_launches"][name],
             launches_per_train_step=train["train_launches_per_step"][name],
             launches_rollout=launches[name],
+            launches_amp=amp["train_launches"][name],
+            launches_per_train_step_amp=amp["train_launches_per_step"][name],
+            launches_rollout_amp=amp["rollout_launches"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             shape=r["shape"], passes=passes))
@@ -1032,6 +1394,9 @@ def main(argv=None):
         launches=cplx["train_launches"]["dhconv_complex"],
         launches_per_train_step=cplx["train_launches_per_step"]["dhconv_complex"],
         launches_rollout=cplx["rollout_launches"]["dhconv_complex"],
+        launches_amp=amp["xla_train_launches"]["dhconv_complex"],
+        launches_per_train_step_amp=amp["xla_train_launches"]["dhconv_complex"],
+        launches_rollout_amp=0,
         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
         shape=r["shape"], passes=3))
@@ -1053,10 +1418,25 @@ def main(argv=None):
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=tools["launches"][name], launches_per_train_step=0, launches_rollout=0,
+            launches_amp=0, launches_per_train_step_amp=0, launches_rollout_amp=0,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             shape=r["shape"], passes=r["passes"],
             **{k: r[k] for k in ("device_ms", "library_device_ms") if k in r}))
+    # the bf16 GELU kernels run on phase 9's AMP path alone: launches over
+    # its training epoch; times from phase 3
+    for r in gelu_rows:
+        kernels.append(dict(
+            name=r["name"], route="cuda", source="makani_tpu_torch/csrc/gelu.cu",
+            replaces="makani_tpu/models/common/activations.py:48",
+            launches=amp["train_launches"][r["name"]],
+            launches_per_train_step=amp["train_launches_per_step"][r["name"]],
+            launches_rollout=0, launches_amp=amp["train_launches"][r["name"]],
+            launches_per_train_step_amp=amp["train_launches_per_step"][r["name"]],
+            launches_rollout_amp=amp["rollout_launches"][r["name"]],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+            shape=r["shape"], passes=None))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

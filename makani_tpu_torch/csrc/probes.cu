@@ -21,11 +21,12 @@
 //
 // Design: the float32 dot probes give one thread to each output element,
 // which sums over the contraction with fused multiply-adds in order of c.
-// probe_grid_blocks and probe_stacked_output share one body, gridded_kernel
-// (below): the (b, l) work spread over many blocks, the operands staged in
-// shared memory once a block, r and -r stored from the same registers.
-// probe_multi_output still gives one block to each (b, l), as the Pallas grid
-// (B, L, 1) does. probe_bf16_split goes through split_mma.cuh: one warp per
+// probe_grid_blocks, probe_stacked_output and probe_multi_output share one
+// body, gridded_kernel (below): the (b, l) work spread over many blocks, the
+// operands staged in shared memory once a block, r and -r stored from the
+// same registers (stacked_output: -r in plane 1 of its output;
+// multi_output: in its second output). probe_bf16_split goes through
+// split_mma.cuh: one warp per
 // 16 x 16 output tile splits both operands into bf16 hi/lo in shared memory
 // (zero beyond the edges) and keeps hh, hl and lh in three WMMA accumulators,
 // added once as (hh + hl) + lh, the probe's left-to-right order.
@@ -69,16 +70,6 @@ __global__ void probe_dot_transposed_kernel(const float* __restrict__ a,
   if (i < O * M) out[i] = dot_om(a, 1, O, b, C, M, i / M, i % M);
 }
 
-// x (B, L, C, M), w (L, C, O): element i = o * M + m of r[b, l] = w[l]^T x[b, l],
-// for the block's (b, l) = (blockIdx.x, blockIdx.y)
-__device__ __forceinline__ float blocks_r(const float* __restrict__ x,
-                                          const float* __restrict__ w, int L, int C, int O, int M,
-                                          int i) {
-  const int b = blockIdx.x, l = blockIdx.y;
-  return dot_om(w + (long long)l * C * O, 1, O, x + ((long long)b * L + l) * C * M, C, M, i / M,
-                i % M);
-}
-
 // The gridded product r[b, l] = w[l]^T x[b, l], x (B, L, C, M), w (L, C, O),
 // r (B, L, O, M). One block a (b, l, O tile, M tile), the grid flattened
 // (M tiles fastest). A block stages its window of x (CK x TM) and its
@@ -103,7 +94,8 @@ constexpr int WL = (CK * OB + NT - 1) / NT;  // w loads a thread a chunk
 static_assert(CK * TM % NT == 0, "x chunk not a whole number of loads a thread");
 }  // namespace gridded
 
-// NEG: also store -r at neg (stacked_output: plane 1 of its output)
+// NEG: also store -r at neg (stacked_output: plane 1 of its output;
+// multi_output: its second output)
 template <bool NEG>
 __global__ void __launch_bounds__(gridded::NT)
 gridded_kernel(const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ out,
@@ -156,18 +148,6 @@ gridded_kernel(const float* __restrict__ x, const float* __restrict__ w, float* 
       out[i] = acc[j];
       if constexpr (NEG) neg[i] = -acc[j];
     }
-  }
-}
-
-// out1 = r, out2 = -r, each (B, L, O, M)
-__global__ void probe_multi_output_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                                          float* __restrict__ out1, float* __restrict__ out2, int L,
-                                          int C, int O, int M) {
-  const long long off = ((long long)blockIdx.x * L + blockIdx.y) * O * M;
-  for (int i = threadIdx.x; i < O * M; i += THREADS) {
-    const float r = blocks_r(x, w, L, C, O, M, i);
-    out1[off + i] = r;
-    out2[off + i] = -r;
   }
 }
 
@@ -270,12 +250,10 @@ extern "C" int probe_stacked_output_launch(const void* x, const void* w, void* o
   return launch_gridded<true>(x, w, r, r + (long long)b * l * o * m, b, l, c, o, m, stream);
 }
 
+// out1 = r, out2 = -r, each (B, L, O, M)
 extern "C" int probe_multi_output_launch(const void* x, const void* w, void* out1, void* out2,
                                          int b, int l, int c, int o, int m, void* stream) {
-  probe_multi_output_kernel<<<dim3(b, l), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(out1),
-      static_cast<float*>(out2), l, c, o, m);
-  return done();
+  return launch_gridded<true>(x, w, out1, out2, b, l, c, o, m, stream);
 }
 
 // a (c, o), b (c, m), out (o, m)

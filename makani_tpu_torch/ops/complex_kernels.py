@@ -16,8 +16,10 @@ strides and its conjugate bit, into a prepared copy in scratch once a call.
   contract_dhconv_plain   the plain PyTorch twin: the same splits, products
                           and sums in the same order, on any device
   contract_dhconv_raw     the raw wrapper: launches the kernel on CUDA
-                          tensors, runs the twin on CPU tensors, carries no
-                          gradient and refuses inputs that require one
+                          tensors (no launch where there is nothing to
+                          compute: an empty output, or zeros for C = 0), runs
+                          the twin on CPU tensors, carries no gradient and
+                          refuses inputs that require one
   contract_dhconv_kernel  the differentiable wrapper (the custom VJP of
                           contract_dhconv_pallas), a torch.autograd.Function
 
@@ -35,7 +37,7 @@ outside the kernel.
 import torch
 from torch.autograd.function import once_differentiable
 
-from makani_tpu_torch.ops.kernels import dispatch, launcher, launches, raise_on
+from makani_tpu_torch.ops.kernels import count_launch, dispatch, launcher, no_work, raise_on
 from makani_tpu_torch.ops.spectral_mm import dhconv_weight_scratch, no_grad_through, split_bf16
 
 _WRAPPER = "complex_kernels.contract_dhconv_kernel"
@@ -97,6 +99,9 @@ def contract_dhconv_raw(x, w, passes=3):
         raise ValueError(f"tensors on different devices: {w.device} vs {x.device}")
     # the kernel reads memory: x's lazy conjugation or strides would be read
     # as the plain values of the underlying storage; w's are passed to it
+    out = no_work((B, O, L, M), C, x.device, torch.complex64)
+    if out is not None:
+        return out
     x = x.resolve_conj().contiguous()
     w = w.resolve_neg()
     if max(abs(s) for s in w.stride()) >= 2**31:
@@ -109,7 +114,7 @@ def contract_dhconv_raw(x, w, passes=3):
                     *w.stride(), int(w.is_conj()), passes,
                     torch.cuda.current_stream().cuda_stream)
     raise_on(rc, "dhconv_complex")
-    launches["dhconv_complex"] += 1
+    count_launch("dhconv_complex", passes)
     return out
 
 

@@ -196,7 +196,7 @@ def _leaf_kernel(key, p, g, mu, nu, lr, bc1, bc2, b1, b2, eps, wd, salts, stocha
                     shape[1], shape[2], shape[3], *strides, *scalars,
                     salts[0], salts[1], kind, torch.cuda.current_stream().cuda_stream)
     kernels.raise_on(rc, "fused_adam")
-    kernels.launches["fused_adam"] += 1
+    kernels.count_launch("fused_adam")
 
 
 def _apply(leaf_fn, params, grads, state, lr, b1, b2, eps, weight_decay, stochastic_rounding,

@@ -3,17 +3,25 @@
 Every kernel has a plain C launcher (`<name>_launch`, returning
 cudaGetLastError()) in a CUDA C++ source in makani_tpu_torch/csrc/ for sm_90a,
 loaded with ctypes; one source may hold several kernels (gridmm.cu holds
-gridmm and grid_dot, probes.cu the seven probes). `build()` compiles the
+gridmm and grid_dot, probes.cu the seven probes, gelu.cu the bf16 GELU and its
+gradient). `build()` compiles the
 sources with nvcc at first use into build/kernels/ at the root of the
 checkout, one nvcc per source, all started together. `launches` counts kernel
 launches per wrapper: each wrapper adds one where it launches its kernel, and
-callers reset and read the counts around a run.
+callers reset and read the counts around a run. `launches_by_passes` counts
+the launches of the kernels that take a bf16 pass count by (kernel, passes),
+so a run can show at which accuracy point its kernels ran. A call with
+nothing to compute (`no_work`) launches nothing and counts nothing.
 """
 
+import collections
 import ctypes
+import math
 import os
 import subprocess
 from pathlib import Path
+
+import torch
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -23,11 +31,13 @@ PROBES = ("probe_copy", "probe_dot_plain", "probe_dot_transposed", "probe_grid_b
 _SOURCES = {"legmm": "legmm.cu", "dhconv_mm": "dhconv_mm.cu", "dhconv_dw": "dhconv_dw.cu",
             "fused_adam": "fused_adam.cu", "dhconv_complex": "dhconv_complex.cu",
             "gridmm": "gridmm.cu", "grid_dot": "gridmm.cu",
+            "gelu_bf16": "gelu.cu", "gelu_bf16_grad": "gelu.cu",
             **{name: "probes.cu" for name in PROBES}}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 launches = {name: 0 for name in _SOURCES}
+launches_by_passes = collections.Counter()
 
 _libs = {}
 
@@ -35,6 +45,15 @@ _libs = {}
 def reset_launches():
     for k in launches:
         launches[k] = 0
+    launches_by_passes.clear()
+
+
+def count_launch(name, passes=None):
+    """One launch of kernel `name` (at `passes` bf16 passes, where it takes a
+    pass count); each wrapper calls it where it launches its kernel."""
+    launches[name] += 1
+    if passes is not None:
+        launches_by_passes[name, passes] += 1
 
 
 def _nvcc():
@@ -92,6 +111,10 @@ def _declare(name, lib):
         "gridmm": [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp],
         # x, th, tl, scratch, out, r, k, n, x_bf16, out_bf16, stream
         "grid_dot": [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp],
+        # x, y, n, stream
+        "gelu_bf16": [vp, vp, ci, vp],
+        # x, g, dx, n, stream
+        "gelu_bf16_grad": [vp, vp, vp, ci, vp],
         # x, out, n, stream
         "probe_copy": [vp, vp, ci, vp],
         # a, b, out, o, c, m, stream
@@ -118,6 +141,19 @@ def launcher(name):
 def raise_on(rc, name):
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def no_work(shape, depth, device, dtype=torch.float32):
+    """The output of a kernel call that has nothing to compute, made without
+    a launch: an empty tensor of `shape` when it has no element, zeros when
+    only the contraction length `depth` is 0 (an empty sum); None when the
+    kernel has work. Every wrapper asks before it calls its launcher, so no
+    launcher is reached with an empty grid."""
+    if math.prod(shape) == 0:
+        return torch.empty(shape, device=device, dtype=dtype)
+    if depth == 0:
+        return torch.zeros(shape, device=device, dtype=dtype)
+    return None
 
 
 def dispatch(x):

@@ -29,13 +29,16 @@ to.
 Each wrapper runs its kernel on a CUDA tensor or raises; on a CPU tensor it
 runs the plain PyTorch twin (`legmm_plain`, `dhconv_mm_plain`,
 `dhconv_dw_plain`, `gridmm_plain`), which repeats the kernel's arithmetic.
-ops/kernels.py builds the kernels and counts their launches.
+On a CUDA tensor with nothing to compute (an empty output, or a contraction
+of length 0) a wrapper returns the empty output or zeros, as the twin does,
+without a launch (kernels.no_work). ops/kernels.py builds the kernels and
+counts their launches.
 """
 
 import torch
 from torch.autograd.function import once_differentiable
 
-from makani_tpu_torch.ops.kernels import dispatch, launcher, launches, raise_on
+from makani_tpu_torch.ops.kernels import count_launch, dispatch, launcher, no_work, raise_on
 
 
 def _check_cuda(*tensors):
@@ -89,9 +92,9 @@ def _mp_matmul(a, b, passes):
 def _legmm_shapes(z, p, contract):
     if contract not in ("k", "l"):
         raise ValueError(f"contract must be 'k' or 'l', got {contract!r}")
-    if z.ndim != 3 or p.ndim != 3 or z.shape[0] < 1:
-        raise ValueError(f"expected z (M2, C, D) and p (mmax, L, K), got {tuple(z.shape)} and "
-                         f"{tuple(p.shape)}")
+    if z.ndim != 3 or p.ndim != 3 or z.shape[0] < 1 or p.shape[0] < 1:
+        raise ValueError(f"expected z (M2, C, D) and p (mmax, L, K), M2 and mmax >= 1, got "
+                         f"{tuple(z.shape)} and {tuple(p.shape)}")
     M2, C, D = z.shape
     mmax, L, K = p.shape
     if D != (K if contract == "k" else L):
@@ -126,14 +129,17 @@ def legmm(z, p, passes=3, contract="k"):
     _check_cuda(z, p)
     if passes not in (1, 2, 3):
         raise ValueError(f"passes must be 1, 2 or 3, got {passes}")
-    out = torch.empty((M2, C, L if contract == "k" else K), device=z.device,
-                      dtype=torch.float32)
+    shape = (M2, C, L if contract == "k" else K)
+    out = no_work(shape, K if contract == "k" else L, z.device)
+    if out is not None:
+        return out
+    out = torch.empty(shape, device=z.device, dtype=torch.float32)
     launch = launcher("legmm")
     with torch.cuda.device(z.device):
         rc = launch(z.data_ptr(), p.data_ptr(), out.data_ptr(), M2, mmax, C, L, K,
                     int(contract == "k"), passes, torch.cuda.current_stream().cuda_stream)
     raise_on(rc, "legmm")
-    launches["legmm"] += 1
+    count_launch("legmm", passes)
     return out
 
 
@@ -198,6 +204,9 @@ def dhconv_mm(x, w, passes=3, m3=True, wdim=0, conj_w=False):
     if passes not in (1, 2, 3):
         raise ValueError(f"passes must be 1, 2 or 3, got {passes}")
     ci, co = (C, O) if wdim == 0 else (O, C)
+    out = no_work((2, B, L, co, M), ci, x.device)
+    if out is not None:
+        return out
     out = torch.empty((2, B, L, co, M), device=x.device, dtype=torch.float32)
     scratch = dhconv_weight_scratch(L, ci, co, 3 if m3 else 2, 2 if passes == 3 else 1, x.device)
     launch = launcher("dhconv_mm")
@@ -205,7 +214,7 @@ def dhconv_mm(x, w, passes=3, m3=True, wdim=0, conj_w=False):
         rc = launch(x.data_ptr(), w.data_ptr(), scratch.data_ptr(), out.data_ptr(), B, L, C, O, M,
                     wdim, int(conj_w), int(m3), passes, torch.cuda.current_stream().cuda_stream)
     raise_on(rc, "dhconv_mm")
-    launches["dhconv_mm"] += 1
+    count_launch("dhconv_mm", passes)
     return out
 
 
@@ -223,7 +232,9 @@ def dhconv_dw_plain(x, g, passes=3, m3=True):
     """Plain twin of `dhconv_dw`: the per-b products of _dhconv_dw_kernel,
     summed over b in order."""
     no_grad_through("dhconv_dw_plain", "spectral_mm.dhconv", x, g)
-    B = _dhconv_dw_shapes(x, g)[0]
+    B, L, C, O, _ = _dhconv_dw_shapes(x, g)
+    if B == 0:
+        return x.new_zeros((2, L, C, O))  # an empty sum over b
 
     def mp(a, b):
         # x (L, C, M) as the first operand, contracted with g (L, O, M) over M
@@ -252,13 +263,16 @@ def dhconv_dw(x, g, passes=3, m3=True):
     _check_cuda(x, g)
     if passes not in (1, 2, 3):
         raise ValueError(f"passes must be 1, 2 or 3, got {passes}")
+    out = no_work((2, L, C, O), B * M, x.device)
+    if out is not None:
+        return out
     out = torch.empty((2, L, C, O), device=x.device, dtype=torch.float32)
     launch = launcher("dhconv_dw")
     with torch.cuda.device(x.device):
         rc = launch(x.data_ptr(), g.data_ptr(), out.data_ptr(), B, L, C, O, M, int(m3), passes,
                     torch.cuda.current_stream().cuda_stream)
     raise_on(rc, "dhconv_dw")
-    launches["dhconv_dw"] += 1
+    count_launch("dhconv_dw", passes)
     return out
 
 
@@ -312,6 +326,9 @@ def gridmm(x, t, passes=3, out_dtype=torch.float32):
     if not (x.is_contiguous() and t.is_contiguous()):
         raise ValueError("kernel takes contiguous tensors")
     (R, K), N = x.shape, t.shape[1]
+    out = no_work((R, N), K, x.device, out_dtype)
+    if out is not None:
+        return out
     out = torch.empty((R, N), device=x.device, dtype=out_dtype)
     scratch = grid_table_scratch(K, N, 2 if passes >= 2 else 1, x.device)
     launch = launcher("gridmm")
@@ -320,7 +337,7 @@ def gridmm(x, t, passes=3, out_dtype=torch.float32):
                     int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), passes,
                     torch.cuda.current_stream().cuda_stream)
     raise_on(rc, "gridmm")
-    launches["gridmm"] += 1
+    count_launch("gridmm", passes)
     return out
 
 

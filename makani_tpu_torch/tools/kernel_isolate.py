@@ -15,7 +15,9 @@ FAIL and the battery goes on. `main` returns 1 if any case failed.
 
 Each probe has a wrapper that launches its kernel on CUDA tensors (counted in
 kernels.launches["probe_<name>"]) and runs its twin, `<name>_plain`, on CPU
-tensors (device="cpu", as the tests run it).
+tensors (device="cpu", as the tests run it). On a CUDA tensor with nothing to
+compute (an empty output, or a contraction of length 0) a wrapper returns the
+empty output or zeros, as the twin does, without a launch.
 """
 
 import argparse
@@ -26,7 +28,14 @@ import numpy as np
 import torch
 
 from makani_tpu_torch.ops import complex_kernels
-from makani_tpu_torch.ops.kernels import BUILD_DIR, dispatch, launcher, launches, raise_on
+from makani_tpu_torch.ops.kernels import (
+    BUILD_DIR,
+    count_launch,
+    dispatch,
+    launcher,
+    no_work,
+    raise_on,
+)
 from makani_tpu_torch.ops.spectral_mm import split_bf16
 from makani_tpu_torch.utils.device import resolve_device
 
@@ -43,18 +52,25 @@ discarded_sessions = 0
 SPIN_CYCLES = 1000
 
 
-def _launch(name, inputs, outputs, *dims):
-    """Launches probe `name` on contiguous float32 CUDA tensors."""
+def _launch(name, inputs, shapes, *dims, depth=1):
+    """Launches probe `name` on contiguous float32 CUDA tensors and returns
+    its float32 outputs, one of each shape in `shapes`. A call with nothing to
+    compute (kernels.no_work: the outputs empty, or a contraction of length
+    `depth` 0) returns them without a launch or a count."""
     dev = inputs[0].device
-    for t in (*inputs, *outputs):
+    for t in inputs:
         if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} takes contiguous float32 tensors on one device")
-    launch = launcher(name)
+    outputs = [no_work(s, depth, dev) for s in shapes]
+    if all(t is not None for t in outputs):
+        return outputs
+    outputs = [torch.empty(s, device=dev, dtype=torch.float32) for s in shapes]
     with torch.cuda.device(dev):
-        rc = launch(*(t.data_ptr() for t in (*inputs, *outputs)), *dims,
-                    torch.cuda.current_stream().cuda_stream)
+        rc = launcher(name)(*(t.data_ptr() for t in (*inputs, *outputs)), *dims,
+                            torch.cuda.current_stream().cuda_stream)
     raise_on(rc, name)
-    launches[name] += 1
+    count_launch(name)
+    return outputs
 
 
 def _dot_shapes(a, b, transposed):
@@ -118,16 +134,12 @@ def bf16_split_plain(a, b):
 def probe_copy(x):
     if not dispatch(x):
         return copy_plain(x)
-    out = torch.empty_like(x)
-    _launch("probe_copy", (x,), (out,), x.numel())
-    return out
+    return _launch("probe_copy", (x,), [x.shape], x.numel())[0]
 
 
 def _dot(name, a, b, transposed):
     o, c, m = _dot_shapes(a, b, transposed)
-    out = torch.empty((o, m), device=a.device, dtype=torch.float32)
-    _launch(name, (a, b), (out,), o, c, m)
-    return out
+    return _launch(name, (a, b), [(o, m)], o, c, m, depth=c)[0]
 
 
 def probe_dot_plain(a, b):
@@ -152,27 +164,23 @@ def probe_grid_blocks(x, w):
     if not dispatch(x):
         return grid_blocks_plain(x, w)
     b, l, c, o, m = _block_shapes(x, w)
-    out = torch.empty((b, l, o, m), device=x.device, dtype=torch.float32)
-    _launch("probe_grid_blocks", (x, w), (out,), b, l, c, o, m)
-    return out
+    return _launch("probe_grid_blocks", (x, w), [(b, l, o, m)], b, l, c, o, m, depth=c)[0]
 
 
 def probe_stacked_output(x, w):
     if not dispatch(x):
         return stacked_output_plain(x, w)
     b, l, c, o, m = _block_shapes(x, w)
-    out = torch.empty((2, b, l, o, m), device=x.device, dtype=torch.float32)
-    _launch("probe_stacked_output", (x, w), (out,), b, l, c, o, m)
-    return out
+    return _launch("probe_stacked_output", (x, w), [(2, b, l, o, m)], b, l, c, o, m,
+                   depth=c)[0]
 
 
 def probe_multi_output(x, w):
     if not dispatch(x):
         return multi_output_plain(x, w)
     b, l, c, o, m = _block_shapes(x, w)
-    out1, out2 = (torch.empty((b, l, o, m), device=x.device, dtype=torch.float32)
-                  for _ in range(2))
-    _launch("probe_multi_output", (x, w), (out1, out2), b, l, c, o, m)
+    out1, out2 = _launch("probe_multi_output", (x, w), [(b, l, o, m)] * 2, b, l, c, o, m,
+                         depth=c)
     return out1, out2
 
 
@@ -236,10 +244,12 @@ def case_inputs(shapes, seed, dev):
 
 def rel_err(got, want):
     """Largest difference relative to the largest magnitude of `want` (0 for
-    empty tensors)."""
+    empty tensors; the largest difference itself when `want` is all zeros)."""
     if want.numel() == 0:
         return 0.0
-    return float((got.double() - want.double()).abs().max() / want.abs().max())
+    diff = float((got.double() - want.double()).abs().max())
+    scale = float(want.abs().max())
+    return diff / scale if scale > 0 else diff
 
 
 def _device_records(fn, reps):

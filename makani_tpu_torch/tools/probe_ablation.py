@@ -1,4 +1,5 @@
-"""Where the device time of the gridded probes goes on the card, and how they
+"""Where the device time of the gridded probes (probe_grid_blocks,
+probe_stacked_output, probe_multi_output) goes on the card, and how they
 compare with another tree's: csrc/probes.cu rebuilt with parts of
 gridded_kernel switched off or its tile changed, timed at
 scripts/pallas_isolate.py's shapes (B = 2, L = 4, C = O = 16, M = 128).
@@ -8,7 +9,8 @@ scripts/pallas_isolate.py's shapes (B = 2, L = 4, C = O = 16, M = 128).
 Variants, each a text edit of csrc/probes.cu built with nvcc into
 build/kernels/ablation_probes/, all nvcc started together; ptxas's registers
 and spill stores are printed for each instantiation of gridded_kernel
-(<false>, grid_blocks, mangled ILb0E; <true>, stacked_output, ILb1E):
+(<false>, grid_blocks, mangled ILb0E; <true>, stacked_output and
+multi_output, ILb1E):
 
   kernel       the kernel as it is
   no_store     r and -r not stored (a test on the sums that never holds
@@ -46,7 +48,7 @@ from makani_tpu_torch.ops import kernels
 from makani_tpu_torch.tools import _ablation, kernel_isolate
 
 SOURCES = ("probes.cu", "split_mma.cuh")
-PROBES = ("probe_grid_blocks", "probe_stacked_output")
+PROBES = ("probe_grid_blocks", "probe_stacked_output", "probe_multi_output")
 ROUNDS = 3
 _STORES = "      out[i] = acc[j];\n      if constexpr (NEG) neg[i] = -acc[j];"
 _TILE = {k: f"constexpr int {k} = {v};" for k, v in (("TM", 32), ("OT", 2), ("OG", 8), ("CK", 16))}
@@ -96,18 +98,25 @@ def build_variants(parent=None):
     return launchers
 
 
-def _call(launch, name, x, w, out):
+def _call(launch, name, x, w, outs):
     b, l, c, m = x.shape
-    rc = launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), b, l, c, w.shape[2], m,
-                torch.cuda.current_stream().cuda_stream)
+    rc = launch(x.data_ptr(), w.data_ptr(), *(o.data_ptr() for o in outs), b, l, c, w.shape[2],
+                m, torch.cuda.current_stream().cuda_stream)
     kernels.raise_on(rc, name)
 
 
+def _as_tuple(t):
+    return t if isinstance(t, tuple) else (t,)
+
+
 def _outputs(x, w):
+    """Each probe's outputs, a tuple."""
     b, l, _, m = x.shape
     o = w.shape[2]
-    return {"probe_grid_blocks": torch.empty((b, l, o, m), device=x.device),
-            "probe_stacked_output": torch.empty((2, b, l, o, m), device=x.device)}
+    return {"probe_grid_blocks": (torch.empty((b, l, o, m), device=x.device),),
+            "probe_stacked_output": (torch.empty((2, b, l, o, m), device=x.device),),
+            "probe_multi_output": tuple(torch.empty((b, l, o, m), device=x.device)
+                                        for _ in range(2))}
 
 
 def check_bits(launchers, dev):
@@ -115,7 +124,8 @@ def check_bits(launchers, dev):
     "kernel" agrees with the twins; prints one line a shape."""
     ref = "parent" if "parent" in launchers else "kernel"
     twins = {"probe_grid_blocks": kernel_isolate.grid_blocks_plain,
-             "probe_stacked_output": kernel_isolate.stacked_output_plain}
+             "probe_stacked_output": kernel_isolate.stacked_output_plain,
+             "probe_multi_output": kernel_isolate.multi_output_plain}
     ok = True
     for shapes in (SCRIPT, RAGGED):
         x, w = kernel_isolate.case_inputs(shapes, 3, dev)
@@ -123,13 +133,16 @@ def check_bits(launchers, dev):
         for variant in (v for v in COMPUTING if v in launchers):
             outs = _outputs(x, w)
             for name, out in outs.items():
-                out.fill_(float("nan"))
+                for t in out:
+                    t.fill_(float("nan"))
                 _call(launchers[variant][name], f"{name} {variant}", x, w, out)
             got[variant] = outs
         torch.cuda.synchronize()
-        same = {v: all(torch.equal(o.view(torch.int32), got[ref][n].view(torch.int32))
-                       for n, o in outs.items()) for v, outs in got.items()}
-        err = max(kernel_isolate.rel_err(got["kernel"][n], twin(x, w)) for n, twin in twins.items())
+        same = {v: all(torch.equal(t.view(torch.int32), r.view(torch.int32))
+                       for n, out in outs.items() for t, r in zip(out, got[ref][n], strict=True))
+                for v, outs in got.items()}
+        err = max(kernel_isolate.rel_err(t, r) for n, twin in twins.items()
+                  for t, r in zip(got["kernel"][n], _as_tuple(twin(x, w)), strict=True))
         ok &= all(same.values()) and err < kernel_isolate.TWIN_TOL
         print(f"bits x{tuple(x.shape)} w{tuple(w.shape)}: "
               + ", ".join(f"{v} {'=' if s else '!='} {ref}" for v, s in same.items())

@@ -2,21 +2,22 @@
 the GPU.
 
     python3 -m makani_tpu_torch.tools.profile_forward [--train] [--engine kernel|xla]
-                                                      [--top 15] [--trace PATH]
+                                                      [--amp] [--top 15] [--trace PATH]
 
 Builds flagship_synth_drive_bare at full width (random weights from a seed),
 warms up, then runs one forward (or, with --train, one step of the Trainer on
 a resident synthetic batch: forward, backward and the fused Adam update, at
 checkpointing 0) under torch.profiler (CPU and CUDA activities), on the
 "kernel" coefficient engine or, with --engine xla, on the complex engine with
-the complex dhconv kernel on. From the
+the complex dhconv kernel on; --amp runs it under bf16 AMP (amp_mode "bf16",
+precision "default": a bf16 input, 1 bf16 pass in the kernels). From the
 Chrome trace it prints the wall time, the device's busy time (the union of
 kernel, copy and set intervals) and its share of the wall, the device time by
 phase (with --train: the kernels inside the step's forward and optimizer
 ranges, the rest is backward) and by category (the port's kernels by name,
 cuBLAS products by the operator that launched them, those launched inside an
-einsum apart, copies, and the rest: elementwise and reductions), then
-PyTorch's table by operator and
+einsum apart, copies, and the rest: elementwise and reductions), the peak
+device memory of the profiled run, then PyTorch's table by operator and
 kernel. --trace PATH keeps the trace at PATH (default
 build/profile_trace.json).
 """
@@ -35,7 +36,8 @@ ROOT = Path(__file__).resolve().parents[2]
 # with prep_weight first)
 _OWN = {"legmm_kernel": "legmm", "dhconv_dw_kernel": "dhconv_dw",
         "fused_adam_kernel": "fused_adam", "dhconv_gemm<false": "dhconv_mm",
-        "dhconv_gemm<true": "dhconv_complex", "prep_weight": "dhconv weight prep"}
+        "dhconv_gemm<true": "dhconv_complex", "prep_weight": "dhconv weight prep",
+        "gelu_bf16_kernel": "gelu_bf16", "gelu_bf16_grad_kernel": "gelu_bf16_grad"}
 _EINSUM = "einsums (cuBLAS): the complex engine's Legendre contractions and dhconv dw"
 _GEMM_OPS = {"aten::bmm": "1x1 channel mixes (cuBLAS bmm)",
              "aten::mm": "longitude DFT (cuBLAS mm)", "aten::addmm": "longitude DFT (cuBLAS mm)"}
@@ -48,8 +50,9 @@ def _category(event, ops, einsums):
             return label
     if event["cat"] != "kernel":
         return "copies and sets"
-    if "gemm" in name:
-        op = ops.get(event["args"].get("External id"))
+    op = ops.get(event["args"].get("External id"))
+    # a bf16 product's kernel may not say gemm; its operator does
+    if "gemm" in name or (op is not None and op["name"] in _GEMM_OPS):
         if op is None:
             return "other cuBLAS (no operator)"
         if any(a <= op["ts"] <= b for a, b in einsums):
@@ -94,6 +97,7 @@ def main(argv=None):
     ap.add_argument("--train", action="store_true", help="profile one train step")
     ap.add_argument("--engine", choices=("kernel", "xla"), default="kernel",
                     help="coefficient engine; xla runs with the complex dhconv kernel on")
+    ap.add_argument("--amp", action="store_true", help="bf16 AMP at precision 'default'")
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--trace", type=Path, help="write the Chrome trace to this file")
     args = ap.parse_args(argv)
@@ -122,7 +126,8 @@ def main(argv=None):
         params.update_params(dict(enable_synthetic_data=True, n_train_samples_per_epoch=1,
                                   optimizer_fused=True, skip_validation=True,
                                   save_checkpoint="none", checkpointing=0,
-                                  coefficient_engine=args.engine))
+                                  coefficient_engine=args.engine,
+                                  amp_mode="bf16" if args.amp else "none"))
         trainer = Trainer(params, device=dev)
         inp = torch.randn((1, params.N_in_channels, 721, 1440), device=dev, generator=gen)
         tar = torch.randn((1, params.N_out_channels, 721, 1440), device=dev, generator=gen)
@@ -132,6 +137,10 @@ def main(argv=None):
     else:
         model = get_model(params, device=dev).eval()
         x = torch.randn((1, params.N_in_channels, 721, 1440), device=dev, generator=gen)
+        if args.amp:
+            sht.set_transform_precision("default")
+            complex_ops.set_contraction_precision("default")
+            x = x.to(torch.bfloat16)
 
         @torch.inference_mode()
         def run():
@@ -139,6 +148,7 @@ def main(argv=None):
 
     run()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
@@ -148,7 +158,9 @@ def main(argv=None):
     trace = args.trace or ROOT / "build" / "profile_trace.json"
     trace.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(trace))
-    print(f"{'train step' if args.train else 'forward'} ({args.engine} engine)", end=": ")
+    print(f"{'train step' if args.train else 'forward'} ({args.engine} engine"
+          f"{', bf16 AMP' if args.amp else ''}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)", end=": ")
     summarize(trace, wall_ms)
     print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=args.top))
     return 0

@@ -7,9 +7,15 @@ one AR step. `lite_step` predicts without targets, optionally pinning the
 `sst_persistence_channels` to their initial-condition value; `capture_step`
 also slices the matching target frame.
 
+Under `amp_mode` "bf16" (or "fp16", bf16 here as in makani_tpu) each step
+casts its input to bfloat16 before the forward and takes the prediction back
+in float32; the rollout state and the host buffer stay float32. As in
+makani_tpu, the Inferencer leaves the transform and contraction precision as
+they are set.
+
 Not ported yet (ROADMAP, Queue 1): the dataset-backed inference_single,
-inference_lite and inference_epoch, MetricsHandler, checkpoints, AMP
-(bf16 inputs) and the inference.py CLI.
+inference_lite and inference_epoch, MetricsHandler, checkpoints and the
+inference.py CLI.
 """
 
 import torch
@@ -29,8 +35,8 @@ class Inferencer:
     def __init__(self, params, weights=None, device=None):
         self.device = resolve_device(device)
         params = as_params(params)
-        if params.get("amp_mode", "none") not in ("none", None):
-            raise NotImplementedError("AMP inference is not ported yet (ROADMAP: Queue 1)")
+        self.amp_dtype = (torch.bfloat16 if params.get("amp_mode", "none") in ("bf16", "fp16")
+                          else None)
         self.params = params
         self.model = get_model(params, device=self.device)
         if weights is not None:
@@ -41,7 +47,8 @@ class Inferencer:
         self.sst_persistence_channels = tuple(params.get("sst_persistence_channels", ()) or ())
 
     def _fwd(self, inpt, uinp):
-        return self.model(inpt, unpredicted_inp=uinp, deterministic=True).float()
+        x = inpt if self.amp_dtype is None else inpt.to(self.amp_dtype)
+        return self.model(x, unpredicted_inp=uinp, deterministic=True).float()
 
     @torch.inference_mode()
     def capture_step(self, inpt, uinp, tar, zen_tar, idt):

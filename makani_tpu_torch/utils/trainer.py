@@ -7,6 +7,11 @@ The forward and backward run eagerly; the spectral filter's contractions go
 through the differentiable kernel wrappers (ops/spectral_mm legdot, dhconv on
 the "kernel" coefficient engine; complex_kernels.contract_dhconv_kernel on the
 "xla" engine under complex_ops.enable_pallas_kernels).
+Under `amp_mode` "bf16" (or "fp16", which is bf16 here as in makani_tpu) the
+input is cast to bfloat16 before the forward, the activations stay bf16
+where makani_tpu's do, the loss is taken on the float32 prediction, and the
+parameters, gradients and optimizer state stay float32 (bf16 moments where
+the config asks for them).
 The update is the fused Adam kernel (ops/fused_adam, one launch per parameter
 leaf, in place; its twin on the CPU) wherever the kernel can express the
 config's optimizer (Adam or AdamW, float32 or bf16 moments, no clipping),
@@ -22,8 +27,8 @@ Not ported yet; each raises NotImplementedError when the config asks for it
 (ROADMAP, Queue 1 item 14 and the items named in the messages): validation
 (`skip_validation` must be true), MetricsHandler, checkpoints
 (`save_checkpoint` must be "none", no resuming or finetuning), the weights
-and grads dump, AMP training, the multi-step training unroll (n_future > 0),
-file datasets and parallelism.
+and grads dump, the multi-step training unroll (n_future > 0), file datasets
+and parallelism.
 """
 
 import logging
@@ -82,8 +87,6 @@ def _check_supported(params):
         raise NotImplementedError(f"restoring a checkpoint {_QUEUE_14}")
     if int(params.get("log_weights_and_grads", 0) or 0) > 0:
         raise NotImplementedError(f"the weights and grads dump {_QUEUE_14}")
-    if params.get("amp_mode", "none") not in ("none", None):
-        raise NotImplementedError("AMP training is not ported yet (ROADMAP: Queue 1, AMP)")
     if params.get("n_future", 0):
         raise NotImplementedError("the multi-step training unroll (n_future > 0) is not "
                                   "ported yet (ROADMAP: Queue 1)")
@@ -105,12 +108,20 @@ class Trainer:
 
         self.train_dataloader, self.train_dataset = get_dataloader(params)
 
+        # AMP: "fp16" is bf16 too, as in makani_tpu (no loss scaling)
+        amp_mode = params.get("amp_mode", "none")
+        self.amp_dtype = torch.bfloat16 if amp_mode in ("bf16", "fp16") else None
+
         # spectral precision of the transforms and of the contractions, both
-        # set as makani_tpu's Trainer sets them: "high" (3 bf16 passes in the
-        # kernels) without AMP; "highest" runs the complex path in float32
-        tp = params.get("transform_precision", None) or "high"
+        # set as makani_tpu's Trainer sets them: "default" (1 bf16 pass in
+        # the kernels) under AMP, else "high" (3 passes); "highest" runs the
+        # complex path in float32; transform_precision overrides either
+        tp = params.get("transform_precision", None) or (
+            "default" if self.amp_dtype is not None else "high")
         sht.set_transform_precision(tp)
         complex_ops.set_contraction_precision(tp)
+        logger.info("transform/contraction precision: %r (amp=%s%s)", tp, amp_mode,
+                    "" if params.get("transform_precision", None) else ", default for this mode")
         engine = params.get("coefficient_engine", None)
         if engine is not None:
             # makani_tpu's "pallas" engine is the port's kernel engine; "xla"
@@ -160,6 +171,8 @@ class Trainer:
         prep = self.preprocessor
         inp = prep.flatten_history(inp)
         tar = prep.flatten_history(tar)
+        if self.amp_dtype is not None:
+            inp = inp.to(self.amp_dtype)
         for p in self.model_params.values():
             p.grad = None
         with record_function("train_step.forward"):

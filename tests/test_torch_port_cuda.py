@@ -1,8 +1,9 @@
 """makani_tpu_torch's Hopper kernels against their plain twins, on the card.
 
-Every test here needs an NVIDIA GPU and nvcc: it is marked `cuda` and skips
-without a card. The file imports neither JAX nor makani_tpu, so it runs on a
-machine without them:
+Every test here but the last two needs an NVIDIA GPU and nvcc: it is marked
+`cuda` and skips without a card; the last two check on the CPU the twins
+that the card's no-work test compares with. The file imports neither JAX nor
+makani_tpu, so it runs on a machine without them:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
 
@@ -14,17 +15,20 @@ the float32 sums, so the gap is a few ulps of the largest partial sum —
 bounded here at 1e-5 relative to the output's largest magnitude. The same
 bound holds the differentiable wrappers' gradients on the card against the
 twins on the CPU. The fused Adam kernel and its twin perform the same
-correctly rounded operations in the same order: bit-identical. A bf16
+correctly rounded operations in the same order: bit-identical; so do the bf16
+GELU kernels and theirs. A bf16
 output (gridmm, grid_dot) rounds the float32 sum once, so kernel and twin may
 round to neighbouring bf16 values: they are held to one bf16 ulp of each
 element on top of the float32 bound.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
 
-from makani_tpu_torch.ops import complex_kernels, fused_adam, kernels, spectral_mm
+from makani_tpu_torch.ops import complex_kernels, fused_adam, gelu, kernels, spectral_mm
 from makani_tpu_torch.tools import bench_gridmm, bench_spectral_mm, kernel_isolate
 from makani_tpu_torch.utils.optimizers import AdamState
 
@@ -490,12 +494,13 @@ def test_probe_battery_nine_pass(cuda, capsys):
 
 # (B, L, C, O, M) against the gridded probes' tiles (32 columns of m, 16 of
 # o in pairs, 16 rows of c a staged chunk): M = 1, 31, 33, 130; O = 1, 33;
-# C = 1 and 257 (17 chunks); B * L = 1 and 210; M, O and B empty (no blocks)
+# C = 1 and 257 (17 chunks); B * L = 1 and 210; M, O and B empty, and C = 0
+# (nothing to compute: no launch, an empty output or zeros)
 GRIDDED_SHAPES = [(1, 1, 16, 16, 1), (2, 4, 16, 16, 31), (2, 4, 16, 16, 33),
                   (3, 2, 70, 33, 130), (2, 3, 1, 1, 130), (1, 2, 257, 33, 33),
                   (3, 70, 16, 5, 64), (2, 4, 16, 16, 0), (2, 4, 16, 0, 128),
-                  (0, 4, 16, 16, 128)]
-GRIDDED = ("grid_blocks", "stacked_output_5d")
+                  (0, 4, 16, 16, 128), (2, 4, 0, 16, 128)]
+GRIDDED = ("grid_blocks", "stacked_output_5d", "multi_output")
 
 
 def _gridded_inputs(shape):
@@ -504,30 +509,36 @@ def _gridded_inputs(shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("probe,shapes", [
-    ("dot_plain", [(33, 70), (70, 130)]), ("dot_transposed", [(70, 33), (70, 130)]),
-    ("bf16_split", [(70, 33), (70, 130)]), ("grid_blocks", [(3, 2, 70, 130), (2, 70, 33)]),
-    ("stacked_output_5d", [(3, 2, 70, 130), (2, 70, 33)]),
-    ("multi_output", [(3, 2, 70, 130), (2, 70, 33)]), ("copy", [(5, 1031)]),
-    *((p, _gridded_inputs(s)) for p in GRIDDED for s in GRIDDED_SHAPES)])
-def test_probe_kernels_at_ragged_shapes(cuda, probe, shapes):
+@pytest.mark.parametrize("probe,shapes,launched", [
+    ("dot_plain", [(33, 70), (70, 130)], 1), ("dot_transposed", [(70, 33), (70, 130)], 1),
+    ("bf16_split", [(70, 33), (70, 130)], 1), ("grid_blocks", [(3, 2, 70, 130), (2, 70, 33)], 1),
+    ("stacked_output_5d", [(3, 2, 70, 130), (2, 70, 33)], 1),
+    ("multi_output", [(3, 2, 70, 130), (2, 70, 33)], 1), ("copy", [(5, 1031)], 1),
+    *((p, _gridded_inputs(s), int(0 not in s)) for p in GRIDDED for s in GRIDDED_SHAPES)])
+def test_probe_kernels_at_ragged_shapes(cuda, probe, shapes, launched):
+    """A shape with nothing to compute (an empty output, or C = 0) launches
+    nothing and counts nothing."""
     _, _, kernel, twin = next(c for c in kernel_isolate.CASES if c[0] == probe)
     before = kernels.launches[kernel.__name__]
     assert kernel_isolate.run_case(probe, shapes, kernel, twin, cuda, seed=12)
-    assert kernels.launches[kernel.__name__] == before + 1
+    assert kernels.launches[kernel.__name__] == before + launched
 
 
 def _gridded_case(probe, x, w):
-    """Runs a gridded probe once on x and w; checks its launch and its twin."""
+    """Runs a gridded probe once on x and w; checks its launch and every
+    output against its twin's."""
     _, _, kernel, twin = next(c for c in kernel_isolate.CASES if c[0] == probe)
     before = kernels.launches[kernel.__name__]
     got = kernel(x, w)
     torch.cuda.synchronize()
     assert kernels.launches[kernel.__name__] == before + 1
     want = twin(x, w)
-    assert got.shape == want.shape
-    assert bool(torch.isfinite(got).all())
-    assert _rel(got, want) < TOL
+    got, want = (t if isinstance(t, tuple) else (t,) for t in (got, want))
+    assert len(got) == len(want)
+    for g, w_ in zip(got, want):
+        assert g.shape == w_.shape
+        assert bool(torch.isfinite(g).all())
+        assert _rel(g, w_) < TOL
 
 
 @pytest.mark.cuda
@@ -560,3 +571,165 @@ def test_bench_tools_run_on_card(cuda):
                   grid=dict(shapes=((300, 97, 202, "a"),), rows=128))
     assert bench_spectral_mm.run("all", "cuda", 2, **shapes) == 0
     assert bench_gridmm.run("cuda", 2, R=300, K=97, N=202, rows=128, legendre=(30, 24, 17)) == 0
+
+
+# element counts around the GELU kernels' 8-element vectors and 2048-element
+# blocks, with special values first: signed zeros, infinities, NaN, values
+# where tanh saturates
+GELU_SIZES = [7, 8, 9, 2053, 3 * 2048 + 5]
+GELU_SPECIALS = [0.0, -0.0, float("inf"), float("-inf"), float("nan"), 1e30, -1e30, 12.0, -12.0]
+
+
+def _same_bits(a, b):
+    """Equal bf16 tensors, NaN where the other has NaN."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", GELU_SIZES)
+def test_gelu_bf16_kernels_bitwise_against_plain(cuda, n, offset):
+    """Forward and gradient against their twins on the card, bit for bit;
+    offset 1 puts every pointer 2 bytes past 16 (the element-by-element
+    path)."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x, dy = ((3 * torch.randn(n + offset, device=cuda, generator=g)).bfloat16()[offset:]
+             for _ in range(2))
+    x[:len(GELU_SPECIALS)] = torch.tensor(GELU_SPECIALS[:n], dtype=torch.bfloat16)
+    before = dict(kernels.launches)
+    y, dx = gelu.gelu_bf16_forward(x), gelu.gelu_bf16_backward(x, dy)
+    torch.cuda.synchronize()
+    assert kernels.launches["gelu_bf16"] == before["gelu_bf16"] + 1
+    assert kernels.launches["gelu_bf16_grad"] == before["gelu_bf16_grad"] + 1
+    assert _same_bits(y, gelu.gelu_bf16_plain(x))
+    assert _same_bits(dx, gelu.gelu_bf16_grad_plain(x, dy))
+
+
+@pytest.mark.cuda
+def test_gelu_bf16_function_on_card(cuda):
+    """The autograd Function: one forward and one gradient launch, the
+    twins' values, and a non-contiguous input taken through a copy."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = (3 * torch.randn((2, 33, 40), device=cuda, generator=g)).bfloat16().transpose(1, 2)
+    x.requires_grad_()
+    dy = torch.randn((2, 40, 33), device=cuda, generator=g).bfloat16()
+    before = dict(kernels.launches)
+    y = gelu.gelu_bf16(x)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert kernels.launches["gelu_bf16"] == before["gelu_bf16"] + 1
+    assert kernels.launches["gelu_bf16_grad"] == before["gelu_bf16_grad"] + 1
+    xd = x.detach()
+    assert torch.equal(y.detach(), gelu.gelu_bf16_plain(xd))
+    assert torch.equal(x.grad, gelu.gelu_bf16_grad_plain(xd, dy))
+
+
+def _no_work_cases():
+    """(case id, kernel counted, inputs' shapes, call on the inputs): one empty
+    output and one contraction of length 0 for each kernel whose launcher
+    computes (an empty tensor for the elementwise GELU kernels); the twin
+    gives the expected output on the CPU."""
+    dh = spectral_mm.dhconv_mm
+    dx = functools.partial(spectral_mm.dhconv_mm, wdim=1, conj_w=True)
+    gd = lambda x, t: bench_gridmm.grid_dot(x, *bench_gridmm.split_table(t))  # noqa: E731
+    ki = kernel_isolate
+    return [
+        # legmm analysis: C = 0 empty; K = 0 contracts nothing
+        ("legmm empty", "legmm", [(4, 0, 7), (2, 5, 7)], spectral_mm.legmm),
+        ("legmm depth 0", "legmm", [(4, 3, 0), (2, 5, 0)], spectral_mm.legmm),
+        ("dhconv_mm empty", "dhconv_mm", [(2, 0, 3, 4, 5), (2, 3, 4, 6)], dh),
+        ("dhconv_mm depth 0", "dhconv_mm", [(2, 1, 3, 0, 5), (2, 3, 0, 6)], dh),
+        ("dhconv_mm dx empty", "dhconv_mm", [(2, 1, 3, 6, 0), (2, 3, 4, 6)], dx),
+        ("dhconv_mm dx depth 0", "dhconv_mm", [(2, 1, 3, 0, 5), (2, 3, 4, 0)], dx),
+        # dhconv_dw contracts b and m
+        ("dhconv_dw empty", "dhconv_dw", [(2, 1, 3, 0, 5), (2, 1, 3, 6, 5)], spectral_mm.dhconv_dw),
+        ("dhconv_dw depth 0", "dhconv_dw", [(2, 1, 3, 4, 0), (2, 1, 3, 6, 0)],
+         spectral_mm.dhconv_dw),
+        ("dhconv_dw no batch", "dhconv_dw", [(2, 0, 3, 4, 5), (2, 0, 3, 6, 5)],
+         spectral_mm.dhconv_dw),
+        ("dhconv_complex empty", "dhconv_complex", [(1, 4, 3, 0), (4, 6, 3)], None),
+        ("dhconv_complex depth 0", "dhconv_complex", [(1, 0, 3, 5), (0, 6, 3)], None),
+        ("gridmm empty", "gridmm", [(0, 7), (7, 5)], spectral_mm.gridmm),
+        ("gridmm depth 0", "gridmm", [(4, 0), (0, 5)], spectral_mm.gridmm),
+        ("grid_dot empty", "grid_dot", [(4, 7), (7, 0)], gd),
+        ("grid_dot depth 0", "grid_dot", [(4, 0), (0, 5)], gd),
+        ("probe_copy empty", "probe_copy", [(0, 128)], ki.probe_copy),
+        ("probe_copy empty rows", "probe_copy", [(8, 0)], ki.probe_copy),
+        ("probe_dot_plain empty", "probe_dot_plain", [(0, 16), (16, 128)], ki.probe_dot_plain),
+        ("probe_dot_plain depth 0", "probe_dot_plain", [(16, 0), (0, 128)], ki.probe_dot_plain),
+        ("probe_dot_transposed empty", "probe_dot_transposed", [(16, 0), (16, 128)],
+         ki.probe_dot_transposed),
+        ("probe_dot_transposed depth 0", "probe_dot_transposed", [(0, 16), (0, 128)],
+         ki.probe_dot_transposed),
+        ("probe_bf16_split empty", "probe_bf16_split", [(16, 16), (16, 0)], ki.probe_bf16_split),
+        ("probe_bf16_split depth 0", "probe_bf16_split", [(0, 16), (0, 128)],
+         ki.probe_bf16_split),
+        ("probe_multi_output empty", "probe_multi_output", [(2, 0, 16, 128), (0, 16, 16)],
+         ki.probe_multi_output),
+        ("probe_multi_output depth 0", "probe_multi_output", [(2, 4, 0, 128), (4, 0, 16)],
+         ki.probe_multi_output),
+        # elementwise: an empty tensor is the one shape without work
+        ("gelu_bf16 empty", "gelu_bf16", [(2, 0, 5)],
+         lambda x: gelu.gelu_bf16_forward(x.bfloat16())),
+        ("gelu_bf16_grad empty", "gelu_bf16_grad", [(0, 3), (0, 3)],
+         lambda x, g: gelu.gelu_bf16_backward(x.bfloat16(), g.bfloat16())),
+    ]
+
+
+def _complex_planes(x, w):
+    return complex_kernels.contract_dhconv_raw(torch.complex(x[0], x[1]),
+                                               torch.complex(w[0], w[1]), 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c[0] for c in _no_work_cases()])
+def test_kernels_launch_nothing_without_work(cuda, case):
+    """An empty output, or a contraction of length 0, gives what the twin
+    gives on the CPU (an empty tensor, or zeros) with no launch and no count."""
+    _, name, shapes, fn = next(c for c in _no_work_cases() if c[0] == case)
+    g = torch.Generator().manual_seed(7)
+    if fn is None:  # the complex kernel: complex64 (re, im) planes
+        fn = _complex_planes
+        inputs = [torch.randn((2, *s), generator=g) for s in shapes]
+    else:
+        inputs = [torch.randn(s, generator=g) for s in shapes]
+    want = fn(*inputs)
+    before = dict(kernels.launches)
+    got = fn(*(t.to(cuda) for t in inputs))
+    torch.cuda.synchronize()
+    assert kernels.launches == before, name
+    got, want = (t if isinstance(t, tuple) else (t,) for t in (got, want))
+    for a, b in zip(got, want, strict=True):
+        assert a.device.type == "cuda" and a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.cpu(), b)
+        assert b.numel() == 0 or not bool(b.any())  # empty, or zeros
+
+
+@pytest.mark.parametrize("case", [c[0] for c in _no_work_cases()])
+def test_twins_give_what_the_kernels_give_without_work(case):
+    """On the CPU, the card test's reference: each wrapper runs its twin,
+    which gives what kernels.no_work gives the card's wrapper (an empty
+    output, or zeros for a contraction of length 0), and counts nothing."""
+    _, _, shapes, fn = next(c for c in _no_work_cases() if c[0] == case)
+    g = torch.Generator().manual_seed(7)
+    planes = fn is None
+    fn = _complex_planes if planes else fn
+    inputs = [torch.randn((2, *s) if planes else s, generator=g) for s in shapes]
+    before = dict(kernels.launches)
+    got = fn(*inputs)
+    assert kernels.launches == before
+    for out in got if isinstance(got, tuple) else (got,):
+        depth = 0 if out.numel() else 1
+        want = kernels.no_work(tuple(out.shape), depth, "cpu", out.dtype)
+        assert want is not None and torch.equal(out, want)
+
+
+def test_no_work_and_the_legmm_table_count():
+    assert kernels.no_work((3, 0, 2), 5, "cpu").shape == (3, 0, 2)
+    zeros = kernels.no_work((3, 2), 0, "cpu", torch.bfloat16)
+    assert zeros.dtype == torch.bfloat16 and not bool(zeros.any())
+    assert kernels.no_work((3, 2), 1, "cpu") is None
+    # mmax = 0 has no table for row g % mmax: refused, on any device
+    with pytest.raises(ValueError, match="mmax"):
+        spectral_mm.legmm(torch.zeros((2, 3, 4)), torch.zeros((0, 5, 4)))

@@ -495,7 +495,6 @@ def test_trainer_runs_an_epoch_and_refuses_what_is_not_ported(jax_trainer):
     assert unfused.fused_kw == trainer.fused_kw is not None
     for override, match in [(dict(skip_validation=False), "item 14"),
                             (dict(save_checkpoint="flexible"), "item 14"),
-                            (dict(amp_mode="bf16"), "AMP"),
                             (dict(enable_synthetic_data=False), "data")]:
         with pytest.raises(NotImplementedError, match=match):
             Trainer(TYParams.from_dict(dict(tp.to_dict(), **override)), device="cpu")
