@@ -88,9 +88,30 @@ Phases, in order; any failure exits non-zero:
      kernel, one forward (8 dhconv_complex) and one train step (16
      dhconv_complex, 87 fused_adam), then that step timed (median of 3). The
      engine, precisions, kernel toggle and cuBLAS setting are restored
-     afterwards.
+     afterwards;
+ 10. inputs from files at full width: flagship_synth_drive, all its
+     auxiliary channels (zenith, the 16-frequency sinusoidal grid on the
+     data's lat/lon, orography, the land-sea mask: 109 input channels).
+     tools/make_synthetic_dataset.py writes 73 AR channels at 721x1440 as npy
+     shards into build/chip_smoke_files/ (4 train and 7 test samples, about
+     3.6 GB with the stats; removed at the end of the phase), and the
+     invariant fields as .npy (no h5py on the path); every train sample read
+     through get_dataloader and the native reader equals the shard read
+     directly, normalized the same way, with zenith from cos_zenith_angle,
+     bit for bit, and one loader epoch is timed (samples/s, GB/s); a Trainer
+     under bf16 AMP (AdamW, beta2 0.95, bf16 moments) runs one epoch of 3
+     steps from the files under the profiler (CUDA activity only): finite
+     losses, phase 9's launch counts per step, the epoch's wall time, the
+     mean step with the loader in the loop beside phase 9's resident-batch
+     step, the share of the epoch the card was idle, peak memory; an
+     Inferencer on the evaluation files: a float32 forward of the
+     109-channel model on the first evaluation sample through the kernels
+     against the twins (FORWARD_TOL), and a capture rollout of 5 steps
+     (valid_autoreg_steps 4) with zenith from the targets' times, timed as in
+     phase 5, finite, with its launches and peak memory. Its cuts against
+     flagship_synth_drive (FILES_CUTS) are printed, one a line.
 The last two lines are the kernels' JSON record (the AMP path's launches in
-each row's *_amp fields) and the result line.
+each row's *_amp fields, phase 10's in *_files) and the result line.
 --record PATH also writes every measurement of the run to PATH as JSON.
 
 TF32 is off for matmuls and cuDNN (torch.backends.cuda.matmul.allow_tf32 and
@@ -102,6 +123,7 @@ precision is "high", i.e. 3 bf16 passes in the kernels.
 import argparse
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -169,6 +191,28 @@ AMP_TRAIN_GELU = {"gelu_bf16": 18, "gelu_bf16_grad": 18}
 # gradient is zero, and its rounding noise is measured against the largest
 # gradient of the model instead of its own
 ZERO_GRAD = "mlp.fc2.bias"
+# phase 10: flagship_synth_drive from files, written into FILES_DIR (removed
+# at the end of the phase): 4 train samples give 3 one-step windows, 7 test
+# samples the 2 windows of n_eval_samples at valid_autoreg_steps 4
+FILES_DIR = ROOT / "build" / "chip_smoke_files"
+FILES_TRAIN_SAMPLES = 4
+FILES_VALID_SAMPLES = 7
+FILES_AUTOREG = 4
+FILES_EVAL = 2
+FILES_SHAPE, FILES_CHANNELS = (721, 1440), 73
+FILES_CUTS = (
+    "3 train samples (flagship_synth_drive: 63)",
+    f"valid_autoreg_steps {FILES_AUTOREG} (19)",
+    f"n_eval_samples {FILES_EVAL} (2)",
+    "1 epoch (8)",
+    "skip_validation: true and save_checkpoint: none (validation and checkpoints are not "
+    "ported yet)",
+    "checkpointing 0 (the drive's command line asks for level 2)",
+    "orography and land-sea mask as .npy (.nc needs h5py, which this machine may lack)",
+)
+# the 109-channel encoder: 73 channels + zenith + 2x16 sinusoidal grid +
+# orography + 2 land-sea mask classes
+FILES_IN_CHANNELS = FILES_CHANNELS + 1 + 32 + 1 + 2
 
 
 def check(cond, msg):
@@ -431,6 +475,8 @@ def flagship_params(steps):
     from makani_tpu_torch.utils.yparams import YParams
     params = YParams(str(ROOT / "config" / "sfnonet.yaml"), "flagship_synth_drive_bare")
     params["valid_autoreg_steps"] = steps - 1
+    # phases 4-9 run on synthetic data: the Inferencer's evaluation loader too
+    params["enable_synthetic_data"] = True
     return update_channel_params(params, n_channels=73)
 
 
@@ -1105,6 +1151,198 @@ def phase_amp(torch, np, sht, complex_ops, kernels, dev, x, y_f32):
     return rec
 
 
+def files_params(**overrides):
+    """flagship_synth_drive on the dataset in FILES_DIR, cut as FILES_CUTS
+    lists."""
+    from makani_tpu_torch.utils.yparams import YParams
+    params = YParams(str(ROOT / "config" / "sfnonet.yaml"), "flagship_synth_drive")
+    stats, inv = FILES_DIR / "stats", FILES_DIR / "invariant"
+    params.update_params(dict(
+        metadata_json_path=str(FILES_DIR / "data.json"),
+        train_data_path=str(FILES_DIR / "train"), valid_data_path=str(FILES_DIR / "test"),
+        inf_data_path=str(FILES_DIR / "test"),
+        **{f"{name}_path": str(stats / f"{name}.npy") for name in (
+            "global_means", "global_stds", "time_means", "time_diff_means", "time_diff_stds")},
+        min_path=str(stats / "mins.npy"), max_path=str(stats / "maxs.npy"),
+        orography_path=str(inv / "orography.npy"), landmask_path=str(inv / "land_sea_mask.npy"),
+        n_train_samples_per_epoch=FILES_TRAIN_SAMPLES - 1, n_eval_samples=FILES_EVAL,
+        valid_autoreg_steps=FILES_AUTOREG, max_epochs=1, skip_validation=True,
+        save_checkpoint="none", checkpointing=0, optimizer_fused=True, log_to_screen=False,
+        **overrides))
+    return params
+
+
+def write_files_dataset(np):
+    """The synthetic AR dataset at full width as npy shards, and the
+    invariant fields as .npy; returns the seconds it took."""
+    from makani_tpu_torch.tools.make_synthetic_dataset import invariant_fields, make_dataset
+    t0 = time.perf_counter()
+    make_dataset(str(FILES_DIR), img_shape=FILES_SHAPE,
+                 channels=[f"c{i}" for i in range(FILES_CHANNELS)],
+                 n_samples_per_year=FILES_TRAIN_SAMPLES, n_valid_samples=FILES_VALID_SAMPLES,
+                 mode="ar", fmt="bin", seed=333)
+    oro, lsm = invariant_fields(FILES_SHAPE, seed=334)  # make_dataset's invariants seed
+    (FILES_DIR / "invariant").mkdir()
+    np.save(FILES_DIR / "invariant" / "orography.npy", oro)
+    np.save(FILES_DIR / "invariant" / "land_sea_mask.npy", lsm)
+    return time.perf_counter() - t0
+
+
+def check_loader(np):
+    """Every train sample through get_dataloader and the native reader
+    against a direct read of the shard, normalized as the reader normalizes
+    ((x - mean) * (1 / std) in float32), with zenith from the port's
+    cos_zenith_angle; then one epoch of the loader timed."""
+    import datetime
+    from makani_tpu_torch.data.dataloader import get_dataloader, init_data_params
+    from makani_tpu_torch.utils.zenith_angle import cos_zenith_angle
+    params = init_data_params(files_params())
+    loader, ds = get_dataloader(params, params.train_data_path, train=True)
+    check(type(ds).__name__ == "BinaryDataset", f"the train files went to {type(ds).__name__}")
+    shard = np.load(FILES_DIR / "train" / "2018.npy", mmap_mode="r")
+    bias = np.load(params.global_means_path).astype(np.float32)
+    iscale = (1.0 / np.load(params.global_stds_path)).astype(np.float32)
+    lon, lat = np.meshgrid(np.asarray(params.lon), np.asarray(params.lat))
+    jan01 = datetime.datetime(2018, 1, 1, tzinfo=datetime.timezone.utc)
+    for i in range(len(ds)):
+        want = [(shard[i + t: i + t + 1] - bias) * iscale for t in (0, 1)]
+        want += [cos_zenith_angle([jan01 + datetime.timedelta(hours=(i + t) * params.dhours)],
+                                  lon, lat)[:, None] for t in (0, 1)]
+        got = ds[i]
+        check(len(got) == 4 and all(g.dtype == np.float32 and g.shape == w.shape
+                                    and np.array_equal(g, w) for g, w in zip(got, want)),
+              f"train sample {i} differs from the shard read directly")
+    t0 = time.perf_counter()
+    n, nbytes = 0, 0
+    for batch in loader:
+        n += batch[0].shape[0]
+        nbytes += sum(b.nbytes for b in batch)
+    dt = time.perf_counter() - t0
+    return dict(loader_samples=n, loader_s=dt, loader_samples_per_s=n / dt,
+                loader_gb_per_s=nbytes / dt / 1e9, sample_bytes=nbytes // n)
+
+
+def phase_files(torch, np, sht, complex_ops, kernels, dev):
+    """flagship_synth_drive from files at full width: the dataset written,
+    the loader checked and timed, an AMP epoch from the files under the
+    profiler, and float32 serving from the evaluation dataset."""
+    from torch.profiler import ProfilerActivity, profile
+    from makani_tpu_torch.tools.profile_forward import busy_ms, device_events
+    from makani_tpu_torch.utils.inferencer import Inferencer
+    from makani_tpu_torch.utils.trainer import Trainer
+    rec = {"write_s": write_files_dataset(np)}
+    rec.update(check_loader(np))
+
+    # training: the canonical mode, bf16 AMP, AdamW, all auxiliary channels
+    trainer = Trainer(files_params(amp_mode="bf16"), device=dev)
+    params = trainer.params
+    check(params.N_in_channels == FILES_IN_CHANNELS and params.optimizer_type == "AdamW"
+          and params.optimizer_beta2 == 0.95 and trainer.amp_dtype == torch.bfloat16
+          and type(trainer.train_dataset).__name__ == "BinaryDataset",
+          f"phase 10's Trainer: {params.N_in_channels} input channels, "
+          f"{params.optimizer_type} beta2 {params.optimizer_beta2}, amp {trainer.amp_dtype}, "
+          f"{type(trainer.train_dataset).__name__}")
+    rec["aux_channel_names"] = params.aux_channel_names
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        rec["epoch_s"] = time.perf_counter() - t0
+    total = dict(kernels.launches)
+    rec["train_peak_bytes"] = torch.cuda.max_memory_allocated()
+    trace = ROOT / "build" / "chip_smoke_files_trace.json"
+    prof.export_chrome_trace(str(trace))
+    device = device_events(trace)[1]
+    trace.unlink()
+    check(bool(device), "the profiler recorded no device event over phase 10's epoch")
+    # busy: kernels and copies; the copies alone: the batches' pageable
+    # copies to the card; window: first device event to the last, so the
+    # epoch less the window is the wait for the first batch and set-up
+    rec["epoch_busy_s"] = busy_ms(device) / 1e3
+    rec["epoch_copy_s"] = busy_ms([e for e in device if e["cat"] == "gpu_memcpy"]) / 1e3
+    rec["epoch_window_s"] = (max((e["ts"] + e["dur"] for e in device), default=0)
+                             - min((e["ts"] for e in device), default=0)) / 1e6
+    rec["idle_share"] = 1.0 - rec["epoch_busy_s"] / rec["epoch_s"]
+    logs = trainer.last_logs
+    losses = logs["train"]["step losses"]
+    check(len(losses) == TRAIN_STEPS and all(math.isfinite(v) for v in losses),
+          f"phase 10 train losses {losses}")
+    check(total == launch_counts(kernels, {
+        k: v * TRAIN_STEPS for k, v in {**TRAIN_LAUNCHES, **AMP_TRAIN_GELU}.items()})
+          and at_one_pass(kernels), f"phase 10 launches over {TRAIN_STEPS} train steps {total}, "
+          f"by passes {dict(kernels.launches_by_passes)}")
+    rec.update(train_losses=losses, train_launches=total,
+               train_launches_per_step={k: v // TRAIN_STEPS for k, v in total.items()},
+               step_ms_loader=logs["timing"]["training step time [ms]"],
+               train_s=logs["timing"]["training time [s]"])
+    del trainer
+    torch.cuda.empty_cache()
+
+    # serving: float32 at 3 passes, from the evaluation dataset
+    sht.set_transform_precision("high")
+    complex_ops.set_contraction_precision("high")
+    inferencer = Inferencer(files_params(), device=dev)
+    check(len(inferencer.valid_dataset) == FILES_EVAL,
+          f"{len(inferencer.valid_dataset)} evaluation windows, expected {FILES_EVAL}")
+    inp, tar, zen_inp, zen_tar = (f[None] for f in inferencer.valid_dataset[0])
+    check(tar.shape == (1, FILES_AUTOREG + 1, FILES_CHANNELS, *FILES_SHAPE)
+          and zen_tar.shape == (1, FILES_AUTOREG + 1, 1, *FILES_SHAPE),
+          f"evaluation sample {tar.shape}, {zen_tar.shape}")
+    model = inferencer.model
+    x = model.preprocessor.flatten_history(torch.from_numpy(inp).to(dev))
+    u = torch.from_numpy(zen_inp).to(dev)
+    with torch.inference_mode():
+        model(x, unpredicted_inp=u)  # warm-up: the 109-channel encoder's cuBLAS set-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        y_kernel = model(x, unpredicted_inp=u)
+        torch.cuda.synchronize()
+        rec["forward_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["launches_per_forward"] = dict(kernels.launches)
+        sht.set_coeff_engine("stacked")
+        y_plain = model(x, unpredicted_inp=u)
+        sht.set_coeff_engine("kernel")
+    check(rec["launches_per_forward"] == launch_counts(kernels, {"legmm": 18, "dhconv_mm": 8}),
+          f"phase 10 launches per forward {rec['launches_per_forward']}")
+    check(tuple(y_kernel.shape) == (1, FILES_CHANNELS, *FILES_SHAPE)
+          and bool(torch.isfinite(y_kernel).all()),
+          f"phase 10 forward {tuple(y_kernel.shape)}")
+    rec["forward_rel_err"] = rel_err(y_kernel, y_plain.double())
+    check(rec["forward_rel_err"] < FORWARD_TOL,
+          f"109-channel forward kernels vs twins: {rec['forward_rel_err']}")
+    del y_kernel, y_plain, x, u
+
+    # the capture rollout, zenith advancing from the targets' times: one
+    # untimed, then ROLLOUT_REPS timed
+    steps = FILES_AUTOREG + 1
+    inferencer._rollout_capture(inp, tar, zen_inp, zen_tar)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for rep in range(ROLLOUT_REPS):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        preds, targs = inferencer._rollout_capture(inp, tar, zen_inp, zen_tar)
+        times.append((time.perf_counter() - t0) * 1e3 / steps)
+        if rep == 0:
+            rec["rollout_launches"] = dict(kernels.launches)
+            check(preds.shape == targs.shape == (steps, 1, FILES_CHANNELS, *FILES_SHAPE)
+                  and bool(np.isfinite(preds).all()), f"phase 10 rollout {preds.shape}")
+            check(np.array_equal(targs[:, 0], tar[0]), "phase 10 rollout targets")
+        del preds, targs
+    rec["rollout_peak_bytes"] = torch.cuda.max_memory_allocated()
+    rec.update(rollout_steps=steps, step_ms_all=times, step_ms=statistics.median(times))
+    check(rec["rollout_launches"] == launch_counts(kernels, {"legmm": 18 * steps,
+                                                             "dhconv_mm": 8 * steps}),
+          f"phase 10 rollout launches {rec['rollout_launches']}")
+    del inferencer, model
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--record", type=Path, help="write every measurement to this JSON file")
@@ -1352,6 +1590,54 @@ def main(argv=None):
           f"{amp['xla_train_loss']:.6g}, launches {amp['xla_train_launches']})",
           flush=True)
 
+    # phase 10: flagship_synth_drive from files at full width
+    settings = (sht.get_coeff_engine(), sht.get_transform_precision(),
+                complex_ops.get_contraction_precision(),
+                torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    shutil.rmtree(FILES_DIR, ignore_errors=True)
+    try:
+        files = phase_files(torch, np, sht, complex_ops, kernels, dev)
+    finally:
+        shutil.rmtree(FILES_DIR, ignore_errors=True)
+        sht.set_coeff_engine(settings[0])
+        sht.set_transform_precision(settings[1])
+        complex_ops.set_contraction_precision(settings[2])
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = settings[3]
+    record["files"] = files
+    for cut in FILES_CUTS:
+        print(f"[files cut] {cut}")
+    print(f"[files data] wrote {FILES_CHANNELS} channels at {FILES_SHAPE[0]}x{FILES_SHAPE[1]}, "
+          f"{FILES_TRAIN_SAMPLES} train and "
+          f"{FILES_VALID_SAMPLES} test samples as npy shards, with the invariants as .npy, in "
+          f"{files['write_s']:.1f} s", flush=True)
+    print(f"[files loader] {files['loader_samples']} train samples through get_dataloader and "
+          f"the native reader equal the shard read directly and cos_zenith_angle, bit for bit; "
+          f"one loader epoch {files['loader_s'] * 1e3:.1f} ms: "
+          f"{files['loader_samples_per_s']:.2f} samples/s, {files['loader_gb_per_s']:.2f} GB/s "
+          f"({files['sample_bytes'] / 1e6:.1f} MB a sample with its target and zenith fields; "
+          f"the shards were just written, so in the page cache)", flush=True)
+    print(f"[files train] flagship_synth_drive, {FILES_IN_CHANNELS} input channels (auxiliary "
+          f"names {files['aux_channel_names']}, makani_tpu's list), "
+          f"bf16 AMP, AdamW beta2 0.95, bf16 moments, {TRAIN_STEPS} steps from the "
+          f"files at batch 1 under the profiler: losses {files['train_losses']}; epoch "
+          f"{files['epoch_s'] * 1e3:.1f} ms, {files['step_ms_loader']:.1f} ms a step with the "
+          f"loader in the loop (phase 9's resident-batch AMP step: {amp['train_step_ms']:.1f} "
+          f"ms); device busy {files['epoch_busy_s'] * 1e3:.1f} ms (copies to the card "
+          f"{files['epoch_copy_s'] * 1e3:.1f} ms), idle {100 * files['idle_share']:.1f}% of the "
+          f"epoch, {(files['epoch_s'] - files['epoch_window_s']) * 1e3:.1f} ms of it before "
+          f"the first device event and after the last; peak device memory "
+          f"{files['train_peak_bytes'] / 2**30:.2f} GiB; launches per step "
+          f"{files['train_launches_per_step']}, all at 1 pass", flush=True)
+    print(f"[files serve] float32 forward of the {FILES_IN_CHANNELS}-channel model on the first "
+          f"evaluation sample: {files['forward_ms']:.1f} ms, kernels vs twins rel err "
+          f"{files['forward_rel_err']:.3g}, launches {files['launches_per_forward']}; capture "
+          f"rollout of {files['rollout_steps']} steps (valid_autoreg_steps {FILES_AUTOREG}), "
+          f"zenith from the targets' times: {files['step_ms']:.1f} ms per step, median of "
+          f"{ROLLOUT_REPS} warm rollouts ({', '.join(f'{t:.1f}' for t in files['step_ms_all'])}); "
+          f"peak device memory {files['rollout_peak_bytes'] / 2**30:.2f} GiB; launches "
+          f"{files['rollout_launches']}", flush=True)
+
     # results
     if args.record is not None:
         args.record.parent.mkdir(parents=True, exist_ok=True)
@@ -1368,6 +1654,13 @@ def main(argv=None):
                              "makani_tpu/ops/pallas_mm.py:322"),
                "fused_adam": ("makani_tpu_torch/csrc/fused_adam.cu",
                               "makani_tpu/ops/pallas_adam.py:124")}
+    def files_launches(name):
+        """*_files: the counts of phase 10's path, an AMP epoch and a float32
+        rollout from files."""
+        return dict(launches_files=files["train_launches"][name],
+                    launches_per_train_step_files=files["train_launches_per_step"][name],
+                    launches_rollout_files=files["rollout_launches"][name])
+
     kernels = []
     # *_amp: the same counts on phase 9's AMP path, where every pass-taking
     # launch ran at 1 pass (the "xla" engine's kernel: over its one train step)
@@ -1382,6 +1675,7 @@ def main(argv=None):
             launches_amp=amp["train_launches"][name],
             launches_per_train_step_amp=amp["train_launches_per_step"][name],
             launches_rollout_amp=amp["rollout_launches"][name],
+            **files_launches(name),
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             shape=r["shape"], passes=passes))
@@ -1396,7 +1690,7 @@ def main(argv=None):
         launches_rollout=cplx["rollout_launches"]["dhconv_complex"],
         launches_amp=amp["xla_train_launches"]["dhconv_complex"],
         launches_per_train_step_amp=amp["xla_train_launches"]["dhconv_complex"],
-        launches_rollout_amp=0,
+        launches_rollout_amp=0, **files_launches("dhconv_complex"),
         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
         shape=r["shape"], passes=3))
@@ -1419,6 +1713,7 @@ def main(argv=None):
             name=name, route="cuda", source=source, replaces=replaces,
             launches=tools["launches"][name], launches_per_train_step=0, launches_rollout=0,
             launches_amp=0, launches_per_train_step_amp=0, launches_rollout_amp=0,
+            **files_launches(name),
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             shape=r["shape"], passes=r["passes"],
@@ -1434,6 +1729,7 @@ def main(argv=None):
             launches_rollout=0, launches_amp=amp["train_launches"][r["name"]],
             launches_per_train_step_amp=amp["train_launches_per_step"][r["name"]],
             launches_rollout_amp=amp["rollout_launches"][r["name"]],
+            **files_launches(r["name"]),
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             shape=r["shape"], passes=None))

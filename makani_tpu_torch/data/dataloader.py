@@ -1,35 +1,48 @@
-"""Synthetic dataset and the host-side prefetching loader.
+"""Dataset dispatch and the host-side prefetching loader.
 
-Counterpart of DummyDataset, PrefetchingLoader and the synthetic training
-branch of get_dataloader in makani_tpu/data/dataloader.py: the same samples
-(numpy RandomState seeded by the sample index), the same seeded per-epoch
-permutation and the same batches. Batches are numpy arrays; the Trainer
-moves them to its device.
+Counterpart of DummyDataset, PrefetchingLoader, get_dataloader and
+BenchyLoader in makani_tpu/data/dataloader.py, for a single process: the same
+datasets (synthetic, native npy shards, zarr, HDF5 multifiles), the same
+seeded per-epoch permutation, the same evaluation loader (valid_autoreg_steps
+targets, n_eval_samples, no shuffle, samples_offset) and the same batches.
+Batches are numpy arrays; the Trainer and the Inferencer move them to their
+device.
 
-Not ported yet (ROADMAP, Queue 1): the evaluation loader (validation, item
-14), the file datasets (HDF5, zarr, the native binary reader), sharding over
-data ranks (parallelism) and the benchy wrapper.
+Not ported yet (ROADMAP, Queue 1 item 7, parallelism): sharding over data
+ranks and io-sharded spatial reads; a process reads the whole crop
+(io_grid [1, 1, 1]) and every sample of the epoch.
 """
 
 import concurrent.futures
+import glob
+import logging
+import os
+import time
 
 import numpy as np
 
+from makani_tpu_torch.data.dataset import MultifilesDataset
+from makani_tpu_torch.utils.dataset_metadata import parse_dataset_metadata
+
+logger = logging.getLogger(__name__)
+
 
 class DummyDataset:
-    """Synthetic random training data matching all shape/normalization
-    metadata."""
+    """Synthetic random data matching all shape/normalization metadata: the
+    training split (n_future targets, n_train_samples_per_epoch samples) or
+    the evaluation split (valid_autoreg_steps targets, n_eval_samples)."""
 
-    def __init__(self, params):
+    def __init__(self, params, location=None, train=True):
         self.dt = params.dt
         self.n_history = params.n_history
-        self.n_future = params.n_future
+        self.n_future = params.valid_autoreg_steps if not train else params.n_future
         self.in_channels = np.array(params.in_channels)
         self.out_channels = np.array(params.out_channels)
         self.n_in_channels = len(self.in_channels)
         self.n_out_channels = len(self.out_channels)
         self.add_zenith = params.get("add_zenith", False)
-        self.n_samples = params.get("n_train_samples_per_epoch", 64)
+        self.n_samples = (params.get("n_train_samples_per_epoch", 64) if train
+                          else params.get("n_eval_samples", 16))
 
         self.img_shape = (params.img_shape_x, params.img_shape_y)
         self.img_shape_x, self.img_shape_y = self.img_shape
@@ -65,24 +78,29 @@ _PREFETCH_DEPTH = 2
 
 
 class PrefetchingLoader:
-    """Iterates training batches with background read-ahead.
+    """Iterates batches with background read-ahead.
 
-    Per epoch: a permutation seeded with (base_seed + epoch), truncated to
-    n_samples_per_epoch, grouped into full batches (a partial last batch is
-    dropped).
+    Per epoch: the samples from `samples_offset` on, in a permutation seeded
+    with (base_seed + epoch) when `shuffle`, else in order, truncated to
+    n_samples_per_epoch and grouped into full batches (a partial last batch
+    is dropped).
     """
 
-    def __init__(self, dataset, batch_size, num_workers=2, n_samples_per_epoch=None,
-                 base_seed=333):
+    def __init__(self, dataset, batch_size, shuffle=True, num_workers=2,
+                 n_samples_per_epoch=None, base_seed=333, samples_offset=0):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
         self.num_workers = max(1, num_workers)
         self.base_seed = base_seed
+        # offset of the first initial condition an evaluation reads
+        self.samples_offset = samples_offset
         self.epoch = 0
 
-        self.n_samples_per_epoch = min(n_samples_per_epoch or len(dataset), len(dataset))
+        n_avail = len(dataset) - samples_offset
+        self.n_samples_per_epoch = min(n_samples_per_epoch or n_avail, n_avail)
         self.num_batches = self.n_samples_per_epoch // batch_size
-        if self.num_batches == 0:
+        if self.num_batches <= 0:
             raise ValueError(f"Not enough samples ({self.n_samples_per_epoch}) for one batch "
                              f"of {batch_size}")
 
@@ -92,8 +110,13 @@ class PrefetchingLoader:
         return self.num_batches
 
     def _epoch_indices(self):
-        rng = np.random.RandomState(self.base_seed + self.epoch)
-        return rng.permutation(len(self.dataset))[: self.n_samples_per_epoch]
+        if self.shuffle:
+            rng = np.random.RandomState(self.base_seed + self.epoch)
+            perm = rng.permutation(len(self.dataset) - self.samples_offset)
+            perm = perm[: self.n_samples_per_epoch]
+        else:
+            perm = np.arange(self.n_samples_per_epoch)
+        return perm + self.samples_offset
 
     def _collate(self, samples):
         n_fields = len(samples[0])
@@ -121,20 +144,95 @@ class PrefetchingLoader:
             yield batch
 
 
-def get_dataloader(params):
-    """(dataloader, dataset) of the training data of a single process;
-    synthetic data only."""
-    if not params.get("enable_synthetic_data", False):
-        raise NotImplementedError("file datasets are not ported yet; set "
-                                  "enable_synthetic_data (ROADMAP: Queue 1, data)")
-    dataset = DummyDataset(params)
+def init_data_params(params):
+    """Before the Trainer or the Inferencer builds its loaders: for data from
+    files, data.json (`metadata_json_path`, where the config names one) sets
+    the channel lists, the grid and the time step, as makani_tpu's train.py
+    and inference.py parse it; synthetic data takes the config's channels.
+    n_future defaults to 0, one-step targets, as train.py sets it from its
+    default multistep_count of 1."""
+    if params.get("n_future", None) is None:
+        params["n_future"] = 0
+    if params.get("enable_synthetic_data", False):
+        if params.get("in_channels", None) is None or params.get("out_channels", None) is None:
+            raise ValueError("synthetic data needs in_channels/out_channels in the config")
+    elif params.get("metadata_json_path", None):
+        parse_dataset_metadata(params.metadata_json_path, params)
+    return params
+
+
+def _holds(location, pattern):
+    return isinstance(location, str) and bool(glob.glob(os.path.join(location, pattern)))
+
+
+def get_dataloader(params, location, train=True, final_eval=False, enable_logging=True):
+    """(dataloader, dataset) of the data at `location` for a single process:
+    synthetic data under enable_synthetic_data, the native reader for npy
+    shards (or enable_native_loader), zarr stores (or enable_zarr), else the
+    HDF5 multifiles dataset. `train` shuffles n_train_samples_per_epoch
+    samples of n_future targets; the evaluation loader reads n_eval_samples
+    from samples_offset on, in order, each with valid_autoreg_steps targets.
+    `final_eval` is makani_tpu's flag, which chooses nothing there either."""
+    # one process reads the whole crop
+    params["io_grid"] = [1, 1, 1]
+    params["io_rank"] = [0, 0, 0]
+
+    if params.get("enable_synthetic_data", False):
+        dataset = DummyDataset(params, location, train)
+    elif params.get("enable_native_loader", False) or (
+            _holds(location, "????.npy") and not _holds(location, "????.h5")):
+        from makani_tpu_torch.data.native_loader import BinaryDataset
+        dataset = BinaryDataset(params, location, train, enable_logging)
+    elif params.get("enable_zarr", False) or (
+            _holds(location, "????.zarr") and not _holds(location, "????.h5")):
+        from makani_tpu_torch.data.zarr_helper import ZarrDataset
+        dataset = ZarrDataset(params, location, train, enable_logging)
+    else:
+        dataset = MultifilesDataset(params, location, train, enable_logging)
+
+    n_samples_per_epoch = None
+    if train and params.get("n_train_samples_per_epoch", None):
+        n_samples_per_epoch = params.n_train_samples_per_epoch
+    if (not train) and params.get("n_eval_samples", None):
+        n_samples_per_epoch = params.n_eval_samples
+
     loader = PrefetchingLoader(
         dataset,
         batch_size=int(params.batch_size),
+        shuffle=train,
         num_workers=params.get("num_data_workers", 2),
-        n_samples_per_epoch=params.get("n_train_samples_per_epoch", None),
+        n_samples_per_epoch=n_samples_per_epoch,
         base_seed=params.get("global_seed", 333),
+        samples_offset=0 if train else params.get("samples_offset", 0) or 0,
     )
     loader.get_output_normalization = dataset.get_output_normalization
     loader.get_input_normalization = dataset.get_input_normalization
+
+    if train and params.get("enable_benchy", False):
+        loader = BenchyLoader(loader)
     return loader, dataset
+
+
+class BenchyLoader:
+    """Throughput-instrumented loader wrapper: logs batches/s and the
+    effective MB/s of each epoch."""
+
+    def __init__(self, loader):
+        self._loader = loader
+
+    def __len__(self):
+        return len(self._loader)
+
+    def __getattr__(self, name):
+        return getattr(self._loader, name)
+
+    def __iter__(self):
+        t0 = time.perf_counter()
+        n, nbytes = 0, 0
+        for batch in self._loader:
+            n += 1
+            nbytes += sum(int(b.nbytes) for b in batch)
+            yield batch
+        dt = max(time.perf_counter() - t0, 1e-9)
+        logger.info(f"[benchy] {n} batches in {dt:.2f}s: {n / dt:.2f} batches/s, "
+                    f"{nbytes / dt / 1e6:.2f} MB/s effective")

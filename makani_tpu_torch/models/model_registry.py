@@ -5,8 +5,10 @@ families (FNO, AFNO, ViT, DebugNet) and file-based registration are not
 ported yet (ROADMAP, Queue 1).
 
 `update_channel_params` ports the channel math of makani_tpu's
-Trainer._update_parameters (utils/trainer.py:291-335) for a caller with no
-dataset: the channel lists come from the config or from `n_channels`.
+Trainer._update_parameters (utils/trainer.py:291-335): the channel counts and
+the image, crop and local shapes come from a dataset where one is given (the
+Trainer's and the Inferencer's evaluation dataset), else from the config, with
+the channel lists from the config or from `n_channels`.
 """
 
 import inspect
@@ -17,6 +19,7 @@ from makani_tpu_torch.models.networks.sfnonet import SphericalFourierNeuralOpera
 from makani_tpu_torch.models.preprocessor import Preprocessor2D
 from makani_tpu_torch.models.stepper import MultiStepWrapper, SingleStepWrapper
 from makani_tpu_torch.utils.device import resolve_device
+from makani_tpu_torch.utils.features import get_auxiliary_channels
 from makani_tpu_torch.utils.yparams import ParamsBase
 
 _model_registry = {"SFNO": SphericalFourierNeuralOperatorNet}
@@ -31,28 +34,40 @@ def as_params(params):
     return ParamsBase.from_dict(params) if isinstance(params, dict) else params
 
 
-def update_channel_params(params, n_channels=None):
-    """Fill N_in_channels, N_out_channels, the crop and local shapes and the
-    derived defaults in place, as the Trainer does from its dataset. Without
-    `in_channels` / `out_channels` in the config, both are range(n_channels).
+_DATASET_SHAPES = tuple(f"img_{kind}_{axis}" for kind in ("shape", "crop_shape", "crop_offset",
+                                                           "local_shape", "local_offset")
+                        for axis in ("x", "y"))
+
+
+def update_channel_params(params, n_channels=None, dataset=None):
+    """Fill N_in_channels, N_out_channels, the crop and local shapes,
+    aux_channel_names and the derived defaults in place. With a `dataset`,
+    its channel selections and shapes count, as in makani_tpu's Trainer;
+    without, the config's, and where it names no `in_channels` /
+    `out_channels`, both are range(n_channels).
     """
     params = as_params(params)
-    if params.get("in_channels", None) is None or params.get("out_channels", None) is None:
-        if n_channels is None:
-            raise ValueError("the config names no in_channels/out_channels; pass n_channels")
-        params["in_channels"] = list(range(n_channels))
-        params["out_channels"] = list(range(n_channels))
-    params["N_in_channels"] = len(params.in_channels)
-    params["N_out_channels"] = len(params.out_channels)
-
-    for axis in ("x", "y"):
-        full = params[f"img_shape_{axis}"]
-        crop = params.get(f"img_crop_shape_{axis}", None) or full
-        offset = params.get(f"img_crop_offset_{axis}", None) or 0
-        params[f"img_crop_shape_{axis}"] = crop
-        params[f"img_crop_offset_{axis}"] = offset
-        params[f"img_local_shape_{axis}"] = crop
-        params[f"img_local_offset_{axis}"] = 0
+    if dataset is not None:
+        params["N_in_channels"] = len(dataset.in_channels)
+        params["N_out_channels"] = len(dataset.out_channels)
+        for key in _DATASET_SHAPES:
+            params[key] = getattr(dataset, key)
+    else:
+        if params.get("in_channels", None) is None or params.get("out_channels", None) is None:
+            if n_channels is None:
+                raise ValueError("the config names no in_channels/out_channels; pass n_channels")
+            params["in_channels"] = list(range(n_channels))
+            params["out_channels"] = list(range(n_channels))
+        params["N_in_channels"] = len(params.in_channels)
+        params["N_out_channels"] = len(params.out_channels)
+        for axis in ("x", "y"):
+            full = params[f"img_shape_{axis}"]
+            crop = params.get(f"img_crop_shape_{axis}", None) or full
+            offset = params.get(f"img_crop_offset_{axis}", None) or 0
+            params[f"img_crop_shape_{axis}"] = crop
+            params[f"img_crop_offset_{axis}"] = offset
+            params[f"img_local_shape_{axis}"] = crop
+            params[f"img_local_offset_{axis}"] = 0
 
     params["N_in_predicted_channels"] = params.N_in_channels
     if params.get("add_zenith", None) is None:
@@ -71,6 +86,7 @@ def update_channel_params(params, n_channels=None):
         params["N_in_channels"] = params.N_in_channels + 1
     if params.get("add_landmask", False):
         params["N_in_channels"] = params.N_in_channels + 2
+    params["aux_channel_names"] = get_auxiliary_channels(**params.to_dict())
     if params.get("n_future", None) is None:
         params["n_future"] = 0  # single-step serving, as the inference CLI sets it
     params["N_target_channels"] = (params.n_future + 1) * params.N_out_channels

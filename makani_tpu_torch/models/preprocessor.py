@@ -2,21 +2,18 @@
 
 Counterpart of makani_tpu/models/preprocessor.py. The rolling unpredicted
 (zenith) feature window is explicit state threaded by the steppers and the
-inferencer, as in the JAX package.
-
-Not ported yet (ROADMAP, Queue 1: orography/landmask/grid features): the
-static features read from files (orography and land-sea mask NetCDF) and the
-grid features on explicit lat/lon coordinates (GridConverter); each raises
-NotImplementedError. The linear and sinusoidal unit-square grid features are
-ported.
+inferencer, as in the JAX package. The static features (the linear or
+sinusoidal grid, on the unit square or on the data's explicit lat/lon through
+GridConverter; orography z-scored; the land-sea mask one-hot) are built on
+the host in numpy, as makani_tpu builds them, cut to the crop window and
+moved to the device once.
 """
 
 import numpy as np
 import torch
 
-_FILE_FEATURES = ("static features read from files and grid features on explicit "
-                  "lat/lon are not ported yet (ROADMAP: Queue 1, orography/landmask/grid "
-                  "features)")
+from makani_tpu_torch.utils.conditioning_inputs import get_land_mask, get_orography
+from makani_tpu_torch.utils.grids import GridConverter
 
 
 class Preprocessor2D:
@@ -55,9 +52,14 @@ class Preprocessor2D:
         static_features = None
         if params.get("add_grid", False):
             if params.get("lat", None) is not None and params.get("lon", None) is not None:
-                raise NotImplementedError(_FILE_FEATURES)
-            tx = np.linspace(0, 1, params.img_shape_x + 1, dtype=np.float64)[:-1]
-            ty = np.linspace(0, 1, params.img_shape_y + 1, dtype=np.float64)[:-1]
+                lat = np.deg2rad(np.asarray(params.lat, dtype=np.float64))
+                lon = np.deg2rad(np.asarray(params.lon, dtype=np.float64))
+                gconv = GridConverter(params.get("data_grid_type", "equiangular"),
+                                      params.get("model_grid_type", "equiangular"), lat, lon)
+                tx, ty = gconv.get_dst_coords()
+            else:
+                tx = np.linspace(0, 1, params.img_shape_x + 1, dtype=np.float64)[:-1]
+                ty = np.linspace(0, 1, params.img_shape_y + 1, dtype=np.float64)[:-1]
             x_grid, y_grid = np.meshgrid(tx, ty, indexing="ij")
             grid = np.stack([x_grid, y_grid], axis=0)[None].astype(np.float32)
             grid = grid[:, :, start_x:end_x, start_y:end_y]
@@ -68,8 +70,23 @@ class Preprocessor2D:
                 ).astype(np.float32)
             else:
                 static_features = grid
-        if params.get("add_orography", False) or params.get("add_landmask", False):
-            raise NotImplementedError(_FILE_FEATURES)
+
+        if params.get("add_orography", False):
+            oro = np.asarray(get_orography(params.orography_path), dtype=np.float64)
+            oro = oro.reshape(1, 1, *oro.shape)
+            # ddof=1: z-scored with the unbiased std, as makani_tpu does
+            oro = ((oro - oro.mean()) / (oro.std(ddof=1) + 1.0e-6)).astype(np.float32)
+            oro = oro[:, :, start_x:end_x, start_y:end_y]
+            static_features = (oro if static_features is None
+                               else np.concatenate([static_features, oro], axis=1))
+
+        if params.get("add_landmask", False):
+            lsm = np.asarray(get_land_mask(params.landmask_path)).astype(np.int64)
+            onehot = np.eye(int(lsm.max()) + 1, dtype=np.float32)[lsm]  # (H, W, classes)
+            onehot = np.transpose(onehot, (2, 0, 1))[None]
+            onehot = onehot[:, :, start_x:end_x, start_y:end_y]
+            static_features = (onehot if static_features is None
+                               else np.concatenate([static_features, onehot], axis=1))
 
         self.static_features = (None if static_features is None
                                 else torch.from_numpy(static_features).to(self.device))

@@ -61,20 +61,33 @@ def _category(event, ops, einsums):
     return "elementwise, reductions and copies"
 
 
-def summarize(trace_path, wall_ms):
-    """Device time of a Chrome trace by phase and by category, in ms."""
+def device_events(trace_path):
+    """(all events, the device's events: kernels, copies and sets) of a
+    Chrome trace written by torch.profiler."""
     events = json.loads(Path(trace_path).read_text())["traceEvents"]
-    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    cpu_ops = [e for e in events if e.get("cat") == "cpu_op"]
-    ops = {e["args"].get("External id"): e for e in cpu_ops if "args" in e}
-    einsums = [(e["ts"], e["ts"] + e["dur"]) for e in cpu_ops if e["name"] == "aten::einsum"]
-    phases = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
-              if e.get("cat") == "gpu_user_annotation"}
+    return events, [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def busy_ms(device):
+    """The union of the device events' intervals, in ms: the time the card
+    was busy."""
     busy, end = 0.0, float("-inf")
     for e in sorted(device, key=lambda e: e["ts"]):
         start, stop = e["ts"], e["ts"] + e["dur"]
         busy += max(0.0, stop - max(start, end))
         end = max(end, stop)
+    return busy / 1e3
+
+
+def summarize(trace_path, wall_ms):
+    """Device time of a Chrome trace by phase and by category, in ms."""
+    events, device = device_events(trace_path)
+    cpu_ops = [e for e in events if e.get("cat") == "cpu_op"]
+    ops = {e["args"].get("External id"): e for e in cpu_ops if "args" in e}
+    einsums = [(e["ts"], e["ts"] + e["dur"]) for e in cpu_ops if e["name"] == "aten::einsum"]
+    phases = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("cat") == "gpu_user_annotation"}
+    busy = busy_ms(device)
     by_phase, by_category = defaultdict(float), defaultdict(float)
     for e in device:
         phase = "forward"
@@ -83,13 +96,13 @@ def summarize(trace_path, wall_ms):
                           if a <= e["ts"] <= b and not name.endswith("backward")), "backward")
         by_phase[phase] += e["dur"] / 1e3
         by_category[_category(e, ops, einsums)] += e["dur"] / 1e3
-    print(f"wall {wall_ms:.1f} ms; device busy {busy / 1e3:.1f} ms "
-          f"({100 * busy / 1e3 / wall_ms:.1f}% of wall)")
+    print(f"wall {wall_ms:.1f} ms; device busy {busy:.1f} ms "
+          f"({100 * busy / wall_ms:.1f}% of wall)")
     for title, table in (("phase", by_phase), ("category", by_category)):
         print(f"device ms by {title}:")
         for k, v in sorted(table.items(), key=lambda kv: -kv[1]):
             print(f"  {k}: {v:.1f}")
-    return busy / 1e3, dict(by_phase), dict(by_category)
+    return busy, dict(by_phase), dict(by_category)
 
 
 def main(argv=None):

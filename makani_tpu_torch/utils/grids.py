@@ -1,9 +1,9 @@
-"""Grid quadrature on the sphere.
+"""Grid quadrature on the sphere and latitude-grid conversion.
 
-Counterpart of grid_quadrature_weights and GridQuadrature in
+Counterpart of GridConverter, grid_quadrature_weights and GridQuadrature in
 makani_tpu/utils/grids.py. Weight tables are host float64 numpy stored in
-float32, one device copy per (quadrature, device). GridConverter (regridding
-onto explicit latitudes) is not ported yet (ROADMAP, Queue 1).
+float32, one device copy per (quadrature, device). GridConverter regrids the
+datasets' numpy samples on the host and takes torch tensors too.
 """
 
 import numpy as np
@@ -13,6 +13,55 @@ from makani_tpu_torch.ops.quadrature import (
     clenshaw_curtiss_nodes_weights,
     legendre_gauss_nodes_weights,
 )
+
+
+class GridConverter:
+    """Equiangular -> Legendre-Gauss latitude regridding by linear
+    interpolation. lat/lon in radians, in the data's latitude order; the
+    left neighbour of each target latitude is found by searchsorted on the
+    (descending) source grid."""
+
+    def __init__(self, src_grid, dst_grid, lat_rad, lon_rad):
+        self.src = src_grid
+        self.dst = dst_grid
+        self.src_lat = np.asarray(lat_rad, dtype=np.float64)
+        self.src_lon = np.asarray(lon_rad, dtype=np.float64)
+
+        if self.src == self.dst:
+            self.dst_lat, self.dst_lon = self.src_lat, self.src_lon
+            return
+        if self.dst != "legendre-gauss":
+            raise NotImplementedError(f"Error, destination grid type {self.dst} not implemented.")
+        cost_lg, _ = legendre_gauss_nodes_weights(self.src_lat.shape[0], -1, 1)
+        self.dst_lat = np.arccos(cost_lg) - np.pi / 2.0
+        self.dst_lon = self.src_lon
+
+        # indices of the left neighbour in the (descending) source grid
+        permutation = np.arange(self.src_lat.shape[0] - 1, -1, -1)
+        jj = np.searchsorted(self.src_lat, self.dst_lat, sorter=permutation) - 1
+        self.indices = jj[permutation]
+        self.interp_weights = (
+            (self.dst_lat - self.src_lat[self.indices])
+            / np.diff(self.src_lat)[np.clip(self.indices, 0, len(self.src_lat) - 2)]
+        ).reshape(-1, 1).astype(np.float32)
+
+    def get_src_coords(self):
+        return self.src_lat, self.src_lon
+
+    def get_dst_coords(self):
+        return self.dst_lat, self.dst_lon
+
+    def __call__(self, data):
+        """Regrid the latitude axis (-2) of a numpy array or a tensor."""
+        if self.src == self.dst:
+            return data
+        lo = data[..., self.indices, :]
+        hi = data[..., self.indices + 1, :]
+        if isinstance(data, torch.Tensor):
+            w = torch.from_numpy(self.interp_weights).to(data.device, data.dtype)
+        else:
+            w = self.interp_weights.astype(data.dtype)
+        return lo + (hi - lo) * w
 
 
 def grid_quadrature_weights(quadrature_rule, img_shape, normalize=False, pole_mask=None,

@@ -13,14 +13,21 @@ in float32; the rollout state and the host buffer stay float32. As in
 makani_tpu, the Inferencer leaves the transform and contraction precision as
 they are set.
 
-Not ported yet (ROADMAP, Queue 1): the dataset-backed inference_single,
-inference_lite and inference_epoch, MetricsHandler, checkpoints and the
-inference.py CLI.
+The evaluation data: as in makani_tpu, the Inferencer builds the
+evaluation loader of `inf_data_path` (data.json first, for data from files;
+synthetic data under enable_synthetic_data) and takes the image shapes, the
+crop and the channel counts from its dataset. A rollout is fed from
+`valid_dataset[i]`: its input, targets and zenith fields go into
+`_rollout_capture` / `_rollout_lite` with a batch axis added.
+
+Not ported yet (ROADMAP, Queue 1 item 3): inference_single, inference_lite
+and inference_epoch, MetricsHandler, checkpoints and the inference.py CLI.
 """
 
 import torch
 
-from makani_tpu_torch.models.model_registry import as_params, get_model
+from makani_tpu_torch.data.dataloader import get_dataloader, init_data_params
+from makani_tpu_torch.models.model_registry import as_params, get_model, update_channel_params
 from makani_tpu_torch.utils.device import resolve_device
 
 
@@ -35,6 +42,10 @@ class Inferencer:
     def __init__(self, params, weights=None, device=None):
         self.device = resolve_device(device)
         params = as_params(params)
+        init_data_params(params)
+        self.valid_dataloader, self.valid_dataset = get_dataloader(
+            params, params.get("inf_data_path", None), train=False, final_eval=True)
+        params = update_channel_params(params, dataset=self.valid_dataset)
         self.amp_dtype = (torch.bfloat16 if params.get("amp_mode", "none") in ("bf16", "fp16")
                           else None)
         self.params = params

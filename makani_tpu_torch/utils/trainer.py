@@ -23,12 +23,19 @@ forward, backward and optimizer update are profiler ranges
 tools/profile_forward.py --train reads; they cost a few microseconds a step
 when no profiler runs.
 
+The data: the training loader reads `train_data_path` and the evaluation
+loader `valid_data_path` (data/dataloader.get_dataloader: the native reader
+for npy shards, zarr, HDF5, or synthetic data under enable_synthetic_data),
+after data.json (`metadata_json_path`) has named the channels, as makani_tpu's
+train.py parses it; the image shapes, the crop and the channel counts come
+from the evaluation dataset, as in makani_tpu's `_update_parameters`.
+
 Not ported yet; each raises NotImplementedError when the config asks for it
 (ROADMAP, Queue 1 item 14 and the items named in the messages): validation
 (`skip_validation` must be true), MetricsHandler, checkpoints
 (`save_checkpoint` must be "none", no resuming or finetuning), the weights
-and grads dump, the multi-step training unroll (n_future > 0), file datasets
-and parallelism.
+and grads dump, the multi-step training unroll (n_future > 0) and
+parallelism.
 """
 
 import logging
@@ -38,7 +45,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from makani_tpu_torch.data.dataloader import get_dataloader
+from makani_tpu_torch.data.dataloader import get_dataloader, init_data_params
 from makani_tpu_torch.models.model_registry import as_params, get_model, update_channel_params
 from makani_tpu_torch.ops import complex_ops, sht
 from makani_tpu_torch.ops.fused_adam import fused_adam_apply
@@ -95,18 +102,20 @@ def _check_supported(params):
 class Trainer:
     """Trains the configured model on `device` (default "cuda"; raises without
     CUDA unless device="cpu"). Weights are drawn from `generator`, by default
-    one seeded with the config's global_seed; `params` must name its channels
-    (in_channels/out_channels) and enable the synthetic data."""
+    one seeded with the config's global_seed."""
 
     def __init__(self, params, device=None, generator=None):
         self.device = resolve_device(device)
         params = as_params(params)
         _check_supported(params)
-        params = update_channel_params(params)
+        init_data_params(params)
+        self.train_dataloader, self.train_dataset = get_dataloader(
+            params, params.get("train_data_path", None), train=True)
+        self.valid_dataloader, self.valid_dataset = get_dataloader(
+            params, params.get("valid_data_path", None), train=False)
+        params = update_channel_params(params, dataset=self.valid_dataset)
         self.params = params
         self.log_to_screen = params.get("log_to_screen", False)
-
-        self.train_dataloader, self.train_dataset = get_dataloader(params)
 
         # AMP: "fp16" is bf16 too, as in makani_tpu (no loss scaling)
         amp_mode = params.get("amp_mode", "none")

@@ -51,7 +51,7 @@ def _configs(**overrides):
     for cls in (TYParams, JYParams):
         p = cls("config/sfnonet.yaml", "flagship_synth_drive_bare")
         p.update_params(dict(img_shape_x=NLAT, img_shape_y=NLON, embed_dim=32, num_layers=3,
-                             scale_factor=2, **overrides))
+                             scale_factor=2, enable_synthetic_data=True, **overrides))
         out.append(p)
     tp, jp = out
     tregistry.update_channel_params(tp, n_channels=CHANS)
@@ -225,9 +225,6 @@ def test_entry_points_need_cuda_unless_cpu():
 
 
 def test_unported_features_and_models_raise():
-    _, tp = _configs(add_orography=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tregistry.get_model(tp, device="cpu")
     _, tp = _configs(nettype="AFNO")
     with pytest.raises(NotImplementedError, match="SFNO"):
         tregistry.get_model(tp, device="cpu")

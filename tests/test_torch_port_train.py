@@ -319,7 +319,7 @@ def test_loss_handler_matches_jax(tmp_path, spec):
         assert torch.isfinite(prd_t.grad).all()
 
 
-def test_synthetic_loader_matches_jax():
+def test_synthetic_loader_matches_jax(tmp_path):
     from makani_tpu.data.dataloader import DummyDataset as JDummy, PrefetchingLoader as JLoader
     from makani_tpu_torch.data.dataloader import get_dataloader
     from makani_tpu_torch.utils.yparams import ParamsBase
@@ -328,7 +328,7 @@ def test_synthetic_loader_matches_jax():
                out_channels=[0, 1], add_zenith=True, n_train_samples_per_epoch=5,
                img_shape_x=6, img_shape_y=8, batch_size=2, global_seed=333,
                enable_synthetic_data=True, num_data_workers=2)
-    loader, _ = get_dataloader(ParamsBase.from_dict(cfg))
+    loader, _ = get_dataloader(ParamsBase.from_dict(cfg), None)
     jds = JDummy(ParamsBase.from_dict(cfg), None, True)
     jloader = JLoader(jds, batch_size=2, shuffle=True, n_samples_per_epoch=5, base_seed=333)
     for _ in range(2):  # two epochs: the permutation follows the epoch
@@ -337,8 +337,11 @@ def test_synthetic_loader_matches_jax():
         for a, b in zip(got, want):
             for x, y in zip(a, b):
                 np.testing.assert_array_equal(x, y)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_dataloader(ParamsBase.from_dict(dict(cfg, enable_synthetic_data=False)))
+    # without enable_synthetic_data the loader reads files (????.h5 here)
+    files = ParamsBase.from_dict(dict(cfg, enable_synthetic_data=False, dhours=6,
+                                      h5_path="fields"))
+    with pytest.raises(IOError, match="does not contain"):
+        get_dataloader(files, str(tmp_path))
 
 
 def test_augment_batch_rolls_consistently():
@@ -494,10 +497,14 @@ def test_trainer_runs_an_epoch_and_refuses_what_is_not_ported(jax_trainer):
     unfused = Trainer(TYParams.from_dict(dict(tp.to_dict(), optimizer_fused=False)), device="cpu")
     assert unfused.fused_kw == trainer.fused_kw is not None
     for override, match in [(dict(skip_validation=False), "item 14"),
-                            (dict(save_checkpoint="flexible"), "item 14"),
-                            (dict(enable_synthetic_data=False), "data")]:
+                            (dict(save_checkpoint="flexible"), "item 14")]:
         with pytest.raises(NotImplementedError, match=match):
             Trainer(TYParams.from_dict(dict(tp.to_dict(), **override)), device="cpu")
+    # without enable_synthetic_data the Trainer reads the config's data.json
+    # and files, which this checkout does not hold
+    with pytest.raises(OSError, match="data.json"):
+        Trainer(TYParams.from_dict(dict(tp.to_dict(), enable_synthetic_data=False)),
+                device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             Trainer(tp)
