@@ -109,9 +109,33 @@ Phases, in order; any failure exits non-zero:
      against the twins (FORWARD_TOL), and a capture rollout of 5 steps
      (valid_autoreg_steps 4) with zenith from the targets' times, timed as in
      phase 5, finite, with its launches and peak memory. Its cuts against
-     flagship_synth_drive (FILES_CUTS) are printed, one a line.
+     flagship_synth_drive (FILES_CUTS) are printed, one a line;
+ 11. checkpoints, scoring and packages on phase 10's dataset and model
+     (float32 at "high"): (a) the trained model and its AdamW state (bf16
+     moments) saved with utils/checkpoint.save_checkpoint into
+     build/chip_smoke_files/ckpt and restored into a fresh model and state,
+     every tensor and the counters bit for bit, with the bytes, seconds and
+     GB/s each way; (b) an Inferencer restored from that checkpoint scores
+     the evaluation files (score_model, n_eval_samples 2 at
+     valid_autoreg_steps 4): finite logs, ACC and RMSE curves of (73, 5), the
+     four npy exports, the same scoring through the twins within
+     FORWARD_TOL, 18 legmm and 8 dhconv_mm launches a scored step, all at 3
+     passes, the ms a scored step (score_model's wall, and a metrics
+     rollout on a resident batch) and the peak memory; (c)
+     inference_single with metrics and data, inference_lite with two
+     channels perturbed (the IC plus RandomState(42)'s draws, bit for bit)
+     and a third persisted (equal to its IC at every step, bit for bit), and
+     predict, all finite; (d) `python3 -m makani_tpu_torch.inference --mode
+     epoch` in a subprocess from a YAML the phase writes: exit 0, exports
+     within TWIN_TOL of (b)'s; (e) a model package (save_model_package, the
+     model alone as best_ckpt, .npy invariants) through load_time_loop for 3
+     steps, each within FORWARD_TOL of the twins, with its launches and ms a
+     step. The checkpoint is taken between phase 10's training and serving
+     halves; the dataset (3.6 GB), the checkpoint (4.6 GB) and the package
+     (2.3 GB) are removed at the end of the phase.
 The last two lines are the kernels' JSON record (the AMP path's launches in
-each row's *_amp fields, phase 10's in *_files) and the result line.
+each row's *_amp fields, phase 10's in *_files, phase 11's a scored step in
+launches_score) and the result line.
 --record PATH also writes every measurement of the run to PATH as JSON.
 
 TF32 is off for matmuls and cuDNN (torch.backends.cuda.matmul.allow_tf32 and
@@ -121,6 +145,7 @@ precision is "high", i.e. 3 bf16 passes in the kernels.
 """
 
 import argparse
+import datetime
 import json
 import math
 import shutil
@@ -205,14 +230,24 @@ FILES_CUTS = (
     f"valid_autoreg_steps {FILES_AUTOREG} (19)",
     f"n_eval_samples {FILES_EVAL} (2)",
     "1 epoch (8)",
-    "skip_validation: true and save_checkpoint: none (validation and checkpoints are not "
-    "ported yet)",
+    "skip_validation: true and save_checkpoint: none (validation and the Trainer's "
+    "checkpoints are not ported yet; phase 11 checkpoints the trained model itself)",
     "checkpointing 0 (the drive's command line asks for level 2)",
     "orography and land-sea mask as .npy (.nc needs h5py, which this machine may lack)",
 )
 # the 109-channel encoder: 73 channels + zenith + 2x16 sinusoidal grid +
 # orography + 2 land-sea mask classes
 FILES_IN_CHANNELS = FILES_CHANNELS + 1 + 32 + 1 + 2
+# phase 11: phase 10's model checkpointed into FILES_DIR and served from it
+SERVE_CKPT = FILES_DIR / "ckpt"
+SERVE_EXPORTS = ("acc_curves.npy", "rmse_curves.npy", "RMSE_over_time.npy",
+                 "RMSE_over_space.npy")
+# inference_lite: two perturbed channels (std), a third persisted
+SERVE_PERTURBATION = {3: 0.5, 7: 0.25}
+SERVE_PERSISTENCE = 11
+SERVE_LOOP_STEPS = 3
+# seconds for the inference CLI's subprocess, its kernel build included
+CLI_TIMEOUT = 300
 
 
 def check(cond, msg):
@@ -1222,13 +1257,13 @@ def check_loader(np):
                 loader_gb_per_s=nbytes / dt / 1e9, sample_bytes=nbytes // n)
 
 
-def phase_files(torch, np, sht, complex_ops, kernels, dev):
+def phase_files_train(torch, np, kernels, dev):
     """flagship_synth_drive from files at full width: the dataset written,
-    the loader checked and timed, an AMP epoch from the files under the
-    profiler, and float32 serving from the evaluation dataset."""
+    the loader checked and timed, and an AMP epoch from the files under the
+    profiler. Returns the measurements and the trained Trainer (phase 11
+    checkpoints it)."""
     from torch.profiler import ProfilerActivity, profile
     from makani_tpu_torch.tools.profile_forward import busy_ms, device_events
-    from makani_tpu_torch.utils.inferencer import Inferencer
     from makani_tpu_torch.utils.trainer import Trainer
     rec = {"write_s": write_files_dataset(np)}
     rec.update(check_loader(np))
@@ -1278,10 +1313,14 @@ def phase_files(torch, np, sht, complex_ops, kernels, dev):
                train_launches_per_step={k: v // TRAIN_STEPS for k, v in total.items()},
                step_ms_loader=logs["timing"]["training step time [ms]"],
                train_s=logs["timing"]["training time [s]"])
-    del trainer
-    torch.cuda.empty_cache()
+    return rec, trainer
 
-    # serving: float32 at 3 passes, from the evaluation dataset
+
+def phase_files_serve(torch, np, sht, complex_ops, kernels, dev):
+    """Float32 serving from the evaluation dataset: a forward through the
+    kernels against the twins, and the capture rollout."""
+    from makani_tpu_torch.utils.inferencer import Inferencer
+    rec = {}
     sht.set_transform_precision("high")
     complex_ops.set_contraction_precision("high")
     inferencer = Inferencer(files_params(), device=dev)
@@ -1342,6 +1381,258 @@ def phase_files(torch, np, sht, complex_ops, kernels, dev):
     torch.cuda.empty_cache()
     return rec
 
+
+
+def dir_bytes(path):
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def phase_checkpoint(torch, trainer):
+    """Phase 11 (a): phase 10's trained model and AdamW state (bf16 moments)
+    saved with save_checkpoint, restored into a fresh model and state, every
+    tensor bit for bit."""
+    from makani_tpu_torch.models.model_registry import get_model
+    from makani_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+    from makani_tpu_torch.utils.optimizers import build_optimizer
+    rec = {"disk_free_bytes": shutil.disk_usage(FILES_DIR).free}
+    counters = {"iters": trainer.iters, "epoch": trainer.epoch}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(str(SERVE_CKPT), trainer.model.state_dict(), trainer.opt_state, counters)
+    rec["save_s"] = time.perf_counter() - t0
+    rec["bytes"] = dir_bytes(SERVE_CKPT)
+    rec["model_bytes"] = (SERVE_CKPT / "model.pt").stat().st_size
+
+    params = trainer.params
+    model = get_model(params, device=trainer.device,
+                      generator=torch.Generator(device=trainer.device).manual_seed(99))
+    fresh = build_optimizer(params).init({k: p.detach() for k, p in model.named_parameters()})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    weights, opt_state, got_counters = restore_checkpoint(str(SERVE_CKPT), model.state_dict(),
+                                                          fresh)
+    model.load_state_dict(weights)
+    torch.cuda.synchronize()
+    rec["restore_s"] = time.perf_counter() - t0
+    want = trainer.model.state_dict()
+    got = model.state_dict()
+    check(set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want),
+          "restored parameters differ from the trained ones")
+    adam, want_adam = opt_state[0], trainer.opt_state[0]
+    check(adam.count == want_adam.count == TRAIN_STEPS and got_counters == counters,
+          f"restored count {adam.count} / {want_adam.count}, counters {got_counters}")
+    for name in ("mu", "nu"):
+        got_m, want_m = getattr(adam, name), getattr(want_adam, name)
+        check(set(got_m) == set(want_m) and all(
+            got_m[k].dtype == want_m[k].dtype == torch.bfloat16 and torch.equal(got_m[k], want_m[k])
+            for k in want_m), f"restored {name} differs from the trained one")
+    rec.update(n_tensors=len(want), save_gb_per_s=rec["bytes"] / rec["save_s"] / 1e9,
+               restore_gb_per_s=rec["bytes"] / rec["restore_s"] / 1e9)
+    return rec
+
+
+def exports(np, exp_dir):
+    return {name: np.load(Path(exp_dir) / name) for name in SERVE_EXPORTS}
+
+
+def export_err(np, got, want):
+    return max(float(np.abs(got[k].astype(np.float64) - want[k]).max() / np.abs(want[k]).max())
+               for k in want)
+
+
+def serve_params(**overrides):
+    return files_params(checkpoint_path=str(SERVE_CKPT), **overrides)
+
+
+def phase_serve(torch, np, sht, complex_ops, kernels, dev):
+    """Phase 11 (b)-(e): scoring from the restored checkpoint on the
+    evaluation files, inference_single / inference_lite / predict, the
+    inference CLI in a subprocess, and a model package's TimeLoop; float32
+    at "high", the port's default, which the CLI runs at too."""
+    import yaml
+    from makani_tpu_torch.models.model_package import load_time_loop, save_model_package
+    from makani_tpu_torch.utils.checkpoint import save_checkpoint
+    from makani_tpu_torch.utils.inferencer import Inferencer
+    sht.set_transform_precision("high")
+    complex_ops.set_contraction_precision("high")
+    rec = {}
+    steps = FILES_AUTOREG + 1
+    scored_steps = FILES_EVAL * steps
+    exp = {name: FILES_DIR / "score" / name for name in ("kernel", "twin")}
+    for d in exp.values():
+        d.mkdir(parents=True)
+
+    # (b) score_model through the kernels, then through the twins
+    inferencer = Inferencer(serve_params(experiment_dir=str(exp["kernel"])), device=dev)
+    params = inferencer.params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    logs = inferencer.score_model(output_channels=params.out_channels)
+    torch.cuda.synchronize()
+    rec["score_s"] = time.perf_counter() - t0
+    rec["score_peak_bytes"] = torch.cuda.max_memory_allocated()
+    rec["score_launches"] = dict(kernels.launches)
+    rec["score_launches_by_passes"] = {f"{k}/p{p}": v
+                                       for (k, p), v in kernels.launches_by_passes.items()}
+    rec["launches_per_scored_step"] = {k: v // scored_steps for k, v in
+                                       rec["score_launches"].items()}
+    check(rec["score_launches"] == launch_counts(kernels, {"legmm": 18 * scored_steps,
+                                                           "dhconv_mm": 8 * scored_steps})
+          and dict(kernels.launches_by_passes) == {("legmm", 3): 18 * scored_steps,
+                                                   ("dhconv_mm", 3): 8 * scored_steps},
+          f"score launches {rec['score_launches']}, by passes {rec['score_launches_by_passes']}")
+    base = logs["base"]
+    check(base["validation steps"] == FILES_EVAL
+          and all(math.isfinite(base[k]) for k in ("validation loss", "validation L1")),
+          f"score logs {base}")
+    got = exports(np, exp["kernel"])
+    shapes = {"acc_curves.npy": (FILES_CHANNELS, steps), "rmse_curves.npy": (FILES_CHANNELS, steps),
+              "RMSE_over_time.npy": (steps, FILES_CHANNELS),
+              "RMSE_over_space.npy": (FILES_CHANNELS, *FILES_SHAPE)}
+    check(all(got[k].shape == shapes[k] and np.isfinite(got[k]).all() for k in shapes),
+          f"exports {({k: v.shape for k, v in got.items()})}")
+    rec.update(logs_base=base, score_ms_per_step=rec["score_s"] * 1e3 / scored_steps)
+
+    # a scored step on a resident batch: the metrics rollout alone
+    inp, tar, zen_inp, zen_tar = inferencer._get_batch(0)
+    times = []
+    for _ in range(ROLLOUT_REPS):
+        buffers, (rt, rs) = inferencer.metrics.initialize_buffers(), \
+            inferencer._zero_accumulators()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inferencer._rollout_metrics(buffers, rt, rs, inp, tar, zen_inp, zen_tar)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / steps)
+    rec.update(metrics_step_ms_all=times, metrics_step_ms=statistics.median(times))
+
+    sht.set_coeff_engine("stacked")
+    try:
+        inferencer.params["experiment_dir"] = str(exp["twin"])
+        twin_logs = inferencer.score_model(output_channels=params.out_channels)
+    finally:
+        sht.set_coeff_engine("kernel")
+        inferencer.params["experiment_dir"] = str(exp["kernel"])
+    rec["score_rel_err_twin"] = export_err(np, got, exports(np, exp["twin"]))
+    rec["loss_rel_err_twin"] = abs(base["validation loss"] - twin_logs["base"]["validation loss"]) \
+        / abs(twin_logs["base"]["validation loss"])
+    check(rec["score_rel_err_twin"] < FORWARD_TOL and rec["loss_rel_err_twin"] < FORWARD_TOL,
+          f"scoring kernels vs twins: exports {rec['score_rel_err_twin']}, loss "
+          f"{rec['loss_rel_err_twin']}")
+
+    # (c) inference_single, inference_lite with perturbation and persistence,
+    # predict
+    targ, pred = inferencer.inference_single(ic=0, compute_metrics=True, output_data=True,
+                                             output_channels=[0, 1, 2])
+    single_logs = inferencer.metrics.logs["base"]
+    check(pred.shape == targ.shape == (steps, 1, 3, *FILES_SHAPE)
+          and bool(np.isfinite(pred).all())
+          and all(math.isfinite(single_logs[k]) for k in ("validation loss", "validation L1"))
+          and np.array_equal(targ[:, 0], tar[0, :, :3].cpu().numpy()),
+          f"inference_single {pred.shape}, logs {single_logs}")
+    del targ, pred
+    ic = inp.cpu().numpy()
+    seen = {}
+    rollout_lite = inferencer._rollout_lite
+
+    def recording_rollout(x, *args):
+        seen["inp"] = x.cpu().numpy()
+        return rollout_lite(x, *args)
+    inferencer._rollout_lite = recording_rollout
+    inferencer.ic_perturbation_std = SERVE_PERTURBATION
+    inferencer.sst_persistence_channels = (SERVE_PERSISTENCE,)
+    try:
+        (lite,) = inferencer.inference_lite(ic=0, output_data=True,
+                                            output_channels=list(range(FILES_CHANNELS)))
+    finally:
+        del inferencer._rollout_lite
+        inferencer.ic_perturbation_std = None
+        inferencer.sst_persistence_channels = ()
+    rng = np.random.RandomState(42)
+    want_inp = ic.copy()
+    for ch, std in SERVE_PERTURBATION.items():
+        want_inp[:, :, ch] += rng.normal(0.0, std, FILES_SHAPE).astype(np.float32)
+    check(np.array_equal(seen["inp"], want_inp)
+          and not np.array_equal(seen["inp"], ic), "the perturbed input is not the IC plus "
+          "RandomState(42)'s draws")
+    check(lite.shape == (steps, 1, FILES_CHANNELS, *FILES_SHAPE) and bool(np.isfinite(lite).all())
+          and all(np.array_equal(lite[s, 0, SERVE_PERSISTENCE], ic[0, -1, SERVE_PERSISTENCE])
+                  for s in range(steps)), "inference_lite: the persisted channel moved")
+    del lite, seen
+    predicted = inferencer.predict(ic=0)
+    check(predicted.shape == (steps, FILES_CHANNELS, *FILES_SHAPE)
+          and bool(np.isfinite(predicted).all()), f"predict {predicted.shape}")
+    del predicted
+
+    # (d) the inference CLI, --mode epoch, in a subprocess
+    cfg = {k: v for k, v in serve_params().to_dict().items() if not k.startswith("_")}
+    cfg.update(exp_dir=str(FILES_DIR / "cli"))
+    yaml_path = FILES_DIR / "serve.yaml"
+    yaml_path.write_text(yaml.safe_dump({"chip_smoke_serve": cfg}))
+    log = ROOT / "build" / "chip_smoke_cli.log"
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        proc = subprocess.run(
+            ["timeout", "-k", "10", str(CLI_TIMEOUT), sys.executable, "-m",
+             "makani_tpu_torch.inference", "--yaml_config", str(yaml_path), "--config",
+             "chip_smoke_serve", "--mode", "epoch", "--run_num", "0", "--checkpoint_path",
+             str(SERVE_CKPT)], cwd=ROOT, stdout=f, stderr=subprocess.STDOUT)
+    rec["cli_s"] = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the inference CLI returned {proc.returncode}: "
+          + log.read_text()[-3000:])
+    rec["cli_rel_err"] = export_err(np, exports(np, FILES_DIR / "cli" / "chip_smoke_serve" / "0"),
+                                    got)
+    check(rec["cli_rel_err"] < TWIN_TOL, f"CLI exports vs in-process: {rec['cli_rel_err']}")
+
+    # (e) a model package, the model alone as best_ckpt, .npy invariants
+    pkg = FILES_DIR / "package"
+    params["experiment_dir"] = str(pkg)  # the resolved params of the Inferencer
+    save_model_package(params)
+    save_checkpoint(str(pkg / "training_checkpoints" / "best_ckpt"),
+                    inferencer.model.state_dict())
+    rec["package_bytes"] = dir_bytes(pkg)
+    check({"orography.npy", "land_mask.npy"} <= {p.name for p in pkg.iterdir()},
+          f"package files {sorted(p.name for p in pkg.iterdir())}")
+    del inferencer
+    torch.cuda.empty_cache()
+    loop = load_time_loop(str(pkg), device=dev)
+    means = np.load(params.global_means_path)[0, :, 0, 0]
+    stds = np.load(params.global_stds_path)[0, :, 0, 0]
+    x = ic[:, -1:] * stds[:, None, None] + means[:, None, None]
+    t_start = datetime.datetime(2021, 1, 1, tzinfo=datetime.timezone.utc)
+
+    def run_loop():
+        out, times = [], []
+        it = loop(x, t_start)
+        next(it)
+        for _ in range(SERVE_LOOP_STEPS):
+            t0 = time.perf_counter()
+            out.append(next(it)[1])
+            times.append((time.perf_counter() - t0) * 1e3)
+        return out, times
+    kernels.reset_launches()
+    fields, times = run_loop()
+    rec["loop_launches"] = dict(kernels.launches)
+    sht.set_coeff_engine("stacked")
+    try:
+        twin_fields, _ = run_loop()
+    finally:
+        sht.set_coeff_engine("kernel")
+    rec["loop_rel_err_twin"] = max(
+        float(np.abs(f.astype(np.float64) - t).max() / np.abs(t).max())
+        for f, t in zip(fields, twin_fields))
+    check(all(f.shape == (1, FILES_CHANNELS, *FILES_SHAPE) and np.isfinite(f).all()
+              for f in fields) and rec["loop_rel_err_twin"] < FORWARD_TOL,
+          f"TimeLoop kernels vs twins: {rec['loop_rel_err_twin']}")
+    check(rec["loop_launches"] == launch_counts(kernels, {"legmm": 18 * SERVE_LOOP_STEPS,
+                                                          "dhconv_mm": 8 * SERVE_LOOP_STEPS}),
+          f"TimeLoop launches {rec['loop_launches']}")
+    rec.update(loop_step_ms_all=times, loop_step_ms=statistics.median(times))
+    del loop
+    torch.cuda.empty_cache()
+    return rec
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1590,14 +1881,22 @@ def main(argv=None):
           f"{amp['xla_train_loss']:.6g}, launches {amp['xla_train_launches']})",
           flush=True)
 
-    # phase 10: flagship_synth_drive from files at full width
+    # phase 10: flagship_synth_drive from files at full width; phase 11:
+    # checkpoints, scoring and packages on its dataset and model (the
+    # checkpoint is taken between phase 10's training and serving halves,
+    # where the trained Trainer is alive; the dataset is removed at the end)
     settings = (sht.get_coeff_engine(), sht.get_transform_precision(),
                 complex_ops.get_contraction_precision(),
                 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     shutil.rmtree(FILES_DIR, ignore_errors=True)
     try:
-        files = phase_files(torch, np, sht, complex_ops, kernels, dev)
+        files, trainer = phase_files_train(torch, np, kernels, dev)
+        serve = {"checkpoint": phase_checkpoint(torch, trainer)}
+        del trainer
+        torch.cuda.empty_cache()
+        files.update(phase_files_serve(torch, np, sht, complex_ops, kernels, dev))
+        serve.update(phase_serve(torch, np, sht, complex_ops, kernels, dev))
     finally:
         shutil.rmtree(FILES_DIR, ignore_errors=True)
         sht.set_coeff_engine(settings[0])
@@ -1638,6 +1937,39 @@ def main(argv=None):
           f"peak device memory {files['rollout_peak_bytes'] / 2**30:.2f} GiB; launches "
           f"{files['rollout_launches']}", flush=True)
 
+    record["serve"] = serve
+    ck = serve["checkpoint"]
+    print(f"[serve checkpoint] phase 10's model and AdamW state (bf16 moments), "
+          f"{ck['n_tensors']} parameter tensors: {ck['bytes'] / 1e9:.3f} GB "
+          f"({ck['model_bytes'] / 1e9:.3f} GB of weights) saved in {ck['save_s']:.2f} s "
+          f"({ck['save_gb_per_s']:.2f} GB/s), restored into a fresh model and state in "
+          f"{ck['restore_s']:.2f} s ({ck['restore_gb_per_s']:.2f} GB/s), every tensor and the "
+          f"counters equal, bit for bit; disk free before {ck['disk_free_bytes'] / 1e9:.1f} GB",
+          flush=True)
+    print(f"[serve score] score_model from the checkpoint, {FILES_EVAL} evaluation samples at "
+          f"valid_autoreg_steps {FILES_AUTOREG}, float32 'high': {serve['score_s']:.2f} s, "
+          f"{serve['score_ms_per_step']:.1f} ms a scored step with the loader and the exports "
+          f"(a scored step on a resident batch {serve['metrics_step_ms']:.1f} ms, median of "
+          f"{ROLLOUT_REPS}: {', '.join(f'{t:.1f}' for t in serve['metrics_step_ms_all'])}; "
+          f"phase 10's capture step {files['step_ms']:.1f} ms); peak device memory "
+          f"{serve['score_peak_bytes'] / 2**30:.2f} GiB; launches a scored step "
+          f"{serve['launches_per_scored_step']}, by passes {serve['score_launches_by_passes']}; "
+          f"logs {serve['logs_base']}; exports and loss vs the twins "
+          f"{serve['score_rel_err_twin']:.3g}, {serve['loss_rel_err_twin']:.3g}", flush=True)
+    print(f"[serve single/lite/predict] inference_single with metrics and data, inference_lite "
+          f"with channels {sorted(SERVE_PERTURBATION)} perturbed (the IC plus RandomState(42)'s "
+          f"draws, bit for bit) and channel {SERVE_PERSISTENCE} persisted (equal to its IC at "
+          f"every step, bit for bit), predict: all finite", flush=True)
+    print(f"[serve cli] python3 -m makani_tpu_torch.inference --mode epoch in a subprocess: "
+          f"returned 0 in {serve['cli_s']:.1f} s (its kernel build included); exports vs "
+          f"in-process {serve['cli_rel_err']:.3g}", flush=True)
+    print(f"[serve package] save_model_package + best_ckpt (the model alone), .npy invariants, "
+          f"{serve['package_bytes'] / 1e9:.3f} GB; load_time_loop, {SERVE_LOOP_STEPS} steps: "
+          f"{serve['loop_step_ms']:.1f} ms a step (median; "
+          f"{', '.join(f'{t:.1f}' for t in serve['loop_step_ms_all'])}; host fields in and out), "
+          f"kernels vs twins {serve['loop_rel_err_twin']:.3g}; launches {serve['loop_launches']}",
+          flush=True)
+
     # results
     if args.record is not None:
         args.record.parent.mkdir(parents=True, exist_ok=True)
@@ -1656,10 +1988,11 @@ def main(argv=None):
                               "makani_tpu/ops/pallas_adam.py:124")}
     def files_launches(name):
         """*_files: the counts of phase 10's path, an AMP epoch and a float32
-        rollout from files."""
+        rollout from files; launches_score: phase 11's launches a scored step."""
         return dict(launches_files=files["train_launches"][name],
                     launches_per_train_step_files=files["train_launches_per_step"][name],
-                    launches_rollout_files=files["rollout_launches"][name])
+                    launches_rollout_files=files["rollout_launches"][name],
+                    launches_score=serve["launches_per_scored_step"][name])
 
     kernels = []
     # *_amp: the same counts on phase 9's AMP path, where every pass-taking

@@ -20,6 +20,7 @@ import os
 import time
 
 import numpy as np
+import torch
 
 from makani_tpu_torch.data.dataset import MultifilesDataset
 from makani_tpu_torch.utils.dataset_metadata import parse_dataset_metadata
@@ -159,6 +160,17 @@ def init_data_params(params):
     elif params.get("metadata_json_path", None):
         parse_dataset_metadata(params.metadata_json_path, params)
     return params
+
+
+def to_device(data, device):
+    """A loader batch, (inp, tar) or (inp, tar, zen_inp, zen_tar), as four
+    tensors on `device` (the zenith fields None without them)."""
+    if len(data) == 4:
+        inp, tar, zen_inp, zen_tar = data
+    else:
+        (inp, tar), zen_inp, zen_tar = data, None, None
+    return tuple(None if x is None else torch.as_tensor(x).to(device)
+                 for x in (inp, tar, zen_inp, zen_tar))
 
 
 def _holds(location, pattern):

@@ -1,0 +1,230 @@
+"""Checkpoint save and restore in the port's own format.
+
+Counterpart of makani_tpu/utils/checkpoint.py. makani_tpu writes orbax
+checkpoints, and orbax imports JAX, so the port can neither read nor write
+them: it writes `torch.save` files that load with
+``torch.load(..., weights_only=True)``. A makani_tpu checkpoint crosses over
+outside the port: restore it with orbax, flatten the trees with
+``flax.traverse_util.flatten_dict(..., sep="/")``, load them with
+tools/convert_jax_params (`load_jax_params`, `load_jax_opt_state`), then
+`save_checkpoint` here.
+
+The two layouts of makani_tpu:
+- single-dir (the best checkpoint, model packages):
+  <path>/model.pt, <path>/opt_state.pt, <path>/counters.json
+- versioned (per-epoch checkpoints, `TrainingCheckpointer`): step dirs
+  <root>/<step>/{model.pt, opt_state.pt} with <root>/counters-<step>.json,
+  keep-N retention.
+`restore_checkpoint` and `checkpoint_exists` take either (a versioned root
+resolves to its latest step).
+
+The model is a dict of tensors (a state dict, or `named_parameters()`), saved
+under its keys. The optimizer state is the tuple of utils/optimizers' chain:
+each `AdamState` in it is stored flattened as ``<i>/count``,
+``<i>/mu/<parameter>`` and ``<i>/nu/<parameter>`` (i its place in the tuple;
+the moments in their own dtype, bf16 included) and rebuilt on restore onto a
+template of the same structure. Restoring onto a template whose keys, shapes
+or dtypes differ raises, naming the path and the keys.
+
+Every directory is written under a temporary name beside its target and
+renamed into place, so a process that dies mid-save leaves the previous
+checkpoint as it was (orbax's guarantee); an existing single-dir checkpoint
+is renamed aside, the new one renamed in, and the old one removed. Writes
+are synchronous: `wait_for_saves` returns at once, and is kept for callers
+written against makani_tpu's asynchronous saves.
+"""
+
+import json
+import os
+import re
+import shutil
+import tempfile
+
+import torch
+
+from makani_tpu_torch.utils.optimizers import AdamState
+
+MODEL_FILE = "model.pt"
+OPT_FILE = "opt_state.pt"
+
+
+def _counters_path(path):
+    return os.path.join(path, "counters.json")
+
+
+def wait_for_saves():
+    """Saves are synchronous: nothing is in flight."""
+
+
+def flatten_opt_state(opt_state):
+    """{name: tensor} of a chain's state tuple (None for a stateless stage)."""
+    flat = {}
+    for i, stage in enumerate(opt_state):
+        if stage is None:
+            continue
+        if not isinstance(stage, AdamState):
+            raise TypeError(f"optimizer state stage {i} is a {type(stage).__name__}; "
+                            "checkpoints hold AdamState stages")
+        flat[f"{i}/count"] = torch.tensor(int(stage.count), dtype=torch.int64)
+        for name in ("mu", "nu"):
+            for key, value in getattr(stage, name).items():
+                flat[f"{i}/{name}/{key}"] = value
+    return flat
+
+
+def _save_tensors(tensors, path):
+    torch.save({k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}, path)
+
+
+def _write_dir(path, write):
+    """Run write(tmp_dir), then rename tmp_dir to `path`."""
+    parent, name = os.path.split(path)
+    os.makedirs(parent, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix=f".{name}.tmp-", dir=parent)
+    try:
+        write(tmp)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    old = None
+    if os.path.exists(path):
+        old = tempfile.mkdtemp(prefix=f".{name}.old-", dir=parent)
+        os.rename(path, os.path.join(old, name))
+    os.rename(tmp, path)
+    if old is not None:
+        shutil.rmtree(old)
+
+
+def save_checkpoint(path, params, opt_state=None, counters=None):
+    """Save a single-dir checkpoint: `params` (dict of tensors), the
+    optimizer state and the counters (a JSON-able dict)."""
+    path = os.path.abspath(path)
+
+    def write(tmp):
+        _save_tensors(params, os.path.join(tmp, MODEL_FILE))
+        if opt_state is not None:
+            _save_tensors(flatten_opt_state(opt_state), os.path.join(tmp, OPT_FILE))
+        if counters is not None:
+            with open(_counters_path(tmp), "w") as f:
+                json.dump(counters, f)
+    _write_dir(path, write)
+
+
+def _steps(root):
+    if not os.path.isdir(root):
+        return []
+    return sorted(int(n) for n in os.listdir(root)
+                  if re.fullmatch(r"\d+", n) and os.path.isfile(os.path.join(root, n, MODEL_FILE)))
+
+
+def _resolve(path):
+    """A single-dir checkpoint passes through; a versioned root resolves to
+    its latest step dir."""
+    path = os.path.abspath(path)
+    if os.path.isfile(os.path.join(path, MODEL_FILE)):
+        return path
+    steps = _steps(path)
+    if steps:
+        return os.path.join(path, str(steps[-1]))
+    return path
+
+
+def _load_onto(file, template, path):
+    """The tensors of `file` on the template's devices; raises on a key,
+    shape or dtype that differs from the template's."""
+    state = torch.load(file, map_location="cpu", weights_only=True, mmap=True)
+    missing = sorted(set(template) - set(state))
+    unexpected = sorted(set(state) - set(template))
+    differ = {k: (tuple(state[k].shape), state[k].dtype, tuple(template[k].shape),
+                  template[k].dtype)
+              for k in sorted(set(state) & set(template))
+              if state[k].shape != template[k].shape or state[k].dtype != template[k].dtype}
+    if missing or unexpected or differ:
+        raise RuntimeError(
+            f"checkpoint {path} does not fit its template ({os.path.basename(file)}): "
+            f"missing {missing}; unexpected {unexpected}; "
+            f"shape/dtype (saved, template) {differ}")
+    # a copy, so no restored tensor is backed by the file's mapping
+    return {k: state[k].to(template[k].device, copy=True) for k in template}
+
+
+def _unflatten_opt_state(flat, template):
+    out = []
+    for i, stage in enumerate(template):
+        if stage is None:
+            out.append(None)
+            continue
+        out.append(AdamState(
+            count=int(flat[f"{i}/count"]),
+            mu={k: flat[f"{i}/mu/{k}"] for k in stage.mu},
+            nu={k: flat[f"{i}/nu/{k}"] for k in stage.nu}))
+    return tuple(out)
+
+
+def restore_checkpoint(path, params_template, opt_state_template=None):
+    """Restore onto the templates (a dict of tensors, a chain's state tuple),
+    each tensor on its template's device. Returns (params, opt_state or
+    None, counters)."""
+    path = _resolve(path)
+    model_file = os.path.join(path, MODEL_FILE)
+    if not os.path.isfile(model_file):
+        raise FileNotFoundError(f"no checkpoint at {path} (no {MODEL_FILE})")
+    params = _load_onto(model_file, params_template, path)
+
+    opt_state = None
+    opt_file = os.path.join(path, OPT_FILE)
+    if opt_state_template is not None and os.path.isfile(opt_file):
+        template = flatten_opt_state(opt_state_template)
+        opt_state = _unflatten_opt_state(_load_onto(opt_file, template, path),
+                                         opt_state_template)
+
+    counters = {}
+    # single-dir checkpoints keep their counters inside; versioned steps
+    # keep them under the root as counters-<step>.json
+    candidates = [_counters_path(path)]
+    root, leaf = os.path.split(path)
+    if re.fullmatch(r"\d+", leaf or ""):
+        candidates.append(os.path.join(root, f"counters-{leaf}.json"))
+    for cpath in candidates:
+        if os.path.exists(cpath):
+            with open(cpath) as f:
+                counters = json.load(f)
+            break
+    return params, opt_state, counters
+
+
+def checkpoint_exists(path):
+    return os.path.isfile(os.path.join(_resolve(path), MODEL_FILE))
+
+
+class TrainingCheckpointer:
+    """Versioned per-epoch checkpoints with keep-N retention. Step dirs use
+    the single-dir layout, so restore_checkpoint reads them directly."""
+
+    def __init__(self, directory, max_to_keep=3):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+        self.max_to_keep = max_to_keep
+
+    def save(self, step, params, opt_state=None, counters=None):
+        save_checkpoint(os.path.join(self.directory, str(int(step))), params, opt_state)
+        if counters is not None:
+            with open(os.path.join(self.directory, f"counters-{int(step)}.json"), "w") as f:
+                json.dump(counters, f)
+        for old in _steps(self.directory)[:-self.max_to_keep]:
+            shutil.rmtree(os.path.join(self.directory, str(old)))
+            cpath = os.path.join(self.directory, f"counters-{old}.json")
+            if os.path.exists(cpath):
+                os.remove(cpath)
+
+    def latest_step(self):
+        steps = _steps(self.directory)
+        return steps[-1] if steps else None
+
+    def restore(self, params_template, opt_state_template=None, step=None):
+        """Returns (params, opt_state or None, counters)."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {self.directory}")
+        return restore_checkpoint(os.path.join(self.directory, str(step)),
+                                  params_template, opt_state_template)

@@ -1,47 +1,71 @@
-"""Inference engine: the autoregressive rollout core.
+"""Inference engine: rollouts, scoring and predictions.
 
-Counterpart of the rollout core of makani_tpu/utils/inferencer.py
-(_build_inference_steps :107-166, _rollout_capture / _rollout_lite
-:183-201): an Inferencer built from params and weights runs a host loop over
-one AR step. `lite_step` predicts without targets, optionally pinning the
-`sst_persistence_channels` to their initial-condition value; `capture_step`
-also slices the matching target frame.
+Counterpart of makani_tpu/utils/inferencer.py: an Inferencer built from
+params runs a host loop over one AR step, in four kinds of rollout:
+  - `metrics_step`: the loss (LossHandler, training=False), the
+    MetricsHandler's ACC and RMSE curves, and the fork's squared-error
+    accumulators over time (S, C) and space (C, H, W), summed over the batch;
+  - `capture_step`: the prediction and the matching target frame;
+  - `lite_step`: the prediction without targets, with the
+    `sst_persistence_channels` pinned to their initial-condition value.
+`inference_single` (metrics and/or captured data of one initial condition),
+`inference_lite` (with `ic_perturbation_std`), `predict` (denormalized),
+`inference_epoch` (the whole evaluation loader; the ACC and RMSE curves and
+the RMSE over time and over space, saved as four npy files in
+experiment_dir) and `score_model` are makani_tpu's.
+
+The weights: `weights` (a state dict of the stepper) where the caller gives
+them; else the checkpoint at params.checkpoint_path (utils/checkpoint, the
+port's format; a versioned root resolves to its latest step), as makani_tpu
+restores it; a config that names no checkpoint gets weights drawn from a
+generator seeded with its global_seed.
 
 Under `amp_mode` "bf16" (or "fp16", bf16 here as in makani_tpu) each step
 casts its input to bfloat16 before the forward and takes the prediction back
-in float32; the rollout state and the host buffer stay float32. As in
+in float32; the rollout state and the host buffers stay float32. As in
 makani_tpu, the Inferencer leaves the transform and contraction precision as
 they are set.
 
-The evaluation data: as in makani_tpu, the Inferencer builds the
-evaluation loader of `inf_data_path` (data.json first, for data from files;
-synthetic data under enable_synthetic_data) and takes the image shapes, the
-crop and the channel counts from its dataset. A rollout is fed from
-`valid_dataset[i]`: its input, targets and zenith fields go into
-`_rollout_capture` / `_rollout_lite` with a batch axis added.
+The evaluation data: as in makani_tpu, the Inferencer builds the evaluation
+loader of `inf_data_path` (data.json first, for data from files; synthetic
+data under enable_synthetic_data) and takes the image shapes, the crop and
+the channel counts from its dataset. `_get_batch(ic)` reads sample
+samples_offset + ic. No step writes into its inputs, so a caller's zenith
+fields serve any number of rollouts (makani_tpu copies them because its steps
+donate their buffers).
 
-Not ported yet (ROADMAP, Queue 1 item 3): inference_single, inference_lite
-and inference_epoch, MetricsHandler, checkpoints and the inference.py CLI.
+The MetricsHandler and the loss are built at their first use: a rollout
+without metrics needs neither channel names nor stats files. Not ported: the
+rollout plots of inference_epoch (utils/visualize.py, ROADMAP Queue 1 item
+9).
 """
 
+import functools
+import logging
+import os
+import time
+
+import numpy as np
 import torch
 
-from makani_tpu_torch.data.dataloader import get_dataloader, init_data_params
+from makani_tpu_torch.data.dataloader import get_dataloader, init_data_params, to_device
 from makani_tpu_torch.models.model_registry import as_params, get_model, update_channel_params
+from makani_tpu_torch.utils.checkpoint import restore_checkpoint
 from makani_tpu_torch.utils.device import resolve_device
+from makani_tpu_torch.utils.losses import LossHandler
+from makani_tpu_torch.utils.metric import MetricsHandler, time_stats
+
+logger = logging.getLogger(__name__)
 
 
 class Inferencer:
-    """Rollouts of the configured model on `device` (default "cuda").
-
-    `weights` is a state dict of the stepper (e.g. from
-    tools/convert_jax_params.py); without it the weights are drawn from a
-    generator seeded with the config's global_seed.
-    """
+    """Rollouts of the configured model on `device` (default "cuda"; raises
+    without CUDA unless device="cpu")."""
 
     def __init__(self, params, weights=None, device=None):
         self.device = resolve_device(device)
         params = as_params(params)
+        self.log_to_screen = params.get("log_to_screen", False)
         init_data_params(params)
         self.valid_dataloader, self.valid_dataset = get_dataloader(
             params, params.get("inf_data_path", None), train=False, final_eval=True)
@@ -50,22 +74,56 @@ class Inferencer:
                           else None)
         self.params = params
         self.model = get_model(params, device=self.device)
+        if weights is None and params.get("checkpoint_path", None):
+            weights, _, _ = restore_checkpoint(params.checkpoint_path, self.model.state_dict())
         if weights is not None:
             self.model.load_state_dict(weights)
         self.model.eval()
         self.preprocessor = self.model.preprocessor
         self._S = params.valid_autoreg_steps + 1
         self.sst_persistence_channels = tuple(params.get("sst_persistence_channels", ()) or ())
+        self.ic_perturbation_std = params.get("ic_perturbation_std", None)
+
+    @functools.cached_property
+    def metrics(self):
+        mult, clim = time_stats(self.params, self.valid_dataloader)
+        return MetricsHandler(self.params, mult, clim, device=self.device)
+
+    @functools.cached_property
+    def loss_obj(self):
+        return LossHandler(self.params, device=self.device)
+
+    # ------------------------------------------------------------------
+    # one AR step
 
     def _fwd(self, inpt, uinp):
         x = inpt if self.amp_dtype is None else inpt.to(self.amp_dtype)
         return self.model(x, unpredicted_inp=uinp, deterministic=True).float()
 
+    def _target(self, tar, idt):
+        t = min(idt, tar.shape[1] - 1)
+        return self.preprocessor.flatten_history(tar[:, t: t + 1])
+
+    @torch.inference_mode()
+    def metrics_step(self, buffers, rmse_t, rmse_s, inpt, uinp, tar, zen_tar, idt):
+        """Returns the new buffers and accumulators, the next input and the
+        next zenith input."""
+        prep = self.preprocessor
+        targ = self._target(tar, idt)
+        pred = self._fwd(inpt, uinp)
+        loss = self.loss_obj(pred, targ, inpt, training=False)
+        buffers = self.metrics.update(buffers, pred, targ, loss, idt)
+        sqdif = torch.sum((pred - targ) ** 2, dim=0)  # (C, H, W), summed over the batch
+        rmse_t = rmse_t.clone()
+        rmse_t[idt] += torch.mean(sqdif, dim=(-2, -1))
+        rmse_s = rmse_s + sqdif
+        uinp = prep.advance_unpredicted_dyn(uinp, zen_tar, idt)
+        return buffers, rmse_t, rmse_s, prep.append_history(inpt, pred), uinp
+
     @torch.inference_mode()
     def capture_step(self, inpt, uinp, tar, zen_tar, idt):
         prep = self.preprocessor
-        t = min(idt, tar.shape[1] - 1)
-        targ = prep.flatten_history(tar[:, t: t + 1])
+        targ = self._target(tar, idt)
         pred = self._fwd(inpt, uinp)
         uinp = prep.advance_unpredicted_dyn(uinp, zen_tar, idt)
         return pred, targ, prep.append_history(inpt, pred), uinp
@@ -82,6 +140,9 @@ class Inferencer:
         uinp = prep.advance_unpredicted_dyn(uinp, zen_tar, idt)
         return pred, prep.append_history(inpt, pred), uinp
 
+    # ------------------------------------------------------------------
+    # rollouts
+
     def _put(self, x):
         return None if x is None else torch.as_tensor(x, dtype=torch.float32).to(self.device)
 
@@ -96,6 +157,21 @@ class Inferencer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return tuple(b.numpy() for b in buffers)
+
+    def _zero_accumulators(self):
+        p = self.params
+        rmse_t = torch.zeros((self._S, p.N_out_channels), dtype=torch.float32, device=self.device)
+        rmse_s = torch.zeros((p.N_out_channels, p.img_crop_shape_x, p.img_crop_shape_y),
+                             dtype=torch.float32, device=self.device)
+        return rmse_t, rmse_s
+
+    def _rollout_metrics(self, buffers, rmse_t, rmse_s, inp, tar, zen_inp=None, zen_tar=None):
+        inpt = self.preprocessor.flatten_history(self._put(inp))
+        tar, uinp, zen_tar = self._put(tar), self._put(zen_inp), self._put(zen_tar)
+        for idt in range(self._S):
+            buffers, rmse_t, rmse_s, inpt, uinp = self.metrics_step(
+                buffers, rmse_t, rmse_s, inpt, uinp, tar, zen_tar, idt)
+        return buffers, rmse_t, rmse_s
 
     def _rollout_capture(self, inp, tar, zen_inp=None, zen_tar=None):
         """(steps, B, C, H, W) predictions and targets as numpy arrays."""
@@ -121,3 +197,108 @@ class Inferencer:
                 preds = self._host_buffer(self._S, pred)
             preds[idt].copy_(pred, non_blocking=True)
         return self._finish(preds)[0]
+
+    def _get_batch(self, ic):
+        """Initial condition `ic` (after samples_offset) as a device batch of
+        one: (inp, tar, zen_inp, zen_tar), the zenith fields None without."""
+        idx = int(self.params.get("samples_offset", 0) or 0) + ic
+        if idx >= len(self.valid_dataset):
+            raise IndexError(f"initial condition {ic} beyond dataset")
+        return to_device(tuple(np.asarray(f)[None] for f in self.valid_dataset[idx]),
+                         self.device)
+
+    # ------------------------------------------------------------------
+    # public API
+
+    def inference_single(self, ic=0, compute_metrics=False, output_data=False,
+                         output_channels=(0, 1)):
+        inp, tar, zen_inp, zen_tar = self._get_batch(ic)
+        result = []
+        if compute_metrics:
+            buffers, (rt, rs) = self.metrics.initialize_buffers(), self._zero_accumulators()
+            buffers, rt, rs = self._rollout_metrics(buffers, rt, rs, inp, tar, zen_inp, zen_tar)
+            self.metrics.finalize(buffers)
+        if output_data:
+            preds, targs = self._rollout_capture(inp, tar, zen_inp, zen_tar)
+            oc = list(output_channels)
+            result += [targs[:, :, oc], preds[:, :, oc]]
+        return tuple(result)
+
+    def inference_lite(self, ic=0, output_data=False, output_channels=(0, 1)):
+        inp, tar, zen_inp, zen_tar = self._get_batch(ic)
+        if self.ic_perturbation_std:
+            # noise drawn on the host in makani_tpu's order: one (H, W) field
+            # a perturbed channel, added to every history frame
+            rng = np.random.RandomState(42)
+            inp_np = np.array(inp.cpu())
+            for ch, std in dict(self.ic_perturbation_std).items():
+                inp_np[:, :, int(ch)] += rng.normal(0.0, std, inp_np.shape[-2:]).astype(np.float32)
+            inp = torch.from_numpy(inp_np).to(self.device)
+        preds = self._rollout_lite(inp, zen_inp, zen_tar)
+        if output_data:
+            return (preds[:, :, list(output_channels)],)
+        return ()
+
+    def predict(self, ic=0):
+        """Denormalized predictions (steps, C, H, W) in physical units."""
+        global_means = np.load(self.params.global_means_path)
+        global_stds = np.load(self.params.global_stds_path)
+        channels = list(range(self.params.N_out_channels))
+        _, preds = self.inference_single(ic, output_data=True, output_channels=channels)
+        out_ch = self.params.out_channels
+        return (np.squeeze(preds) * global_stds[:, out_ch, 0, 0].reshape(1, -1, 1, 1)
+                + global_means[:, out_ch, 0, 0].reshape(1, -1, 1, 1))
+
+    def inference_epoch(self, output_channels):
+        """Scores the evaluation loader; saves acc_curves.npy, rmse_curves.npy,
+        RMSE_over_time.npy and RMSE_over_space.npy into experiment_dir.
+        The squared errors are sums over the batch, so the RMSE exports are
+        normalized by the number of samples, not batches."""
+        buffers, (rt, rs) = self.metrics.initialize_buffers(), self._zero_accumulators()
+        eval_samples = 0
+        for data in self.valid_dataloader:
+            inp, tar, zen_inp, zen_tar = to_device(data, self.device)
+            eval_samples += int(inp.shape[0])
+            buffers, rt, rs = self._rollout_metrics(buffers, rt, rs, inp, tar, zen_inp, zen_tar)
+
+        eval_samples = max(eval_samples, 1)
+        rmse_over_space = np.sqrt(rs.cpu().numpy() / (self._S * eval_samples))
+        rmse_over_time = np.sqrt(rt.cpu().numpy() / eval_samples)
+
+        logs, acc_curves, rmse_curves = self.metrics.finalize(buffers, final_inference=True)
+
+        exp_dir = self.params.experiment_dir
+        np.save(os.path.join(exp_dir, "acc_curves.npy"), acc_curves)
+        np.save(os.path.join(exp_dir, "rmse_curves.npy"), rmse_curves)
+        global_stds = np.load(self.params.global_stds_path)
+        oc = output_channels
+        np.save(os.path.join(exp_dir, "RMSE_over_time.npy"),
+                rmse_over_time * global_stds[:, oc, 0, 0])
+        np.save(os.path.join(exp_dir, "RMSE_over_space.npy"),
+                rmse_over_space * global_stds[0, oc])
+        return logs
+
+    def log_score(self, scoring_logs, scoring_time):
+        if not self.log_to_screen:
+            return
+        separator = "-" * 50
+        prefix = "    "
+        logger.info(separator)
+        logger.info("Scoring summary:")
+        logger.info("Total scoring time is {:.2f} sec".format(scoring_time))
+        print_list = list(scoring_logs["metrics"].keys())
+        max_len = max(len(x) for x in print_list) if print_list else 0
+        logger.info("Metrics:")
+        for key in print_list:
+            value = scoring_logs["metrics"][key]
+            if np.isscalar(value):
+                logger.info(f"{prefix}{key}: {' ' * (max_len - len(key))}{value}")
+        logger.info(separator)
+
+    def score_model(self, output_channels):
+        if self.log_to_screen:
+            logger.info("Starting Scoring...")
+        scoring_start = time.time()
+        scoring_logs = self.inference_epoch(output_channels=output_channels)
+        self.log_score(scoring_logs, time.time() - scoring_start)
+        return scoring_logs

@@ -45,7 +45,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from makani_tpu_torch.data.dataloader import get_dataloader, init_data_params
+from makani_tpu_torch.data.dataloader import get_dataloader, init_data_params, to_device
 from makani_tpu_torch.models.model_registry import as_params, get_model, update_channel_params
 from makani_tpu_torch.ops import complex_ops, sht
 from makani_tpu_torch.ops.fused_adam import fused_adam_apply
@@ -209,12 +209,7 @@ class Trainer:
     # training loop
 
     def _device_batch(self, data):
-        if len(data) == 4:
-            inp, tar, zen_inp, zen_tar = data
-        else:
-            (inp, tar), zen_inp, zen_tar = data, None, None
-        return tuple(None if x is None else torch.as_tensor(x).to(self.device)
-                     for x in (inp, tar, zen_inp, zen_tar))
+        return to_device(data, self.device)
 
     def train(self):
         if self.log_to_screen:
