@@ -133,9 +133,35 @@ Phases, in order; any failure exits non-zero:
      step. The checkpoint is taken between phase 10's training and serving
      halves; the dataset (3.6 GB), the checkpoint (4.6 GB) and the package
      (2.3 GB) are removed at the end of the phase.
+ 12. the full Trainer through the train CLI, on phase 10's dataset, after
+     phase 11's checkpoint and package are removed (the free disk is checked
+     first, and the phase fails with the shortfall): the canonical recipe
+     sfno_linear_73chq_sc3_layers8_edim384_wstgl2 at full width (109 input
+     channels, the temp-std loss with auto channel weights, AdamW beta2 0.95
+     with bf16 moments, StepLR) under bf16 AMP, cut as TRAIN_CUTS lists, from
+     a YAML the phase writes. (a) makani_tpu_torch.train.main(...,
+     "--amp_mode", "bf16", "--profile", "2") in-process, 2 epochs with
+     validation and save_checkpoint "flexible": finite training and
+     validation losses each epoch, the lr of epoch 2 half that of epoch 1,
+     per-epoch checkpoints {1, 2} (keep 2) and the best one, counters iters 6
+     and epoch 2, a torch.profiler trace of the first 2 steps that names
+     legmm and dhconv_mm, and the launches of the run: 6 AMP train steps at
+     phase 9's counts and 20 validation AR steps at 18 legmm, 8 dhconv_mm
+     and 18 gelu_bf16 each, all at 1 pass; a validation AR step timed on a
+     resident batch (median of 3 rollouts) with its launches; (b) the same
+     main with max_epochs 3 resumes from epoch 2: before its epoch runs, the
+     restored weights, bf16 moments, counters, scheduler and generator state
+     equal (a)'s bit for bit; it runs epoch 3 alone (iters 9, steps {2, 3} on
+     disk, the lr a quarter of epoch 1's); (c) `python3 -m
+     makani_tpu_torch.train --mode test` in a subprocess on the same YAML:
+     exit 0 and "0 errors". Each epoch's wall, train and validation seconds,
+     each save's bytes, its synchronous copy and its background write beside
+     the waits that exposed it, the loader-wait fraction and the peak memory
+     are printed on [trainer ...] lines.
 The last two lines are the kernels' JSON record (the AMP path's launches in
 each row's *_amp fields, phase 10's in *_files, phase 11's a scored step in
-launches_score) and the result line.
+launches_score, phase 12's run (a) in launches_trainer and a validation AR
+step in launches_valid_step) and the result line.
 --record PATH also writes every measurement of the run to PATH as JSON.
 
 TF32 is off for matmuls and cuDNN (torch.backends.cuda.matmul.allow_tf32 and
@@ -230,8 +256,8 @@ FILES_CUTS = (
     f"valid_autoreg_steps {FILES_AUTOREG} (19)",
     f"n_eval_samples {FILES_EVAL} (2)",
     "1 epoch (8)",
-    "skip_validation: true and save_checkpoint: none (validation and the Trainer's "
-    "checkpoints are not ported yet; phase 11 checkpoints the trained model itself)",
+    "skip_validation: true and save_checkpoint: none (phase 11 checkpoints the trained "
+    "model itself; phase 12 runs validation and the Trainer's checkpoints)",
     "checkpointing 0 (the drive's command line asks for level 2)",
     "orography and land-sea mask as .npy (.nc needs h5py, which this machine may lack)",
 )
@@ -248,6 +274,24 @@ SERVE_PERSISTENCE = 11
 SERVE_LOOP_STEPS = 3
 # seconds for the inference CLI's subprocess, its kernel build included
 CLI_TIMEOUT = 300
+# phase 12: the canonical training recipe through the train CLI on phase 10's
+# dataset, cut as TRAIN_CUTS lists
+CANONICAL = "sfno_linear_73chq_sc3_layers8_edim384_wstgl2"
+TRAIN_CONFIG = "chip_smoke_train"
+TRAIN_DIR = FILES_DIR / "train_cli"
+TRAIN_EPOCHS, TRAIN_KEEP = 2, 2
+TRAIN_CUTS = (
+    "data, stats and invariants of phase 10's dataset (invariants as .npy)",
+    f"{FILES_TRAIN_SAMPLES - 1} train samples an epoch (n_train_samples_per_epoch 54000)",
+    f"n_eval_samples {FILES_EVAL} (8760), valid_autoreg_steps {FILES_AUTOREG} (19)",
+    "scheduler_step_size 1 (100), so the lr halves each epoch",
+    f"checkpoint_max_to_keep {TRAIN_KEEP}",
+    "checkpointing 0",
+    f"{TRAIN_EPOCHS} epochs, then 1 more on resume (max_epochs 500)",
+    f"experiment dir under {FILES_DIR.name}",
+)
+# a validation AR step: the forward's launches and its GELU under AMP
+VALID_STEP_LAUNCHES = {"legmm": 18, "dhconv_mm": 8, "gelu_bf16": 18}
 
 
 def check(cond, msg):
@@ -1392,13 +1436,21 @@ def phase_checkpoint(torch, trainer):
     saved with save_checkpoint, restored into a fresh model and state, every
     tensor bit for bit."""
     from makani_tpu_torch.models.model_registry import get_model
-    from makani_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+    from makani_tpu_torch.utils.checkpoint import (
+        restore_checkpoint,
+        save_checkpoint,
+        wait_for_saves,
+    )
     from makani_tpu_torch.utils.optimizers import build_optimizer
     rec = {"disk_free_bytes": shutil.disk_usage(FILES_DIR).free}
     counters = {"iters": trainer.iters, "epoch": trainer.epoch}
     torch.cuda.synchronize()
+    # the save returns once the tensors are on the host; the files are
+    # written in the background, so save_s takes the wait for them too
     t0 = time.perf_counter()
     save_checkpoint(str(SERVE_CKPT), trainer.model.state_dict(), trainer.opt_state, counters)
+    rec["copy_s"] = time.perf_counter() - t0
+    wait_for_saves()
     rec["save_s"] = time.perf_counter() - t0
     rec["bytes"] = dir_bytes(SERVE_CKPT)
     rec["model_bytes"] = (SERVE_CKPT / "model.pt").stat().st_size
@@ -1633,6 +1685,217 @@ def phase_serve(torch, np, sht, complex_ops, kernels, dev):
     del loop
     torch.cuda.empty_cache()
     return rec
+
+def train_yaml(epochs):
+    """The YAML of phase 12: the canonical recipe on phase 10's dataset, cut
+    as TRAIN_CUTS lists, with `epochs` epochs."""
+    import yaml
+    from makani_tpu_torch.utils.yparams import YParams
+    cfg = YParams(str(ROOT / "config" / "sfnonet.yaml"), CANONICAL).to_dict()
+    cfg = {k: v for k, v in cfg.items() if not k.startswith("_")}
+    paths = files_params()
+    cfg.update({k: paths[k] for k in (
+        "metadata_json_path", "train_data_path", "valid_data_path", "inf_data_path",
+        "global_means_path", "global_stds_path", "time_means_path", "time_diff_means_path",
+        "time_diff_stds_path", "min_path", "max_path", "orography_path", "landmask_path")})
+    cfg.update(n_train_samples_per_epoch=FILES_TRAIN_SAMPLES - 1, n_eval_samples=FILES_EVAL,
+               valid_autoreg_steps=FILES_AUTOREG, scheduler_step_size=1,
+               checkpoint_max_to_keep=TRAIN_KEEP, max_epochs=epochs, exp_dir=str(TRAIN_DIR))
+    path = FILES_DIR / "train.yaml"
+    path.write_text(yaml.safe_dump({TRAIN_CONFIG: cfg}))
+    return path
+
+
+def host_state(torch, trainer):
+    """The weights, the Adam state and the counters of a Trainer, on the
+    host (bf16 moments as they are)."""
+    def host(tensors):
+        return {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}
+    adam = trainer.opt_state[0]
+    return dict(model=host(trainer.model.state_dict()), count=adam.count, mu=host(adam.mu),
+                nu=host(adam.nu), counters=trainer.counters())
+
+
+def state_equal(torch, got, want):
+    return (got["count"] == want["count"] and got["counters"] == want["counters"]
+            and all(set(got[n]) == set(want[n]) and all(
+                got[n][k].dtype == want[n][k].dtype and torch.equal(got[n][k], want[n][k])
+                for k in want[n]) for n in ("model", "mu", "nu")))
+
+
+def trace_names(trace_path):
+    """The port's kernels a Chrome trace names, by tools/profile_forward's
+    map."""
+    from makani_tpu_torch.tools.profile_forward import _OWN, device_events
+    names = {e["name"] for e in device_events(trace_path)[1] if e["cat"] == "kernel"}
+    return sorted({label for key, label in _OWN.items()
+                   if any(key + end in n for n in names for end in "<(,")})
+
+
+def phase_trainer(torch, np, kernels, dev):
+    """Phase 12: the canonical recipe through makani_tpu_torch.train.main,
+    2 epochs with validation and checkpoints, a resume for a third, and the
+    DebugNet self-test in a subprocess."""
+    from unittest import mock
+    from makani_tpu_torch import train
+    from makani_tpu_torch.utils import checkpoint as ckpt_lib
+    from makani_tpu_torch.utils.trainer import Trainer
+    # phase 11's checkpoint, package and exports go first
+    for name in ("ckpt", "package", "score", "cli"):
+        shutil.rmtree(FILES_DIR / name, ignore_errors=True)
+    rec = {"disk_free_bytes": shutil.disk_usage(FILES_DIR).free}
+    # three checkpoints of 4.58 GB on disk, a fourth being written, and the
+    # package and the trace
+    need = 4 * 4.6e9 + 1e9
+    check(rec["disk_free_bytes"] >= need,
+          f"phase 12 needs {need / 1e9:.1f} GB of disk, {rec['disk_free_bytes'] / 1e9:.1f} GB "
+          f"free: {(need - rec['disk_free_bytes']) / 1e9:.1f} GB short")
+    argv = ["--yaml_config", str(train_yaml(TRAIN_EPOCHS)), "--config", TRAIN_CONFIG,
+            "--amp_mode", "bf16"]
+    exp = TRAIN_DIR / TRAIN_CONFIG / "00"
+    ckpt_dir = exp / "training_checkpoints" / "ckpt"
+    best_dir = exp / "training_checkpoints" / "best_ckpt"
+
+    # (a) 2 epochs with validation and checkpoints, the first 2 steps traced
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    writes_before = len(ckpt_lib.write_times())
+    t0 = time.perf_counter()
+    trainer = train.main(argv + ["--profile", "2"])
+    torch.cuda.synchronize()
+    rec["run_a_s"] = time.perf_counter() - t0
+    rec["launches"] = dict(kernels.launches)
+    by_passes = dict(kernels.launches_by_passes)
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    params = trainer.params
+    check(params.N_in_channels == FILES_IN_CHANNELS and params.optimizer_type == "AdamW"
+          and params.optimizer_beta2 == 0.95 and params.optimizer_moment_dtype == "bfloat16"
+          and params.loss == "weighted squared temp-std geometric l2"
+          and params.scheduler == "StepLR" and trainer.amp_dtype == torch.bfloat16,
+          f"phase 12's recipe: {params.N_in_channels} channels, {params.optimizer_type} beta2 "
+          f"{params.optimizer_beta2}, moments {params.optimizer_moment_dtype}, loss "
+          f"{params.loss!r}, {params.scheduler}, amp {trainer.amp_dtype}")
+    epochs = trainer.epoch_logs
+    rec["epochs"] = [dict(train_losses=e["train"]["step losses"], lrs=e["train"]["step lrs"],
+                          valid_base=e["valid"]["base"], timing=e["timing"],
+                          data_wait_frac=e["data_wait_frac"]) for e in epochs]
+    check(len(epochs) == TRAIN_EPOCHS and all(
+        len(e["train"]["step losses"]) == TRAIN_STEPS
+        and all(math.isfinite(v) for v in e["train"]["step losses"])
+        and e["valid"]["base"]["validation steps"] == FILES_EVAL
+        and math.isfinite(e["valid"]["base"]["validation loss"]) for e in epochs),
+          f"phase 12 epochs {rec['epochs']}")
+    lrs = [e["train"]["step lrs"] for e in epochs]
+    check(all(lr == lrs[0][0] for lr in lrs[0]) and all(lr == lrs[0][0] / 2 for lr in lrs[1]),
+          f"StepLR per step {lrs}")
+    steps = sorted(int(p.name) for p in ckpt_dir.iterdir() if p.name.isdigit())
+    counters = json.loads((ckpt_dir / "counters-2.json").read_text())
+    check(steps == [1, 2] and ckpt_lib.checkpoint_exists(str(best_dir))
+          and (counters["iters"], counters["epoch"]) == (TRAIN_EPOCHS * TRAIN_STEPS, TRAIN_EPOCHS),
+          f"checkpoint steps {steps}, best {best_dir.exists()}, counters iters "
+          f"{counters['iters']} epoch {counters['epoch']}")
+    rec["trace_kernels"] = trace_names(trainer.profile_path)
+    rec["trace_bytes"] = Path(trainer.profile_path).stat().st_size
+    check({"legmm", "dhconv_mm"} <= set(rec["trace_kernels"]),
+          f"the profiler trace names {rec['trace_kernels']}")
+    n_valid = TRAIN_EPOCHS * FILES_EVAL * (FILES_AUTOREG + 1)
+    n_train = TRAIN_EPOCHS * TRAIN_STEPS
+    train_step = {**TRAIN_LAUNCHES, **AMP_TRAIN_GELU}
+    want = {k: n_train * train_step.get(k, 0) + n_valid * VALID_STEP_LAUNCHES.get(k, 0)
+            for k in set(train_step) | set(VALID_STEP_LAUNCHES)}
+    check(rec["launches"] == launch_counts(kernels, want) and at_one_pass(kernels),
+          f"phase 12 (a) launches {rec['launches']} over {n_train} train and {n_valid} "
+          f"validation steps, by passes {by_passes}")
+    rec.update(train_steps=n_train, valid_steps=n_valid)
+
+    # each save: bytes, the synchronous copy, the background write, and the
+    # waits that exposed a write (at the next epoch's checkpoint decision and
+    # at the end of train)
+    # (one background write a save, in the order of the saves)
+    writes = ckpt_lib.write_times()[writes_before:]
+    check(len(writes) == len(trainer.checkpoint_log),
+          f"{len(writes)} writes for {len(trainer.checkpoint_log)} saves")
+    rec["saves"] = []
+    for (epoch, _, copy_s), (path, write_s) in zip(trainer.checkpoint_log, writes):
+        rec["saves"].append(dict(epoch=epoch, path=str(Path(path).relative_to(FILES_DIR)),
+                                 copy_s=copy_s, write_s=write_s, bytes=dir_bytes(path)))
+    rec["waits_s"] = list(trainer.checkpoint_waits)
+    rec["write_s"] = sum(s["write_s"] for s in rec["saves"])
+    rec["hidden_s"] = rec["write_s"] - sum(rec["waits_s"])
+
+    # a validation AR step on a resident batch: one rollout untimed, then 3
+    batch = trainer._device_batch(tuple(f[None] for f in trainer.valid_dataset[0]))
+    buffers = trainer.metrics.initialize_buffers()
+    trainer.eval_step(buffers, *batch)
+    times = []
+    for rep in range(ROLLOUT_REPS):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.eval_step(buffers, *batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / (FILES_AUTOREG + 1))
+        if rep == 0:
+            rec["valid_step_launches"] = {k: v // (FILES_AUTOREG + 1)
+                                          for k, v in kernels.launches.items()}
+            check(dict(kernels.launches) == launch_counts(kernels, {
+                k: v * (FILES_AUTOREG + 1) for k, v in VALID_STEP_LAUNCHES.items()})
+                  and at_one_pass(kernels), f"validation AR step launches {kernels.launches}")
+    rec.update(valid_step_ms_all=times, valid_step_ms=statistics.median(times))
+    saved = host_state(torch, trainer)
+    del trainer, batch, buffers
+    torch.cuda.empty_cache()
+
+    # (b) one more epoch: resume from epoch 2, the restored state checked
+    # before the epoch runs
+    restored = {}
+    train_epochs = Trainer.train
+
+    def checked_train(self):
+        restored.update(host_state(torch, self), start=self.startEpoch)
+        return train_epochs(self)
+    argv[1] = str(train_yaml(TRAIN_EPOCHS + 1))
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(Trainer, "train", checked_train):
+        trainer = train.main(argv)
+    torch.cuda.synchronize()
+    rec["run_b_s"] = time.perf_counter() - t0
+    rec["resume_launches"] = dict(kernels.launches)
+    check(trainer.params.resuming and restored["start"] == TRAIN_EPOCHS
+          and state_equal(torch, restored, saved),
+          "the resumed Trainer's weights, moments, counters, scheduler or generator differ "
+          "from run (a)'s")
+    steps = sorted(int(p.name) for p in ckpt_dir.iterdir() if p.name.isdigit())
+    last = trainer.epoch_logs
+    check(len(last) == 1 and (trainer.iters, trainer.epoch) == (3 * TRAIN_STEPS, 3)
+          and steps == [2, 3] and all(lr == lrs[0][0] / 4 for lr in last[0]["train"]["step lrs"])
+          and math.isfinite(last[0]["valid"]["base"]["validation loss"]),
+          f"resume: {len(last)} epochs, iters {trainer.iters}, epoch {trainer.epoch}, steps "
+          f"{steps}, lrs {[e['train']['step lrs'] for e in last]}")
+    rec["resume_epoch"] = dict(train_losses=last[0]["train"]["step losses"],
+                               lrs=last[0]["train"]["step lrs"],
+                               valid_base=last[0]["valid"]["base"], timing=last[0]["timing"],
+                               data_wait_frac=last[0]["data_wait_frac"])
+    del trainer, saved, restored
+    torch.cuda.empty_cache()
+
+    # (c) the DebugNet self-test in a subprocess, on the same YAML
+    log = ROOT / "build" / "chip_smoke_selftest.log"
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        proc = subprocess.run(
+            ["timeout", "-k", "10", str(CLI_TIMEOUT), sys.executable, "-m",
+             "makani_tpu_torch.train", *argv, "--mode", "test", "--run_num", "selftest"],
+            cwd=ROOT, stdout=f, stderr=subprocess.STDOUT)
+    rec["selftest_s"] = time.perf_counter() - t0
+    out = log.read_text()
+    check(proc.returncode == 0 and " 0 errors found" in out,
+          f"the self-test returned {proc.returncode}: " + out[-3000:])
+    rec["selftest_line"] = next((line for line in out.splitlines() if "errors found" in line), "")
+    return rec
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1897,6 +2160,9 @@ def main(argv=None):
         torch.cuda.empty_cache()
         files.update(phase_files_serve(torch, np, sht, complex_ops, kernels, dev))
         serve.update(phase_serve(torch, np, sht, complex_ops, kernels, dev))
+        # phase 12: the full Trainer through the train CLI, on the same
+        # dataset (phase 11's checkpoint and package removed first)
+        trainer_rec = phase_trainer(torch, np, kernels, dev)
     finally:
         shutil.rmtree(FILES_DIR, ignore_errors=True)
         sht.set_coeff_engine(settings[0])
@@ -1942,7 +2208,8 @@ def main(argv=None):
     print(f"[serve checkpoint] phase 10's model and AdamW state (bf16 moments), "
           f"{ck['n_tensors']} parameter tensors: {ck['bytes'] / 1e9:.3f} GB "
           f"({ck['model_bytes'] / 1e9:.3f} GB of weights) saved in {ck['save_s']:.2f} s "
-          f"({ck['save_gb_per_s']:.2f} GB/s), restored into a fresh model and state in "
+          f"({ck['save_gb_per_s']:.2f} GB/s; the host copy in the call {ck['copy_s']:.2f} s, "
+          f"then the background write), restored into a fresh model and state in "
           f"{ck['restore_s']:.2f} s ({ck['restore_gb_per_s']:.2f} GB/s), every tensor and the "
           f"counters equal, bit for bit; disk free before {ck['disk_free_bytes'] / 1e9:.1f} GB",
           flush=True)
@@ -1970,6 +2237,41 @@ def main(argv=None):
           f"kernels vs twins {serve['loop_rel_err_twin']:.3g}; launches {serve['loop_launches']}",
           flush=True)
 
+    record["train"] = trainer_rec
+    tr = trainer_rec
+    for cut in TRAIN_CUTS:
+        print(f"[trainer cut] {cut}")
+    print(f"[trainer disk] {tr['disk_free_bytes'] / 1e9:.1f} GB free before the phase",
+          flush=True)
+    for i, e in enumerate(tr["epochs"] + [tr["resume_epoch"]], start=1):
+        t = e["timing"]
+        print(f"[trainer epoch {i}]{' (resumed)' if i > TRAIN_EPOCHS else ''} train losses "
+              f"{e['train_losses']}, lr {e['lrs'][0]:.6g}; validation loss "
+              f"{e['valid_base']['validation loss']:.6g}, L1 {e['valid_base']['validation L1']:.6g};"
+              f" epoch {t['epoch time [s]']:.2f} s, train {t['training time [s]']:.2f} s "
+              f"({t['training step time [ms]']:.1f} ms a step), validation "
+              f"{t['validation time [s]']:.2f} s; loader wait "
+              f"{100 * e['data_wait_frac']:.1f}% of the train time", flush=True)
+    print(f"[trainer run] (a) {tr['run_a_s']:.1f} s for {TRAIN_EPOCHS} epochs from main(), "
+          f"{tr['train_steps']} AMP train steps and {tr['valid_steps']} validation AR steps; "
+          f"launches {tr['launches']}, all at 1 pass; peak device memory "
+          f"{tr['peak_bytes'] / 2**30:.2f} GiB; profiler trace of 2 steps "
+          f"({tr['trace_bytes'] / 1e6:.1f} MB) names {tr['trace_kernels']}; (b) resumed at "
+          f"epoch {TRAIN_EPOCHS} with the weights, bf16 moments, counters, scheduler and "
+          f"generator of (a) bit for bit, epoch 3 alone in {tr['run_b_s']:.1f} s, launches "
+          f"{tr['resume_launches']}; (c) the DebugNet self-test returned 0 in "
+          f"{tr['selftest_s']:.1f} s: {tr['selftest_line'].split(' - ')[-1]}", flush=True)
+    print(f"[trainer valid step] a validation AR step on a resident batch "
+          f"{tr['valid_step_ms']:.1f} ms (median of {ROLLOUT_REPS} rollouts of "
+          f"{FILES_AUTOREG + 1}: {', '.join(f'{t:.1f}' for t in tr['valid_step_ms_all'])}); "
+          f"launches {tr['valid_step_launches']}, all at 1 pass", flush=True)
+    print("[trainer saves] " + "; ".join(
+        f"epoch {v['epoch']} {v['path']}: {v['bytes'] / 1e9:.3f} GB, copy {v['copy_s']:.2f} s, "
+        f"write {v['write_s']:.2f} s" for v in tr["saves"])
+          + f"; waits for the writes {', '.join(f'{w:.2f}' for w in tr['waits_s'])} s (at each "
+          f"epoch's checkpoint decision, then at the end); {tr['hidden_s']:.2f} s of "
+          f"{tr['write_s']:.2f} s of writes hidden", flush=True)
+
     # results
     if args.record is not None:
         args.record.parent.mkdir(parents=True, exist_ok=True)
@@ -1988,11 +2290,15 @@ def main(argv=None):
                               "makani_tpu/ops/pallas_adam.py:124")}
     def files_launches(name):
         """*_files: the counts of phase 10's path, an AMP epoch and a float32
-        rollout from files; launches_score: phase 11's launches a scored step."""
+        rollout from files; launches_score: phase 11's launches a scored step;
+        launches_trainer: phase 12's run (a), 2 epochs with validation;
+        launches_valid_step: a validation AR step of phase 12."""
         return dict(launches_files=files["train_launches"][name],
                     launches_per_train_step_files=files["train_launches_per_step"][name],
                     launches_rollout_files=files["rollout_launches"][name],
-                    launches_score=serve["launches_per_scored_step"][name])
+                    launches_score=serve["launches_per_scored_step"][name],
+                    launches_trainer=tr["launches"][name],
+                    launches_valid_step=tr["valid_step_launches"][name])
 
     kernels = []
     # *_amp: the same counts on phase 9's AMP path, where every pass-taking

@@ -1,8 +1,8 @@
 """Model registry: name -> network class, wrapped in a stepper.
 
-Counterpart of makani_tpu/models/model_registry.py for the SFNO. The other
-families (FNO, AFNO, ViT, DebugNet) and file-based registration are not
-ported yet (ROADMAP, Queue 1).
+Counterpart of makani_tpu/models/model_registry.py for the SFNO and the
+DebugNet of the pipeline self-test. The other families (FNO, AFNO, ViT) and
+file-based registration are not ported yet (ROADMAP, Queue 1 item 8).
 
 `update_channel_params` ports the channel math of makani_tpu's
 Trainer._update_parameters (utils/trainer.py:291-335): the channel counts and
@@ -15,6 +15,7 @@ import inspect
 
 import torch
 
+from makani_tpu_torch.models.networks.debug import DebugNet
 from makani_tpu_torch.models.networks.sfnonet import SphericalFourierNeuralOperatorNet
 from makani_tpu_torch.models.preprocessor import Preprocessor2D
 from makani_tpu_torch.models.stepper import MultiStepWrapper, SingleStepWrapper
@@ -22,7 +23,7 @@ from makani_tpu_torch.utils.device import resolve_device
 from makani_tpu_torch.utils.features import get_auxiliary_channels
 from makani_tpu_torch.utils.yparams import ParamsBase
 
-_model_registry = {"SFNO": SphericalFourierNeuralOperatorNet}
+_model_registry = {"SFNO": SphericalFourierNeuralOperatorNet, "DebugNet": DebugNet}
 
 
 def list_models():

@@ -1,3 +1,4 @@
+from makani_tpu_torch.models.networks.debug import DebugNet
 from makani_tpu_torch.models.networks.sfnonet import SphericalFourierNeuralOperatorNet
 
-__all__ = ["SphericalFourierNeuralOperatorNet"]
+__all__ = ["DebugNet", "SphericalFourierNeuralOperatorNet"]

@@ -128,6 +128,11 @@ class Preprocessor2D:
         static = self.static_features.to(x.dtype).expand(x.shape[0], -1, -1, -1)
         return torch.cat([x, static], dim=1)
 
+    def remove_static_features(self, x):
+        if not self.do_add_static_features:
+            return x
+        return x[:, : x.shape[1] - self.n_static_features]
+
     # --- unpredicted (e.g. zenith) channels ---
 
     def append_channels(self, x, xc):
@@ -139,6 +144,21 @@ class Preprocessor2D:
         if xdim == 4:
             xo = self.flatten_history(xo)
         return xo
+
+    def remove_unpredicted_features(self, x, n_unpredicted):
+        if n_unpredicted == 0:
+            return x
+        xf = self.expand_history(x, nhist=self.n_history + 1)
+        return self.flatten_history(xf[:, :, : xf.shape[2] - n_unpredicted])
+
+    def advance_unpredicted(self, unpredicted_inp, unpredicted_tar, step):
+        """advance_unpredicted_dyn for a step inside the target window; a
+        step past it leaves the window as it was (makani_tpu's static-step
+        form)."""
+        if unpredicted_tar is None or unpredicted_inp is None \
+                or step >= unpredicted_tar.shape[1]:
+            return unpredicted_inp
+        return self.advance_unpredicted_dyn(unpredicted_inp, unpredicted_tar, step)
 
     def advance_unpredicted_dyn(self, unpredicted_inp, unpredicted_tar, step):
         """Roll the unpredicted input window forward by one AR step, pulling

@@ -29,16 +29,27 @@ or dtypes differ raises, naming the path and the keys.
 Every directory is written under a temporary name beside its target and
 renamed into place, so a process that dies mid-save leaves the previous
 checkpoint as it was (orbax's guarantee); an existing single-dir checkpoint
-is renamed aside, the new one renamed in, and the old one removed. Writes
-are synchronous: `wait_for_saves` returns at once, and is kept for callers
-written against makani_tpu's asynchronous saves.
+is renamed aside, the new one renamed in, and the old one removed.
+
+Writes are asynchronous, as orbax's are in makani_tpu: `save_checkpoint` and
+`TrainingCheckpointer.save` copy every tensor to the host before they return
+(the caller may then change its tensors in place), and the files are written
+by one background thread, in the order of the saves; a versioned save writes
+its step dir, then its counters, then prunes the steps past keep-N.
+`wait_for_saves` (and `TrainingCheckpointer.wait` / `close`) blocks until
+every write is on disk, and `restore_checkpoint` waits first. A write that
+failed raises its exception at the next `wait_for_saves` or save; the
+previous checkpoint stays as it was.
 """
 
+import concurrent.futures
 import json
 import os
 import re
 import shutil
 import tempfile
+import threading
+import time
 
 import torch
 
@@ -52,8 +63,59 @@ def _counters_path(path):
     return os.path.join(path, "counters.json")
 
 
+class _Writer:
+    """One background thread that runs the writes in submission order and
+    keeps their futures until a wait collects them; `times` holds each
+    finished write's (path, seconds)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._executor = None
+        self._pending = []
+        self.times = []
+
+    def submit(self, path, fn):
+        self.raise_failed()
+
+        def timed():
+            t0 = time.perf_counter()
+            fn()
+            self.times.append((path, time.perf_counter() - t0))
+        with self._lock:
+            if self._executor is None:
+                self._executor = concurrent.futures.ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="checkpoint-writer")
+            self._pending.append(self._executor.submit(timed))
+
+    def _collect(self, done_only):
+        # the writes run in order on one thread: when the oldest is not
+        # done, none is; a failure leaves the later writes pending
+        while True:
+            with self._lock:
+                if not self._pending or (done_only and not self._pending[0].done()):
+                    return
+                future = self._pending.pop(0)
+            future.result()
+
+    def raise_failed(self):
+        self._collect(done_only=True)
+
+    def wait(self):
+        self._collect(done_only=False)
+
+
+_WRITER = _Writer()
+
+
 def wait_for_saves():
-    """Saves are synchronous: nothing is in flight."""
+    """Block until every save is on disk; raises the exception of a write
+    that failed."""
+    _WRITER.wait()
+
+
+def write_times():
+    """(path, seconds) of every background write finished so far."""
+    return list(_WRITER.times)
 
 
 def flatten_opt_state(opt_state):
@@ -72,8 +134,13 @@ def flatten_opt_state(opt_state):
     return flat
 
 
+def _host_copy(tensors):
+    """A copy of every tensor on the host, taken now."""
+    return {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}
+
+
 def _save_tensors(tensors, path):
-    torch.save({k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}, path)
+    torch.save(tensors, path)
 
 
 def _write_dir(path, write):
@@ -95,19 +162,43 @@ def _write_dir(path, write):
         shutil.rmtree(old)
 
 
-def save_checkpoint(path, params, opt_state=None, counters=None):
-    """Save a single-dir checkpoint: `params` (dict of tensors), the
-    optimizer state and the counters (a JSON-able dict)."""
+def _json_copy(counters):
+    """A copy of the counters taken now; raises here if they are not JSON."""
+    return None if counters is None else json.loads(json.dumps(counters))
+
+
+def _write_json(obj, path):
+    """`obj` as JSON at `path`, written under a temporary name and renamed."""
+    tmp = f"{path}.tmp-{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(obj, f)
+    os.replace(tmp, path)
+
+
+def _single_dir_writer(path, params, opt_state, counters):
+    """Copy the tensors to the host now; returns the function that writes
+    them as a single-dir checkpoint at `path`."""
     path = os.path.abspath(path)
+    model = _host_copy(params)
+    opt = None if opt_state is None else _host_copy(flatten_opt_state(opt_state))
+    counters = _json_copy(counters)
 
     def write(tmp):
-        _save_tensors(params, os.path.join(tmp, MODEL_FILE))
-        if opt_state is not None:
-            _save_tensors(flatten_opt_state(opt_state), os.path.join(tmp, OPT_FILE))
+        _save_tensors(model, os.path.join(tmp, MODEL_FILE))
+        if opt is not None:
+            _save_tensors(opt, os.path.join(tmp, OPT_FILE))
         if counters is not None:
             with open(_counters_path(tmp), "w") as f:
                 json.dump(counters, f)
-    _write_dir(path, write)
+    return lambda: _write_dir(path, write)
+
+
+def save_checkpoint(path, params, opt_state=None, counters=None):
+    """Save a single-dir checkpoint: `params` (dict of tensors), the
+    optimizer state and the counters (a JSON-able dict). Returns once the
+    tensors are copied to the host; the files are written in the
+    background (`wait_for_saves`)."""
+    _WRITER.submit(os.path.abspath(path), _single_dir_writer(path, params, opt_state, counters))
 
 
 def _steps(root):
@@ -164,7 +255,8 @@ def _unflatten_opt_state(flat, template):
 def restore_checkpoint(path, params_template, opt_state_template=None):
     """Restore onto the templates (a dict of tensors, a chain's state tuple),
     each tensor on its template's device. Returns (params, opt_state or
-    None, counters)."""
+    None, counters). Waits for the saves in flight first."""
+    wait_for_saves()
     path = _resolve(path)
     model_file = os.path.join(path, MODEL_FILE)
     if not os.path.isfile(model_file):
@@ -194,6 +286,7 @@ def restore_checkpoint(path, params_template, opt_state_template=None):
 
 
 def checkpoint_exists(path):
+    wait_for_saves()
     return os.path.isfile(os.path.join(_resolve(path), MODEL_FILE))
 
 
@@ -207,17 +300,32 @@ class TrainingCheckpointer:
         self.max_to_keep = max_to_keep
 
     def save(self, step, params, opt_state=None, counters=None):
-        save_checkpoint(os.path.join(self.directory, str(int(step))), params, opt_state)
-        if counters is not None:
-            with open(os.path.join(self.directory, f"counters-{int(step)}.json"), "w") as f:
-                json.dump(counters, f)
-        for old in _steps(self.directory)[:-self.max_to_keep]:
-            shutil.rmtree(os.path.join(self.directory, str(old)))
-            cpath = os.path.join(self.directory, f"counters-{old}.json")
-            if os.path.exists(cpath):
-                os.remove(cpath)
+        """Copy the tensors to the host; in the background, write the step
+        dir, then counters-<step>.json, then prune past keep-N."""
+        step = int(step)
+        path = os.path.join(self.directory, str(step))
+        write_step = _single_dir_writer(path, params, opt_state, None)
+        counters = _json_copy(counters)
+
+        def write():
+            write_step()
+            if counters is not None:
+                _write_json(counters, os.path.join(self.directory, f"counters-{step}.json"))
+            for old in _steps(self.directory)[:-self.max_to_keep]:
+                shutil.rmtree(os.path.join(self.directory, str(old)))
+                cpath = os.path.join(self.directory, f"counters-{old}.json")
+                if os.path.exists(cpath):
+                    os.remove(cpath)
+        _WRITER.submit(path, write)
+
+    def wait(self):
+        wait_for_saves()
+
+    def close(self):
+        wait_for_saves()
 
     def latest_step(self):
+        wait_for_saves()
         steps = _steps(self.directory)
         return steps[-1] if steps else None
 

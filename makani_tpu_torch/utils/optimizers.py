@@ -232,7 +232,9 @@ class LRScheduler:
     """Host-side LR computation per optimizer step (makani_tpu's LRScheduler).
 
     Schedules are stepped per *epoch*; warmup is linear over
-    ``lr_warmup_steps`` optimizer steps.
+    ``lr_warmup_steps`` optimizer steps. ReduceLROnPlateau scales the base
+    lr by ``scheduler_factor`` once the validation loss fed to `epoch_step`
+    has not improved for more than ``scheduler_patience`` epochs.
     """
 
     def __init__(self, params):
@@ -242,23 +244,54 @@ class LRScheduler:
         self.start_factor = 0.1 if self.warmup_steps > 0 else 1.0
 
         self.T_max = int(params.get("scheduler_T_max", 70))
+        self.factor = float(params.get("scheduler_factor", 0.1))
+        self.patience = int(params.get("scheduler_patience", 10))
         self.step_size = int(params.get("scheduler_step_size", 100))
         self.gamma = float(params.get("scheduler_gamma", 0.5))
         self.pct_start = float(params.get("scheduler_pct_start", 0.3))
         self.div_factor = float(params.get("scheduler_div_factor", 25.0))
         self.final_div_factor = float(params.get("scheduler_final_div_factor", 1e4))
 
+        # plateau state
+        self._plateau_scale = 1.0
+        self._best = float("inf")
+        self._bad_epochs = 0
+
         self.epoch = 0
 
-    def epoch_step(self):
-        """Advance the epoch counter."""
+    def state_dict(self):
+        """The runtime state a checkpoint carries (JSON-able; an infinite
+        best loss is stored as None)."""
+        return {
+            "epoch": self.epoch,
+            "plateau_scale": self._plateau_scale,
+            "plateau_best": self._best if math.isfinite(self._best) else None,
+            "plateau_bad_epochs": self._bad_epochs,
+        }
+
+    def load_state_dict(self, state):
+        self.epoch = int(state.get("epoch", 0))
+        self._plateau_scale = float(state.get("plateau_scale", 1.0))
+        best = state.get("plateau_best", float("inf"))
+        self._best = float("inf") if best is None else float(best)
+        self._bad_epochs = int(state.get("plateau_bad_epochs", 0))
+
+    def epoch_step(self, valid_loss=None):
+        """Advance the epoch counter; feed the plateau schedule."""
         self.epoch += 1
+        if self.scheduler == "ReduceLROnPlateau" and valid_loss is not None:
+            if valid_loss < self._best:
+                self._best = valid_loss
+                self._bad_epochs = 0
+            else:
+                self._bad_epochs += 1
+                if self._bad_epochs > self.patience:
+                    self._plateau_scale *= self.factor
+                    self._bad_epochs = 0
 
     def _epoch_lr(self):
         if self.scheduler == "ReduceLROnPlateau":
-            # only a validation loss lowers it, and validation is not ported
-            # (ROADMAP: Queue 1 item 14)
-            return self.base_lr
+            return self.base_lr * self._plateau_scale
         elif self.scheduler == "StepLR":
             return self.base_lr * (self.gamma ** (self.epoch // self.step_size))
         elif self.scheduler == "CosineAnnealingLR":

@@ -11,6 +11,9 @@ those, only the separable diagonal weight ``(C, L, M, 2)`` has four
 dimensions, and its first is never 2 (SpectralConv refuses in_channels 2
 there), so a 4-D filter weight whose first dimension is 2 is the stacked one.
 
+`from_port_layout` is the inverse of `to_port_layout`: the weights and
+gradients dump writes makani_tpu's layout.
+
 Three things follow from the map, and the optimizer needs the last two to
 reproduce makani_tpu's stochastic rounding bit for bit: the key map itself,
 the order of the leaves in ``jax.tree.flatten`` (dict keys sorted at every
@@ -89,3 +92,9 @@ def to_port_layout(key, arr, shape=None):
     else:
         stacked = is_stacked_filter(key, shape)
     return arr.transpose(3, 2, 0, 1) if stacked else arr
+
+
+def from_port_layout(key, arr):
+    """A port leaf (numpy) in makani_tpu's layout: the stacked dhconv weight
+    (2, L, C, O) goes back to (C, O, L, 2); every other leaf is unchanged."""
+    return arr.transpose(2, 3, 1, 0) if is_stacked_filter(key, arr.shape) else arr

@@ -2,16 +2,20 @@
 
 Counterpart of makani_tpu/utils/trainer.py for a single device: the train
 step of `_build_steps` (augmentation, forward, loss, backward, optimizer
-update), `train_one_epoch`, and `train()` without validation or checkpoints.
-The forward and backward run eagerly; the spectral filter's contractions go
-through the differentiable kernel wrappers (ops/spectral_mm legdot, dhconv on
-the "kernel" coefficient engine; complex_kernels.contract_dhconv_kernel on the
-"xla" engine under complex_ops.enable_pallas_kernels).
+update), the evaluation steps (`eval_ar_step`, `eval_step`, `eval_forward`,
+`grad_step`), `train` with validation, the per-epoch and best checkpoints,
+resume and finetune, the weights-and-grads dump, the experiment log and the
+DebugNet pipeline self-test. The forward and backward run eagerly; the
+spectral filter's contractions go through the differentiable kernel wrappers
+(ops/spectral_mm legdot, dhconv on the "kernel" coefficient engine;
+complex_kernels.contract_dhconv_kernel on the "xla" engine under
+complex_ops.enable_pallas_kernels).
 Under `amp_mode` "bf16" (or "fp16", which is bf16 here as in makani_tpu) the
 input is cast to bfloat16 before the forward, the activations stay bf16
 where makani_tpu's do, the loss is taken on the float32 prediction, and the
 parameters, gradients and optimizer state stay float32 (bf16 moments where
-the config asks for them).
+the config asks for them). Validation casts its input and takes its
+prediction back to float32 the same way.
 The update is the fused Adam kernel (ops/fused_adam, one launch per parameter
 leaf, in place; its twin on the CPU) wherever the kernel can express the
 config's optimizer (Adam or AdamW, float32 or bf16 moments, no clipping),
@@ -21,7 +25,8 @@ configs (float16 moments) run utils/optimizers' chain. The step's
 forward, backward and optimizer update are profiler ranges
 ("train_step.forward", ".backward", ".optimizer"), which
 tools/profile_forward.py --train reads; they cost a few microseconds a step
-when no profiler runs.
+when no profiler runs. `profile_steps` > 0 traces the first that many steps
+of epoch 1 with torch.profiler into <experiment_dir>/profile/trace.json.
 
 The data: the training loader reads `train_data_path` and the evaluation
 loader `valid_data_path` (data/dataloader.get_dataloader: the native reader
@@ -30,37 +35,57 @@ after data.json (`metadata_json_path`) has named the channels, as makani_tpu's
 train.py parses it; the image shapes, the crop and the channel counts come
 from the evaluation dataset, as in makani_tpu's `_update_parameters`.
 
+Checkpoints (utils/checkpoint, the port's format, written in the
+background): each epoch's under `checkpoint_path` (versioned, keep
+`checkpoint_max_to_keep`), and the best validation loss's under
+`best_checkpoint_path`. Their counters are makani_tpu's (`iters`, `epoch`,
+`scheduler_epoch`, `scheduler_state`, `best_valid_loss`) with the
+augmentation generator's state under AUG_STATE_KEY in place of makani_tpu's
+`dropout_key`: a resumed run continues as the uninterrupted one would, bit
+for bit.
+
 Not ported yet; each raises NotImplementedError when the config asks for it
-(ROADMAP, Queue 1 item 14 and the items named in the messages): validation
-(`skip_validation` must be true), MetricsHandler, checkpoints
-(`save_checkpoint` must be "none", no resuming or finetuning), the weights
-and grads dump, the multi-step training unroll (n_future > 0) and
-parallelism.
+(ROADMAP, Queue 1, the items named in the messages): the multi-step training
+unroll (n_future > 0) and dropout at nonzero rates (item 5), the rollout
+videos (`log_video`, item 9) and parallelism (item 7).
 """
 
+import functools
 import logging
+import os
 import time
 
 import numpy as np
 import torch
-from torch.profiler import record_function
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from makani_tpu_torch.data.dataloader import get_dataloader, init_data_params, to_device
 from makani_tpu_torch.models.model_registry import as_params, get_model, update_channel_params
 from makani_tpu_torch.ops import complex_ops, sht
 from makani_tpu_torch.ops.fused_adam import fused_adam_apply
+from makani_tpu_torch.utils import checkpoint as ckpt_lib
 from makani_tpu_torch.utils.device import resolve_device
 from makani_tpu_torch.utils.losses import LossHandler
+from makani_tpu_torch.utils.metric import MetricsHandler, time_stats
 from makani_tpu_torch.utils.optimizers import (
     LRScheduler,
     adam_kernel_settings,
     apply_updates,
     build_optimizer,
 )
+from makani_tpu_torch.utils.param_layout import from_port_layout, torch_key_to_jax
 
 logger = logging.getLogger(__name__)
 
-_QUEUE_14 = "is not ported yet (ROADMAP: Queue 1 item 14, the full Trainer)"
+# the checkpoint counter that carries the augmentation generator's state (a
+# list of ints, so the counters stay JSON)
+AUG_STATE_KEY = "aug_generator_state"
+
+_DEFAULTS = (("history_normalization_mode", "none"), ("num_visualization_workers", 1),
+             ("log_video", 0), ("log_weights_and_grads", 0), ("skip_validation", False),
+             ("load_checkpoint", "legacy"), ("save_checkpoint", "legacy"),
+             ("load_optimizer", True), ("load_scheduler", True), ("load_counters", True),
+             ("print_timings_frequency", -1))
 
 
 def augment_batch(inp, tar, zen_inp, zen_tar, generator, do_roll, noise_std):
@@ -85,18 +110,21 @@ def augment_batch(inp, tar, zen_inp, zen_tar, generator, do_roll, noise_std):
 
 
 def _check_supported(params):
-    if not params.get("skip_validation", False):
-        raise NotImplementedError(f"validation {_QUEUE_14}; set skip_validation: true")
-    if params.get("save_checkpoint", "none") != "none":
-        raise NotImplementedError(f"checkpoints {_QUEUE_14}; set save_checkpoint: none")
-    if params.get("resuming", False) or (params.get("finetune", False)
-                                         and params.get("pretrained_checkpoint_path", None)):
-        raise NotImplementedError(f"restoring a checkpoint {_QUEUE_14}")
-    if int(params.get("log_weights_and_grads", 0) or 0) > 0:
-        raise NotImplementedError(f"the weights and grads dump {_QUEUE_14}")
     if params.get("n_future", 0):
         raise NotImplementedError("the multi-step training unroll (n_future > 0) is not "
-                                  "ported yet (ROADMAP: Queue 1)")
+                                  "ported yet (ROADMAP: Queue 1 item 5)")
+    rates = {k: params.get(k, 0.0) for k in ("pos_drop_rate", "path_drop_rate", "mlp_drop_rate")}
+    if any(float(v or 0.0) > 0.0 for v in rates.values()):
+        raise NotImplementedError(f"dropout at nonzero rates ({rates}) is not ported yet "
+                                  "(ROADMAP: Queue 1 item 5)")
+    if int(params.get("log_video", 0) or 0) > 0:
+        raise NotImplementedError("the rollout videos (log_video > 0, utils/visualize.py) are "
+                                  "not ported yet (ROADMAP: Queue 1 item 9)")
+    sizes = list(params.get("model_parallel_sizes", None) or [])
+    if any(int(s) != 1 for s in sizes) or int(params.get("world_size", 1) or 1) > 1:
+        raise NotImplementedError(f"parallelism (model_parallel_sizes {sizes}, world_size "
+                                  f"{params.get('world_size', 1)}) is not ported yet "
+                                  "(ROADMAP: Queue 1 item 7)")
 
 
 class Trainer:
@@ -104,18 +132,39 @@ class Trainer:
     CUDA unless device="cpu"). Weights are drawn from `generator`, by default
     one seeded with the config's global_seed."""
 
-    def __init__(self, params, device=None, generator=None):
+    def __init__(self, params, device=None, generator=None, world_rank=0, job_type="train"):
         self.device = resolve_device(device)
         params = as_params(params)
         _check_supported(params)
+        self.world_rank = world_rank
         init_data_params(params)
         self.train_dataloader, self.train_dataset = get_dataloader(
             params, params.get("train_data_path", None), train=True)
         self.valid_dataloader, self.valid_dataset = get_dataloader(
             params, params.get("valid_data_path", None), train=False)
         params = update_channel_params(params, dataset=self.valid_dataset)
+        for key, default in _DEFAULTS:
+            if params.get(key, None) is None:
+                params[key] = default
         self.params = params
         self.log_to_screen = params.get("log_to_screen", False)
+
+        # the experiment log: makani_tpu's JSON-lines backend (wandb is not
+        # installed where the port runs)
+        self.wandb = None
+        if params.get("log_to_wandb", False):
+            from makani_tpu_torch.utils.wandb_compat import JsonlRun
+            self.wandb = JsonlRun()
+            self.wandb.init(
+                dir=params.get("wandb_dir", None) or params.get("experiment_dir", "."),
+                config=params, name=params.get("wandb_name", None),
+                group=params.get("wandb_group", None), project=params.get("wandb_project", None),
+                entity=params.get("wandb_entity", None), resume=params.get("resuming", False))
+
+        # a self-contained inference package (its best_ckpt comes with training)
+        if world_rank == 0 and params.get("experiment_dir", None) and job_type == "train":
+            from makani_tpu_torch.models.model_package import save_model_package
+            save_model_package(params)
 
         # AMP: "fp16" is bf16 too, as in makani_tpu (no loss scaling)
         amp_mode = params.get("amp_mode", "none")
@@ -136,6 +185,10 @@ class Trainer:
             # makani_tpu's "pallas" engine is the port's kernel engine; "xla"
             # and "stacked" keep their names
             sht.set_coeff_engine("kernel" if engine == "pallas" else engine)
+
+        # NaN/Inf trapping (makani_tpu: jax_debug_nans)
+        if params.get("enable_grad_anomaly_detection", False):
+            torch.autograd.set_detect_anomaly(True)
 
         self.model = get_model(params, device=self.device, generator=generator)
         self.preprocessor = self.model.preprocessor
@@ -158,12 +211,41 @@ class Trainer:
         self.iters = 0
         self.epoch = 0
         self.startEpoch = 0
+        self.best_valid_loss = 1.0e6
+        # (epoch, path, seconds the save call took: the host copies) of each
+        # save, and the seconds each epoch's checkpoint decision waited for
+        # the previous writes
+        self.checkpoint_log = []
+        self.checkpoint_waits = []
+        # last_logs of every epoch this Trainer ran
+        self.epoch_logs = []
+
+        self._log_memory("after model and optimizer init")
+
+        if params.get("resuming", False):
+            self.restore_checkpoint(params.checkpoint_path)
+        elif params.get("finetune", False) and params.get("pretrained_checkpoint_path", None):
+            self.restore_checkpoint(params.pretrained_checkpoint_path,
+                                    load_optimizer=False, load_counters=False)
+
         self.n_model_params = sum(p.numel() for p in self.model_params.values())
         if self.log_to_screen:
             logger.info(f"number of trainable model parameters: {self.n_model_params}")
 
+    def _get_time_stats(self):
+        """(mult, clim) of the evaluation data (utils/metric.time_stats)."""
+        return time_stats(self.params, self.valid_dataloader)
+
+    @functools.cached_property
+    def metrics(self):
+        """The MetricsHandler, built at the first validation (as the
+        Inferencer builds its own): training without validation needs
+        neither channel names nor the time-means file."""
+        mult, clim = self._get_time_stats()
+        return MetricsHandler(self.params, mult, clim, device=self.device)
+
     # ------------------------------------------------------------------
-    # one step
+    # steps
 
     @record_function("train_step.optimizer")
     def apply_updates(self, grads, lr):
@@ -175,18 +257,19 @@ class Trainer:
                                                         self.model_params)
         apply_updates(self.model_params, updates, lr)
 
-    def loss_and_grads(self, inp, tar, zen_inp=None, zen_tar=None):
+    def _amp(self, x):
+        return x if self.amp_dtype is None else x.to(self.amp_dtype)
+
+    def loss_and_grads(self, inp, tar, zen_inp=None, zen_tar=None, deterministic=False):
         """Loss of the batch and the gradient of every parameter (dict)."""
         prep = self.preprocessor
-        inp = prep.flatten_history(inp)
+        inp = self._amp(prep.flatten_history(inp))
         tar = prep.flatten_history(tar)
-        if self.amp_dtype is not None:
-            inp = inp.to(self.amp_dtype)
         for p in self.model_params.values():
             p.grad = None
         with record_function("train_step.forward"):
             pred = self.model(inp, unpredicted_inp=zen_inp, unpredicted_tar=zen_tar,
-                              deterministic=False)
+                              deterministic=deterministic)
             loss = self.loss_obj(pred.float(), tar, inp, training=True)
         with record_function("train_step.backward"):
             loss.backward()
@@ -205,6 +288,39 @@ class Trainer:
         self.apply_updates(grads, lr)
         return loss
 
+    def grad_step(self, inp, tar, zen_inp=None, zen_tar=None):
+        """Loss and raw gradients for the weights-and-grads dump (the model
+        in its deterministic mode, no augmentation)."""
+        return self.loss_and_grads(inp, tar, zen_inp, zen_tar, deterministic=True)
+
+    @torch.no_grad()
+    def eval_forward(self, inp, zen_inp=None):
+        """One deterministic forward of a batch's input window, float32 out."""
+        x = self._amp(self.preprocessor.flatten_history(inp))
+        return self.model(x, unpredicted_inp=zen_inp, deterministic=True).float()
+
+    @torch.no_grad()
+    def eval_ar_step(self, buffers, inpt, uinp, tar, zen_tar, idt):
+        """One autoregressive validation step: the prediction of `inpt`
+        scored against target frame `idt` into the metric buffers; returns
+        the buffers, the next input window and the next zenith input."""
+        prep = self.preprocessor
+        t = min(idt, tar.shape[1] - 1)
+        targ = prep.flatten_history(tar[:, t: t + 1])
+        pred = self.model(self._amp(inpt), unpredicted_inp=uinp, deterministic=True).float()
+        loss = self.loss_obj(pred, targ, inpt, training=False)
+        buffers = self.metrics.update(buffers, pred, targ, loss, idt)
+        uinp = prep.advance_unpredicted_dyn(uinp, zen_tar, idt)
+        return buffers, prep.append_history(inpt, pred), uinp
+
+    def eval_step(self, buffers, inp, tar, zen_inp, zen_tar):
+        """A batch's rollout over valid_autoreg_steps + 1 steps."""
+        inpt = self.preprocessor.flatten_history(inp)
+        uinp = zen_inp
+        for idt in range(self.params.valid_autoreg_steps + 1):
+            buffers, inpt, uinp = self.eval_ar_step(buffers, inpt, uinp, tar, zen_tar, idt)
+        return buffers
+
     # ------------------------------------------------------------------
     # training loop
 
@@ -215,49 +331,354 @@ class Trainer:
         if self.log_to_screen:
             logger.info("Starting Training Loop...")
         training_start = time.time()
-        for _ in range(self.startEpoch, self.params.max_epochs):
+        self._log_memory("training start")
+        dump_every = int(self.params.log_weights_and_grads or 0)
+
+        for epoch in range(self.startEpoch, self.params.max_epochs):
             epoch_start = time.time()
             train_time, train_data_gb, train_logs = self.train_one_epoch()
-            self.scheduler.epoch_step()
+            self._log_memory(f"epoch {self.epoch} train end")
+
+            if dump_every > 0 and self.epoch % dump_every == 0 \
+                    and getattr(self, "_dump_batch", None) is not None:
+                self.dump_weights_and_grads(self._dump_batch)
+
+            if not self.params.skip_validation:
+                valid_time, viz_time, valid_logs = self.validate_one_epoch(epoch)
+            else:
+                valid_time, viz_time = 0, 0
+                valid_logs = {"base": {}, "metrics": {}}
+
+            self.scheduler.epoch_step(valid_logs["base"].get("validation loss"))
+
+            if self.params.save_checkpoint != "none":
+                best_path = self.params.best_checkpoint_path
+                t0 = time.perf_counter()
+                best_saved = ckpt_lib.checkpoint_exists(best_path)  # waits for the writes
+                self.checkpoint_waits.append(time.perf_counter() - t0)
+                vloss = valid_logs["base"].get("validation loss", None)
+                is_best = (not self.params.skip_validation) and (
+                    (not best_saved) or (vloss is not None and vloss <= self.best_valid_loss))
+                # update best BEFORE writing, so the per-epoch checkpoint's
+                # counters carry this epoch's value (resume equivalence)
+                if is_best and vloss is not None:
+                    self.best_valid_loss = vloss
+                self.save_checkpoint(self.params.checkpoint_path)
+                if is_best:
+                    self.save_checkpoint(best_path)
+
             timing_logs = {
                 "epoch time [s]": time.time() - epoch_start,
                 "training time [s]": train_time,
+                "validation time [s]": valid_time,
+                "visualization time [s]": viz_time,
                 "training step time [ms]": (train_time / max(train_logs["train_steps"], 1)) * 1e3,
                 "minimal IO rate [GB/s]": train_data_gb / max(train_time, 1e-9),
             }
-            self.log_epoch(train_logs, timing_logs)
+            self.log_epoch(train_logs, valid_logs, timing_logs)
+
+        # drain the writes in flight before returning
+        t0 = time.perf_counter()
+        ckpt_lib.wait_for_saves()
+        self.checkpoint_waits.append(time.perf_counter() - t0)
         if self.log_to_screen:
             logger.info("Total training time is {:.2f} sec".format(time.time() - training_start))
+
+    def _start_profile(self):
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        profile_dir = os.path.join(self.params.get("experiment_dir", "."), "profile")
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(profile_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        if self.log_to_screen:
+            logger.info(f"profiler trace written to {path}")
+        return path
 
     def train_one_epoch(self):
         self.epoch += 1
         total_data_bytes = 0
         train_steps = 0
-        losses = []
+        losses, lrs = [], []
         train_start = time.perf_counter_ns()
-        for data in self.train_dataloader:
+
+        # a profiler trace of the first profile_steps steps of epoch 1
+        profile_steps = int(self.params.get("profile_steps", 0) or 0)
+        prof = self._start_profile() if profile_steps > 0 and self.epoch == 1 else None
+        dump_every = int(self.params.log_weights_and_grads or 0)
+        freq = self.params.print_timings_frequency
+
+        # time spent blocked on the loader (its read-ahead exhausted)
+        data_wait_ns = 0
+        data_iter = iter(self.train_dataloader)
+        while True:
+            t_wait = time.perf_counter_ns()
+            try:
+                data = next(data_iter)
+            except StopIteration:
+                break
+            data_wait_ns += time.perf_counter_ns() - t_wait
             train_steps += 1
             self.iters += 1
             inp, tar, zen_inp, zen_tar = self._device_batch(data)
             total_data_bytes += sum(0 if x is None else x.size * 4 for x in data)
-            losses.append(self.train_step(inp, tar, zen_inp, zen_tar, self.scheduler(self.iters)))
+            if dump_every > 0:
+                self._dump_batch = (inp, tar, zen_inp, zen_tar)
+            lrs.append(self.scheduler(self.iters))
+            losses.append(self.train_step(inp, tar, zen_inp, zen_tar, lrs[-1]))
+
+            if prof is not None and train_steps >= profile_steps:
+                self.profile_path = self._stop_profile(prof)
+                prof = None
+            if freq > 0 and self.iters % freq == 0 and self.log_to_screen:
+                loss = float(losses[-1])
+                running = time.perf_counter_ns() - train_start
+                logger.info(f"Average step time after step {self.iters}: "
+                            f"{running / float(train_steps) * 1e-6:.1f} ms")
+                logger.info(f"Average effective io rate after step {self.iters}: "
+                            f"{total_data_bytes / (float(running) * 1e-9 * 1024**3):.2f} GB/s")
+                logger.info(f"Current loss {loss}")
+        if prof is not None:
+            self.profile_path = self._stop_profile(prof)
+
         step_losses = torch.stack(losses).tolist() if losses else []
         train_time = (time.perf_counter_ns() - train_start) * 1e-9
         logs = {"loss": step_losses[-1] if step_losses else float("nan"),
-                "step losses": step_losses, "train_steps": train_steps}
+                "step losses": step_losses, "step lrs": lrs, "train_steps": train_steps}
         self._last_train_loss = logs["loss"]
+
+        # more than 15% of an epoch blocked on the loader: the steps are
+        # loader-bound (the first epoch also pays the workers' start)
+        data_wait = data_wait_ns * 1e-9
+        self._last_data_wait_frac = data_wait / max(train_time, 1e-9)
+        if self.epoch > 1 and train_steps > 1 and self._last_data_wait_frac > 0.15:
+            have = total_data_bytes / max(data_wait, 1e-9) / 1e9
+            need = total_data_bytes / max(train_time, 1e-9) / 1e9
+            logger.warning(
+                "DATA-PLANE BOTTLENECK: %.0f%% of epoch %d spent waiting on the "
+                "dataloader (sustains ~%.2f GB/s under load vs ~%.2f GB/s the "
+                "step consumes). Raise num_data_workers (currently %s) or move "
+                "the dataset to faster storage / the native loader.",
+                100 * self._last_data_wait_frac, self.epoch, have, need,
+                self.params.get("num_data_workers"))
         return train_time, total_data_bytes / 1024 ** 3, logs
 
-    def log_epoch(self, train_logs, timing_logs):
-        self.last_logs = {"train": train_logs, "timing": timing_logs}
+    def validate_one_epoch(self, epoch):
+        """Scores the evaluation loader (the rollout videos, log_video, are
+        not ported). Returns (seconds, 0 visualization seconds, logs)."""
+        buffers = self.metrics.initialize_buffers()
+        valid_start = time.time()
+        for data in self.valid_dataloader:
+            inp, tar, zen_inp, zen_tar = self._device_batch(data)
+            buffers = self.eval_step(buffers, inp, tar, zen_inp, zen_tar)
+        logs = self.metrics.finalize(buffers)
+        return time.time() - valid_start, 0.0, logs
+
+    # ------------------------------------------------------------------
+    # observability
+
+    def _log_memory(self, tag):
+        """Device memory at phase boundaries (torch.cuda's allocator stats);
+        nothing on the CPU."""
+        if not self.log_to_screen or self.device.type != "cuda":
+            return
+        used = torch.cuda.memory_allocated(self.device) / 2 ** 30
+        peak = torch.cuda.max_memory_allocated(self.device) / 2 ** 30
+        limit = torch.cuda.get_device_properties(self.device).total_memory / 2 ** 30
+        logger.info(f"Device memory [{tag}]: {used:.2f} GB in use, {peak:.2f} GB peak, "
+                    f"{limit:.2f} GB limit")
+
+    def dump_weights_and_grads(self, batch):
+        """npz of every parameter and its gradient on `batch`, under
+        makani_tpu's keys (weights/<flax path>, grads/<flax path>) and in its
+        layout."""
+        _, grads = self.grad_step(*batch)
+        out = {}
+        for key, p in self.model_params.items():
+            path = torch_key_to_jax(key)
+            out[f"weights/{path}"] = from_port_layout(key, p.detach().cpu().numpy())
+            out[f"grads/{path}"] = from_port_layout(key, grads[key].cpu().numpy())
+        dump_dir = os.path.join(self.params.get("experiment_dir", "."), "weights_and_grads")
+        os.makedirs(dump_dir, exist_ok=True)
+        fname = os.path.join(
+            dump_dir, f"weights_and_grads_epoch{self.epoch}_rank{self.world_rank}.npz")
+        np.savez(fname, **out)
+        if self.log_to_screen:
+            logger.info(f"weights and grads dumped to {fname}")
+        return fname
+
+    # ------------------------------------------------------------------
+    # logging / checkpointing
+
+    def log_epoch(self, train_logs, valid_logs, timing_logs):
+        self.last_logs = {"train": train_logs, "valid": valid_logs, "timing": timing_logs,
+                          "data_wait_frac": self._last_data_wait_frac}
+        self.epoch_logs.append(self.last_logs)
+        if self.wandb is not None:
+            from makani_tpu_torch.utils.wandb_compat import Table
+            self.wandb.log({"training loss": train_logs["loss"],
+                            "learning rate": self.scheduler(self.iters),
+                            **timing_logs}, step=self.epoch)
+            self.wandb.log(valid_logs["base"], step=self.epoch)
+            metrics = dict(valid_logs["metrics"])
+            rollouts = metrics.pop("rollouts", None)
+            if rollouts is not None:
+                metrics["rollouts"] = Table(
+                    data=rollouts, columns=["metric type", "variable name", "time [h]", "value"])
+            self.wandb.log(metrics, step=self.epoch)
+
         if not self.log_to_screen:
             return
+        separator = "-" * 50
+        prefix = "    "
+        logger.info(separator)
         logger.info(f"Epoch {self.epoch} summary:")
-        for k, v in timing_logs.items():
-            logger.info(f"{k}: {v:.2f}")
-        logger.info(f"training loss: {train_logs['loss']}")
+        logger.info("Performance Parameters:")
+        logger.info(prefix + "training steps: {}".format(train_logs["train_steps"]))
+        logger.info(prefix + "validation steps: {}".format(
+            valid_logs["base"].get("validation steps", 0)))
+        for key, val in timing_logs.items():
+            logger.info(prefix + key + ": {:.2f}".format(val))
+        print_list = (["training loss", "validation loss", "validation L1"]
+                      + list(valid_logs["metrics"].keys()))
+        max_len = max(len(x) for x in print_list)
+        logger.info("Metrics:")
+        logger.info(prefix + "training loss: {}{}".format(" " * (max_len - 13), train_logs["loss"]))
+        if "validation loss" in valid_logs["base"]:
+            logger.info(prefix + "validation loss: {}{}".format(
+                " " * (max_len - 15), valid_logs["base"]["validation loss"]))
+            logger.info(prefix + "validation L1: {}{}".format(
+                " " * (max_len - 13), valid_logs["base"]["validation L1"]))
+        for key, value in valid_logs["metrics"].items():
+            if np.isscalar(value):
+                logger.info(f"{prefix}{key}: {' ' * (max_len - len(key))}{value}")
         if self.device.type == "cuda":
             logger.info("peak device memory: %.2f GiB",
                         torch.cuda.max_memory_allocated(self.device) / 2 ** 30)
         if not np.isfinite(train_logs["loss"]):
             logger.warning("training loss is not finite")
+        logger.info(separator)
+
+    def counters(self):
+        """The counters a checkpoint carries."""
+        return {"iters": self.iters, "epoch": self.epoch,
+                "scheduler_epoch": self.scheduler.epoch,
+                "scheduler_state": self.scheduler.state_dict(),
+                "best_valid_loss": float(self.best_valid_loss),
+                AUG_STATE_KEY: self.aug_generator.get_state().tolist()}
+
+    def save_checkpoint(self, checkpoint_path):
+        """The per-epoch checkpoint (versioned, keep-N) at checkpoint_path,
+        any other path as a single-dir checkpoint; returns once the tensors
+        are on the host, the files are written in the background."""
+        t0 = time.perf_counter()
+        if checkpoint_path == self.params.checkpoint_path:
+            if getattr(self, "_ckpt_mgr", None) is None:
+                self._ckpt_mgr = ckpt_lib.TrainingCheckpointer(
+                    checkpoint_path,
+                    max_to_keep=int(self.params.get("checkpoint_max_to_keep", 3)))
+            self._ckpt_mgr.save(self.epoch, self.model.state_dict(), self.opt_state,
+                                self.counters())
+        else:
+            ckpt_lib.save_checkpoint(checkpoint_path, self.model.state_dict(), self.opt_state,
+                                     self.counters())
+        self.checkpoint_log.append((self.epoch, checkpoint_path, time.perf_counter() - t0))
+
+    def restore_checkpoint(self, checkpoint_path, load_optimizer=None, load_counters=None):
+        load_optimizer = (self.params.get("load_optimizer", True) if load_optimizer is None
+                          else load_optimizer)
+        load_counters = (self.params.get("load_counters", True) if load_counters is None
+                         else load_counters)
+        try:
+            params, opt_state, counters = ckpt_lib.restore_checkpoint(
+                checkpoint_path, self.model.state_dict(),
+                self.opt_state if load_optimizer else None)
+        except RuntimeError as e:
+            if "does not fit its template" in str(e):
+                raise RuntimeError(
+                    f"Checkpoint restore from {checkpoint_path!r} failed with a "
+                    "structure mismatch. This usually means the model or "
+                    "optimizer configuration changed since the checkpoint was "
+                    "written (e.g. a different optimizer chain, width, or "
+                    "layer count). Start a fresh experiment dir, or set "
+                    "load_optimizer: false to restore weights only.") from e
+            raise
+        self.model.load_state_dict(params)
+        if load_optimizer and opt_state is not None:
+            self.opt_state = opt_state
+        if load_counters and counters:
+            self.iters = counters.get("iters", 0)
+            self.epoch = counters.get("epoch", 0)
+            self.startEpoch = self.epoch
+            self.scheduler.epoch = counters.get("scheduler_epoch", 0)
+            if self.params.get("load_scheduler", True) and "scheduler_state" in counters:
+                self.scheduler.load_state_dict(counters["scheduler_state"])
+            if "best_valid_loss" in counters:
+                self.best_valid_loss = float(counters["best_valid_loss"])
+            if counters.get(AUG_STATE_KEY) is not None:
+                self.aug_generator.set_state(
+                    torch.tensor(counters[AUG_STATE_KEY], dtype=torch.uint8))
+            # the shuffle is seeded with base_seed + the loader's epoch: a
+            # resumed run continues the schedule instead of replaying epoch 0
+            for dl in (self.train_dataloader, self.valid_dataloader):
+                if hasattr(dl, "epoch"):
+                    dl.epoch = self.epoch
+
+    # ------------------------------------------------------------------
+    # debug / self-test harness
+
+    @torch.no_grad()
+    def test_autoregression_pipeline(self):
+        """DebugNet pipeline self-test: runs the eval forward (the
+        preprocessor's round trip), appends the *targets* into the history
+        window, and checks that the rolled window holds exactly the expected
+        target slices. Returns the number of errors."""
+        if self.params.nettype != "DebugNet":
+            raise ValueError(f"the pipeline self-test runs DebugNet, not {self.params.nettype}")
+        prep = self.preprocessor
+        n_hist = prep.n_history
+        error_count = 0
+        total_steps = 0
+        for data in self.valid_dataloader:
+            inp, tar, zen_inp, zen_tar = self._device_batch(data)
+            inpt = prep.flatten_history(inp)
+            uinp = zen_inp
+            predictions = []
+            tarlist = [tar[:, i: i + 1] for i in range(tar.shape[1])]
+            for idt, targ in enumerate(tarlist):
+                total_steps += 1
+                pred = self.model(inpt, unpredicted_inp=uinp, deterministic=True)
+                pred = prep.remove_static_features(pred)
+                n_unpred = 0 if uinp is None else uinp.shape[2]
+                pred = prep.remove_unpredicted_features(pred, n_unpred)
+                if n_hist > 0:
+                    pred = prep.expand_history(pred, n_hist + 1)[:, -1]
+                expected = (targ.shape[0], targ.shape[2], targ.shape[3], targ.shape[4])
+                if tuple(pred.shape) != expected:
+                    raise RuntimeError(f"prediction shape {tuple(pred.shape)} != {expected}")
+                uinp = prep.advance_unpredicted(uinp, zen_tar, idt)
+                inpt = prep.append_history(inpt, prep.flatten_history(targ))
+                predictions.append(inpt.cpu().numpy())
+
+            # the rolled history windows against the target slices
+            for idp, predt in enumerate(predictions):
+                predte = predt.reshape(predt.shape[0], n_hist + 1, -1, *predt.shape[-2:])
+                predsteps = [predte[:, i] for i in range(n_hist + 1)]
+                pred_last = min(n_hist + 1, idp + 1)
+                targ_offset = max(0, idp - n_hist)
+                targ_comp = tarlist[targ_offset: targ_offset + pred_last]
+                for pc, tc in zip(predsteps[-pred_last:], targ_comp):
+                    if not np.allclose(pc, tc.cpu().numpy()[:, 0], rtol=1e-5, atol=1e-8):
+                        error_count += 1
+        if self.log_to_screen:
+            logger.info(f"Test done ({total_steps} steps): {error_count} errors found.")
+        return error_count

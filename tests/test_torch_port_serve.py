@@ -241,6 +241,7 @@ def test_checkpoint_round_trip_single_dir(tmp_path):
     for seed in (1, 2):
         params, opt_state = _state(seed)
         tckpt.save_checkpoint(str(path), params, opt_state, {"iters": seed, "epoch": 3})
+    tckpt.wait_for_saves()  # the writes run in the background
     assert sorted(os.listdir(path)) == ["counters.json", "model.pt", "opt_state.pt"]
     assert os.listdir(tmp_path) == ["best_ckpt"]
     got, got_opt, counters = tckpt.restore_checkpoint(str(path), *_template(params, opt_state))
@@ -267,6 +268,7 @@ def test_checkpoint_versioned_keep_n_and_resolve(tmp_path):
     for step in (1, 2, 10, 3):  # 10 is the latest, though not the last saved
         states[step] = _state(step)
         ckptr.save(step, *states[step], counters={"epoch": step})
+    ckptr.wait()
     assert sorted(os.listdir(root)) == ["10", "3", "counters-10.json", "counters-3.json"]
     assert ckptr.latest_step() == 10
     assert tckpt._resolve(str(root)) == str(root / "10")
@@ -304,10 +306,12 @@ def test_restore_onto_mismatched_template_raises(tmp_path, fault):
 
 def test_failed_save_keeps_previous_checkpoint(tmp_path, monkeypatch):
     """A save that fails midway leaves the previous checkpoint as it was
-    and no temporary directory."""
+    and no temporary directory; the write runs in the background, so its
+    failure raises at the next wait (or save)."""
     path = tmp_path / "best_ckpt"
     params, opt_state = _state(5)
     tckpt.save_checkpoint(str(path), params, opt_state, {"iters": 5})
+    tckpt.wait_for_saves()
     save = tckpt._save_tensors
 
     def fail_on_opt(tensors, file):
@@ -315,8 +319,9 @@ def test_failed_save_keeps_previous_checkpoint(tmp_path, monkeypatch):
             raise OSError("disk full")
         save(tensors, file)
     monkeypatch.setattr(tckpt, "_save_tensors", fail_on_opt)
+    tckpt.save_checkpoint(str(path), *_state(6), {"iters": 6})
     with pytest.raises(OSError, match="disk full"):
-        tckpt.save_checkpoint(str(path), *_state(6), {"iters": 6})
+        tckpt.wait_for_saves()
     assert os.listdir(tmp_path) == ["best_ckpt"]
     got, got_opt, counters = tckpt.restore_checkpoint(str(path), *_template(params, opt_state))
     _assert_same(got, params)

@@ -33,6 +33,8 @@ Tolerances:
     only.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -248,22 +250,44 @@ def test_dither_and_stochastic_round_match_jax():
                        np.float32))
 
 
-@pytest.mark.parametrize("scheduler", ["none", "StepLR", "CosineAnnealingLR", "OneCycleLR",
-                                       "ReduceLROnPlateau"])
-def test_lr_scheduler_matches_jax(scheduler):
+# validation losses fed to epoch_step: improvements, a tie, a plateau long
+# enough to cut the lr twice at patience 1, then a new best
+VALID_LOSSES = [1.0, 0.8, 0.8, 0.85, 0.9, 0.95, 0.7, 0.75, 0.71]
+SCHEDULE_CASES = [pytest.param(s, None, {}, id=s) for s in
+                  ("none", "StepLR", "CosineAnnealingLR", "OneCycleLR", "ReduceLROnPlateau")]
+SCHEDULE_CASES += [pytest.param(s, VALID_LOSSES, {"scheduler_patience": p}, id=f"{s}-losses-p{p}")
+                   for s in ("none", "StepLR", "CosineAnnealingLR", "OneCycleLR",
+                             "ReduceLROnPlateau") for p in ((0, 1) if s == "ReduceLROnPlateau"
+                                                             else (1,))]
+
+
+@pytest.mark.parametrize("scheduler,losses,extra", SCHEDULE_CASES)
+def test_lr_scheduler_matches_jax(scheduler, losses, extra):
+    """Every schedule, float for float, fed no validation loss (training
+    without validation) or one sequence of them; the state dict round trips
+    mid-way into a fresh scheduler of each package."""
     cfg = {"lr": 2e-3, "scheduler": scheduler, "scheduler_T_max": 7, "scheduler_step_size": 2,
-           "lr_warmup_steps": 3, "scheduler_patience": 0}
+           "lr_warmup_steps": 3, "scheduler_patience": 0, "scheduler_factor": 0.3, **extra}
     from makani_tpu_torch.utils.yparams import ParamsBase
     ours, theirs = topt.LRScheduler(ParamsBase.from_dict(cfg)), jopt.LRScheduler(
         ParamsBase.from_dict(cfg))
     for epoch in range(9):
         for step in (0, 1, 5):
             assert ours(step) == theirs(step)
-        # without validation (the only path ported), no loss reaches the
-        # plateau schedule: makani_tpu's Trainer passes None
-        ours.epoch_step()
-        theirs.epoch_step(None)
+        loss = None if losses is None else losses[epoch]
+        ours.epoch_step(loss)
+        theirs.epoch_step(loss)
+        assert ours.state_dict() == theirs.state_dict()
+        if epoch == 4:
+            state = json.loads(json.dumps(ours.state_dict()))
+            ours = topt.LRScheduler(ParamsBase.from_dict(cfg))
+            ours.load_state_dict(state)
+            fresh = jopt.LRScheduler(ParamsBase.from_dict(cfg))
+            fresh.load_state_dict(state)
+            assert fresh.state_dict() == theirs.state_dict() == ours.state_dict()
     assert ours.epoch == theirs.state_dict()["epoch"] == 9
+    if scheduler == "ReduceLROnPlateau" and losses is not None:
+        assert ours._plateau_scale < 1.0
 
 
 # --------------------------------------------------------------------------
@@ -496,10 +520,16 @@ def test_trainer_runs_an_epoch_and_refuses_what_is_not_ported(jax_trainer):
     assert trainer.opt_state[0].count == 3
     unfused = Trainer(TYParams.from_dict(dict(tp.to_dict(), optimizer_fused=False)), device="cpu")
     assert unfused.fused_kw == trainer.fused_kw is not None
-    for override, match in [(dict(skip_validation=False), "item 14"),
-                            (dict(save_checkpoint="flexible"), "item 14")]:
+    # validation, checkpoints, resume, finetune and the dump are ported
+    # (tests/test_torch_port_trainer.py); what is still refused:
+    for override, match in [(dict(n_future=1), "item 5"), (dict(mlp_drop_rate=0.1), "item 5"),
+                            (dict(log_video=2), "item 9"), (dict(world_size=2), "item 7")]:
         with pytest.raises(NotImplementedError, match=match):
             Trainer(TYParams.from_dict(dict(tp.to_dict(), **override)), device="cpu")
+    validating = Trainer(TYParams.from_dict(dict(tp.to_dict(), skip_validation=False)),
+                         device="cpu")
+    _, _, valid_logs = validating.validate_one_epoch(1)
+    assert np.isfinite(valid_logs["base"]["validation loss"])
     # without enable_synthetic_data the Trainer reads the config's data.json
     # and files, which this checkout does not hold
     with pytest.raises(OSError, match="data.json"):
