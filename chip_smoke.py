@@ -158,10 +158,36 @@ Phases, in order; any failure exits non-zero:
      each save's bytes, its synchronous copy and its background write beside
      the waits that exposed it, the loader-wait fraction and the peak memory
      are printed on [trainer ...] lines.
+ 13. the SFNO recipes of config/icml_models.yaml at full width (73 channels
+     on 721x1440, embed 384, 8 blocks, scale factor 2 to a 360x720
+     Legendre-Gauss grid, 180 degrees and orders) on phase 10's dataset,
+     under bf16 AMP through makani_tpu_torch.train.main, cut as ICML_CUTS
+     lists, after phase 12's checkpoints are removed: (a) the pretrain
+     sfno_dhealy_73ch, one epoch of 2 steps, writing its per-epoch
+     checkpoint; (b) sfno_dhealy_73ch_2step with --multistep_count 2,
+     finetuning from (a)'s checkpoint (its weights checked before the epoch
+     runs, its optimizer fresh), at the lowest checkpointing level that fits
+     (ICML_LEVELS); (c) sfno_nonlinear_73ch (the non-linear filter), 3 steps;
+     (d) (a)'s model with dropout at 0.1 at every site and checkpointing 3:
+     each site's kept fraction within 5 sigma of 0.9, and a small non-linear
+     SFNO with dropout whose gradients at checkpointing 0 and 3 are
+     bit-equal; each run's finite losses, its launches (a step's of
+     icml_launches, the 2-step unroll twice a one-step step's forward and
+     backward), all at 1 pass, its peak memory, and for (a)-(c) a train
+     step on a resident batch; (e) one LAMB update (bf16 moments) and one
+     AdamW update (float32 moments), both clipped by the global norm, over
+     (a)'s 87 leaves: the kernel's new modes against their twin, bit for
+     bit, one launch a leaf, each timed (CUDA events, and the host's time
+     to enqueue it) beside the plain mode and torch.optim.Adam(fused=True);
+     (f) legmm, dhconv_mm (forward, dx) and
+     dhconv_dw at the ICML shapes against float64 and their twins, with
+     phase 3's bounds, timed as phase 3 times them.
 The last two lines are the kernels' JSON record (the AMP path's launches in
 each row's *_amp fields, phase 10's in *_files, phase 11's a scored step in
 launches_score, phase 12's run (a) in launches_trainer and a validation AR
-step in launches_valid_step) and the result line.
+step in launches_valid_step, phase 13's (b) in launches_multistep, (c) in
+launches_nonlinear and (e)'s LAMB update in launches_lamb) and the result
+line.
 --record PATH also writes every measurement of the run to PATH as JSON.
 
 TF32 is off for matmuls and cuDNN (torch.backends.cuda.matmul.allow_tf32 and
@@ -292,6 +318,35 @@ TRAIN_CUTS = (
 )
 # a validation AR step: the forward's launches and its GELU under AMP
 VALID_STEP_LAUNCHES = {"legmm": 18, "dhconv_mm": 8, "gelu_bf16": 18}
+# phase 13: config/icml_models.yaml's SFNO recipes on phase 10's dataset, cut
+# as ICML_CUTS lists; runs under ICML_DIR
+ICML_PRETRAIN = "sfno_dhealy_73ch"
+ICML_FINETUNE = "sfno_dhealy_73ch_2step"
+ICML_NONLINEAR = "sfno_nonlinear_73ch"
+ICML_DIR = FILES_DIR / "icml"
+# the lowest checkpointing level at which each run fits in 80 GB (H100, bf16
+# AMP, batch 1): the 2-step unroll runs out of memory at level 0 and peaks
+# near 60 GiB at level 2; the others fit at 0. The dropout run (d) is held at
+# level 3, where every block is recomputed in backward
+ICML_LEVELS = {ICML_PRETRAIN: 0, ICML_FINETUNE: 2, ICML_NONLINEAR: 0}
+ICML_DROPOUT_LEVEL = 3
+ICML_DROP_RATE = 0.1
+# train steps an epoch: the linear runs 2 (the 2-step unroll's windows on
+# 4 train samples), the non-linear one 3
+ICML_STEPS = {ICML_PRETRAIN: 2, ICML_FINETUNE: 2, ICML_NONLINEAR: 3}
+ICML_CUTS = (
+    "batch_size 64 -> 1",
+    "2 train steps an epoch (3 for the non-linear model), 1 epoch (max_epochs 60, 5 for the "
+    "2-step finetune)",
+    "data, stats and paths of phase 10's dataset",
+    f"channel_names: the dataset's c0-c{FILES_CHANNELS - 1} (the ICML names are absent)",
+    "log_video 10 -> 0 (utils/visualize.py, ROADMAP Queue 1 item 9, which needs matplotlib)",
+    f"--skip_validation; n_eval_samples 320 -> {FILES_EVAL}, valid_autoreg_steps 20 -> "
+    f"{FILES_AUTOREG}",
+    "pretrained_checkpoint_path: (a)'s per-epoch checkpoint (the ICML path /runs/... is not "
+    "in the repository)",
+    "checkpointing_level: the lowest that fits in 80 GB (ICML_LEVELS), 3 for the dropout run",
+)
 
 
 def check(cond, msg):
@@ -365,12 +420,15 @@ def timed_rollouts(torch, np, kernels, inferencer, x, label):
     return launches, times
 
 
-def phase_kernels(torch, spectral_mm, dev, gen):
-    """Each kernel at the flagship shapes; returns rows of measurements."""
+def phase_kernels(torch, spectral_mm, dev, gen, mmax=241, Lin=240, Kin=240, Kfull=721,
+                  reps=20, plain_reps=5):
+    """Each kernel at the flagship shapes (or the given modes mmax and Lin,
+    inner grid rows Kin and input grid rows Kfull, at 384 channels and batch
+    1); returns rows of measurements."""
     rows = []
-    mmax, C, Lin, Kfull = 241, 384, 240, 721
+    C = 384
     cases = [("full analysis", Kfull, "k"), ("full synthesis", Kfull, "l"),
-             ("inner analysis", Lin, "k"), ("inner synthesis", Lin, "l")]
+             ("inner analysis", Kin, "k"), ("inner synthesis", Kin, "l")]
     for label, K, contract in cases:
         D = K if contract == "k" else Lin
         z = torch.randn((2 * mmax, C, D), device=dev, generator=gen)
@@ -395,9 +453,10 @@ def phase_kernels(torch, spectral_mm, dev, gen):
                 name="legmm", shape=f"{label} z{tuple(z.shape)} p{tuple(p.shape)}",
                 passes=passes, max_abs_err=float((got - plain).abs().max()),
                 rel_err_twin=etwin, rel_err_f64=e64,
-                ms=cuda_ms(lambda: spectral_mm.legmm(z, p, passes, contract), 20),
-                plain_ms=cuda_ms(lambda: spectral_mm.legmm_plain(z, p, passes, contract), 5),
-                library_ms=cuda_ms(lambda: torch.bmm(z, tables), 20),
+                ms=cuda_ms(lambda: spectral_mm.legmm(z, p, passes, contract), reps),
+                plain_ms=cuda_ms(lambda: spectral_mm.legmm_plain(z, p, passes, contract),
+                                 plain_reps),
+                library_ms=cuda_ms(lambda: torch.bmm(z, tables), reps),
                 bound_ms=b_ms, bound_by=b_by, gbytes=nbytes / 1e9, gflop=flops / 1e9))
             del got, plain
         del z, p, zs, table, tables, ref
@@ -431,10 +490,10 @@ def phase_kernels(torch, spectral_mm, dev, gen):
                 passes=passes, max_abs_err=float((got - plain).abs().max()),
                 rel_err_twin=etwin, rel_err_f64=e64,
                 ms=cuda_ms(lambda: spectral_mm.dhconv_mm(x, w, passes, wdim=wdim,
-                                                         conj_w=conj_w), 20),
+                                                         conj_w=conj_w), reps),
                 plain_ms=cuda_ms(lambda: spectral_mm.dhconv_mm_plain(x, w, passes, wdim=wdim,
-                                                                     conj_w=conj_w), 5),
-                library_ms=cuda_ms(lambda: torch.matmul(wop, xc), 20),
+                                                                     conj_w=conj_w), plain_reps),
+                library_ms=cuda_ms(lambda: torch.matmul(wop, xc), reps),
                 bound_ms=b_ms, bound_by=b_by, gbytes=nbytes / 1e9, gflop=flops / 1e9))
             del got, plain
         del ref
@@ -460,9 +519,9 @@ def phase_kernels(torch, spectral_mm, dev, gen):
         rows.append(dict(
             name="dhconv_dw", shape=f"x{tuple(x.shape)} g{tuple(g.shape)}", passes=passes,
             max_abs_err=float((got - plain).abs().max()), rel_err_twin=etwin, rel_err_f64=e64,
-            ms=cuda_ms(lambda: spectral_mm.dhconv_dw(x, g, passes), 20),
-            plain_ms=cuda_ms(lambda: spectral_mm.dhconv_dw_plain(x, g, passes), 5),
-            library_ms=cuda_ms(lambda: torch.matmul(xcj, gct), 20),
+            ms=cuda_ms(lambda: spectral_mm.dhconv_dw(x, g, passes), reps),
+            plain_ms=cuda_ms(lambda: spectral_mm.dhconv_dw_plain(x, g, passes), plain_reps),
+            library_ms=cuda_ms(lambda: torch.matmul(xcj, gct), reps),
             bound_ms=b_ms, bound_by=b_by, gbytes=nbytes / 1e9, gflop=flops / 1e9))
         del got, plain
     return rows
@@ -1897,6 +1956,383 @@ def phase_trainer(torch, np, kernels, dev):
     return rec
 
 
+def icml_launches(level, unroll, leaves, linear=True):
+    """Launches of one ICML train step at checkpointing `level` with `unroll`
+    steps unrolled and `leaves` parameter leaves: per unrolled step a forward
+    and its backward (18 legmm each way, 8 dhconv_mm forward and 8 dx, 8
+    dhconv_dw, 18 GELU each way), plus what checkpointing recomputes (from
+    level 1 the encoder's and the decoder's GELU, from level 2 the MLPs' 8,
+    at level 3 the blocks' forward: 18 legmm, 8 dhconv_mm, 16 GELU); one
+    fused_adam a leaf."""
+    gelu = 18 + (2 if level >= 1 else 0) + (8 if level >= 2 else 0) + (16 if level >= 3 else 0)
+    step = {"legmm": 36 + (18 if level >= 3 else 0), "gelu_bf16": gelu, "gelu_bf16_grad": 18}
+    if linear:
+        step.update(dhconv_mm=16 + (8 if level >= 3 else 0), dhconv_dw=8)
+    out = {k: v * unroll for k, v in step.items()}
+    out["fused_adam"] = leaves
+    return out
+
+
+def icml_yaml(name, **overrides):
+    """A YAML holding config/icml_models.yaml's `name` on phase 10's dataset,
+    cut as ICML_CUTS lists."""
+    import yaml
+    from makani_tpu_torch.utils.yparams import YParams
+    cfg = YParams(str(ROOT / "config" / "icml_models.yaml"), name).to_dict()
+    cfg = {k: v for k, v in cfg.items() if not k.startswith("_")}
+    paths = files_params()
+    cfg.update({k: paths[k] for k in (
+        "metadata_json_path", "train_data_path", "valid_data_path", "inf_data_path",
+        "global_means_path", "global_stds_path", "time_means_path", "time_diff_means_path",
+        "time_diff_stds_path", "min_path", "max_path")})
+    cfg.update(channel_names=[f"c{i}" for i in range(FILES_CHANNELS)], batch_size=1,
+               max_epochs=1, log_video=0, n_train_samples_per_epoch=ICML_STEPS[name],
+               n_eval_samples=FILES_EVAL, valid_autoreg_steps=FILES_AUTOREG,
+               exp_dir=str(ICML_DIR), **overrides)
+    path = ICML_DIR / f"{name}.yaml"
+    path.write_text(yaml.safe_dump({name: cfg}))
+    return path
+
+
+def icml_run(torch, kernels, name, level, *extra, **overrides):
+    """makani_tpu_torch.train.main on `name` under bf16 AMP without
+    validation; returns the Trainer and the run's record: launches, whether
+    all ran at 1 pass, peak memory, losses."""
+    from makani_tpu_torch import train
+    argv = ["--yaml_config", str(icml_yaml(name, **overrides)), "--config", name,
+            "--amp_mode", "bf16", "--skip_validation", "--checkpointing_level", str(level),
+            *extra]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    trainer = train.main(argv)
+    torch.cuda.synchronize()
+    run = dict(run_s=time.perf_counter() - t0, launches=dict(kernels.launches),
+               peak_bytes=torch.cuda.max_memory_allocated(), one_pass=at_one_pass(kernels),
+               losses=trainer.epoch_logs[-1]["train"]["step losses"], level=level,
+               leaves=len(trainer.model_params),
+               params=sum(p.numel() for p in trainer.model_params.values()))
+    check(trainer.amp_dtype == torch.bfloat16 and trainer.model.model.checkpointing == level,
+          f"{name}: amp {trainer.amp_dtype}, checkpointing {trainer.model.model.checkpointing}")
+    check(len(run["losses"]) == ICML_STEPS[name] and all(map(math.isfinite, run["losses"])),
+          f"{name}: losses {run['losses']}")
+    return trainer, run
+
+
+def host_enqueue_ms(torch, fn, reps):
+    """Median host milliseconds to enqueue `fn` on an idle card (synchronized
+    before each call, not after): where it reaches the CUDA-event time, the
+    card waits on the host."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def resident_step_ms(torch, trainer):
+    """A train step on a resident batch: one untimed, then 3 timed (host
+    clock, synchronized); their median, all three, and their peak memory."""
+    batch = trainer._device_batch(tuple(f[None] for f in trainer.train_dataset[0]))
+    lr = trainer.scheduler(trainer.iters)
+    trainer.train_step(*batch, lr)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        trainer.train_step(*batch, lr)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times, torch.cuda.max_memory_allocated()
+
+
+def phase_icml(torch, np, spectral_mm, kernels, dev, gen):
+    """Phase 13: the ICML recipes at full width on phase 10's dataset."""
+    from unittest import mock
+    from makani_tpu_torch.models.common import layers
+    from makani_tpu_torch.utils.trainer import Trainer
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)  # phase 12's checkpoints
+    ICML_DIR.mkdir(parents=True, exist_ok=True)
+    rec = {"disk_free_bytes": shutil.disk_usage(FILES_DIR).free}
+
+    # (a) the pretrain, one epoch, its per-epoch checkpoint written
+    level = ICML_LEVELS[ICML_PRETRAIN]
+    trainer, run = icml_run(torch, kernels, ICML_PRETRAIN, level)
+    p = trainer.params
+    check(p.N_in_channels == FILES_CHANNELS and p.embed_dim == 384 and p.num_layers == 8
+          and p.scale_factor == 2 and p.hard_thresholding_fraction == 0.5
+          and p.loss == "geometric l2" and p.optimizer_beta2 == 0.95
+          and p.scheduler == "CosineAnnealingLR" and p.filter_type == "linear",
+          f"{ICML_PRETRAIN}'s recipe: {p.N_in_channels} channels, embed {p.embed_dim}, "
+          f"{p.num_layers} blocks, scale {p.scale_factor}, {p.loss!r}, {p.scheduler}")
+    want = icml_launches(level, 1, run["leaves"])
+    check(run["launches"] == launch_counts(kernels, {k: v * ICML_STEPS[ICML_PRETRAIN]
+                                                     for k, v in want.items()})
+          and run["one_pass"], f"(a) launches {run['launches']}, a step {want}")
+    ckpt = Path(p.checkpoint_path)
+    check(ckpt.exists(), f"(a) wrote no checkpoint under {ckpt}")
+    keep = ("residual_transform", "blocks.3.filter_layer.filter.weight", "encoder.fwd_0.weight")
+    pretrained = {k: v.detach().to("cpu", copy=True)
+                  for k, v in trainer.model.state_dict().items() if k.endswith(keep)}
+    shapes = {k: tuple(v.shape) for k, v in trainer.model_params.items()}
+    run["step_ms"], run["step_ms_all"], run["step_peak_bytes"] = resident_step_ms(torch, trainer)
+    run["launches_per_step"] = want
+    rec["pretrain"] = run
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (b) the 2-step finetune from (a)'s checkpoint: the restored weights
+    # checked before its epoch runs
+    restored = {}
+    train_epochs = Trainer.train
+
+    def checked_train(self):
+        restored["equal"] = all(torch.equal(self.model.state_dict()[k].cpu(), v)
+                                for k, v in pretrained.items())
+        restored["count"] = self.adam_state().count
+        return train_epochs(self)
+    level = ICML_LEVELS[ICML_FINETUNE]
+    with mock.patch.object(Trainer, "train", checked_train):
+        trainer, run = icml_run(torch, kernels, ICML_FINETUNE, level, "--multistep_count", "2",
+                                "--save_checkpoint", "none",
+                                pretrained_checkpoint_path=str(ckpt))
+    p = trainer.params
+    check(p.finetune and p.n_future == 1 and p.N_target_channels == 2 * FILES_CHANNELS
+          and type(trainer.model).__name__ == "MultiStepWrapper" and float(p.lr) == 2e-4,
+          f"{ICML_FINETUNE}: finetune {p.finetune}, n_future {p.n_future}, lr {p.lr}")
+    check(restored.get("equal") and restored.get("count") == 0,
+          f"(b) did not start from (a)'s weights with a fresh optimizer: {restored}")
+    # a 2-step unroll: twice a one-step train step's forward and backward
+    # launches, one update
+    one = icml_launches(level, 1, run["leaves"])
+    want = icml_launches(level, 2, run["leaves"])
+    check(all(want[k] == 2 * one[k] for k in one if k != "fused_adam")
+          and run["launches"] == launch_counts(kernels, {k: v * ICML_STEPS[ICML_FINETUNE]
+                                                         for k, v in want.items()})
+          and run["one_pass"], f"(b) launches {run['launches']}, a step {want}")
+    run["step_ms"], run["step_ms_all"], run["step_peak_bytes"] = resident_step_ms(torch, trainer)
+    run["launches_per_step"] = want
+    rec["finetune"] = run
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (c) the non-linear model, 3 steps
+    level = ICML_LEVELS[ICML_NONLINEAR]
+    trainer, run = icml_run(torch, kernels, ICML_NONLINEAR, level, "--save_checkpoint", "none")
+    p = trainer.params
+    filt = trainer.model.model.blocks[0].filter_layer.filter
+    check(p.filter_type == "non-linear" and p.operator_type == "diagonal"
+          and type(filt).__name__ == "SpectralAttention" and filt.spectral_layers == 3
+          and tuple(filt.w_0.shape) == (384, 768, 2),
+          f"{ICML_NONLINEAR}: {p.filter_type} {p.operator_type}, {type(filt).__name__}")
+    want = icml_launches(level, 1, run["leaves"], linear=False)
+    check(run["launches"] == launch_counts(kernels, {k: v * ICML_STEPS[ICML_NONLINEAR]
+                                                     for k, v in want.items()})
+          and run["one_pass"], f"(c) launches {run['launches']}, a step {want}")
+    run["step_ms"], run["step_ms_all"], run["step_peak_bytes"] = resident_step_ms(torch, trainer)
+    run["launches_per_step"] = want
+    rec["nonlinear"] = run
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (d) dropout at every site of the pretrain model at checkpointing 3:
+    # the masks drawn, one per (site, step, unrolled step); a recomputed
+    # block draws its forward's again
+    drawn = {}
+    draw = layers.drop_mask
+
+    def recording(shape, keep, site, device):
+        mask = draw(shape, keep, site, device)
+        key = layers.current_dropout_key()
+        drawn[(site, key.step, key.substep)] = (keep, int(mask.sum()), mask.numel())
+        return mask
+    rates = {k: ICML_DROP_RATE for k in ("pos_drop_rate", "path_drop_rate", "mlp_drop_rate")}
+    with mock.patch.object(layers, "drop_mask", recording):
+        trainer, run = icml_run(torch, kernels, ICML_PRETRAIN, ICML_DROPOUT_LEVEL,
+                                "--save_checkpoint", "none", "--run_num", "dropout", **rates)
+    n_sites = trainer.model.model.n_dropout_sites
+    sites = {}
+    for (site, _, _), (keep, kept, n) in drawn.items():
+        _, k0, n0 = sites.get(site, (keep, 0, 0))
+        sites[site] = (keep, k0 + kept, n0 + n)
+    # the encoder's, 2 in each block's MLP, DropPath in blocks 1-7 (block 0's
+    # rate is 0)
+    check(len(sites) == 1 + 2 * 8 + 7 and n_sites == 1 + 3 * 8,
+          f"(d) drew at {len(sites)} sites of {n_sites}")
+    off = {s: (kept / n, n) for s, (keep, kept, n) in sites.items()
+           if abs(kept / n - keep) > 5 * (keep * (1 - keep) / n) ** 0.5}
+    check(not off, f"(d) kept fractions beyond 5 sigma: {off}")
+    run["sites"] = {s: dict(keep=k, kept=kk, drawn=n) for s, (k, kk, n) in sorted(sites.items())}
+    rec["dropout"] = run
+    del trainer
+    torch.cuda.empty_cache()
+    rec["dropout_small"] = icml_small_dropout(torch, dev)
+
+    # (e) LAMB (bf16 moments) and AdamW (float32 moments), both clipped, over
+    # (a)'s leaves: kernel against twin, bit for bit, then timed
+    rec["optimizers"] = icml_optimizers(torch, kernels, dev, gen, shapes)
+
+    # (f) the matmul kernels at the ICML shapes: 180 degrees and orders, the
+    # 360-row inner grid, the 721-row input grid
+    rec["kernels"] = phase_kernels(torch, spectral_mm, dev, gen, mmax=180, Lin=180, Kin=360,
+                                   Kfull=721, reps=10, plain_reps=2)
+    shutil.rmtree(ICML_DIR, ignore_errors=True)
+    return rec
+
+
+def icml_small_dropout(torch, dev):
+    """A small non-linear SFNO with dropout at every site on the card: the
+    gradients of a 2-step unroll at checkpointing 0 and 3 are bit-equal."""
+    from makani_tpu_torch.models.model_registry import update_channel_params
+    from makani_tpu_torch.utils.trainer import Trainer
+    from makani_tpu_torch.utils.yparams import YParams
+    results = []
+    for level in (0, 3):
+        params = YParams(str(ROOT / "config" / "icml_models.yaml"), ICML_NONLINEAR)
+        params.update_params(dict(
+            img_shape_x=36, img_shape_y=72, embed_dim=32, num_layers=3, scale_factor=2,
+            enable_synthetic_data=True, in_channels=list(range(5)), out_channels=list(range(5)),
+            channel_names=[f"c{i}" for i in range(5)], batch_size=2,
+            n_train_samples_per_epoch=2, n_eval_samples=2, n_future=1, log_video=0,
+            skip_validation=True, save_checkpoint="none", finetune=False, checkpointing=level,
+            log_to_screen=False, pos_drop_rate=0.2, path_drop_rate=0.3, mlp_drop_rate=0.25))
+        update_channel_params(params)
+        trainer = Trainer(params, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(3))
+        trainer.iters = 5
+        batch = trainer._device_batch(next(iter(trainer.train_dataloader)))
+        results.append(trainer.loss_and_grads(*batch))
+    (loss0, g0), (loss3, g3) = results
+    differ = [k for k in g0 if not torch.equal(g0[k], g3[k])]
+    check(torch.equal(loss0, loss3) and not differ,
+          f"small SFNO with dropout: checkpointing 0 and 3 differ in {differ[:5]}, losses "
+          f"{float(loss0)} {float(loss3)}")
+    return dict(leaves=len(g0), loss=float(loss0))
+
+
+def icml_optimizers(torch, kernels, dev, gen, shapes):
+    """The fused_adam modes at full width: LAMB and clipped AdamW against
+    their twin after one clipped update, with their launches; each timed
+    (CUDA events, and the host's time to enqueue an update) beside the plain
+    mode and torch.optim.Adam(fused=True)."""
+    from makani_tpu_torch.ops import fused_adam
+    from makani_tpu_torch.utils.optimizers import AdamState, kernel_update_settings
+    params = {k: torch.randn(s, device=dev, generator=gen) for k, s in shapes.items()}
+    grads = {k: 1e-2 * torch.randn(s, device=dev, generator=gen) for k, s in shapes.items()}
+    n = sum(math.prod(s) for s in shapes.values())
+    norm = float(fused_adam.global_norm(grads.values()))
+    rec = dict(leaves=len(shapes), elements=n, grad_norm=norm)
+    configs = {
+        "lamb": (dict(optimizer_type="LAMB", optimizer_moment_dtype="bfloat16",
+                      weight_decay=0.01, optimizer_max_grad_norm=1.0), torch.bfloat16),
+        "clipped_adamw": (dict(optimizer_type="AdamW", weight_decay=0.05,
+                               gradient_clip_norm=1.0), torch.float32),
+        "plain": (dict(optimizer_type="Adam", optimizer_moment_dtype="bfloat16"),
+                  torch.bfloat16),
+    }
+    for name, (cfg, dtype) in configs.items():
+        kw = kernel_update_settings(dict(cfg, optimizer_beta1=0.9, optimizer_beta2=0.95,
+                                         global_seed=333))
+
+        def state():
+            return AdamState(0, {k: torch.zeros(s, device=dev, dtype=dtype)
+                                 for k, s in shapes.items()},
+                             {k: torch.zeros(s, device=dev, dtype=dtype)
+                              for k, s in shapes.items()})
+        s_kernel = state()
+        kernel_p = {k: v.clone() for k, v in params.items()}
+        kernels.reset_launches()
+        fused_adam.fused_adam_apply(kernel_p, grads, s_kernel, 1e-3, **kw)
+        torch.cuda.synchronize()
+        launches = kernels.launches["fused_adam"]
+        check(launches == len(shapes), f"{name}: {launches} fused_adam launches")
+        twin_ms = None
+        if name != "plain":
+            check(kw["max_norm"] == 1.0 and norm > 1.0 and kw["lamb"] == (name == "lamb"),
+                  f"{name}: settings {kw}, global norm {norm}")
+            s_twin, twin_p = state(), {k: v.clone() for k, v in params.items()}
+            t0 = time.perf_counter()
+            fused_adam.fused_adam_apply_plain(twin_p, grads, s_twin, 1e-3, **kw)
+            torch.cuda.synchronize()
+            twin_ms = (time.perf_counter() - t0) * 1e3
+            differ = [k for k in shapes if not (
+                torch.equal(kernel_p[k], twin_p[k]) and torch.equal(s_kernel.mu[k], s_twin.mu[k])
+                and torch.equal(s_kernel.nu[k], s_twin.nu[k]))]
+            check(not differ, f"{name}: kernel and twin differ in {differ[:5]}")
+            del s_twin, twin_p
+            torch.cuda.empty_cache()
+        def update():
+            fused_adam.fused_adam_apply(kernel_p, grads, s_kernel, 1e-3, **kw)
+        ms = cuda_ms(update, 5)
+        enqueue_ms = host_enqueue_ms(torch, update, 5)
+        # each input read once and each output written once: p, g and the two
+        # moments read, p and the moments written
+        nbytes = n * (4 + 4 + 4 + 4 * dtype.itemsize)
+        b_ms, b_by = bound(nbytes, 0)
+        rec[name] = dict(launches=launches, ms=ms, enqueue_ms=enqueue_ms, plain_ms=twin_ms,
+                         bound_ms=b_ms, bound_by=b_by, moments=str(dtype).split(".")[-1])
+        del s_kernel, kernel_p
+        torch.cuda.empty_cache()
+    leaves = list(params.values())
+    for p, g in zip(leaves, grads.values()):
+        p.grad = g
+    opt = torch.optim.Adam(leaves, lr=1e-3, betas=(0.9, 0.95), eps=1e-8, fused=True)
+    rec["library_ms"] = cuda_ms(opt.step, 5)
+    rec["library_enqueue_ms"] = host_enqueue_ms(torch, opt.step, 5)
+    del opt, leaves, params, grads
+    torch.cuda.empty_cache()
+    return rec
+
+
+def print_icml(icml):
+    """Phase 13's lines."""
+    for cut in ICML_CUTS:
+        print(f"[icml cut] {cut}")
+    for tag, label in (("pretrain", f"(a) {ICML_PRETRAIN}"),
+                       ("finetune", f"(b) {ICML_FINETUNE} --multistep_count 2 from (a)"),
+                       ("nonlinear", f"(c) {ICML_NONLINEAR}"),
+                       ("dropout", f"(d) {ICML_PRETRAIN} with dropout {ICML_DROP_RATE} at every "
+                                   f"site")):
+        r = icml[tag]
+        timed = (f"; a train step on a resident batch {r['step_ms']:.1f} ms (median of "
+                 f"{', '.join(f'{t:.1f}' for t in r['step_ms_all'])}), peak "
+                 f"{r['step_peak_bytes'] / 2**30:.2f} GiB" if "step_ms" in r else "")
+        print(f"[icml {tag}] {label}: {r['params']} parameters in {r['leaves']} leaves, bf16 AMP, "
+              f"checkpointing {r['level']}; losses {r['losses']}; run {r['run_s']:.1f} s, peak "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB; launches {r['launches']}, all at 1 pass"
+              + timed, flush=True)
+    d = icml["dropout"]["sites"]
+    print("[icml dropout] kept fraction by site (drawn elements): " + "; ".join(
+        f"{site} {v['kept'] / v['drawn']:.5f} ({v['drawn']})" for site, v in d.items())
+          + f"; small SFNO with dropout, checkpointing 0 and 3: gradients of its "
+          f"{icml['dropout_small']['leaves']} leaves bit-equal", flush=True)
+    o = icml["optimizers"]
+    print(f"[icml optimizers] {o['elements']} elements in {o['leaves']} leaves, global gradient "
+          f"norm {o['grad_norm']:.4g}: " + "; ".join(
+              f"{name} ({o[name]['moments']} moments) {o[name]['ms']:.3f} ms (host enqueue "
+              f"{o[name]['enqueue_ms']:.3f})"
+              + ("" if o[name]["plain_ms"] is None else
+                 f", twin {o[name]['plain_ms']:.1f} ms, bit-identical")
+              + f", {o[name]['launches']} launches, bound {o[name]['bound_ms']:.3f} ms"
+              for name in ("lamb", "clipped_adamw", "plain"))
+          + f"; torch.optim.Adam(fused=True), float32 moments, {o['library_ms']:.3f} ms "
+          f"(host enqueue {o['library_enqueue_ms']:.3f})",
+          flush=True)
+    print("[icml kernels] name | shape | passes | rel err vs twin | vs f64 | ms | plain ms | "
+          "library ms | bound ms (by)")
+    for r in icml["kernels"]:
+        print(f"  {r['name']} | {r['shape']} | p{r['passes']} | {r['rel_err_twin']:.3g} | "
+              f"{r['rel_err_f64']:.3g} | {r['ms']:.4f} | {r['plain_ms']:.4f} | "
+              f"{r['library_ms']:.4f} | {r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--record", type=Path, help="write every measurement to this JSON file")
@@ -2163,6 +2599,9 @@ def main(argv=None):
         # phase 12: the full Trainer through the train CLI, on the same
         # dataset (phase 11's checkpoint and package removed first)
         trainer_rec = phase_trainer(torch, np, kernels, dev)
+        # phase 13: the ICML recipes on the same dataset (phase 12's
+        # checkpoints removed first)
+        icml = phase_icml(torch, np, spectral_mm, kernels, dev, gen)
     finally:
         shutil.rmtree(FILES_DIR, ignore_errors=True)
         sht.set_coeff_engine(settings[0])
@@ -2272,6 +2711,9 @@ def main(argv=None):
           f"epoch's checkpoint decision, then at the end); {tr['hidden_s']:.2f} s of "
           f"{tr['write_s']:.2f} s of writes hidden", flush=True)
 
+    record["icml"] = icml
+    print_icml(icml)
+
     # results
     if args.record is not None:
         args.record.parent.mkdir(parents=True, exist_ok=True)
@@ -2292,13 +2734,20 @@ def main(argv=None):
         """*_files: the counts of phase 10's path, an AMP epoch and a float32
         rollout from files; launches_score: phase 11's launches a scored step;
         launches_trainer: phase 12's run (a), 2 epochs with validation;
-        launches_valid_step: a validation AR step of phase 12."""
+        launches_valid_step: a validation AR step of phase 12;
+        launches_multistep: phase 13's 2-step finetune (b), 2 steps;
+        launches_nonlinear: phase 13's non-linear run (c), 3 steps;
+        launches_lamb: phase 13's LAMB update over (a)'s leaves (e)."""
         return dict(launches_files=files["train_launches"][name],
                     launches_per_train_step_files=files["train_launches_per_step"][name],
                     launches_rollout_files=files["rollout_launches"][name],
                     launches_score=serve["launches_per_scored_step"][name],
                     launches_trainer=tr["launches"][name],
-                    launches_valid_step=tr["valid_step_launches"][name])
+                    launches_valid_step=tr["valid_step_launches"][name],
+                    launches_multistep=icml["finetune"]["launches"][name],
+                    launches_nonlinear=icml["nonlinear"]["launches"][name],
+                    launches_lamb=icml["optimizers"]["lamb"]["launches"]
+                    if name == "fused_adam" else 0)
 
     kernels = []
     # *_amp: the same counts on phase 9's AMP path, where every pass-taking

@@ -17,6 +17,15 @@
 // approximated beyond that, and the plain twin in ops/fused_adam.py matches
 // it bit for bit.
 //
+// Two mode bits extend the update (makani_tpu's optax chain; LAMB and
+// gradient clipping):
+//   bit 0, clip: g is first scaled by the global gradient norm, read from
+//     the device (no host sync): g when norm < max_norm, else
+//     (g / norm) * max_norm, two roundings, as optax.clip_by_global_norm;
+//   bit 1, direction: p is left alone and dir = u + wd*p (one fused
+//     multiply-add, optax.add_decayed_weights) is written to a float32
+//     buffer; the caller scales it by LAMB's trust ratio and applies it.
+//
 // The dither of the stochastic rounding is keyed by the element's flat index
 // in the reference's layout of the leaf: the wrapper passes the leaf's last
 // three sizes and one index stride per dimension (the identity for every leaf
@@ -28,7 +37,8 @@
 // parameters move 11.45 GB, 3.42 ms at 3.35 TB/s. A few dozen integer and
 // float operations per element stay far below the card's rates, so it is
 // bound by bytes. One thread per element, consecutive threads on consecutive
-// elements; no shared memory.
+// elements; no shared memory. The direction mode moves 4 more bytes per
+// element (dir written) and 4 fewer (p not written back).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -39,9 +49,12 @@
 namespace {
 
 struct Scalars {
-  float lr, bc1, bc2, b1, b2, a1, a2, eps, decay;
+  float lr, bc1, bc2, b1, b2, a1, a2, eps, decay, max_norm, wd;
   uint32_t salt_mu, salt_nu;
 };
+
+constexpr int kClip = 1;
+constexpr int kDirection = 2;
 
 __device__ __forceinline__ uint32_t dither_u16(uint32_t idx, uint32_t salt) {
   uint32_t h = idx * 0x9E3779B1u ^ salt;
@@ -72,20 +85,28 @@ struct Moment {
   }
 };
 
-template <int KIND>
+template <int KIND, int MODE>
 __global__ void __launch_bounds__(256)
 fused_adam_kernel(float* __restrict__ p, const float* __restrict__ g,
                   typename Moment<KIND>::T* __restrict__ mu,
-                  typename Moment<KIND>::T* __restrict__ nu, uint32_t n, uint32_t s1, uint32_t s2,
+                  typename Moment<KIND>::T* __restrict__ nu, float* __restrict__ dir,
+                  const float* __restrict__ norm, uint32_t n, uint32_t s1, uint32_t s2,
                   uint32_t s3, uint32_t j0, uint32_t j1, uint32_t j2, uint32_t j3, Scalars k) {
   const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const float gf = g[i];
+  float gf = g[i];
+  if constexpr ((MODE & kClip) != 0) {
+    const float nrm = *norm;
+    if (!(nrm < k.max_norm)) gf = __fmul_rn(__fdiv_rn(gf, nrm), k.max_norm);
+  }
   const float m = __fmaf_rn(gf, k.a1, __fmul_rn(k.b1, Moment<KIND>::load(mu, i)));
   const float v = __fmaf_rn(__fmul_rn(gf, gf), k.a2, __fmul_rn(k.b2, Moment<KIND>::load(nu, i)));
   const float den = __fmul_rn(k.bc1, __fadd_rn(__fsqrt_rn(__fdiv_rn(v, k.bc2)), k.eps));
   const float u = __fdiv_rn(m, den);
-  p[i] = __fmaf_rn(-u, k.lr, __fmul_rn(p[i], k.decay));
+  if constexpr ((MODE & kDirection) != 0)
+    dir[i] = __fmaf_rn(k.wd, p[i], u);
+  else
+    p[i] = __fmaf_rn(-u, k.lr, __fmul_rn(p[i], k.decay));
   uint32_t idx = i;
   if constexpr (KIND == 2) {
     // flat index of the element in the reference's layout
@@ -101,15 +122,36 @@ fused_adam_kernel(float* __restrict__ p, const float* __restrict__ g,
   Moment<KIND>::store(nu, i, v, idx, k.salt_nu);
 }
 
-template <int KIND>
-void launch(void* p, const void* g, void* mu, void* nu, uint32_t n, uint32_t s1, uint32_t s2,
-            uint32_t s3, uint32_t j0, uint32_t j1, uint32_t j2, uint32_t j3, const Scalars& k,
-            cudaStream_t s) {
+struct Leaf {
+  void* p;
+  const void* g;
+  void* mu;
+  void* nu;
+  void* dir;
+  const void* norm;
+  uint32_t n, s1, s2, s3, j0, j1, j2, j3;
+};
+
+template <int KIND, int MODE>
+void launch(const Leaf& a, const Scalars& k, cudaStream_t s) {
   using T = typename Moment<KIND>::T;
-  const unsigned blocks = (n + 255u) / 256u;
-  fused_adam_kernel<KIND><<<blocks, 256, 0, s>>>(
-      static_cast<float*>(p), static_cast<const float*>(g), static_cast<T*>(mu),
-      static_cast<T*>(nu), n, s1, s2, s3, j0, j1, j2, j3, k);
+  const unsigned blocks = (a.n + 255u) / 256u;
+  fused_adam_kernel<KIND, MODE><<<blocks, 256, 0, s>>>(
+      static_cast<float*>(a.p), static_cast<const float*>(a.g), static_cast<T*>(a.mu),
+      static_cast<T*>(a.nu), static_cast<float*>(a.dir), static_cast<const float*>(a.norm),
+      a.n, a.s1, a.s2, a.s3, a.j0, a.j1, a.j2, a.j3, k);
+}
+
+template <int KIND>
+void launch_mode(const Leaf& a, const Scalars& k, int mode, cudaStream_t s) {
+  if (mode == 0)
+    launch<KIND, 0>(a, k, s);
+  else if (mode == kClip)
+    launch<KIND, kClip>(a, k, s);
+  else if (mode == kDirection)
+    launch<KIND, kDirection>(a, k, s);
+  else
+    launch<KIND, kClip | kDirection>(a, k, s);
 }
 
 }  // namespace
@@ -118,20 +160,27 @@ void launch(void* p, const void* g, void* mu, void* nu, uint32_t n, uint32_t s1,
 // three sizes of the leaf's shape padded to four dimensions, (j0..j3) the
 // index strides of the four dimensions in the reference's layout. kind:
 // 0 float32 moments, 1 bf16 rounded to nearest, 2 bf16 stochastically.
-// Returns cudaGetLastError().
-extern "C" int fused_adam_launch(void* p, const void* g, void* mu, void* nu, uint32_t n,
-                                 uint32_t s1, uint32_t s2, uint32_t s3, uint32_t j0, uint32_t j1,
-                                 uint32_t j2, uint32_t j3, float lr, float bc1, float bc2,
-                                 float b1, float b2, float a1, float a2, float eps, float decay,
-                                 uint32_t salt_mu, uint32_t salt_nu, int kind, void* stream) {
-  const Scalars k{lr, bc1, bc2, b1, b2, a1, a2, eps, decay, salt_mu, salt_nu};
+// mode: bit 0 clips g by the float32 global norm at `norm` (device memory)
+// against max_norm; bit 1 writes u + wd*p to `dir` (n float32) and leaves p.
+// `dir` and `norm` may be null where their bit is clear. Returns
+// cudaGetLastError().
+extern "C" int fused_adam_launch(void* p, const void* g, void* mu, void* nu, void* dir,
+                                 const void* norm, uint32_t n, uint32_t s1, uint32_t s2,
+                                 uint32_t s3, uint32_t j0, uint32_t j1, uint32_t j2, uint32_t j3,
+                                 float lr, float bc1, float bc2, float b1, float b2, float a1,
+                                 float a2, float eps, float decay, float max_norm, float wd,
+                                 uint32_t salt_mu, uint32_t salt_nu, int kind, int mode,
+                                 void* stream) {
+  const Scalars k{lr, bc1, bc2, b1, b2, a1, a2, eps, decay, max_norm, wd, salt_mu, salt_nu};
+  const Leaf a{p, g, mu, nu, dir, norm, n, s1, s2, s3, j0, j1, j2, j3};
   auto s = static_cast<cudaStream_t>(stream);
   if (n == 0) return static_cast<int>(cudaGetLastError());
+  if (mode < 0 || mode > 3) return static_cast<int>(cudaErrorInvalidValue);
   if (kind == 0)
-    launch<0>(p, g, mu, nu, n, s1, s2, s3, j0, j1, j2, j3, k, s);
+    launch_mode<0>(a, k, mode, s);
   else if (kind == 1)
-    launch<1>(p, g, mu, nu, n, s1, s2, s3, j0, j1, j2, j3, k, s);
+    launch_mode<1>(a, k, mode, s);
   else
-    launch<2>(p, g, mu, nu, n, s1, s2, s3, j0, j1, j2, j3, k, s);
+    launch_mode<2>(a, k, mode, s);
   return static_cast<int>(cudaGetLastError());
 }

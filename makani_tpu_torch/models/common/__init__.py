@@ -1,12 +1,18 @@
-from makani_tpu_torch.models.common.activations import get_activation
+from makani_tpu_torch.models.common.activations import (
+    ComplexActivation,
+    ComplexReLU,
+    get_activation,
+)
 from makani_tpu_torch.models.common.layers import (
     MLP,
     Conv1x1,
     DropPath,
+    Dropout,
     EncoderDecoder,
     InstanceNorm2d,
 )
-from makani_tpu_torch.models.common.spectral_convolution import SpectralConv
+from makani_tpu_torch.models.common.spectral_convolution import SpectralAttention, SpectralConv
 
-__all__ = ["get_activation", "Conv1x1", "DropPath", "MLP", "EncoderDecoder",
-           "InstanceNorm2d", "SpectralConv"]
+__all__ = ["get_activation", "ComplexReLU", "ComplexActivation", "Conv1x1", "DropPath",
+           "Dropout", "MLP", "EncoderDecoder", "InstanceNorm2d", "SpectralAttention",
+           "SpectralConv"]

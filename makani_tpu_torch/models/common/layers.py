@@ -4,19 +4,76 @@ Counterpart of makani_tpu/models/common/layers.py. Parameter names and shapes
 follow the JAX modules so that weights carry across one to one
 (tools/convert_jax_params.py). Initialization: W ~ N(0, sqrt(gain/fan_in)),
 zero biases, drawn from the caller's torch.Generator.
+
+Dropout. makani_tpu draws its masks with flax's make_rng from the step's
+dropout key; here every mask comes from `drop_mask`, which seeds a generator
+of its own from the DropoutKey in force (a seed, the optimizer step and the
+unrolled step of a multi-step forward) and the site's index (`Dropout.site`,
+`DropPath.site`, numbered by the network). A forward that drops must run
+under `use_dropout_key`. `remat` carries the key in force into the
+recomputation, so a block recomputed in backward draws the masks of its
+forward, bit for bit.
 """
 
+import contextlib
+from collections import namedtuple
+
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+# what a training forward's masks are drawn from: the run's seed, the
+# optimizer step and the unrolled step (MultiStepWrapper)
+DropoutKey = namedtuple("DropoutKey", ["seed", "step", "substep"])
+
+_dropout_key = None
+
+
+@contextlib.contextmanager
+def use_dropout_key(key):
+    """Draw the dropout masks of the forwards inside from `key` (a DropoutKey,
+    or None for no key)."""
+    global _dropout_key
+    prev, _dropout_key = _dropout_key, key
+    try:
+        yield
+    finally:
+        _dropout_key = prev
+
+
+def current_dropout_key():
+    return _dropout_key
+
+
+def drop_mask(shape, keep, site, device):
+    """Boolean keep-mask of `shape` (True with probability `keep`) for dropout
+    site `site`, drawn on `device` from a generator seeded by the key in force
+    and the site: the same key and site give the same mask."""
+    key = _dropout_key
+    if key is None:
+        raise RuntimeError("dropout at a nonzero rate in training needs a dropout key: run the "
+                           "forward under layers.use_dropout_key(DropoutKey(seed, step, 0))")
+    entropy = [int(key.seed), int(key.step), int(key.substep), int(site)]
+    seed = int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0] >> np.uint64(1))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return torch.rand(tuple(shape), generator=gen, device=device) < keep
+
 
 def remat(fn, *args):
     """fn(*args), its activations recomputed in backward instead of saved
-    (makani_tpu's nn.remat); a plain call when no gradient is recorded."""
+    (makani_tpu's nn.remat); a plain call when no gradient is recorded. The
+    recomputation runs under the dropout key of the call."""
     if not torch.is_grad_enabled():
         return fn(*args)
-    return checkpoint(fn, *args, use_reentrant=False)
+    key = _dropout_key
+
+    def run(*a):
+        with use_dropout_key(key):
+            return fn(*a)
+
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 def normal_param(shape, std, device, generator):
@@ -46,49 +103,86 @@ class Conv1x1(nn.Module):
         return y.view(b, -1, h, w)
 
 
-def _eval_only(drop_rate, deterministic, what):
-    if drop_rate > 0.0 and not deterministic:
-        raise NotImplementedError(f"{what} at a nonzero rate in training is not ported yet "
-                                  "(ROADMAP: Queue 1, dropout in training)")
+class Dropout(nn.Module):
+    """flax's nn.Dropout: select(mask, x / keep, 0), one draw shared along
+    `broadcast_dims`; the identity when deterministic or at rate 0."""
+
+    def __init__(self, rate=0.0, broadcast_dims=()):
+        super().__init__()
+        self.rate = rate
+        self.broadcast_dims = tuple(broadcast_dims)
+        self.site = 0
+
+    def forward(self, x, deterministic=True):
+        if self.rate == 0.0 or deterministic:
+            return x
+        if self.rate == 1.0:
+            return torch.zeros_like(x)
+        keep = 1.0 - self.rate
+        shape = [1 if d in self.broadcast_dims else s for d, s in enumerate(x.shape)]
+        mask = drop_mask(shape, keep, self.site, x.device)
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class DropPath(nn.Module):
-    """Stochastic depth per sample; the identity in deterministic (serving) use."""
+    """Stochastic depth per sample: (x / keep) * mask with one draw a sample;
+    the identity when deterministic or at rate 0."""
 
     def __init__(self, drop_prob=0.0):
         super().__init__()
         self.drop_prob = drop_prob
+        self.site = 0
 
     def forward(self, x, deterministic=True):
-        _eval_only(self.drop_prob, deterministic, "DropPath")
-        return x
+        if self.drop_prob == 0.0 or deterministic:
+            return x
+        keep = 1.0 - self.drop_prob
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        mask = drop_mask(shape, keep, self.site, x.device)
+        return (x / keep) * mask.to(x.dtype)
+
+
+def number_dropout_sites(module):
+    """Give every Dropout and DropPath under `module` its site index, in
+    registration order; returns the number of sites."""
+    sites = [m for m in module.modules() if isinstance(m, (Dropout, DropPath))]
+    for i, m in enumerate(sites):
+        m.site = i
+    return len(sites)
 
 
 class MLP(nn.Module):
-    """Two-layer channel MLP on NCHW tensors (dropout is the identity when
-    deterministic). checkpointing >= 2 recomputes its activations in
-    backward instead of saving them."""
+    """Two-layer channel MLP on NCHW tensors, dropout after the activation and
+    after the output ("iid", or "features": one draw per (sample, channel)).
+    checkpointing >= 2 recomputes its activations in backward instead of
+    saving them."""
 
     def __init__(self, in_features, hidden_features=None, out_features=None, act_layer=None,
-                 output_bias=True, drop_rate=0.0, gain=1.0, checkpointing=0, device="cpu",
-                 generator=None):
+                 output_bias=True, drop_rate=0.0, drop_type="iid", gain=1.0, checkpointing=0,
+                 device="cpu", generator=None):
         super().__init__()
         self.checkpointing = checkpointing
         out_features = out_features or in_features
         hidden_features = hidden_features or in_features
         self.act_layer = act_layer
-        self.drop_rate = drop_rate
         self.fc1 = Conv1x1(in_features, hidden_features, use_bias=True, gain=2.0,
                            device=device, generator=generator)
         self.fc2 = Conv1x1(hidden_features, out_features, use_bias=output_bias, gain=gain,
                            device=device, generator=generator)
+        if drop_type not in ("iid", "features"):
+            raise NotImplementedError(f"Error, drop_type {drop_type} not supported")
+        dims = (2, 3) if drop_type == "features" else ()
+        self.drop1 = Dropout(drop_rate, dims)
+        self.drop2 = Dropout(drop_rate, dims)
 
-    def _body(self, x):
-        return self.fc2(self.act_layer(self.fc1(x)))
+    def _body(self, x, deterministic):
+        x = self.drop1(self.act_layer(self.fc1(x)), deterministic)
+        return self.drop2(self.fc2(x), deterministic)
 
     def forward(self, x, deterministic=True):
-        _eval_only(self.drop_rate, deterministic, "MLP dropout")
-        return remat(self._body, x) if self.checkpointing >= 2 else self._body(x)
+        if self.checkpointing >= 2:
+            return remat(self._body, x, deterministic)
+        return self._body(x, deterministic)
 
 
 class EncoderDecoder(nn.Module):

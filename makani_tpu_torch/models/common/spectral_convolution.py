@@ -1,7 +1,9 @@
-"""Spectral convolution on the sphere: the linear spectral filter.
+"""Spectral convolution on the sphere: the linear spectral filter and the
+non-linear one.
 
-Counterpart of SpectralConv in makani_tpu/models/common/spectral_convolution.py
-(:35-172). Two paths, chosen per call as makani_tpu chooses them:
+Counterpart of SpectralConv and SpectralAttention in
+makani_tpu/models/common/spectral_convolution.py (:35-246). SpectralConv
+takes one of two paths, chosen per call as makani_tpu chooses them:
   - the stacked-real pipeline (:98-126), for the non-separable dhconv operator
     on the "kernel" or "stacked" coefficient engine at a precision the
     kernels express: analysis SHT -> per-l complex channel mixing -> synthesis
@@ -17,6 +19,8 @@ import math
 import torch
 from torch import nn
 
+from makani_tpu_torch.models.common.activations import ComplexReLU
+from makani_tpu_torch.models.common.layers import Dropout
 from makani_tpu_torch.ops import sht
 from makani_tpu_torch.ops.complex_ops import (
     contract_dhconv_stacked,
@@ -119,4 +123,73 @@ class SpectralConv(nn.Module):
             x = x + self.bias_const
         elif self.bias_mode == "position":
             x = x + self.bias_pos
+        return x.to(dtype), residual
+
+
+class SpectralAttention(nn.Module):
+    """Non-linear spectral filter: `spectral_layers` complex layers (weight,
+    optional bias, ComplexReLU, dropout) of width hidden_size_factor *
+    in_channels, then the output weight, on the coefficients.
+
+    operator_type "diagonal" mixes channels with one weight ``w_l (I, H)``
+    for every mode, "l-dependant" with one per degree ``w_l (L, I, H)``.
+    Complex weights are stored as real pairs ``(..., 2)`` under makani_tpu's
+    names (w_0.., b_0.., act_0../bias, wout). forward returns ``(out,
+    residual)`` as SpectralConv does.
+    """
+
+    def __init__(self, forward_transform, inverse_transform, in_channels, out_channels,
+                 operator_type="diagonal", hidden_size_factor=2, complex_activation="real",
+                 bias=False, spectral_layers=1, drop_rate=0.0, gain=1.0, device="cpu",
+                 generator=None):
+        super().__init__()
+        if operator_type not in ("diagonal", "l-dependant"):
+            raise ValueError("Unknown operator type")
+        self.forward_transform = forward_transform
+        self.inverse_transform = inverse_transform
+        self.operator_type = operator_type
+        self.spectral_layers = spectral_layers
+        self.bias = bias
+        fwd_t, inv_t = forward_transform, inverse_transform
+        self.scale_residual = ((fwd_t.nlat, fwd_t.nlon, fwd_t.grid)
+                               != (inv_t.nlat, inv_t.nlon, inv_t.grid))
+        modes_lat = fwd_t.lmax
+        hidden = int(hidden_size_factor * in_channels)
+        scale_out = math.sqrt(gain / in_channels)
+
+        def cplx_param(shape, std):
+            return nn.Parameter(std * torch.randn((*shape, 2), device=device,
+                                                  generator=generator))
+
+        lead = (modes_lat,) if operator_type == "l-dependant" else ()
+        for l in range(spectral_layers):
+            in_dim = in_channels if l == 0 else hidden
+            setattr(self, f"w_{l}", cplx_param((*lead, in_dim, hidden),
+                                               math.sqrt(2.0 / float(in_dim))))
+            if bias:
+                setattr(self, f"b_{l}", cplx_param((hidden, 1, 1), scale_out))
+            setattr(self, f"act_{l}", ComplexReLU(mode=complex_activation,
+                                                  bias_shape=(hidden, 1, 1), scale=scale_out,
+                                                  device=device))
+            setattr(self, f"drop_{l}", Dropout(drop_rate))
+        self.wout = cplx_param((*lead, hidden, out_channels), scale_out)
+
+    def _mix(self, x, w):
+        eq = "bixy,io->boxy" if self.operator_type == "diagonal" else "bixy,xio->boxy"
+        return torch.einsum(eq, x, view_as_complex(w))
+
+    def forward(self, x, deterministic=True):
+        fwd_t, inv_t = self.forward_transform, self.inverse_transform
+        dtype = x.dtype
+        residual = x
+        x = fwd_t(x.float())                                  # (B, C, L, mmax) complex
+        if self.scale_residual:
+            residual = inv_t(x).to(dtype)
+        for l in range(self.spectral_layers):
+            x = self._mix(x, getattr(self, f"w_{l}"))
+            if self.bias:
+                x = x + view_as_complex(getattr(self, f"b_{l}"))
+            x = getattr(self, f"act_{l}")(x)
+            x = getattr(self, f"drop_{l}")(x, deterministic)
+        x = inv_t(self._mix(x, self.wout))
         return x.to(dtype), residual

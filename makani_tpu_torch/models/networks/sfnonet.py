@@ -6,9 +6,14 @@ plus the big-skip residual transform. The blocks run as a plain loop.
 Activation checkpointing follows makani_tpu's levels: checkpointing >= 1
 recomputes the encoder and decoder in backward, >= 2 the block MLPs, >= 3
 whole blocks (torch.utils.checkpoint, non-reentrant). The linear filter
-takes the dhconv and diagonal operators, separable or not. Not ported yet
-(ROADMAP, Queue 1): scan_layers, position embeddings, factorized filters, the
-non-linear spectral filter and the FFT (planar FNO) transforms.
+takes the dhconv and diagonal operators, separable or not; the non-linear
+filter (SpectralAttention) the diagonal and l-dependant ones. Dropout in
+training: after the encoder (pos_drop_rate), in the blocks' MLPs
+(mlp_drop_rate, one draw per feature map), in the non-linear filter and as
+stochastic depth (path_drop_rate, linspace(0, rate, num_layers) over the
+blocks); the sites are numbered in registration order (layers.drop_mask).
+Not ported yet (ROADMAP, Queue 1 item 6): scan_layers, position embeddings,
+factorized filters and the FFT (planar FNO) transforms.
 """
 
 import math
@@ -23,12 +28,14 @@ from makani_tpu_torch.models.common import (
     MLP,
     Conv1x1,
     DropPath,
+    Dropout,
     EncoderDecoder,
     InstanceNorm2d,
+    SpectralAttention,
     SpectralConv,
     get_activation,
 )
-from makani_tpu_torch.models.common.layers import normal_param, remat
+from makani_tpu_torch.models.common.layers import normal_param, number_dropout_sites, remat
 from makani_tpu_torch.ops import InverseRealSHT, RealSHT
 
 
@@ -45,25 +52,37 @@ def get_transform_pair(kind, nlat, nlon, lmax, mmax, grid, device="cpu"):
 
 
 def _not_ported(what):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP: Queue 1)")
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP: Queue 1 item 6)")
 
 
 class SpectralFilterLayer(nn.Module):
-    """Linear spectral filter (SpectralConv) under the name `filter`."""
+    """The spectral filter under the name `filter`: SpectralAttention for
+    filter_type "non-linear", SpectralConv for "linear"."""
 
     def __init__(self, forward_transform, inverse_transform, embed_dim, filter_type="linear",
-                 operator_type="diagonal", factorization=None, separable=False, bias=False,
-                 gain=1.0, device="cpu", generator=None):
+                 operator_type="diagonal", hidden_size_factor=1.0, factorization=None,
+                 separable=False, complex_activation="real", spectral_layers=1, bias=False,
+                 drop_rate=0.0, gain=1.0, device="cpu", generator=None):
         super().__init__()
+        self.non_linear = filter_type == "non-linear"
+        if self.non_linear:
+            self.filter = SpectralAttention(
+                forward_transform, inverse_transform, embed_dim, embed_dim,
+                operator_type=operator_type, hidden_size_factor=int(hidden_size_factor),
+                complex_activation=complex_activation, spectral_layers=spectral_layers,
+                drop_rate=drop_rate, bias=bias, gain=gain, device=device, generator=generator)
+            return
         if filter_type != "linear":
-            raise _not_ported(f"filter_type {filter_type!r}")
+            raise NotImplementedError(f"filter_type {filter_type}")
         if factorization is not None:
             raise _not_ported(f"factorized filters ({factorization!r})")
         self.filter = SpectralConv(forward_transform, inverse_transform, embed_dim, embed_dim,
                                    operator_type=operator_type, separable=separable, bias=bias,
                                    gain=gain, device=device, generator=generator)
 
-    def forward(self, x):
+    def forward(self, x, deterministic=True):
+        if self.non_linear:
+            return self.filter(x, deterministic=deterministic)
         return self.filter(x)
 
 
@@ -75,21 +94,23 @@ class FourierNeuralOperatorBlock(nn.Module):
     def __init__(self, forward_transform, inverse_transform, embed_dim, filter_type="linear",
                  operator_type="diagonal", mlp_ratio=2.0, mlp_drop_rate=0.0,
                  path_drop_rate=0.0, act_name="gelu", norm_layer="instance_norm",
-                 factorization=None, separable=False, use_mlp=False, bias=False,
-                 checkpointing=0, device="cpu", generator=None):
+                 factorization=None, separable=False, use_mlp=False, complex_activation="real",
+                 spectral_layers=1, bias=False, checkpointing=0, device="cpu", generator=None):
         super().__init__()
         self.act = get_activation(act_name)
         # gain bookkeeping of the reference init scheme: the filter feeds an
         # activation, the MLP and the outer skip share one sum
         self.filter_layer = SpectralFilterLayer(
             forward_transform, inverse_transform, embed_dim, filter_type=filter_type,
-            operator_type=operator_type, factorization=factorization, separable=separable,
-            bias=bias, gain=1.0 if act_name == "identity" else 2.0, device=device,
-            generator=generator)
+            operator_type=operator_type, hidden_size_factor=mlp_ratio,
+            factorization=factorization, separable=separable,
+            complex_activation=complex_activation, spectral_layers=spectral_layers, bias=bias,
+            drop_rate=path_drop_rate, gain=1.0 if act_name == "identity" else 2.0,
+            device=device, generator=generator)
         self.norm0 = self._norm(norm_layer, embed_dim, device)
         self.mlp = (MLP(embed_dim, int(embed_dim * mlp_ratio), act_layer=self.act,
-                        drop_rate=mlp_drop_rate, gain=0.5, checkpointing=checkpointing,
-                        device=device, generator=generator)
+                        drop_rate=mlp_drop_rate, drop_type="features", gain=0.5,
+                        checkpointing=checkpointing, device=device, generator=generator)
                     if use_mlp else None)
         self.norm1 = self._norm(norm_layer, embed_dim, device)
         self.drop_path = DropPath(path_drop_rate)
@@ -105,7 +126,7 @@ class FourierNeuralOperatorBlock(nn.Module):
         raise _not_ported(f"normalization {norm_layer!r}")
 
     def forward(self, x, deterministic=True):
-        x, residual = self.filter_layer(x)
+        x, residual = self.filter_layer(x, deterministic)
         x = self.act(self.norm0(x))
         if self.mlp is not None:
             x = self.mlp(x, deterministic=deterministic)
@@ -139,7 +160,6 @@ class SphericalFourierNeuralOperatorNet(nn.Module):
         self.out_shape = tuple(out_shape)
         self.big_skip = big_skip
         self.repeat_layers = repeat_layers
-        self.pos_drop_rate = pos_drop_rate
         self.act = get_activation(activation_function)
 
         h = int(self.inp_shape[0] // scale_factor)
@@ -160,6 +180,7 @@ class SphericalFourierNeuralOperatorNet(nn.Module):
         self.encoder = EncoderDecoder(encoder_layers, inp_chans, embed_dim,
                                       int(encoder_ratio * embed_dim), self.act, device=device,
                                       generator=generator)
+        self.pos_drop = Dropout(pos_drop_rate)
         dpr = np.linspace(0, path_drop_rate, num_layers)
         self.blocks = nn.ModuleList([
             FourierNeuralOperatorBlock(
@@ -169,8 +190,9 @@ class SphericalFourierNeuralOperatorNet(nn.Module):
                 mlp_ratio=mlp_ratio, mlp_drop_rate=mlp_drop_rate,
                 path_drop_rate=float(dpr[i]), act_name=activation_function,
                 norm_layer=normalization_layer, factorization=factorization,
-                separable=separable, use_mlp=use_mlp, bias=bias,
-                checkpointing=checkpointing, device=device, generator=generator)
+                separable=separable, use_mlp=use_mlp, complex_activation=complex_activation,
+                spectral_layers=spectral_layers, bias=bias, checkpointing=checkpointing,
+                device=device, generator=generator)
             for i in range(num_layers)])
         self.decoder = EncoderDecoder(encoder_layers, embed_dim, out_chans,
                                       int(decoder_ratio * embed_dim), self.act,
@@ -179,6 +201,7 @@ class SphericalFourierNeuralOperatorNet(nn.Module):
         if big_skip:
             self.residual_transform = normal_param(
                 (out_chans, inp_chans), math.sqrt(0.5 / inp_chans), device, generator)
+        self.n_dropout_sites = number_dropout_sites(self)
 
     def forward(self, x, deterministic=True):
         if self.big_skip:
@@ -186,10 +209,8 @@ class SphericalFourierNeuralOperatorNet(nn.Module):
                 residual = self.itrans_up(self.trans_down(x.float())).to(x.dtype)
             else:
                 residual = x
-        if self.pos_drop_rate > 0.0 and not deterministic:
-            raise NotImplementedError("position dropout in training is not ported yet "
-                                      "(ROADMAP: Queue 1, dropout in training)")
         x = remat(self.encoder, x) if self.checkpointing >= 1 else self.encoder(x)
+        x = self.pos_drop(x, deterministic)
         for _ in range(self.repeat_layers):
             for blk in self.blocks:
                 if self.checkpointing >= 3:

@@ -2,11 +2,14 @@
 
 Counterpart of makani_tpu/models/stepper.py: preprocess -> model ->
 denormalize, with the configurable land-sea-mask gate (`lsm_mask_channels`).
-The multi-step training unroll of MultiStepWrapper (n_future > 0) is not
-ported yet; its eval path (one step) is.
+MultiStepWrapper unrolls n_future + 1 steps in training and takes one in
+eval.
 """
 
+import torch
 from torch import nn
+
+from makani_tpu_torch.models.common.layers import current_dropout_key, use_dropout_key
 
 
 class SingleStepWrapper(nn.Module):
@@ -46,15 +49,30 @@ class SingleStepWrapper(nn.Module):
 
 
 class MultiStepWrapper(SingleStepWrapper):
-    """One step in eval mode whatever n_future; the training unroll is not
-    ported yet."""
+    """One step in eval mode whatever n_future. In training, n_future + 1
+    single steps, each prediction appended to the next step's history and the
+    zenith window advanced to the next target's, the land-sea-mask gate at
+    every step; the predictions concatenated along channels to match the
+    flattened target. Each unrolled step draws its dropout masks under its own
+    substep of the dropout key."""
 
     def __init__(self, preprocessor, model, n_future=0, lsm_mask_channels=()):
         super().__init__(preprocessor, model, lsm_mask_channels)
         self.n_future = n_future
 
     def forward(self, inp, unpredicted_inp=None, unpredicted_tar=None, deterministic=True):
-        if not deterministic:
-            raise NotImplementedError("the multi-step training unroll is not ported yet "
-                                      "(ROADMAP: Queue 1)")
-        return self._single(inp, unpredicted_inp, deterministic)
+        if deterministic:
+            return self._single(inp, unpredicted_inp, deterministic)
+        prep = self.preprocessor
+        key = current_dropout_key()
+        result = []
+        inpt, uinp = inp, unpredicted_inp
+        for step in range(self.n_future + 1):
+            with use_dropout_key(None if key is None else key._replace(substep=step)):
+                pred = self._single(inpt, uinp, deterministic)
+            result.append(pred)
+            if step == self.n_future:
+                break
+            uinp = prep.advance_unpredicted(uinp, unpredicted_tar, step)
+            inpt = prep.append_history(inpt, pred)
+        return torch.cat(result, dim=1)

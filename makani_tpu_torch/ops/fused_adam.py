@@ -5,7 +5,10 @@ Counterpart of makani_tpu/ops/pallas_adam.py. `fused_adam_apply` updates
 every parameter leaf and its two moments in one pass per leaf
 (csrc/fused_adam.cu, one launch per leaf, as on the TPU), in place: the
 parameters and the moment tensors of `state` are overwritten and
-`state.count` advances. On CPU tensors it runs the plain twin
+`state.count` advances. Two modes extend it to makani_tpu's optax chains:
+gradient clipping by the global norm (read by the kernel from the device),
+and LAMB (the kernel writes the decayed direction, the trust ratio applies
+it). On CPU tensors it runs the plain twin
 (`fused_adam_apply_plain`), which repeats the kernel's arithmetic bit for
 bit.
 
@@ -161,73 +164,144 @@ def _moment_kind(mu, stochastic):
     raise TypeError(f"fused Adam takes float32 or bf16 moments, got {mu.dtype}")
 
 
-def _leaf_plain(key, p, g, mu, nu, lr, bc1, bc2, b1, b2, eps, wd, salts, stochastic):
+def global_norm(tensors):
+    """sqrt of the sum of squares of every element of `tensors` (optax's
+    global_norm), a float32 0-dim tensor on their device, with no host sync:
+    one norm a leaf (torch._foreach_norm), then the norm of those."""
+    tensors = list(tensors)
+    if not tensors:
+        return torch.zeros(())
+    norms = torch._foreach_norm([t.float() for t in tensors])
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def clip_by_norm(g, norm, max_norm):
+    """optax.clip_by_global_norm's arithmetic on one leaf: g where norm <
+    max_norm, else (g / norm) * max_norm, rounded twice in float32."""
+    limit = _f32(max_norm, g.device)
+    return torch.where(norm < limit, g, (g / norm) * limit)
+
+
+def trust_ratios(params, updates):
+    """optax.scale_by_trust_ratio's ratio of each leaf, ||p|| / ||u|| (1
+    where either norm is 0), as 0-dim tensors on the device."""
+    if not params:
+        return []
+    pn = torch.stack(torch._foreach_norm(list(params)))
+    un = torch.stack(torch._foreach_norm(list(updates)))
+    return torch.where((pn == 0) | (un == 0), torch.ones_like(pn), pn / un).unbind()
+
+
+def trust_ratio_apply(params, dirs, lr):
+    """LAMB's step from the directions u' (dict, as `params`), in place:
+    p <- p - lr * u' * ratio; one pass over p and u' a leaf (addcmul with the
+    ratio on the device, no host sync), one call for all leaves."""
+    keys = list(dirs)
     with torch.no_grad():
-        m, v = adam_moments(g.float(), mu, nu, b1, b2)
+        leaves, dirs = [params[k] for k in keys], [dirs[k] for k in keys]
+        torch._foreach_addcmul_(leaves, dirs, list(trust_ratios(leaves, dirs)),
+                                value=-float(lr))
+
+
+def _leaf_plain(key, p, g, mu, nu, lr, bc1, bc2, b1, b2, eps, wd, salts, stochastic,
+                norm=None, max_norm=None, direction=None):
+    with torch.no_grad():
+        g = g.float()
+        if norm is not None:
+            g = clip_by_norm(g, norm, max_norm)
+        m, v = adam_moments(g, mu, nu, b1, b2)
         u = adam_direction(m, v, bc1, bc2, eps)
         dev = p.device
-        decay = np.float32(1.0) - np.float32(lr) * np.float32(wd)
-        p.copy_(fma(-u, _f32(lr, dev), p * _f32(decay, dev)))
+        if direction is not None:
+            direction.copy_(fma(p, _f32(wd, dev), u))
+        else:
+            decay = np.float32(1.0) - np.float32(lr) * np.float32(wd)
+            p.copy_(fma(-u, _f32(lr, dev), p * _f32(decay, dev)))
         store_moment(mu, m, key, salts[0], stochastic)
         store_moment(nu, v, key, salts[1], stochastic)
 
 
-def _leaf_kernel(key, p, g, mu, nu, lr, bc1, bc2, b1, b2, eps, wd, salts, stochastic):
+def _leaf_kernel(key, p, g, mu, nu, lr, bc1, bc2, b1, b2, eps, wd, salts, stochastic,
+                 norm=None, max_norm=None, direction=None):
     kind = _moment_kind(mu, stochastic)
-    for t in (p, g, mu, nu):
+    leaf = (p, g, mu, nu) if direction is None else (p, g, mu, nu, direction)
+    for t in leaf:
         if t.device != p.device or not t.is_contiguous():
             raise ValueError(f"{key}: fused Adam takes contiguous tensors on one device")
         if t.shape != p.shape:
             raise ValueError(f"{key}: shapes differ: {tuple(t.shape)} vs {tuple(p.shape)}")
     if p.dtype != torch.float32 or g.dtype != torch.float32 or nu.dtype != mu.dtype:
         raise TypeError(f"{key}: fused Adam takes float32 p and g and moments of one dtype")
+    if direction is not None and direction.dtype != torch.float32:
+        raise TypeError(f"{key}: the direction buffer must be float32")
+    if norm is not None and (norm.device != p.device or norm.dtype != torch.float32
+                             or norm.numel() != 1):
+        raise ValueError(f"{key}: the global norm must be one float32 on the leaf's device")
     n = p.numel()
     if n >= 2 ** 32 or p.dim() > 4:
         raise ValueError(f"{key}: leaf of shape {tuple(p.shape)} exceeds the kernel's indexing")
     shape = (1,) * (4 - p.dim()) + tuple(p.shape)
     strides = (0,) * (4 - p.dim()) + jax_index_strides(key, p.shape)
     decay = np.float32(1.0) - np.float32(lr) * np.float32(wd)
+    mode = (1 if norm is not None else 0) | (2 if direction is not None else 0)
     launch = kernels.launcher("fused_adam")
     with torch.cuda.device(p.device):
         # float32 scalars, passed as the Python floats that hold them exactly
         scalars = [float(np.float32(v)) for v in
-                   (lr, bc1, bc2, b1, b2, 1.0 - b1, 1.0 - b2, eps, decay)]
-        rc = launch(p.data_ptr(), g.data_ptr(), mu.data_ptr(), nu.data_ptr(), n,
+                   (lr, bc1, bc2, b1, b2, 1.0 - b1, 1.0 - b2, eps, decay,
+                    0.0 if max_norm is None else max_norm, wd)]
+        rc = launch(p.data_ptr(), g.data_ptr(), mu.data_ptr(), nu.data_ptr(),
+                    None if direction is None else direction.data_ptr(),
+                    None if norm is None else norm.data_ptr(), n,
                     shape[1], shape[2], shape[3], *strides, *scalars,
-                    salts[0], salts[1], kind, torch.cuda.current_stream().cuda_stream)
+                    salts[0], salts[1], kind, mode, torch.cuda.current_stream().cuda_stream)
     kernels.raise_on(rc, "fused_adam")
     kernels.count_launch("fused_adam")
 
 
 def _apply(leaf_fn, params, grads, state, lr, b1, b2, eps, weight_decay, stochastic_rounding,
-           seed):
+           seed, max_norm, lamb):
     count = state.count + 1
     bc1, bc2 = bias_corrections(count, b1, b2)
     order = jax_leaf_order(grads)
     salts = moment_salts(seed, count, len(order))
+    norm = global_norm(grads[k] for k in order) if max_norm else None
+    dirs = {k: torch.empty_like(params[k]) for k in order} if lamb else {}
     for i, key in enumerate(order):
         leaf_fn(key, params[key], grads[key], state.mu[key], state.nu[key], lr, bc1, bc2, b1, b2,
-                eps, weight_decay, salts[2 * i: 2 * i + 2], stochastic_rounding)
+                eps, weight_decay, salts[2 * i: 2 * i + 2], stochastic_rounding,
+                norm, max_norm, dirs.get(key))
+    if lamb:
+        trust_ratio_apply(params, dirs, lr)
     state.count = count
     return params, state
 
 
 def fused_adam_apply_plain(params, grads, state, lr, *, b1=0.9, b2=0.999, eps=1e-8,
-                           weight_decay=0.0, stochastic_rounding=True, seed=1234):
+                           weight_decay=0.0, stochastic_rounding=True, seed=1234, max_norm=None,
+                           lamb=False):
     """Plain twin of `fused_adam_apply`, on any device."""
     return _apply(_leaf_plain, params, grads, state, lr, b1, b2, eps, weight_decay,
-                  stochastic_rounding, seed)
+                  stochastic_rounding, seed, max_norm, lamb)
 
 
 def fused_adam_apply(params, grads, state, lr, *, b1=0.9, b2=0.999, eps=1e-8,
-                     weight_decay=0.0, stochastic_rounding=True, seed=1234):
+                     weight_decay=0.0, stochastic_rounding=True, seed=1234, max_norm=None,
+                     lamb=False):
     """One fused Adam(W) step over `params` and `grads` (dicts name -> tensor,
     named like the model's parameters) and `state` (count, mu, nu), in place.
     Returns (params, state). Leaves on CUDA launch the kernel; leaves on the
-    CPU run the twin."""
+    CPU run the twin.
+
+    max_norm (> 0) first clips the gradients by their global norm, computed
+    on the device (optax.clip_by_global_norm). lamb=True makes the step
+    LAMB's (optax's Adam, add_decayed_weights(weight_decay),
+    scale_by_trust_ratio): the kernel writes each leaf's u + wd*p and the
+    trust ratio scales it before p - lr*u'; AdamW's decay is otherwise folded
+    into the update."""
     def leaf(key, p, *rest):
         fn = _leaf_kernel if kernels.dispatch(p) else _leaf_plain
         fn(key, p, *rest)
 
     return _apply(leaf, params, grads, state, lr, b1, b2, eps, weight_decay,
-                  stochastic_rounding, seed)
+                  stochastic_rounding, seed, max_norm, lamb)

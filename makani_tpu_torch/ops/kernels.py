@@ -101,10 +101,11 @@ def _declare(name, lib):
         # x, w, scratch, out, b, l, c, o, m, wdim, conj_w, m3, passes, stream
         "dhconv_mm": [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp],
         "dhconv_dw": [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp],
-        # p, g, mu, nu, n, sizes[3], index strides[4], the nine float scalars,
-        # two salts, moment kind, stream
-        "fused_adam": [vp, vp, vp, vp, cu, cu, cu, cu, cu, cu, cu, cu,
-                       cf, cf, cf, cf, cf, cf, cf, cf, cf, cu, cu, ci, vp],
+        # p, g, mu, nu, dir, the global norm (device), n, sizes[3], index
+        # strides[4], the eleven float scalars (lr .. decay, max_norm, wd),
+        # two salts, moment kind, mode, stream
+        "fused_adam": [vp, vp, vp, vp, vp, vp, cu, cu, cu, cu, cu, cu, cu, cu,
+                       cf, cf, cf, cf, cf, cf, cf, cf, cf, cf, cf, cu, cu, ci, ci, vp],
         # x, w, scratch, out, b, c, o, l, m, w's strides (c, o, l), conj_w, passes, stream
         "dhconv_complex": [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp],
         # x, t, scratch, out, r, k, n, x_bf16, out_bf16, passes, stream

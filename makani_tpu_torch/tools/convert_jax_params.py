@@ -9,6 +9,11 @@
                                             (2, L, C, O), the dhconv kernel layout
                                             (other filter operators: unchanged)
   model/blocks_3/norm0/weight            -> model.blocks.3.norm0.weight
+  model/blocks_3/SpectralFilterLayer_0/filter/w_0 ([L,] I, H, 2)
+                                         -> model.blocks.3.filter_layer.filter.w_0
+                                            (the non-linear filter's complex
+                                            weights, biases b_<l> and wout as
+                                            real pairs, act_<l>/bias: unchanged)
   model/residual_transform (O, I)        -> model.residual_transform
 
 and copies them into `model` (a stepper from get_model). Every parameter of

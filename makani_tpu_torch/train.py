@@ -9,11 +9,12 @@ the per-epoch checkpoint when one is there; `--mode test` runs the DebugNet
 pipeline self-test on the config's data. The flags are makani_tpu's, plus
 --device (default cuda; without CUDA it raises unless --device cpu).
 makani_tpu's no-op flags (--jit_mode, --cuda_graph_mode, --disable_ddp,
---parameters_reduction_buffer_count) are accepted and change nothing. The
-port runs one process on one device: a *_parallel_size other than 1 is
-refused (ROADMAP, Queue 1 item 7), as are --multistep_count > 1 (item 5) and
-a config that asks for dropout (item 5) or rollout videos (`log_video`,
-item 9); --split_data_channels, a mesh setting, changes nothing.
+--parameters_reduction_buffer_count) are accepted and change nothing.
+--multistep_count K trains the K-step unroll (n_future = K - 1). The port
+runs one process on one device: a *_parallel_size other than 1 is refused
+(ROADMAP, Queue 1 item 7), as is a config that asks for rollout videos
+(`log_video`, item 9); --split_data_channels, a mesh setting, changes
+nothing.
 """
 
 import argparse
@@ -83,9 +84,6 @@ def main(argv=None):
     if any(s != 1 for s in sizes):
         raise NotImplementedError(f"model parallelism (h, w, fin, fout sizes {sizes}) is not "
                                   "ported yet (ROADMAP: Queue 1 item 7)")
-    if args.multistep_count > 1:
-        raise NotImplementedError(f"--multistep_count {args.multistep_count}: the multi-step "
-                                  "training unroll is not ported yet (ROADMAP: Queue 1 item 5)")
 
     params = YParams(os.path.abspath(args.yaml_config), args.config)
     params["fin_parallel_size"] = args.fin_parallel_size

@@ -12,12 +12,18 @@ math in float32, and is bit-identical to makani_tpu's: the same operations
 as XLA compiles them for the CPU (ops/fused_adam.py documents them), the same
 counter-hash stochastic rounding on each element's flat index in makani_tpu's
 layout of its leaf, and the same per-leaf salts in jax.tree.flatten order.
-`scale_by_adam` is optax's float32 Adam. The Trainer runs ops/fused_adam.py
-instead wherever the fused kernel can express the config
-(`adam_kernel_settings`), with the same bits for bf16 moments.
+`scale_by_adam` is optax's float32 Adam. Both are plain tensor ops kept off
+the card: the lowmem update emulates XLA's CPU arithmetic in float64 and
+raises on CUDA tensors. The Trainer runs ops/fused_adam.py instead for every
+Adam-family config (`kernel_update_settings`: Adam, AdamW, LAMB, float32 or
+bf16 moments, clipped or not), with the same bits for bf16 moments where no
+norm enters.
 
-Not ported yet (ROADMAP, Queue 1): LAMB, Adafactor, SGD and gradient
-clipping.
+`build_optimizer` is makani_tpu's in full: clip_by_global_norm
+(gradient_clip_norm for any optimizer, optimizer_max_grad_norm for LAMB
+only), Adam, AdamW, LAMB (Adam, add_decayed_weights, scale_by_trust_ratio),
+Adafactor (scale_by_factored_rms, its statistics taken on makani_tpu's layout
+of each leaf) and SGD (trace(momentum) where momentum > 0).
 """
 
 import math
@@ -26,17 +32,23 @@ from dataclasses import dataclass
 
 import torch
 
+import numpy as np
+
 from makani_tpu_torch.ops.fused_adam import (
+    _libm,
     adam_direction,
     adam_moments,
     bias_corrections,
+    clip_by_norm,
     dither_u16,
     fma,
+    global_norm,
     jax_flat_index,
     moment_salts,
     stochastic_round_bf16,
+    trust_ratios,
 )
-from makani_tpu_torch.utils.param_layout import jax_leaf_order
+from makani_tpu_torch.utils.param_layout import jax_leaf_order, jax_view, port_view
 
 GradientTransformation = namedtuple("GradientTransformation", ["init", "update"])
 
@@ -85,6 +97,10 @@ def scale_by_adam_lowmem(b1=0.9, b2=0.999, eps=1e-8, moment_dtype=torch.bfloat16
 
     def update_fn(updates, state, params=None):
         del params
+        if any(g.device.type == "cuda" for g in updates.values()):
+            raise RuntimeError("scale_by_adam_lowmem emulates XLA's CPU arithmetic and stays off "
+                               "the card; ops/fused_adam.fused_adam_apply runs the same update "
+                               "there")
         count = state.count + 1
         bc1, bc2 = bias_corrections(count, b1, b2)
         order = jax_leaf_order(updates)
@@ -168,19 +184,155 @@ def apply_updates(params, updates, lr):
     return params
 
 
-def adam_kernel_settings(params):
-    """kwargs for ops/fused_adam.fused_adam_apply when the config's optimizer
-    is expressible as the single fused kernel (Adam or AdamW, float32 or bf16
-    moments, no gradient clipping), else None."""
-    opt_type = params.get("optimizer_type", "Adam")
-    if opt_type not in ("Adam", "AdamW"):
+def clip_by_global_norm(max_norm):
+    """optax.clip_by_global_norm: every leaf scaled by max_norm / norm when
+    the global norm reaches max_norm (computed on the device, no sync)."""
+
+    def update_fn(updates, state, params=None):
+        with torch.no_grad():
+            norm = global_norm(updates.values())
+            return {k: clip_by_norm(g, norm, max_norm) for k, g in updates.items()}, state
+
+    return GradientTransformation(lambda params: None, update_fn)
+
+
+def scale_by_trust_ratio():
+    """optax.scale_by_trust_ratio: u * ||p|| / ||u|| per leaf, u where
+    either norm is 0."""
+
+    def update_fn(updates, state, params=None):
+        keys = list(updates)
+        with torch.no_grad():
+            ratios = trust_ratios([params[k] for k in keys], [updates[k] for k in keys])
+            return {k: updates[k] * r for k, r in zip(keys, ratios)}, state
+
+    return GradientTransformation(lambda params: None, update_fn)
+
+
+@dataclass
+class TraceState:
+    trace: dict
+
+
+def trace(decay):
+    """optax.trace (no Nesterov): t <- g + decay * t, the update is t."""
+
+    def init_fn(params):
+        return TraceState(_zeros_like(params, torch.float32))
+
+    def update_fn(updates, state, params=None):
+        with torch.no_grad():
+            new = {k: g + decay * state.trace[k] for k, g in updates.items()}
+        return dict(new), TraceState(new)
+
+    return GradientTransformation(init_fn, update_fn)
+
+
+@dataclass
+class FactoredState:
+    count: int
+    v_row: dict
+    v_col: dict
+    v: dict
+
+
+def _factored_dims(shape, factored, min_dim_size_to_factor):
+    """The two largest axes of `shape` to factor over, or None (optax)."""
+    if not factored or len(shape) < 2:
         return None
-    if params.get("gradient_clip_norm"):
+    sorted_dims = np.argsort(shape)
+    if shape[sorted_dims[-2]] < min_dim_size_to_factor:
+        return None
+    return int(sorted_dims[-2]), int(sorted_dims[-1])
+
+
+def _decay_rate_pow(i, exponent=0.8):
+    """float32 1 - (i + 1)**-exponent, the power from the C library's powf."""
+    t = float(np.float32(i + 1))
+    return np.float32(1.0) - np.float32(_libm.powf(t, float(np.float32(-exponent))))
+
+
+def scale_by_factored_rms(factored=True, decay_rate=0.8, step_offset=0,
+                          min_dim_size_to_factor=128, epsilon=1e-30):
+    """optax.scale_by_factored_rms (Adafactor's scaling), on makani_tpu's
+    layout of every leaf: the factored axes are chosen and the row and column
+    statistics kept in that layout, so the port's dhconv weight (2, L, C, O)
+    gets the statistics of makani_tpu's (C, O, L, 2). The state's v_row,
+    v_col and v are keyed like the parameters, in makani_tpu's shapes."""
+
+    def init_fn(params):
+        v_row, v_col, v = {}, {}, {}
+        for k, p in params.items():
+            shape = tuple(jax_view(k, p).shape)
+            dims = _factored_dims(shape, factored, min_dim_size_to_factor)
+            one = torch.zeros((1,), device=p.device)
+            if dims is not None:
+                d1, d0 = dims
+                v_row[k] = torch.zeros(tuple(np.delete(shape, d0)), device=p.device)
+                v_col[k] = torch.zeros(tuple(np.delete(shape, d1)), device=p.device)
+                v[k] = one
+            else:
+                v_row[k], v_col[k] = one, one.clone()
+                v[k] = torch.zeros(shape, device=p.device)
+        return FactoredState(0, v_row, v_col, v)
+
+    def update_fn(updates, state, params=None):
+        rate = _decay_rate_pow(state.count - step_offset, decay_rate)
+        dev = next(iter(updates.values())).device if updates else "cpu"
+        d_t = torch.tensor(rate, device=dev)
+        d_c = torch.tensor(np.float32(1.0) - rate, device=dev)
+        out, v_row, v_col, v = {}, {}, {}, {}
+        with torch.no_grad():
+            for k, g_port in updates.items():
+                g = jax_view(k, g_port.float())
+                dims = _factored_dims(tuple(g.shape), factored, min_dim_size_to_factor)
+                grad_sqr = g * g + epsilon
+                if dims is not None:
+                    d1, d0 = dims
+                    vr = d_t * state.v_row[k] + d_c * grad_sqr.mean(dim=d0)
+                    vc = d_t * state.v_col[k] + d_c * grad_sqr.mean(dim=d1)
+                    reduced_d1 = d1 - 1 if d1 > d0 else d1
+                    row_col_mean = vr.mean(dim=reduced_d1, keepdim=True)
+                    row_factor = (vr / row_col_mean) ** -0.5
+                    col_factor = vc ** -0.5
+                    u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+                    v_row[k], v_col[k], v[k] = vr, vc, state.v[k]
+                else:
+                    vv = d_t * state.v[k] + d_c * grad_sqr
+                    u = g * vv ** -0.5
+                    v_row[k], v_col[k], v[k] = state.v_row[k], state.v_col[k], vv
+                out[k] = port_view(k, u, g_port.shape).contiguous()
+        return out, FactoredState(state.count + 1, v_row, v_col, v)
+
+    return GradientTransformation(init_fn, update_fn)
+
+
+ADAM_FAMILY = ("Adam", "AdamW", "FusedLAMB", "LAMB")
+_LAMB = ("FusedLAMB", "LAMB")
+
+
+def clip_norm(params):
+    """The global-norm clip of the config, or None: gradient_clip_norm for any
+    optimizer, else optimizer_max_grad_norm for the LAMB optimizers alone (as
+    in the reference, whose torch Adam takes no such argument)."""
+    opt_type = params.get("optimizer_type", "Adam")
+    max_norm = params.get("gradient_clip_norm", None)
+    if max_norm is None and opt_type in _LAMB:
+        max_norm = params.get("optimizer_max_grad_norm", None)
+    return float(max_norm) if max_norm is not None and max_norm > 0 else None
+
+
+def kernel_update_settings(params):
+    """kwargs for ops/fused_adam.fused_adam_apply when the config's optimizer
+    is one the fused kernel runs (Adam, AdamW, LAMB; float32 or bf16 moments;
+    with the config's clipping), else None."""
+    opt_type = params.get("optimizer_type", "Adam")
+    if opt_type not in ADAM_FAMILY:
         return None
     md = params.get("optimizer_moment_dtype", "float32")
     if md not in (None, "float32", "fp32", "bfloat16", "bf16"):
         return None
-    wd = float(params.get("weight_decay", 0.0) or 0.0) if opt_type == "AdamW" else 0.0
+    wd = float(params.get("weight_decay", 0.0) or 0.0) if opt_type != "Adam" else 0.0
     return dict(
         b1=params.get("optimizer_beta1", 0.9),
         b2=params.get("optimizer_beta2", 0.95),
@@ -189,42 +341,59 @@ def adam_kernel_settings(params):
         stochastic_rounding=bool(params.get("optimizer_stochastic_rounding", True))
         and md in ("bfloat16", "bf16"),
         seed=params.get("global_seed", 333) + 7,
+        max_norm=clip_norm(params),
+        lamb=opt_type in _LAMB,
     )
 
 
 def fused_adam_settings(params):
-    """makani_tpu's gate of its fused Adam stage: `adam_kernel_settings` when
-    the config sets optimizer_fused, else None."""
-    if not params.get("optimizer_fused", False):
+    """makani_tpu's gate of its fused Adam stage: `kernel_update_settings`
+    without the clip and LAMB keys where the config sets optimizer_fused and
+    the kernel's plain mode expresses it (Adam or AdamW, no clipping), else
+    None."""
+    kw = kernel_update_settings(params)
+    if (not params.get("optimizer_fused", False) or kw is None or kw["lamb"]
+            or kw["max_norm"] is not None):
         return None
-    return adam_kernel_settings(params)
+    return {k: v for k, v in kw.items() if k not in ("lamb", "max_norm")}
 
 
 def build_optimizer(params):
-    """The lr-free gradient transform of the config (Adam or AdamW)."""
+    """The lr-free gradient transform of the config (makani_tpu's
+    build_optimizer)."""
     opt_type = params.get("optimizer_type", "Adam")
-    if opt_type in ("FusedLAMB", "LAMB", "Adafactor", "SGD"):
-        raise NotImplementedError(f"optimizer {opt_type!r} is not ported yet "
-                                  "(ROADMAP: Queue 1, optimizers)")
-    if opt_type not in ("Adam", "AdamW"):
-        raise ValueError(f"Unknown optimizer type {opt_type}")
-    if params.get("gradient_clip_norm", None):
-        raise NotImplementedError("gradient clipping is not ported yet "
-                                  "(ROADMAP: Queue 1, optimizers)")
+    tx = []
+    max_norm = clip_norm(params)
+    if max_norm is not None:
+        tx.append(clip_by_global_norm(max_norm))
     b1 = params.get("optimizer_beta1", 0.9)
     b2 = params.get("optimizer_beta2", 0.95)
     wd = params.get("weight_decay", 0.0)
     eps = 1e-8 * (10.0 ** float(params.get("epsilon_factor", 0) or 0))
     moment_dtype = params.get("optimizer_moment_dtype", "float32")
-    if moment_dtype in (None, "float32", "fp32"):
-        tx = [scale_by_adam(b1=b1, b2=b2, eps=eps)]
-    else:
-        tx = [scale_by_adam_lowmem(
+
+    def adam():
+        if moment_dtype in (None, "float32", "fp32"):
+            return scale_by_adam(b1=b1, b2=b2, eps=eps)
+        return scale_by_adam_lowmem(
             b1=b1, b2=b2, eps=eps, moment_dtype=_DTYPES[moment_dtype],
             stochastic_rounding=bool(params.get("optimizer_stochastic_rounding", True)),
-            seed=params.get("global_seed", 333) + 7)]
-    if opt_type == "AdamW" and wd > 0:
-        tx.append(add_decayed_weights(wd))
+            seed=params.get("global_seed", 333) + 7)
+
+    if opt_type in ("Adam", "AdamW") + _LAMB:
+        tx.append(adam())
+        if opt_type != "Adam" and wd > 0:
+            tx.append(add_decayed_weights(wd))
+        if opt_type in _LAMB:
+            tx.append(scale_by_trust_ratio())
+    elif opt_type == "Adafactor":
+        tx.append(scale_by_factored_rms())
+    elif opt_type == "SGD":
+        momentum = params.get("momentum", 0.0)
+        if momentum > 0:
+            tx.append(trace(decay=momentum))
+    else:
+        raise ValueError(f"Unknown optimizer type {opt_type}")
     return chain(*tx)
 
 

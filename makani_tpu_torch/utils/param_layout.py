@@ -6,13 +6,16 @@ leaf by its flax path (``model/blocks_3/SpectralFilterLayer_0/filter/weight``).
 Every leaf has the same shape and element order in both, except the
 non-separable dhconv filter weight: the port stores ``(2, L, C, O)`` (plane
 0 = re), the layout the dhconv kernels read, and makani_tpu ``(C, O, L, 2)``.
-The other filter variants keep makani_tpu's ``(C, [O,] L[, M], 2)``; of
-those, only the separable diagonal weight ``(C, L, M, 2)`` has four
-dimensions, and its first is never 2 (SpectralConv refuses in_channels 2
+The other filter variants keep makani_tpu's ``(C, [O,] L[, M], 2)``, and the
+non-linear filter's leaves (``w_<l>``, ``b_<l>``, ``wout``,
+``act_<l>/bias``) keep theirs under their own names; of the filter weights,
+only the separable diagonal one ``(C, L, M, 2)`` has four dimensions, and its first is never 2 (SpectralConv refuses in_channels 2
 there), so a 4-D filter weight whose first dimension is 2 is the stacked one.
 
 `from_port_layout` is the inverse of `to_port_layout`: the weights and
-gradients dump writes makani_tpu's layout.
+gradients dump writes makani_tpu's layout. `jax_view` and `port_view` do the
+same on torch tensors, as views (Adafactor keeps its statistics on
+makani_tpu's layout of each leaf).
 
 Three things follow from the map, and the optimizer needs the last two to
 reproduce makani_tpu's stochastic rounding bit for bit: the key map itself,
@@ -98,3 +101,14 @@ def from_port_layout(key, arr):
     """A port leaf (numpy) in makani_tpu's layout: the stacked dhconv weight
     (2, L, C, O) goes back to (C, O, L, 2); every other leaf is unchanged."""
     return arr.transpose(2, 3, 1, 0) if is_stacked_filter(key, arr.shape) else arr
+
+
+def jax_view(key, t):
+    """A port leaf (torch) as a view in makani_tpu's layout."""
+    return t.permute(2, 3, 1, 0) if is_stacked_filter(key, t.shape) else t
+
+
+def port_view(key, t, port_shape):
+    """The inverse of `jax_view`: a tensor in makani_tpu's layout of the
+    port leaf `key` of shape `port_shape`, as a view in the port's layout."""
+    return t.permute(3, 2, 0, 1) if is_stacked_filter(key, port_shape) else t

@@ -17,11 +17,13 @@ parameters, gradients and optimizer state stay float32 (bf16 moments where
 the config asks for them). Validation casts its input and takes its
 prediction back to float32 the same way.
 The update is the fused Adam kernel (ops/fused_adam, one launch per parameter
-leaf, in place; its twin on the CPU) wherever the kernel can express the
-config's optimizer (Adam or AdamW, float32 or bf16 moments, no clipping),
-whatever `optimizer_fused` says: it gives the bits of makani_tpu's fused
-stage, and for bf16 moments those of its optax chain too. Other
-configs (float16 moments) run utils/optimizers' chain. The step's
+leaf, in place; its twin on the CPU) for every Adam-family config (Adam,
+AdamW, LAMB; float32 or bf16 moments; clipped by the global gradient norm,
+computed on the device, where the config asks), whatever `optimizer_fused`
+says: without clipping or LAMB it gives the bits of makani_tpu's fused stage,
+and for bf16 moments those of its optax chain too. Adafactor and SGD run
+utils/optimizers' chain (float32 tensor ops on either device); float16
+moments run it on the CPU only. The step's
 forward, backward and optimizer update are profiler ranges
 ("train_step.forward", ".backward", ".optimizer"), which
 tools/profile_forward.py --train reads; they cost a few microseconds a step
@@ -35,19 +37,26 @@ after data.json (`metadata_json_path`) has named the channels, as makani_tpu's
 train.py parses it; the image shapes, the crop and the channel counts come
 from the evaluation dataset, as in makani_tpu's `_update_parameters`.
 
+Multi-step training (n_future > 0, train.py's --multistep_count) unrolls
+the stepper n_future + 1 steps against the flattened target window, with the
+loss's uniform multistep weights. Dropout: each train step's forward draws
+its masks under the DropoutKey (dropout seed, the step's `iters`, the
+unrolled step) of models/common/layers.py, makani_tpu's fold of the step into
+its dropout key; the masks are not JAX's, and a block recomputed under
+checkpointing draws those of its forward.
+
 Checkpoints (utils/checkpoint, the port's format, written in the
 background): each epoch's under `checkpoint_path` (versioned, keep
 `checkpoint_max_to_keep`), and the best validation loss's under
 `best_checkpoint_path`. Their counters are makani_tpu's (`iters`, `epoch`,
 `scheduler_epoch`, `scheduler_state`, `best_valid_loss`) with the
-augmentation generator's state under AUG_STATE_KEY in place of makani_tpu's
-`dropout_key`: a resumed run continues as the uninterrupted one would, bit
-for bit.
+augmentation generator's state under AUG_STATE_KEY and the dropout seed under
+DROPOUT_SEED_KEY in place of makani_tpu's `dropout_key`: a resumed run
+continues as the uninterrupted one would, bit for bit.
 
 Not ported yet; each raises NotImplementedError when the config asks for it
-(ROADMAP, Queue 1, the items named in the messages): the multi-step training
-unroll (n_future > 0) and dropout at nonzero rates (item 5), the rollout
-videos (`log_video`, item 9) and parallelism (item 7).
+(ROADMAP, Queue 1, the items named in the messages): parallelism (item 7)
+and the rollout videos (`log_video`, item 9).
 """
 
 import functools
@@ -60,6 +69,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from makani_tpu_torch.data.dataloader import get_dataloader, init_data_params, to_device
+from makani_tpu_torch.models.common.layers import DropoutKey, use_dropout_key
 from makani_tpu_torch.models.model_registry import as_params, get_model, update_channel_params
 from makani_tpu_torch.ops import complex_ops, sht
 from makani_tpu_torch.ops.fused_adam import fused_adam_apply
@@ -68,10 +78,11 @@ from makani_tpu_torch.utils.device import resolve_device
 from makani_tpu_torch.utils.losses import LossHandler
 from makani_tpu_torch.utils.metric import MetricsHandler, time_stats
 from makani_tpu_torch.utils.optimizers import (
+    AdamState,
     LRScheduler,
-    adam_kernel_settings,
     apply_updates,
     build_optimizer,
+    kernel_update_settings,
 )
 from makani_tpu_torch.utils.param_layout import from_port_layout, torch_key_to_jax
 
@@ -80,6 +91,8 @@ logger = logging.getLogger(__name__)
 # the checkpoint counter that carries the augmentation generator's state (a
 # list of ints, so the counters stay JSON)
 AUG_STATE_KEY = "aug_generator_state"
+# the counter that carries the dropout masks' seed
+DROPOUT_SEED_KEY = "dropout_seed"
 
 _DEFAULTS = (("history_normalization_mode", "none"), ("num_visualization_workers", 1),
              ("log_video", 0), ("log_weights_and_grads", 0), ("skip_validation", False),
@@ -110,13 +123,6 @@ def augment_batch(inp, tar, zen_inp, zen_tar, generator, do_roll, noise_std):
 
 
 def _check_supported(params):
-    if params.get("n_future", 0):
-        raise NotImplementedError("the multi-step training unroll (n_future > 0) is not "
-                                  "ported yet (ROADMAP: Queue 1 item 5)")
-    rates = {k: params.get(k, 0.0) for k in ("pos_drop_rate", "path_drop_rate", "mlp_drop_rate")}
-    if any(float(v or 0.0) > 0.0 for v in rates.values()):
-        raise NotImplementedError(f"dropout at nonzero rates ({rates}) is not ported yet "
-                                  "(ROADMAP: Queue 1 item 5)")
     if int(params.get("log_video", 0) or 0) > 0:
         raise NotImplementedError("the rollout videos (log_video > 0, utils/visualize.py) are "
                                   "not ported yet (ROADMAP: Queue 1 item 9)")
@@ -198,9 +204,10 @@ class Trainer:
         self.scheduler = LRScheduler(params)
         self.model_params = dict(self.model.named_parameters())
         self.opt_state = self.optimizer.init({k: p.detach() for k, p in self.model_params.items()})
-        self.fused_kw = adam_kernel_settings(params)
+        self.fused_kw = kernel_update_settings(params)
         if self.fused_kw is not None:
             logger.info("optimizer: fused Adam kernel (%s)", self.fused_kw)
+        self.dropout_seed = int(params.get("global_seed", 333)) + 1
 
         self.do_roll = bool(params.get("roll", False))
         self.noise_std = (float(params.get("noise_std", 0.0))
@@ -247,11 +254,16 @@ class Trainer:
     # ------------------------------------------------------------------
     # steps
 
+    def adam_state(self):
+        """The Adam state of the optimizer chain (after its clip stage, where
+        the config clips)."""
+        return next(s for s in self.opt_state if isinstance(s, AdamState))
+
     @record_function("train_step.optimizer")
     def apply_updates(self, grads, lr):
         """The optimizer update of makani_tpu's train step, in place."""
         if self.fused_kw is not None:
-            fused_adam_apply(self.model_params, grads, self.opt_state[0], lr, **self.fused_kw)
+            fused_adam_apply(self.model_params, grads, self.adam_state(), lr, **self.fused_kw)
             return
         updates, self.opt_state = self.optimizer.update(grads, self.opt_state,
                                                         self.model_params)
@@ -260,14 +272,21 @@ class Trainer:
     def _amp(self, x):
         return x if self.amp_dtype is None else x.to(self.amp_dtype)
 
+    def dropout_key(self):
+        """The dropout key of the current step (makani_tpu folds `iters` into
+        its dropout key)."""
+        return DropoutKey(self.dropout_seed, self.iters, 0)
+
     def loss_and_grads(self, inp, tar, zen_inp=None, zen_tar=None, deterministic=False):
-        """Loss of the batch and the gradient of every parameter (dict)."""
+        """Loss of the batch and the gradient of every parameter (dict); in
+        training the forward draws its dropout masks from `dropout_key()`."""
         prep = self.preprocessor
         inp = self._amp(prep.flatten_history(inp))
         tar = prep.flatten_history(tar)
         for p in self.model_params.values():
             p.grad = None
-        with record_function("train_step.forward"):
+        with record_function("train_step.forward"), \
+                use_dropout_key(None if deterministic else self.dropout_key()):
             pred = self.model(inp, unpredicted_inp=zen_inp, unpredicted_tar=zen_tar,
                               deterministic=deterministic)
             loss = self.loss_obj(pred.float(), tar, inp, training=True)
@@ -574,7 +593,8 @@ class Trainer:
                 "scheduler_epoch": self.scheduler.epoch,
                 "scheduler_state": self.scheduler.state_dict(),
                 "best_valid_loss": float(self.best_valid_loss),
-                AUG_STATE_KEY: self.aug_generator.get_state().tolist()}
+                AUG_STATE_KEY: self.aug_generator.get_state().tolist(),
+                DROPOUT_SEED_KEY: self.dropout_seed}
 
     def save_checkpoint(self, checkpoint_path):
         """The per-epoch checkpoint (versioned, keep-N) at checkpoint_path,
@@ -627,6 +647,8 @@ class Trainer:
             if counters.get(AUG_STATE_KEY) is not None:
                 self.aug_generator.set_state(
                     torch.tensor(counters[AUG_STATE_KEY], dtype=torch.uint8))
+            if counters.get(DROPOUT_SEED_KEY) is not None:
+                self.dropout_seed = int(counters[DROPOUT_SEED_KEY])
             # the shuffle is seeded with base_seed + the loader's epoch: a
             # resumed run continues the schedule instead of replaying epoch 0
             for dl in (self.train_dataloader, self.valid_dataloader):

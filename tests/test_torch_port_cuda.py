@@ -234,6 +234,94 @@ def test_fused_adam_kernel_bitwise_against_plain(cuda, moments, stochastic, wd):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("moments,stochastic", [(torch.bfloat16, True), (torch.float32, False)])
+@pytest.mark.parametrize("max_norm,lamb", [(2.0, False), (None, True), (2.0, True)])
+def test_fused_adam_modes_bitwise_against_plain(cuda, moments, stochastic, max_norm, lamb):
+    """The clipping mode (the global norm read by the kernel from the card)
+    and the LAMB mode (the direction written, the trust ratio applied after),
+    over a clipped step and an unclipped one: bit-identical to the twin."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    params = _adam_leaves(gen, cuda)
+    twin = {k: v.clone() for k, v in params.items()}
+
+    def state():
+        return AdamState(0, {k: torch.zeros_like(v, dtype=moments) for k, v in params.items()},
+                         {k: torch.zeros_like(v, dtype=moments) for k, v in params.items()})
+
+    s_kernel, s_twin = state(), state()
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.01, stochastic_rounding=stochastic,
+              seed=340, max_norm=max_norm, lamb=lamb)
+    for scale in (1.0, 1e-3):   # global norm ~30, then ~0.03: clipped, then not
+        grads = {k: scale * torch.randn(v.shape, device=cuda, generator=gen)
+                 for k, v in params.items()}
+        if max_norm is not None:
+            norm = float(fused_adam.global_norm(grads.values()))
+            assert (norm >= max_norm) == (scale == 1.0)
+        before = kernels.launches["fused_adam"]
+        fused_adam.fused_adam_apply(params, grads, s_kernel, 1e-3, **kw)
+        torch.cuda.synchronize()
+        assert kernels.launches["fused_adam"] == before + len(params)
+        fused_adam.fused_adam_apply_plain(twin, grads, s_twin, 1e-3, **kw)
+    for k in params:
+        assert torch.equal(params[k], twin[k]), k
+        assert torch.equal(s_kernel.mu[k], s_twin.mu[k]), k
+        assert torch.equal(s_kernel.nu[k], s_twin.nu[k]), k
+
+
+@pytest.mark.cuda
+def test_lowmem_adam_chain_stays_off_the_card(cuda):
+    """The optax-style chain's bf16 Adam emulates XLA's CPU arithmetic in
+    float64: it refuses CUDA tensors, where the fused kernel runs the same
+    update (LAMB and clipping included)."""
+    from makani_tpu_torch.utils import optimizers
+    opt = optimizers.build_optimizer({"optimizer_type": "LAMB", "optimizer_max_grad_norm": 1.0,
+                                      "optimizer_moment_dtype": "bfloat16"})
+    params = {"w": torch.randn((3, 5), device=cuda)}
+    state = opt.init(params)
+    with pytest.raises(RuntimeError, match="off the card"):
+        opt.update({"w": torch.randn((3, 5), device=cuda)}, state, params)
+
+
+# the ICML SFNO's inner grid (config/icml_models.yaml sfno_dhealy_73ch: 721 x
+# 1440 at scale factor 2, a 360 x 720 Legendre-Gauss grid, hard thresholding
+# 0.5: 180 degrees and 180 orders) at embed 384, batch 1
+ICML_L = ICML_M = 180
+ICML_NLAT = 360
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("contract,K", [("k", ICML_NLAT), ("l", ICML_NLAT), ("k", 721)])
+def test_legmm_at_icml_shapes(cuda, passes, contract, K):
+    """Analysis and synthesis on the inner grid, and the analysis of the
+    721-row input grid."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    z = torch.randn((2 * ICML_M, 384, K if contract == "k" else ICML_L), device=cuda, generator=g)
+    p = torch.randn((ICML_M, ICML_L, K), device=cuda, generator=g)
+    got = spectral_mm.legmm(z, p, passes=passes, contract=contract)
+    want = spectral_mm.legmm_plain(z, p, passes=passes, contract=contract)
+    assert _rel(got, want) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("wdim,conj_w", [(0, False), (1, True)])
+def test_dhconv_kernels_at_icml_shapes(cuda, passes, wdim, conj_w):
+    """The forward and dx contractions, and the weight gradient, at L = M =
+    180 and 384 channels."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x = torch.randn((2, 1, ICML_L, 384, ICML_M), device=cuda, generator=g)
+    w = torch.randn((2, ICML_L, 384, 384), device=cuda, generator=g)
+    got = spectral_mm.dhconv_mm(x, w, passes=passes, wdim=wdim, conj_w=conj_w)
+    want = spectral_mm.dhconv_mm_plain(x, w, passes=passes, wdim=wdim, conj_w=conj_w)
+    assert _rel(got, want) < TOL
+    if wdim == 0:
+        cot = torch.randn((2, 1, ICML_L, 384, ICML_M), device=cuda, generator=g)
+        got = spectral_mm.dhconv_dw(x, cot, passes=passes)
+        assert _rel(got, spectral_mm.dhconv_dw_plain(x, cot, passes=passes)) < TOL
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("contract", ["k", "l"])
 def test_legdot_backward_on_card_matches_cpu(cuda, contract):
     rng = np.random.RandomState(4)

@@ -210,15 +210,18 @@ def test_fused_settings_and_optimizer_gating():
              dict(base, optimizer_moment_dtype="float16")]
     for case in cases:
         assert topt.fused_adam_settings(case) == jopt.fused_adam_settings(case), case
-        # the port's Trainer takes the kernel whatever optimizer_fused says
-        assert (topt.adam_kernel_settings(case)
-                == jopt.fused_adam_settings(dict(case, optimizer_fused=True))), case
+        # the port's Trainer takes the kernel whatever optimizer_fused says,
+        # in its plain mode where makani_tpu's fused stage would run
+        want = jopt.fused_adam_settings(dict(case, optimizer_fused=True))
+        if want is not None:
+            assert (topt.kernel_update_settings(case)
+                    == dict(want, max_norm=None, lamb=False)), case
     assert topt.fused_adam_settings(base)["seed"] == 340
-    for opt_type in ("LAMB", "FusedLAMB", "Adafactor", "SGD"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            topt.build_optimizer({"optimizer_type": opt_type})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        topt.build_optimizer({"optimizer_type": "Adam", "gradient_clip_norm": 1.0})
+    # LAMB, Adafactor, SGD and clipping are ported (tests/test_torch_port_multistep.py);
+    # an unknown optimizer is still refused, as in makani_tpu
+    for build in (topt.build_optimizer, jopt.build_optimizer):
+        with pytest.raises(ValueError, match="Unknown optimizer"):
+            build({"optimizer_type": "Adagrad"})
 
 
 @pytest.mark.parametrize("b", [0.9, 0.95, 0.999])
@@ -472,7 +475,9 @@ def test_trainer_steps_match_jax(jax_trainer):
                          flatten_dict(getattr(jtrainer.opt_state[0], n), sep="/").items()}
                      for n in ("mu", "nu")}}
     load_jax_opt_state(trainer.opt_state[0], trainer.model, flat_state)
-    assert trainer.fused_kw == jopt.fused_adam_settings(jtrainer.params)
+    # the kernel's plain mode: makani_tpu's fused settings, no clipping, not LAMB
+    assert trainer.fused_kw == dict(jopt.fused_adam_settings(jtrainer.params), max_norm=None,
+                                    lamb=False)
     start = {k: p.detach().clone() for k, p in trainer.model_params.items()}
     jstart = _as_port(jtrainer.model_params)
 
@@ -521,9 +526,10 @@ def test_trainer_runs_an_epoch_and_refuses_what_is_not_ported(jax_trainer):
     unfused = Trainer(TYParams.from_dict(dict(tp.to_dict(), optimizer_fused=False)), device="cpu")
     assert unfused.fused_kw == trainer.fused_kw is not None
     # validation, checkpoints, resume, finetune and the dump are ported
-    # (tests/test_torch_port_trainer.py); what is still refused:
-    for override, match in [(dict(n_future=1), "item 5"), (dict(mlp_drop_rate=0.1), "item 5"),
-                            (dict(log_video=2), "item 9"), (dict(world_size=2), "item 7")]:
+    # (tests/test_torch_port_trainer.py), the unroll and dropout too
+    # (tests/test_torch_port_multistep.py); what is still refused:
+    for override, match in [(dict(log_video=2), "item 9"), (dict(world_size=2), "item 7"),
+                            (dict(model_parallel_sizes=[1, 2, 1, 1]), "item 7")]:
         with pytest.raises(NotImplementedError, match=match):
             Trainer(TYParams.from_dict(dict(tp.to_dict(), **override)), device="cpu")
     validating = Trainer(TYParams.from_dict(dict(tp.to_dict(), skip_validation=False)),

@@ -282,7 +282,9 @@ def test_train_with_validation_matches_jax(ref, tmp_path, schedule):
         counters = json.load(f)
     with open(tmp_path / "jax" / "ckpt" / "counters-2.json") as f:
         want = json.load(f)
-    assert set(counters) - {"aug_generator_state"} == set(want) - {"dropout_key"}
+    # makani_tpu's dropout key is the port's dropout seed and generator state
+    assert set(counters) - {"aug_generator_state", "dropout_seed"} == set(want) - {"dropout_key"}
+    assert counters["dropout_seed"] == trainer.params.get("global_seed", 333) + 1
     for key in ("iters", "epoch", "scheduler_epoch"):
         assert counters[key] == want[key], key
     assert (counters["iters"], counters["epoch"]) == (6, 2)
@@ -442,9 +444,10 @@ def test_failed_asynchronous_write_raises(ref, tmp_path, monkeypatch):
 def test_trainer_refuses_what_is_not_ported(ref, tmp_path):
     from makani_tpu_torch.utils.trainer import Trainer
     params = _port_params(ref["data"], tmp_path / "exp")
-    for override, match in [(dict(n_future=1), "item 5"), (dict(path_drop_rate=0.1), "item 5"),
-                            (dict(log_video=1), "item 9"),
-                            (dict(model_parallel_sizes=[2, 1, 1, 1]), "item 7")]:
+    # the multi-step unroll and dropout are ported (tests/test_torch_port_multistep.py)
+    for override, match in [(dict(log_video=1), "item 9"),
+                            (dict(model_parallel_sizes=[2, 1, 1, 1]), "item 7"),
+                            (dict(world_size=2), "item 7")]:
         with pytest.raises(NotImplementedError, match=match):
             Trainer(TYParams.from_dict(dict(params.to_dict(), **override)), device="cpu")
 
@@ -484,7 +487,7 @@ def test_train_cli_smoke_test_and_resume(ref, tmp_path):
     assert _steps_on_disk(ckpts / "ckpt") == [1, 2] and tckpt.checkpoint_exists(ckpts / "best_ckpt")
     with open(ckpts / "ckpt" / "counters-2.json") as f:
         counters = json.load(f)
-    assert set(counters) - {"aug_generator_state"} == {
+    assert set(counters) - {"aug_generator_state", "dropout_seed"} == {
         "iters", "epoch", "scheduler_epoch", "scheduler_state", "best_valid_loss"}
     assert set(counters["scheduler_state"]) == set(ref["jtrainer"].scheduler.state_dict())
     lines = [json.loads(x) for x in (exp / "wandb_log.jsonl").read_text().splitlines()]
