@@ -182,12 +182,41 @@ Phases, in order; any failure exits non-zero:
      (f) legmm, dhconv_mm (forward, dx) and
      dhconv_dw at the ICML shapes against float64 and their twins, with
      phase 3's bounds, timed as phase 3 times them.
+ 14. the planar FNO recipes and the SFNO model options at full width, on
+     phase 10's dataset under bf16 AMP, cut as ICML_CUTS and FNO_CUTS list:
+     (a) fno_linear_73ch (embed 64, the diagonal filter on 180 x 180 FFT
+     modes, 2.12 B parameters) and (b) fno_nonlinear_73ch (SpectralAttention
+     on the FFT coefficients) through train.main at the lowest checkpointing
+     level that fits (FNO_LEVELS), 2 steps each: finite losses, the launches
+     (fno_launches: the GELU kernels and one fused_adam a leaf), a train step
+     on a resident batch with its peak memory, then a 4-step Inferencer
+     rollout of the trained model timed as in phase 5; (c) at
+     sfno_dhealy_73ch's width: scan_layers through train.main (37 leaves, the
+     6 middle blocks' weights stacked and recomputed in backward: the
+     launches of a level-0 step plus 12 legmm, 6 dhconv_mm and 12 gelu_bf16),
+     a train step timed; the "direct" and "frequency" position embeddings and
+     the layer norm, one float32 forward each at 3 passes against the twins
+     (FORWARD_TOL); a CP-factorized dhconv filter on the "xla" engine with
+     the complex dhconv kernel under AMP, a forward and backward with 16
+     dhconv_complex launches at 1 pass and the forward against the complex
+     einsum (AMP_DEV_MAX); the csphase=False SHT pair at the ICML grids
+     through legmm at 3 passes against float64 (5e-5); (d) fused_adam over
+     (a)'s leaves with float16 moments, bit-identical to its twin after 2
+     updates, then one update each with float16, bf16 (stochastic rounding)
+     and float32 moments timed beside its bound and
+     torch.optim.Adam(fused=True); a Trainer of sfno_dhealy_73ch with float16
+     moments (2 steps); Adafactor and SGD with momentum, 2 updates on the
+     card against the same chain on the CPU (SGD bit for bit, Adafactor
+     within OPT_TOL).
 The last two lines are the kernels' JSON record (the AMP path's launches in
 each row's *_amp fields, phase 10's in *_files, phase 11's a scored step in
 launches_score, phase 12's run (a) in launches_trainer and a validation AR
 step in launches_valid_step, phase 13's (b) in launches_multistep, (c) in
-launches_nonlinear and (e)'s LAMB update in launches_lamb) and the result
-line.
+launches_nonlinear and (e)'s LAMB update in launches_lamb, phase 14's in
+launches_fno_linear, launches_fno_nonlinear, launches_scan,
+launches_factorized, launches_csphase, launches_fp16_trainer and
+launches_fp16_update; fused_adam's row also holds its times at the linear
+FNO's 2.12 B elements for each moment type) and the result line.
 --record PATH also writes every measurement of the run to PATH as JSON.
 
 TF32 is off for matmuls and cuDNN (torch.backends.cuda.matmul.allow_tf32 and
@@ -346,6 +375,37 @@ ICML_CUTS = (
     "pretrained_checkpoint_path: (a)'s per-epoch checkpoint (the ICML path /runs/... is not "
     "in the repository)",
     "checkpointing_level: the lowest that fits in 80 GB (ICML_LEVELS), 3 for the dropout run",
+)
+
+
+# phase 14: config/icml_models.yaml's planar FNO recipes and the SFNO model
+# options, on phase 10's dataset, cut as ICML_CUTS and FNO_CUTS list
+FNO_LINEAR = "fno_linear_73ch"
+FNO_NONLINEAR = "fno_nonlinear_73ch"
+ICML_STEPS.update({FNO_LINEAR: 2, FNO_NONLINEAR: 2})
+# the lowest checkpointing level at which each fits in 80 GB (H100, bf16
+# AMP, batch 1; tools/checkpoint_levels.py): both fit at 0, the linear
+# FNO's 2.12 B parameters with their gradients and float32 moments (34 GB)
+# at 44.9 GiB, the non-linear one at 56.0 GiB
+FNO_LEVELS = {FNO_LINEAR: 0, FNO_NONLINEAR: 0}
+# the CP filter's rank, a fraction of the dense weight's parameters: the
+# network's default 1.0 gives rank 27,993 on a (384, 384, 180) dhconv
+# weight, whose rebuilt (384, 384, rank) complex intermediate would hold
+# ~33 GB a block
+OPTION_RANK = 0.01
+# Adafactor on the card against the CPU: reductions summed in another order
+OPT_TOL = 2e-5
+FNO_CUTS = (
+    "the ICML cuts above (batch 1, 2 train steps, 1 epoch, phase 10's data, no validation or "
+    "videos)",
+    f"checkpointing_level: the lowest that fits in 80 GB (FNO_LEVELS: {FNO_LINEAR} "
+    f"{FNO_LEVELS[FNO_LINEAR]}, {FNO_NONLINEAR} {FNO_LEVELS[FNO_NONLINEAR]})",
+    "--save_checkpoint none (fno_linear_73ch's checkpoint would hold ~25.5 GB)",
+    f"the model options on {ICML_PRETRAIN}: scan_layers through train.main; the position "
+    "embeddings and the layer norm as one float32 forward each; the CP dhconv filter at rank "
+    f"{OPTION_RANK} as one AMP forward and backward",
+    "Adafactor and SGD against the CPU over block 0's, the encoder's, the decoder's and the "
+    "residual's leaves",
 )
 
 
@@ -2333,10 +2393,449 @@ def print_icml(icml):
               f"{r['library_ms']:.4f} | {r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
 
 
+def fno_launches(level, leaves):
+    """Launches of one FNO train step at checkpointing `level`: the GELU
+    kernels of icml_launches and one fused_adam a leaf; no legmm and no
+    dhconv (the FFTs are cuFFT's, the diagonal and non-linear filters
+    complex einsums, as makani_tpu leaves them to XLA)."""
+    step = icml_launches(level, 1, leaves, linear=False)
+    del step["legmm"]
+    return step
+
+
+def fno_run(torch, np, kernels, dev, gen, name):
+    """Phase 14 (a) or (b): `name` trained through train.main at
+    FNO_LEVELS[name] with its launches checked and a train step timed on a
+    resident batch; then a 4-step Inferencer rollout of the trained model.
+    Returns the run's record and the parameter shapes."""
+    from makani_tpu_torch.utils.inferencer import Inferencer
+    level = FNO_LEVELS[name]
+    trainer, run = icml_run(torch, kernels, name, level, "--save_checkpoint", "none")
+    p, net = trainer.params, trainer.model.model
+    linear = name == FNO_LINEAR
+    check(p.nettype == "FNO" and type(net).__name__ == "FourierNeuralOperatorNet"
+          and type(net.trans_down).__name__ == "RealFFT2"
+          and (net.trans_down.lmax, net.trans_down.mmax) == (180, 180)
+          and p.embed_dim == (64 if linear else 384) and p.filter_type == (
+              "linear" if linear else "non-linear") and p.operator_type == "diagonal",
+          f"{name}: {p.nettype} {type(net).__name__}, embed {p.embed_dim}, {p.filter_type}")
+    if linear:
+        weight = net.blocks[1].filter_layer.filter.weight
+        check(tuple(weight.shape) == (64, 64, 180, 180, 2), f"{name}: filter {weight.shape}")
+    want = fno_launches(level, run["leaves"])
+    check(run["launches"] == launch_counts(kernels, {k: v * ICML_STEPS[name]
+                                                     for k, v in want.items()})
+          and run["one_pass"], f"{name} launches {run['launches']}, a step {want}")
+    run["step_ms"], run["step_ms_all"], run["step_peak_bytes"] = resident_step_ms(torch, trainer)
+    run["launches_per_step"] = want
+    shapes = {k: tuple(v.shape) for k, v in trainer.model_params.items()}
+    weights = trainer.model.state_dict()
+    del trainer, net
+    torch.cuda.empty_cache()
+    p["valid_autoreg_steps"] = ROLLOUT_STEPS - 1
+    inferencer = Inferencer(p, weights=weights, device=dev)
+    del weights
+    check(inferencer.amp_dtype == torch.bfloat16, f"{name}: the Inferencer is not under AMP")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    x = torch.randn((1, FILES_CHANNELS, 721, 1440), device=dev, generator=gen)
+    launches, times = timed_rollouts(torch, np, kernels, inferencer, x, f"{name} rollout")
+    check(launches == launch_counts(kernels, {"gelu_bf16": 18 * ROLLOUT_STEPS}),
+          f"{name} rollout launches {launches}")
+    run.update(rollout_ms=statistics.median(times), rollout_ms_all=times,
+               rollout_peak_bytes=torch.cuda.max_memory_allocated(), rollout_launches=launches)
+    del inferencer, x
+    torch.cuda.empty_cache()
+    return run, shapes
+
+
+def options_params(**overrides):
+    """sfno_dhealy_73ch at full width with `overrides` (73 channels,
+    synthetic data: the model alone)."""
+    from makani_tpu_torch.models.model_registry import update_channel_params
+    from makani_tpu_torch.utils.yparams import YParams
+    p = YParams(str(ROOT / "config" / "icml_models.yaml"), ICML_PRETRAIN)
+    p.update_params(dict(enable_synthetic_data=True, in_channels=list(range(FILES_CHANNELS)),
+                         out_channels=list(range(FILES_CHANNELS)), **overrides))
+    return update_channel_params(p)
+
+
+def option_forward(torch, sht, kernels, dev, gen, x, extra_legmm=0, **overrides):
+    """One float32 forward (3 passes) of sfno_dhealy_73ch with `overrides`,
+    random weights from `gen`, through the kernels and through the twins."""
+    from makani_tpu_torch.models.model_registry import get_model
+    model = get_model(options_params(**overrides), device=dev, generator=gen)
+    model.eval()
+    with torch.inference_mode():
+        model(x)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        y = model(x)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(kernels.launches)
+        sht.set_coeff_engine("stacked")
+        y_plain = model(x)
+        sht.set_coeff_engine("kernel")
+    err = rel_err(y, y_plain.double())
+    check(tuple(y.shape) == (1, FILES_CHANNELS, 721, 1440) and bool(torch.isfinite(y).all())
+          and err < FORWARD_TOL, f"{overrides}: forward {tuple(y.shape)}, vs twins {err}")
+    check(launches == launch_counts(kernels, {"legmm": 18 + extra_legmm, "dhconv_mm": 8}),
+          f"{overrides}: launches {launches}")
+    shapes = {k: tuple(v.shape) for k, v in model.named_parameters()}
+    del model, y, y_plain
+    torch.cuda.empty_cache()
+    return dict(ms=ms, launches=launches, rel_err_twin=err), shapes
+
+
+def factorized_step(torch, sht, complex_ops, kernels, dev, gen, x):
+    """A CP-factorized dhconv filter on the "xla" engine with the complex
+    dhconv kernel, under AMP (bf16 input, 1 pass): a forward and backward
+    with its launches, the forward against the same weights with the
+    kernel off (the complex einsum)."""
+    from makani_tpu_torch.models.model_registry import get_model
+    model = get_model(options_params(factorization="cp", rank=OPTION_RANK), device=dev,
+                      generator=gen)
+    filt = model.model.blocks[1].filter_layer.filter
+    check(type(filt).__name__ == "FactorizedSpectralConv" and filt.weight.kind == "cp",
+          f"factorized filter: {type(filt).__name__}")
+    xb = x.to(torch.bfloat16)
+    complex_ops.enable_pallas_kernels(True)
+    model(xb).float().square().mean().backward()   # warm-up
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    y = model(xb)
+    y.float().square().mean().backward()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(kernels.launches)
+    one_pass = at_one_pass(kernels)
+    check(launches == launch_counts(kernels, {"dhconv_complex": 16, "gelu_bf16": 18,
+                                              "gelu_bf16_grad": 18}) and one_pass,
+          f"factorized launches {launches}")
+    grads = [p.grad for n, p in model.named_parameters() if ".weight." in n]
+    check(len(grads) == 4 * 8 and all(g is not None and bool(torch.isfinite(g).all())
+                                      for g in grads), "factorized gradients")
+    with torch.no_grad():
+        complex_ops.enable_pallas_kernels(False)
+        y_einsum = model(xb)
+    deviation = dev_norm(y.float().double(), y_einsum.float().double())
+    check(deviation < AMP_DEV_MAX, f"factorized forward, kernel vs einsum: {deviation}")
+    rank = filt.weight.get_parameter("factor_0").shape[1]
+    del model, y, y_einsum, grads
+    torch.cuda.empty_cache()
+    return dict(ms=ms, launches=launches, rank=rank, dev_einsum=deviation)
+
+
+def csphase_pair(torch, np, sht, kernels, dev, gen):
+    """The SHT pair without the Condon-Shortley phase at the ICML shapes (the
+    721x1440 equiangular grid and the 360x720 Legendre-Gauss grid, 180
+    degrees and orders, 64 channels) through legmm at 3 passes, against the
+    same transforms in float64 (phase 3's 5e-5)."""
+    from makani_tpu_torch.ops.dft import irdft_matrices, rdft_matrices
+    from makani_tpu_torch.ops.legendre import precompute_legpoly
+    rec = {}
+    kernels.reset_launches()
+    for nlat, nlon, grid in ((721, 1440, "equiangular"), (360, 720, "legendre-gauss")):
+        fwd = sht.RealSHT(nlat, nlon, 180, 180, grid=grid, csphase=False, device=dev)
+        inv = sht.InverseRealSHT(nlat, nlon, 180, 180, grid=grid, csphase=False, device=dev)
+        tq, wq = sht._theta_weights(grid, nlat)
+        pct = torch.from_numpy(precompute_legpoly(180, 180, tq, csphase=False)).to(dev,
+                                                                                   torch.float64)
+        C, S = (torch.from_numpy(a).to(dev, torch.float64)
+                for a in rdft_matrices(nlon, 180, scale="integral"))
+        Cs, Ss = (torch.from_numpy(a).to(dev, torch.float64)
+                  for a in irdft_matrices(nlon, 180, scale="synthesis"))
+        x = torch.randn((1, 64, nlat, nlon), device=dev, generator=gen)
+        w = torch.from_numpy(wq.copy()).to(dev, torch.float64)[:, None]
+        x64 = x.double()
+        ref = torch.complex(torch.einsum("bckm,mlk->bclm", (x64 @ C) * w, pct),
+                            torch.einsum("bckm,mlk->bclm", -(x64 @ S) * w, pct))
+        got = fwd(x)
+        c = torch.complex(torch.randn((1, 64, 180, 180), device=dev, generator=gen),
+                          torch.randn((1, 64, 180, 180), device=dev, generator=gen))
+        c64 = c.to(torch.complex128)
+        ref_x = (torch.einsum("bclm,mlk->bckm", c64.real, pct) @ Cs
+                 - torch.einsum("bclm,mlk->bckm", c64.imag, pct) @ Ss)
+        got_x = inv(c)
+        torch.cuda.synchronize()
+        rec[f"{nlat}x{nlon}"] = (rel_err_c(got, ref), rel_err(got_x, ref_x))
+        check(max(rec[f"{nlat}x{nlon}"]) < 5e-5 and not fwd.csphase,
+              f"csphase=False SHT pair at {nlat}x{nlon} vs float64: {rec[f'{nlat}x{nlon}']}")
+    rec["launches"] = dict(kernels.launches)
+    check(rec["launches"] == launch_counts(kernels, {"legmm": 4}) and
+          kernels.launches_by_passes["legmm", 3] == 4, f"csphase launches {rec['launches']}")
+    return rec
+
+
+def adam_state(torch, shapes, dev, dtype):
+    from makani_tpu_torch.utils.optimizers import AdamState
+    return AdamState(0, {k: torch.zeros(s, device=dev, dtype=dtype) for k, s in shapes.items()},
+                     {k: torch.zeros(s, device=dev, dtype=dtype) for k, s in shapes.items()})
+
+
+def fno_adam(torch, kernels, dev, gen, shapes):
+    """Phase 14 (d): fused_adam over fno_linear_73ch's leaves (2.12 B
+    elements): float16 moments against the twin bit for bit after 2 updates,
+    with the share of nu below float16's smallest normal; then one update
+    timed with float16, bf16 (stochastic rounding) and float32 moments beside
+    the bound and torch.optim.Adam(fused=True) on float32 state."""
+    from makani_tpu_torch.ops import fused_adam
+    from makani_tpu_torch.utils.optimizers import kernel_update_settings
+    base = dict(optimizer_type="Adam", optimizer_beta1=0.9, optimizer_beta2=0.95, global_seed=333)
+    params = {k: torch.randn(s, device=dev, generator=gen) for k, s in shapes.items()}
+    grads = {k: 1e-2 * torch.randn(s, device=dev, generator=gen) for k, s in shapes.items()}
+    n = sum(math.prod(s) for s in shapes.values())
+    rec = dict(leaves=len(shapes), elements=n)
+    kw = kernel_update_settings(dict(base, optimizer_moment_dtype="float16"))
+    check(kw is not None and not kw["stochastic_rounding"], f"float16 settings {kw}")
+    s_kernel = adam_state(torch, shapes, dev, torch.float16)
+    twin_p = {k: v.clone() for k, v in params.items()}
+    s_twin = adam_state(torch, shapes, dev, torch.float16)
+    kernels.reset_launches()
+    t_twin = 0.0
+    for _ in range(2):
+        fused_adam.fused_adam_apply(params, grads, s_kernel, 1e-3, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fused_adam.fused_adam_apply_plain(twin_p, grads, s_twin, 1e-3, **kw)
+        torch.cuda.synchronize()
+        t_twin = (time.perf_counter() - t0) * 1e3
+    launches = kernels.launches["fused_adam"]
+    check(launches == 2 * len(shapes), f"float16: {launches} fused_adam launches")
+    differ = [k for k in shapes if not (
+        torch.equal(params[k], twin_p[k]) and torch.equal(s_kernel.mu[k], s_twin.mu[k])
+        and torch.equal(s_kernel.nu[k], s_twin.nu[k]))]
+    check(not differ, f"float16: kernel and twin differ in {differ[:5]}")
+    tiny = torch.finfo(torch.float16).tiny
+    nu = s_kernel.nu[next(k for k, s in shapes.items() if len(s) == 5)]
+    rec["nu_subnormal_share"] = float(((nu > 0) & (nu < tiny)).float().mean())
+    rec["float16_launches"] = launches // 2
+    del twin_p, s_twin, s_kernel
+    torch.cuda.empty_cache()
+    for name, dtype, md in (("float16", torch.float16, "float16"),
+                            ("bf16_sr", torch.bfloat16, "bfloat16"),
+                            ("float32", torch.float32, "float32")):
+        kw = kernel_update_settings(dict(base, optimizer_moment_dtype=md))
+        state = adam_state(torch, shapes, dev, dtype)
+
+        def update():
+            fused_adam.fused_adam_apply(params, grads, state, 1e-3, **kw)
+        ms = cuda_ms(update, 5)
+        nbytes = n * (4 + 4 + 4 + 4 * dtype.itemsize)
+        b_ms, b_by = bound(nbytes, 0)
+        rec[name] = dict(ms=ms, enqueue_ms=host_enqueue_ms(torch, update, 3), bound_ms=b_ms,
+                         bound_by=b_by, gbytes=nbytes / 1e9)
+        if name == "float16":
+            rec[name]["plain_ms"] = t_twin
+        del state
+        torch.cuda.empty_cache()
+    leaves = list(params.values())
+    for p, g in zip(leaves, grads.values()):
+        p.grad = g
+    opt = torch.optim.Adam(leaves, lr=1e-3, betas=(0.9, 0.95), eps=1e-8, fused=True)
+    rec["library_ms"] = cuda_ms(opt.step, 5)
+    del opt, leaves, params, grads
+    torch.cuda.empty_cache()
+    return rec
+
+
+def card_vs_cpu_optimizers(torch, dev, gen, shapes):
+    """Phase 14 (d): Adafactor and SGD with momentum, 2 updates of
+    build_optimizer's chain over sfno_dhealy_73ch's leaves (block 0's, the
+    encoder's, the decoder's and the residual's) on the card,
+    against the same chain on the CPU on the same gradients: SGD bit for
+    bit, Adafactor within OPT_TOL of each leaf's largest update (its
+    reductions sum in another order)."""
+    from makani_tpu_torch.utils.optimizers import apply_updates, build_optimizer
+    shapes = {k: s for k, s in shapes.items() if "blocks." not in k or "blocks.0." in k}
+    rec = {}
+    for name, cfg in (("adafactor", dict(optimizer_type="Adafactor")),
+                      ("sgd", dict(optimizer_type="SGD", momentum=0.9))):
+        opt = build_optimizer(cfg)
+        params = {k: torch.randn(s, device=dev, generator=gen) for k, s in shapes.items()}
+        host = {k: v.cpu() for k, v in params.items()}
+        state, host_state = opt.init(params), opt.init(host)
+        worst, t_card = 0.0, 0.0
+        for _ in range(2):
+            grads = {k: 1e-2 * torch.randn(s, device=dev, generator=gen) for k, s in shapes.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            updates, state = opt.update(grads, state, params)
+            apply_updates(params, updates, 1e-3)
+            torch.cuda.synchronize()
+            t_card = (time.perf_counter() - t0) * 1e3
+            host_updates, host_state = opt.update({k: g.cpu() for k, g in grads.items()},
+                                                  host_state, host)
+            apply_updates(host, host_updates, 1e-3)
+            for k, u in updates.items():
+                want = host_updates[k]
+                if name == "sgd":
+                    check(torch.equal(u.cpu(), want) and torch.equal(params[k].cpu(), host[k]),
+                          f"sgd: card and CPU differ in {k}")
+                else:
+                    worst = max(worst, float((u.cpu() - want).abs().max() / want.abs().max()))
+        check(worst < OPT_TOL, f"{name}: card vs CPU {worst}")
+        rec[name] = dict(rel_err=worst, ms=t_card, leaves=len(shapes))
+        del opt, params, host, state, host_state, updates, host_updates, grads
+        torch.cuda.empty_cache()
+    return rec
+
+
+def phase_fno(torch, np, sht, complex_ops, kernels, dev, gen):
+    """Phase 14: the planar FNO recipes and the SFNO model options at full
+    width, on phase 10's dataset."""
+    ICML_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    rec = {}
+    settings = (sht.get_coeff_engine(), sht.get_transform_precision(),
+                complex_ops.get_contraction_precision(), complex_ops._USE_PALLAS_DHCONV)
+    try:
+        # (a), (b) the FNO recipes through train.main, then their rollouts
+        rec["linear"], fno_shapes = fno_run(torch, np, kernels, dev, gen, FNO_LINEAR)
+        rec["nonlinear"], _ = fno_run(torch, np, kernels, dev, gen, FNO_NONLINEAR)
+
+        # (c) the options at sfno_dhealy_73ch's width: scan_layers, a train
+        # step with the 6 middle blocks recomputed
+        level = ICML_LEVELS[ICML_PRETRAIN]
+        trainer, run = icml_run(torch, kernels, ICML_PRETRAIN, level, "--save_checkpoint",
+                                "none", "--run_num", "scan", scan_layers=True)
+        net = trainer.model.model
+        stacked = net.scan_blocks.block.filter_layer.filter.weight
+        check(net.scan and net.scan_blocks.length == 6
+              and tuple(stacked.shape) == (6, 2, 180, 384, 384) and run["leaves"] == 37,
+              f"scan_layers: {run['leaves']} leaves, stacked filter {tuple(stacked.shape)}")
+        want = icml_launches(level, 1, run["leaves"])
+        for k, extra in (("legmm", 12), ("dhconv_mm", 6), ("gelu_bf16", 12)):
+            want[k] += extra
+        check(run["launches"] == launch_counts(kernels, {
+            k: v * ICML_STEPS[ICML_PRETRAIN] for k, v in want.items()}) and run["one_pass"],
+              f"scan_layers launches {run['launches']}, a step {want}")
+        run["step_ms"], run["step_ms_all"], run["step_peak_bytes"] = resident_step_ms(torch,
+                                                                                     trainer)
+        run["launches_per_step"] = want
+        rec["scan"] = run
+        del trainer, net, stacked
+        torch.cuda.empty_cache()
+
+        # float32 forwards at 3 passes: position embeddings and the layer norm
+        sht.set_transform_precision("high")
+        complex_ops.set_contraction_precision("high")
+        x = torch.randn((1, FILES_CHANNELS, 721, 1440), device=dev, generator=gen)
+        rec["pos_direct"], _ = option_forward(torch, sht, kernels, dev, gen, x,
+                                              pos_embed="direct")
+        # the frequency embedding is synthesised by the output transform
+        rec["pos_frequency"], _ = option_forward(torch, sht, kernels, dev, gen, x,
+                                                 extra_legmm=1, pos_embed="frequency")
+        rec["layer_norm"], sfno_shapes = option_forward(torch, sht, kernels, dev, gen, x,
+                                                        normalization_layer="layer_norm")
+        rec["csphase"] = csphase_pair(torch, np, sht, kernels, dev, gen)
+
+        # the CP-factorized dhconv filter on the "xla" engine with its kernel
+        sht.set_coeff_engine("xla")
+        sht.set_transform_precision("default")
+        complex_ops.set_contraction_precision("default")
+        rec["factorized"] = factorized_step(torch, sht, complex_ops, kernels, dev, gen, x)
+        sht.set_coeff_engine("kernel")
+        complex_ops.enable_pallas_kernels(False)
+        del x
+        torch.cuda.empty_cache()
+
+        # (d) the optimizers: float16 moments at the FNO's 2.12 B elements,
+        # a Trainer with float16 moments, Adafactor and SGD card vs CPU
+        rec["adam"] = fno_adam(torch, kernels, dev, gen, fno_shapes)
+        trainer, run = icml_run(torch, kernels, ICML_PRETRAIN, level, "--save_checkpoint",
+                                "none", "--run_num", "f16", optimizer_moment_dtype="float16")
+        state = trainer.adam_state()
+        check(trainer.fused_kw is not None and not trainer.fused_kw["stochastic_rounding"]
+              and all(v.dtype == torch.float16 for v in (*state.mu.values(), *state.nu.values()))
+              and state.count == ICML_STEPS[ICML_PRETRAIN],
+              f"float16 Trainer: settings {trainer.fused_kw}, count {state.count}")
+        want = icml_launches(level, 1, run["leaves"])
+        check(run["launches"] == launch_counts(kernels, {
+            k: v * ICML_STEPS[ICML_PRETRAIN] for k, v in want.items()}) and run["one_pass"],
+              f"float16 Trainer launches {run['launches']}")
+        rec["f16_trainer"] = run
+        del trainer, state
+        torch.cuda.empty_cache()
+        rec["card_vs_cpu"] = card_vs_cpu_optimizers(torch, dev, gen, sfno_shapes)
+        rec["phase_s"] = time.perf_counter() - t0
+    finally:
+        sht.set_coeff_engine(settings[0])
+        sht.set_transform_precision(settings[1])
+        complex_ops.set_contraction_precision(settings[2])
+        complex_ops.enable_pallas_kernels(settings[3])
+        shutil.rmtree(ICML_DIR, ignore_errors=True)
+    return rec
+
+
+def print_fno(fno):
+    """Phase 14's lines."""
+    for cut in FNO_CUTS:
+        print(f"[fno cut] {cut}")
+    for tag, name in (("linear", FNO_LINEAR), ("nonlinear", FNO_NONLINEAR)):
+        r = fno[tag]
+        print(f"[fno {tag}] {name}: {r['params']} parameters in {r['leaves']} leaves, bf16 AMP, "
+              f"checkpointing {r['level']}; losses {r['losses']}; run {r['run_s']:.1f} s, peak "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB; a train step on a resident batch "
+              f"{r['step_ms']:.1f} ms (median of {', '.join(f'{t:.1f}' for t in r['step_ms_all'])})"
+              f", peak {r['step_peak_bytes'] / 2**30:.2f} GiB; launches a step "
+              f"{r['launches_per_step']}; {ROLLOUT_STEPS}-step Inferencer rollout "
+              f"{r['rollout_ms']:.1f} ms a step (median of "
+              f"{', '.join(f'{t:.1f}' for t in r['rollout_ms_all'])}), peak "
+              f"{r['rollout_peak_bytes'] / 2**30:.2f} GiB, launches {r['rollout_launches']}",
+              flush=True)
+    s = fno["scan"]
+    print(f"[fno scan_layers] {ICML_PRETRAIN} with scan_layers: {s['params']} parameters in "
+          f"{s['leaves']} leaves (the 6 middle blocks' weights stacked), checkpointing "
+          f"{s['level']}; losses {s['losses']}; a train step {s['step_ms']:.1f} ms (median of "
+          f"{', '.join(f'{t:.1f}' for t in s['step_ms_all'])}), peak "
+          f"{s['step_peak_bytes'] / 2**30:.2f} GiB; launches a step {s['launches_per_step']} "
+          f"(the middle blocks recomputed: +12 legmm, +6 dhconv_mm, +12 gelu_bf16)", flush=True)
+    for tag in ("pos_direct", "pos_frequency", "layer_norm"):
+        r = fno[tag]
+        print(f"[fno {tag}] {ICML_PRETRAIN} float32 forward at 3 passes: {r['ms']:.1f} ms, "
+              f"kernels vs twins {r['rel_err_twin']:.3g}, launches {r['launches']}", flush=True)
+    f = fno["factorized"]
+    print(f"[fno factorized] {ICML_PRETRAIN} with a CP dhconv filter (rank {f['rank']}), 'xla' "
+          f"engine with the complex dhconv kernel, AMP: forward and backward {f['ms']:.1f} ms, "
+          f"launches {f['launches']}, all at 1 pass; forward vs the complex einsum "
+          f"{f['dev_einsum']:.3g} norm-wise", flush=True)
+    c = fno["csphase"]
+    print("[fno csphase] RealSHT / InverseRealSHT with csphase=False through legmm at 3 passes "
+          "vs float64: " + "; ".join(f"{k} {v[0]:.3g} / {v[1]:.3g}" for k, v in c.items()
+                                     if k != "launches") + f"; launches {c['launches']}",
+          flush=True)
+    a = fno["adam"]
+    print(f"[fno adam] fused_adam over {FNO_LINEAR}'s {a['leaves']} leaves, {a['elements']} "
+          f"elements: float16 moments bit-identical to the twin after 2 updates "
+          f"({a['float16_launches']} launches an update; {100 * a['nu_subnormal_share']:.1f}% "
+          f"of the filter's nu subnormal in float16); one update " + "; ".join(
+              f"{name} {a[name]['ms']:.3f} ms (host enqueue {a[name]['enqueue_ms']:.3f}), bound "
+              f"{a[name]['bound_ms']:.3f} ms ({a[name]['gbytes']:.2f} GB)"
+              for name in ("float16", "bf16_sr", "float32"))
+          + f"; twin {a['float16']['plain_ms']:.1f} ms; torch.optim.Adam(fused=True), float32 "
+          f"moments, {a['library_ms']:.3f} ms", flush=True)
+    t = fno["f16_trainer"]
+    print(f"[fno float16 trainer] {ICML_PRETRAIN} with optimizer_moment_dtype float16: losses "
+          f"{t['losses']}, peak {t['peak_bytes'] / 2**30:.2f} GiB, launches {t['launches']}",
+          flush=True)
+    o = fno["card_vs_cpu"]
+    print(f"[fno optimizers] {o['sgd']['leaves']} leaves of {ICML_PRETRAIN}, 2 updates on the "
+          f"card vs the CPU: SGD with momentum bit for bit ({o['sgd']['ms']:.1f} ms); Adafactor "
+          f"{o['adafactor']['rel_err']:.3g} of each leaf's largest update "
+          f"({o['adafactor']['ms']:.1f} ms)", flush=True)
+    print(f"[fno time] phase 14 in {fno['phase_s']:.1f} s", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--record", type=Path, help="write every measurement to this JSON file")
     args = ap.parse_args(argv)
+    t_script = time.perf_counter()
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -2602,6 +3101,8 @@ def main(argv=None):
         # phase 13: the ICML recipes on the same dataset (phase 12's
         # checkpoints removed first)
         icml = phase_icml(torch, np, spectral_mm, kernels, dev, gen)
+        # phase 14: the FNO recipes and the model options on the same dataset
+        fno = phase_fno(torch, np, sht, complex_ops, kernels, dev, gen)
     finally:
         shutil.rmtree(FILES_DIR, ignore_errors=True)
         sht.set_coeff_engine(settings[0])
@@ -2713,6 +3214,11 @@ def main(argv=None):
 
     record["icml"] = icml
     print_icml(icml)
+    record["fno"] = fno
+    print_fno(fno)
+    record["script_s"] = time.perf_counter() - t_script
+    print(f"[time] phases 1-14 in {record['script_s']:.1f} s, the kernels' build included",
+          flush=True)
 
     # results
     if args.record is not None:
@@ -2737,7 +3243,13 @@ def main(argv=None):
         launches_valid_step: a validation AR step of phase 12;
         launches_multistep: phase 13's 2-step finetune (b), 2 steps;
         launches_nonlinear: phase 13's non-linear run (c), 3 steps;
-        launches_lamb: phase 13's LAMB update over (a)'s leaves (e)."""
+        launches_lamb: phase 13's LAMB update over (a)'s leaves (e);
+        launches_fno_linear / _nonlinear: phase 14's FNO runs (a) and (b),
+        2 steps each; launches_scan: its scan_layers run, 2 steps;
+        launches_factorized: its CP filter's forward and backward;
+        launches_csphase: its csphase=False pairs; launches_fp16_trainer:
+        its Trainer with float16 moments, 2 steps; launches_fp16_update: one
+        float16 update over the linear FNO's leaves."""
         return dict(launches_files=files["train_launches"][name],
                     launches_per_train_step_files=files["train_launches_per_step"][name],
                     launches_rollout_files=files["rollout_launches"][name],
@@ -2747,6 +3259,14 @@ def main(argv=None):
                     launches_multistep=icml["finetune"]["launches"][name],
                     launches_nonlinear=icml["nonlinear"]["launches"][name],
                     launches_lamb=icml["optimizers"]["lamb"]["launches"]
+                    if name == "fused_adam" else 0,
+                    launches_fno_linear=fno["linear"]["launches"][name],
+                    launches_fno_nonlinear=fno["nonlinear"]["launches"][name],
+                    launches_scan=fno["scan"]["launches"][name],
+                    launches_factorized=fno["factorized"]["launches"][name],
+                    launches_csphase=fno["csphase"]["launches"][name],
+                    launches_fp16_trainer=fno["f16_trainer"]["launches"][name],
+                    launches_fp16_update=fno["adam"]["float16_launches"]
                     if name == "fused_adam" else 0)
 
     kernels = []
@@ -2767,6 +3287,14 @@ def main(argv=None):
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             shape=r["shape"], passes=passes))
+    # fused_adam at the linear FNO's 2.12 B elements (phase 14 (d)): each
+    # moment type's update time beside its bound, and torch's fused Adam
+    a = fno["adam"]
+    row = next(r for r in kernels if r["name"] == "fused_adam")
+    row.update(elements_fno=a["elements"], library_ms_fno=a["library_ms"], **{
+        f"{k}_fno": {f: a[k][f] for f in ("ms", "bound_ms", "bound_by")}
+        for k in ("float16", "bf16_sr", "float32")})
+    row["float16_fno"]["plain_ms"] = a["float16"]["plain_ms"]
     # the complex dhconv kernel: launches over phase 7's training epoch, the
     # path that runs it forward and backward
     r = next(r for r in cplx["kernels"] if r["shape"].startswith("forward") and r["passes"] == 3)

@@ -1,14 +1,19 @@
 // Fused Adam(W) update of one parameter leaf, in place, with bf16 moments
-// under counter-hash stochastic rounding.
+// under counter-hash stochastic rounding (or float32, or float16 moments).
 //
 // Replaces the TPU kernel makani_tpu/ops/pallas_adam.py _adam_kernel /
 // _fused_leaf_update / fused_adam_apply (:66-186). One pass per element over
 // (p f32, g f32, mu, nu):
 //   mu' = (1-b1)*g + b1*mu              one fused multiply-add
 //   nu' = (1-b2)*(g*g) + b2*nu          one fused multiply-add
+//   (float16 moments: mu' and nu' stored as fma(mu, b1, (1-b1)*g) and
+//   fma(nu, b2, (1-b2)*(g*g)), u from the first form of mu': the fused
+//   multiply-adds XLA's CPU code makes of the reference's float16 graph)
 //   u   = mu' / (bc1 * (sqrt(nu'/bc2) + eps))
 //   p'  = p*decay - lr*u                one fused multiply-add, decay = 1 - lr*wd
-//   mu, nu stored with stochastic rounding to bf16, to nearest bf16, or as f32
+//   mu, nu stored with stochastic rounding to bf16, to nearest bf16, as f32,
+//   or to nearest float16 (subnormals kept: the reference's float16 moments
+//   round to nearest whatever optimizer_stochastic_rounding says)
 // The arithmetic is the reference's as XLA compiles it (the same update in
 // utils/optimizers.scale_by_adam_lowmem + apply, and pallas_adam's kernel):
 // (mu'/bc1)/(sqrt(nu'/bc2)+eps) folded into one division, and each
@@ -33,7 +38,7 @@
 // reference as (C, O, L, 2)).
 //
 // What bounds it on an H100: 20 bytes per element (p read and written, g
-// read, two bf16 moments read and written); the flagship's 572.5 M
+// read, two bf16 or float16 moments read and written); the flagship's 572.5 M
 // parameters move 11.45 GB, 3.42 ms at 3.35 TB/s. A few dozen integer and
 // float operations per element stay far below the card's rates, so it is
 // bound by bytes. One thread per element, consecutive threads on consecutive
@@ -41,6 +46,7 @@
 // element (dir written) and 4 fewer (p not written back).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -63,13 +69,18 @@ __device__ __forceinline__ uint32_t dither_u16(uint32_t idx, uint32_t salt) {
   return (h ^ (h >> 16)) & 0xFFFFu;
 }
 
-// moment kinds: 0 float32, 1 bf16 rounded to nearest, 2 bf16 stochastically
+// moment kinds: 0 float32, 1 bf16 rounded to nearest, 2 bf16 stochastically,
+// 3 float16 rounded to nearest
 template <int KIND>
 struct Moment {
-  using T = typename std::conditional<KIND == 0, float, __nv_bfloat16>::type;
+  using T = typename std::conditional<
+      KIND == 0, float,
+      typename std::conditional<KIND == 3, __half, __nv_bfloat16>::type>::type;
   __device__ static float load(const T* m, uint32_t i) {
     if constexpr (KIND == 0)
       return m[i];
+    else if constexpr (KIND == 3)
+      return __half2float(m[i]);
     else
       return __bfloat162float(m[i]);
   }
@@ -78,6 +89,8 @@ struct Moment {
       m[i] = v;
     } else if constexpr (KIND == 1) {
       m[i] = __float2bfloat16_rn(v);
+    } else if constexpr (KIND == 3) {
+      m[i] = __float2half_rn(v);
     } else {
       const uint32_t bits = (__float_as_uint(v) + dither_u16(idx, salt)) & 0xFFFF0000u;
       m[i] = __ushort_as_bfloat16(static_cast<unsigned short>(bits >> 16));
@@ -99,8 +112,17 @@ fused_adam_kernel(float* __restrict__ p, const float* __restrict__ g,
     const float nrm = *norm;
     if (!(nrm < k.max_norm)) gf = __fmul_rn(__fdiv_rn(gf, nrm), k.max_norm);
   }
-  const float m = __fmaf_rn(gf, k.a1, __fmul_rn(k.b1, Moment<KIND>::load(mu, i)));
-  const float v = __fmaf_rn(__fmul_rn(gf, gf), k.a2, __fmul_rn(k.b2, Moment<KIND>::load(nu, i)));
+  const float mu0 = Moment<KIND>::load(mu, i), nu0 = Moment<KIND>::load(nu, i);
+  const float m = __fmaf_rn(gf, k.a1, __fmul_rn(k.b1, mu0));
+  float m_store = m, v;
+  if constexpr (KIND == 3) {
+    // the reference's float16 graph, as XLA compiles it for the CPU: the
+    // stored moments contract the other product, the direction reads m
+    m_store = __fmaf_rn(mu0, k.b1, __fmul_rn(k.a1, gf));
+    v = __fmaf_rn(nu0, k.b2, __fmul_rn(k.a2, __fmul_rn(gf, gf)));
+  } else {
+    v = __fmaf_rn(__fmul_rn(gf, gf), k.a2, __fmul_rn(k.b2, nu0));
+  }
   const float den = __fmul_rn(k.bc1, __fadd_rn(__fsqrt_rn(__fdiv_rn(v, k.bc2)), k.eps));
   const float u = __fdiv_rn(m, den);
   if constexpr ((MODE & kDirection) != 0)
@@ -118,7 +140,7 @@ fused_adam_kernel(float* __restrict__ p, const float* __restrict__ g,
     const uint32_t c1 = t % s1;
     idx = (t / s1) * j0 + c1 * j1 + c2 * j2 + c3 * j3;
   }
-  Moment<KIND>::store(mu, i, m, idx, k.salt_mu);
+  Moment<KIND>::store(mu, i, m_store, idx, k.salt_mu);
   Moment<KIND>::store(nu, i, v, idx, k.salt_nu);
 }
 
@@ -159,7 +181,8 @@ void launch_mode(const Leaf& a, const Scalars& k, int mode, cudaStream_t s) {
 // One leaf of n elements (n < 2^32), in place. (s1, s2, s3) are the last
 // three sizes of the leaf's shape padded to four dimensions, (j0..j3) the
 // index strides of the four dimensions in the reference's layout. kind:
-// 0 float32 moments, 1 bf16 rounded to nearest, 2 bf16 stochastically.
+// 0 float32 moments, 1 bf16 rounded to nearest, 2 bf16 stochastically,
+// 3 float16 rounded to nearest.
 // mode: bit 0 clips g by the float32 global norm at `norm` (device memory)
 // against max_norm; bit 1 writes u + wd*p to `dir` (n float32) and leaves p.
 // `dir` and `norm` may be null where their bit is clear. Returns
@@ -175,12 +198,15 @@ extern "C" int fused_adam_launch(void* p, const void* g, void* mu, void* nu, voi
   const Leaf a{p, g, mu, nu, dir, norm, n, s1, s2, s3, j0, j1, j2, j3};
   auto s = static_cast<cudaStream_t>(stream);
   if (n == 0) return static_cast<int>(cudaGetLastError());
-  if (mode < 0 || mode > 3) return static_cast<int>(cudaErrorInvalidValue);
+  if (mode < 0 || mode > 3 || kind < 0 || kind > 3)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (kind == 0)
     launch_mode<0>(a, k, mode, s);
   else if (kind == 1)
     launch_mode<1>(a, k, mode, s);
-  else
+  else if (kind == 2)
     launch_mode<2>(a, k, mode, s);
+  else
+    launch_mode<3>(a, k, mode, s);
   return static_cast<int>(cudaGetLastError());
 }

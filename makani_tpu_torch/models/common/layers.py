@@ -144,11 +144,24 @@ class DropPath(nn.Module):
 
 def number_dropout_sites(module):
     """Give every Dropout and DropPath under `module` its site index, in
-    registration order; returns the number of sites."""
-    sites = [m for m in module.modules() if isinstance(m, (Dropout, DropPath))]
-    for i, m in enumerate(sites):
-        m.site = i
-    return len(sites)
+    registration order; returns the number of sites. A module that runs its
+    submodules several times over (the scanned blocks) numbers its own sites
+    through its `number_sites(base)`, which returns how many it took."""
+    count = 0
+
+    def visit(m):
+        nonlocal count
+        if isinstance(m, (Dropout, DropPath)):
+            m.site = count
+            count += 1
+        elif hasattr(m, "number_sites"):
+            count += m.number_sites(count)
+        else:
+            for child in m.children():
+                visit(child)
+
+    visit(module)
+    return count
 
 
 class MLP(nn.Module):
@@ -225,6 +238,31 @@ class InstanceNorm2d(nn.Module):
         mean = xf.mean(dim=(-2, -1), keepdim=True)
         xc = xf - mean
         var = xc.square().mean(dim=(-2, -1), keepdim=True)
+        y = xc * torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            y = y * self.weight[None, :, None, None] + self.bias[None, :, None, None]
+        return y.to(x.dtype)
+
+
+class LayerNorm2d(nn.Module):
+    """Per-sample normalization over the channel axis of NCHW tensors, at
+    every grid point, with float32 statistics and the result cast back to the
+    input's type; optional affine (makani_tpu's LayerNorm2d)."""
+
+    def __init__(self, num_features, eps=1e-6, affine=True, device="cpu"):
+        super().__init__()
+        self.eps = eps
+        if affine:
+            self.weight = nn.Parameter(torch.ones(num_features, device=device))
+            self.bias = nn.Parameter(torch.zeros(num_features, device=device))
+        else:
+            self.weight = self.bias = None
+
+    def forward(self, x):
+        xf = x.float()
+        mean = xf.mean(dim=1, keepdim=True)
+        xc = xf - mean
+        var = xc.square().mean(dim=1, keepdim=True)
         y = xc * torch.rsqrt(var + self.eps)
         if self.weight is not None:
             y = y * self.weight[None, :, None, None] + self.bias[None, :, None, None]

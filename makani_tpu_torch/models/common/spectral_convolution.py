@@ -5,13 +5,15 @@ Counterpart of SpectralConv and SpectralAttention in
 makani_tpu/models/common/spectral_convolution.py (:35-246). SpectralConv
 takes one of two paths, chosen per call as makani_tpu chooses them:
   - the stacked-real pipeline (:98-126), for the non-separable dhconv operator
-    on the "kernel" or "stacked" coefficient engine at a precision the
-    kernels express: analysis SHT -> per-l complex channel mixing -> synthesis
-    SHT, all in real planes, on the legmm / dhconv_mm kernels;
+    on SHT transforms, on the "kernel" or "stacked" coefficient engine at a
+    precision the kernels express: analysis SHT -> per-l complex channel
+    mixing -> synthesis SHT, all in real planes, on the legmm / dhconv_mm
+    kernels;
   - the complex branch (:127-172), for every other case (the "xla" engine,
-    the "highest" precision, the diagonal and separable operators): complex
-    coefficients from the SHT's `__call__`, complex_ops' contraction of the
-    operator, the inverse SHT.
+    the "highest" precision, the diagonal and separable operators, the FFT
+    transforms of the planar FNO): complex coefficients from the transform's
+    `__call__`, complex_ops' contraction of the operator, the inverse
+    transform.
 """
 
 import math
@@ -27,6 +29,15 @@ from makani_tpu_torch.ops.complex_ops import (
     get_contract_fun,
     view_as_complex,
 )
+
+
+def scale_residual(fwd_t, inv_t):
+    """True when the filter's residual must be resynthesised on the output
+    grid: the transforms differ in shape, or in grid where the forward one
+    has a grid (an SHT; FFT transforms have none), as makani_tpu decides."""
+    if (fwd_t.nlat, fwd_t.nlon) != (inv_t.nlat, inv_t.nlon):
+        return True
+    return hasattr(fwd_t, "grid") and fwd_t.grid != getattr(inv_t, "grid", None)
 
 
 class SpectralConv(nn.Module):
@@ -56,8 +67,10 @@ class SpectralConv(nn.Module):
         self.separable = separable
         self.stacked_weight = operator_type == "dhconv" and not separable
         fwd_t, inv_t = forward_transform, inverse_transform
-        self.scale_residual = ((fwd_t.nlat, fwd_t.nlon, fwd_t.grid)
-                               != (inv_t.nlat, inv_t.nlon, inv_t.grid))
+        self.scale_residual = scale_residual(fwd_t, inv_t)
+        # the stacked-real pipeline runs on SHT transforms; FFT coefficients
+        # (the planar FNO) always take the complex branch
+        self.sht = hasattr(fwd_t, "analysis_stacked") and hasattr(inv_t, "synthesis_stacked")
 
         modes_lat, modes_lon = inv_t.lmax, inv_t.mmax
         # N(0,1) * sqrt(gain / C), with the l = 0 row scaled by sqrt(2)
@@ -102,7 +115,7 @@ class SpectralConv(nn.Module):
         dtype = x.dtype
         residual = x
 
-        if self.stacked_weight and sht._stacked_engine_active():
+        if self.stacked_weight and self.sht and sht._stacked_engine_active():
             z = fwd_t.analysis_stacked(x)                     # (2*mmax, B, C, L)
             if self.scale_residual:
                 residual = inv_t.synthesis_stacked(z).to(dtype)
@@ -151,8 +164,7 @@ class SpectralAttention(nn.Module):
         self.spectral_layers = spectral_layers
         self.bias = bias
         fwd_t, inv_t = forward_transform, inverse_transform
-        self.scale_residual = ((fwd_t.nlat, fwd_t.nlon, fwd_t.grid)
-                               != (inv_t.nlat, inv_t.nlon, inv_t.grid))
+        self.scale_residual = scale_residual(fwd_t, inv_t)
         modes_lat = fwd_t.lmax
         hidden = int(hidden_size_factor * in_channels)
         scale_out = math.sqrt(gain / in_channels)

@@ -1,8 +1,9 @@
 """Model registry: name -> network class, wrapped in a stepper.
 
-Counterpart of makani_tpu/models/model_registry.py for the SFNO and the
-DebugNet of the pipeline self-test. The other families (FNO, AFNO, ViT) and
-file-based registration are not ported yet (ROADMAP, Queue 1 item 8).
+Counterpart of makani_tpu/models/model_registry.py for the SFNO, the planar
+FNO and the DebugNet of the pipeline self-test. The other families (AFNO,
+ViT) and file-based registration are not ported yet (ROADMAP, Queue 1 item
+8).
 
 `update_channel_params` ports the channel math of makani_tpu's
 Trainer._update_parameters (utils/trainer.py:291-335): the channel counts and
@@ -16,14 +17,18 @@ import inspect
 import torch
 
 from makani_tpu_torch.models.networks.debug import DebugNet
-from makani_tpu_torch.models.networks.sfnonet import SphericalFourierNeuralOperatorNet
+from makani_tpu_torch.models.networks.sfnonet import (
+    FourierNeuralOperatorNet,
+    SphericalFourierNeuralOperatorNet,
+)
 from makani_tpu_torch.models.preprocessor import Preprocessor2D
 from makani_tpu_torch.models.stepper import MultiStepWrapper, SingleStepWrapper
 from makani_tpu_torch.utils.device import resolve_device
 from makani_tpu_torch.utils.features import get_auxiliary_channels
 from makani_tpu_torch.utils.yparams import ParamsBase
 
-_model_registry = {"SFNO": SphericalFourierNeuralOperatorNet, "DebugNet": DebugNet}
+_model_registry = {"SFNO": SphericalFourierNeuralOperatorNet, "FNO": FourierNeuralOperatorNet,
+                   "DebugNet": DebugNet}
 
 
 def list_models():
@@ -96,8 +101,20 @@ def update_channel_params(params, n_channels=None, dataset=None):
     return params
 
 
+def _init_parameters(cls):
+    """The keyword parameters of cls.__init__, with those of the base classes
+    it passes **kwargs on to."""
+    names = set()
+    for klass in cls.__mro__:
+        params = inspect.signature(klass.__init__).parameters
+        names |= {n for n, p in params.items() if p.kind != p.VAR_KEYWORD}
+        if not any(p.kind == p.VAR_KEYWORD for p in params.values()):
+            break
+    return names
+
+
 def _filter_kwargs(cls, kwargs):
-    valid = set(inspect.signature(cls.__init__).parameters) - {"self", "device", "generator"}
+    valid = _init_parameters(cls) - {"self", "device", "generator"}
     return {k: tuple(v) if isinstance(v, list) else v
             for k, v in kwargs.items() if k in valid}
 
@@ -110,8 +127,8 @@ def get_model(params, device=None, generator=None):
     params = as_params(params)
     device = resolve_device(device)
     if params.nettype not in _model_registry:
-        raise NotImplementedError(f"model {params.nettype!r} is not ported yet; "
-                                  f"ported: {list_models()}")
+        raise NotImplementedError(f"model {params.nettype!r} is not ported yet (ROADMAP: Queue 1 "
+                                  f"item 8); ported: {list_models()}")
     if generator is None:
         generator = torch.Generator(device=device)
         generator.manual_seed(int(params.get("global_seed", 333)))

@@ -1,4 +1,7 @@
 from makani_tpu_torch.models.networks.debug import DebugNet
-from makani_tpu_torch.models.networks.sfnonet import SphericalFourierNeuralOperatorNet
+from makani_tpu_torch.models.networks.sfnonet import (
+    FourierNeuralOperatorNet,
+    SphericalFourierNeuralOperatorNet,
+)
 
-__all__ = ["DebugNet", "SphericalFourierNeuralOperatorNet"]
+__all__ = ["DebugNet", "FourierNeuralOperatorNet", "SphericalFourierNeuralOperatorNet"]

@@ -1,19 +1,38 @@
-"""Spherical Fourier Neural Operator network.
+"""Spherical and planar Fourier Neural Operator networks.
 
-Counterpart of makani_tpu/models/networks/sfnonet.py: encoder -> blocks
-(spectral filter, instance norm, GELU, MLP, linear outer skip) -> decoder,
-plus the big-skip residual transform. The blocks run as a plain loop.
-Activation checkpointing follows makani_tpu's levels: checkpointing >= 1
-recomputes the encoder and decoder in backward, >= 2 the block MLPs, >= 3
-whole blocks (torch.utils.checkpoint, non-reentrant). The linear filter
-takes the dhconv and diagonal operators, separable or not; the non-linear
-filter (SpectralAttention) the diagonal and l-dependant ones. Dropout in
-training: after the encoder (pos_drop_rate), in the blocks' MLPs
+Counterpart of makani_tpu/models/networks/sfnonet.py: encoder -> position
+embedding -> blocks (spectral filter, norm, GELU, MLP, linear outer skip) ->
+decoder, plus the big-skip residual transform. `FourierNeuralOperatorNet` is
+the same network on the truncated 2D FFT pair (ops/fft.py) instead of the
+SHT pair. Activation checkpointing follows makani_tpu's levels:
+checkpointing >= 1 recomputes the encoder and decoder in backward, >= 2 the
+block MLPs, >= 3 whole blocks (torch.utils.checkpoint, non-reentrant). The
+linear filter takes the dhconv and diagonal operators, separable or not, and
+the factorized weights of models/common/factorizations.py; the non-linear
+filter (SpectralAttention) the diagonal and l-dependant ones. Norms:
+instance norm, layer norm (over channels) or none. Position embeddings:
+"direct" (a learned (1, C, H, W) field) or "frequency" (learned real and
+imaginary coefficients under makani_tpu's triangular masks, synthesised by
+the output transform).
+
+scan_layers (num_layers > 2, repeat_layers 1): the middle blocks 1 ... n-2
+are makani_tpu's flax scan. Each of their weights is one parameter with a
+leading layer axis (``scan_blocks.block.<name>``, makani_tpu's
+``scan_blocks/block/<name>``), so the optimizer sees one leaf per stacked
+weight as makani_tpu's does (the salts and flat indices of the stochastic
+rounding, LAMB's trust ratio and Adafactor's factored statistics are taken
+over the stacked leaf). A loop runs the layers, each through one template
+block with the layer's slices of the stacked weights
+(torch.func.functional_call), always recomputed in backward (the scan body
+is nn.remat), at path_drop_rate mean(dpr[1:-1]); each layer draws its own
+dropout masks (its own sites in layers.drop_mask's numbering). The first and
+last blocks run outside the scan, without block-level recomputation, as in
+makani_tpu.
+
+Dropout in training: after the encoder (pos_drop_rate), in the blocks' MLPs
 (mlp_drop_rate, one draw per feature map), in the non-linear filter and as
 stochastic depth (path_drop_rate, linspace(0, rate, num_layers) over the
 blocks); the sites are numbered in registration order (layers.drop_mask).
-Not ported yet (ROADMAP, Queue 1 item 6): scan_layers, position embeddings,
-factorized filters and the FFT (planar FNO) transforms.
 """
 
 import math
@@ -31,36 +50,39 @@ from makani_tpu_torch.models.common import (
     Dropout,
     EncoderDecoder,
     InstanceNorm2d,
+    LayerNorm2d,
     SpectralAttention,
     SpectralConv,
     get_activation,
 )
+from makani_tpu_torch.models.common.factorizations import FactorizedSpectralConv
 from makani_tpu_torch.models.common.layers import normal_param, number_dropout_sites, remat
-from makani_tpu_torch.ops import InverseRealSHT, RealSHT
+from makani_tpu_torch.ops import InverseRealFFT2, InverseRealSHT, RealFFT2, RealSHT
 
 
 @lru_cache(maxsize=None)
 def get_transform_pair(kind, nlat, nlon, lmax, mmax, grid, device="cpu"):
     """Cached (forward, inverse) spectral transforms per shape, modes, grid and
-    device; transforms of one grid share one device table."""
+    device; transforms of one grid share one device table. "fft" takes no
+    grid and no table."""
     if kind == "sht":
         return (
             RealSHT(nlat, nlon, lmax=lmax, mmax=mmax, grid=grid, device=device),
             InverseRealSHT(nlat, nlon, lmax=lmax, mmax=mmax, grid=grid, device=device),
         )
-    raise NotImplementedError(f"spectral transform {kind!r} is not ported yet")
-
-
-def _not_ported(what):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP: Queue 1 item 6)")
+    if kind == "fft":
+        return (RealFFT2(nlat, nlon, lmax=lmax, mmax=mmax),
+                InverseRealFFT2(nlat, nlon, lmax=lmax, mmax=mmax))
+    raise ValueError("Unknown spectral transform")
 
 
 class SpectralFilterLayer(nn.Module):
     """The spectral filter under the name `filter`: SpectralAttention for
-    filter_type "non-linear", SpectralConv for "linear"."""
+    filter_type "non-linear", FactorizedSpectralConv for "linear" with a
+    factorization, SpectralConv for "linear"."""
 
     def __init__(self, forward_transform, inverse_transform, embed_dim, filter_type="linear",
-                 operator_type="diagonal", hidden_size_factor=1.0, factorization=None,
+                 operator_type="diagonal", hidden_size_factor=1.0, factorization=None, rank=1.0,
                  separable=False, complex_activation="real", spectral_layers=1, bias=False,
                  drop_rate=0.0, gain=1.0, device="cpu", generator=None):
         super().__init__()
@@ -75,7 +97,11 @@ class SpectralFilterLayer(nn.Module):
         if filter_type != "linear":
             raise NotImplementedError(f"filter_type {filter_type}")
         if factorization is not None:
-            raise _not_ported(f"factorized filters ({factorization!r})")
+            self.filter = FactorizedSpectralConv(
+                forward_transform, inverse_transform, embed_dim, embed_dim,
+                operator_type=operator_type, rank=rank, factorization=factorization,
+                separable=separable, bias=bias, gain=gain, device=device, generator=generator)
+            return
         self.filter = SpectralConv(forward_transform, inverse_transform, embed_dim, embed_dim,
                                    operator_type=operator_type, separable=separable, bias=bias,
                                    gain=gain, device=device, generator=generator)
@@ -94,8 +120,9 @@ class FourierNeuralOperatorBlock(nn.Module):
     def __init__(self, forward_transform, inverse_transform, embed_dim, filter_type="linear",
                  operator_type="diagonal", mlp_ratio=2.0, mlp_drop_rate=0.0,
                  path_drop_rate=0.0, act_name="gelu", norm_layer="instance_norm",
-                 factorization=None, separable=False, use_mlp=False, complex_activation="real",
-                 spectral_layers=1, bias=False, checkpointing=0, device="cpu", generator=None):
+                 factorization=None, rank=1.0, separable=False, use_mlp=False,
+                 complex_activation="real", spectral_layers=1, bias=False, checkpointing=0,
+                 device="cpu", generator=None):
         super().__init__()
         self.act = get_activation(act_name)
         # gain bookkeeping of the reference init scheme: the filter feeds an
@@ -103,7 +130,7 @@ class FourierNeuralOperatorBlock(nn.Module):
         self.filter_layer = SpectralFilterLayer(
             forward_transform, inverse_transform, embed_dim, filter_type=filter_type,
             operator_type=operator_type, hidden_size_factor=mlp_ratio,
-            factorization=factorization, separable=separable,
+            factorization=factorization, rank=rank, separable=separable,
             complex_activation=complex_activation, spectral_layers=spectral_layers, bias=bias,
             drop_rate=path_drop_rate, gain=1.0 if act_name == "identity" else 2.0,
             device=device, generator=generator)
@@ -121,9 +148,11 @@ class FourierNeuralOperatorBlock(nn.Module):
     def _norm(norm_layer, embed_dim, device):
         if norm_layer == "instance_norm":
             return InstanceNorm2d(embed_dim, eps=1e-6, affine=True, device=device)
+        if norm_layer == "layer_norm":
+            return LayerNorm2d(embed_dim, eps=1e-6, affine=True, device=device)
         if norm_layer == "none":
             return nn.Identity()
-        raise _not_ported(f"normalization {norm_layer!r}")
+        raise NotImplementedError(f"normalization {norm_layer} not implemented")
 
     def forward(self, x, deterministic=True):
         x, residual = self.filter_layer(x, deterministic)
@@ -132,6 +161,48 @@ class FourierNeuralOperatorBlock(nn.Module):
             x = self.mlp(x, deterministic=deterministic)
         x = self.drop_path(self.norm1(x), deterministic=deterministic)
         return x + self.outer_skip(residual)
+
+
+class ScannedBlocks(nn.Module):
+    """makani_tpu's nn.scan over `length` identical blocks: `block` is the
+    template, and each of its parameters holds every layer's weight along a
+    leading layer axis. Layer i runs the template on the i-th slices, always
+    recomputed in backward; its dropout sites are the template's, offset by
+    i times their count (`number_sites`)."""
+
+    def __init__(self, length, make_block):
+        super().__init__()
+        self.length = length
+        layers = [make_block() for _ in range(length)]
+        self.block = layers[0]
+        for name, _ in list(self.block.named_parameters()):
+            owner, leaf = self._owner(name)
+            stacked = torch.stack([dict(b.named_parameters())[name].detach() for b in layers])
+            setattr(owner, leaf, nn.Parameter(stacked))
+        self.sites = [m for m in self.block.modules() if isinstance(m, (Dropout, DropPath))]
+        self.site_base = 0
+
+    def _owner(self, name):
+        *path, leaf = name.split(".")
+        return self.block.get_submodule(".".join(path)), leaf
+
+    def number_sites(self, base):
+        """Take sites base, base + 1, ...: the template's count for each
+        layer; returns the number taken."""
+        self.site_base = base
+        return len(self.sites) * self.length
+
+    def _layer(self, x, i, deterministic):
+        for j, m in enumerate(self.sites):
+            m.site = self.site_base + i * len(self.sites) + j
+        weights = {name: p[i] for name, p in self.block.named_parameters()}
+        return torch.func.functional_call(self.block, weights, (x,),
+                                          {"deterministic": deterministic})
+
+    def forward(self, x, deterministic=True):
+        for i in range(self.length):
+            x = remat(self._layer, x, i, deterministic)
+        return x
 
 
 class SphericalFourierNeuralOperatorNet(nn.Module):
@@ -151,10 +222,6 @@ class SphericalFourierNeuralOperatorNet(nn.Module):
                  complex_activation="real", spectral_layers=3, bias=False, checkpointing=0,
                  scan_layers=False, device="cpu", generator=None):
         super().__init__()
-        if pos_embed not in ("none", "None", None):
-            raise _not_ported(f"pos_embed {pos_embed!r}")
-        if scan_layers and num_layers > 2 and repeat_layers == 1:
-            raise _not_ported("scan_layers")
         self.checkpointing = checkpointing
         self.inp_shape = tuple(inp_shape)
         self.out_shape = tuple(out_shape)
@@ -180,20 +247,44 @@ class SphericalFourierNeuralOperatorNet(nn.Module):
         self.encoder = EncoderDecoder(encoder_layers, inp_chans, embed_dim,
                                       int(encoder_ratio * embed_dim), self.act, device=device,
                                       generator=generator)
+        self.pos_embed_kind = pos_embed if pos_embed not in ("none", "None", None) else None
+        if self.pos_embed_kind == "direct":
+            self.pos_embed = self._trunc_normal((1, embed_dim, *self.inp_shape), device,
+                                                generator)
+        elif self.pos_embed_kind == "frequency":
+            lmax, mmax = self.itrans_up.lmax, self.itrans_up.mmax
+            self.pos_embed_r = self._trunc_normal((1, embed_dim, lmax, mmax), device, generator,
+                                                  diagonal=0)
+            self.pos_embed_c = self._trunc_normal((1, embed_dim, lmax, mmax - 1), device,
+                                                  generator, diagonal=-1)
+        elif self.pos_embed_kind is not None:
+            raise ValueError("Unknown position embedding type")
         self.pos_drop = Dropout(pos_drop_rate)
+
         dpr = np.linspace(0, path_drop_rate, num_layers)
-        self.blocks = nn.ModuleList([
-            FourierNeuralOperatorBlock(
-                self.trans_down if i == 0 else trans,
-                self.itrans_up if i == num_layers - 1 else itrans,
-                embed_dim, filter_type=filter_type, operator_type=operator_type,
-                mlp_ratio=mlp_ratio, mlp_drop_rate=mlp_drop_rate,
-                path_drop_rate=float(dpr[i]), act_name=activation_function,
-                norm_layer=normalization_layer, factorization=factorization,
-                separable=separable, use_mlp=use_mlp, complex_activation=complex_activation,
-                spectral_layers=spectral_layers, bias=bias, checkpointing=checkpointing,
-                device=device, generator=generator)
-            for i in range(num_layers)])
+
+        def block(fwd_t, inv_t, rate):
+            return FourierNeuralOperatorBlock(
+                fwd_t, inv_t, embed_dim, filter_type=filter_type, operator_type=operator_type,
+                mlp_ratio=mlp_ratio, mlp_drop_rate=mlp_drop_rate, path_drop_rate=rate,
+                act_name=activation_function, norm_layer=normalization_layer,
+                factorization=factorization, rank=rank, separable=separable, use_mlp=use_mlp,
+                complex_activation=complex_activation, spectral_layers=spectral_layers,
+                bias=bias, checkpointing=checkpointing, device=device, generator=generator)
+
+        first = block(self.trans_down, itrans if num_layers > 1 else self.itrans_up,
+                      float(dpr[0]))
+        self.scan = scan_layers and num_layers > 2 and repeat_layers == 1
+        if self.scan:
+            mid_rate = float(np.mean(dpr[1:-1]))
+            self.blocks = nn.ModuleDict({"0": first})
+            self.scan_blocks = ScannedBlocks(num_layers - 2,
+                                             lambda: block(trans, itrans, mid_rate))
+            self.blocks[str(num_layers - 1)] = block(trans, self.itrans_up, float(dpr[-1]))
+        else:
+            self.blocks = nn.ModuleList([first] + [
+                block(trans, self.itrans_up if i == num_layers - 1 else itrans, float(dpr[i]))
+                for i in range(1, num_layers)])
         self.decoder = EncoderDecoder(encoder_layers, embed_dim, out_chans,
                                       int(decoder_ratio * embed_dim), self.act,
                                       gain=0.5 if big_skip else 1.0, device=device,
@@ -203,6 +294,38 @@ class SphericalFourierNeuralOperatorNet(nn.Module):
                 (out_chans, inp_chans), math.sqrt(0.5 / inp_chans), device, generator)
         self.n_dropout_sites = number_dropout_sites(self)
 
+    @staticmethod
+    def _trunc_normal(shape, device, generator, diagonal=None):
+        """flax's truncated_normal(stddev=0.02): N(0, 1) truncated to [-2, 2],
+        times 0.02; zero above the `diagonal` of the last two axes when
+        given (makani_tpu's tril_init)."""
+        w = torch.empty(shape, device=device)
+        nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        w = 0.02 * w
+        if diagonal is not None:
+            w = w * torch.ones(shape[-2:], dtype=torch.bool, device=device).tril(diagonal)
+        return nn.Parameter(w)
+
+    def _position_embedding(self):
+        if self.pos_embed_kind == "direct":
+            return self.pos_embed
+        # the imaginary part of the m = 0 column is zero
+        cpad = nn.functional.pad(self.pos_embed_c, (1, 0))
+        return self.itrans_up(torch.complex(self.pos_embed_r, cpad))
+
+    def _run_blocks(self, x, deterministic):
+        if self.scan:
+            x = self.blocks["0"](x, deterministic=deterministic)
+            x = self.scan_blocks(x, deterministic)
+            return self.blocks[str(self.scan_blocks.length + 1)](x, deterministic=deterministic)
+        for _ in range(self.repeat_layers):
+            for blk in self.blocks:
+                if self.checkpointing >= 3:
+                    x = remat(blk, x, deterministic)
+                else:
+                    x = blk(x, deterministic=deterministic)
+        return x
+
     def forward(self, x, deterministic=True):
         if self.big_skip:
             if self.out_shape != self.inp_shape:
@@ -210,16 +333,21 @@ class SphericalFourierNeuralOperatorNet(nn.Module):
             else:
                 residual = x
         x = remat(self.encoder, x) if self.checkpointing >= 1 else self.encoder(x)
+        if self.pos_embed_kind is not None:
+            x = x + self._position_embedding().to(x.dtype)
         x = self.pos_drop(x, deterministic)
-        for _ in range(self.repeat_layers):
-            for blk in self.blocks:
-                if self.checkpointing >= 3:
-                    x = remat(blk, x, deterministic)
-                else:
-                    x = blk(x, deterministic=deterministic)
+        x = self._run_blocks(x, deterministic)
         x = remat(self.decoder, x) if self.checkpointing >= 1 else self.decoder(x)
         if self.big_skip:
             b, c, h, w = residual.shape
             rw = self.residual_transform.to(residual.dtype).expand(b, -1, -1)
             x = x + torch.bmm(rw, residual.reshape(b, c, h * w)).view(b, -1, h, w)
         return x
+
+
+class FourierNeuralOperatorNet(SphericalFourierNeuralOperatorNet):
+    """The planar FNO: the SFNO on the truncated 2D FFT pair (makani_tpu's
+    FourierNeuralOperatorNet); the same arguments."""
+
+    def __init__(self, spectral_transform="fft", **kwargs):
+        super().__init__(spectral_transform=spectral_transform, **kwargs)

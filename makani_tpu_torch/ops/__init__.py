@@ -1,3 +1,4 @@
+from makani_tpu_torch.ops.fft import InverseRealFFT2, RealFFT2
 from makani_tpu_torch.ops.sht import InverseRealSHT, RealSHT
 
-__all__ = ["RealSHT", "InverseRealSHT"]
+__all__ = ["RealSHT", "InverseRealSHT", "RealFFT2", "InverseRealFFT2"]

@@ -1,5 +1,5 @@
-"""Fused Adam(W) update with bf16 moments under stochastic rounding, as a
-Hopper kernel.
+"""Fused Adam(W) update with bf16 moments under stochastic rounding (or
+float32, or float16 moments rounded to nearest), as a Hopper kernel.
 
 Counterpart of makani_tpu/ops/pallas_adam.py. `fused_adam_apply` updates
 every parameter leaf and its two moments in one pass per leaf
@@ -18,8 +18,11 @@ scale_by_adam_lowmem + ``p - lr*u`` as XLA compiles them for the CPU:
   nu' = fma(g*g, 1-b2, b2*nu)
   u   = mu' / (bc1 * (sqrt(nu'/bc2) + eps))     (mu'/bc1)/(...) folded
   p'  = fma(-u, lr, p*(1 - lr*wd))
-with every other operation rounded once in float32, the (1-b)-style constants
-rounded from Python floats to float32 (JAX's weak-typed scalars), and the
+(float16 moments: stored as fma(mu, b1, (1-b1)*g) and fma(nu, b2,
+(1-b2)*(g*g)), u taken from the first form of mu', as XLA's CPU code
+contracts that graph), with every other operation rounded once in float32,
+the (1-b)-style constants rounded from Python floats to float32 (JAX's
+weak-typed scalars), and the
 moments stored through the counter-hash dither keyed by the element's flat
 index in makani_tpu's layout of the leaf (utils/param_layout.py) and a salt
 per (step, leaf, moment) keyed by the leaf's position in jax.tree.flatten
@@ -128,16 +131,40 @@ def jax_flat_index(key, shape, device):
     return idx.expand(tuple(shape))
 
 
+def kernel_index_dims(key, shape):
+    """The leaf's sizes and makani_tpu-layout index strides with size-1
+    dimensions dropped and neighbours merged where the outer one strides by
+    the inner one's extent: the same flat indices in as few dimensions as
+    they take (the stacked dhconv weight (..., 2, L, C, O) in 3 or 4, every
+    other leaf in 1), within the kernel's four."""
+    dims = [(int(n), int(j)) for n, j in zip(shape, jax_index_strides(key, shape)) if n != 1]
+    merged = []
+    for n, j in dims:
+        if merged and merged[-1][1] == j * n:
+            merged[-1] = (merged[-1][0] * n, j)
+        else:
+            merged.append((n, j))
+    merged = merged or [(1, 1)]
+    return tuple(n for n, _ in merged), tuple(j for _, j in merged)
+
+
 def _f32(v, device):
     return torch.tensor(np.float32(v), device=device)
 
 
 def adam_moments(g, mu, nu, b1, b2):
-    """float32 mu', nu' of one leaf from float32 g and the stored moments."""
+    """float32 (mu', nu', mu'') of one leaf from float32 g and the stored
+    moments: mu' and nu' to store, mu'' for the direction. They are
+    fma(g, 1-b1, b1*mu), fma(g*g, 1-b2, b2*nu) and mu'' = mu', except for
+    float16 moments, where XLA's CPU code contracts the other product for
+    the stored moments, fma(mu, b1, (1-b1)*g) and fma(nu, b2, (1-b2)*(g*g)),
+    and computes the direction's mu'' apart, as fma(g, 1-b1, b1*mu)."""
     dev = g.device
-    m = fma(g, _f32(1.0 - b1, dev), _f32(b1, dev) * mu.float())
-    v = fma(g * g, _f32(1.0 - b2, dev), _f32(b2, dev) * nu.float())
-    return m, v
+    a1, a2, b1, b2 = (_f32(v, dev) for v in (1.0 - b1, 1.0 - b2, b1, b2))
+    m = fma(g, a1, b1 * mu.float())
+    if mu.dtype == torch.float16:
+        return fma(mu.float(), b1, a1 * g), fma(nu.float(), b2, a2 * (g * g)), m
+    return m, fma(g * g, a2, b2 * nu.float()), m
 
 
 def adam_direction(m, v, bc1, bc2, eps):
@@ -146,7 +173,10 @@ def adam_direction(m, v, bc1, bc2, eps):
 
 
 def store_moment(dst, value, key, salt, stochastic):
-    """Write a float32 moment into `dst` (float32 or bf16), in place."""
+    """Write a float32 moment into `dst` (float32, bf16 or float16), in place:
+    stochastically rounded for bf16 under `stochastic`, else rounded to
+    nearest (float16 always, subnormals kept, as XLA's CPU conversion and
+    makani_tpu's _stochastic_round give it)."""
     if dst.dtype == torch.bfloat16 and stochastic:
         value = stochastic_round_bf16(value, jax_flat_index(key, value.shape, value.device), salt)
     dst.copy_(value)
@@ -157,11 +187,15 @@ def store_moment(dst, value, key, salt, stochastic):
 # --------------------------------------------------------------------------
 
 def _moment_kind(mu, stochastic):
+    """The kernel's moment kind: 0 float32, 1 bf16 to nearest, 2 bf16
+    stochastically, 3 float16 to nearest (whatever `stochastic` says)."""
     if mu.dtype == torch.float32:
         return 0
     if mu.dtype == torch.bfloat16:
         return 2 if stochastic else 1
-    raise TypeError(f"fused Adam takes float32 or bf16 moments, got {mu.dtype}")
+    if mu.dtype == torch.float16:
+        return 3
+    raise TypeError(f"fused Adam takes float32, bf16 or float16 moments, got {mu.dtype}")
 
 
 def global_norm(tensors):
@@ -209,8 +243,8 @@ def _leaf_plain(key, p, g, mu, nu, lr, bc1, bc2, b1, b2, eps, wd, salts, stochas
         g = g.float()
         if norm is not None:
             g = clip_by_norm(g, norm, max_norm)
-        m, v = adam_moments(g, mu, nu, b1, b2)
-        u = adam_direction(m, v, bc1, bc2, eps)
+        m, v, m_dir = adam_moments(g, mu, nu, b1, b2)
+        u = adam_direction(m_dir, v, bc1, bc2, eps)
         dev = p.device
         if direction is not None:
             direction.copy_(fma(p, _f32(wd, dev), u))
@@ -238,10 +272,11 @@ def _leaf_kernel(key, p, g, mu, nu, lr, bc1, bc2, b1, b2, eps, wd, salts, stocha
                              or norm.numel() != 1):
         raise ValueError(f"{key}: the global norm must be one float32 on the leaf's device")
     n = p.numel()
-    if n >= 2 ** 32 or p.dim() > 4:
+    sizes, strides = kernel_index_dims(key, p.shape)
+    if n >= 2 ** 32 or len(sizes) > 4:
         raise ValueError(f"{key}: leaf of shape {tuple(p.shape)} exceeds the kernel's indexing")
-    shape = (1,) * (4 - p.dim()) + tuple(p.shape)
-    strides = (0,) * (4 - p.dim()) + jax_index_strides(key, p.shape)
+    shape = (1,) * (4 - len(sizes)) + sizes
+    strides = (0,) * (4 - len(sizes)) + strides
     decay = np.float32(1.0) - np.float32(lr) * np.float32(wd)
     mode = (1 if norm is not None else 0) | (2 if direction is not None else 0)
     launch = kernels.launcher("fused_adam")

@@ -14,8 +14,8 @@ contraction runs (`set_coeff_engine`):
 Conventions (as makani_tpu, parity with torch-harmonics):
   - analysis:  c_lm = sum_k w_k P-hat_l^m(theta_k) * (2 pi / nlon) sum_j x e^{-im phi_j}
   - synthesis: x(theta_k, phi_j) = Re sum_m fac_m e^{im phi} sum_l c_lm P-hat_l^m
-  - "ortho" normalization, Condon-Shortley phase, theta in [0, pi]
-    (north pole first, ERA5 ordering).
+  - "ortho" normalization, theta in [0, pi] (north pole first, ERA5
+    ordering), the Condon-Shortley phase (-1)^m unless csphase=False.
 
 The quadrature weights multiply the DFT output before the Legendre
 contraction, so one (mmax, lmax, nlat) table serves both directions of a grid.
@@ -115,16 +115,16 @@ def _theta_weights(grid, nlat):
 
 
 @lru_cache(maxsize=None)
-def _get_pct(grid, nlat, lmax, mmax):
+def _get_pct(grid, nlat, lmax, mmax, csphase=True):
     """Shared (mmax, lmax, nlat) Legendre table of a grid (float32)."""
     tq, _ = _theta_weights(grid, nlat)
-    pct = precompute_legpoly(mmax, lmax, tq, norm="ortho", csphase=True)
+    pct = precompute_legpoly(mmax, lmax, tq, norm="ortho", csphase=csphase)
     return np.ascontiguousarray(pct, dtype=np.float32)
 
 
 @lru_cache(maxsize=None)
-def _pct_tensor(grid, nlat, lmax, mmax, device):
-    return torch.from_numpy(_get_pct(grid, nlat, lmax, mmax)).to(device)
+def _pct_tensor(grid, nlat, lmax, mmax, csphase, device):
+    return torch.from_numpy(_get_pct(grid, nlat, lmax, mmax, csphase)).to(device)
 
 
 @lru_cache(maxsize=None)
@@ -146,8 +146,6 @@ class RealSHT:
 
     def __init__(self, nlat, nlon, lmax=None, mmax=None, grid="lobatto", csphase=True,
                  device="cpu"):
-        if not csphase:
-            raise NotImplementedError("only the Condon-Shortley phase convention is ported")
         self.nlat = nlat
         self.nlon = nlon
         self.grid = grid
@@ -156,7 +154,8 @@ class RealSHT:
         self.device = torch.device(device)
         _, wq = _theta_weights(grid, nlat)
         self.wq = torch.as_tensor(wq, dtype=torch.float32).to(self.device)
-        self.pct = _pct_tensor(grid, nlat, self.lmax, self.mmax, self.device)
+        self.csphase = csphase
+        self.pct = _pct_tensor(grid, nlat, self.lmax, self.mmax, csphase, self.device)
         self.dft = _rdft_tensor(nlon, self.mmax, self.device)
 
     def _dft(self, x):
@@ -187,8 +186,6 @@ class InverseRealSHT:
 
     def __init__(self, nlat, nlon, lmax=None, mmax=None, grid="lobatto", csphase=True,
                  device="cpu"):
-        if not csphase:
-            raise NotImplementedError("only the Condon-Shortley phase convention is ported")
         self.nlat = nlat
         self.nlon = nlon
         self.grid = grid
@@ -196,7 +193,8 @@ class InverseRealSHT:
         self.mmax = mmax or self.nlon // 2 + 1
         self.device = torch.device(device)
         # ortho normalization: the synthesis table equals the analysis table
-        self.pct = _pct_tensor(grid, nlat, self.lmax, self.mmax, self.device)
+        self.csphase = csphase
+        self.pct = _pct_tensor(grid, nlat, self.lmax, self.mmax, csphase, self.device)
         self.dft = _irdft_tensor(nlon, self.mmax, self.device)
 
     def _idft(self, o, batch_shape):

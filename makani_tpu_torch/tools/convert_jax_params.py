@@ -15,6 +15,13 @@
                                             weights, biases b_<l> and wout as
                                             real pairs, act_<l>/bias: unchanged)
   model/residual_transform (O, I)        -> model.residual_transform
+  model/scan_blocks/block/SpectralFilterLayer_0/filter/weight (n, C, O, L, 2)
+                                         -> model.scan_blocks.block.filter_layer.filter.weight
+                                            (n, 2, L, C, O): scan_layers' stacked
+                                            leaves keep their leading layer axis
+  model/blocks_3/SpectralFilterLayer_0/filter/weight/factor_0 (C, R, 2)
+                                         -> model.blocks.3.filter_layer.filter.weight.factor_0
+                                            (a factorized filter's factors, unchanged)
 
 and copies them into `model` (a stepper from get_model). Every parameter of
 the model must be covered and every given array used; otherwise it raises.

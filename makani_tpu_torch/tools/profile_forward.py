@@ -3,8 +3,11 @@ the GPU.
 
     python3 -m makani_tpu_torch.tools.profile_forward [--train] [--engine kernel|xla]
                                                       [--amp] [--top 15] [--trace PATH]
+                                                      [--yaml_config Y --config NAME]
+                                                      [--memory]
 
-Builds flagship_synth_drive_bare at full width (random weights from a seed),
+Builds flagship_synth_drive_bare (or the config NAME of Y: 73 channels where
+it names none) at full width (random weights from a seed),
 warms up, then runs one forward (or, with --train, one step of the Trainer on
 a resident synthetic batch: forward, backward and the fused Adam update, at
 checkpointing 0) under torch.profiler (CPU and CUDA activities), on the
@@ -19,7 +22,10 @@ cuBLAS products by the operator that launched them, those launched inside an
 einsum apart, copies, and the rest: elementwise and reductions), the peak
 device memory of the profiled run, then PyTorch's table by operator and
 kernel. --trace PATH keeps the trace at PATH (default
-build/profile_trace.json).
+build/profile_trace.json). --memory also records the device memory each
+operator allocates and does not free within itself, and prints the
+operators by that sum: what the run keeps (saved for backward, or
+gradients).
 """
 
 import argparse
@@ -113,6 +119,10 @@ def main(argv=None):
     ap.add_argument("--amp", action="store_true", help="bf16 AMP at precision 'default'")
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--trace", type=Path, help="write the Chrome trace to this file")
+    ap.add_argument("--yaml_config", default=str(ROOT / "config" / "sfnonet.yaml"))
+    ap.add_argument("--config", default="flagship_synth_drive_bare")
+    ap.add_argument("--memory", action="store_true",
+                    help="print the operators by the device memory they keep")
     args = ap.parse_args(argv)
 
     import torch
@@ -127,9 +137,7 @@ def main(argv=None):
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    params = update_channel_params(
-        YParams(str(ROOT / "config" / "sfnonet.yaml"), "flagship_synth_drive_bare"),
-        n_channels=73)
+    params = update_channel_params(YParams(args.yaml_config, args.config), n_channels=73)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     sht.set_coeff_engine(args.engine)
@@ -137,8 +145,9 @@ def main(argv=None):
     if args.train:
         from makani_tpu_torch.utils.trainer import Trainer
         params.update_params(dict(enable_synthetic_data=True, n_train_samples_per_epoch=1,
+                                  batch_size=1,
                                   optimizer_fused=True, skip_validation=True,
-                                  save_checkpoint="none", checkpointing=0,
+                                  save_checkpoint="none", checkpointing=0, log_video=0,
                                   coefficient_engine=args.engine,
                                   amp_mode="bf16" if args.amp else "none"))
         trainer = Trainer(params, device=dev)
@@ -162,7 +171,8 @@ def main(argv=None):
     run()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 profile_memory=args.memory) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -176,6 +186,9 @@ def main(argv=None):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)", end=": ")
     summarize(trace, wall_ms)
     print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=args.top))
+    if args.memory:
+        print(prof.key_averages().table(sort_by="self_device_memory_usage",
+                                        row_limit=args.top))
     return 0
 
 

@@ -15,9 +15,9 @@ layout of its leaf, and the same per-leaf salts in jax.tree.flatten order.
 `scale_by_adam` is optax's float32 Adam. Both are plain tensor ops kept off
 the card: the lowmem update emulates XLA's CPU arithmetic in float64 and
 raises on CUDA tensors. The Trainer runs ops/fused_adam.py instead for every
-Adam-family config (`kernel_update_settings`: Adam, AdamW, LAMB, float32 or
-bf16 moments, clipped or not), with the same bits for bf16 moments where no
-norm enters.
+Adam-family config (`kernel_update_settings`: Adam, AdamW, LAMB, float32,
+bf16 or float16 moments, clipped or not), with the same bits for bf16 and
+float16 moments where no norm enters.
 
 `build_optimizer` is makani_tpu's in full: clip_by_global_norm
 (gradient_clip_norm for any optimizer, optimizer_max_grad_norm for LAMB
@@ -109,7 +109,7 @@ def scale_by_adam_lowmem(b1=0.9, b2=0.999, eps=1e-8, moment_dtype=torch.bfloat16
         with torch.no_grad():
             for i, key in enumerate(order):
                 g = updates[key]
-                m, v = adam_moments(g.float(), state.mu[key], state.nu[key], b1, b2)
+                m, v, m_dir = adam_moments(g.float(), state.mu[key], state.nu[key], b1, b2)
                 if moment_dtype == torch.float32:
                     mq, vq = m, v
                 elif stochastic_rounding:
@@ -119,7 +119,7 @@ def scale_by_adam_lowmem(b1=0.9, b2=0.999, eps=1e-8, moment_dtype=torch.bfloat16
                 else:
                     mq, vq = m.to(moment_dtype), v.to(moment_dtype)
                 new_mu[key], new_nu[key] = mq, vq
-                out[key] = adam_direction(m, v, bc1, bc2, eps).to(g.dtype)
+                out[key] = adam_direction(m_dir, v, bc1, bc2, eps).to(g.dtype)
         return out, AdamState(count=count, mu=new_mu, nu=new_nu)
 
     return GradientTransformation(init_fn, update_fn)
@@ -324,13 +324,15 @@ def clip_norm(params):
 
 def kernel_update_settings(params):
     """kwargs for ops/fused_adam.fused_adam_apply when the config's optimizer
-    is one the fused kernel runs (Adam, AdamW, LAMB; float32 or bf16 moments;
-    with the config's clipping), else None."""
+    is one the fused kernel runs (Adam, AdamW, LAMB; float32, bf16 or float16
+    moments; with the config's clipping), else None. float16 moments round to
+    nearest (stochastic_rounding False), as makani_tpu stores them whatever
+    optimizer_stochastic_rounding says."""
     opt_type = params.get("optimizer_type", "Adam")
     if opt_type not in ADAM_FAMILY:
         return None
     md = params.get("optimizer_moment_dtype", "float32")
-    if md not in (None, "float32", "fp32", "bfloat16", "bf16"):
+    if md not in (None, "float32", "fp32", *_DTYPES):
         return None
     wd = float(params.get("weight_decay", 0.0) or 0.0) if opt_type != "Adam" else 0.0
     return dict(
@@ -349,11 +351,12 @@ def kernel_update_settings(params):
 def fused_adam_settings(params):
     """makani_tpu's gate of its fused Adam stage: `kernel_update_settings`
     without the clip and LAMB keys where the config sets optimizer_fused and
-    the kernel's plain mode expresses it (Adam or AdamW, no clipping), else
-    None."""
+    the kernel's plain mode expresses it (Adam or AdamW, no clipping, float32
+    or bf16 moments: makani_tpu's TPU kernel takes no float16), else None."""
     kw = kernel_update_settings(params)
     if (not params.get("optimizer_fused", False) or kw is None or kw["lamb"]
-            or kw["max_norm"] is not None):
+            or kw["max_norm"] is not None
+            or params.get("optimizer_moment_dtype", "float32") in ("float16", "fp16")):
         return None
     return {k: v for k, v in kw.items() if k not in ("lamb", "max_norm")}
 

@@ -11,6 +11,9 @@ non-linear filter's leaves (``w_<l>``, ``b_<l>``, ``wout``,
 ``act_<l>/bias``) keep theirs under their own names; of the filter weights,
 only the separable diagonal one ``(C, L, M, 2)`` has four dimensions, and its first is never 2 (SpectralConv refuses in_channels 2
 there), so a 4-D filter weight whose first dimension is 2 is the stacked one.
+The scanned middle blocks' leaves (``scan_blocks.block.<name>``, makani_tpu's
+``scan_blocks/block/<name>``) carry a leading layer axis in both packages;
+the stacked dhconv weight is then (n, 2, L, C, O) against (n, C, O, L, 2).
 
 `from_port_layout` is the inverse of `to_port_layout`: the weights and
 gradients dump writes makani_tpu's layout. `jax_view` and `port_view` do the
@@ -63,10 +66,23 @@ def jax_leaf_order(keys):
     return sorted(keys, key=lambda k: tuple(torch_key_to_jax(k).split("/")))
 
 
+def layer_axes(key):
+    """Leading layer axes of the port's leaf `key`: 1 for the scanned middle
+    blocks' weights (``scan_blocks.block.<name>``), whose layer axis leads in
+    both packages, else 0."""
+    return 1 if "scan_blocks" in key.split(".") else 0
+
+
 def is_stacked_filter(key, shape):
-    """True for the port's stacked dhconv weight (2, L, C, O), given the port
-    leaf's name and shape."""
-    return key.endswith(FILTER_WEIGHT) and len(shape) == 4 and int(shape[0]) == 2
+    """True for the port's stacked dhconv weight (2, L, C, O) (behind the
+    layer axis under scan_blocks), given the port leaf's name and shape."""
+    lead = layer_axes(key)
+    return (key.endswith(FILTER_WEIGHT) and len(shape) == 4 + lead
+            and int(shape[lead]) == 2)
+
+
+def _axes(lead, inner):
+    return tuple(range(lead)) + tuple(lead + a for a in inner)
 
 
 def jax_index_strides(key, shape):
@@ -75,9 +91,15 @@ def jax_index_strides(key, shape):
     shape = tuple(int(s) for s in shape)
     if is_stacked_filter(key, shape):
         # port (2, L, C, O) -> makani_tpu (C, O, L, 2): element (p, l, c, o)
-        # lies at ((c*O + o)*L + l)*2 + p
-        _, L, _, O = shape
-        return (1, 2, 2 * L * O, 2 * L)
+        # lies at ((c*O + o)*L + l)*2 + p; a layer axis in front strides by
+        # the whole weight
+        lead = layer_axes(key)
+        _, L, C, O = shape[lead:]
+        strides, acc = [], 2 * L * C * O
+        for s in reversed(shape[:lead]):
+            strides.append(acc)
+            acc *= s
+        return tuple(reversed(strides)) + (1, 2, 2 * L * O, 2 * L)
     strides, acc = [], 1
     for s in reversed(shape):
         strides.append(acc)
@@ -90,25 +112,32 @@ def to_port_layout(key, arr, shape=None):
     leaf's shape, tells a separable diagonal filter weight from the dhconv
     one (both 4-D in makani_tpu); without it a 4-D filter weight is taken for
     the dhconv weight."""
+    lead = layer_axes(key)
     if shape is None:
-        stacked = key.endswith(FILTER_WEIGHT) and arr.ndim == 4
+        stacked = key.endswith(FILTER_WEIGHT) and arr.ndim == 4 + lead
     else:
         stacked = is_stacked_filter(key, shape)
-    return arr.transpose(3, 2, 0, 1) if stacked else arr
+    return arr.transpose(_axes(lead, (3, 2, 0, 1))) if stacked else arr
 
 
 def from_port_layout(key, arr):
     """A port leaf (numpy) in makani_tpu's layout: the stacked dhconv weight
     (2, L, C, O) goes back to (C, O, L, 2); every other leaf is unchanged."""
-    return arr.transpose(2, 3, 1, 0) if is_stacked_filter(key, arr.shape) else arr
+    if is_stacked_filter(key, arr.shape):
+        return arr.transpose(_axes(layer_axes(key), (2, 3, 1, 0)))
+    return arr
 
 
 def jax_view(key, t):
     """A port leaf (torch) as a view in makani_tpu's layout."""
-    return t.permute(2, 3, 1, 0) if is_stacked_filter(key, t.shape) else t
+    if is_stacked_filter(key, t.shape):
+        return t.permute(_axes(layer_axes(key), (2, 3, 1, 0)))
+    return t
 
 
 def port_view(key, t, port_shape):
     """The inverse of `jax_view`: a tensor in makani_tpu's layout of the
     port leaf `key` of shape `port_shape`, as a view in the port's layout."""
-    return t.permute(3, 2, 0, 1) if is_stacked_filter(key, port_shape) else t
+    if is_stacked_filter(key, port_shape):
+        return t.permute(_axes(layer_axes(key), (3, 2, 0, 1)))
+    return t

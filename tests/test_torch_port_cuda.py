@@ -197,15 +197,19 @@ def test_dhconv_dw_ignores_stale_shared_memory(cuda, passes, m3):
 
 def _adam_leaves(gen, device):
     """Odd leaf sizes, a scalar-like leaf and a dhconv weight in the port's
-    (2, L, C, O) layout, whose dither index follows makani_tpu's layout."""
+    (2, L, C, O) layout, whose dither index follows makani_tpu's layout, and
+    the scanned blocks' stacked one (3, 2, L, C, O), five dimensions that
+    the kernel indexes in four."""
     shapes = {"a": (7,), "b.w": (3, 65), "b.v": (2, 3, 129), "c": (1,),
-              "model.blocks.0.filter_layer.filter.weight": (2, 5, 6, 7)}
+              "model.blocks.0.filter_layer.filter.weight": (2, 5, 6, 7),
+              "model.scan_blocks.block.filter_layer.filter.weight": (3, 2, 5, 6, 7)}
     return {k: torch.randn(s, device=device, generator=gen) for k, s in shapes.items()}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("moments,stochastic,wd", [
-    (torch.bfloat16, True, 0.0), (torch.bfloat16, False, 0.01), (torch.float32, False, 0.0)])
+    (torch.bfloat16, True, 0.0), (torch.bfloat16, False, 0.01), (torch.float32, False, 0.0),
+    (torch.float16, False, 0.0), (torch.float16, True, 0.01)])
 def test_fused_adam_kernel_bitwise_against_plain(cuda, moments, stochastic, wd):
     gen = torch.Generator(device=cuda).manual_seed(3)
     params = _adam_leaves(gen, cuda)
@@ -234,7 +238,8 @@ def test_fused_adam_kernel_bitwise_against_plain(cuda, moments, stochastic, wd):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("moments,stochastic", [(torch.bfloat16, True), (torch.float32, False)])
+@pytest.mark.parametrize("moments,stochastic", [(torch.bfloat16, True), (torch.float32, False),
+                                                (torch.float16, False)])
 @pytest.mark.parametrize("max_norm,lamb", [(2.0, False), (None, True), (2.0, True)])
 def test_fused_adam_modes_bitwise_against_plain(cuda, moments, stochastic, max_norm, lamb):
     """The clipping mode (the global norm read by the kernel from the card)
@@ -266,6 +271,103 @@ def test_fused_adam_modes_bitwise_against_plain(cuda, moments, stochastic, max_n
         assert torch.equal(params[k], twin[k]), k
         assert torch.equal(s_kernel.mu[k], s_twin.mu[k]), k
         assert torch.equal(s_kernel.nu[k], s_twin.nu[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["plain", "clip", "lamb"])
+def test_fused_adam_float16_subnormal_moments(cuda, mode):
+    """float16 moments where nu lies below float16's smallest normal, 3
+    updates in each mode (the clip mode scales the gradients, global norm
+    ~0.13, by ~0.8): kernel and twin store the same subnormal values, none
+    flushed."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    params = _adam_leaves(gen, cuda)
+    twin = {k: v.clone() for k, v in params.items()}
+
+    def state():
+        return AdamState(0, {k: torch.zeros_like(v, dtype=torch.float16)
+                             for k, v in params.items()},
+                         {k: torch.zeros_like(v, dtype=torch.float16)
+                          for k, v in params.items()})
+
+    s_kernel, s_twin = state(), state()
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.01, stochastic_rounding=False, seed=340,
+              max_norm=0.1 if mode == "clip" else None, lamb=mode == "lamb")
+    for step in range(3):
+        grads = {k: 3e-3 * torch.randn(v.shape, device=cuda, generator=gen)
+                 for k, v in params.items()}
+        fused_adam.fused_adam_apply(params, grads, s_kernel, 1e-3, **kw)
+        fused_adam.fused_adam_apply_plain(twin, grads, s_twin, 1e-3, **kw)
+    torch.cuda.synchronize()
+    nu = torch.cat([v.float().flatten() for v in s_kernel.nu.values()])
+    tiny = torch.finfo(torch.float16).tiny
+    assert float(((nu > 0) & (nu < tiny)).float().mean()) > 0.5
+    for k in params:
+        assert torch.equal(params[k], twin[k]), k
+        assert torch.equal(s_kernel.mu[k], s_twin.mu[k]), k
+        assert torch.equal(s_kernel.nu[k], s_twin.nu[k]), k
+
+
+@pytest.mark.cuda
+def test_fft_pair_on_the_card(cuda):
+    """The truncated FFT pair (cuFFT) on the card against the CPU, at a
+    small odd grid and at the ICML FNO's input grid (721 x 1440, 180 x 180
+    modes): a few float32 ulps of the largest magnitude."""
+    from makani_tpu_torch.ops.fft import InverseRealFFT2, RealFFT2
+    g = torch.Generator().manual_seed(2)
+    for nlat, nlon, lmax, mmax in ((17, 32, 5, 4), (721, 1440, 180, 180)):
+        fwd, inv = RealFFT2(nlat, nlon, lmax, mmax), InverseRealFFT2(nlat, nlon, lmax, mmax)
+        x = torch.randn((2, 3, nlat, nlon), generator=g)
+        want = fwd(x)
+        got = fwd(x.to(cuda)).cpu()
+        assert float((got - want).abs().max() / want.abs().max()) < TOL
+        want_x = inv(want)
+        got_x = inv(want.to(cuda)).cpu()
+        assert float((got_x - want_x).abs().max() / want_x.abs().max()) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [1, 3])
+def test_sht_without_csphase_through_legmm(cuda, passes):
+    """The SHT pair without the Condon-Shortley phase at the ICML model's
+    inner grid (360 x 720 Legendre-Gauss, 180 x 180 modes) through legmm on
+    the card: the phased pair with the odd orders negated, bit for bit, and
+    the same transforms on the CPU (the kernels' twins) within the bound
+    both keep to the exact transform (tests/test_pallas_mm.py's 5e-5 at 3
+    passes, 5e-2 at 1: the longitude DFTs differ in float32, and at 1 pass
+    their outputs can round to other bf16 values)."""
+    from makani_tpu_torch.ops import sht
+    g = torch.Generator().manual_seed(5)
+    prev = sht.get_transform_precision()
+    sht.set_transform_precision("default" if passes == 1 else "high")
+    try:
+        x = torch.randn((1, 4, ICML_NLAT, 2 * ICML_NLAT), generator=g)
+        out = {}
+        for dev in ("cpu", cuda):
+            for cs in (True, False):
+                fwd = sht.RealSHT(ICML_NLAT, 2 * ICML_NLAT, ICML_L, ICML_M, grid="legendre-gauss",
+                                  csphase=cs, device=dev)
+                inv = sht.InverseRealSHT(ICML_NLAT, 2 * ICML_NLAT, ICML_L, ICML_M,
+                                         grid="legendre-gauss", csphase=cs, device=dev)
+                before = kernels.launches["legmm"]
+                c = fwd(x.to(dev))
+                y = inv(c)
+                if dev != "cpu":
+                    torch.cuda.synchronize()
+                    assert kernels.launches["legmm"] == before + 2
+                out[str(dev), cs] = c.cpu(), y.cpu()
+    finally:
+        sht.set_transform_precision(prev)
+    sign = (-1.0) ** torch.arange(ICML_M)
+    for dev in ("cpu", str(cuda)):
+        c_true, y_true = out[dev, True]
+        c_false, y_false = out[dev, False]
+        assert torch.equal(c_false, c_true * sign)
+        # synthesis without the phase of phase-free coefficients: the same field
+        assert float((y_false - y_true).abs().max() / y_true.abs().max()) < TOL
+    for i in range(2):
+        got, want = out[str(cuda), False][i], out["cpu", False][i]
+        assert float((got - want).abs().max() / want.abs().max()) < {3: 5e-5, 1: 5e-2}[passes]
 
 
 @pytest.mark.cuda

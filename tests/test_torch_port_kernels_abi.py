@@ -179,3 +179,24 @@ def test_fused_adam_launcher_takes_the_norm_the_direction_and_the_mode():
             "salt_nu": ctypes.c_uint32, "stream": ctypes.c_void_p}
     for key, ctype in want.items():
         assert argtypes[names.index(key)] is ctype, key
+
+
+def test_fused_adam_moment_kinds():
+    """The moment kind the wrapper passes for each moment dtype, against the
+    kinds fused_adam_launch takes: 0 float32, 1 and 2 bf16 (to nearest,
+    stochastically), 3 float16 (to nearest, asked for stochastic rounding
+    or not); the launcher refuses any other kind and dispatches each of the
+    four to its own instantiation, whose moment type is read from Moment<>."""
+    import torch
+    from makani_tpu_torch.ops import fused_adam
+    src = (kernels._CSRC / "fused_adam.cu").read_text()
+    kinds = {(torch.float32, False): 0, (torch.bfloat16, False): 1, (torch.bfloat16, True): 2,
+             (torch.float16, False): 3, (torch.float16, True): 3}
+    for (dtype, stochastic), kind in kinds.items():
+        assert fused_adam._moment_kind(torch.zeros(1, dtype=dtype), stochastic) == kind
+    with pytest.raises(TypeError, match="float16"):
+        fused_adam._moment_kind(torch.zeros(1, dtype=torch.float64), False)
+    assert "kind < 0 || kind > 3" in src
+    for kind in range(4):
+        assert f"launch_mode<{kind}>(a, k, mode, s)" in src
+    assert "KIND == 3, __half, __nv_bfloat16" in src and "__float2half_rn(v)" in src

@@ -225,16 +225,27 @@ def test_entry_points_need_cuda_unless_cpu():
 
 
 def test_unported_features_and_models_raise():
+    # the other model families are ROADMAP Queue 1 item 8
     _, tp = _configs(nettype="AFNO")
-    with pytest.raises(NotImplementedError, match="SFNO"):
+    with pytest.raises(NotImplementedError, match="SFNO.*FNO|Queue 1 item 8"):
         tregistry.get_model(tp, device="cpu")
-    # the non-linear filter is ported (tests/test_torch_port_nonlinear.py);
-    # factorized filters, position embeddings and scan_layers are item 6
+    # item 6's options build now (tests/test_torch_port_options.py holds them
+    # against makani_tpu), and so does the planar FNO (test_torch_port_fno.py)
+    built = {"factorization": ("blocks.1.filter_layer.filter", "FactorizedSpectralConv"),
+             "pos_embed": ("pos_embed", "Parameter"),
+             "scan_layers": ("scan_blocks", "ScannedBlocks"),
+             "normalization_layer": ("blocks.0.norm0", "LayerNorm2d"),
+             "nettype": ("trans_down", "RealFFT2")}
     for override in (dict(factorization="cp"), dict(pos_embed="direct"),
-                     dict(scan_layers=True), dict(normalization_layer="layer_norm")):
+                     dict(scan_layers=True), dict(normalization_layer="layer_norm"),
+                     dict(nettype="FNO")):
         _, tp = _configs(**override)
-        with pytest.raises(NotImplementedError, match="ROADMAP: Queue 1 item 6"):
-            tregistry.get_model(tp, device="cpu")
+        net = tregistry.get_model(tp, device="cpu").model
+        path, kind = built[next(iter(override))]
+        obj = net
+        for part in path.split("."):
+            obj = obj[int(part)] if part.isdigit() else getattr(obj, part)
+        assert type(obj).__name__ == kind, override
 
 
 def test_multistep_wrapper_evaluates_one_step(matched):

@@ -738,6 +738,65 @@ def test_adafactor_factors_makani_tpu_layout():
     assert on_port.v_row.shape == on_port.v_col.shape == (2, 128, 3)
 
 
+F16_CASES = {
+    "Adam": dict(optimizer_type="Adam"),
+    "AdamW-SR-asked": dict(optimizer_type="AdamW", weight_decay=0.05,
+                           optimizer_stochastic_rounding=True),
+    "LAMB-noclip": dict(optimizer_type="LAMB", weight_decay=0.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(F16_CASES))
+def test_float16_moments_match_jax_bit_for_bit(case):
+    """float16 moments (optimizer_moment_dtype "float16"), 3 updates: the
+    chain and the fused update's twin against makani_tpu's build_optimizer,
+    the moments bit for bit. The gradients are scaled so that nu, about
+    (1-b2) g^2, lands below float16's smallest normal (6.1e-5) for most
+    elements and mu for some: subnormal float16 values, which XLA's CPU
+    conversion and PyTorch's round the same (to nearest, none flushed). XLA
+    contracts this graph's multiply-adds otherwise than the bf16 one's
+    (ops/fused_adam.adam_moments). The parameters: bit for bit under Adam;
+    OPT_TOL where the weight decay or a norm enters (AdamW, whose decay the
+    fused update folds into p*(1-lr*wd), an ulp from the chain's u + wd*p,
+    as tests/test_torch_port_train.py holds it; LAMB's trust ratio)."""
+    cfg = dict(optimizer_beta1=0.9, optimizer_beta2=0.95, global_seed=333,
+               optimizer_moment_dtype="float16", **F16_CASES[case])
+    lr = 2e-3
+    params = _opt_tree(np.random.RandomState(0))
+    grads = [_opt_tree(np.random.RandomState(20 + i), scale=10.0 ** -(2 + i)) for i in range(3)]
+    jp, js = _jax_steps(jopt.build_optimizer(cfg), params, grads, lr)
+    jadam = next(s for s in js if hasattr(s, "mu"))
+    nu = np.concatenate([np.asarray(v, np.float32).ravel() for v in jax.tree.leaves(jadam.nu)])
+    mu = np.concatenate([np.asarray(v, np.float32).ravel() for v in jax.tree.leaves(jadam.mu)])
+    tiny = np.finfo(np.float16).tiny
+    assert (np.abs(nu) < tiny).mean() > 0.5 and ((np.abs(mu) < tiny) & (mu != 0)).any()
+
+    kw = topt.kernel_update_settings(cfg)
+    assert not kw["stochastic_rounding"] and kw["lamb"] == (case == "LAMB-noclip")
+    opt = topt.build_optimizer(cfg)
+    cp, fp = _port(params), _port(params)
+    state = opt.init(cp)
+    adam = next(s for s in opt.init(fp) if isinstance(s, topt.AdamState))
+    for g in grads:
+        updates, state = opt.update(_port(g), state, cp)
+        topt.apply_updates(cp, updates, lr)
+        fused_adam_apply_plain(fp, _port(g), adam, lr, **kw)
+    chain_adam = next(s for s in state if isinstance(s, topt.AdamState))
+    for name in ("mu", "nu"):
+        want = _as_port(getattr(jadam, name))
+        for st in (adam, chain_adam):
+            for k, v in getattr(st, name).items():
+                assert v.dtype == torch.float16
+                np.testing.assert_array_equal(v.float().numpy(), want[k], err_msg=(name, k))
+    for got in (cp, fp):
+        if case != "Adam":
+            _assert_close_trees(got, jp)
+        else:
+            want = _as_port(jp)
+            for k, v in got.items():
+                np.testing.assert_array_equal(v.numpy(), want[k], err_msg=k)
+
+
 def test_kernel_update_settings_follow_the_config():
     base = dict(optimizer_beta1=0.9, optimizer_beta2=0.95, global_seed=333,
                 optimizer_max_grad_norm=32.0)
@@ -750,7 +809,9 @@ def test_kernel_update_settings_follow_the_config():
     assert clip["max_norm"] == 2.0 and not clip["lamb"]
     for opt_type in ("Adafactor", "SGD"):
         assert topt.kernel_update_settings(dict(base, optimizer_type=opt_type)) is None
-    assert topt.kernel_update_settings(dict(base, optimizer_moment_dtype="float16")) is None
+    # float16 moments round to nearest whatever optimizer_stochastic_rounding says
+    f16 = topt.kernel_update_settings(dict(base, optimizer_moment_dtype="float16"))
+    assert f16 is not None and not f16["stochastic_rounding"] and not f16["lamb"]
     # the Trainer's update: the kernel for LAMB, with its clip
     from makani_tpu_torch.utils.trainer import Trainer
     _, tp = _configs(optimizer_type="LAMB", optimizer_moment_dtype="bfloat16",
@@ -766,13 +827,22 @@ def test_kernel_update_settings_follow_the_config():
 def test_checkpoint_levels_tool_on_the_cpu(capsys):
     """tools/checkpoint_levels.py, which chose the ICML unroll's level, on a
     cut ICML config: one record a level, the same loss at every level."""
+    from makani_tpu_torch.ops import complex_ops, sht
     from makani_tpu_torch.tools import checkpoint_levels
-    records = checkpoint_levels.main([
-        "--yaml_config", "config/icml_models.yaml", "--config", "sfno_dhealy_73ch_2step",
-        "--multistep_count", "2", "--levels", "0", "3", "--steps", "2", "--img_shape", "24", "48",
-        "--embed_dim", "8", "--num_layers", "2", "--device", "cpu"])
+    # the tool's Trainers set the process's precisions ("default" under its
+    # AMP); put them back for the tests that run after this one
+    prev = sht.get_transform_precision(), complex_ops.get_contraction_precision()
+    try:
+        records = checkpoint_levels.main([
+            "--yaml_config", "config/icml_models.yaml", "--config", "sfno_dhealy_73ch_2step",
+            "--multistep_count", "2", "--levels", "0", "3", "--steps", "2", "--img_shape", "24",
+            "48", "--embed_dim", "8", "--num_layers", "2", "--device", "cpu"])
+    finally:
+        sht.set_transform_precision(prev[0])
+        complex_ops.set_contraction_precision(prev[1])
     assert [r["level"] for r in records] == [0, 3]
     assert all(r["n_future"] == 1 and r["leaves"] == 3 + 2 * 10 + 3 + 1 and len(r["step_ms"]) == 1
                and r["launches"] == {} and r["peak_gib"] is None for r in records)
     assert records[0]["loss"] == records[1]["loss"]
     assert len(capsys.readouterr().out.strip().splitlines()) == 2
+
