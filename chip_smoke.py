@@ -208,6 +208,23 @@ Phases, in order; any failure exits non-zero:
      moments (2 steps); Adafactor and SGD with momentum, 2 updates on the
      card against the same chain on the CPU (SGD bit for bit, Adafactor
      within OPT_TOL).
+ 15. the other model families at full width on phase 10's dataset (73
+     channels cropped to 720x1440 as the configs ask, patch 8x8: 90x180 =
+     16,200 tokens, embed 768, 12 layers, MLP ratio 4), cut as AFNO_CUTS
+     lists: config/afnonet.yaml's afno_v2 (8 AFNO blocks) and afno_backbone
+     (AFNO v1) and config/vit.yaml's vit_backbone (12 heads of 64, the
+     blockwise attention) through train.main, each (a)-(c) float32 as its
+     YAML says, 2 steps, and (d) under bf16 AMP, 1 step: finite losses, the
+     launches (one fused_adam a leaf a step, 136, 148 and 150; under AMP
+     AFNO v2's 12 gelu_bf16 and 12 gelu_bf16_grad a step, none for the
+     others, whose flax-style norms and dense layers compute in float32), a
+     train step on a resident batch with its peak memory, and a 4-step
+     Inferencer rollout of the trained model timed as in phase 5; a
+     PrecipNet over an AFNO v1 of afno_backbone's widths, forward and
+     backward on the card against the same weights on the CPU (SMALL_TOL);
+     one ViT layer's attention at (1, 12, 16200, 64) against float64 on
+     ATTN_ROWS rows, timed beside F.scaled_dot_product_attention (a
+     comparison, never on the path).
 The last two lines are the kernels' JSON record (the AMP path's launches in
 each row's *_amp fields, phase 10's in *_files, phase 11's a scored step in
 launches_score, phase 12's run (a) in launches_trainer and a validation AR
@@ -215,8 +232,9 @@ step in launches_valid_step, phase 13's (b) in launches_multistep, (c) in
 launches_nonlinear and (e)'s LAMB update in launches_lamb, phase 14's in
 launches_fno_linear, launches_fno_nonlinear, launches_scan,
 launches_factorized, launches_csphase, launches_fp16_trainer and
-launches_fp16_update; fused_adam's row also holds its times at the linear
-FNO's 2.12 B elements for each moment type) and the result line.
+launches_fp16_update, phase 15's in launches_afno_v2, launches_afno_v1,
+launches_vit and their *_amp; fused_adam's row also holds its times at the
+linear FNO's 2.12 B elements for each moment type) and the result line.
 --record PATH also writes every measurement of the run to PATH as JSON.
 
 TF32 is off for matmuls and cuDNN (torch.backends.cuda.matmul.allow_tf32 and
@@ -408,6 +426,35 @@ FNO_CUTS = (
     "residual's leaves",
 )
 
+# phase 15: the other model families of config/afnonet.yaml and
+# config/vit.yaml at full width on phase 10's dataset (73 channels, cropped to
+# 720x1440 as both ask), cut as AFNO_CUTS lists; runs under FAMILY_DIR
+AFNO_V2, AFNO_V1, VIT = "afno_v2", "afno_backbone", "vit_backbone"
+FAMILIES = {AFNO_V2: ("afnonet.yaml", "AdaptiveFourierNeuralOperatorNet", 136),
+            AFNO_V1: ("afnonet.yaml", "AdaptiveFourierNeuralOperatorNetV1", 148),
+            VIT: ("vit.yaml", "VisionTransformer", 150)}
+FAMILY_DIR = FILES_DIR / "families"
+FAMILY_SHAPE = (720, 1440)
+# train steps of the float32 run and of the AMP run
+FAMILY_STEPS, FAMILY_AMP_STEPS = 2, 1
+# AFNO v2 stays bf16 under AMP: one GELU a block each way (12 blocks)
+FAMILY_AMP_GELU = {AFNO_V2: 12, AFNO_V1: 0, VIT: 0}
+# the PrecipNet check on the card against the CPU: afno_backbone's widths
+# (73 channels, patch 8, embed 768, 8 blocks) on a 64x128 grid, 2 layers
+PRECIP_SHAPE, PRECIP_LAYERS = (64, 128), 2
+# the rows of the full-width attention held against float64
+ATTN_ROWS = 256
+AFNO_CUTS = (
+    "batch_size 32 -> 1",
+    f"{FAMILY_STEPS} train steps, 1 epoch (max_epochs 150); the AMP run "
+    f"{FAMILY_AMP_STEPS} step",
+    "--skip_validation; no videos (log_video 0)",
+    "--save_checkpoint none",
+    "data, stats and paths of phase 10's dataset; its channels c0-c72",
+    f"PrecipNet: afno_backbone's widths on a {PRECIP_SHAPE[0]}x{PRECIP_SHAPE[1]} grid, "
+    f"{PRECIP_LAYERS} layers (held against the CPU)",
+)
+
 
 def check(cond, msg):
     if not cond:
@@ -460,8 +507,8 @@ def timed_rollouts(torch, np, kernels, inferencer, x, label):
     """One untimed rollout, which pays the page-locked host buffer and
     cuBLAS's set-up, then ROLLOUT_REPS timed ones (host clock; the rollout
     ends with its predictions on the host). Returns the launch counts of the
-    first timed rollout, whose predictions are checked, and the ms per step
-    of each."""
+    first timed rollout, whose predictions are checked (the shape of x), and
+    the ms per step of each."""
     inferencer._rollout_lite(x)
     launches, times = None, []
     for _ in range(ROLLOUT_REPS):
@@ -471,8 +518,7 @@ def timed_rollouts(torch, np, kernels, inferencer, x, label):
         times.append((time.perf_counter() - t0) * 1e3 / ROLLOUT_STEPS)
         if launches is None:
             launches = dict(kernels.launches)
-            check(preds.shape == (ROLLOUT_STEPS, 1, 73, 721, 1440),
-                  f"{label} shape {preds.shape}")
+            check(preds.shape == (ROLLOUT_STEPS, *x.shape), f"{label} shape {preds.shape}")
             check(bool(np.isfinite(preds).all()), f"{label} not finite")
         # the predictions alias the rollout's page-locked buffer: freed here,
         # the next rollout takes it from PyTorch's host cache
@@ -2033,12 +2079,13 @@ def icml_launches(level, unroll, leaves, linear=True):
     return out
 
 
-def icml_yaml(name, **overrides):
-    """A YAML holding config/icml_models.yaml's `name` on phase 10's dataset,
-    cut as ICML_CUTS lists."""
+def run_yaml(yaml_file, name, directory, steps, **overrides):
+    """A YAML holding config/`yaml_file`'s `name` on phase 10's dataset, cut
+    to batch 1, one epoch of `steps` steps and no videos, its experiments
+    under `directory`."""
     import yaml
     from makani_tpu_torch.utils.yparams import YParams
-    cfg = YParams(str(ROOT / "config" / "icml_models.yaml"), name).to_dict()
+    cfg = YParams(str(ROOT / "config" / yaml_file), name).to_dict()
     cfg = {k: v for k, v in cfg.items() if not k.startswith("_")}
     paths = files_params()
     cfg.update({k: paths[k] for k in (
@@ -2046,22 +2093,25 @@ def icml_yaml(name, **overrides):
         "global_means_path", "global_stds_path", "time_means_path", "time_diff_means_path",
         "time_diff_stds_path", "min_path", "max_path")})
     cfg.update(channel_names=[f"c{i}" for i in range(FILES_CHANNELS)], batch_size=1,
-               max_epochs=1, log_video=0, n_train_samples_per_epoch=ICML_STEPS[name],
+               max_epochs=1, log_video=0, n_train_samples_per_epoch=steps,
                n_eval_samples=FILES_EVAL, valid_autoreg_steps=FILES_AUTOREG,
-               exp_dir=str(ICML_DIR), **overrides)
-    path = ICML_DIR / f"{name}.yaml"
+               exp_dir=str(directory), **overrides)
+    path = directory / f"{name}.yaml"
     path.write_text(yaml.safe_dump({name: cfg}))
     return path
 
 
-def icml_run(torch, kernels, name, level, *extra, **overrides):
-    """makani_tpu_torch.train.main on `name` under bf16 AMP without
-    validation; returns the Trainer and the run's record: launches, whether
-    all ran at 1 pass, peak memory, losses."""
+def icml_yaml(name, **overrides):
+    """A YAML holding config/icml_models.yaml's `name` on phase 10's dataset,
+    cut as ICML_CUTS lists."""
+    return run_yaml("icml_models.yaml", name, ICML_DIR, ICML_STEPS[name], **overrides)
+
+
+def main_run(torch, kernels, name, argv, steps):
+    """makani_tpu_torch.train.main(argv) for `steps` steps of config `name`;
+    returns the Trainer and the run's record: launches, whether all ran at 1
+    pass, peak memory, finite losses, leaves and parameters."""
     from makani_tpu_torch import train
-    argv = ["--yaml_config", str(icml_yaml(name, **overrides)), "--config", name,
-            "--amp_mode", "bf16", "--skip_validation", "--checkpointing_level", str(level),
-            *extra]
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2071,13 +2121,25 @@ def icml_run(torch, kernels, name, level, *extra, **overrides):
     torch.cuda.synchronize()
     run = dict(run_s=time.perf_counter() - t0, launches=dict(kernels.launches),
                peak_bytes=torch.cuda.max_memory_allocated(), one_pass=at_one_pass(kernels),
-               losses=trainer.epoch_logs[-1]["train"]["step losses"], level=level,
+               losses=trainer.epoch_logs[-1]["train"]["step losses"],
                leaves=len(trainer.model_params),
                params=sum(p.numel() for p in trainer.model_params.values()))
+    check(len(run["losses"]) == steps and all(map(math.isfinite, run["losses"])),
+          f"{name}: losses {run['losses']}")
+    return trainer, run
+
+
+def icml_run(torch, kernels, name, level, *extra, **overrides):
+    """makani_tpu_torch.train.main on `name` under bf16 AMP without
+    validation; returns the Trainer and the run's record (main_run's, and
+    the checkpointing level)."""
+    argv = ["--yaml_config", str(icml_yaml(name, **overrides)), "--config", name,
+            "--amp_mode", "bf16", "--skip_validation", "--checkpointing_level", str(level),
+            *extra]
+    trainer, run = main_run(torch, kernels, name, argv, ICML_STEPS[name])
+    run["level"] = level
     check(trainer.amp_dtype == torch.bfloat16 and trainer.model.model.checkpointing == level,
           f"{name}: amp {trainer.amp_dtype}, checkpointing {trainer.model.model.checkpointing}")
-    check(len(run["losses"]) == ICML_STEPS[name] and all(map(math.isfinite, run["losses"])),
-          f"{name}: losses {run['losses']}")
     return trainer, run
 
 
@@ -2831,6 +2893,173 @@ def print_fno(fno):
     print(f"[fno time] phase 14 in {fno['phase_s']:.1f} s", flush=True)
 
 
+def family_run(torch, np, kernels, dev, gen, name, amp):
+    """Phase 15 (a)-(d): `name` through train.main, float32 as its YAML says
+    or under bf16 AMP, without validation or checkpoints: its launches (one
+    fused_adam a leaf a step; under AMP, AFNO v2's GELU kernels), a train
+    step on a resident batch timed with its peak memory, then a 4-step
+    Inferencer rollout of the trained model timed as phase 5 times one."""
+    from makani_tpu_torch.utils.inferencer import Inferencer
+    yaml_file, kind, leaves = FAMILIES[name]
+    steps = FAMILY_AMP_STEPS if amp else FAMILY_STEPS
+    run_num = "amp" if amp else "f32"
+    argv = ["--yaml_config", str(run_yaml(yaml_file, name, FAMILY_DIR, steps)), "--config", name,
+            "--skip_validation", "--save_checkpoint", "none", "--run_num", run_num]
+    if amp:
+        argv += ["--amp_mode", "bf16"]
+    trainer, run = main_run(torch, kernels, name, argv, steps)
+    p, net = trainer.params, trainer.model.model
+    check(type(net).__name__ == kind and run["leaves"] == leaves
+          and (p.img_crop_shape_x, p.img_crop_shape_y) == FAMILY_SHAPE
+          and net.grid == (90, 180) and p.embed_dim == 768
+          and len(net.blocks) == 12 and trainer.fused_kw is not None
+          and trainer.amp_dtype == (torch.bfloat16 if amp else None),
+          f"{name}: {type(net).__name__}, {run['leaves']} leaves, crop "
+          f"{(p.img_crop_shape_x, p.img_crop_shape_y)}, amp {trainer.amp_dtype}")
+    gelu = FAMILY_AMP_GELU[name] if amp else 0
+    per_step = {"fused_adam": leaves, "gelu_bf16": gelu, "gelu_bf16_grad": gelu}
+    check(run["launches"] == launch_counts(kernels, {k: v * steps for k, v in per_step.items()}),
+          f"{name} launches {run['launches']}, a step {per_step}")
+    run.update(amp=amp, steps=steps, launches_per_step=per_step)
+    run["step_ms"], run["step_ms_all"], run["step_peak_bytes"] = resident_step_ms(torch, trainer)
+    weights = trainer.model.state_dict()
+    del trainer, net
+    torch.cuda.empty_cache()
+    p["valid_autoreg_steps"] = ROLLOUT_STEPS - 1
+    inferencer = Inferencer(p, weights=weights, device=dev)
+    del weights
+    check(inferencer.amp_dtype == (torch.bfloat16 if amp else None),
+          f"{name}: Inferencer amp {inferencer.amp_dtype}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    x = torch.randn((1, FILES_CHANNELS, *FAMILY_SHAPE), device=dev, generator=gen)
+    launches, times = timed_rollouts(torch, np, kernels, inferencer, x, f"{name} rollout")
+    check(launches == launch_counts(kernels, {"gelu_bf16": gelu * ROLLOUT_STEPS}),
+          f"{name} rollout launches {launches}")
+    run.update(rollout_ms=statistics.median(times), rollout_ms_all=times,
+               rollout_peak_bytes=torch.cuda.max_memory_allocated(), rollout_launches=launches)
+    del inferencer, x
+    torch.cuda.empty_cache()
+    return run
+
+
+def precipnet_card_vs_cpu(torch, dev):
+    """A PrecipNet over an AFNO v1 of afno_backbone's widths (PRECIP_SHAPE,
+    PRECIP_LAYERS): forward and every gradient on the card against the same
+    weights and input on the CPU (SMALL_TOL)."""
+    import copy
+    from makani_tpu_torch.models.networks.afnonet import (
+        AdaptiveFourierNeuralOperatorNetV1,
+        PrecipNet,
+    )
+    cpu_gen = torch.Generator().manual_seed(15)
+    backbone = AdaptiveFourierNeuralOperatorNetV1(
+        inp_shape=PRECIP_SHAPE, patch_size=(8, 8), inp_chans=FILES_CHANNELS,
+        out_chans=FILES_CHANNELS, embed_dim=768, num_layers=PRECIP_LAYERS, num_blocks=8,
+        generator=cpu_gen)
+    host = PrecipNet(backbone, out_chans=1, generator=cpu_gen)
+    card = copy.deepcopy(host).to(dev)
+    x = torch.randn((1, FILES_CHANNELS, *PRECIP_SHAPE), generator=cpu_gen)
+    r = torch.randn((1, 1, *PRECIP_SHAPE), generator=cpu_gen)
+    outs = []
+    for model, device in ((host, "cpu"), (card, dev)):
+        y = model(x.to(device))
+        (y * r.to(device)).sum().backward()
+        outs.append(y.detach().cpu())
+    err = rel_err(outs[1], outs[0].double())
+    grads = {k: p.grad for k, p in card.named_parameters()}
+    worst = max(rel_err(grads[k].cpu(), p.grad.double()) for k, p in host.named_parameters())
+    check(err < SMALL_TOL and worst < SMALL_TOL and bool((outs[0] == 0).any()),
+          f"PrecipNet card vs CPU: output {err}, gradients {worst}")
+    return dict(rel_err=err, grad_rel_err=worst, leaves=len(grads))
+
+
+def vit_attention(torch, dev, gen):
+    """One ViT layer's attention at full width, q, k, v (1, 12, 16200, 64)
+    float32: the port's blockwise recurrence (16 key blocks of 1024, 184 keys
+    padded) against the materialised softmax in float64 on ATTN_ROWS query
+    rows, both timed with CUDA events beside one F.scaled_dot_product_attention
+    call at the same shape (a comparison only, never on the path); the bound
+    is the work's 4 N^2 D H float32 operations at the card's float32 rate."""
+    from makani_tpu_torch.models.common.attention import scaled_dot_product_attention
+    n, heads, d = 90 * 180, 12, 64
+    q, k, v = (torch.randn((1, heads, n, d), device=dev, generator=gen) for _ in range(3))
+    y = scaled_dot_product_attention(q, k, v)
+    rows = torch.randperm(n, device=dev, generator=gen)[:ATTN_ROWS]
+    qr, k64, v64 = q[:, :, rows].double(), k.double(), v.double()
+    ref = torch.softmax(qr @ k64.transpose(-1, -2) * d ** -0.5, dim=-1) @ v64
+    err = rel_err(y[:, :, rows], ref)
+    check(err < SMALL_TOL, f"attention at (1, 12, 16200, 64) vs float64: {err}")
+    del qr, k64, v64, ref, y
+    torch.cuda.empty_cache()
+
+    def fwd_bwd():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        scaled_dot_product_attention(*leaves).sum().backward()
+    ms = cuda_ms(lambda: scaled_dot_product_attention(q, k, v), 3)
+    train_ms = cuda_ms(fwd_bwd, 3)
+    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), 3)
+    flops = 4 * n * n * d * heads
+    bound_ms, bound_by = bound(4 * q.numel() * 4, flops, F32_FLOPS)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return dict(rel_err_f64=err, ms=ms, fwd_bwd_ms=train_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by, tflop=flops / 1e12)
+
+
+def phase_families(torch, np, kernels, dev, gen):
+    """Phase 15: AFNO v2, AFNO v1 and the ViT at full width on phase 10's
+    dataset, float32 and bf16 AMP; PrecipNet; the ViT's attention."""
+    FAMILY_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    rec = {}
+    try:
+        for name in FAMILIES:
+            rec[name] = family_run(torch, np, kernels, dev, gen, name, amp=False)
+            rec[name + "_amp"] = family_run(torch, np, kernels, dev, gen, name, amp=True)
+        rec["precipnet"] = precipnet_card_vs_cpu(torch, dev)
+        rec["attention"] = vit_attention(torch, dev, gen)
+        rec["phase_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(FAMILY_DIR, ignore_errors=True)
+    return rec
+
+
+def print_families(fam, card):
+    """Phase 15's lines, each with the card's name and power limit."""
+    for cut in AFNO_CUTS:
+        print(f"[afno cut] {cut}")
+    for name in FAMILIES:
+        for key in (name, name + "_amp"):
+            r = fam[key]
+            tag = "vit" if name == VIT else "afno"
+            print(f"[{tag} {key}] {card}: {name}, {r['params']} parameters in {r['leaves']} "
+                  f"leaves, {'bf16 AMP' if r['amp'] else 'float32'}, 73 channels at "
+                  f"{FAMILY_SHAPE[0]}x{FAMILY_SHAPE[1]}; losses {r['losses']}; run "
+                  f"{r['run_s']:.1f} s, peak {r['peak_bytes'] / 2**30:.2f} GiB; a train step on a "
+                  f"resident batch {r['step_ms']:.1f} ms (median of "
+                  f"{', '.join(f'{t:.1f}' for t in r['step_ms_all'])}), peak "
+                  f"{r['step_peak_bytes'] / 2**30:.2f} GiB; launches a step "
+                  f"{r['launches_per_step']}; {ROLLOUT_STEPS}-step Inferencer rollout "
+                  f"{r['rollout_ms']:.1f} ms a step (median of "
+                  f"{', '.join(f'{t:.1f}' for t in r['rollout_ms_all'])}), peak "
+                  f"{r['rollout_peak_bytes'] / 2**30:.2f} GiB, launches "
+                  f"{ {k: v for k, v in r['rollout_launches'].items() if v} }", flush=True)
+    pn = fam["precipnet"]
+    print(f"[afno precipnet] {card}: PrecipNet over AFNO v1 ({PRECIP_LAYERS} layers of "
+          f"afno_backbone's widths at {PRECIP_SHAPE[0]}x{PRECIP_SHAPE[1]}), card vs CPU: output "
+          f"{pn['rel_err']:.3g}, gradients of its {pn['leaves']} leaves {pn['grad_rel_err']:.3g}",
+          flush=True)
+    a = fam["attention"]
+    print(f"[vit attention] {card}: one layer's attention at (1, 12, 16200, 64) float32, "
+          f"blockwise (16 blocks of 1024): vs float64 on {ATTN_ROWS} rows {a['rel_err_f64']:.3g}; "
+          f"forward {a['ms']:.2f} ms, forward and backward {a['fwd_bwd_ms']:.2f} ms; "
+          f"F.scaled_dot_product_attention (a comparison, not on the path) {a['library_ms']:.2f} "
+          f"ms; bound {a['bound_ms']:.2f} ms ({a['bound_by']}, {a['tflop']:.3f} TFLOP at the "
+          f"float32 rate)", flush=True)
+    print(f"[afno time] {card}: phase 15 in {fam['phase_s']:.1f} s", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--record", type=Path, help="write every measurement to this JSON file")
@@ -3103,6 +3332,8 @@ def main(argv=None):
         icml = phase_icml(torch, np, spectral_mm, kernels, dev, gen)
         # phase 14: the FNO recipes and the model options on the same dataset
         fno = phase_fno(torch, np, sht, complex_ops, kernels, dev, gen)
+        # phase 15: the other model families on the same dataset
+        families = phase_families(torch, np, kernels, dev, gen)
     finally:
         shutil.rmtree(FILES_DIR, ignore_errors=True)
         sht.set_coeff_engine(settings[0])
@@ -3216,8 +3447,10 @@ def main(argv=None):
     print_icml(icml)
     record["fno"] = fno
     print_fno(fno)
+    record["families"] = families
+    print_families(families, card)
     record["script_s"] = time.perf_counter() - t_script
-    print(f"[time] phases 1-14 in {record['script_s']:.1f} s, the kernels' build included",
+    print(f"[time] phases 1-15 in {record['script_s']:.1f} s, the kernels' build included",
           flush=True)
 
     # results
@@ -3249,7 +3482,10 @@ def main(argv=None):
         launches_factorized: its CP filter's forward and backward;
         launches_csphase: its csphase=False pairs; launches_fp16_trainer:
         its Trainer with float16 moments, 2 steps; launches_fp16_update: one
-        float16 update over the linear FNO's leaves."""
+        float16 update over the linear FNO's leaves; launches_afno_v2,
+        launches_afno_v1, launches_vit: phase 15's float32 runs of afno_v2,
+        afno_backbone and vit_backbone (2 steps each), and *_amp their bf16
+        AMP runs (1 step each)."""
         return dict(launches_files=files["train_launches"][name],
                     launches_per_train_step_files=files["train_launches_per_step"][name],
                     launches_rollout_files=files["rollout_launches"][name],
@@ -3267,7 +3503,10 @@ def main(argv=None):
                     launches_csphase=fno["csphase"]["launches"][name],
                     launches_fp16_trainer=fno["f16_trainer"]["launches"][name],
                     launches_fp16_update=fno["adam"]["float16_launches"]
-                    if name == "fused_adam" else 0)
+                    if name == "fused_adam" else 0,
+                    **{f"launches_{tag}{amp}": families[family + amp]["launches"][name]
+                       for tag, family in (("afno_v2", AFNO_V2), ("afno_v1", AFNO_V1),
+                                           ("vit", VIT)) for amp in ("", "_amp")})
 
     kernels = []
     # *_amp: the same counts on phase 9's AMP path, where every pass-taking

@@ -3,7 +3,11 @@
 Counterpart of makani_tpu/models/common/layers.py. Parameter names and shapes
 follow the JAX modules so that weights carry across one to one
 (tools/convert_jax_params.py). Initialization: W ~ N(0, sqrt(gain/fan_in)),
-zero biases, drawn from the caller's torch.Generator.
+zero biases, drawn from the caller's torch.Generator. `DenseLayer` and
+`LayerNorm` mirror flax.linen's Dense and LayerNorm as the AFNO v1 and ViT
+networks use them (`kernel` (in, out), `scale`; flax's dtype promotion and
+fast variance); `PatchEmbed` is makani_tpu's reshape-and-contract patch
+embedding.
 
 Dropout. makani_tpu draws its masks with flax's make_rng from the step's
 dropout key; here every mask comes from `drop_mask`, which seeds a generator
@@ -26,6 +30,10 @@ from torch.utils.checkpoint import checkpoint
 # what a training forward's masks are drawn from: the run's seed, the
 # optimizer step and the unrolled step (MultiStepWrapper)
 DropoutKey = namedtuple("DropoutKey", ["seed", "step", "substep"])
+
+# flax's lecun_normal: truncated_normal with stddev sqrt(1 / fan_in) divided
+# by the standard deviation of N(0, 1) truncated to [-2, 2]
+LECUN_STD = 1.0 / 0.87962566103423978
 
 _dropout_key = None
 
@@ -78,6 +86,88 @@ def remat(fn, *args):
 
 def normal_param(shape, std, device, generator):
     return nn.Parameter(std * torch.randn(shape, device=device, generator=generator))
+
+
+def trunc_normal_param(shape, std, device, generator):
+    """flax's truncated_normal(stddev=std): N(0, 1) truncated to [-2, 2],
+    times std."""
+    w = torch.empty(shape, device=device)
+    nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return nn.Parameter(std * w)
+
+
+def promoted(x, param):
+    """x in flax's promote_dtype of x and a parameter: float32 for a bf16
+    input and a float32 parameter (flax's Dense, Conv and LayerNorm then
+    compute and return float32)."""
+    return x.to(torch.promote_types(x.dtype, param.dtype))
+
+
+class DenseLayer(nn.Module):
+    """flax.linen.Dense as makani_tpu's AFNO v1 and ViT use it: y = x @
+    kernel + bias over the last axis, kernel (in, out) drawn from
+    truncated_normal(0.02), in the promoted type of the input and the
+    parameters."""
+
+    def __init__(self, in_features, out_features, use_bias=True, device="cpu", generator=None):
+        super().__init__()
+        self.kernel = trunc_normal_param((in_features, out_features), 0.02, device, generator)
+        self.bias = nn.Parameter(torch.zeros(out_features, device=device)) if use_bias else None
+
+    def forward(self, x):
+        x = promoted(x, self.kernel)
+        y = x @ self.kernel.to(x.dtype)
+        return y if self.bias is None else y + self.bias.to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """flax.linen.LayerNorm over the last axis with `scale` and `bias`:
+    float32 statistics by flax's fast variance max(E[x^2] - E[x]^2, 0), then
+    (x - mean) * (rsqrt(var + eps) * scale) + bias in the promoted type
+    (float32 for a bf16 input)."""
+
+    def __init__(self, num_features, eps=1e-6, device="cpu"):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(num_features, device=device))
+        self.bias = nn.Parameter(torch.zeros(num_features, device=device))
+
+    def forward(self, x):
+        xf = promoted(x, self.scale)
+        mean = xf.mean(-1, keepdim=True)
+        var = torch.clamp_min((xf * xf).mean(-1, keepdim=True) - mean * mean, 0.0)
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        return (xf - mean) * mul + self.bias
+
+
+class PatchEmbed(nn.Module):
+    """Non-overlapping patch embedding: (B, C, H, W) -> (B, E, H/ph * W/pw);
+    a reshape, then one contraction over (c, ph, pw) with the weight
+    (E, C, ph, pw) and the bias cast to the input's type (bf16 stays bf16
+    under AMP). Weight N(0, 1/fan_in), zero bias."""
+
+    def __init__(self, img_size=(224, 224), patch_size=(16, 16), in_chans=3, embed_dim=768,
+                 device="cpu", generator=None):
+        super().__init__()
+        self.img_size = tuple(img_size)
+        self.patch_size = tuple(patch_size)
+        ph, pw = self.patch_size
+        self.weight = normal_param((embed_dim, in_chans, ph, pw),
+                                   (1.0 / (in_chans * ph * pw)) ** 0.5, device, generator)
+        self.bias = nn.Parameter(torch.zeros(embed_dim, device=device))
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        if (h, w) != self.img_size:
+            raise ValueError(f"Input image size ({h}*{w}) doesn't match model "
+                             f"({self.img_size[0]}*{self.img_size[1]}).")
+        ph, pw = self.patch_size
+        gh, gw = h // ph, w // pw
+        patches = x.reshape(b, c, gh, ph, gw, pw).permute(0, 2, 4, 1, 3, 5)
+        weight = self.weight.to(x.dtype).reshape(self.weight.shape[0], -1)
+        # (B, E, gh * gw) = W (E, K) @ patches (B, K, gh * gw)
+        y = weight @ patches.reshape(b, gh * gw, c * ph * pw).transpose(1, 2)
+        return y + self.bias.to(x.dtype)[:, None]
 
 
 class Conv1x1(nn.Module):

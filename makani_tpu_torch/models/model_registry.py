@@ -1,9 +1,12 @@
 """Model registry: name -> network class, wrapped in a stepper.
 
-Counterpart of makani_tpu/models/model_registry.py for the SFNO, the planar
-FNO and the DebugNet of the pipeline self-test. The other families (AFNO,
-ViT) and file-based registration are not ported yet (ROADMAP, Queue 1 item
-8).
+Counterpart of makani_tpu/models/model_registry.py: the SFNO, the planar
+FNO, AFNO v2 ("AFNO"), AFNO v1 ("AFNOv1"), the ViT and the DebugNet of the
+pipeline self-test, in makani_tpu's order. `register_model` takes a
+torch.nn.Module subclass or a "path/to/file.py:ClassName" string, and
+`get_model` registers a `nettype` it does not know from its file, as
+makani_tpu's does. A registered class is built with the config's keys that
+name parameters of its __init__, plus `device` and `generator`.
 
 `update_channel_params` ports the channel math of makani_tpu's
 Trainer._update_parameters (utils/trainer.py:291-335): the channel counts and
@@ -12,23 +15,70 @@ Trainer's and the Inferencer's evaluation dataset), else from the config, with
 the channel lists from the config or from `n_channels`.
 """
 
+import importlib.util
 import inspect
+import os
 
 import torch
 
+from makani_tpu_torch.models.networks.afnonet import AdaptiveFourierNeuralOperatorNetV1
+from makani_tpu_torch.models.networks.afnonet_v2 import AdaptiveFourierNeuralOperatorNet
 from makani_tpu_torch.models.networks.debug import DebugNet
 from makani_tpu_torch.models.networks.sfnonet import (
     FourierNeuralOperatorNet,
     SphericalFourierNeuralOperatorNet,
 )
+from makani_tpu_torch.models.networks.vit import VisionTransformer
 from makani_tpu_torch.models.preprocessor import Preprocessor2D
 from makani_tpu_torch.models.stepper import MultiStepWrapper, SingleStepWrapper
 from makani_tpu_torch.utils.device import resolve_device
 from makani_tpu_torch.utils.features import get_auxiliary_channels
 from makani_tpu_torch.utils.yparams import ParamsBase
 
-_model_registry = {"SFNO": SphericalFourierNeuralOperatorNet, "FNO": FourierNeuralOperatorNet,
-                   "DebugNet": DebugNet}
+_model_registry = {
+    "SFNO": SphericalFourierNeuralOperatorNet,
+    "FNO": FourierNeuralOperatorNet,
+    "AFNO": AdaptiveFourierNeuralOperatorNet,
+    "AFNOv1": AdaptiveFourierNeuralOperatorNetV1,
+    "ViT": VisionTransformer,
+    "DebugNet": DebugNet,
+}
+
+
+def _register_from_module(model, name=None):
+    if not (isinstance(model, type) and issubclass(model, torch.nn.Module)):
+        raise ValueError("Only subclasses of torch.nn.Module can be registered. Provided model "
+                         f"is of type {type(model)}")
+    if name is None:
+        name = model.__name__
+    if name in _model_registry:
+        raise ValueError(f"Name {name} already in use")
+    _model_registry[name] = model
+
+
+def _register_from_file(model_string, name=None):
+    parts = model_string.split(":")
+    if len(parts) != 2:
+        raise ValueError(f"Expected string of format 'path/to/model_file.py:ModuleName' but got "
+                         f"{model_string!r}")
+    model_path, model_handle = parts
+    if not os.path.exists(model_path):
+        raise ValueError(f"Expected string of format 'path/to/model_file.py:ModuleName' but "
+                         f"{model_path} does not exist.")
+    spec = importlib.util.spec_from_file_location(model_handle, model_path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    _register_from_module(getattr(module, model_handle), name)
+
+
+def register_model(model, name=None):
+    """Register a torch.nn.Module subclass, or the class a
+    "path/to/file.py:ClassName" string names, under `name` (default: the
+    class's name)."""
+    if isinstance(model, str):
+        _register_from_file(model, name)
+    else:
+        _register_from_module(model, name)
 
 
 def list_models():
@@ -127,8 +177,7 @@ def get_model(params, device=None, generator=None):
     params = as_params(params)
     device = resolve_device(device)
     if params.nettype not in _model_registry:
-        raise NotImplementedError(f"model {params.nettype!r} is not ported yet (ROADMAP: Queue 1 "
-                                  f"item 8); ported: {list_models()}")
+        register_model(params.nettype, params.nettype)
     if generator is None:
         generator = torch.Generator(device=device)
         generator.manual_seed(int(params.get("global_seed", 333)))

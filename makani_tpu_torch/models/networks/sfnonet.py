@@ -56,7 +56,12 @@ from makani_tpu_torch.models.common import (
     get_activation,
 )
 from makani_tpu_torch.models.common.factorizations import FactorizedSpectralConv
-from makani_tpu_torch.models.common.layers import normal_param, number_dropout_sites, remat
+from makani_tpu_torch.models.common.layers import (
+    normal_param,
+    number_dropout_sites,
+    remat,
+    trunc_normal_param,
+)
 from makani_tpu_torch.ops import InverseRealFFT2, InverseRealSHT, RealFFT2, RealSHT
 
 
@@ -299,12 +304,10 @@ class SphericalFourierNeuralOperatorNet(nn.Module):
         """flax's truncated_normal(stddev=0.02): N(0, 1) truncated to [-2, 2],
         times 0.02; zero above the `diagonal` of the last two axes when
         given (makani_tpu's tril_init)."""
-        w = torch.empty(shape, device=device)
-        nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-        w = 0.02 * w
+        w = trunc_normal_param(shape, 0.02, device, generator)
         if diagonal is not None:
-            w = w * torch.ones(shape[-2:], dtype=torch.bool, device=device).tril(diagonal)
-        return nn.Parameter(w)
+            w.data *= torch.ones(shape[-2:], dtype=torch.bool, device=device).tril(diagonal)
+        return w
 
     def _position_embedding(self):
         if self.pos_embed_kind == "direct":

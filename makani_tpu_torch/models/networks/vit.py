@@ -1,0 +1,138 @@
+"""Vision Transformer over spatial patches with a linear reconstruction head.
+
+Counterpart of makani_tpu/models/networks/vit.py (:24-155): patch embedding
+-> position embedding (and dropout at path_drop_rate, as makani_tpu has it)
+-> blocks (norm1, multi-head self-attention, residual, norm2, MLP, residual)
+-> LayerNorm -> dense head -> the depatchify einsum nhwpqc->nchpwq. A block
+applies norm2 to x before both the residual and the MLP (vit.py:90), a quirk
+of the reference that is kept. The attention is
+models/common/attention.py's (materialised up to 2048 tokens, blockwise
+beyond); with attn_drop_rate > 0 in training it materialises the softmax to
+drop on it, as makani_tpu does. The norms and dense layers are flax's
+(models/common/layers.py): they promote a bf16 input to float32, so under
+bf16 AMP the network is bf16 only in the patch embedding, the position
+embedding and block 0's first residual. Each block has one DropPath for the
+attention's branch and one for the MLP's, so the two draw their own masks
+as flax's two calls do.
+"""
+
+from typing import Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from makani_tpu_torch.models.common import DropPath, Dropout, get_activation
+from makani_tpu_torch.models.common.attention import scaled_dot_product_attention
+from makani_tpu_torch.models.common.layers import (
+    DenseLayer,
+    LayerNorm,
+    PatchEmbed,
+    number_dropout_sites,
+    trunc_normal_param,
+)
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention: qkv (kernel (C, 3C), bias where qkv_bias),
+    attention, proj (kernel (C, C), bias)."""
+
+    def __init__(self, dim, num_heads=8, qkv_bias=False, attn_drop_rate=0.0, proj_drop_rate=0.0,
+                 device="cpu", generator=None):
+        super().__init__()
+        if dim % num_heads:
+            raise ValueError("dim should be divisible by num_heads")
+        self.num_heads = num_heads
+        self.attn_drop_rate = attn_drop_rate
+        self.qkv = DenseLayer(dim, 3 * dim, use_bias=qkv_bias, device=device, generator=generator)
+        self.attn_drop = Dropout(attn_drop_rate)
+        self.proj = DenseLayer(dim, dim, device=device, generator=generator)
+        self.proj_drop = Dropout(proj_drop_rate)
+
+    def forward(self, x, deterministic=True):
+        b, n, c = x.shape
+        head_dim = c // self.num_heads
+        scale = head_dim ** -0.5
+        qkv = self.qkv(x).reshape(b, n, 3, self.num_heads, head_dim)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]   # (B, N, H, D)
+        if self.attn_drop_rate > 0.0 and not deterministic:
+            attn = torch.softmax(torch.einsum("bnhd,bmhd->bhnm", q, k) * scale, dim=-1)
+            attn = self.attn_drop(attn, deterministic)
+            y = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(b, n, c)
+        else:
+            q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+            y = scaled_dot_product_attention(q, k, v, scale=scale)
+            y = y.transpose(1, 2).reshape(b, n, c)
+        return self.proj_drop(self.proj(y), deterministic)
+
+
+class ViTBlock(nn.Module):
+    def __init__(self, dim, num_heads, mlp_ratio=4.0, qkv_bias=False, mlp_drop_rate=0.0,
+                 attn_drop_rate=0.0, path_drop_rate=0.0, activation_function="gelu",
+                 device="cpu", generator=None):
+        super().__init__()
+        self.act = get_activation(activation_function)
+        self.norm1 = LayerNorm(dim, eps=1e-5, device=device)
+        self.attn = Attention(dim, num_heads=num_heads, qkv_bias=qkv_bias,
+                              attn_drop_rate=attn_drop_rate, proj_drop_rate=mlp_drop_rate,
+                              device=device, generator=generator)
+        self.drop_path_attn = DropPath(path_drop_rate)
+        self.norm2 = LayerNorm(dim, eps=1e-5, device=device)
+        self.mlp_fc1 = DenseLayer(dim, int(dim * mlp_ratio), device=device, generator=generator)
+        self.mlp_drop1 = Dropout(mlp_drop_rate)
+        self.mlp_fc2 = DenseLayer(int(dim * mlp_ratio), dim, device=device, generator=generator)
+        self.mlp_drop2 = Dropout(mlp_drop_rate)
+        self.drop_path_mlp = DropPath(path_drop_rate)
+
+    def forward(self, x, deterministic=True):
+        y = self.attn(self.norm1(x), deterministic=deterministic)
+        x = self.norm2(x + self.drop_path_attn(y, deterministic=deterministic))
+        h = self.mlp_drop1(self.act(self.mlp_fc1(x)), deterministic)
+        h = self.mlp_drop2(self.mlp_fc2(h), deterministic)
+        return x + self.drop_path_mlp(h, deterministic=deterministic)
+
+
+class VisionTransformer(nn.Module):
+    """The ViT; the arguments are makani_tpu's, plus `device` and the
+    `generator` the weights are drawn from."""
+
+    def __init__(self, inp_shape: Tuple[int, int] = (224, 224),
+                 patch_size: Tuple[int, int] = (16, 16), inp_chans=3, out_chans=3, embed_dim=768,
+                 depth=12, num_heads=12, mlp_ratio=4.0, qkv_bias=True, mlp_drop_rate=0.0,
+                 attn_drop_rate=0.0, path_drop_rate=0.0, activation_function="gelu",
+                 device="cpu", generator=None):
+        super().__init__()
+        self.inp_shape = tuple(inp_shape)
+        self.patch_size = tuple(patch_size)
+        self.out_chans = out_chans
+        self.embed_dim = embed_dim
+        self.grid = (self.inp_shape[0] // self.patch_size[0],
+                     self.inp_shape[1] // self.patch_size[1])
+        self.patch_embed = PatchEmbed(self.inp_shape, self.patch_size, inp_chans, embed_dim,
+                                      device=device, generator=generator)
+        self.pos_embed = trunc_normal_param((1, self.grid[0] * self.grid[1], embed_dim), 0.02,
+                                            device, generator)
+        self.pos_drop = Dropout(path_drop_rate)
+        dpr = np.linspace(0, path_drop_rate, depth)
+        self.blocks = nn.ModuleList([
+            ViTBlock(embed_dim, num_heads, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
+                     mlp_drop_rate=mlp_drop_rate, attn_drop_rate=attn_drop_rate,
+                     path_drop_rate=float(dpr[i]), activation_function=activation_function,
+                     device=device, generator=generator)
+            for i in range(depth)])
+        self.norm = LayerNorm(embed_dim, eps=1e-5, device=device)
+        self.head = DenseLayer(embed_dim, out_chans * self.patch_size[0] * self.patch_size[1],
+                               use_bias=False, device=device, generator=generator)
+        self.n_dropout_sites = number_dropout_sites(self)
+
+    def forward(self, x, deterministic=True):
+        b = x.shape[0]
+        gh, gw = self.grid
+        x = self.patch_embed(x).transpose(1, 2) + self.pos_embed.to(x.dtype)
+        x = self.pos_drop(x, deterministic)
+        for blk in self.blocks:
+            x = blk(x, deterministic=deterministic)
+        x = self.head(self.norm(x).reshape(b, gh, gw, self.embed_dim))
+        p, q = self.patch_size
+        x = x.reshape(b, gh, gw, p, q, self.out_chans).permute(0, 5, 1, 3, 2, 4)
+        return x.reshape(b, self.out_chans, self.inp_shape[0], self.inp_shape[1])

@@ -7,7 +7,9 @@ the GPU.
                                                       [--memory]
 
 Builds flagship_synth_drive_bare (or the config NAME of Y: 73 channels where
-it names none) at full width (random weights from a seed),
+it names none; a config that crops, as config/afnonet.yaml's and
+config/vit.yaml's do to 720x1440, runs on the crop's grid) at full width
+(random weights from a seed),
 warms up, then runs one forward (or, with --train, one step of the Trainer on
 a resident synthetic batch: forward, backward and the fused Adam update, at
 checkpointing 0) under torch.profiler (CPU and CUDA activities), on the
@@ -21,7 +23,9 @@ ranges, the rest is backward) and by category (the port's kernels by name,
 cuBLAS products by the operator that launched them, those launched inside an
 einsum apart, copies, and the rest: elementwise and reductions), the peak
 device memory of the profiled run, then PyTorch's table by operator and
-kernel. --trace PATH keeps the trace at PATH (default
+kernel; for a ViT whose attention runs blockwise, the kernels of its
+block steps (the logit tiles' products and elementwise work, forward and
+backward) are categories of their own. --trace PATH keeps the trace at PATH (default
 build/profile_trace.json). --memory also records the device memory each
 operator allocates and does not free within itself, and prints the
 operators by that sum: what the run keeps (saved for backward, or
@@ -47,9 +51,20 @@ _OWN = {"legmm_kernel": "legmm", "dhconv_dw_kernel": "dhconv_dw",
 _EINSUM = "einsums (cuBLAS): the complex engine's Legendre contractions and dhconv dw"
 _GEMM_OPS = {"aten::bmm": "1x1 channel mixes (cuBLAS bmm)",
              "aten::mm": "longitude DFT (cuBLAS mm)", "aten::addmm": "longitude DFT (cuBLAS mm)"}
+# what the SFNO's products are; another network's are named by operator
+_SFNO_LABELS = dict(_GEMM_OPS, einsum=_EINSUM)
 
 
-def _category(event, ops, einsums):
+def _in_block_step(op, block):
+    """Whether a tensor the operator read has `block` among its last two
+    dimensions: the attention's block steps (a (.., N, block) logit tile, a
+    key block transposed, or a value block); no other tensor of the ViT has
+    such a dimension."""
+    dims = op["args"].get("Input Dims", []) if op is not None else []
+    return any(isinstance(d, list) and block in d[-2:] for d in dims)
+
+
+def _category(event, ops, einsums, block=None, labels=_SFNO_LABELS):
     name = event["name"]
     for key, label in _OWN.items():
         if any(key + end in name for end in "<(,"):
@@ -57,13 +72,16 @@ def _category(event, ops, einsums):
     if event["cat"] != "kernel":
         return "copies and sets"
     op = ops.get(event["args"].get("External id"))
+    if block is not None and _in_block_step(op, block):
+        kind = "cuBLAS" if "gemm" in name or op["name"] in _GEMM_OPS else "elementwise"
+        return f"attention block steps ({kind})"
     # a bf16 product's kernel may not say gemm; its operator does
     if "gemm" in name or (op is not None and op["name"] in _GEMM_OPS):
         if op is None:
             return "other cuBLAS (no operator)"
         if any(a <= op["ts"] <= b for a, b in einsums):
-            return _EINSUM
-        return _GEMM_OPS.get(op["name"], f"other cuBLAS ({op['name']})")
+            return labels.get("einsum", "einsums (cuBLAS)")
+        return labels.get(op["name"], f"cuBLAS ({op['name']})")
     return "elementwise, reductions and copies"
 
 
@@ -85,8 +103,11 @@ def busy_ms(device):
     return busy / 1e3
 
 
-def summarize(trace_path, wall_ms):
-    """Device time of a Chrome trace by phase and by category, in ms."""
+def summarize(trace_path, wall_ms, block=None, labels=_SFNO_LABELS):
+    """Device time of a Chrome trace by phase and by category, in ms; with
+    `block`, the kernels of the attention's block steps (forward, and their
+    recomputation and gradients in backward) as categories of their own.
+    `labels` names the cuBLAS products by operator (the SFNO's by default)."""
     events, device = device_events(trace_path)
     cpu_ops = [e for e in events if e.get("cat") == "cpu_op"]
     ops = {e["args"].get("External id"): e for e in cpu_ops if "args" in e}
@@ -101,7 +122,7 @@ def summarize(trace_path, wall_ms):
             phase = next((name.split(".")[-1] for name, (a, b) in phases.items()
                           if a <= e["ts"] <= b and not name.endswith("backward")), "backward")
         by_phase[phase] += e["dur"] / 1e3
-        by_category[_category(e, ops, einsums)] += e["dur"] / 1e3
+        by_category[_category(e, ops, einsums, block, labels)] += e["dur"] / 1e3
     print(f"wall {wall_ms:.1f} ms; device busy {busy:.1f} ms "
           f"({100 * busy / wall_ms:.1f}% of wall)")
     for title, table in (("phase", by_phase), ("category", by_category)):
@@ -128,6 +149,7 @@ def main(argv=None):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from makani_tpu_torch.models.common import attention
     from makani_tpu_torch.models.model_registry import get_model, update_channel_params
     from makani_tpu_torch.ops import complex_ops, sht
     from makani_tpu_torch.utils.yparams import YParams
@@ -137,7 +159,13 @@ def main(argv=None):
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    params = update_channel_params(YParams(args.yaml_config, args.config), n_channels=73)
+    params = YParams(args.yaml_config, args.config)
+    # synthetic data takes the grid as it is: a config's crop becomes its grid
+    for axis in ("x", "y"):
+        if params.get(f"crop_size_{axis}", None):
+            params[f"img_shape_{axis}"] = params[f"crop_size_{axis}"]
+    params = update_channel_params(params, n_channels=73)
+    shape = (params.img_crop_shape_x, params.img_crop_shape_y)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     sht.set_coeff_engine(args.engine)
@@ -151,14 +179,14 @@ def main(argv=None):
                                   coefficient_engine=args.engine,
                                   amp_mode="bf16" if args.amp else "none"))
         trainer = Trainer(params, device=dev)
-        inp = torch.randn((1, params.N_in_channels, 721, 1440), device=dev, generator=gen)
-        tar = torch.randn((1, params.N_out_channels, 721, 1440), device=dev, generator=gen)
+        inp = torch.randn((1, params.N_in_channels, *shape), device=dev, generator=gen)
+        tar = torch.randn((1, params.N_out_channels, *shape), device=dev, generator=gen)
 
         def run():
             trainer.train_step(inp, tar, None, None, 1e-3)
     else:
         model = get_model(params, device=dev).eval()
-        x = torch.randn((1, params.N_in_channels, 721, 1440), device=dev, generator=gen)
+        x = torch.randn((1, params.N_in_channels, *shape), device=dev, generator=gen)
         if args.amp:
             sht.set_transform_precision("default")
             complex_ops.set_contraction_precision("default")
@@ -171,8 +199,13 @@ def main(argv=None):
     run()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # the ViT's attention block steps are told apart by the shapes their
+    # operators read (blockwise beyond 2048 tokens)
+    vit = params.nettype == "ViT" and (
+        (shape[0] // params.patch_size[0]) * (shape[1] // params.patch_size[1]) > 2048)
+    block = attention._DEFAULT_BLOCK_SIZE if vit else None
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 profile_memory=args.memory) as prof:
+                 profile_memory=args.memory, record_shapes=vit) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -184,7 +217,7 @@ def main(argv=None):
     print(f"{'train step' if args.train else 'forward'} ({args.engine} engine"
           f"{', bf16 AMP' if args.amp else ''}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)", end=": ")
-    summarize(trace, wall_ms)
+    summarize(trace, wall_ms, block, _SFNO_LABELS if params.nettype == "SFNO" else {})
     print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=args.top))
     if args.memory:
         print(prof.key_averages().table(sort_by="self_device_memory_usage",

@@ -327,6 +327,73 @@ def test_fft_pair_on_the_card(cuda):
 
 
 @pytest.mark.cuda
+def test_fft3_pair_on_the_card(cuda):
+    """The truncated 3D FFT pair (cuFFT) on the card against the CPU: a few
+    float32 ulps of the largest magnitude."""
+    from makani_tpu_torch.ops.fft3d import InverseRealFFT3, RealFFT3
+    g = torch.Generator().manual_seed(3)
+    for case in ((6, 9, 10, 3, 5, 4), (16, 90, 180, 8, 45, 60)):
+        fwd, inv = RealFFT3(*case), InverseRealFFT3(*case)
+        x = torch.randn((2, *case[:3]), generator=g)
+        want = fwd(x)
+        got = fwd(x.to(cuda)).cpu()
+        assert float((got - want).abs().max() / want.abs().max()) < TOL
+        want_x = inv(want)
+        got_x = inv(want.to(cuda)).cpu()
+        assert float((got_x - want_x).abs().max() / want_x.abs().max()) < TOL
+
+
+# (N, block, min_blockwise_tokens): the blockwise recurrence with padded
+# keys, on whole blocks, and the materialised softmax
+ATTENTION_CASES = [(1000, 128, 0), (2100, None, 2048), (1500, None, 2048)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,block,min_tokens", ATTENTION_CASES)
+def test_attention_on_the_card(cuda, n, block, min_tokens):
+    """models/common/attention.py on the card (TF32 off) against the
+    materialised softmax in float64, forward and the gradients of q, k and
+    v: 1e-5 of the largest magnitude."""
+    from makani_tpu_torch.models.common.attention import scaled_dot_product_attention
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v, r = (torch.randn((1, 3, n, 64), device=cuda, generator=g) for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = scaled_dot_product_attention(*leaves, block_size=block, min_blockwise_tokens=min_tokens)
+    (got * r).sum().backward()
+    ref = [t.double().requires_grad_() for t in (q, k, v)]
+    p = torch.softmax(ref[0] @ ref[1].transpose(-1, -2) * 64 ** -0.5, dim=-1)
+    want = p @ ref[2]
+    (want * r.double()).sum().backward()
+    assert _rel(got.detach().double(), want.detach()) < TOL
+    for t, w in zip(leaves, ref):
+        assert _rel(t.grad.double(), w.grad) < TOL
+
+
+@pytest.mark.cuda
+def test_afno_v2_amp_on_the_card(cuda):
+    """A small AFNO v2 under bf16 AMP on the card: one gelu_bf16 launch a
+    block in the forward and one gelu_bf16_grad a block in the backward,
+    the output bf16 and within bf16 rounding of the same weights on the CPU
+    (the twins; cuFFT and the CPU's FFT may round a few activations to other
+    bf16 values)."""
+    from makani_tpu_torch.models.networks.afnonet_v2 import AdaptiveFourierNeuralOperatorNet
+    net = AdaptiveFourierNeuralOperatorNet(inp_shape=(24, 48), patch_size=(4, 8), inp_chans=3,
+                                           out_chans=5, embed_dim=32, num_layers=3, num_blocks=4,
+                                           generator=torch.Generator().manual_seed(6))
+    x = torch.randn((2, 3, 24, 48), generator=torch.Generator().manual_seed(7)).bfloat16()
+    want = net(x).float()
+    net = net.to(cuda)
+    before = dict(kernels.launches)
+    y = net(x.to(cuda))
+    assert kernels.launches["gelu_bf16"] == before["gelu_bf16"] + 3
+    y.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert kernels.launches["gelu_bf16_grad"] == before["gelu_bf16_grad"] + 3
+    assert y.dtype == torch.bfloat16 and torch.isfinite(y).all()
+    assert float((y.float().cpu() - want).norm() / want.norm()) < 1e-2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("passes", [1, 3])
 def test_sht_without_csphase_through_legmm(cuda, passes):
     """The SHT pair without the Condon-Shortley phase at the ICML model's

@@ -225,10 +225,23 @@ def test_entry_points_need_cuda_unless_cpu():
 
 
 def test_unported_features_and_models_raise():
-    # the other model families are ROADMAP Queue 1 item 8
-    _, tp = _configs(nettype="AFNO")
-    with pytest.raises(NotImplementedError, match="SFNO.*FNO|Queue 1 item 8"):
-        tregistry.get_model(tp, device="cpu")
+    # the other model families build (ROADMAP Queue 1 item 8; held against
+    # makani_tpu in tests/test_torch_port_afno.py and test_torch_port_vit.py),
+    # in makani_tpu's registry order
+    assert tregistry.list_models() == jregistry.list_models()
+    for nettype, kind in (("AFNO", "AdaptiveFourierNeuralOperatorNet"),
+                          ("AFNOv1", "AdaptiveFourierNeuralOperatorNetV1"),
+                          ("ViT", "VisionTransformer")):
+        _, tp = _configs(nettype=nettype, patch_size=[4, 8], num_blocks=4, depth=1,
+                         num_heads=2)
+        assert type(tregistry.get_model(tp, device="cpu").model).__name__ == kind
+    # a nettype neither registered nor a "path.py:Class" string raises, and
+    # registers nothing
+    for nettype in ("AFNOv3", "no/such/file.py:Net"):
+        _, tp = _configs(nettype=nettype)
+        with pytest.raises(ValueError, match="path/to/model_file.py:ModuleName"):
+            tregistry.get_model(tp, device="cpu")
+        assert nettype not in tregistry.list_models()
     # item 6's options build now (tests/test_torch_port_options.py holds them
     # against makani_tpu), and so does the planar FNO (test_torch_port_fno.py)
     built = {"factorization": ("blocks.1.filter_layer.filter", "FactorizedSpectralConv"),

@@ -68,7 +68,13 @@ VALID_TOL = 2e-4
 SLICE_MODULES = ["makani_tpu_torch.train", "makani_tpu_torch.train_profile",
                  "makani_tpu_torch.utils.trainer", "makani_tpu_torch.utils.wandb_compat",
                  "makani_tpu_torch.utils.checkpoint", "makani_tpu_torch.utils.optimizers",
-                 "makani_tpu_torch.models.networks.debug"]
+                 "makani_tpu_torch.models.networks.debug",
+                 # the other model families (ROADMAP Queue 1 item 8)
+                 "makani_tpu_torch.models.model_registry",
+                 "makani_tpu_torch.models.networks.afnonet",
+                 "makani_tpu_torch.models.networks.afnonet_v2",
+                 "makani_tpu_torch.models.networks.vit",
+                 "makani_tpu_torch.models.common.attention", "makani_tpu_torch.ops.fft3d"]
 
 
 @pytest.fixture(autouse=True, scope="module")
