@@ -225,6 +225,23 @@ Phases, in order; any failure exits non-zero:
      one ViT layer's attention at (1, 12, 16200, 64) against float64 on
      ATTN_ROWS rows, timed beside F.scaled_dot_product_attention (a
      comparison, never on the path).
+ 16. the rollout videos on phase 10's dataset: sfno_dhealy_73ch at full width
+     through makani_tpu_torch.train.main under bf16 AMP, cut as VIDEO_CUTS
+     lists, 2 train steps, then validation (FILES_EVAL samples of
+     FILES_AUTOREG + 1 AR steps) with log_video 10 as the YAML sets it, so
+     epoch 0 renders the first batch's one-step comparison of channels :2
+     and its channel-0 rollout video (utils/visualize, spawned workers, on
+     the host): the launches (the train steps' of icml_launches, then 18
+     legmm, 8 dhconv_mm and 18 gelu_bf16 for each of the validation's
+     forwards: every AR step and the comparison's), all at 1 pass; the
+     epoch's train, validation and visualization seconds and the peak
+     memory; every captured frame (721x1440) equal to the prediction and
+     target its AR step scored, bit for bit; the validation logs equal those
+     of a validation that does not render, bit for bit; the AVI's header
+     (FILES_AUTOREG + 1 frames of 2 x 1440 + 4 by 721) and the PNG's size.
+     The host packages are checked first: without matplotlib or PIL a
+     `[videos cut]` line names the missing one, the renderer is replaced by
+     one that records what it is given, and the card runs the same work.
 The last two lines are the kernels' JSON record (the AMP path's launches in
 each row's *_amp fields, phase 10's in *_files, phase 11's a scored step in
 launches_score, phase 12's run (a) in launches_trainer and a validation AR
@@ -233,8 +250,9 @@ launches_nonlinear and (e)'s LAMB update in launches_lamb, phase 14's in
 launches_fno_linear, launches_fno_nonlinear, launches_scan,
 launches_factorized, launches_csphase, launches_fp16_trainer and
 launches_fp16_update, phase 15's in launches_afno_v2, launches_afno_v1,
-launches_vit and their *_amp; fused_adam's row also holds its times at the
-linear FNO's 2.12 B elements for each moment type) and the result line.
+launches_vit and their *_amp, phase 16's in launches_videos; fused_adam's
+row also holds its times at the linear FNO's 2.12 B elements for each moment
+type) and the result line.
 --record PATH also writes every measurement of the run to PATH as JSON.
 
 TF32 is off for matmuls and cuDNN (torch.backends.cuda.matmul.allow_tf32 and
@@ -387,7 +405,6 @@ ICML_CUTS = (
     "2-step finetune)",
     "data, stats and paths of phase 10's dataset",
     f"channel_names: the dataset's c0-c{FILES_CHANNELS - 1} (the ICML names are absent)",
-    "log_video 10 -> 0 (utils/visualize.py, ROADMAP Queue 1 item 9, which needs matplotlib)",
     f"--skip_validation; n_eval_samples 320 -> {FILES_EVAL}, valid_autoreg_steps 20 -> "
     f"{FILES_AUTOREG}",
     "pretrained_checkpoint_path: (a)'s per-epoch checkpoint (the ICML path /runs/... is not "
@@ -448,12 +465,26 @@ AFNO_CUTS = (
     "batch_size 32 -> 1",
     f"{FAMILY_STEPS} train steps, 1 epoch (max_epochs 150); the AMP run "
     f"{FAMILY_AMP_STEPS} step",
-    "--skip_validation; no videos (log_video 0)",
+    "--skip_validation (the YAMLs' log_video is 0)",
     "--save_checkpoint none",
     "data, stats and paths of phase 10's dataset; its channels c0-c72",
     f"PrecipNet: afno_backbone's widths on a {PRECIP_SHAPE[0]}x{PRECIP_SHAPE[1]} grid, "
     f"{PRECIP_LAYERS} layers (held against the CPU)",
 )
+
+# phase 16: phase 13's pretrain with its validation and the rollout videos
+# its YAML asks for (log_video 10: epoch 0 renders), cut as VIDEO_CUTS lists;
+# runs under VIDEO_DIR
+VIDEO_DIR = FILES_DIR / "videos"
+VIDEO_CUTS = (
+    "phase 13's cuts: batch_size 64 -> 1, 2 train steps, 1 epoch (max_epochs 60), the data, "
+    "stats, paths and channel names of phase 10's dataset",
+    f"validation on: n_eval_samples 320 -> {FILES_EVAL}, valid_autoreg_steps 20 -> "
+    f"{FILES_AUTOREG}",
+    "--save_checkpoint none",
+)
+# the rollout video's frame: prediction | 4 black columns | target
+VIDEO_SEPARATOR = 4
 
 
 def check(cond, msg):
@@ -2081,8 +2112,8 @@ def icml_launches(level, unroll, leaves, linear=True):
 
 def run_yaml(yaml_file, name, directory, steps, **overrides):
     """A YAML holding config/`yaml_file`'s `name` on phase 10's dataset, cut
-    to batch 1, one epoch of `steps` steps and no videos, its experiments
-    under `directory`."""
+    to batch 1 and one epoch of `steps` steps, its experiments under
+    `directory`."""
     import yaml
     from makani_tpu_torch.utils.yparams import YParams
     cfg = YParams(str(ROOT / "config" / yaml_file), name).to_dict()
@@ -2093,7 +2124,7 @@ def run_yaml(yaml_file, name, directory, steps, **overrides):
         "global_means_path", "global_stds_path", "time_means_path", "time_diff_means_path",
         "time_diff_stds_path", "min_path", "max_path")})
     cfg.update(channel_names=[f"c{i}" for i in range(FILES_CHANNELS)], batch_size=1,
-               max_epochs=1, log_video=0, n_train_samples_per_epoch=steps,
+               max_epochs=1, n_train_samples_per_epoch=steps,
                n_eval_samples=FILES_EVAL, valid_autoreg_steps=FILES_AUTOREG,
                exp_dir=str(directory), **overrides)
     path = directory / f"{name}.yaml"
@@ -3060,6 +3091,182 @@ def print_families(fam, card):
     print(f"[afno time] {card}: phase 15 in {fam['phase_s']:.1f} s", flush=True)
 
 
+def host_packages_missing():
+    """The rendering's host packages (matplotlib, PIL) that do not import."""
+    import importlib
+    missing = []
+    for name in ("matplotlib", "PIL"):
+        try:
+            importlib.import_module(name)
+        except ImportError:
+            missing.append(name)
+    return missing
+
+
+def avi_header(path):
+    """(frames, width, height) from an AVI's main header (avih)."""
+    import struct
+    with open(path, "rb") as f:
+        head = f.read(88)
+    check(head[:4] == b"RIFF" and head[8:12] == b"AVI " and head[24:28] == b"avih",
+          f"{path} is not an AVI: {head[:32]!r}")
+    fields = struct.unpack("<14I", head[32:88])
+    return fields[4], fields[8], fields[9]
+
+
+def png_size(path):
+    """(width, height) from a PNG's IHDR."""
+    import struct
+    with open(path, "rb") as f:
+        head = f.read(24)
+    check(head[:8] == b"\x89PNG\r\n\x1a\n" and head[12:16] == b"IHDR", f"{path} is not a PNG")
+    return struct.unpack(">II", head[16:24])
+
+
+def phase_videos(torch, np, kernels, dev):
+    """Phase 16: sfno_dhealy_73ch through train.main under bf16 AMP with
+    validation and log_video 10 as its YAML sets it: epoch 0 renders the
+    first evaluation batch's comparison image and channel-0 rollout video.
+    Where matplotlib or PIL is missing on the host, the renderer is replaced
+    by one that records what it is given (the Trainer's check of the host
+    packages passed over): the card runs the same work."""
+    import contextlib
+    from unittest import mock
+    from makani_tpu_torch.utils import metric, visualize
+    from makani_tpu_torch.utils import trainer as trainer_module
+    VIDEO_DIR.mkdir(parents=True, exist_ok=True)
+    steps = FILES_AUTOREG + 1
+    rec = {"missing": host_packages_missing()}
+    seen = {"add": [], "add_video": []}
+
+    def recording(name, method):
+        def record(self, tag, *arrays, **kwargs):
+            seen[name].append((tag, *(np.array(a) for a in arrays)))
+            return None if method is None else method(self, tag, *arrays, **kwargs)
+        return record
+
+    # the prediction and target of channel 0 that the first batch's AR steps
+    # score (the steps that capture the frames)
+    scored = []
+    update = metric.MetricsHandler.update
+
+    def scoring(self, buffers, pred, targ, loss, idt):
+        if len(scored) < steps:
+            scored.append((pred[0, 0].cpu().numpy(), targ[0, 0].cpu().numpy()))
+        return update(self, buffers, pred, targ, loss, idt)
+
+    patches = [mock.patch.object(metric.MetricsHandler, "update", scoring)]
+    if rec["missing"]:
+        class FrameRecorder:
+            """VisualizationWrapper's surface: records, renders nothing."""
+            add = recording("add", None)
+            add_video = recording("add_video", None)
+
+            def __init__(self, *args, **kwargs):
+                pass
+
+            def finalize(self):
+                return []
+
+            def close(self):
+                pass
+        patches += [mock.patch.object(visualize, "VisualizationWrapper", FrameRecorder),
+                    mock.patch.object(trainer_module, "import_optional", lambda *a, **k: None)]
+    else:
+        wrapper = visualize.VisualizationWrapper
+        patches += [mock.patch.object(wrapper, n, recording(n, getattr(wrapper, n)))
+                    for n in ("add", "add_video")]
+    train_steps = ICML_STEPS[ICML_PRETRAIN]
+    argv = ["--yaml_config", str(run_yaml("icml_models.yaml", ICML_PRETRAIN, VIDEO_DIR,
+                                          train_steps)),
+            "--config", ICML_PRETRAIN, "--amp_mode", "bf16", "--checkpointing_level",
+            str(ICML_LEVELS[ICML_PRETRAIN]), "--save_checkpoint", "none", "--run_num", "videos"]
+    try:
+        with contextlib.ExitStack() as stack:
+            for p in patches:
+                stack.enter_context(p)
+            trainer, run = main_run(torch, kernels, ICML_PRETRAIN, argv, train_steps)
+        p = trainer.params
+        check(p.log_video == 10 and not p.skip_validation and trainer.amp_dtype == torch.bfloat16,
+              f"phase 16: log_video {p.log_video}, skip_validation {p.skip_validation}")
+        # the train steps', then the validation's: the first batch's
+        # one-step comparison and every AR step
+        want = {k: v * train_steps
+                for k, v in icml_launches(ICML_LEVELS[ICML_PRETRAIN], 1, run["leaves"]).items()}
+        forwards = FILES_EVAL * steps + 1
+        for k, v in VALID_STEP_LAUNCHES.items():
+            want[k] = want.get(k, 0) + v * forwards
+        check(run["launches"] == launch_counts(kernels, want) and run["one_pass"],
+              f"phase 16 launches {run['launches']}, want {want}")
+        timing = trainer.epoch_logs[-1]["timing"]
+        rec.update(run, train_s=timing["training time [s]"],
+                   valid_s=timing["validation time [s]"],
+                   viz_s=timing["visualization time [s]"], epoch_s=timing["epoch time [s]"],
+                   forwards=forwards, valid_ar_steps=FILES_EVAL * steps)
+
+        # the frames: each the prediction and target its AR step scored
+        (tag, pred, targ), = seen["add_video"]
+        check(tag == "epoch0_rollout_ch0" and pred.shape == targ.shape == (steps, *FILES_SHAPE)
+              and len(scored) == steps, f"video {tag}: {pred.shape}, {len(scored)} scored")
+        equal = [bool(np.array_equal(pred[t], scored[t][0]) and np.array_equal(targ[t],
+                                                                               scored[t][1]))
+                 for t in range(steps)]
+        check(all(equal) and np.isfinite(pred).all(),
+              f"frames vs the scored prediction and target: {equal}")
+        (tag, pimg, timg), = seen["add"]
+        check(tag == "epoch0_step1" and pimg.shape == timg.shape == (2, *FILES_SHAPE)
+              and np.isfinite(pimg).all(), f"comparison {tag}: {pimg.shape}")
+        rec.update(frames=steps, frame_shape=list(pred.shape[1:]))
+
+        # the validation logs do not depend on log_video: epoch 1 does not render
+        _, viz_s, plain = trainer.validate_one_epoch(1)
+        check(plain == trainer.epoch_logs[-1]["valid"],
+              "validation logs with log_video differ from those without it")
+        rec["plain_valid_viz_s"] = viz_s
+
+        # the files
+        if not rec["missing"]:
+            out = Path(p.experiment_dir) / "visualizations"
+            names = sorted(f.name for f in out.iterdir())
+            check(names == ["epoch0_rollout_ch0.avi", "epoch0_step1.png"], f"{out}: {names}")
+            rec["avi"] = avi_header(out / "epoch0_rollout_ch0.avi")
+            check(rec["avi"] == (steps, 2 * FILES_SHAPE[1] + VIDEO_SEPARATOR, FILES_SHAPE[0]),
+                  f"AVI frames, width, height {rec['avi']}")
+            rec["png"] = png_size(out / "epoch0_step1.png")
+            rec["avi_bytes"] = (out / "epoch0_rollout_ch0.avi").stat().st_size
+            rec["png_bytes"] = (out / "epoch0_step1.png").stat().st_size
+        del trainer
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(VIDEO_DIR, ignore_errors=True)
+    return rec
+
+
+def print_videos(vid, card):
+    """Phase 16's lines, each with the card's name and power limit."""
+    for cut in VIDEO_CUTS:
+        print(f"[videos cut] {cut}")
+    if vid["missing"]:
+        print(f"[videos cut] {card}: {', '.join(vid['missing'])} missing on this host: the "
+              "comparison image and the video are not rendered; the Trainer's renderer records "
+              "what it is given instead, and the card runs the same work", flush=True)
+    print(f"[videos run] {card}: {ICML_PRETRAIN}, bf16 AMP, log_video 10, {vid['params']} "
+          f"parameters; losses {vid['losses']}; epoch 0 in {vid['epoch_s']:.2f} s: train "
+          f"{vid['train_s']:.2f} s, validation {vid['valid_s']:.2f} s ({vid['valid_ar_steps']} AR "
+          f"steps and the comparison's forward), of which visualization {vid['viz_s']:.2f} s "
+          f"(a validation without rendering waits {vid['plain_valid_viz_s']:.6f} s); run "
+          f"{vid['run_s']:.1f} s, peak {vid['peak_bytes'] / 2**30:.2f} GiB; launches "
+          f"{ {k: v for k, v in vid['launches'].items() if v} }, all at 1 pass", flush=True)
+    files = ("not rendered" if vid["missing"] else
+             f"epoch0_rollout_ch0.avi {vid['avi_bytes'] / 1e6:.2f} MB, {vid['avi'][0]} frames of "
+             f"{vid['avi'][1]}x{vid['avi'][2]}; epoch0_step1.png {vid['png_bytes'] / 1e6:.2f} MB, "
+             f"{vid['png'][0]}x{vid['png'][1]}")
+    print(f"[videos frames] {card}: {vid['frames']} frames of {vid['frame_shape'][0]}x"
+          f"{vid['frame_shape'][1]}, each the prediction and target its AR step scored, bit for "
+          f"bit; validation logs with log_video equal those without, bit for bit; files: {files}",
+          flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--record", type=Path, help="write every measurement to this JSON file")
@@ -3334,6 +3541,8 @@ def main(argv=None):
         fno = phase_fno(torch, np, sht, complex_ops, kernels, dev, gen)
         # phase 15: the other model families on the same dataset
         families = phase_families(torch, np, kernels, dev, gen)
+        # phase 16: the ICML pretrain with validation and its rollout videos
+        videos = phase_videos(torch, np, kernels, dev)
     finally:
         shutil.rmtree(FILES_DIR, ignore_errors=True)
         sht.set_coeff_engine(settings[0])
@@ -3449,8 +3658,10 @@ def main(argv=None):
     print_fno(fno)
     record["families"] = families
     print_families(families, card)
+    record["videos"] = videos
+    print_videos(videos, card)
     record["script_s"] = time.perf_counter() - t_script
-    print(f"[time] phases 1-15 in {record['script_s']:.1f} s, the kernels' build included",
+    print(f"[time] phases 1-16 in {record['script_s']:.1f} s, the kernels' build included",
           flush=True)
 
     # results
@@ -3485,7 +3696,8 @@ def main(argv=None):
         float16 update over the linear FNO's leaves; launches_afno_v2,
         launches_afno_v1, launches_vit: phase 15's float32 runs of afno_v2,
         afno_backbone and vit_backbone (2 steps each), and *_amp their bf16
-        AMP runs (1 step each)."""
+        AMP runs (1 step each); launches_videos: phase 16's run, 2 train
+        steps and a validation that renders."""
         return dict(launches_files=files["train_launches"][name],
                     launches_per_train_step_files=files["train_launches_per_step"][name],
                     launches_rollout_files=files["rollout_launches"][name],
@@ -3506,7 +3718,8 @@ def main(argv=None):
                     if name == "fused_adam" else 0,
                     **{f"launches_{tag}{amp}": families[family + amp]["launches"][name]
                        for tag, family in (("afno_v2", AFNO_V2), ("afno_v1", AFNO_V1),
-                                           ("vit", VIT)) for amp in ("", "_amp")})
+                                           ("vit", VIT)) for amp in ("", "_amp")},
+                    launches_videos=videos["launches"][name])
 
     kernels = []
     # *_amp: the same counts on phase 9's AMP path, where every pass-taking

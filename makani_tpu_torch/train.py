@@ -10,11 +10,11 @@ pipeline self-test on the config's data. The flags are makani_tpu's, plus
 --device (default cuda; without CUDA it raises unless --device cpu).
 makani_tpu's no-op flags (--jit_mode, --cuda_graph_mode, --disable_ddp,
 --parameters_reduction_buffer_count) are accepted and change nothing.
---multistep_count K trains the K-step unroll (n_future = K - 1). The port
-runs one process on one device: a *_parallel_size other than 1 is refused
-(ROADMAP, Queue 1 item 7), as is a config that asks for rollout videos
-(`log_video`, item 9); --split_data_channels, a mesh setting, changes
-nothing.
+--multistep_count K trains the K-step unroll (n_future = K - 1). A config's
+`log_video` renders the rollout videos (utils/visualize; matplotlib and PIL
+on the host). The port runs one process on one device: a *_parallel_size
+other than 1 is refused (ROADMAP, Queue 1 item 7); --split_data_channels, a
+mesh setting, changes nothing.
 """
 
 import argparse

@@ -12,7 +12,9 @@ params runs a host loop over one AR step, in four kinds of rollout:
 `inference_lite` (with `ic_perturbation_std`), `predict` (denormalized),
 `inference_epoch` (the whole evaluation loader; the ACC and RMSE curves and
 the RMSE over time and over space, saved as four npy files in
-experiment_dir) and `score_model` are makani_tpu's.
+experiment_dir, and the curves plotted a channel a PNG under
+experiment_dir/rollout_plots by utils/visualize, where matplotlib imports,
+else a warning) and `score_model` are makani_tpu's.
 
 The weights: `weights` (a state dict of the stepper) where the caller gives
 them; else the checkpoint at params.checkpoint_path (utils/checkpoint, the
@@ -35,9 +37,7 @@ fields serve any number of rollouts (makani_tpu copies them because its steps
 donate their buffers).
 
 The MetricsHandler and the loss are built at their first use: a rollout
-without metrics needs neither channel names nor stats files. Not ported: the
-rollout plots of inference_epoch (utils/visualize.py, ROADMAP Queue 1 item
-9).
+without metrics needs neither channel names nor stats files.
 """
 
 import functools
@@ -251,7 +251,8 @@ class Inferencer:
 
     def inference_epoch(self, output_channels):
         """Scores the evaluation loader; saves acc_curves.npy, rmse_curves.npy,
-        RMSE_over_time.npy and RMSE_over_space.npy into experiment_dir.
+        RMSE_over_time.npy and RMSE_over_space.npy into experiment_dir and
+        plots the curves.
         The squared errors are sums over the batch, so the RMSE exports are
         normalized by the number of samples, not batches."""
         buffers, (rt, rs) = self.metrics.initialize_buffers(), self._zero_accumulators()
@@ -276,6 +277,13 @@ class Inferencer:
                 rmse_over_time * global_stds[:, oc, 0, 0])
         np.save(os.path.join(exp_dir, "RMSE_over_space.npy"),
                 rmse_over_space * global_stds[0, oc])
+
+        try:
+            from makani_tpu_torch.utils.visualize import plot_rollout_metrics
+            plot_rollout_metrics(acc_curves, rmse_curves, self.params,
+                                 epoch=0, model_name=self.params.nettype)
+        except Exception as e:
+            logger.warning(f"rollout plotting failed: {e}")
         return logs
 
     def log_score(self, scoring_logs, scoring_time):

@@ -77,6 +77,24 @@ def create_netcdf(path, name, shape, dim_names, dims=None, dtype="f4",
                 v.attrs[k] = a
 
 
+def write_netcdf_slice(path, name, data, slices=None):
+    """Write into an existing variable at the given slice tuple."""
+    h5py = _h5py(f"writing NetCDF {path}")
+    with h5py.File(path, "a") as f:
+        if slices is None:
+            f[name][...] = data
+        else:
+            f[name][tuple(slices)] = data
+
+
+def write_netcdf_attr(path, name, key, value):
+    """Set attribute `key` of variable `name` (of the file where name is None)."""
+    h5py = _h5py(f"writing NetCDF {path}")
+    with h5py.File(path, "a") as f:
+        target = f.attrs if name is None else f[name].attrs
+        target[key] = value
+
+
 def write_prediction_file(output_path, data, extra_dims=None):
     """Write predictions shaped (time, var, lat, lon) in the fork's layout:
     one 'var{i}' variable per channel over dims (dim0, dim1, dim2)."""

@@ -54,9 +54,18 @@ augmentation generator's state under AUG_STATE_KEY and the dropout seed under
 DROPOUT_SEED_KEY in place of makani_tpu's `dropout_key`: a resumed run
 continues as the uninterrupted one would, bit for bit.
 
-Not ported yet; each raises NotImplementedError when the config asks for it
-(ROADMAP, Queue 1, the items named in the messages): parallelism (item 7)
-and the rollout videos (`log_video`, item 9).
+The rollout videos: where `log_video` > 0, every log_video-th epoch's
+validation renders, for its first batch, the one-step prediction against
+the target of channels :2 (`eval_forward`) and a video of channel 0 over the
+rollout whose frames the scoring AR steps hand back (`eval_step(...,
+capture_frames=True)`), both by utils/visualize.VisualizationWrapper into
+<experiment_dir>/visualizations/ as makani_tpu names them. The metrics do
+not depend on it. The host packages it needs (matplotlib, PIL) are checked
+when the Trainer is built, where a config would render (makani_tpu fails at
+the first render).
+
+Not ported yet; it raises NotImplementedError when the config asks for it
+(ROADMAP, Queue 1 item 7): parallelism.
 """
 
 import functools
@@ -75,6 +84,7 @@ from makani_tpu_torch.ops import complex_ops, sht
 from makani_tpu_torch.ops.fused_adam import fused_adam_apply
 from makani_tpu_torch.utils import checkpoint as ckpt_lib
 from makani_tpu_torch.utils.device import resolve_device
+from makani_tpu_torch.utils.imports import import_optional
 from makani_tpu_torch.utils.losses import LossHandler
 from makani_tpu_torch.utils.metric import MetricsHandler, time_stats
 from makani_tpu_torch.utils.optimizers import (
@@ -123,9 +133,11 @@ def augment_batch(inp, tar, zen_inp, zen_tar, generator, do_roll, noise_std):
 
 
 def _check_supported(params):
-    if int(params.get("log_video", 0) or 0) > 0:
-        raise NotImplementedError("the rollout videos (log_video > 0, utils/visualize.py) are "
-                                  "not ported yet (ROADMAP: Queue 1 item 9)")
+    log_video = int(params.get("log_video", 0) or 0)
+    if log_video > 0 and not params.get("skip_validation", False):
+        for module in ("matplotlib", "PIL"):
+            import_optional(module, f"log_video {log_video} (the rollout videos)",
+                            hint="set log_video: 0 to train without them")
     sizes = list(params.get("model_parallel_sizes", None) or [])
     if any(int(s) != 1 for s in sizes) or int(params.get("world_size", 1) or 1) > 1:
         raise NotImplementedError(f"parallelism (model_parallel_sizes {sizes}, world_size "
@@ -155,12 +167,12 @@ class Trainer:
         self.params = params
         self.log_to_screen = params.get("log_to_screen", False)
 
-        # the experiment log: makani_tpu's JSON-lines backend (wandb is not
-        # installed where the port runs)
+        # the experiment log: wandb where it imports, else makani_tpu's
+        # JSON-lines backend
         self.wandb = None
         if params.get("log_to_wandb", False):
-            from makani_tpu_torch.utils.wandb_compat import JsonlRun
-            self.wandb = JsonlRun()
+            from makani_tpu_torch.utils.wandb_compat import experiment_log
+            self.wandb = experiment_log()
             self.wandb.init(
                 dir=params.get("wandb_dir", None) or params.get("experiment_dir", "."),
                 config=params, name=params.get("wandb_name", None),
@@ -226,6 +238,9 @@ class Trainer:
         self.checkpoint_waits = []
         # last_logs of every epoch this Trainer ran
         self.epoch_logs = []
+        # the rollout videos' renderer, made at the first validation that
+        # renders
+        self.visualizer = None
 
         self._log_memory("after model and optimizer init")
 
@@ -322,7 +337,9 @@ class Trainer:
     def eval_ar_step(self, buffers, inpt, uinp, tar, zen_tar, idt):
         """One autoregressive validation step: the prediction of `inpt`
         scored against target frame `idt` into the metric buffers; returns
-        the buffers, the next input window and the next zenith input."""
+        the buffers, the next input window, the next zenith input and the
+        channel-0 frames of the first sample (prediction, target), on the
+        device."""
         prep = self.preprocessor
         t = min(idt, tar.shape[1] - 1)
         targ = prep.flatten_history(tar[:, t: t + 1])
@@ -330,14 +347,21 @@ class Trainer:
         loss = self.loss_obj(pred, targ, inpt, training=False)
         buffers = self.metrics.update(buffers, pred, targ, loss, idt)
         uinp = prep.advance_unpredicted_dyn(uinp, zen_tar, idt)
-        return buffers, prep.append_history(inpt, pred), uinp
+        return buffers, prep.append_history(inpt, pred), uinp, (pred[0, 0], targ[0, 0])
 
-    def eval_step(self, buffers, inp, tar, zen_inp, zen_tar):
-        """A batch's rollout over valid_autoreg_steps + 1 steps."""
+    def eval_step(self, buffers, inp, tar, zen_inp, zen_tar, capture_frames=False):
+        """A batch's rollout over valid_autoreg_steps + 1 steps; with
+        `capture_frames`, (buffers, frames): each step's channel-0 frame pair
+        copied to the host after the step, as numpy arrays."""
         inpt = self.preprocessor.flatten_history(inp)
         uinp = zen_inp
+        frames = []
         for idt in range(self.params.valid_autoreg_steps + 1):
-            buffers, inpt, uinp = self.eval_ar_step(buffers, inpt, uinp, tar, zen_tar, idt)
+            buffers, inpt, uinp, frame = self.eval_ar_step(buffers, inpt, uinp, tar, zen_tar, idt)
+            if capture_frames:
+                frames.append(tuple(f.cpu().numpy() for f in frame))
+        if capture_frames:
+            return buffers, frames
         return buffers
 
     # ------------------------------------------------------------------
@@ -396,10 +420,14 @@ class Trainer:
             }
             self.log_epoch(train_logs, valid_logs, timing_logs)
 
-        # drain the writes in flight before returning
+        # drain the writes in flight and stop the renderer's workers before
+        # returning
         t0 = time.perf_counter()
         ckpt_lib.wait_for_saves()
         self.checkpoint_waits.append(time.perf_counter() - t0)
+        if self.visualizer is not None:
+            self.visualizer.close()
+            self.visualizer = None
         if self.log_to_screen:
             logger.info("Total training time is {:.2f} sec".format(time.time() - training_start))
 
@@ -492,15 +520,39 @@ class Trainer:
         return train_time, total_data_bytes / 1024 ** 3, logs
 
     def validate_one_epoch(self, epoch):
-        """Scores the evaluation loader (the rollout videos, log_video, are
-        not ported). Returns (seconds, 0 visualization seconds, logs)."""
+        """Scores the evaluation loader; on an epoch that renders (log_video),
+        the first batch's comparison image and rollout video too. Returns
+        (seconds, the seconds of them spent waiting for the renders, logs)."""
         buffers = self.metrics.initialize_buffers()
         valid_start = time.time()
+        visualize = bool(self.params.log_video) and epoch % max(self.params.log_video, 1) == 0
+        eval_steps = 0
         for data in self.valid_dataloader:
+            eval_steps += 1
             inp, tar, zen_inp, zen_tar = self._device_batch(data)
+            if visualize and eval_steps <= 1:
+                if self.visualizer is None:
+                    from makani_tpu_torch.utils.visualize import VisualizationWrapper
+                    self.visualizer = VisualizationWrapper(
+                        self.params, num_workers=self.params.num_visualization_workers)
+                pred = self.eval_forward(inp, zen_inp)
+                targ = self.preprocessor.flatten_history(tar[:, :1])
+                self.visualizer.add(f"epoch{epoch}_step{eval_steps}",
+                                    pred[0, :2].cpu().numpy(), targ[0, :2].cpu().numpy())
+                buffers, frames = self.eval_step(buffers, inp, tar, zen_inp, zen_tar,
+                                                 capture_frames=True)
+                self.visualizer.add_video(f"epoch{epoch}_rollout_ch0",
+                                          np.stack([f[0] for f in frames]),
+                                          np.stack([f[1] for f in frames]))
+                continue
             buffers = self.eval_step(buffers, inp, tar, zen_inp, zen_tar)
         logs = self.metrics.finalize(buffers)
-        return time.time() - valid_start, 0.0, logs
+
+        viz_time = time.perf_counter()
+        if visualize and self.visualizer is not None:
+            self.visualizer.finalize()
+        viz_time = time.perf_counter() - viz_time
+        return time.time() - valid_start, viz_time, logs
 
     # ------------------------------------------------------------------
     # observability

@@ -394,6 +394,46 @@ def test_afno_v2_amp_on_the_card(cuda):
 
 
 @pytest.mark.cuda
+def test_capture_frames_on_the_card(cuda):
+    """A small SFNO Trainer's validation rollout on the card with its frames
+    captured (eval_step(..., capture_frames=True), as log_video asks): each
+    frame is the prediction and the target its AR step scored, bit for bit,
+    on the host; the metrics equal those of the same rollout without capture,
+    bit for bit; each AR step launches legmm and dhconv_mm."""
+    from makani_tpu_torch.utils.trainer import Trainer
+    from makani_tpu_torch.utils.yparams import YParams
+    params = YParams("config/sfnonet.yaml", "flagship_synth_drive_bare")
+    params.update_params(dict(
+        img_shape_x=24, img_shape_y=48, embed_dim=16, num_layers=2, scale_factor=2,
+        enable_synthetic_data=True, n_train_samples_per_epoch=2, n_eval_samples=2,
+        valid_autoreg_steps=3, save_checkpoint="none", max_epochs=1, num_data_workers=1,
+        log_to_screen=False, in_channels=[0, 1, 2], out_channels=[0, 1, 2],
+        channel_names=["c0", "c1", "c2"], batch_size=1, dhours=6, log_video=0))
+    trainer = Trainer(params, device=cuda, generator=torch.Generator(cuda).manual_seed(3))
+    batch = trainer._device_batch(next(iter(trainer.valid_dataloader)))
+    scored = []
+    update = trainer.metrics.update
+
+    def recording(buffers, pred, targ, loss, idt):
+        scored.append((pred[0, 0].cpu().numpy(), targ[0, 0].cpu().numpy()))
+        return update(buffers, pred, targ, loss, idt)
+    trainer.metrics.update = recording
+    before = dict(kernels.launches)
+    buffers, frames = trainer.eval_step(trainer.metrics.initialize_buffers(), *batch,
+                                        capture_frames=True)
+    steps = params.valid_autoreg_steps + 1
+    assert kernels.launches["legmm"] - before["legmm"] == 6 * steps
+    assert kernels.launches["dhconv_mm"] - before["dhconv_mm"] == 2 * steps
+    assert len(frames) == len(scored) == steps
+    for (pf, tf), (ps, ts) in zip(frames, scored):
+        assert isinstance(pf, np.ndarray) and pf.shape == (24, 48) and np.isfinite(pf).all()
+        np.testing.assert_array_equal(pf, ps)
+        np.testing.assert_array_equal(tf, ts)
+    plain = trainer.eval_step(trainer.metrics.initialize_buffers(), *batch)
+    assert trainer.metrics.finalize(buffers) == trainer.metrics.finalize(plain)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("passes", [1, 3])
 def test_sht_without_csphase_through_legmm(cuda, passes):
     """The SHT pair without the Condon-Shortley phase at the ICML model's

@@ -527,8 +527,9 @@ def test_trainer_runs_an_epoch_and_refuses_what_is_not_ported(jax_trainer):
     assert unfused.fused_kw == trainer.fused_kw is not None
     # validation, checkpoints, resume, finetune and the dump are ported
     # (tests/test_torch_port_trainer.py), the unroll and dropout too
-    # (tests/test_torch_port_multistep.py); what is still refused:
-    for override, match in [(dict(log_video=2), "item 9"), (dict(world_size=2), "item 7"),
+    # (tests/test_torch_port_multistep.py), the rollout videos too
+    # (tests/test_torch_port_visualize.py); what is still refused:
+    for override, match in [(dict(world_size=2), "item 7"),
                             (dict(model_parallel_sizes=[1, 2, 1, 1]), "item 7")]:
         with pytest.raises(NotImplementedError, match=match):
             Trainer(TYParams.from_dict(dict(tp.to_dict(), **override)), device="cpu")

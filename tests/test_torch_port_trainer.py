@@ -450,9 +450,9 @@ def test_failed_asynchronous_write_raises(ref, tmp_path, monkeypatch):
 def test_trainer_refuses_what_is_not_ported(ref, tmp_path):
     from makani_tpu_torch.utils.trainer import Trainer
     params = _port_params(ref["data"], tmp_path / "exp")
-    # the multi-step unroll and dropout are ported (tests/test_torch_port_multistep.py)
-    for override, match in [(dict(log_video=1), "item 9"),
-                            (dict(model_parallel_sizes=[2, 1, 1, 1]), "item 7"),
+    # the multi-step unroll and dropout are ported (tests/test_torch_port_multistep.py),
+    # the rollout videos too (tests/test_torch_port_visualize.py)
+    for override, match in [(dict(model_parallel_sizes=[2, 1, 1, 1]), "item 7"),
                             (dict(world_size=2), "item 7")]:
         with pytest.raises(NotImplementedError, match=match):
             Trainer(TYParams.from_dict(dict(params.to_dict(), **override)), device="cpu")
