@@ -242,6 +242,34 @@ Phases, in order; any failure exits non-zero:
      The host packages are checked first: without matplotlib or PIL a
      `[videos cut]` line names the missing one, the renderer is replaced by
      one that records what it is given, and the card runs the same work.
+ 17. data and spatial parallelism (makani_tpu_torch/parallel): ranks
+     spawned from this process, each rank a process with the kernels this
+     process built (kernels.load_built) on the card. One card: the ranks
+     share it, and their collectives run on gloo, staged through host
+     memory (NCCL refuses two ranks on one device); a card a rank would take
+     NCCL. The backend chosen is printed. (a) flagship_synth_drive_bare at
+     full width and depth, float32, on h 2 x w 2 (4 ranks): a 3-step rollout
+     of each rank's (361 or 360, 720) patch against the serial rollout of
+     the same weights on the card (PARALLEL_SERVE_TOL of each step's largest
+     magnitude), with each rank's legmm and dhconv_mm launches, step ms and
+     bytes sent; (b) the same model under bf16 AMP on data 2 x h 2 (4 ranks,
+     global batch 2), 2 optimizer steps through fused_adam on each rank's
+     shards, against the serial Trainer at batch 2 on the card at the same
+     checkpointing level (PARALLEL_LEVEL): the losses (PARALLEL_LOSS_TOL) and
+     every leaf's update over the 2 steps (norm-wise, PARALLEL_UPDATE_TOL at
+     the worst leaf and PARALLEL_UPDATE_MEDIAN_TOL at the median),
+     with each rank's launches of legmm, dhconv_mm, dhconv_dw and
+     fused_adam, peak memory, bytes sent and its epoch's ms a step; (c)
+     legmm at M2 = 242 and 240 (a rank's m-slice of 241 orders over w 2)
+     over K = 721 and 240 with 192 channels, and dhconv_mm / dhconv_dw on
+     120 degrees and 121 or 120 orders, against float64 and their twins with
+     phase 3's bounds, and fused_adam on the second h rank's shard of a
+     dhconv weight (bf16 moments, stochastic rounding, the whole leaf's
+     indices from the shard's first one) bit for bit against its twin and
+     the whole leaf's update; the control of (b) reruns it with the spatial
+     sum of the replicated leaves' gradients dropped, and must read above
+     its bound. These times are not the port's speed on several cards: gloo
+     moves the transposes through the host.
 The last two lines are the kernels' JSON record (the AMP path's launches in
 each row's *_amp fields, phase 10's in *_files, phase 11's a scored step in
 launches_score, phase 12's run (a) in launches_trainer and a validation AR
@@ -250,7 +278,9 @@ launches_nonlinear and (e)'s LAMB update in launches_lamb, phase 14's in
 launches_fno_linear, launches_fno_nonlinear, launches_scan,
 launches_factorized, launches_csphase, launches_fp16_trainer and
 launches_fp16_update, phase 15's in launches_afno_v2, launches_afno_v1,
-launches_vit and their *_amp, phase 16's in launches_videos; fused_adam's
+launches_vit and their *_amp, phase 16's in launches_videos, phase 17's
+per rank in launches_parallel_serve and launches_parallel_train, and its
+(c) row at a rank's local shape in parallel_local; fused_adam's
 row also holds its times at the linear FNO's 2.12 B elements for each moment
 type) and the result line.
 --record PATH also writes every measurement of the run to PATH as JSON.
@@ -263,8 +293,10 @@ precision is "high", i.e. 3 bf16 passes in the kernels.
 
 import argparse
 import datetime
+import gc
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -487,6 +519,55 @@ VIDEO_CUTS = (
 VIDEO_SEPARATOR = 4
 
 
+# phase 17: data and spatial parallelism of the SFNO on one card. The ranks
+# share the card (NCCL refuses two ranks on one device), so they exchange
+# over gloo, staged through host memory, while all their compute and kernels
+# stay on the card; with a card a rank they would take NCCL.
+PARALLEL_DIR = ROOT / "build" / "chip_smoke_parallel"
+# (model_parallel_sizes [h, w, fin, fout], ranks): (a) h 2 x w 2, (b) data 2 x h 2
+PARALLEL_SERVE = ([2, 2, 1, 1], 4)
+PARALLEL_TRAIN = ([2, 1, 1, 1], 4)
+PARALLEL_SERVE_STEPS = 3
+# global batch 2 over 2 data ranks: 2 optimizer steps from 4 samples
+PARALLEL_TRAIN_STEPS = 2
+PARALLEL_BATCH = 2
+# the lowest activation checkpointing level at which four ranks of (b) fit
+# the card with the serial batch-2 reference's process: at level 0 a rank ran
+# out of memory at 15.28 GiB of its own with the card full (H100 80GB HBM3)
+PARALLEL_LEVEL = 2
+PARALLEL_SEED = 17
+# (a) each rank's patch of each step within PARALLEL_SERVE_TOL of the serial
+# step's largest magnitude. The Legendre contraction on a rank is the serial
+# one on a slice, but the longitude DFT and the 1x1 mixes run as cuBLAS
+# float32 products of other shapes (a rank's rows), whose algorithms sum in
+# other orders, and the instance norms' sums change order. On an H100 the
+# first step reads 2.0e-5-2.3e-5, the ordering gap of one serial forward
+# (phase 4's kernels against their twins: 2.84e-5, printed beside), and the
+# gap grows through the rollout to 1.53e-4-1.58e-4 at the third step; a
+# wrong slice or transpose gives O(1)
+PARALLEL_SERVE_TOL = 5e-4
+# (b) the losses within 2e-3 relative (bf16 AMP, the sums of the norms and
+# the loss in another order); the weights after 2 steps: each leaf's update
+# (its change over the 2 steps) against the serial update, norm-wise, the
+# worst leaf within PARALLEL_UPDATE_TOL and the median leaf within
+# PARALLEL_UPDATE_MEDIAN_TOL. Adam's first steps are sign-like, so an
+# element whose gradient is bf16 rounding noise takes a full step of either
+# sign on either side: the updates differ by 0.099 at the median leaf and
+# 0.227 at the worst, a norm's bias that starts at zero (on an H100). The
+# control reruns (b) with one fault planted in the gradients' reduction,
+# the spatial sum of the replicated leaves dropped (each h rank steps on its
+# own half of the globe's gradient), and must read above both bounds: it
+# read 0.707 at the median and 1.03 at the worst; each bound lies near the
+# geometric mean of the two readings. The MLP's output bias, whose exact
+# gradient is zero (an instance norm follows it), is checked finite only
+# (ZERO_GRAD). The weights themselves are printed beside: 0.0033 norm-wise
+# at the median.
+PARALLEL_LOSS_TOL = 2e-3
+PARALLEL_UPDATE_TOL = 0.5
+PARALLEL_UPDATE_MEDIAN_TOL = 0.25
+PARALLEL_TIMEOUT = 600
+
+
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
@@ -558,12 +639,12 @@ def timed_rollouts(torch, np, kernels, inferencer, x, label):
 
 
 def phase_kernels(torch, spectral_mm, dev, gen, mmax=241, Lin=240, Kin=240, Kfull=721,
-                  reps=20, plain_reps=5):
+                  reps=20, plain_reps=5, C=384, Ldh=None):
     """Each kernel at the flagship shapes (or the given modes mmax and Lin,
-    inner grid rows Kin and input grid rows Kfull, at 384 channels and batch
-    1); returns rows of measurements."""
+    inner grid rows Kin and input grid rows Kfull, at C = 384 channels and
+    batch 1; the dhconv kernels at Ldh degrees, default Lin); returns rows of
+    measurements."""
     rows = []
-    C = 384
     cases = [("full analysis", Kfull, "k"), ("full synthesis", Kfull, "l"),
              ("inner analysis", Kin, "k"), ("inner synthesis", Kin, "l")]
     for label, K, contract in cases:
@@ -598,7 +679,7 @@ def phase_kernels(torch, spectral_mm, dev, gen, mmax=241, Lin=240, Kin=240, Kful
             del got, plain
         del z, p, zs, table, tables, ref
 
-    B, L, M = 1, Lin, mmax
+    B, L, M, C = 1, Ldh or Lin, mmax, 384
     x = torch.randn((2, B, L, C, M), device=dev, generator=gen)
     w = torch.randn((2, L, C, C), device=dev, generator=gen)
     # the library yardstick: one complex64 matmul (a float32 bmm cannot form
@@ -3267,6 +3348,384 @@ def print_videos(vid, card):
           flush=True)
 
 
+# --------------------------------------------------------------------------
+# phase 17: the ranks
+# --------------------------------------------------------------------------
+
+def parallel_rank(rank, world, port, sizes, job, args, queue):
+    """One rank of phase 17, spawned: joins the process group, runs `job`
+    and puts (rank, ok, result or traceback) on `queue`. It loads the
+    kernels the parent built and compiles nothing."""
+    import traceback
+    # four ranks of (b) fill most of the card: segments that grow in place
+    # keep a rank's reserved memory near its peak allocation
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port), PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    comm = None
+    try:
+        import torch
+        from makani_tpu_torch.ops import kernels
+        from makani_tpu_torch.parallel import comm
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        kernels.load_built()
+        comm.init(sizes, device_type="cuda")
+        job_fn = {"serve": parallel_serve, "train": parallel_train}[job]
+        queue.put((rank, True, job_fn(torch, *args)))
+    except BaseException:
+        queue.put((rank, False, traceback.format_exc()))
+    finally:
+        if comm is not None:
+            comm.reset()
+
+
+def run_ranks(job, sizes, world, *args):
+    """Spawns `world` ranks of `job` (spawn: this process holds a CUDA
+    context) and returns their results in rank order; a rank that fails
+    fails the phase."""
+    import multiprocessing as mp
+    import socket
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=parallel_rank, args=(r, world, port, sizes, job, args, queue))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        for _ in range(world):
+            rank, ok, value = queue.get(timeout=PARALLEL_TIMEOUT)
+            check(ok, f"phase 17 {job} rank {rank} failed:\n{value}")
+            results[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [results[r] for r in range(world)]
+
+
+def parallel_input(torch, dev, shape):
+    return torch.randn(shape, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(PARALLEL_SEED + 1))
+
+
+def parallel_serve(torch, serial_dir, scales):
+    """(a) on a rank: the flagship from PARALLEL_SEED, the rank's patch of
+    the seeded input, PARALLEL_SERVE_STEPS rollout steps held against the
+    serial steps saved at `serial_dir`."""
+    import numpy as np
+    from makani_tpu_torch.models.model_registry import get_model
+    from makani_tpu_torch.ops import kernels
+    from makani_tpu_torch.parallel import comm, spmd
+    dev = comm.get_device()
+    params = flagship_params(1)
+    model = get_model(params, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(PARALLEL_SEED))
+    model.eval()
+    H, W = params.img_crop_shape_x, params.img_crop_shape_y
+    (h0, hn), (w0, wn) = spmd.patch(H, "h"), spmd.patch(W, "w")
+    x = parallel_input(torch, dev, (1, params.N_in_channels, H, W))
+    x = x[..., h0:h0 + hn, w0:w0 + wn].contiguous()
+    errs, times = [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    spmd.moved.clear()
+    with torch.inference_mode():
+        for step in range(PARALLEL_SERVE_STEPS):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            x = model(x)
+            torch.cuda.synchronize(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+            want = np.load(serial_dir / f"step{step}.npy", mmap_mode="r")
+            got = x.cpu().numpy()
+            check(bool(np.isfinite(got).all()), f"(a) step {step} not finite")
+            errs.append(float(np.abs(got - want[..., h0:h0 + hn, w0:w0 + wn]).max())
+                        / scales[step])
+    return dict(errs=errs, step_ms=times, launches=dict(kernels.launches),
+                moved=dict(spmd.moved), peak_bytes=torch.cuda.max_memory_allocated(dev),
+                patch=(hn, wn), backend=comm.get_backend(), device=str(dev))
+
+
+def parallel_train_params(**overrides):
+    params = train_params(amp_mode="bf16")
+    params.update_params(dict(checkpointing=PARALLEL_LEVEL,
+                              n_train_samples_per_epoch=PARALLEL_TRAIN_STEPS * PARALLEL_BATCH,
+                              **overrides))
+    return params
+
+
+def parallel_train(torch, ref_path, serial_losses, fault=False):
+    """(b) on a rank: the AMP Trainer on data 2 x h 2 (its rows and latitude
+    window of each global batch), PARALLEL_TRAIN_STEPS steps, then rank 0
+    holds every leaf's update against the serial one. `fault` plants the
+    control's fault: the gradients of the replicated leaves are not summed
+    over the spatial group (and the losses go unchecked)."""
+    from makani_tpu_torch.ops import kernels
+    from makani_tpu_torch.parallel import comm, partitioning, spmd
+    from makani_tpu_torch.utils.trainer import Trainer
+    dev = comm.get_device()
+    sizes, world = PARALLEL_TRAIN
+    trainer = Trainer(parallel_train_params(batch_size=PARALLEL_BATCH // comm.get_size("data"),
+                                            model_parallel_sizes=sizes, world_size=world),
+                      device=dev)
+    rank0 = comm.get_world_rank() == 0
+    if fault:
+        partitioning.shared_axes = lambda key, shards: ()
+
+    def whole():
+        out = {}
+        for k, p in trainer.model_params.items():
+            t = partitioning.gather_full(k, p.detach(), trainer.shards)
+            if rank0:
+                out[k] = t.cpu()
+        return out
+
+    start = whole()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    spmd.moved.clear()
+    t0 = time.perf_counter()
+    _, _, logs = trainer.train_one_epoch()
+    epoch_s = time.perf_counter() - t0
+    launches, moved = dict(kernels.launches), dict(spmd.moved)
+    peak, reserved = torch.cuda.max_memory_allocated(dev), torch.cuda.max_memory_reserved(dev)
+    losses = logs["step losses"]
+    check(len(losses) == PARALLEL_TRAIN_STEPS, f"(b) {len(losses)} steps")
+    for got, want in zip(losses, serial_losses):
+        # the data ranks' mean of batch-sum losses (makani_tpu's / data size)
+        err = abs(got * comm.get_size("data") - want) / abs(want)
+        check(fault or err < PARALLEL_LOSS_TOL, f"(b) loss {got} vs serial {want}: {err}")
+    after = whole()
+    param_devs, update_devs = {}, {}
+    if rank0:
+        ref = torch.load(ref_path, map_location="cpu", weights_only=True)
+        for k, p in after.items():
+            check(bool(torch.isfinite(p).all()), f"(b) {k} not finite")
+            if k.endswith(ZERO_GRAD):
+                continue
+            du, dref = p - start[k], ref[k] - start[k]
+            param_devs[k] = float((p - ref[k]).norm() / ref[k].norm())
+            update_devs[k] = float((du - dref).norm() / dref.norm())
+    return dict(losses=losses, epoch_s=epoch_s, launches=launches, moved=moved,
+                peak_bytes=peak, reserved_bytes=reserved, param_devs=param_devs,
+                update_devs=update_devs,
+                shards={k: tuple(s.global_shape) for k, s in trainer.shards.items()},
+                backend=comm.get_backend(), data=comm.get_size("data"))
+
+
+def parallel_adam_shard(torch, dev):
+    """(c) fused_adam on the second h rank's shard of a flagship dhconv
+    weight (degrees 120-239 of (2, 240, 384, 384)), bf16 moments under
+    stochastic rounding, 2 steps: bit for bit against its twin on the shard
+    and against the same slice of the kernel's update of the whole leaf.
+    The control, the kernel on the shard without `shards` (the shard's own
+    indices in the dither), must differ in the moments."""
+    from makani_tpu_torch.ops import fused_adam
+    from makani_tpu_torch.parallel.partitioning import Shard, Split
+    from makani_tpu_torch.utils.optimizers import AdamState
+    key = "model.blocks.0.filter_layer.filter.weight"
+    shape, start, length = (2, 240, 384, 384), 120, 120
+    shards = {key: Shard(shape, [Split(1, "h", start, length)])}
+    gen = torch.Generator(device=dev).manual_seed(PARALLEL_SEED + 2)
+    p0 = torch.randn(shape, device=dev, generator=gen)
+    grads = [0.1 * torch.randn(shape, device=dev, generator=gen) for _ in range(2)]
+    cut = (slice(None), slice(start, start + length))
+
+    def run(fn, whole, **kw):
+        p = {key: (p0 if whole else p0[cut]).clone(memory_format=torch.contiguous_format)}
+        s = AdamState(0, {key: torch.zeros_like(p[key], dtype=torch.bfloat16)},
+                      {key: torch.zeros_like(p[key], dtype=torch.bfloat16)})
+        for g in grads:
+            fn(p, {key: (g if whole else g[cut]).contiguous()}, s, 1e-3, seed=340, **kw)
+        torch.cuda.synchronize(dev)
+        return [t if not whole else t[cut] for t in (p[key], s.mu[key], s.nu[key])]
+
+    shard = run(fused_adam.fused_adam_apply, False, shards=shards)
+    twin = run(fused_adam.fused_adam_apply_plain, False, shards=shards)
+    whole = run(fused_adam.fused_adam_apply, True)
+    own = run(fused_adam.fused_adam_apply, False)
+    out = dict(shape=shape, start=start, base=fused_adam.shard_strides(key, None, shards[key])[1],
+               vs_twin=[int((a != b).sum()) for a, b in zip(shard, twin)],
+               vs_whole=[int((a != b).sum()) for a, b in zip(shard, whole)],
+               control=[int((a != b).sum()) for a, b in zip(own, whole)],
+               n=shard[0].numel())
+    del p0, grads, shard, twin, whole, own
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_parallel(torch, np, spectral_mm, kernels, dev, gen, card, order_gap=None):
+    """Phase 17 (module docstring); prints each part when it is measured.
+    `order_gap` is phase 4's forward error of the kernels against their
+    twins, printed beside (a)'s."""
+    from makani_tpu_torch.models.model_registry import get_model
+    from makani_tpu_torch.parallel import comm
+    from makani_tpu_torch.utils.trainer import Trainer
+    rec = {"backend": comm.choose_backend("cuda", PARALLEL_SERVE[1]),
+           "cards": torch.cuda.device_count()}
+    print(f"[parallel] {card}: backend {rec['backend']} ({rec['cards']} card(s): "
+          + ("the ranks share the card, collectives staged through host memory"
+             if rec["backend"] == "gloo" else "a card a rank") + ")", flush=True)
+    # (c) the kernels at the ranks' local shapes: legmm on an m-slice of 121
+    # or 120 orders (M2 242, 240) over the full latitude, 192 channels a
+    # rank after the polar transpose; the dhconv kernels on 120 degrees
+    rec["kernels"] = []
+    for mloc in (121, 120):
+        rows = phase_kernels(torch, spectral_mm, dev, gen, mmax=mloc, C=192, Ldh=120,
+                             reps=10, plain_reps=3)
+        for r in rows:
+            r["local_m"] = mloc
+            print(f"[parallel kernel] {r['name']} {r['shape']} p{r['passes']}: {r['ms']:.3f} ms "
+                  f"(twin {r['plain_ms']:.3f}, library {r['library_ms']:.3f}, bound "
+                  f"{r['bound_ms']:.3f} by {r['bound_by']}); vs twin {r['rel_err_twin']:.3g}, "
+                  f"vs f64 {r['rel_err_f64']:.3g}", flush=True)
+        rec["kernels"] += rows
+    a = rec["adam_shard"] = parallel_adam_shard(torch, dev)
+    print(f"[parallel kernel] fused_adam on the shard {a['start']}:{a['start'] + 120} of dim 1 of "
+          f"{a['shape']} (base {a['base']}), bf16 moments, stochastic rounding, 2 steps: p, mu, nu "
+          f"differ from the twin in {a['vs_twin']} and from the whole leaf's slice in "
+          f"{a['vs_whole']} of {a['n']} elements (bound 0, bit for bit); control, the shard's "
+          f"own indices: {a['control']} differ (must not be 0 in mu and nu)", flush=True)
+    check(a["vs_twin"] == [0, 0, 0] and a["vs_whole"] == [0, 0, 0],
+          f"fused_adam on a shard vs twin {a['vs_twin']}, vs the whole leaf {a['vs_whole']}")
+    check(a["control"][1] > 0 and a["control"][2] > 0,
+          f"fused_adam's control with base 0 matches the whole leaf: {a['control']}")
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    PARALLEL_DIR.mkdir(parents=True)
+    try:
+        # (a) the serial rollout of the same weights, saved step by step
+        params = flagship_params(1)
+        model = get_model(params, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(PARALLEL_SEED))
+        model.eval()
+        x = parallel_input(torch, dev, (1, params.N_in_channels, params.img_crop_shape_x,
+                                        params.img_crop_shape_y))
+        scales, serial_ms = [], []
+        with torch.inference_mode():
+            for step in range(PARALLEL_SERVE_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                x = model(x)
+                torch.cuda.synchronize()
+                serial_ms.append((time.perf_counter() - t0) * 1e3)
+                y = x.cpu().numpy()
+                scales.append(float(np.abs(y).max()))
+                np.save(PARALLEL_DIR / f"step{step}.npy", y)
+        del model, x, y
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["parent_reserved_bytes"] = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        ranks = run_ranks("serve", *PARALLEL_SERVE, PARALLEL_DIR, scales)
+        rec["serve"] = dict(ranks=ranks, wall_s=time.perf_counter() - t0, serial_ms=serial_ms,
+                            order_gap=order_gap)
+        print_parallel_serve(rec["serve"])
+        for i, r in enumerate(ranks):
+            check(max(r["errs"]) < PARALLEL_SERVE_TOL,
+                  f"(a) rank {i} patch vs serial, by step: {r['errs']}")
+            for name in ("legmm", "dhconv_mm"):
+                check(r["launches"][name] > 0, f"(a) {name} not launched on a rank")
+        # (b) the serial batch-2 reference, then the ranks
+        trainer = Trainer(parallel_train_params(batch_size=PARALLEL_BATCH), device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        _, _, logs = trainer.train_one_epoch()
+        serial_peak = torch.cuda.max_memory_allocated()
+        serial_losses = logs["step losses"]
+        ref_path = PARALLEL_DIR / "serial_weights.pt"
+        torch.save({k: p.detach().cpu() for k, p in trainer.model_params.items()}, ref_path)
+        del trainer, logs
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[parallel serial] batch {PARALLEL_BATCH}, checkpointing {PARALLEL_LEVEL}: "
+              f"losses {serial_losses}, peak {serial_peak / 2**30:.2f} GiB; this process "
+              f"keeps {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved while the "
+              "ranks run", flush=True)
+        t0 = time.perf_counter()
+        ranks = run_ranks("train", *PARALLEL_TRAIN, ref_path, serial_losses)
+        devs, udevs = ranks[0]["param_devs"], ranks[0]["update_devs"]
+        worst = max(udevs, key=udevs.get)
+        rec["train"] = dict(ranks=ranks, wall_s=time.perf_counter() - t0,
+                            serial_losses=serial_losses, serial_peak_bytes=serial_peak,
+                            worst_leaf=worst, worst_update_dev=udevs[worst],
+                            median_update_dev=float(np.median(list(udevs.values()))),
+                            worst_dev=max(devs.values()),
+                            median_dev=float(np.median(list(devs.values()))))
+        print_parallel_train(rec["train"])
+        check(udevs[worst] < PARALLEL_UPDATE_TOL,
+              f"(b) the update of {worst} vs serial: {udevs[worst]}")
+        check(rec["train"]["median_update_dev"] < PARALLEL_UPDATE_MEDIAN_TOL,
+              f"(b) the median leaf's update vs serial: {rec['train']['median_update_dev']}")
+        for r in ranks:
+            for name in ("legmm", "dhconv_mm", "dhconv_dw", "fused_adam"):
+                check(r["launches"][name] > 0, f"(b) {name} not launched on a rank")
+        # the control: (b) with the spatial sum of the replicated leaves dropped
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        fdevs = run_ranks("train", *PARALLEL_TRAIN, ref_path, serial_losses, True)[0]["update_devs"]
+        fworst = max(fdevs, key=fdevs.get)
+        split = rec["train"]["ranks"][0]["shards"]
+        rec["train_fault"] = dict(
+            wall_s=time.perf_counter() - t0, worst_leaf=fworst, worst_update_dev=fdevs[fworst],
+            median_update_dev=float(np.median(list(fdevs.values()))),
+            split_worst=max((v for k, v in fdevs.items() if k in split), default=float("nan")))
+        f = rec["train_fault"]
+        print(f"[parallel train control] {f['wall_s']:.1f} s; the spatial sum of the replicated "
+              f"leaves dropped: updates vs serial, norm-wise: worst {f['worst_update_dev']:.3g} "
+              f"({fworst}), median {f['median_update_dev']:.3g}, the split leaves' worst "
+              f"{f['split_worst']:.3g} (must read above the bounds {PARALLEL_UPDATE_TOL} and "
+              f"{PARALLEL_UPDATE_MEDIAN_TOL})", flush=True)
+        check(f["worst_update_dev"] > PARALLEL_UPDATE_TOL
+              and f["median_update_dev"] > PARALLEL_UPDATE_MEDIAN_TOL,
+              f"(b)'s control reads {f['worst_update_dev']} and {f['median_update_dev']}, "
+              "within the bounds")
+    finally:
+        shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    return rec
+
+
+def print_parallel_serve(serve):
+    for i, r in enumerate(serve["ranks"]):
+        print(f"[parallel serve rank {i}] h 2 x w 2, patch {r['patch']} on {r['device']}: "
+              f"step ms {', '.join(f'{t:.1f}' for t in r['step_ms'])} (serial "
+              f"{', '.join(f'{t:.1f}' for t in serve['serial_ms'])}); errors vs serial "
+              f"{', '.join(f'{e:.3g}' for e in r['errs'])} (bound {PARALLEL_SERVE_TOL}); "
+              f"launches legmm {r['launches']['legmm']}, dhconv_mm {r['launches']['dhconv_mm']};"
+              f" bytes sent {r['moved']}; peak {r['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+    gap = serve["order_gap"]
+    print(f"[parallel serve] {serve['wall_s']:.1f} s for the 4 ranks, start to end; the ordering "
+          "gap of one serial forward (phase 4, kernels vs twins): "
+          + ("not measured" if gap is None else f"{gap:.3g}"), flush=True)
+
+
+def print_parallel_train(train):
+    for i, r in enumerate(train["ranks"]):
+        print(f"[parallel train rank {i}] data {r['data']} x h 2, bf16 AMP, checkpointing "
+              f"{PARALLEL_LEVEL}: losses {r['losses']} (x{r['data']} vs serial batch "
+              f"{PARALLEL_BATCH} {train['serial_losses']}, bound {PARALLEL_LOSS_TOL}); epoch "
+              f"{r['epoch_s']:.2f} s ({r['epoch_s'] * 1e3 / len(r['losses']):.1f} ms a step "
+              f"with the loader); launches "
+              f"{ {k: r['launches'][k] for k in ('legmm', 'dhconv_mm', 'dhconv_dw', 'fused_adam', 'gelu_bf16', 'gelu_bf16_grad')} }; "
+              f"bytes sent {r['moved']}; peak {r['peak_bytes'] / 2**30:.2f} GiB (reserved "
+              f"{r['reserved_bytes'] / 2**30:.2f})", flush=True)
+    print(f"[parallel train] {train['wall_s']:.1f} s for the 4 ranks; serial batch "
+          f"{PARALLEL_BATCH} peak {train['serial_peak_bytes'] / 2**30:.2f} GiB; split leaves "
+          f"{len(train['ranks'][0]['shards'])}; updates over {PARALLEL_TRAIN_STEPS} steps vs "
+          f"serial, norm-wise: worst {train['worst_update_dev']:.3g} ({train['worst_leaf']}), "
+          f"median {train['median_update_dev']:.3g} (bounds {PARALLEL_UPDATE_TOL}, "
+          f"{PARALLEL_UPDATE_MEDIAN_TOL}); the weights: "
+          f"worst {train['worst_dev']:.3g}, median {train['median_dev']:.3g}", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--record", type=Path, help="write every measurement to this JSON file")
@@ -3660,8 +4119,16 @@ def main(argv=None):
     print_families(families, card)
     record["videos"] = videos
     print_videos(videos, card)
+
+    # phase 17: data and spatial parallelism, the ranks sharing the card
+    t0 = time.perf_counter()
+    par = phase_parallel(torch, np, spectral_mm, kernels, dev, gen, card,
+                         order_gap=record["forward_rel_err"])
+    par["phase_s"] = time.perf_counter() - t0
+    record["parallel"] = par
+    print(f"[parallel time] phase 17 in {par['phase_s']:.1f} s", flush=True)
     record["script_s"] = time.perf_counter() - t_script
-    print(f"[time] phases 1-16 in {record['script_s']:.1f} s, the kernels' build included",
+    print(f"[time] phases 1-17 in {record['script_s']:.1f} s, the kernels' build included",
           flush=True)
 
     # results
@@ -3719,7 +4186,13 @@ def main(argv=None):
                     **{f"launches_{tag}{amp}": families[family + amp]["launches"][name]
                        for tag, family in (("afno_v2", AFNO_V2), ("afno_v1", AFNO_V1),
                                            ("vit", VIT)) for amp in ("", "_amp")},
-                    launches_videos=videos["launches"][name])
+                    launches_videos=videos["launches"][name],
+                    # phase 17: each rank's launches, (a) h 2 x w 2 over 3
+                    # rollout steps, (b) data 2 x h 2 over 2 AMP train steps
+                    launches_parallel_serve=[r["launches"][name]
+                                             for r in par["serve"]["ranks"]],
+                    launches_parallel_train=[r["launches"][name]
+                                             for r in par["train"]["ranks"]])
 
     kernels = []
     # *_amp: the same counts on phase 9's AMP path, where every pass-taking
@@ -3739,6 +4212,13 @@ def main(argv=None):
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             shape=r["shape"], passes=passes))
+        if label is not None or name == "dhconv_dw":
+            # phase 17 (c): the same kernel at a rank's local shape (m-slice
+            # of 121 orders; the dhconv kernels on 120 degrees), 3 passes
+            lr = next(q for q in par["kernels"] if q["name"] == name and q["passes"] == 3
+                      and q["local_m"] == 121 and (label is None or q["shape"].startswith(label)))
+            kernels[-1]["parallel_local"] = {k: lr[k] for k in (
+                "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
     # fused_adam at the linear FNO's 2.12 B elements (phase 14 (d)): each
     # moment type's update time beside its bound, and torch's fused Adam
     a = fno["adam"]

@@ -35,7 +35,8 @@
 // in the reference's layout of the leaf: the wrapper passes the leaf's last
 // three sizes and one index stride per dimension (the identity for every leaf
 // but the dhconv weight, which the port stores as (2, L, C, O) and the
-// reference as (C, O, L, 2)).
+// reference as (C, O, L, 2)), and the flat index of the leaf's first element
+// (a rank's shard of a leaf split over ranks keeps the whole leaf's indices).
 //
 // What bounds it on an H100: 20 bytes per element (p read and written, g
 // read, two bf16 or float16 moments read and written); the flagship's 572.5 M
@@ -104,7 +105,8 @@ fused_adam_kernel(float* __restrict__ p, const float* __restrict__ g,
                   typename Moment<KIND>::T* __restrict__ mu,
                   typename Moment<KIND>::T* __restrict__ nu, float* __restrict__ dir,
                   const float* __restrict__ norm, uint32_t n, uint32_t s1, uint32_t s2,
-                  uint32_t s3, uint32_t j0, uint32_t j1, uint32_t j2, uint32_t j3, Scalars k) {
+                  uint32_t s3, uint32_t j0, uint32_t j1, uint32_t j2, uint32_t j3,
+                  uint32_t base, Scalars k) {
   const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float gf = g[i];
@@ -138,7 +140,7 @@ fused_adam_kernel(float* __restrict__ p, const float* __restrict__ g,
     const uint32_t c2 = t % s2;
     t /= s2;
     const uint32_t c1 = t % s1;
-    idx = (t / s1) * j0 + c1 * j1 + c2 * j2 + c3 * j3;
+    idx = base + (t / s1) * j0 + c1 * j1 + c2 * j2 + c3 * j3;
   }
   Moment<KIND>::store(mu, i, m_store, idx, k.salt_mu);
   Moment<KIND>::store(nu, i, v, idx, k.salt_nu);
@@ -151,7 +153,7 @@ struct Leaf {
   void* nu;
   void* dir;
   const void* norm;
-  uint32_t n, s1, s2, s3, j0, j1, j2, j3;
+  uint32_t n, s1, s2, s3, j0, j1, j2, j3, base;
 };
 
 template <int KIND, int MODE>
@@ -161,7 +163,7 @@ void launch(const Leaf& a, const Scalars& k, cudaStream_t s) {
   fused_adam_kernel<KIND, MODE><<<blocks, 256, 0, s>>>(
       static_cast<float*>(a.p), static_cast<const float*>(a.g), static_cast<T*>(a.mu),
       static_cast<T*>(a.nu), static_cast<float*>(a.dir), static_cast<const float*>(a.norm),
-      a.n, a.s1, a.s2, a.s3, a.j0, a.j1, a.j2, a.j3, k);
+      a.n, a.s1, a.s2, a.s3, a.j0, a.j1, a.j2, a.j3, a.base, k);
 }
 
 template <int KIND>
@@ -180,7 +182,9 @@ void launch_mode(const Leaf& a, const Scalars& k, int mode, cudaStream_t s) {
 
 // One leaf of n elements (n < 2^32), in place. (s1, s2, s3) are the last
 // three sizes of the leaf's shape padded to four dimensions, (j0..j3) the
-// index strides of the four dimensions in the reference's layout. kind:
+// index strides of the four dimensions in the reference's layout, `base` the
+// flat index of the leaf's first element there (0 but for a shard of a leaf
+// split over ranks, whose indices are those of the whole leaf). kind:
 // 0 float32 moments, 1 bf16 rounded to nearest, 2 bf16 stochastically,
 // 3 float16 rounded to nearest.
 // mode: bit 0 clips g by the float32 global norm at `norm` (device memory)
@@ -190,12 +194,12 @@ void launch_mode(const Leaf& a, const Scalars& k, int mode, cudaStream_t s) {
 extern "C" int fused_adam_launch(void* p, const void* g, void* mu, void* nu, void* dir,
                                  const void* norm, uint32_t n, uint32_t s1, uint32_t s2,
                                  uint32_t s3, uint32_t j0, uint32_t j1, uint32_t j2, uint32_t j3,
-                                 float lr, float bc1, float bc2, float b1, float b2, float a1,
+                                 uint32_t base, float lr, float bc1, float bc2, float b1, float b2, float a1,
                                  float a2, float eps, float decay, float max_norm, float wd,
                                  uint32_t salt_mu, uint32_t salt_nu, int kind, int mode,
                                  void* stream) {
   const Scalars k{lr, bc1, bc2, b1, b2, a1, a2, eps, decay, max_norm, wd, salt_mu, salt_nu};
-  const Leaf a{p, g, mu, nu, dir, norm, n, s1, s2, s3, j0, j1, j2, j3};
+  const Leaf a{p, g, mu, nu, dir, norm, n, s1, s2, s3, j0, j1, j2, j3, base};
   auto s = static_cast<cudaStream_t>(stream);
   if (n == 0) return static_cast<int>(cudaGetLastError());
   if (mode < 0 || mode > 3 || kind < 0 || kind > 3)

@@ -8,9 +8,14 @@ targets, n_eval_samples, no shuffle, samples_offset) and the same batches.
 Batches are numpy arrays; the Trainer and the Inferencer move them to their
 device.
 
-Not ported yet (ROADMAP, Queue 1 item 7, parallelism): sharding over data
-ranks and io-sharded spatial reads; a process reads the whole crop
-(io_grid [1, 1, 1]) and every sample of the epoch.
+On several ranks (parallel/comm), `init_distributed_io` sets the io grid as
+makani_tpu's does: a rank reads only its (lat/h, lon/w) window of the crop
+(`io_grid`, `io_rank`; the datasets' read_anchor and read_shape), and the
+loader of data rank r yields rows [r*b, (r+1)*b) of the global batch of
+b * data samples, so that across its data ranks the port's global batch k
+holds the samples, in the order, of makani_tpu's single-process global
+batch k on the same mesh (makani_tpu/data/dataloader.py:29-55, 225-250).
+Synthetic data is drawn whole and cut to the window.
 """
 
 import concurrent.futures
@@ -23,6 +28,7 @@ import numpy as np
 import torch
 
 from makani_tpu_torch.data.dataset import MultifilesDataset
+from makani_tpu_torch.parallel import comm, spmd
 from makani_tpu_torch.utils.dataset_metadata import parse_dataset_metadata
 
 logger = logging.getLogger(__name__)
@@ -49,20 +55,31 @@ class DummyDataset:
         self.img_shape_x, self.img_shape_y = self.img_shape
         self.img_crop_shape_x, self.img_crop_shape_y = self.img_shape
         self.img_crop_offset_x = self.img_crop_offset_y = 0
-        self.img_local_shape_x, self.img_local_shape_y = self.img_shape
-        self.img_local_offset_x = self.img_local_offset_y = 0
+        io_grid = list(params.get("io_grid", [1, 1, 1]))[-2:]
+        io_rank = list(params.get("io_rank", [0, 0, 0]))[-2:]
+        split = [spmd.split_shapes(n, g) for n, g in zip(self.img_shape, io_grid)]
+        self.read_shape = [s[r] for s, r in zip(split, io_rank)]
+        self.read_anchor = [sum(s[:r]) for s, r in zip(split, io_rank)]
+        self.img_local_shape_x, self.img_local_shape_y = self.read_shape
+        self.img_local_offset_x, self.img_local_offset_y = self.read_anchor
 
     def __len__(self):
         return self.n_samples
 
     def __getitem__(self, idx):
         rng = np.random.RandomState(idx)
-        inp = rng.randn(self.n_history + 1, self.n_in_channels, *self.img_shape).astype(np.float32)
-        tar = rng.randn(self.n_future + 1, self.n_out_channels, *self.img_shape).astype(np.float32)
+        (x0, y0), (nx, ny) = self.read_anchor, self.read_shape
+
+        def draw(*lead):
+            field = rng.randn(*lead, *self.img_shape).astype(np.float32)
+            if (nx, ny) == tuple(self.img_shape):
+                return field
+            return np.ascontiguousarray(field[..., x0:x0 + nx, y0:y0 + ny])
+
+        inp = draw(self.n_history + 1, self.n_in_channels)
+        tar = draw(self.n_future + 1, self.n_out_channels)
         if self.add_zenith:
-            zen_inp = rng.randn(self.n_history + 1, 1, *self.img_shape).astype(np.float32)
-            zen_tar = rng.randn(self.n_future + 1, 1, *self.img_shape).astype(np.float32)
-            return inp, tar, zen_inp, zen_tar
+            return inp, tar, draw(self.n_history + 1, 1), draw(self.n_future + 1, 1)
         return inp, tar
 
     def get_output_normalization(self):
@@ -88,9 +105,15 @@ class PrefetchingLoader:
     """
 
     def __init__(self, dataset, batch_size, shuffle=True, num_workers=2,
-                 n_samples_per_epoch=None, base_seed=333, samples_offset=0):
+                 n_samples_per_epoch=None, base_seed=333, samples_offset=0, num_shards=1,
+                 shard_id=0):
         self.dataset = dataset
         self.batch_size = batch_size
+        # data ranks: the epoch is cut into global batches of
+        # batch_size * num_shards, of which this loader yields rows
+        # [shard_id * batch_size, (shard_id + 1) * batch_size)
+        self.num_shards = num_shards
+        self.shard_id = shard_id
         self.shuffle = shuffle
         self.num_workers = max(1, num_workers)
         self.base_seed = base_seed
@@ -100,10 +123,10 @@ class PrefetchingLoader:
 
         n_avail = len(dataset) - samples_offset
         self.n_samples_per_epoch = min(n_samples_per_epoch or n_avail, n_avail)
-        self.num_batches = self.n_samples_per_epoch // batch_size
+        self.num_batches = self.n_samples_per_epoch // (batch_size * num_shards)
         if self.num_batches <= 0:
             raise ValueError(f"Not enough samples ({self.n_samples_per_epoch}) for one batch "
-                             f"of {batch_size}")
+                             f"of {batch_size * num_shards}")
 
         self._executor = concurrent.futures.ThreadPoolExecutor(max_workers=self.num_workers)
 
@@ -128,7 +151,9 @@ class PrefetchingLoader:
 
     def __iter__(self):
         indices = self._epoch_indices()
-        batches = [indices[i * self.batch_size: (i + 1) * self.batch_size]
+        global_batch = self.batch_size * self.num_shards
+        first = self.shard_id * self.batch_size
+        batches = [indices[i * global_batch + first: i * global_batch + first + self.batch_size]
                    for i in range(self.num_batches)]
         self.epoch += 1
 
@@ -162,6 +187,18 @@ def init_data_params(params):
     return params
 
 
+def init_distributed_io(params):
+    """The data shard and the io window of this rank (parallel/comm): the
+    data rank's shard of each global batch, and the rank's (h, w) window of
+    the crop (makani_tpu's init_distributed_io, with every rank a process).
+    Serial: one shard, the whole crop."""
+    params["data_num_shards"] = comm.get_size("data")
+    params["data_shard_id"] = comm.get_rank("data")
+    params["io_grid"] = [1, comm.get_size("h"), comm.get_size("w")]
+    params["io_rank"] = [0, comm.get_rank("h"), comm.get_rank("w")]
+    return params
+
+
 def to_device(data, device):
     """A loader batch, (inp, tar) or (inp, tar, zen_inp, zen_tar), as four
     tensors on `device` (the zenith fields None without them)."""
@@ -184,10 +221,10 @@ def get_dataloader(params, location, train=True, final_eval=False, enable_loggin
     HDF5 multifiles dataset. `train` shuffles n_train_samples_per_epoch
     samples of n_future targets; the evaluation loader reads n_eval_samples
     from samples_offset on, in order, each with valid_autoreg_steps targets.
-    `final_eval` is makani_tpu's flag, which chooses nothing there either."""
-    # one process reads the whole crop
-    params["io_grid"] = [1, 1, 1]
-    params["io_rank"] = [0, 0, 0]
+    `final_eval` is makani_tpu's flag, which chooses nothing there either.
+    On several ranks the loader yields the rank's rows of each global batch
+    and the datasets read the rank's window (`init_distributed_io`)."""
+    init_distributed_io(params)
 
     if params.get("enable_synthetic_data", False):
         dataset = DummyDataset(params, location, train)
@@ -216,6 +253,8 @@ def get_dataloader(params, location, train=True, final_eval=False, enable_loggin
         n_samples_per_epoch=n_samples_per_epoch,
         base_seed=params.get("global_seed", 333),
         samples_offset=0 if train else params.get("samples_offset", 0) or 0,
+        num_shards=params.data_num_shards,
+        shard_id=params.data_shard_id,
     )
     loader.get_output_normalization = dataset.get_output_normalization
     loader.get_input_normalization = dataset.get_input_normalization

@@ -18,6 +18,7 @@ from itertools import accumulate
 
 import numpy as np
 
+from makani_tpu_torch.parallel import spmd
 from makani_tpu_torch.utils.grids import GridConverter
 from makani_tpu_torch.utils.imports import import_optional
 from makani_tpu_torch.utils.zenith_angle import cos_zenith_angle
@@ -31,15 +32,6 @@ def compute_split_shapes(size, num_chunks):
     chunk = size // num_chunks
     rem = size % num_chunks
     return [chunk + 1 if i < rem else chunk for i in range(num_chunks)]
-
-
-def sharding_split_shapes(size, num_chunks):
-    """Ceil-division split: shard i covers [i*ceil, min((i+1)*ceil, size)),
-    makani_tpu's convention for the host's io-sharded read windows (its
-    device shards split so). A single process reads one shard of the whole
-    crop (io_grid [1, 1, 1])."""
-    chunk = -(-size // num_chunks)
-    return [max(0, min(chunk, size - i * chunk)) for i in range(num_chunks)]
 
 
 class MultifilesDataset:
@@ -158,8 +150,8 @@ class MultifilesDataset:
         assert self.crop_anchor[0] + self.crop_size[0] <= self.img_shape[0]
         assert self.crop_anchor[1] + self.crop_size[1] <= self.img_shape[1]
 
-        split_x = sharding_split_shapes(self.crop_size[0], self.io_grid[0])
-        split_y = sharding_split_shapes(self.crop_size[1], self.io_grid[1])
+        split_x = spmd.split_shapes(self.crop_size[0], self.io_grid[0])
+        split_y = spmd.split_shapes(self.crop_size[1], self.io_grid[1])
         self.read_shape = [split_x[self.io_rank[0]], split_y[self.io_rank[1]]]
         self.read_anchor = [
             self.crop_anchor[0] + sum(split_x[: self.io_rank[0]]),

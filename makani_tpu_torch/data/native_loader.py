@@ -34,7 +34,7 @@ from pathlib import Path
 
 import numpy as np
 
-from makani_tpu_torch.data.dataset import sharding_split_shapes
+from makani_tpu_torch.parallel import spmd
 from makani_tpu_torch.utils.grids import GridConverter
 from makani_tpu_torch.utils.imports import import_optional
 from makani_tpu_torch.utils.zenith_angle import cos_zenith_angle
@@ -259,8 +259,8 @@ class BinaryDataset:
         assert crop_anchor[1] + crop_size[1] <= self.img_shape[1]
         io_grid = list(params.get("io_grid", [1, 1, 1]))[-2:]
         io_rank = list(params.get("io_rank", [0, 0, 0]))[-2:]
-        split_x = sharding_split_shapes(crop_size[0], io_grid[0])
-        split_y = sharding_split_shapes(crop_size[1], io_grid[1])
+        split_x = spmd.split_shapes(crop_size[0], io_grid[0])
+        split_y = spmd.split_shapes(crop_size[1], io_grid[1])
         self.read_shape = [split_x[io_rank[0]], split_y[io_rank[1]]]
         self.read_anchor = [crop_anchor[0] + sum(split_x[: io_rank[0]]),
                             crop_anchor[1] + sum(split_y[: io_rank[1]])]

@@ -12,9 +12,12 @@ Modes:
           written as NetCDF (needs h5py)
 
 The flags are makani_tpu's, plus --device (default cuda; without CUDA it
-raises unless --device cpu). The port runs one process on one device: a
-*_parallel_size other than 1 is refused (ROADMAP, Queue 1 item 7), and
---split_data_channels, a mesh setting, changes nothing there.
+raises unless --device cpu). Several ranks over data and the spatial h and
+w axes are started by torchrun (`python -m torch.distributed.run --standalone
+--nproc_per_node N -m makani_tpu_torch.inference ... --h_parallel_size 2`;
+parallel/comm): each rank scores its patch of its rows, and rank 0 writes
+the files. --fin/--fout_parallel_size above 1 and --split_data_channels on
+several ranks raise (ROADMAP, Queue 1 item 7b).
 """
 
 import argparse
@@ -23,6 +26,7 @@ import os
 
 import numpy as np
 
+from makani_tpu_torch.parallel import comm
 from makani_tpu_torch.utils import logging_utils
 from makani_tpu_torch.utils.dataset_metadata import parse_dataset_metadata
 from makani_tpu_torch.utils.nctools import write_prediction_file
@@ -75,9 +79,12 @@ def main(argv=None):
     args = _parser().parse_args(argv)
     sizes = [args.h_parallel_size, args.w_parallel_size, args.fin_parallel_size,
              args.fout_parallel_size]
-    if any(s != 1 for s in sizes):
-        raise NotImplementedError(f"model parallelism (h, w, fin, fout sizes {sizes}) is not "
-                                  "ported yet (ROADMAP: Queue 1 item 7)")
+    world_rank = comm.init(model_parallel_sizes=sizes,
+                           model_parallel_names=["h", "w", "fin", "fout"],
+                           device_type=args.device)
+    if args.split_data_channels and comm.get_world_size() > 1:
+        raise NotImplementedError("--split_data_channels is not ported yet "
+                                  + comm.TENSOR_PARALLEL_TODO)
 
     params = YParams(os.path.abspath(args.yaml_config), args.config)
     params["model_parallel_sizes"] = sizes
@@ -89,10 +96,11 @@ def main(argv=None):
     params["enable_benchy"] = args.enable_benchy
     params["epsilon_factor"] = args.epsilon_factor
     params["split_data_channels"] = args.split_data_channels
-    params["world_size"] = 1
+    params["world_size"] = comm.get_world_size()
     if args.batch_size > 0:
         params.batch_size = args.batch_size
     params["global_batch_size"] = params.batch_size
+    params["batch_size"] = int(params["global_batch_size"] // comm.get_size("data"))
 
     exp_dir = os.path.join(params.exp_dir, args.config, str(args.run_num))
     os.makedirs(os.path.join(exp_dir, "deterministic_scores"), exist_ok=True)
@@ -106,12 +114,13 @@ def main(argv=None):
     params["n_future"] = 0
 
     logging_utils.config_logger()
-    logging_utils.log_to_file(logger_name=None,
-                              log_filename=os.path.join(exp_dir, "inference_out.log"))
-    logging_utils.log_versions()
-    params.log(logging.getLogger())
+    if world_rank == 0:
+        logging_utils.log_to_file(logger_name=None,
+                                  log_filename=os.path.join(exp_dir, "inference_out.log"))
+        logging_utils.log_versions()
+        params.log(logging.getLogger())
     params["log_to_wandb"] = False
-    params["log_to_screen"] = params.get("log_to_screen", False)
+    params["log_to_screen"] = params.get("log_to_screen", False) and world_rank == 0
 
     if params.get("metadata_json_path", None):
         params, _ = parse_dataset_metadata(params["metadata_json_path"], params=params)
@@ -127,7 +136,7 @@ def main(argv=None):
         global_means = np.load(params.global_means_path)
         global_stds = np.load(params.global_stds_path)
         output_path = args.inference_output_path
-        if not args.overwrite_output_path and os.path.exists(output_path):
+        if not args.overwrite_output_path and os.path.exists(output_path) and world_rank == 0:
             raise FileExistsError(output_path)
         output_channels = list(range(len(params["out_channels"])))
         inferencer = Inferencer(params, device=args.device)
@@ -135,6 +144,8 @@ def main(argv=None):
     if args.mode == "score":
         targets, predictions = inferencer.inference_single(
             ic=args.inference_ic, output_data=True, output_channels=output_channels)
+        if world_rank != 0:
+            return 0
         _write(output_path, _denormalize(predictions, params, global_means, global_stds),
                args.overwrite_output_path)
         _write(args.inference_target_path, _denormalize(targets, params, global_means, global_stds),
@@ -146,6 +157,8 @@ def main(argv=None):
     elif args.mode == "lite":
         (predictions,) = inferencer.inference_lite(
             ic=args.inference_ic, output_data=True, output_channels=output_channels)
+        if world_rank != 0:
+            return 0
         _write(output_path, _denormalize(predictions, params, global_means, global_stds),
                args.overwrite_output_path)
         logging.info(f"predictions saved to {output_path}")

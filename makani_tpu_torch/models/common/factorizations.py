@@ -17,6 +17,7 @@ from torch import nn
 
 from makani_tpu_torch.models.common.spectral_convolution import scale_residual
 from makani_tpu_torch.ops.complex_ops import get_contract_fun, view_as_complex
+from makani_tpu_torch.parallel import spmd
 
 _LETTERS = "abcdefgh"
 _RANK_LETTERS = "ijklmnop"
@@ -113,6 +114,7 @@ class FactorizedSpectralConv(nn.Module):
         self.forward_transform = forward_transform
         self.inverse_transform = inverse_transform
         self.contract = get_contract_fun(operator_type, separable)
+        self.diagonal = operator_type == "diagonal"
         fwd_t, inv_t = forward_transform, inverse_transform
         self.scale_residual = scale_residual(fwd_t, inv_t)
         shape = [in_channels] + ([] if separable else [out_channels])
@@ -131,7 +133,11 @@ class FactorizedSpectralConv(nn.Module):
         x = fwd_t(x.float())
         if self.scale_residual:
             residual = inv_t(x).to(dtype)
-        x = inv_t(self.contract(x, self.weight()))
+        w = self.weight()
+        if spmd.spatial_distributed():
+            # the rank's (l/h[, m/w]) block of the rebuilt weight
+            w = spmd.coefficient_block(w, self.diagonal)
+        x = inv_t(self.contract(x, w))
         if self.bias_mode == "constant":
             x = x + self.bias_const
         return x.to(dtype), residual

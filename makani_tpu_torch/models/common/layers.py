@@ -27,6 +27,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from makani_tpu_torch.parallel import comm, spmd
+
 # what a training forward's masks are drawn from: the run's seed, the
 # optimizer step and the unrolled step (MultiStepWrapper)
 DropoutKey = namedtuple("DropoutKey", ["seed", "step", "substep"])
@@ -67,6 +69,27 @@ def drop_mask(shape, keep, site, device):
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return torch.rand(tuple(shape), generator=gen, device=device) < keep
+
+
+def rank_mask(shape, keep, site, device, global_hw=None):
+    """drop_mask of a rank's part of a field: on several ranks the mask is
+    drawn at the whole batch's shape (and, for a spatially split field, at
+    its whole (H, W) = `global_hw`) and cut to the rank's part, so every rank
+    drops what one rank would. Serial: drop_mask."""
+    full, index = list(shape), [slice(None)] * len(shape)
+    if spmd.data_distributed():
+        b, r = shape[0], comm.get_rank("data")
+        full[0], index[0] = b * comm.get_size("data"), slice(r * b, (r + 1) * b)
+    if spmd.spatial_distributed() and len(shape) >= 3 and (shape[-2] > 1 or shape[-1] > 1):
+        if global_hw is None:
+            raise NotImplementedError("dropout on a spatially split field needs its whole "
+                                      "shape " + comm.TENSOR_PARALLEL_TODO)
+        full[-2], full[-1] = global_hw
+        index[-2] = spmd.patch_slice(global_hw[0], "h")
+        index[-1] = spmd.patch_slice(global_hw[1], "w")
+    if full == list(shape):
+        return drop_mask(shape, keep, site, device)
+    return drop_mask(full, keep, site, device)[tuple(index)]
 
 
 def remat(fn, *args):
@@ -202,6 +225,9 @@ class Dropout(nn.Module):
         self.rate = rate
         self.broadcast_dims = tuple(broadcast_dims)
         self.site = 0
+        # the whole (H, W) of the field it drops on, where that is split over
+        # ranks (set by the network)
+        self.global_hw = None
 
     def forward(self, x, deterministic=True):
         if self.rate == 0.0 or deterministic:
@@ -210,7 +236,7 @@ class Dropout(nn.Module):
             return torch.zeros_like(x)
         keep = 1.0 - self.rate
         shape = [1 if d in self.broadcast_dims else s for d, s in enumerate(x.shape)]
-        mask = drop_mask(shape, keep, self.site, x.device)
+        mask = rank_mask(shape, keep, self.site, x.device, self.global_hw)
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -228,7 +254,7 @@ class DropPath(nn.Module):
             return x
         keep = 1.0 - self.drop_prob
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = drop_mask(shape, keep, self.site, x.device)
+        mask = rank_mask(shape, keep, self.site, x.device)
         return (x / keep) * mask.to(x.dtype)
 
 
@@ -325,13 +351,31 @@ class InstanceNorm2d(nn.Module):
 
     def forward(self, x):
         xf = x.float()
-        mean = xf.mean(dim=(-2, -1), keepdim=True)
-        xc = xf - mean
-        var = xc.square().mean(dim=(-2, -1), keepdim=True)
+        if spmd.spatial_distributed():
+            mean, var = self._global_stats(xf)
+            xc = xf - mean
+        else:
+            mean = xf.mean(dim=(-2, -1), keepdim=True)
+            xc = xf - mean
+            var = xc.square().mean(dim=(-2, -1), keepdim=True)
         y = xc * torch.rsqrt(var + self.eps)
         if self.weight is not None:
             y = y * self.weight[None, :, None, None] + self.bias[None, :, None, None]
         return y.to(x.dtype)
+
+    @staticmethod
+    def _global_stats(xf):
+        """The two passes over the whole (H, W) of a spatially split field:
+        the patch sums, with the patch's point count, summed over the spatial
+        group for the mean, then the centred squares likewise."""
+        b, c = xf.shape[:2]
+        count = xf.new_full((1,), float(xf.shape[-2] * xf.shape[-1]))
+        s = spmd.reduce_partial(torch.cat([xf.sum(dim=(-2, -1)).reshape(-1), count]),
+                                "spatial")
+        n = s[-1].detach()
+        mean = (s[:-1] / n).view(b, c, 1, 1)
+        sq = spmd.reduce_partial((xf - mean).square().sum(dim=(-2, -1)), "spatial")
+        return mean, (sq / n).view(b, c, 1, 1)
 
 
 class LayerNorm2d(nn.Module):

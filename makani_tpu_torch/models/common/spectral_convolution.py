@@ -24,6 +24,7 @@ from torch import nn
 from makani_tpu_torch.models.common.activations import ComplexReLU
 from makani_tpu_torch.models.common.layers import Dropout
 from makani_tpu_torch.ops import sht
+from makani_tpu_torch.parallel import spmd
 from makani_tpu_torch.ops.complex_ops import (
     contract_dhconv_stacked,
     get_contract_fun,
@@ -135,7 +136,7 @@ class SpectralConv(nn.Module):
         if self.bias_mode == "constant":
             x = x + self.bias_const
         elif self.bias_mode == "position":
-            x = x + self.bias_pos
+            x = x + spmd.local_patch(self.bias_pos, self.bias_pos.shape[-2:])
         return x.to(dtype), residual
 
 
@@ -184,11 +185,16 @@ class SpectralAttention(nn.Module):
                                                   bias_shape=(hidden, 1, 1), scale=scale_out,
                                                   device=device))
             setattr(self, f"drop_{l}", Dropout(drop_rate))
+            getattr(self, f"drop_{l}").global_hw = (modes_lat, fwd_t.mmax)
         self.wout = cplx_param((*lead, hidden, out_channels), scale_out)
 
     def _mix(self, x, w):
-        eq = "bixy,io->boxy" if self.operator_type == "diagonal" else "bixy,xio->boxy"
-        return torch.einsum(eq, x, view_as_complex(w))
+        if self.operator_type == "diagonal":
+            return torch.einsum("bixy,io->boxy", x, view_as_complex(w))
+        w = view_as_complex(w)
+        if spmd.spatial_distributed():
+            w = w[spmd.patch_slice(w.shape[0], "h")]               # the rank's degrees
+        return torch.einsum("bixy,xio->boxy", x, w)
 
     def forward(self, x, deterministic=True):
         fwd_t, inv_t = self.forward_transform, self.inverse_transform

@@ -31,6 +31,7 @@ from makani_tpu_torch.models.networks.sfnonet import (
 from makani_tpu_torch.models.networks.vit import VisionTransformer
 from makani_tpu_torch.models.preprocessor import Preprocessor2D
 from makani_tpu_torch.models.stepper import MultiStepWrapper, SingleStepWrapper
+from makani_tpu_torch.parallel import comm, partitioning, spmd
 from makani_tpu_torch.utils.device import resolve_device
 from makani_tpu_torch.utils.features import get_auxiliary_channels
 from makani_tpu_torch.utils.yparams import ParamsBase
@@ -190,11 +191,18 @@ def get_model(params, device=None, generator=None):
     all_kwargs = dict(params.to_dict())
     all_kwargs.update(inp_shape=tuple(inp_shape), out_shape=tuple(out_shape),
                       inp_chans=params.N_in_channels, out_chans=params.N_out_channels)
+    if spmd.spatial_distributed() and not getattr(cls, "spatially_parallel", False):
+        raise NotImplementedError(f"{params.nettype} under a spatial decomposition is not "
+                                  "ported yet " + comm.TENSOR_PARALLEL_TODO)
     net = cls(**_filter_kwargs(cls, all_kwargs), device=device, generator=generator)
 
     preprocessor = Preprocessor2D(params, device=device)
     lsm_mask_channels = tuple(params.get("lsm_mask_channels", ()) or ())
     if params.n_future > 0:
-        return MultiStepWrapper(preprocessor, net, n_future=params.n_future,
-                                lsm_mask_channels=lsm_mask_channels)
-    return SingleStepWrapper(preprocessor, net, lsm_mask_channels=lsm_mask_channels)
+        model = MultiStepWrapper(preprocessor, net, n_future=params.n_future,
+                                 lsm_mask_channels=lsm_mask_channels)
+    else:
+        model = SingleStepWrapper(preprocessor, net, lsm_mask_channels=lsm_mask_channels)
+    # on spatial ranks the leaves split over h and w keep the rank's shard
+    model.shards = partitioning.shard_module(model)
+    return model

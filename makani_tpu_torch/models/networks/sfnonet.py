@@ -63,6 +63,7 @@ from makani_tpu_torch.models.common.layers import (
     trunc_normal_param,
 )
 from makani_tpu_torch.ops import InverseRealFFT2, InverseRealSHT, RealFFT2, RealSHT
+from makani_tpu_torch.parallel import comm, spmd
 
 
 @lru_cache(maxsize=None)
@@ -212,7 +213,13 @@ class ScannedBlocks(nn.Module):
 
 class SphericalFourierNeuralOperatorNet(nn.Module):
     """SFNO as in Bonev et al.; the arguments are makani_tpu's, plus `device`
-    and the `generator` the weights are drawn from."""
+    and the `generator` the weights are drawn from. On spatial ranks it takes
+    and returns the rank's (B, C, lat/h, lon/w) patch; the spectral filters,
+    the norms and the position embedding see the decomposition, every other
+    layer is local."""
+
+    # runs on a spatial decomposition (model_registry.get_model asks)
+    spatially_parallel = True
 
     def __init__(self, spectral_transform="sht", model_grid_type="equiangular",
                  sht_grid_type="legendre-gauss", filter_type="linear", operator_type="dhconv",
@@ -242,6 +249,9 @@ class SphericalFourierNeuralOperatorNet(nn.Module):
             modes_lat = int(h * hard_thresholding_fraction)
             modes_lon = int((w // 2 + 1) * hard_thresholding_fraction)
         kind = spectral_transform
+        if kind != "sht" and spmd.spatial_distributed():
+            raise NotImplementedError("the FFT transforms under a spatial decomposition are "
+                                      "not ported yet " + comm.TENSOR_PARALLEL_TODO)
         self.trans_down, _ = get_transform_pair(kind, *self.inp_shape, modes_lat, modes_lon,
                                                 model_grid_type, device)
         _, self.itrans_up = get_transform_pair(kind, *self.out_shape, modes_lat, modes_lon,
@@ -265,6 +275,7 @@ class SphericalFourierNeuralOperatorNet(nn.Module):
         elif self.pos_embed_kind is not None:
             raise ValueError("Unknown position embedding type")
         self.pos_drop = Dropout(pos_drop_rate)
+        self.pos_drop.global_hw = self.inp_shape
 
         dpr = np.linspace(0, path_drop_rate, num_layers)
 
@@ -314,7 +325,10 @@ class SphericalFourierNeuralOperatorNet(nn.Module):
             return self.pos_embed
         # the imaginary part of the m = 0 column is zero
         cpad = nn.functional.pad(self.pos_embed_c, (1, 0))
-        return self.itrans_up(torch.complex(self.pos_embed_r, cpad))
+        coeffs = torch.complex(self.pos_embed_r, cpad)
+        if spmd.spatial_distributed():
+            coeffs = spmd.coefficient_block(coeffs, diagonal=True)   # (l/h, m/w)
+        return self.itrans_up(coeffs)
 
     def _run_blocks(self, x, deterministic):
         if self.scan:

@@ -6,12 +6,15 @@ inferencer, as in the JAX package. The static features (the linear or
 sinusoidal grid, on the unit square or on the data's explicit lat/lon through
 GridConverter; orography z-scored; the land-sea mask one-hot) are built on
 the host in numpy, as makani_tpu builds them, cut to the crop window and
-moved to the device once.
+moved to the device once. On spatial ranks (parallel/comm) they are cut to
+the rank's patch of the crop, and the history-normalization statistics sum
+over the spatial group.
 """
 
 import numpy as np
 import torch
 
+from makani_tpu_torch.parallel import spmd
 from makani_tpu_torch.utils.conditioning_inputs import get_land_mask, get_orography
 from makani_tpu_torch.utils.grids import GridConverter
 
@@ -88,8 +91,12 @@ class Preprocessor2D:
             static_features = (onehot if static_features is None
                                else np.concatenate([static_features, onehot], axis=1))
 
+        if static_features is not None and spmd.spatial_distributed():
+            # the rank's patch of the crop
+            static_features = spmd.local_patch(static_features, static_features.shape[-2:])
         self.static_features = (None if static_features is None
-                                else torch.from_numpy(static_features).to(self.device))
+                                else torch.from_numpy(np.ascontiguousarray(static_features))
+                                .to(self.device))
         self.do_add_static_features = static_features is not None
         self.n_static_features = 0 if static_features is None else static_features.shape[1]
 
@@ -183,9 +190,13 @@ class Preprocessor2D:
         xr = self.expand_history(x, self.n_history + 1).float()
         w = self.history_normalization_weights
         npix = float(self.img_shape[0] * self.img_shape[1])
-        mean = torch.sum(xr * w, dim=(1, 3, 4), keepdim=True) / npix
-        std = torch.sqrt(torch.sum(torch.square(xr - mean) * w, dim=(1, 3, 4),
-                                   keepdim=True) / npix)
+        # sums over the whole field: a spatial rank's patch sums are summed
+        # over the spatial group
+        mean = spmd.all_reduce_sum(torch.sum(xr * w, dim=(1, 3, 4), keepdim=True),
+                                   "spatial") / npix
+        std = torch.sqrt(spmd.all_reduce_sum(
+            torch.sum(torch.square(xr - mean) * w, dim=(1, 3, 4), keepdim=True),
+            "spatial") / npix)
         return (mean.squeeze(1), std.squeeze(1))
 
     def history_normalize(self, x, stats, target=False):

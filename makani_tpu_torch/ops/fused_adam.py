@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from makani_tpu_torch.ops import kernels
+from makani_tpu_torch.parallel import partitioning
 from makani_tpu_torch.utils.param_layout import jax_index_strides, jax_leaf_order
 
 _M32 = 0xFFFFFFFF
@@ -120,24 +121,37 @@ def stochastic_round_bf16(x, idx, salt):
     return torch.where(bits >= 0x8000, bits - 0x10000, bits).to(torch.int16).view(torch.bfloat16)
 
 
-def jax_flat_index(key, shape, device):
+def shard_strides(key, shape, shard=None):
+    """(index strides, flat index of the first element) of the port's leaf,
+    or of a rank's `shard` of it (parallel/partitioning.Shard): a shard's
+    elements keep their indices in the whole leaf."""
+    if shard is None:
+        return jax_index_strides(key, shape), 0
+    strides = jax_index_strides(key, shard.global_shape)
+    return strides, sum(s.start * int(strides[s.dim]) for s in shard.splits)
+
+
+def jax_flat_index(key, shape, device, shard=None):
     """int64 flat index of every element of the port's leaf in makani_tpu's
-    layout of that leaf."""
-    idx = torch.zeros((), dtype=torch.int64, device=device)
-    for d, (size, stride) in enumerate(zip(shape, jax_index_strides(key, shape))):
+    layout of that leaf (of the whole leaf, for a rank's `shard` of it)."""
+    strides, base = shard_strides(key, shape, shard)
+    idx = torch.full((), base, dtype=torch.int64, device=device)
+    for d, (size, stride) in enumerate(zip(shape, strides)):
         view = [1] * len(shape)
         view[d] = size
         idx = idx + torch.arange(size, dtype=torch.int64, device=device).view(view) * stride
     return idx.expand(tuple(shape))
 
 
-def kernel_index_dims(key, shape):
+def kernel_index_dims(key, shape, shard=None):
     """The leaf's sizes and makani_tpu-layout index strides with size-1
     dimensions dropped and neighbours merged where the outer one strides by
     the inner one's extent: the same flat indices in as few dimensions as
     they take (the stacked dhconv weight (..., 2, L, C, O) in 3 or 4, every
-    other leaf in 1), within the kernel's four."""
-    dims = [(int(n), int(j)) for n, j in zip(shape, jax_index_strides(key, shape)) if n != 1]
+    other leaf in 1), within the kernel's four. A rank's `shard` of a leaf
+    takes the whole leaf's strides."""
+    strides = shard_strides(key, shape, shard)[0]
+    dims = [(int(n), int(j)) for n, j in zip(shape, strides) if n != 1]
     merged = []
     for n, j in dims:
         if merged and merged[-1][1] == j * n:
@@ -172,13 +186,14 @@ def adam_direction(m, v, bc1, bc2, eps):
     return m / (_f32(bc1, dev) * (sqrt_rn(v / _f32(bc2, dev)) + _f32(eps, dev)))
 
 
-def store_moment(dst, value, key, salt, stochastic):
+def store_moment(dst, value, key, salt, stochastic, shard=None):
     """Write a float32 moment into `dst` (float32, bf16 or float16), in place:
     stochastically rounded for bf16 under `stochastic`, else rounded to
     nearest (float16 always, subnormals kept, as XLA's CPU conversion and
     makani_tpu's _stochastic_round give it)."""
     if dst.dtype == torch.bfloat16 and stochastic:
-        value = stochastic_round_bf16(value, jax_flat_index(key, value.shape, value.device), salt)
+        idx = jax_flat_index(key, value.shape, value.device, shard)
+        value = stochastic_round_bf16(value, idx, salt)
     dst.copy_(value)
 
 
@@ -216,29 +231,34 @@ def clip_by_norm(g, norm, max_norm):
     return torch.where(norm < limit, g, (g / norm) * limit)
 
 
-def trust_ratios(params, updates):
+def trust_ratios(params, updates, keys=None, shards=None):
     """optax.scale_by_trust_ratio's ratio of each leaf, ||p|| / ||u|| (1
-    where either norm is 0), as 0-dim tensors on the device."""
+    where either norm is 0), as 0-dim tensors on the device; with `shards`
+    (leaves split over ranks, named by `keys`) the norms of whole leaves."""
     if not params:
         return []
+    if shards:
+        pn = torch.stack(partitioning.leaf_square_norms(keys, params, shards)).sqrt()
+        un = torch.stack(partitioning.leaf_square_norms(keys, updates, shards)).sqrt()
+        return torch.where((pn == 0) | (un == 0), torch.ones_like(pn), pn / un).unbind()
     pn = torch.stack(torch._foreach_norm(list(params)))
     un = torch.stack(torch._foreach_norm(list(updates)))
     return torch.where((pn == 0) | (un == 0), torch.ones_like(pn), pn / un).unbind()
 
 
-def trust_ratio_apply(params, dirs, lr):
+def trust_ratio_apply(params, dirs, lr, shards=None):
     """LAMB's step from the directions u' (dict, as `params`), in place:
     p <- p - lr * u' * ratio; one pass over p and u' a leaf (addcmul with the
     ratio on the device, no host sync), one call for all leaves."""
     keys = list(dirs)
     with torch.no_grad():
         leaves, dirs = [params[k] for k in keys], [dirs[k] for k in keys]
-        torch._foreach_addcmul_(leaves, dirs, list(trust_ratios(leaves, dirs)),
+        torch._foreach_addcmul_(leaves, dirs, list(trust_ratios(leaves, dirs, keys, shards)),
                                 value=-float(lr))
 
 
 def _leaf_plain(key, p, g, mu, nu, lr, bc1, bc2, b1, b2, eps, wd, salts, stochastic,
-                norm=None, max_norm=None, direction=None):
+                norm=None, max_norm=None, direction=None, shard=None):
     with torch.no_grad():
         g = g.float()
         if norm is not None:
@@ -251,12 +271,12 @@ def _leaf_plain(key, p, g, mu, nu, lr, bc1, bc2, b1, b2, eps, wd, salts, stochas
         else:
             decay = np.float32(1.0) - np.float32(lr) * np.float32(wd)
             p.copy_(fma(-u, _f32(lr, dev), p * _f32(decay, dev)))
-        store_moment(mu, m, key, salts[0], stochastic)
-        store_moment(nu, v, key, salts[1], stochastic)
+        store_moment(mu, m, key, salts[0], stochastic, shard)
+        store_moment(nu, v, key, salts[1], stochastic, shard)
 
 
 def _leaf_kernel(key, p, g, mu, nu, lr, bc1, bc2, b1, b2, eps, wd, salts, stochastic,
-                 norm=None, max_norm=None, direction=None):
+                 norm=None, max_norm=None, direction=None, shard=None):
     kind = _moment_kind(mu, stochastic)
     leaf = (p, g, mu, nu) if direction is None else (p, g, mu, nu, direction)
     for t in leaf:
@@ -272,8 +292,10 @@ def _leaf_kernel(key, p, g, mu, nu, lr, bc1, bc2, b1, b2, eps, wd, salts, stocha
                              or norm.numel() != 1):
         raise ValueError(f"{key}: the global norm must be one float32 on the leaf's device")
     n = p.numel()
-    sizes, strides = kernel_index_dims(key, p.shape)
-    if n >= 2 ** 32 or len(sizes) > 4:
+    sizes, strides = kernel_index_dims(key, p.shape, shard)
+    base = shard_strides(key, p.shape, shard)[1]
+    total = n if shard is None else int(np.prod(shard.global_shape))
+    if total >= 2 ** 32 or len(sizes) > 4:
         raise ValueError(f"{key}: leaf of shape {tuple(p.shape)} exceeds the kernel's indexing")
     shape = (1,) * (4 - len(sizes)) + sizes
     strides = (0,) * (4 - len(sizes)) + strides
@@ -288,41 +310,44 @@ def _leaf_kernel(key, p, g, mu, nu, lr, bc1, bc2, b1, b2, eps, wd, salts, stocha
         rc = launch(p.data_ptr(), g.data_ptr(), mu.data_ptr(), nu.data_ptr(),
                     None if direction is None else direction.data_ptr(),
                     None if norm is None else norm.data_ptr(), n,
-                    shape[1], shape[2], shape[3], *strides, *scalars,
+                    shape[1], shape[2], shape[3], *strides, base, *scalars,
                     salts[0], salts[1], kind, mode, torch.cuda.current_stream().cuda_stream)
     kernels.raise_on(rc, "fused_adam")
     kernels.count_launch("fused_adam")
 
 
 def _apply(leaf_fn, params, grads, state, lr, b1, b2, eps, weight_decay, stochastic_rounding,
-           seed, max_norm, lamb):
+           seed, max_norm, lamb, shards=None):
     count = state.count + 1
     bc1, bc2 = bias_corrections(count, b1, b2)
     order = jax_leaf_order(grads)
     salts = moment_salts(seed, count, len(order))
-    norm = global_norm(grads[k] for k in order) if max_norm else None
+    norm = None
+    if max_norm:
+        norm = (global_norm(grads[k] for k in order) if shards is None else
+                partitioning.global_norm(order, [grads[k] for k in order], shards))
     dirs = {k: torch.empty_like(params[k]) for k in order} if lamb else {}
     for i, key in enumerate(order):
         leaf_fn(key, params[key], grads[key], state.mu[key], state.nu[key], lr, bc1, bc2, b1, b2,
                 eps, weight_decay, salts[2 * i: 2 * i + 2], stochastic_rounding,
-                norm, max_norm, dirs.get(key))
+                norm, max_norm, dirs.get(key), None if shards is None else shards.get(key))
     if lamb:
-        trust_ratio_apply(params, dirs, lr)
+        trust_ratio_apply(params, dirs, lr, shards)
     state.count = count
     return params, state
 
 
 def fused_adam_apply_plain(params, grads, state, lr, *, b1=0.9, b2=0.999, eps=1e-8,
                            weight_decay=0.0, stochastic_rounding=True, seed=1234, max_norm=None,
-                           lamb=False):
+                           lamb=False, shards=None):
     """Plain twin of `fused_adam_apply`, on any device."""
     return _apply(_leaf_plain, params, grads, state, lr, b1, b2, eps, weight_decay,
-                  stochastic_rounding, seed, max_norm, lamb)
+                  stochastic_rounding, seed, max_norm, lamb, shards)
 
 
 def fused_adam_apply(params, grads, state, lr, *, b1=0.9, b2=0.999, eps=1e-8,
                      weight_decay=0.0, stochastic_rounding=True, seed=1234, max_norm=None,
-                     lamb=False):
+                     lamb=False, shards=None):
     """One fused Adam(W) step over `params` and `grads` (dicts name -> tensor,
     named like the model's parameters) and `state` (count, mu, nu), in place.
     Returns (params, state). Leaves on CUDA launch the kernel; leaves on the
@@ -333,10 +358,15 @@ def fused_adam_apply(params, grads, state, lr, *, b1=0.9, b2=0.999, eps=1e-8,
     LAMB's (optax's Adam, add_decayed_weights(weight_decay),
     scale_by_trust_ratio): the kernel writes each leaf's u + wd*p and the
     trust ratio scales it before p - lr*u'; AdamW's decay is otherwise folded
-    into the update."""
+    into the update.
+
+    shards ({name: parallel/partitioning.Shard}) names the leaves that are a
+    rank's shard of a leaf split over ranks: their elements keep the whole
+    leaf's indices in the stochastic rounding, and the global norm and the
+    trust ratios take the whole leaves' norms."""
     def leaf(key, p, *rest):
         fn = _leaf_kernel if kernels.dispatch(p) else _leaf_plain
         fn(key, p, *rest)
 
     return _apply(leaf, params, grads, state, lr, b1, b2, eps, weight_decay,
-                  stochastic_rounding, seed, max_norm, lamb)
+                  stochastic_rounding, seed, max_norm, lamb, shards)

@@ -102,9 +102,10 @@ def _declare(name, lib):
         "dhconv_mm": [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp],
         "dhconv_dw": [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp],
         # p, g, mu, nu, dir, the global norm (device), n, sizes[3], index
-        # strides[4], the eleven float scalars (lr .. decay, max_norm, wd),
-        # two salts, moment kind, mode, stream
-        "fused_adam": [vp, vp, vp, vp, vp, vp, cu, cu, cu, cu, cu, cu, cu, cu,
+        # strides[4], the first element's flat index, the eleven float
+        # scalars (lr .. decay, max_norm, wd), two salts, moment kind, mode,
+        # stream
+        "fused_adam": [vp, vp, vp, vp, vp, vp, cu, cu, cu, cu, cu, cu, cu, cu, cu,
                        cf, cf, cf, cf, cf, cf, cf, cf, cf, cf, cf, cu, cu, ci, ci, vp],
         # x, w, scratch, out, b, c, o, l, m, w's strides (c, o, l), conj_w, passes, stream
         "dhconv_complex": [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp],
@@ -130,6 +131,19 @@ def _declare(name, lib):
     }[name]
     fn.restype = ci
     return fn
+
+
+def load_built():
+    """Load the libraries that `build()` left in BUILD_DIR, compiling
+    nothing: for processes that a process which built the kernels starts (the
+    ranks of one card), so no two of them write the same library."""
+    for src in sorted(set(_SOURCES.values())):
+        out = BUILD_DIR / f"lib{Path(src).stem}.so"
+        if not out.exists():
+            raise FileNotFoundError(f"{out} is not built: call kernels.build() first")
+        lib = ctypes.CDLL(str(out))
+        for name in (n for n, s in _SOURCES.items() if s == src):
+            _libs[name] = _declare(name, lib)
 
 
 def launcher(name):

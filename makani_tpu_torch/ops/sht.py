@@ -20,7 +20,20 @@ Conventions (as makani_tpu, parity with torch-harmonics):
 The quadrature weights multiply the DFT output before the Legendre
 contraction, so one (mmax, lmax, nlat) table serves both directions of a grid.
 Tables are float64 host precomputes stored in float32, one device copy per
-(grid, device). The longitude DFT is a float32 matmul whatever the precision
+(grid, device).
+
+Under a spatial decomposition (parallel/comm's h and w groups, more than one
+rank) a 4-D input is the rank's (B, C, lat/h, lon/w) patch, and the
+transforms move data as makani_tpu's distributed SHT does
+(makani_tpu/ops/sht.py:348-391, 445-483; the reference's
+distributed_transpose_azimuth/polar): channels <-> longitude over w, the
+longitude DFT, modes <-> channels over w, channels <-> latitude over h, the
+Legendre contraction on the rank's m-slice of the table over the full
+latitude, and degrees <-> channels over h, so the coefficients are the rank's
+(B, C, l/h, m/w) block; synthesis is the mirror. Each move is an explicit
+all-to-all (parallel/spmd.distributed_transpose). The stacked-real layout
+keeps the "kernel" engine's legmm on the local blocks (M2 = 2 * the rank's
+m-slice), and the "xla" engine's complex branch makes the same moves. The longitude DFT is a float32 matmul whatever the precision
 mode: on the GPU it keeps full float32 while TF32 matmuls are off (PyTorch's
 default).
 """
@@ -34,6 +47,7 @@ from makani_tpu_torch.ops import spectral_mm
 from makani_tpu_torch.ops.dft import irdft_matrices, rdft_matrices
 from makani_tpu_torch.ops.legendre import precompute_legpoly
 from makani_tpu_torch.ops.quadrature import quadrature_nodes_weights
+from makani_tpu_torch.parallel import comm, spmd
 
 # bf16 passes of the coefficient-space kernels per precision mode
 # (makani_tpu/ops/sht.py:42-107). "high" (3 passes, ~16-bit operands) is the
@@ -128,6 +142,30 @@ def _pct_tensor(grid, nlat, lmax, mmax, csphase, device):
 
 
 @lru_cache(maxsize=None)
+def _pct_slice(grid, nlat, lmax, mmax, csphase, device, m0, m1):
+    """The m-slice [m0, m1) of a grid's Legendre table, contiguous."""
+    return _pct_tensor(grid, nlat, lmax, mmax, csphase, device)[m0:m1].contiguous()
+
+
+def _dist(x):
+    return spmd.spatial_distributed() and x.ndim == 4
+
+
+class _Splits:
+    """The chunks of one transform's dimensions over the h and w groups."""
+
+    def __init__(self, nlat, nlon, lmax, mmax):
+        nh, nw = comm.get_size("h"), comm.get_size("w")
+        self.lat = spmd.split_shapes(nlat, nh)
+        self.lon = spmd.split_shapes(nlon, nw)
+        self.l = spmd.split_shapes(lmax, nh)
+        self.m = spmd.split_shapes(mmax, nw)
+        self.nh, self.nw = nh, nw
+        self.lat0, self.nlat_local = spmd.patch(nlat, "h")
+        self.m0, self.ml = spmd.patch(mmax, "w")
+
+
+@lru_cache(maxsize=None)
 def _rdft_tensor(nlon, mmax, device):
     """(2*mmax, nlon) [cos ; -sin] analysis operand, m leading."""
     C, S = rdft_matrices(nlon, mmax, scale="integral")
@@ -167,11 +205,43 @@ class RealSHT:
 
     def analysis_stacked(self, x):
         """Real grid (..., nlat, nlon) -> m-leading stacked-real coefficients
-        (2*mmax, ..., lmax), re rows then im rows."""
+        (2*mmax, ..., lmax), re rows then im rows. Distributed: the rank's
+        patch (B, C, lat/h, lon/w) -> (2*ml, B, C, l/h), ml its m-slice."""
+        if _dist(x):
+            z = self._analysis_dist(x, stacked=True)
+            return z.reshape(-1, *z.shape[2:])
         out = _legendre_dot(self._dft(x), self.pct, "k")       # (2*mmax, R, lmax)
         return out.view(2 * self.mmax, *x.shape[:-2], self.lmax)
 
+    def _analysis_dist(self, x, stacked):
+        """The rank's patch (B, C, lat/h, lon/w) -> (2, ml, B, C, l/h)."""
+        sp = _Splits(self.nlat, self.nlon, self.lmax, self.mmax)
+        B, C = x.shape[:2]
+        c_w, c_h = spmd.split_shapes(C, sp.nw), spmd.split_shapes(C, sp.nh)
+        # azimuth: channels over w, longitude local
+        x = spmd.distributed_transpose(x.float(), 1, 3, "w", c_w, sp.lon)           # (B, C/w, lat/h, nlon)
+        hl = x.shape[2]
+        z = torch.matmul(self.dft, x.reshape(-1, self.nlon).T)      # (2*mmax, B*C/w*lat/h)
+        wq = self.wq[sp.lat0: sp.lat0 + sp.nlat_local]
+        z = z.view(2, self.mmax, B, x.shape[1], hl).mul_(wq)
+        # modes over w, channels local; then channels over h, latitude local
+        z = spmd.distributed_transpose(z, 1, 3, "w", sp.m, c_w)                     # (2, ml, B, C, lat/h)
+        z = spmd.distributed_transpose(z, 3, 4, "h", c_h, sp.lat)                   # (2, ml, B, C/h, nlat)
+        pct = _pct_slice(self.grid, self.nlat, self.lmax, self.mmax, self.csphase,
+                         self.device, sp.m0, sp.m0 + sp.ml)
+        ch = z.shape[3]
+        if stacked:
+            o = _legendre_dot(z.reshape(2 * sp.ml, B * ch, self.nlat).contiguous(), pct, "k")
+        else:
+            o = _legendre_einsum("smrk,mlk->smrl", z.reshape(2, sp.ml, B * ch, self.nlat), pct)
+        o = o.reshape(2, sp.ml, B, ch, self.lmax)
+        # degrees over h, channels local
+        return spmd.distributed_transpose(o, 4, 3, "h", sp.l, c_h).contiguous()     # (2, ml, B, C, l/h)
+
     def __call__(self, x):
+        if _dist(x):
+            o = self._analysis_dist(x, stacked=_stacked_engine_active())
+            return torch.complex(o[0], o[1]).permute(1, 2, 3, 0).contiguous()
         if _stacked_engine_active():
             z = self.analysis_stacked(x)
             return torch.complex(z[: self.mmax], z[self.mmax:]).movedim(0, -1)
@@ -204,13 +274,43 @@ class InverseRealSHT:
 
     def synthesis_stacked(self, z):
         """m-leading stacked-real coefficients (2*mmax, ..., lmax) -> real grid
-        (..., nlat, nlon). The twin of RealSHT.analysis_stacked."""
+        (..., nlat, nlon). The twin of RealSHT.analysis_stacked; distributed:
+        (2*ml, B, C, l/h) -> the rank's patch (B, C, lat/h, lon/w)."""
+        if spmd.spatial_distributed() and z.ndim == 4:
+            return self._synthesis_dist(z.view(2, -1, *z.shape[1:]), stacked=True)
         zf = z.reshape(z.shape[0], -1, z.shape[-1]).contiguous()
         o = _legendre_dot(zf, self.pct, "l")                   # (2*mmax, R, nlat)
         return self._idft(o, z.shape[1:-1])
 
+    def _synthesis_dist(self, z, stacked):
+        """(2, ml, B, C, l/h) -> the rank's patch (B, C, lat/h, lon/w)."""
+        sp = _Splits(self.nlat, self.nlon, self.lmax, self.mmax)
+        B, C = z.shape[2:4]
+        c_w, c_h = spmd.split_shapes(C, sp.nw), spmd.split_shapes(C, sp.nh)
+        # channels over h, degrees local
+        z = spmd.distributed_transpose(z.float(), 3, 4, "h", c_h, sp.l)              # (2, ml, B, C/h, lmax)
+        ch = z.shape[3]
+        pct = _pct_slice(self.grid, self.nlat, self.lmax, self.mmax, self.csphase,
+                         self.device, sp.m0, sp.m0 + sp.ml)
+        if stacked:
+            o = _legendre_dot(z.reshape(2 * sp.ml, B * ch, self.lmax).contiguous(), pct, "l")
+        else:
+            o = _legendre_einsum("smrl,mlk->smrk", z.reshape(2, sp.ml, B * ch, self.lmax), pct)
+        o = o.reshape(2, sp.ml, B, ch, self.nlat)
+        # latitude over h, channels local; then channels over w, modes local
+        o = spmd.distributed_transpose(o, 4, 3, "h", sp.lat, c_h)                   # (2, ml, B, C, lat/h)
+        o = spmd.distributed_transpose(o, 3, 1, "w", c_w, sp.m)                     # (2, mmax, B, C/w, lat/h)
+        cw, hl = o.shape[3], o.shape[4]
+        out = torch.matmul(o.reshape(2 * self.mmax, -1).T, self.dft)  # (B*C/w*lat/h, nlon)
+        out = out.view(B, cw, hl, self.nlon)
+        # longitude over w, channels local
+        return spmd.distributed_transpose(out, 3, 1, "w", sp.lon, c_w)              # (B, C, lat/h, lon/w)
+
     def __call__(self, x):
         x = x.to(torch.complex64)
+        if _dist(x):
+            z = torch.stack([x.real, x.imag]).permute(0, 4, 1, 2, 3)   # (2, ml, B, C, l/h)
+            return self._synthesis_dist(z, stacked=_stacked_engine_active())
         if _stacked_engine_active():
             z = torch.cat([x.real.movedim(-1, 0), x.imag.movedim(-1, 0)], dim=0)
             return self.synthesis_stacked(z)

@@ -1,0 +1,271 @@
+"""Explicit collectives for the spatial and data decomposition.
+
+Counterpart of makani_tpu/parallel/spmd.py. makani_tpu pins the sharding of
+intermediates and lets XLA's partitioner insert the collectives; here they
+are written out, each a torch.autograd.Function whose backward is the dual
+collective (the reference's distributed transposes and mappings,
+makani mpu/layers.py:38-169, mpu/mappings.py:30-174):
+
+  distributed_transpose   all-to-all: split one dimension over a group,
+                          gather another; backward the reverse transpose
+  all_reduce_sum          sum of partial values, the result replicated;
+                          backward passes the (replicated) cotangent through
+  copy_to                 identity; backward sums the partial cotangents
+  gather_uneven           all-gather of uneven chunks; backward the own slice
+
+Uneven splits follow `split_shapes`, the ceil-division convention of
+jax.sharding (makani_tpu/data/dataset.py `sharding_split_shapes`), so a
+rank's patch is the block of the JAX device shard at the same coordinates:
+721 over 2 is 361 + 360, 73 over 2 is 37 + 36.
+
+Under gloo (ranks sharing a card, or the CPU) a collective on a CUDA tensor
+is staged through host memory; under NCCL it runs on the card. With one rank
+in the group every function returns its input and no collective runs.
+"""
+
+import collections
+import math
+
+import torch
+import torch.distributed as dist
+
+from makani_tpu_torch.parallel import comm
+
+# bytes each kind of collective has sent from this rank to the others (a
+# rank's own chunk of an all-to-all stays out); callers reset and read it
+moved = collections.Counter()
+
+
+def split_shapes(size, num_chunks):
+    """Chunk i covers [i*ceil, min((i+1)*ceil, size)) (jax.sharding's uneven
+    shards)."""
+    chunk = -(-int(size) // int(num_chunks))
+    return [max(0, min(chunk, int(size) - i * chunk)) for i in range(int(num_chunks))]
+
+
+def patch(size, axis):
+    """(start, length) of the rank's chunk of `size` along mesh axis `axis`."""
+    sizes = split_shapes(size, comm.get_size(axis))
+    r = comm.get_rank(axis)
+    return sum(sizes[:r]), sizes[r]
+
+
+def patch_slice(size, axis):
+    start, n = patch(size, axis)
+    return slice(start, start + n)
+
+
+def spatial_distributed():
+    return comm.get_size("spatial") > 1
+
+
+def data_distributed():
+    return comm.get_size("data") > 1
+
+
+def _staged(x):
+    """(tensor for the collective, device to return to): gloo takes host
+    tensors, NCCL the rank's card."""
+    nccl = comm.get_backend() == "nccl"
+    if x.device.type == "cuda" and not nccl:
+        return x.detach().cpu(), x.device
+    if nccl and x.device.type != "cuda":
+        return x.detach().to(comm.get_device()), x.device
+    return x.detach(), None
+
+
+def _back(x, device):
+    return x if device is None else x.to(device, non_blocking=False)
+
+
+def all_reduce_(x, group_name, op=dist.ReduceOp.SUM):
+    """In-place all-reduce of `x` over the group (no autograd); returns x."""
+    group = comm.get_group(group_name)
+    if group is None:
+        return x
+    buf, dev = _staged(x)
+    moved["all_reduce"] += buf.numel() * buf.element_size()
+    dist.all_reduce(buf, op=op, group=group)
+    if dev is not None:
+        x.copy_(buf)
+    return x
+
+
+def broadcast_(x, group_name, src_group_rank=0):
+    """In-place broadcast from the group's rank `src_group_rank`."""
+    group = comm.get_group(group_name)
+    if group is None:
+        return x
+    buf, dev = _staged(x)
+    dist.broadcast(buf, src=comm.get_group_ranks(group_name)[src_group_rank], group=group)
+    if dev is not None:
+        x.copy_(buf)
+    return x
+
+
+def _all_to_all(chunks_out_sizes, x_flat, in_sizes, group):
+    """1-D all_to_all_single with element split sizes."""
+    buf, dev = _staged(x_flat)
+    moved["all_to_all"] += (sum(in_sizes) - in_sizes[dist.get_rank(group)]) * buf.element_size()
+    out = torch.empty(sum(chunks_out_sizes), dtype=buf.dtype, device=buf.device)
+    dist.all_to_all_single(out, buf, output_split_sizes=list(chunks_out_sizes),
+                           input_split_sizes=list(in_sizes), group=group)
+    return _back(out, dev)
+
+
+def _transpose(x, split_dim, gather_dim, group_name, split_sizes, gather_sizes):
+    group = comm.get_group(group_name)
+    me = comm.get_rank(group_name)
+    split_dim %= x.ndim
+    gather_dim %= x.ndim
+    if x.shape[split_dim] != sum(split_sizes) or x.shape[gather_dim] != gather_sizes[me]:
+        raise ValueError(f"transpose over {group_name}: shape {tuple(x.shape)} does not hold "
+                         f"{sum(split_sizes)} along {split_dim} and {gather_sizes[me]} along "
+                         f"{gather_dim}")
+    # the split dimension leading: chunk j is a contiguous run of rows
+    xs = x.movedim(split_dim, 0).contiguous()
+    rest = list(xs.shape[1:])
+    g_axis = gather_dim - (1 if gather_dim > split_dim else 0)   # in `rest`
+    shapes = [rest[:g_axis] + [g] + rest[g_axis + 1:] for g in gather_sizes]
+    row = math.prod(rest)
+    in_sizes = [s * row for s in split_sizes]
+    out_sizes = [split_sizes[me] * math.prod(shape) for shape in shapes]
+    out = _all_to_all(out_sizes, xs.reshape(-1), in_sizes, group)
+    parts = [flat.view([split_sizes[me]] + shape)
+             for flat, shape in zip(out.split(out_sizes), shapes)]
+    y = torch.cat(parts, dim=1 + g_axis)
+    return y.movedim(0, split_dim)
+
+
+class _DistributedTranspose(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, gather_dim, group_name, split_sizes, gather_sizes):
+        ctx.args = (gather_dim, split_dim, group_name, gather_sizes, split_sizes)
+        return _transpose(x, split_dim, gather_dim, group_name, split_sizes, gather_sizes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_DistributedTranspose.apply(g.contiguous(), *ctx.args),
+                None, None, None, None, None)
+
+
+def distributed_transpose(x, split_dim, gather_dim, group_name, split_sizes, gather_sizes):
+    """All-to-all over the group: `x` holds all of `split_dim`
+    (sum(split_sizes)) and the rank's chunk of `gather_dim`
+    (gather_sizes[rank]); the result holds the rank's chunk
+    split_sizes[rank] of `split_dim` and all of `gather_dim`. Runs on
+    all_to_all_single with the split dimension moved to the front and the
+    chunks flattened, so uneven chunks exchange whatever the backend.
+    Identity over a group of one rank."""
+    if comm.get_size(group_name) == 1:
+        return x
+    return _DistributedTranspose.apply(x, split_dim, gather_dim, group_name,
+                                       tuple(split_sizes), tuple(gather_sizes))
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group_name):
+        return all_reduce_(x.clone(), group_name)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group_name):
+        ctx.group_name = group_name
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.clone(), ctx.group_name), None
+
+
+def all_reduce_sum(x, group_name):
+    """Sum over the group of each rank's partial `x`, replicated on every
+    rank; the cotangent, the same on every rank, passes through (the
+    reference's reduce_from_parallel_region)."""
+    if comm.get_size(group_name) == 1:
+        return x
+    return _AllReduceSum.apply(x, group_name)
+
+
+def copy_to(x, group_name):
+    """Identity; the cotangents of the ranks' partial uses of a replicated
+    `x` are summed in backward (the reference's copy_to_parallel_region)."""
+    if comm.get_size(group_name) == 1:
+        return x
+    return _CopyTo.apply(x, group_name)
+
+
+def reduce_partial(x, group_name):
+    """A sum of partial values that each rank then uses on its own patch:
+    all-reduce forward and backward (copy_to of all_reduce_sum)."""
+    return copy_to(all_reduce_sum(x, group_name), group_name)
+
+
+def _gather(x, dim, group_name, sizes):
+    group = comm.get_group(group_name)
+    n = comm.get_size(group_name)
+    dim %= x.ndim
+    big = max(sizes)
+    pad = list(x.shape)
+    pad[dim] = big
+    buf = x.new_zeros(pad)
+    buf.narrow(dim, 0, x.shape[dim]).copy_(x)
+    staged, dev = _staged(buf)
+    moved["all_gather"] += staged.numel() * staged.element_size()
+    outs = [torch.empty_like(staged) for _ in range(n)]
+    dist.all_gather(outs, staged.contiguous(), group=group)
+    y = torch.cat([o.narrow(dim, 0, s) for o, s in zip(outs, sizes)], dim=dim)
+    return _back(y, dev)
+
+
+class _GatherUneven(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group_name, sizes):
+        ctx.args = (dim, group_name, sizes)
+        return _gather(x, dim, group_name, sizes)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, group_name, sizes = ctx.args
+        r = comm.get_rank(group_name)
+        return g.narrow(dim, sum(sizes[:r]), sizes[r]), None, None, None
+
+
+def gather_uneven(x, dim, group_name, sizes):
+    """The chunks of every rank of the group along `dim`, concatenated in
+    group order; `sizes` the chunks' lengths. The backward takes the rank's
+    own slice of a replicated cotangent."""
+    if comm.get_size(group_name) == 1:
+        return x
+    return _GatherUneven.apply(x, dim, group_name, tuple(sizes))
+
+
+def gather_patch(x, global_hw):
+    """The full (..., H, W) field from every spatial rank's patch (no
+    autograd needed by the callers: exports and host scores)."""
+    H, W = global_hw
+    x = gather_uneven(x, -1, "w", split_shapes(W, comm.get_size("w")))
+    return gather_uneven(x, -2, "h", split_shapes(H, comm.get_size("h")))
+
+
+def coefficient_block(w, diagonal):
+    """The rank's block of a complex spectral weight that is held whole:
+    (..., L) -> (..., l/h), or for the diagonal operator (..., L, M) ->
+    (..., l/h, m/w)."""
+    if not diagonal:
+        return w[..., patch_slice(w.shape[-1], "h")]
+    return w[..., patch_slice(w.shape[-2], "h"), patch_slice(w.shape[-1], "w")]
+
+
+def local_patch(x, global_hw):
+    """The rank's (h, w) patch of a full (..., H, W) field."""
+    if not spatial_distributed():
+        return x
+    H, W = global_hw
+    return x[..., patch_slice(H, "h"), patch_slice(W, "w")]

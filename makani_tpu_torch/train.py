@@ -12,15 +12,28 @@ makani_tpu's no-op flags (--jit_mode, --cuda_graph_mode, --disable_ddp,
 --parameters_reduction_buffer_count) are accepted and change nothing.
 --multistep_count K trains the K-step unroll (n_future = K - 1). A config's
 `log_video` renders the rollout videos (utils/visualize; matplotlib and PIL
-on the host). The port runs one process on one device: a *_parallel_size
-other than 1 is refused (ROADMAP, Queue 1 item 7); --split_data_channels, a
-mesh setting, changes nothing.
+on the host).
+
+Several ranks, over data and the spatial h and w axes, are started by
+torchrun, each rank on its card (parallel/comm: NCCL with a card a rank,
+gloo where ranks share one, gloo on the CPU with --device cpu):
+
+    python -m torch.distributed.run --standalone --nproc_per_node 4 \
+        -m makani_tpu_torch.train --yaml_config Y --config NAME \
+        --h_parallel_size 2 [--w_parallel_size 2] [--device cpu]
+
+The data size is the ranks left over (world // (h * w)), and --batch_size
+is the global batch, cut evenly over the data ranks, as in makani_tpu. Only
+rank 0 logs and writes. --fin/--fout_parallel_size above 1 and
+--split_data_channels on several ranks raise (ROADMAP, Queue 1 item 7b), as
+do the FNO, AFNO and ViT families under h * w > 1.
 """
 
 import argparse
 import logging
 import os
 
+from makani_tpu_torch.parallel import comm
 from makani_tpu_torch.utils import logging_utils
 from makani_tpu_torch.utils.checkpoint import checkpoint_exists
 from makani_tpu_torch.utils.dataset_metadata import parse_dataset_metadata
@@ -81,9 +94,13 @@ def main(argv=None):
     resolve_device(args.device)  # no CUDA: raise before anything is written
     sizes = [args.h_parallel_size, args.w_parallel_size, args.fin_parallel_size,
              args.fout_parallel_size]
-    if any(s != 1 for s in sizes):
-        raise NotImplementedError(f"model parallelism (h, w, fin, fout sizes {sizes}) is not "
-                                  "ported yet (ROADMAP: Queue 1 item 7)")
+    # the process groups of the launcher's ranks (serial without torchrun)
+    world_rank = comm.init(model_parallel_sizes=sizes,
+                           model_parallel_names=["h", "w", "fin", "fout"],
+                           device_type=args.device)
+    if args.split_data_channels and comm.get_world_size() > 1:
+        raise NotImplementedError("--split_data_channels is not ported yet "
+                                  + comm.TENSOR_PARALLEL_TODO)
 
     params = YParams(os.path.abspath(args.yaml_config), args.config)
     params["fin_parallel_size"] = args.fin_parallel_size
@@ -94,10 +111,15 @@ def main(argv=None):
     params["model_parallel_names"] = ["h", "w", "fin", "fout"]
     params["load_checkpoint"] = args.load_checkpoint
     params["save_checkpoint"] = args.save_checkpoint
-    params["world_size"] = 1
+    params["world_size"] = comm.get_world_size()
     if args.batch_size > 0:
         params.batch_size = args.batch_size
     params["global_batch_size"] = params.batch_size
+    data = comm.get_size("data")
+    if params["global_batch_size"] % data != 0:
+        raise ValueError(f"Error, cannot evenly distribute {params['global_batch_size']} "
+                         f"across {data} data ranks")
+    params["batch_size"] = int(params["global_batch_size"] // data)
     if "optimizer_max_grad_norm" not in params:
         params["optimizer_max_grad_norm"] = 1.0
 
@@ -124,11 +146,13 @@ def main(argv=None):
     params["epsilon_factor"] = args.epsilon_factor
 
     logging_utils.config_logger()
-    logging_utils.log_to_file(logger_name=None, log_filename=os.path.join(exp_dir, "out.log"))
-    logging_utils.log_versions()
-    params.log(logging.getLogger())
-    params["log_to_wandb"] = params.get("log_to_wandb", False)
-    params["log_to_screen"] = params.get("log_to_screen", False)
+    if world_rank == 0:
+        logging_utils.log_to_file(logger_name=None,
+                                  log_filename=os.path.join(exp_dir, "out.log"))
+        logging_utils.log_versions()
+        params.log(logging.getLogger())
+    params["log_to_wandb"] = params.get("log_to_wandb", False) and world_rank == 0
+    params["log_to_screen"] = params.get("log_to_screen", False) and world_rank == 0
 
     if params.get("metadata_json_path", None):
         params, _ = parse_dataset_metadata(params["metadata_json_path"], params=params)

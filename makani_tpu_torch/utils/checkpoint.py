@@ -40,6 +40,12 @@ its step dir, then its counters, then prunes the steps past keep-N.
 every write is on disk, and `restore_checkpoint` waits first. A write that
 failed raises its exception at the next `wait_for_saves` or save; the
 previous checkpoint stays as it was.
+
+A file always holds whole leaves, as a serial run saves them: on several
+ranks the Trainer gathers every split leaf and rank 0 writes, and
+`restore_checkpoint(..., shards=...)` gives each rank its slice of the
+saved leaves, so checkpoints cross between serial runs and any data or
+spatial decomposition (makani_tpu's orbax restores across meshes).
 """
 
 import concurrent.futures
@@ -53,6 +59,7 @@ import time
 
 import torch
 
+from makani_tpu_torch.parallel import partitioning
 from makani_tpu_torch.utils.optimizers import AdamState
 
 MODEL_FILE = "model.pt"
@@ -220,23 +227,30 @@ def _resolve(path):
     return path
 
 
-def _load_onto(file, template, path):
+def _load_onto(file, template, path, shards=None):
     """The tensors of `file` on the template's devices; raises on a key,
-    shape or dtype that differs from the template's."""
+    shape or dtype that differs from the template's. A template tensor that
+    is a rank's shard of a leaf (`shards`, {key: parallel/partitioning.Shard})
+    takes its slice of the saved whole leaf."""
+    shards = shards or {}
     state = torch.load(file, map_location="cpu", weights_only=True, mmap=True)
     missing = sorted(set(template) - set(state))
     unexpected = sorted(set(state) - set(template))
-    differ = {k: (tuple(state[k].shape), state[k].dtype, tuple(template[k].shape),
-                  template[k].dtype)
+
+    def shape(k):
+        return torch.Size(shards[k].global_shape) if k in shards else template[k].shape
+
+    differ = {k: (tuple(state[k].shape), state[k].dtype, tuple(shape(k)), template[k].dtype)
               for k in sorted(set(state) & set(template))
-              if state[k].shape != template[k].shape or state[k].dtype != template[k].dtype}
+              if state[k].shape != shape(k) or state[k].dtype != template[k].dtype}
     if missing or unexpected or differ:
         raise RuntimeError(
             f"checkpoint {path} does not fit its template ({os.path.basename(file)}): "
             f"missing {missing}; unexpected {unexpected}; "
             f"shape/dtype (saved, template) {differ}")
     # a copy, so no restored tensor is backed by the file's mapping
-    return {k: state[k].to(template[k].device, copy=True) for k in template}
+    return {k: partitioning.local_slice(k, state[k], shards).to(template[k].device, copy=True)
+            for k in template}
 
 
 def _unflatten_opt_state(flat, template):
@@ -252,23 +266,39 @@ def _unflatten_opt_state(flat, template):
     return tuple(out)
 
 
-def restore_checkpoint(path, params_template, opt_state_template=None):
+def opt_state_shards(opt_state, shards):
+    """The shards of a chain's flattened state, named as flatten_opt_state
+    names them, from the parameters' shards."""
+    out = {}
+    for key in flatten_opt_state(opt_state):
+        param = key.split("/", 2)[-1]
+        if key.count("/") == 2 and param in shards:
+            out[key] = shards[param]
+    return out
+
+
+def restore_checkpoint(path, params_template, opt_state_template=None, shards=None):
     """Restore onto the templates (a dict of tensors, a chain's state tuple),
     each tensor on its template's device. Returns (params, opt_state or
-    None, counters). Waits for the saves in flight first."""
+    None, counters). Waits for the saves in flight first. `shards` names the
+    template's leaves that are a rank's shard: they take their slice of the
+    whole leaf the file holds, so a checkpoint saved serially or on any
+    decomposition restores on any other."""
     wait_for_saves()
     path = _resolve(path)
     model_file = os.path.join(path, MODEL_FILE)
     if not os.path.isfile(model_file):
         raise FileNotFoundError(f"no checkpoint at {path} (no {MODEL_FILE})")
-    params = _load_onto(model_file, params_template, path)
+    params = _load_onto(model_file, params_template, path, shards)
 
     opt_state = None
     opt_file = os.path.join(path, OPT_FILE)
     if opt_state_template is not None and os.path.isfile(opt_file):
         template = flatten_opt_state(opt_state_template)
-        opt_state = _unflatten_opt_state(_load_onto(opt_file, template, path),
-                                         opt_state_template)
+        opt_state = _unflatten_opt_state(
+            _load_onto(opt_file, template, path, opt_state_shards(opt_state_template,
+                                                                  shards or {})),
+            opt_state_template)
 
     counters = {}
     # single-dir checkpoints keep their counters inside; versioned steps

@@ -9,6 +9,8 @@ datasets' numpy samples on the host and takes torch tensors too.
 import numpy as np
 import torch
 
+from makani_tpu_torch.parallel import spmd
+
 from makani_tpu_torch.ops.quadrature import (
     clenshaw_curtiss_nodes_weights,
     legendre_gauss_nodes_weights,
@@ -103,15 +105,20 @@ def grid_quadrature_weights(quadrature_rule, img_shape, normalize=False, pole_ma
 
 
 class GridQuadrature:
-    """Quadrature-weighted integral over the last two axes."""
+    """Quadrature-weighted integral over the last two axes. On spatial ranks
+    it takes the rank's patch of the (cropped) field, weighs it with its
+    patch of the weights and sums the patches' integrals over the spatial
+    group (the cotangent of the replicated result passes through)."""
 
     def __init__(self, quadrature_rule, img_shape, crop_shape=None, crop_offset=(0, 0),
-                 normalize=False, pole_mask=None, device="cpu"):
-        qw = grid_quadrature_weights(
+                 normalize=False, pole_mask=None, device="cpu", weights=None):
+        qw = weights if weights is not None else grid_quadrature_weights(
             quadrature_rule, img_shape, normalize=normalize, pole_mask=pole_mask,
             crop_shape=crop_shape, crop_offset=crop_offset,
         )
+        qw = np.ascontiguousarray(spmd.local_patch(qw, qw.shape))
         self.quad_weight = torch.from_numpy(qw.reshape(1, 1, *qw.shape)).to(device)
 
     def __call__(self, x):
-        return torch.sum(x * self.quad_weight.to(x.dtype), dim=(-2, -1))
+        return spmd.all_reduce_sum(torch.sum(x * self.quad_weight.to(x.dtype), dim=(-2, -1)),
+                                   "spatial")

@@ -38,6 +38,15 @@ donate their buffers).
 
 The MetricsHandler and the loss are built at their first use: a rollout
 without metrics needs neither channel names nor stats files.
+
+On several ranks (parallel/comm, set up by the caller: inference.py under
+torchrun) over data and the spatial h and w axes, the rollouts run on each
+rank's patch of its rows; the weights are the checkpoint's slices; the
+scores sum over the spatial and data groups (the validation loss is the
+data ranks' mean, invariant to the layout as makani_tpu's,
+makani_tpu/utils/inferencer.py:125-135), and only what is exported or scored
+on the host is gathered: the captured and lite rollouts of one initial
+condition are gathered whole on every rank, and rank 0 writes the files.
 """
 
 import functools
@@ -50,6 +59,7 @@ import torch
 
 from makani_tpu_torch.data.dataloader import get_dataloader, init_data_params, to_device
 from makani_tpu_torch.models.model_registry import as_params, get_model, update_channel_params
+from makani_tpu_torch.parallel import comm, spmd
 from makani_tpu_torch.utils.checkpoint import restore_checkpoint
 from makani_tpu_torch.utils.device import resolve_device
 from makani_tpu_torch.utils.losses import LossHandler
@@ -75,7 +85,8 @@ class Inferencer:
         self.params = params
         self.model = get_model(params, device=self.device)
         if weights is None and params.get("checkpoint_path", None):
-            weights, _, _ = restore_checkpoint(params.checkpoint_path, self.model.state_dict())
+            weights, _, _ = restore_checkpoint(params.checkpoint_path, self.model.state_dict(),
+                                               shards=self.model.shards)
         if weights is not None:
             self.model.load_state_dict(weights)
         self.model.eval()
@@ -115,7 +126,11 @@ class Inferencer:
         buffers = self.metrics.update(buffers, pred, targ, loss, idt)
         sqdif = torch.sum((pred - targ) ** 2, dim=0)  # (C, H, W), summed over the batch
         rmse_t = rmse_t.clone()
-        rmse_t[idt] += torch.mean(sqdif, dim=(-2, -1))
+        if spmd.spatial_distributed():
+            h, w = self._global_hw()
+            rmse_t[idt] += spmd.all_reduce_(sqdif.sum(dim=(-2, -1)), "spatial") / (h * w)
+        else:
+            rmse_t[idt] += torch.mean(sqdif, dim=(-2, -1))
         rmse_s = rmse_s + sqdif
         uinp = prep.advance_unpredicted_dyn(uinp, zen_tar, idt)
         return buffers, rmse_t, rmse_s, prep.append_history(inpt, pred), uinp
@@ -153,16 +168,22 @@ class Inferencer:
         return torch.empty((steps, *like.shape), dtype=torch.float32,
                            pin_memory=self.device.type == "cuda")
 
+    def _global_hw(self):
+        return (self.params.img_crop_shape_x, self.params.img_crop_shape_y)
+
     def _finish(self, *buffers):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        if spmd.spatial_distributed():
+            # the whole fields, from every spatial rank's patches
+            buffers = tuple(spmd.gather_patch(b, self._global_hw()) for b in buffers)
         return tuple(b.numpy() for b in buffers)
 
     def _zero_accumulators(self):
         p = self.params
         rmse_t = torch.zeros((self._S, p.N_out_channels), dtype=torch.float32, device=self.device)
-        rmse_s = torch.zeros((p.N_out_channels, p.img_crop_shape_x, p.img_crop_shape_y),
-                             dtype=torch.float32, device=self.device)
+        hw = [spmd.patch(n, ax)[1] for n, ax in zip(self._global_hw(), ("h", "w"))]
+        rmse_s = torch.zeros((p.N_out_channels, *hw), dtype=torch.float32, device=self.device)
         return rmse_t, rmse_s
 
     def _rollout_metrics(self, buffers, rmse_t, rmse_s, inp, tar, zen_inp=None, zen_tar=None):
@@ -232,7 +253,8 @@ class Inferencer:
             rng = np.random.RandomState(42)
             inp_np = np.array(inp.cpu())
             for ch, std in dict(self.ic_perturbation_std).items():
-                inp_np[:, :, int(ch)] += rng.normal(0.0, std, inp_np.shape[-2:]).astype(np.float32)
+                noise = rng.normal(0.0, std, self._global_hw()).astype(np.float32)
+                inp_np[:, :, int(ch)] += spmd.local_patch(noise, self._global_hw())
             inp = torch.from_numpy(inp_np).to(self.device)
         preds = self._rollout_lite(inp, zen_inp, zen_tar)
         if output_data:
@@ -262,11 +284,18 @@ class Inferencer:
             eval_samples += int(inp.shape[0])
             buffers, rt, rs = self._rollout_metrics(buffers, rt, rs, inp, tar, zen_inp, zen_tar)
 
+        if comm.get_world_size() > 1:
+            # sums over the data ranks; the whole field from the patches
+            rt, rs = spmd.all_reduce_(rt, "data"), spmd.all_reduce_(rs, "data")
+            eval_samples *= comm.get_size("data")
+            rs = spmd.gather_patch(rs, self._global_hw())
         eval_samples = max(eval_samples, 1)
         rmse_over_space = np.sqrt(rs.cpu().numpy() / (self._S * eval_samples))
         rmse_over_time = np.sqrt(rt.cpu().numpy() / eval_samples)
 
         logs, acc_curves, rmse_curves = self.metrics.finalize(buffers, final_inference=True)
+        if comm.get_world_rank() != 0:
+            return logs
 
         exp_dir = self.params.experiment_dir
         np.save(os.path.join(exp_dir, "acc_curves.npy"), acc_curves)

@@ -3,13 +3,17 @@
 Counterpart of makani_tpu/utils/losses.py. The loss spec is a token string,
 e.g. "weighted squared temp-std geometric l2"; tokens: {l1, l2, geometric h1,
 geometric, absolute, squared, weighted, temp-std, pole-masked}. Weight tables
-are host numpy, moved once to the loss's device.
+are host numpy, moved once to the loss's device. On spatial ranks the
+quadrature-weighted sums (utils/grids.GridQuadrature) and the H1 loss's
+spectral sums (through the distributed SHT) add up over the spatial group
+before any norm is taken.
 """
 
 import numpy as np
 import torch
 
 from makani_tpu_torch.ops.sht import RealSHT
+from makani_tpu_torch.parallel import spmd
 from makani_tpu_torch.utils.grids import GridQuadrature
 
 
@@ -31,9 +35,9 @@ class GeometricLpLoss:
         if jacobian == "flat":
             # uniform weights normalized to 1
             shape = crop_shape if crop_shape is not None else img_shape
-            qw = torch.full((1, 1, *shape), 1.0 / (shape[0] * shape[1]), dtype=torch.float32,
-                            device=device)
-            self.quadrature = lambda x: torch.sum(x * qw.to(x.dtype), dim=(-2, -1))
+            self.quadrature = GridQuadrature(
+                None, img_shape, device=device,
+                weights=np.full(shape, 1.0 / (shape[0] * shape[1]), dtype=np.float32))
         else:
             self.quadrature = GridQuadrature(
                 quadrature_rule, img_shape=img_shape, crop_shape=crop_shape,
@@ -79,8 +83,20 @@ class GeometricH1Loss:
     def _norms2(self, x):
         coeffs = self.sht(x)
         power = coeffs.real ** 2 + coeffs.imag ** 2
-        norm2 = power[..., 0] + 2 * torch.sum(power[..., 1:], dim=-1)  # (B, C, L)
         num = x.shape[0]
+        if spmd.spatial_distributed():
+            # the rank's (l/h, m/w) block: m = 0 counts once, the others
+            # twice; the sums over l and m add up over the spatial group
+            m0, ml = spmd.patch(self.sht.mmax, "w")
+            mw = torch.full((ml,), 2.0, device=x.device)
+            if m0 == 0 and ml:
+                mw[0] = 1.0
+            norm2 = torch.sum(power * mw, dim=-1)                        # (B, C, l/h)
+            h1w = self.h1_weights[spmd.patch_slice(self.sht.lmax, "h")]
+            l2 = spmd.all_reduce_sum(norm2.reshape(num, -1).sum(dim=-1), "spatial")
+            h1 = spmd.all_reduce_sum((norm2 * h1w).reshape(num, -1).sum(dim=-1), "spatial")
+            return l2, h1
+        norm2 = power[..., 0] + 2 * torch.sum(power[..., 1:], dim=-1)  # (B, C, L)
         l2 = norm2.reshape(num, -1).sum(dim=-1)
         h1 = (norm2 * self.h1_weights).reshape(num, -1).sum(dim=-1)
         return l2, h1

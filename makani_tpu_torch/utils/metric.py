@@ -7,9 +7,13 @@ was given as they were, as makani_tpu's pure update does. As in makani_tpu
 `acc_counter` counts samples, not update calls, so the finalized curves are
 per-sample means at any batch size.
 
-`split_data_channels` shards the metric's channels over a model-parallel
-mesh in makani_tpu; the port runs one rank (ROADMAP, Queue 1 item 7), where
-the flag changes nothing, so it is not read here.
+On several ranks (parallel/comm) each rank scores its patch of its batch:
+the quadratures sum their patches over the spatial group (utils/grids), the
+climatology is cut to the patch, and `finalize` sums the curves, the sample
+counts and the loss and L1 sums over the data group, the loss and L1 divided
+by the data size as makani_tpu divides them (makani_tpu/utils/metric.py:46-120).
+`split_data_channels`, which shards the metric's channels over fin/fout in
+makani_tpu, is not ported yet (ROADMAP, Queue 1 item 7b): the CLIs refuse it.
 
 `time_stats` is makani_tpu's Trainer._get_time_stats as a function, for the
 Inferencer and the Trainer: the output normalization's scale (`mult`) and
@@ -19,6 +23,8 @@ the climatology (`clim`, time_means_path cropped and normalized with the
 
 import numpy as np
 import torch
+
+from makani_tpu_torch.parallel import comm, spmd
 
 from makani_tpu_torch.utils.metrics.functions import (
     GeometricACC,
@@ -72,8 +78,9 @@ class MetricsHandler:
 
         self.mult = torch.from_numpy(
             np.asarray(mult, dtype=np.float32).reshape(-1)).to(self.device)  # (C,)
-        self.clim = torch.from_numpy(
-            np.asarray(clim, dtype=np.float32)[None]).to(self.device)  # (1, C, H, W)
+        clim = np.asarray(clim, dtype=np.float32)
+        clim = np.ascontiguousarray(spmd.local_patch(clim, clim.shape[-2:]))
+        self.clim = torch.from_numpy(clim[None]).to(self.device)  # (1, C, H, W)
 
         self.simpquad = Quadrature(self.valid_autoreg_steps,
                                    1.0 / float(self.valid_autoreg_steps + 1))
@@ -127,6 +134,13 @@ class MetricsHandler:
     def finalize(self, buffers, final_inference=False):
         """The logs dict (and, for final_inference, the ACC and RMSE curves
         as numpy), on the host."""
+        if spmd.data_distributed():
+            buffers = {k: v.detach().clone() for k, v in buffers.items()}
+            data = float(comm.get_size("data"))
+            for key in ("valid_loss", "valid_l1", "acc_curve", "rmse_curve", "acc_counter"):
+                spmd.all_reduce_(buffers[key], "data")
+            buffers["valid_loss"] /= data
+            buffers["valid_l1"] /= data
         buffers = {k: v.detach().cpu().numpy() for k, v in buffers.items()}
         valid_steps = float(buffers["valid_steps"])
         valid_loss = float(buffers["valid_loss"]) / max(valid_steps, 1.0)

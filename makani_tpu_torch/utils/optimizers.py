@@ -48,7 +48,14 @@ from makani_tpu_torch.ops.fused_adam import (
     stochastic_round_bf16,
     trust_ratios,
 )
-from makani_tpu_torch.utils.param_layout import jax_leaf_order, jax_view, port_view
+from makani_tpu_torch.parallel import partitioning, spmd
+from makani_tpu_torch.utils.param_layout import (
+    is_stacked_filter,
+    jax_leaf_order,
+    jax_view,
+    layer_axes,
+    port_view,
+)
 
 GradientTransformation = namedtuple("GradientTransformation", ["init", "update"])
 
@@ -184,26 +191,31 @@ def apply_updates(params, updates, lr):
     return params
 
 
-def clip_by_global_norm(max_norm):
+def clip_by_global_norm(max_norm, shards=None):
     """optax.clip_by_global_norm: every leaf scaled by max_norm / norm when
-    the global norm reaches max_norm (computed on the device, no sync)."""
+    the global norm reaches max_norm (computed on the device, no sync; over
+    whole leaves where `shards` names leaves split over ranks)."""
 
     def update_fn(updates, state, params=None):
         with torch.no_grad():
-            norm = global_norm(updates.values())
+            if shards:
+                norm = partitioning.global_norm(list(updates), list(updates.values()), shards)
+            else:
+                norm = global_norm(updates.values())
             return {k: clip_by_norm(g, norm, max_norm) for k, g in updates.items()}, state
 
     return GradientTransformation(lambda params: None, update_fn)
 
 
-def scale_by_trust_ratio():
+def scale_by_trust_ratio(shards=None):
     """optax.scale_by_trust_ratio: u * ||p|| / ||u|| per leaf, u where
-    either norm is 0."""
+    either norm is 0 (whole leaves' norms for leaves split over ranks)."""
 
     def update_fn(updates, state, params=None):
         keys = list(updates)
         with torch.no_grad():
-            ratios = trust_ratios([params[k] for k in keys], [updates[k] for k in keys])
+            ratios = trust_ratios([params[k] for k in keys], [updates[k] for k in keys],
+                                  keys, shards)
             return {k: updates[k] * r for k, r in zip(keys, ratios)}, state
 
     return GradientTransformation(lambda params: None, update_fn)
@@ -252,19 +264,55 @@ def _decay_rate_pow(i, exponent=0.8):
     return np.float32(1.0) - np.float32(_libm.powf(t, float(np.float32(-exponent))))
 
 
+def _split_jax_dims(key, shard):
+    """{dim in makani_tpu's layout: (axis, whole size)} of a shard's split
+    dimensions."""
+    if shard is None:
+        return {}
+    # jax_view's permutation: dimension j of makani_tpu's layout is the
+    # port's order[j]
+    order = list(range(len(shard.global_shape)))
+    if is_stacked_filter(key, shard.global_shape):
+        lead = layer_axes(key)
+        order = list(range(lead)) + [lead + a for a in (2, 3, 1, 0)]
+    return {order.index(s.dim): (s.axis, shard.global_shape[s.dim]) for s in shard.splits}
+
+
+def _global_jax_shape(key, shape, shard):
+    if shard is None:
+        return tuple(shape)
+    return tuple(jax_view(key, torch.empty(shard.global_shape, device="meta")).shape)
+
+
+def _mean(x, dim, split, full_dims):
+    """x.mean(dim) over the whole leaf: a dimension split over ranks sums
+    over its group and divides by its whole size. `full_dims` maps x's
+    dimensions to the leaf's (makani_tpu's layout)."""
+    d = full_dims[dim]
+    if d not in split:
+        return x.mean(dim=dim)
+    axis, size = split[d]
+    return spmd.all_reduce_(x.sum(dim=dim), axis) / size
+
+
 def scale_by_factored_rms(factored=True, decay_rate=0.8, step_offset=0,
-                          min_dim_size_to_factor=128, epsilon=1e-30):
+                          min_dim_size_to_factor=128, epsilon=1e-30, shards=None):
     """optax.scale_by_factored_rms (Adafactor's scaling), on makani_tpu's
     layout of every leaf: the factored axes are chosen and the row and column
     statistics kept in that layout, so the port's dhconv weight (2, L, C, O)
     gets the statistics of makani_tpu's (C, O, L, 2). The state's v_row,
-    v_col and v are keyed like the parameters, in makani_tpu's shapes."""
+    v_col and v are keyed like the parameters, in makani_tpu's shapes. A
+    rank's shard of a leaf split over ranks (`shards`) factors the axes of
+    the whole leaf, and its statistics average over the whole leaf; it keeps
+    the shard of them that its elements need."""
+    shards = shards or {}
 
     def init_fn(params):
         v_row, v_col, v = {}, {}, {}
         for k, p in params.items():
             shape = tuple(jax_view(k, p).shape)
-            dims = _factored_dims(shape, factored, min_dim_size_to_factor)
+            dims = _factored_dims(_global_jax_shape(k, shape, shards.get(k)), factored,
+                                  min_dim_size_to_factor)
             one = torch.zeros((1,), device=p.device)
             if dims is not None:
                 d1, d0 = dims
@@ -285,14 +333,19 @@ def scale_by_factored_rms(factored=True, decay_rate=0.8, step_offset=0,
         with torch.no_grad():
             for k, g_port in updates.items():
                 g = jax_view(k, g_port.float())
-                dims = _factored_dims(tuple(g.shape), factored, min_dim_size_to_factor)
+                shard = shards.get(k)
+                dims = _factored_dims(_global_jax_shape(k, g.shape, shard), factored,
+                                      min_dim_size_to_factor)
                 grad_sqr = g * g + epsilon
                 if dims is not None:
                     d1, d0 = dims
-                    vr = d_t * state.v_row[k] + d_c * grad_sqr.mean(dim=d0)
-                    vc = d_t * state.v_col[k] + d_c * grad_sqr.mean(dim=d1)
+                    split = _split_jax_dims(k, shard)
+                    every = list(range(g.ndim))
+                    vr = d_t * state.v_row[k] + d_c * _mean(grad_sqr, d0, split, every)
+                    vc = d_t * state.v_col[k] + d_c * _mean(grad_sqr, d1, split, every)
                     reduced_d1 = d1 - 1 if d1 > d0 else d1
-                    row_col_mean = vr.mean(dim=reduced_d1, keepdim=True)
+                    row_col_mean = _mean(vr, reduced_d1, split,
+                                         [d for d in every if d != d0]).unsqueeze(reduced_d1)
                     row_factor = (vr / row_col_mean) ** -0.5
                     col_factor = vc ** -0.5
                     u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
@@ -361,14 +414,16 @@ def fused_adam_settings(params):
     return {k: v for k, v in kw.items() if k not in ("lamb", "max_norm")}
 
 
-def build_optimizer(params):
+def build_optimizer(params, shards=None):
     """The lr-free gradient transform of the config (makani_tpu's
-    build_optimizer)."""
+    build_optimizer); `shards` names the leaves split over ranks
+    (parallel/partitioning.shard_module), whose norms and statistics are
+    taken over the whole leaf."""
     opt_type = params.get("optimizer_type", "Adam")
     tx = []
     max_norm = clip_norm(params)
     if max_norm is not None:
-        tx.append(clip_by_global_norm(max_norm))
+        tx.append(clip_by_global_norm(max_norm, shards))
     b1 = params.get("optimizer_beta1", 0.9)
     b2 = params.get("optimizer_beta2", 0.95)
     wd = params.get("weight_decay", 0.0)
@@ -388,9 +443,9 @@ def build_optimizer(params):
         if opt_type != "Adam" and wd > 0:
             tx.append(add_decayed_weights(wd))
         if opt_type in _LAMB:
-            tx.append(scale_by_trust_ratio())
+            tx.append(scale_by_trust_ratio(shards))
     elif opt_type == "Adafactor":
-        tx.append(scale_by_factored_rms())
+        tx.append(scale_by_factored_rms(shards=shards))
     elif opt_type == "SGD":
         momentum = params.get("momentum", 0.0)
         if momentum > 0:

@@ -64,8 +64,22 @@ not depend on it. The host packages it needs (matplotlib, PIL) are checked
 when the Trainer is built, where a config would render (makani_tpu fails at
 the first render).
 
-Not ported yet; it raises NotImplementedError when the config asks for it
-(ROADMAP, Queue 1 item 7): parallelism.
+Several ranks (parallel/comm, set up by the caller: train.py under
+torchrun) over the data axis and the spatial h and w axes: each rank's loader
+yields its rows and its (lat/h, lon/w) window of the global batch, the model
+keeps its shard of the leaves split over h and w (parallel/partitioning,
+weights broadcast at init), the step's gradients are summed over the spatial
+axes that share each leaf and averaged over data in one flattened buffer per
+dtype and group, and the loss reported is the data ranks' mean, as
+makani_tpu divides its loss and gradients by the data size
+(makani_tpu/utils/trainer.py:435-452). The fused Adam kernel runs on each
+rank's shards; the clip norm, LAMB's trust ratios and Adafactor's
+statistics are those of whole leaves. The augmentation's longitude roll is
+drawn for the global batch and applied across the w ranks. Checkpoints hold
+the serial file: every split leaf is gathered and rank 0 writes it; each
+rank restores its slice. Only rank 0 logs, renders and writes. The
+tensor-parallel axes (fin, fout) and `split_data_channels` raise
+NotImplementedError (ROADMAP, Queue 1 item 7b).
 """
 
 import functools
@@ -82,6 +96,7 @@ from makani_tpu_torch.models.common.layers import DropoutKey, use_dropout_key
 from makani_tpu_torch.models.model_registry import as_params, get_model, update_channel_params
 from makani_tpu_torch.ops import complex_ops, sht
 from makani_tpu_torch.ops.fused_adam import fused_adam_apply
+from makani_tpu_torch.parallel import comm, partitioning, spmd
 from makani_tpu_torch.utils import checkpoint as ckpt_lib
 from makani_tpu_torch.utils.device import resolve_device
 from makani_tpu_torch.utils.imports import import_optional
@@ -111,23 +126,39 @@ _DEFAULTS = (("history_normalization_mode", "none"), ("num_visualization_workers
              ("print_timings_frequency", -1))
 
 
-def augment_batch(inp, tar, zen_inp, zen_tar, generator, do_roll, noise_std):
+def augment_batch(inp, tar, zen_inp, zen_tar, generator, do_roll, noise_std, global_hw=None):
     """Train-time augmentation on the batch's device: a random longitude roll
     per sample, applied consistently to inputs, targets and zenith, then
     gaussian input noise. Draws come from `generator` (torch's stream, not
-    JAX's: the same seed gives other shifts and noise than makani_tpu)."""
+    JAX's: the same seed gives other shifts and noise than makani_tpu). On
+    several ranks the draws are the global batch's (whole (H, W) =
+    `global_hw`), each rank taking its rows and patch, and a roll moves
+    longitudes across the w ranks."""
+    data, wsize = comm.get_size("data"), comm.get_size("w")
+    b, r = inp.shape[0], comm.get_rank("data")
     if do_roll:
-        shifts = torch.randint(0, inp.shape[-1], (inp.shape[0],), generator=generator,
-                               device=generator.device).tolist()
+        nlon = inp.shape[-1] if global_hw is None else global_hw[1]
+        shifts = torch.randint(0, nlon, (b * data,), generator=generator,
+                               device=generator.device).tolist()[r * b:(r + 1) * b]
 
         def roll(t):
             if t is None:
                 return None
-            return torch.stack([torch.roll(x, s, dims=-1) for x, s in zip(t, shifts)])
+            if wsize > 1:
+                sizes = spmd.split_shapes(nlon, wsize)
+                t = spmd.gather_uneven(t, -1, "w", sizes)
+            t = torch.stack([torch.roll(x, s, dims=-1) for x, s in zip(t, shifts)])
+            return t[..., spmd.patch_slice(nlon, "w")].contiguous() if wsize > 1 else t
 
         inp, tar, zen_inp, zen_tar = roll(inp), roll(tar), roll(zen_inp), roll(zen_tar)
     if noise_std > 0.0:
-        noise = torch.randn(inp.shape, generator=generator, device=generator.device)
+        shape = list(inp.shape)
+        shape[0] *= data
+        if global_hw is not None:
+            shape[-2:] = global_hw
+        noise = torch.randn(shape, generator=generator, device=generator.device)[r * b:(r + 1) * b]
+        if global_hw is not None:
+            noise = spmd.local_patch(noise, global_hw)
         inp = inp + noise_std * noise.to(inp.device, inp.dtype)
     return inp, tar, zen_inp, zen_tar
 
@@ -138,11 +169,23 @@ def _check_supported(params):
         for module in ("matplotlib", "PIL"):
             import_optional(module, f"log_video {log_video} (the rollout videos)",
                             hint="set log_video: 0 to train without them")
-    sizes = list(params.get("model_parallel_sizes", None) or [])
-    if any(int(s) != 1 for s in sizes) or int(params.get("world_size", 1) or 1) > 1:
-        raise NotImplementedError(f"parallelism (model_parallel_sizes {sizes}, world_size "
-                                  f"{params.get('world_size', 1)}) is not ported yet "
-                                  "(ROADMAP: Queue 1 item 7)")
+    sizes = list(params.get("model_parallel_sizes", None) or [1, 1, 1, 1])
+    names = list(params.get("model_parallel_names", None) or ["h", "w", "fin", "fout"])
+    asked = dict(zip(names, (int(s) for s in sizes)))
+    if asked.get("fin", 1) * asked.get("fout", 1) > 1:
+        raise NotImplementedError(f"tensor parallelism (model_parallel_sizes {sizes}) is not "
+                                  "ported yet " + comm.TENSOR_PARALLEL_TODO)
+    if params.get("split_data_channels", False) and comm.get_world_size() > 1:
+        raise NotImplementedError("split_data_channels is not ported yet "
+                                  + comm.TENSOR_PARALLEL_TODO)
+    for ax in ("h", "w"):
+        if asked.get(ax, 1) != comm.get_size(ax):
+            raise ValueError(f"model_parallel_sizes asks for {ax} = {asked.get(ax, 1)}, the "
+                             f"process groups have {comm.get_size(ax)}: start the ranks with "
+                             "torchrun and call parallel.comm.init first (as train.py does)")
+    world = int(params.get("world_size", 1) or 1)
+    if world != comm.get_world_size():
+        raise ValueError(f"world_size {world} in the config, {comm.get_world_size()} ranks")
 
 
 class Trainer:
@@ -150,11 +193,13 @@ class Trainer:
     CUDA unless device="cpu"). Weights are drawn from `generator`, by default
     one seeded with the config's global_seed."""
 
-    def __init__(self, params, device=None, generator=None, world_rank=0, job_type="train"):
+    def __init__(self, params, device=None, generator=None, world_rank=None, job_type="train"):
         self.device = resolve_device(device)
         params = as_params(params)
         _check_supported(params)
-        self.world_rank = world_rank
+        self.world_rank = comm.get_world_rank() if world_rank is None else world_rank
+        self.data_parallel_size = comm.get_size("data")
+        self.data_parallel_rank = comm.get_rank("data")
         init_data_params(params)
         self.train_dataloader, self.train_dataset = get_dataloader(
             params, params.get("train_data_path", None), train=True)
@@ -165,12 +210,13 @@ class Trainer:
             if params.get(key, None) is None:
                 params[key] = default
         self.params = params
-        self.log_to_screen = params.get("log_to_screen", False)
+        # only rank 0 logs, renders and writes
+        self.log_to_screen = params.get("log_to_screen", False) and self.world_rank == 0
 
         # the experiment log: wandb where it imports, else makani_tpu's
         # JSON-lines backend
         self.wandb = None
-        if params.get("log_to_wandb", False):
+        if params.get("log_to_wandb", False) and self.world_rank == 0:
             from makani_tpu_torch.utils.wandb_compat import experiment_log
             self.wandb = experiment_log()
             self.wandb.init(
@@ -180,7 +226,7 @@ class Trainer:
                 entity=params.get("wandb_entity", None), resume=params.get("resuming", False))
 
         # a self-contained inference package (its best_ckpt comes with training)
-        if world_rank == 0 and params.get("experiment_dir", None) and job_type == "train":
+        if self.world_rank == 0 and params.get("experiment_dir", None) and job_type == "train":
             from makani_tpu_torch.models.model_package import save_model_package
             save_model_package(params)
 
@@ -212,9 +258,14 @@ class Trainer:
         self.preprocessor = self.model.preprocessor
         self.loss_obj = LossHandler(params, device=self.device)
 
-        self.optimizer = build_optimizer(params)
-        self.scheduler = LRScheduler(params)
+        # the leaves split over h and w hold the rank's shard (get_model);
+        # every rank starts from the same weights
+        self.shards = self.model.shards
         self.model_params = dict(self.model.named_parameters())
+        if comm.get_world_size() > 1:
+            partitioning.sync_params(self.model_params, self.shards)
+        self.optimizer = build_optimizer(params, self.shards or None)
+        self.scheduler = LRScheduler(params)
         self.opt_state = self.optimizer.init({k: p.detach() for k, p in self.model_params.items()})
         self.fused_kw = kernel_update_settings(params)
         if self.fused_kw is not None:
@@ -278,7 +329,8 @@ class Trainer:
     def apply_updates(self, grads, lr):
         """The optimizer update of makani_tpu's train step, in place."""
         if self.fused_kw is not None:
-            fused_adam_apply(self.model_params, grads, self.adam_state(), lr, **self.fused_kw)
+            fused_adam_apply(self.model_params, grads, self.adam_state(), lr,
+                             shards=self.shards or None, **self.fused_kw)
             return
         updates, self.opt_state = self.optimizer.update(grads, self.opt_state,
                                                         self.model_params)
@@ -311,13 +363,20 @@ class Trainer:
                  for k, p in self.model_params.items()}
         for p in self.model_params.values():
             p.grad = None
-        return loss.detach(), grads
+        loss = loss.detach()
+        if comm.get_world_size() > 1:
+            # the whole batch's gradients; the loss the data ranks' mean
+            partitioning.reduce_gradients(grads, self.shards)
+            if self.data_parallel_size > 1:
+                loss = spmd.all_reduce_(loss.clone(), "data") / self.data_parallel_size
+        return loss, grads
 
     def train_step(self, inp, tar, zen_inp, zen_tar, lr):
         """One optimizer step on a device batch; returns the loss (a tensor)."""
         if self.do_roll or self.noise_std > 0.0:
             inp, tar, zen_inp, zen_tar = augment_batch(
-                inp, tar, zen_inp, zen_tar, self.aug_generator, self.do_roll, self.noise_std)
+                inp, tar, zen_inp, zen_tar, self.aug_generator, self.do_roll, self.noise_std,
+                self._global_hw() if spmd.spatial_distributed() else None)
         loss, grads = self.loss_and_grads(inp, tar, zen_inp, zen_tar)
         self.apply_updates(grads, lr)
         return loss
@@ -327,6 +386,9 @@ class Trainer:
         in its deterministic mode, no augmentation)."""
         return self.loss_and_grads(inp, tar, zen_inp, zen_tar, deterministic=True)
 
+    def _global_hw(self):
+        return (self.params.img_crop_shape_x, self.params.img_crop_shape_y)
+
     @torch.no_grad()
     def eval_forward(self, inp, zen_inp=None):
         """One deterministic forward of a batch's input window, float32 out."""
@@ -334,7 +396,7 @@ class Trainer:
         return self.model(x, unpredicted_inp=zen_inp, deterministic=True).float()
 
     @torch.no_grad()
-    def eval_ar_step(self, buffers, inpt, uinp, tar, zen_tar, idt):
+    def eval_ar_step(self, buffers, inpt, uinp, tar, zen_tar, idt, capture_frame=False):
         """One autoregressive validation step: the prediction of `inpt`
         scored against target frame `idt` into the metric buffers; returns
         the buffers, the next input window, the next zenith input and the
@@ -347,7 +409,10 @@ class Trainer:
         loss = self.loss_obj(pred, targ, inpt, training=False)
         buffers = self.metrics.update(buffers, pred, targ, loss, idt)
         uinp = prep.advance_unpredicted_dyn(uinp, zen_tar, idt)
-        return buffers, prep.append_history(inpt, pred), uinp, (pred[0, 0], targ[0, 0])
+        frame = (pred[0, 0], targ[0, 0])
+        if capture_frame and spmd.spatial_distributed():
+            frame = tuple(spmd.gather_patch(f, self._global_hw()) for f in frame)
+        return buffers, prep.append_history(inpt, pred), uinp, frame
 
     def eval_step(self, buffers, inp, tar, zen_inp, zen_tar, capture_frames=False):
         """A batch's rollout over valid_autoreg_steps + 1 steps; with
@@ -357,7 +422,8 @@ class Trainer:
         uinp = zen_inp
         frames = []
         for idt in range(self.params.valid_autoreg_steps + 1):
-            buffers, inpt, uinp, frame = self.eval_ar_step(buffers, inpt, uinp, tar, zen_tar, idt)
+            buffers, inpt, uinp, frame = self.eval_ar_step(buffers, inpt, uinp, tar, zen_tar, idt,
+                                                           capture_frames)
             if capture_frames:
                 frames.append(tuple(f.cpu().numpy() for f in frame))
         if capture_frames:
@@ -397,7 +463,8 @@ class Trainer:
             if self.params.save_checkpoint != "none":
                 best_path = self.params.best_checkpoint_path
                 t0 = time.perf_counter()
-                best_saved = ckpt_lib.checkpoint_exists(best_path)  # waits for the writes
+                best_saved = self._on_every_rank(  # waits for the writes
+                    ckpt_lib.checkpoint_exists(best_path) if self.world_rank == 0 else False)
                 self.checkpoint_waits.append(time.perf_counter() - t0)
                 vloss = valid_logs["base"].get("validation loss", None)
                 is_best = (not self.params.skip_validation) and (
@@ -424,6 +491,7 @@ class Trainer:
         # returning
         t0 = time.perf_counter()
         ckpt_lib.wait_for_saves()
+        comm.barrier()
         self.checkpoint_waits.append(time.perf_counter() - t0)
         if self.visualizer is not None:
             self.visualizer.close()
@@ -531,19 +599,25 @@ class Trainer:
             eval_steps += 1
             inp, tar, zen_inp, zen_tar = self._device_batch(data)
             if visualize and eval_steps <= 1:
-                if self.visualizer is None:
+                render = self.world_rank == 0
+                if self.visualizer is None and render:
                     from makani_tpu_torch.utils.visualize import VisualizationWrapper
                     self.visualizer = VisualizationWrapper(
                         self.params, num_workers=self.params.num_visualization_workers)
-                pred = self.eval_forward(inp, zen_inp)
-                targ = self.preprocessor.flatten_history(tar[:, :1])
-                self.visualizer.add(f"epoch{epoch}_step{eval_steps}",
-                                    pred[0, :2].cpu().numpy(), targ[0, :2].cpu().numpy())
+                pred = self.eval_forward(inp, zen_inp)[0, :2]
+                targ = self.preprocessor.flatten_history(tar[:, :1])[0, :2]
+                if spmd.spatial_distributed():
+                    pred = spmd.gather_patch(pred, self._global_hw())
+                    targ = spmd.gather_patch(targ, self._global_hw())
+                if render:
+                    self.visualizer.add(f"epoch{epoch}_step{eval_steps}",
+                                        pred.cpu().numpy(), targ.cpu().numpy())
                 buffers, frames = self.eval_step(buffers, inp, tar, zen_inp, zen_tar,
                                                  capture_frames=True)
-                self.visualizer.add_video(f"epoch{epoch}_rollout_ch0",
-                                          np.stack([f[0] for f in frames]),
-                                          np.stack([f[1] for f in frames]))
+                if render:
+                    self.visualizer.add_video(f"epoch{epoch}_rollout_ch0",
+                                              np.stack([f[0] for f in frames]),
+                                              np.stack([f[1] for f in frames]))
                 continue
             buffers = self.eval_step(buffers, inp, tar, zen_inp, zen_tar)
         logs = self.metrics.finalize(buffers)
@@ -648,21 +722,49 @@ class Trainer:
                 AUG_STATE_KEY: self.aug_generator.get_state().tolist(),
                 DROPOUT_SEED_KEY: self.dropout_seed}
 
+    def _on_every_rank(self, flag):
+        """Rank 0's boolean, on every rank."""
+        if comm.get_world_size() == 1:
+            return flag
+        t = torch.tensor([1.0 if flag else 0.0], device=self.device)
+        return bool(spmd.broadcast_(t, "world").item() > 0.5)
+
+    def _whole_state(self):
+        """The model's state dict and the optimizer state with every split
+        leaf gathered whole (a collective of every rank): what a serial run
+        would save."""
+        state = self.model.state_dict()
+        if not self.shards:
+            return state, self.opt_state
+        state = {k: partitioning.gather_full(k, v, self.shards) for k, v in state.items()}
+        opt = []
+        for stage in self.opt_state:
+            if isinstance(stage, AdamState):
+                stage = AdamState(
+                    count=stage.count,
+                    mu={k: partitioning.gather_full(k, v, self.shards) for k, v in stage.mu.items()},
+                    nu={k: partitioning.gather_full(k, v, self.shards) for k, v in stage.nu.items()})
+            opt.append(stage)
+        return state, tuple(opt)
+
     def save_checkpoint(self, checkpoint_path):
         """The per-epoch checkpoint (versioned, keep-N) at checkpoint_path,
         any other path as a single-dir checkpoint; returns once the tensors
-        are on the host, the files are written in the background."""
+        are on the host, the files are written in the background. On
+        several ranks every rank takes part in gathering the split leaves
+        and rank 0 writes the serial file."""
         t0 = time.perf_counter()
+        state, opt_state = self._whole_state()
+        if self.world_rank != 0:
+            return
         if checkpoint_path == self.params.checkpoint_path:
             if getattr(self, "_ckpt_mgr", None) is None:
                 self._ckpt_mgr = ckpt_lib.TrainingCheckpointer(
                     checkpoint_path,
                     max_to_keep=int(self.params.get("checkpoint_max_to_keep", 3)))
-            self._ckpt_mgr.save(self.epoch, self.model.state_dict(), self.opt_state,
-                                self.counters())
+            self._ckpt_mgr.save(self.epoch, state, opt_state, self.counters())
         else:
-            ckpt_lib.save_checkpoint(checkpoint_path, self.model.state_dict(), self.opt_state,
-                                     self.counters())
+            ckpt_lib.save_checkpoint(checkpoint_path, state, opt_state, self.counters())
         self.checkpoint_log.append((self.epoch, checkpoint_path, time.perf_counter() - t0))
 
     def restore_checkpoint(self, checkpoint_path, load_optimizer=None, load_counters=None):
@@ -670,10 +772,15 @@ class Trainer:
                           else load_optimizer)
         load_counters = (self.params.get("load_counters", True) if load_counters is None
                          else load_counters)
+        if comm.is_distributed("world"):
+            # rank 0's writes are on disk before any rank reads (a serial
+            # restore waits for its own saves inside restore_checkpoint)
+            ckpt_lib.wait_for_saves()
+            comm.barrier()
         try:
             params, opt_state, counters = ckpt_lib.restore_checkpoint(
                 checkpoint_path, self.model.state_dict(),
-                self.opt_state if load_optimizer else None)
+                self.opt_state if load_optimizer else None, shards=self.shards)
         except RuntimeError as e:
             if "does not fit its template" in str(e):
                 raise RuntimeError(

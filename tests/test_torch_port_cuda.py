@@ -308,6 +308,59 @@ def test_fused_adam_float16_subnormal_moments(cuda, mode):
         assert torch.equal(s_kernel.nu[k], s_twin.nu[k]), k
 
 
+# a rank's shard of a split leaf: (name, the whole leaf's shape, [(dim, axis,
+# start, length)]): the stacked dhconv weight (2, L, C, O) and its scanned
+# stack (3, 2, L, C, O) cut over h, a diagonal weight (C, O, L, M, 2) over h
+# and w; every shard starts past the leaf's first element
+ADAM_SHARDS = [
+    ("model.blocks.0.filter_layer.filter.weight", (2, 131, 3, 129), [(1, "h", 66, 65)]),
+    ("model.scan_blocks.block.filter_layer.filter.weight", (3, 2, 9, 5, 7), [(2, "h", 5, 4)]),
+    ("model.blocks.1.filter_layer.filter.weight", (3, 4, 9, 7, 2),
+     [(2, "h", 5, 4), (3, "w", 4, 3)]),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key,shape,splits", ADAM_SHARDS)
+def test_fused_adam_on_a_shard_keeps_the_whole_leafs_indices(cuda, key, shape, splits):
+    """The kernel on a shard whose first element's flat index in the whole
+    leaf (`base`) is not 0, bf16 moments under stochastic rounding, 2 steps:
+    bit for bit against the twin on the shard and against the same slice of
+    the kernel's update of the whole leaf. The shard's own indices (no
+    `shards`, base 0) give other moments."""
+    from makani_tpu_torch.parallel.partitioning import Shard, Split
+    shard = Shard(shape, [Split(*s) for s in splits])
+    assert fused_adam.shard_strides(key, None, shard)[1] > 0
+    cut = [slice(None)] * len(shape)
+    for s in shard.splits:
+        cut[s.dim] = slice(s.start, s.start + s.length)
+    cut = tuple(cut)
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    p0 = torch.randn(shape, device=cuda, generator=gen)
+    grads = [0.1 * torch.randn(shape, device=cuda, generator=gen) for _ in range(2)]
+
+    def run(fn, whole, **kw):
+        p = {key: (p0 if whole else p0[cut]).clone(memory_format=torch.contiguous_format)}
+        s = AdamState(0, {key: torch.zeros_like(p[key], dtype=torch.bfloat16)},
+                      {key: torch.zeros_like(p[key], dtype=torch.bfloat16)})
+        for g in grads:
+            fn(p, {key: (g if whole else g[cut]).contiguous()}, s, 1e-3, weight_decay=0.01,
+               seed=340, **kw)
+        torch.cuda.synchronize()
+        return [t[cut] if whole else t for t in (p[key], s.mu[key], s.nu[key])]
+
+    before = kernels.launches["fused_adam"]
+    got = run(fused_adam.fused_adam_apply, False, shards={key: shard})
+    assert kernels.launches["fused_adam"] == before + 2
+    twin = run(fused_adam.fused_adam_apply_plain, False, shards={key: shard})
+    whole = run(fused_adam.fused_adam_apply, True)
+    own = run(fused_adam.fused_adam_apply, False)
+    for name, a, b, c in zip(("p", "mu", "nu"), got, twin, whole):
+        assert torch.equal(a, b), name
+        assert torch.equal(a, c), name
+    assert not torch.equal(own[1], whole[1]) and not torch.equal(own[2], whole[2])
+
+
 @pytest.mark.cuda
 def test_fft_pair_on_the_card(cuda):
     """The truncated FFT pair (cuFFT) on the card against the CPU, at a
@@ -920,6 +973,131 @@ def test_gelu_bf16_function_on_card(cuda):
     xd = x.detach()
     assert torch.equal(y.detach(), gelu.gelu_bf16_plain(xd))
     assert torch.equal(x.grad, gelu.gelu_bf16_grad_plain(xd, dy))
+
+
+# --------------------------------------------------------------------------
+# the distributed transposes: two ranks on the one card, exchanging over gloo
+# (NCCL refuses two ranks on one device), every transform's compute on the
+# card through the kernels
+# --------------------------------------------------------------------------
+
+# a 33 x 68 grid: 17 + 16 latitudes and degrees over h, 34 + 34 longitudes
+# and 18 + 17 orders over w; 5 channels, 3 + 2
+TRANSPOSE_GRID = (33, 68)
+
+
+def _transpose_fields(dev):
+    """The seeded field and the probe its round trip is weighted by."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    shape = (2, 5, *TRANSPOSE_GRID)
+    return torch.randn(shape, device=dev, generator=g), torch.randn(shape, device=dev, generator=g)
+
+
+def _transpose_pair(dev):
+    nlat, nlon = TRANSPOSE_GRID
+    from makani_tpu_torch.ops import sht
+    return (sht.RealSHT(nlat, nlon, grid="equiangular", device=dev),
+            sht.InverseRealSHT(nlat, nlon, grid="equiangular", device=dev))
+
+
+def _transpose_rank(rank, port, sizes, serial, queue):
+    """A rank of test_distributed_transposes_on_the_card: the SHT pair on
+    its patch, forward and backward, against the `serial` pair's (numpy),
+    and legmm / dhconv_mm at its local shapes against their twins."""
+    import os
+    import traceback
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE="2", MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    from makani_tpu_torch.parallel import comm, spmd
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        kernels.load_built()
+        comm.init(sizes, device_type="cuda")
+        dev = comm.get_device()
+        hw = TRANSPOSE_GRID
+        x, probe = _transpose_fields(dev)
+        fwd, inv = _transpose_pair(dev)
+        before = kernels.launches["legmm"]
+        xl = spmd.local_patch(x, hw).clone().requires_grad_(True)
+        coeffs = fwd(xl)
+        back = inv(coeffs)
+        spmd.all_reduce_sum((back * spmd.local_patch(probe, hw)).sum(), "spatial").backward()
+        launched = kernels.launches["legmm"] - before
+        (l0, ln), (m0, mn) = spmd.patch(fwd.lmax, "h"), spmd.patch(fwd.mmax, "w")
+
+        errs = {}
+        for name, got, want in (
+                ("coeffs", coeffs, serial["coeffs"][..., l0:l0 + ln, m0:m0 + mn]),
+                ("round trip", back, spmd.local_patch(serial["back"], hw)),
+                ("gradient", xl.grad, spmd.local_patch(serial["grad"], hw))):
+            want = torch.from_numpy(np.ascontiguousarray(want))
+            errs[name] = float((got.detach().cpu() - want).abs().max()
+                               / serial["scale"][name])
+        # the kernels at the rank's local shapes: the m-slice over the full
+        # latitude, and dhconv on its (l, m) block
+        g = torch.Generator(device=dev).manual_seed(4 + rank)
+        z = torch.randn((2 * mn, 7, hw[0]), device=dev, generator=g)
+        p = fwd.pct[m0:m0 + mn].contiguous()
+        errs["legmm"] = _rel(spectral_mm.legmm(z, p, 3, "k"),
+                             spectral_mm.legmm_plain(z, p, 3, "k"))
+        xb = torch.randn((2, 2, ln, 5, mn), device=dev, generator=g)
+        w = torch.randn((2, ln, 5, 6), device=dev, generator=g)
+        errs["dhconv_mm"] = _rel(spectral_mm.dhconv_mm(xb, w, 3),
+                                 spectral_mm.dhconv_mm_plain(xb, w, 3))
+        queue.put((rank, True, (errs, launched, comm.get_backend())))
+    except BaseException:
+        queue.put((rank, False, traceback.format_exc()))
+    finally:
+        comm.reset()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes", [[2, 1, 1, 1], [1, 2, 1, 1]], ids=["h2", "w2"])
+def test_distributed_transposes_on_the_card(cuda, sizes):
+    """Two ranks share the card over gloo with uneven splits: the polar (h)
+    or azimuth (w) transposes of the SHT pair, forward and backward, against
+    the serial pair on the card (TOL of the largest magnitude: the same
+    kernels on slices), and legmm / dhconv_mm at the ranks' local shapes
+    against their twins."""
+    import multiprocessing as mp
+    import socket
+    from makani_tpu_torch.parallel import comm
+    kernels.build()          # the ranks load it and compile nothing
+    x, probe = _transpose_fields(cuda)
+    fwd, inv = _transpose_pair(cuda)
+    x.requires_grad_(True)
+    coeffs = fwd(x)
+    back = inv(coeffs)
+    (back * probe).sum().backward()
+    serial = {"coeffs": coeffs.detach().cpu().numpy(), "back": back.detach().cpu().numpy(),
+              "grad": x.grad.cpu().numpy()}
+    serial["scale"] = {"coeffs": float(np.abs(serial["coeffs"]).max()),
+                       "round trip": float(np.abs(serial["back"]).max()),
+                       "gradient": float(np.abs(serial["grad"]).max())}
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_transpose_rank, args=(r, port, sizes, serial, queue))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        results = [queue.get(timeout=300) for _ in procs]
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    for rank, ok, value in results:
+        assert ok, value
+        errs, launched, backend = value
+        assert backend == comm.choose_backend("cuda", 2)
+        assert launched > 0, rank
+        for name, err in errs.items():
+            assert err < TOL, (rank, name, err)
 
 
 def _no_work_cases():

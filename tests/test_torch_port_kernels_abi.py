@@ -165,18 +165,19 @@ def test_device_ms_discards_sessions_that_lost_records(monkeypatch, sessions, wa
 def test_fused_adam_launcher_takes_the_norm_the_direction_and_the_mode():
     """fused_adam_launch's parameters by name, against the ctypes types at
     their positions: the direction buffer and the device pointer to the
-    global norm after the moments, max_norm and wd after the nine update
-    scalars, the mode after the moment kind."""
+    global norm after the moments, the first element's flat index (a rank's
+    shard of a split leaf) after the index strides, max_norm and wd after
+    the nine update scalars, the mode after the moment kind."""
     src = (kernels._CSRC / "fused_adam.cu").read_text()
     [(name, params)] = [m for m in _LAUNCHER.findall(src) if m[0] == "fused_adam"]
     names = [" ".join(p.split()).replace("*", " ").split()[-1] for p in params.split(",")]
     assert names == ["p", "g", "mu", "nu", "dir", "norm", "n", "s1", "s2", "s3", "j0", "j1",
-                     "j2", "j3", "lr", "bc1", "bc2", "b1", "b2", "a1", "a2", "eps", "decay",
+                     "j2", "j3", "base", "lr", "bc1", "bc2", "b1", "b2", "a1", "a2", "eps", "decay",
                      "max_norm", "wd", "salt_mu", "salt_nu", "kind", "mode", "stream"]
     argtypes, _ = _declared("fused_adam")
     want = {"dir": ctypes.c_void_p, "norm": ctypes.c_void_p, "max_norm": ctypes.c_float,
             "wd": ctypes.c_float, "kind": ctypes.c_int, "mode": ctypes.c_int,
-            "salt_nu": ctypes.c_uint32, "stream": ctypes.c_void_p}
+            "salt_nu": ctypes.c_uint32, "stream": ctypes.c_void_p, "base": ctypes.c_uint32}
     for key, ctype in want.items():
         assert argtypes[names.index(key)] is ctype, key
 

@@ -451,10 +451,16 @@ def test_trainer_refuses_what_is_not_ported(ref, tmp_path):
     from makani_tpu_torch.utils.trainer import Trainer
     params = _port_params(ref["data"], tmp_path / "exp")
     # the multi-step unroll and dropout are ported (tests/test_torch_port_multistep.py),
-    # the rollout videos too (tests/test_torch_port_visualize.py)
-    for override, match in [(dict(model_parallel_sizes=[2, 1, 1, 1]), "item 7"),
-                            (dict(world_size=2), "item 7")]:
+    # the rollout videos too (tests/test_torch_port_visualize.py); the data,
+    # h and w layouts too (tests/test_torch_port_parallel*.py): in a serial
+    # process they ask for the ranks torchrun starts. Tensor parallelism is
+    # still refused.
+    for override, match in [(dict(model_parallel_sizes=[1, 1, 2, 1]), "item 7b"),
+                            (dict(model_parallel_sizes=[1, 1, 1, 2]), "item 7b")]:
         with pytest.raises(NotImplementedError, match=match):
+            Trainer(TYParams.from_dict(dict(params.to_dict(), **override)), device="cpu")
+    for override in (dict(model_parallel_sizes=[2, 1, 1, 1]), dict(world_size=2)):
+        with pytest.raises(ValueError, match="ranks"):
             Trainer(TYParams.from_dict(dict(params.to_dict(), **override)), device="cpu")
 
 
