@@ -270,6 +270,27 @@ Phases, in order; any failure exits non-zero:
      sum of the replicated leaves' gradients dropped, and must read above
      its bound. These times are not the port's speed on several cards: gloo
      moves the transposes through the host.
+ 18. channel (tensor) parallelism over fin and fout, the ranks sharing the
+     card over gloo as in phase 17, cut as TP_CUTS lists: (a)
+     flagship_synth_drive_bare at full width and depth, float32, the
+     "kernel" engine, on fin 2 x fout 2 (4 ranks, each holding makani_tpu's
+     shards of the split leaves): a 2-step rollout against the serial one
+     (PARALLEL_SERVE_TOL), each rank's legmm and dhconv_mm launches, bytes
+     sent a step, step ms and peak; (b) bf16 AMP training on h 2 x fin 2 at
+     depth TP_TRAIN_LAYERS, 2 steps against the serial Trainer: losses and
+     every leaf's update (phase 17's bounds), each rank's launches of legmm,
+     dhconv_mm, dhconv_dw, fused_adam and the GELU kernels, and a control
+     with the fin sum of the filter's contraction dropped, which must read
+     above the bounds; (c) the kernels at a fin rank's shapes: legmm on 192
+     channels (full and inner grid), dhconv_mm x (2, 1, 240, 192, 241) with
+     w (2, 240, 192, 384) forward and dx, dhconv_dw into (2, 240, 192, 384),
+     the complex kernel 192 -> 384, against float64 and their twins with
+     phase 3's bounds, and fused_adam on a (fout, fin) block of a flagship
+     MLP weight and a fin shard of a dhconv weight, bit for bit against its
+     twin and the whole leaf's update, the control with base 0 differing;
+     (d) vit_backbone and afno_v2 at full width, depth TP_FAMILY_LAYERS, on
+     fin 2 x fout 2: one float32 forward each against the serial forward
+     (PARALLEL_SERVE_TOL).
 The last two lines are the kernels' JSON record (the AMP path's launches in
 each row's *_amp fields, phase 10's in *_files, phase 11's a scored step in
 launches_score, phase 12's run (a) in launches_trainer and a validation AR
@@ -280,7 +301,9 @@ launches_factorized, launches_csphase, launches_fp16_trainer and
 launches_fp16_update, phase 15's in launches_afno_v2, launches_afno_v1,
 launches_vit and their *_amp, phase 16's in launches_videos, phase 17's
 per rank in launches_parallel_serve and launches_parallel_train, and its
-(c) row at a rank's local shape in parallel_local; fused_adam's
+(c) row at a rank's local shape in parallel_local, phase 18's per rank in
+launches_tp_serve and launches_tp_train, and its (c) row at a fin rank's
+shape in tp_local; fused_adam's
 row also holds its times at the linear FNO's 2.12 B elements for each moment
 type) and the result line.
 --record PATH also writes every measurement of the run to PATH as JSON.
@@ -566,6 +589,39 @@ PARALLEL_LOSS_TOL = 2e-3
 PARALLEL_UPDATE_TOL = 0.5
 PARALLEL_UPDATE_MEDIAN_TOL = 0.25
 PARALLEL_TIMEOUT = 600
+
+# phase 18: channel (tensor) parallelism on one card, the ranks sharing it
+# over gloo as in phase 17
+TP_DIR = ROOT / "build" / "chip_smoke_tp"
+# (model_parallel_sizes [h, w, fin, fout], ranks): (a) and (d) fin 2 x fout 2,
+# (b) h 2 x fin 2 (tests/test_distributed.py:230's mesh without its data axis)
+TP_SERVE = ([1, 1, 2, 2], 4)
+TP_TRAIN = ([2, 1, 2, 1], 4)
+TP_SERVE_STEPS = 2
+# (b): 2 optimizer steps at batch 1 (data 1), depth cut to TP_TRAIN_LAYERS
+# blocks (8 at full depth; width kept) to fit the script's time: gloo moves
+# each block's all-reduces through the host; the lowest checkpointing level
+TP_TRAIN_STEPS = 2
+TP_TRAIN_LAYERS = 2
+TP_LEVEL = 0
+# (d): the ViT and AFNO v2 at full width (16,200 tokens of embed 768), depth
+# cut to TP_FAMILY_LAYERS, one float32 forward each
+TP_FAMILY_LAYERS = 2
+TP_CUTS = (
+    f"(a) flagship_synth_drive_bare at full width and depth, {TP_SERVE_STEPS} rollout steps",
+    f"(b) num_layers 8 -> {TP_TRAIN_LAYERS}, {TP_TRAIN_STEPS} steps at batch 1, checkpointing "
+    f"{TP_LEVEL}",
+    f"(d) vit_backbone depth 12 -> {TP_FAMILY_LAYERS}, afno_v2 num_layers 12 -> "
+    f"{TP_FAMILY_LAYERS}, 73 channels in and out, random weights, one forward",
+)
+# (a) and (d): each rank's output (whole: the decoder's and the heads' sums
+# are all-reduced) within PARALLEL_SERVE_TOL of the serial output's largest
+# magnitude: the channel contractions sum their halves in another order, as
+# phase 17's float32 products on a rank's rows do (its ordering gap: 2.8e-5
+# at a rollout's first step, 1.6e-4 at its third); (b) phase 17's bounds
+# (PARALLEL_LOSS_TOL, PARALLEL_UPDATE_TOL, PARALLEL_UPDATE_MEDIAN_TOL); its
+# control drops the fin sum of the spectral filter's contraction (each fin
+# rank keeps its own partial product) and must read above them
 
 
 def check(cond, msg):
@@ -3372,7 +3428,8 @@ def parallel_rank(rank, world, port, sizes, job, args, queue):
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         kernels.load_built()
         comm.init(sizes, device_type="cuda")
-        job_fn = {"serve": parallel_serve, "train": parallel_train}[job]
+        job_fn = {"serve": parallel_serve, "train": parallel_train, "tp_serve": tp_serve,
+                  "tp_train": tp_train}[job]
         queue.put((rank, True, job_fn(torch, *args)))
     except BaseException:
         queue.put((rank, False, traceback.format_exc()))
@@ -3401,7 +3458,7 @@ def run_ranks(job, sizes, world, *args):
     try:
         for _ in range(world):
             rank, ok, value = queue.get(timeout=PARALLEL_TIMEOUT)
-            check(ok, f"phase 17 {job} rank {rank} failed:\n{value}")
+            check(ok, f"phase 17/18 {job} rank {rank} failed:\n{value}")
             results[rank] = value
     finally:
         for p in procs:
@@ -3417,10 +3474,10 @@ def parallel_input(torch, dev, shape):
                        generator=torch.Generator(device=dev).manual_seed(PARALLEL_SEED + 1))
 
 
-def parallel_serve(torch, serial_dir, scales):
+def parallel_serve(torch, serial_dir, scales, steps=PARALLEL_SERVE_STEPS):
     """(a) on a rank: the flagship from PARALLEL_SEED, the rank's patch of
-    the seeded input, PARALLEL_SERVE_STEPS rollout steps held against the
-    serial steps saved at `serial_dir`."""
+    the seeded input, `steps` rollout steps held against the serial steps
+    saved at `serial_dir`."""
     import numpy as np
     from makani_tpu_torch.models.model_registry import get_model
     from makani_tpu_torch.ops import kernels
@@ -3439,7 +3496,7 @@ def parallel_serve(torch, serial_dir, scales):
     kernels.reset_launches()
     spmd.moved.clear()
     with torch.inference_mode():
-        for step in range(PARALLEL_SERVE_STEPS):
+        for step in range(steps):
             torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
             x = model(x)
@@ -3463,23 +3520,34 @@ def parallel_train_params(**overrides):
     return params
 
 
-def parallel_train(torch, ref_path, serial_losses, fault=False):
+def parallel_train(torch, ref_path, serial_losses, fault=False, tensor=False):
     """(b) on a rank: the AMP Trainer on data 2 x h 2 (its rows and latitude
-    window of each global batch), PARALLEL_TRAIN_STEPS steps, then rank 0
+    window of each global batch), or with `tensor` phase 18's (b) on h 2 x
+    fin 2 at depth TP_TRAIN_LAYERS, PARALLEL_TRAIN_STEPS steps, then rank 0
     holds every leaf's update against the serial one. `fault` plants the
-    control's fault: the gradients of the replicated leaves are not summed
-    over the spatial group (and the losses go unchecked)."""
+    control's fault (and the losses go unchecked): phase 17's drops the
+    spatial sum of the replicated leaves' gradients, phase 18's the fin sum
+    of the spectral filter's contraction (each fin rank keeps its own
+    partial product)."""
+    from makani_tpu_torch.models.common.spectral_convolution import SpectralConv
     from makani_tpu_torch.ops import kernels
     from makani_tpu_torch.parallel import comm, partitioning, spmd
     from makani_tpu_torch.utils.trainer import Trainer
     dev = comm.get_device()
-    sizes, world = PARALLEL_TRAIN
-    trainer = Trainer(parallel_train_params(batch_size=PARALLEL_BATCH // comm.get_size("data"),
-                                            model_parallel_sizes=sizes, world_size=world),
-                      device=dev)
+    if tensor:
+        sizes, world = TP_TRAIN
+        params = tp_train_params(batch_size=1, model_parallel_sizes=sizes, world_size=world)
+    else:
+        sizes, world = PARALLEL_TRAIN
+        params = parallel_train_params(batch_size=PARALLEL_BATCH // comm.get_size("data"),
+                                       model_parallel_sizes=sizes, world_size=world)
+    if fault and tensor:
+        SpectralConv._reduce = lambda self, o, dim: (
+            o if self.in_axis is None else o.narrow(dim, *spmd.patch(o.shape[dim], self.in_axis)))
+    elif fault:
+        partitioning.shared_axes = lambda *args: ()
+    trainer = Trainer(params, device=dev)
     rank0 = comm.get_world_rank() == 0
-    if fault:
-        partitioning.shared_axes = lambda key, shards: ()
 
     def whole():
         out = {}
@@ -3499,7 +3567,8 @@ def parallel_train(torch, ref_path, serial_losses, fault=False):
     launches, moved = dict(kernels.launches), dict(spmd.moved)
     peak, reserved = torch.cuda.max_memory_allocated(dev), torch.cuda.max_memory_reserved(dev)
     losses = logs["step losses"]
-    check(len(losses) == PARALLEL_TRAIN_STEPS, f"(b) {len(losses)} steps")
+    check(len(losses) == (TP_TRAIN_STEPS if tensor else PARALLEL_TRAIN_STEPS),
+          f"(b) {len(losses)} steps")
     for got, want in zip(losses, serial_losses):
         # the data ranks' mean of batch-sum losses (makani_tpu's / data size)
         err = abs(got * comm.get_size("data") - want) / abs(want)
@@ -3522,9 +3591,11 @@ def parallel_train(torch, ref_path, serial_losses, fault=False):
                 backend=comm.get_backend(), data=comm.get_size("data"))
 
 
-def parallel_adam_shard(torch, dev):
-    """(c) fused_adam on the second h rank's shard of a flagship dhconv
-    weight (degrees 120-239 of (2, 240, 384, 384)), bf16 moments under
+def parallel_adam_shard(torch, dev, key="model.blocks.0.filter_layer.filter.weight",
+                        shape=(2, 240, 384, 384), splits=((1, "h", 120, 120),)):
+    """(c) fused_adam on a rank's shard of a flagship leaf (by default the
+    second h rank's of a dhconv weight, degrees 120-239 of (2, 240, 384,
+    384); `splits` (dim, axis, start, length)), bf16 moments under
     stochastic rounding, 2 steps: bit for bit against its twin on the shard
     and against the same slice of the kernel's update of the whole leaf.
     The control, the kernel on the shard without `shards` (the shard's own
@@ -3532,13 +3603,14 @@ def parallel_adam_shard(torch, dev):
     from makani_tpu_torch.ops import fused_adam
     from makani_tpu_torch.parallel.partitioning import Shard, Split
     from makani_tpu_torch.utils.optimizers import AdamState
-    key = "model.blocks.0.filter_layer.filter.weight"
-    shape, start, length = (2, 240, 384, 384), 120, 120
-    shards = {key: Shard(shape, [Split(1, "h", start, length)])}
+    shards = {key: Shard(shape, [Split(*s) for s in splits])}
     gen = torch.Generator(device=dev).manual_seed(PARALLEL_SEED + 2)
     p0 = torch.randn(shape, device=dev, generator=gen)
     grads = [0.1 * torch.randn(shape, device=dev, generator=gen) for _ in range(2)]
-    cut = (slice(None), slice(start, start + length))
+    cut = [slice(None)] * len(shape)
+    for dim, _, start, length in splits:
+        cut[dim] = slice(start, start + length)
+    cut = tuple(cut)
 
     def run(fn, whole, **kw):
         p = {key: (p0 if whole else p0[cut]).clone(memory_format=torch.contiguous_format)}
@@ -3553,7 +3625,8 @@ def parallel_adam_shard(torch, dev):
     twin = run(fused_adam.fused_adam_apply_plain, False, shards=shards)
     whole = run(fused_adam.fused_adam_apply, True)
     own = run(fused_adam.fused_adam_apply, False)
-    out = dict(shape=shape, start=start, base=fused_adam.shard_strides(key, None, shards[key])[1],
+    out = dict(key=key, shape=shape, splits=splits,
+               base=fused_adam.shard_strides(key, None, shards[key])[1],
                vs_twin=[int((a != b).sum()) for a, b in zip(shard, twin)],
                vs_whole=[int((a != b).sum()) for a, b in zip(shard, whole)],
                control=[int((a != b).sum()) for a, b in zip(own, whole)],
@@ -3590,7 +3663,7 @@ def phase_parallel(torch, np, spectral_mm, kernels, dev, gen, card, order_gap=No
                   f"vs f64 {r['rel_err_f64']:.3g}", flush=True)
         rec["kernels"] += rows
     a = rec["adam_shard"] = parallel_adam_shard(torch, dev)
-    print(f"[parallel kernel] fused_adam on the shard {a['start']}:{a['start'] + 120} of dim 1 of "
+    print(f"[parallel kernel] fused_adam on the shard {a['splits']} of "
           f"{a['shape']} (base {a['base']}), bf16 moments, stochastic rounding, 2 steps: p, mu, nu "
           f"differ from the twin in {a['vs_twin']} and from the whole leaf's slice in "
           f"{a['vs_whole']} of {a['n']} elements (bound 0, bit for bit); control, the shard's "
@@ -3724,6 +3797,357 @@ def print_parallel_train(train):
           f"median {train['median_update_dev']:.3g} (bounds {PARALLEL_UPDATE_TOL}, "
           f"{PARALLEL_UPDATE_MEDIAN_TOL}); the weights: "
           f"worst {train['worst_dev']:.3g}, median {train['median_dev']:.3g}", flush=True)
+
+
+# --------------------------------------------------------------------------
+# phase 18: channel (tensor) parallelism
+# --------------------------------------------------------------------------
+
+def tp_train_params(**overrides):
+    params = train_params(amp_mode="bf16")
+    params.update_params(dict(checkpointing=TP_LEVEL, num_layers=TP_TRAIN_LAYERS,
+                              n_train_samples_per_epoch=TP_TRAIN_STEPS, **overrides))
+    return params
+
+
+def tp_train(torch, ref_path, serial_losses, fault=False):
+    return parallel_train(torch, ref_path, serial_losses, fault, tensor=True)
+
+
+def tp_family(torch, name, dev, generator):
+    """(d)'s network `name` (vit_backbone's or afno_v2's widths, depth
+    TP_FAMILY_LAYERS, 73 channels in and out), weights from `generator`."""
+    from makani_tpu_torch.models.networks.afnonet_v2 import AdaptiveFourierNeuralOperatorNet
+    from makani_tpu_torch.models.networks.vit import VisionTransformer
+    common = dict(inp_shape=(720, 1440), patch_size=(8, 8), inp_chans=73, out_chans=73,
+                  embed_dim=768, mlp_ratio=4.0, device=dev, generator=generator)
+    if name == VIT:
+        return VisionTransformer(depth=TP_FAMILY_LAYERS, num_heads=12, **common)
+    return AdaptiveFourierNeuralOperatorNet(
+        num_layers=TP_FAMILY_LAYERS, num_blocks=8, normalization_layer="instance_norm",
+        skip_fno="identity", nested_skip_fno=True, sparsity_threshold=0.01,
+        hard_thresholding_fraction=1.0, **common)
+
+
+def tp_family_input(torch, dev):
+    return parallel_input(torch, dev, (1, 73, 720, 1440))
+
+
+def tp_serve(torch, serial_dir, scales, family_scales):
+    """(a) and (d) on a rank of fin 2 x fout 2: the flagship's rollout
+    (parallel_serve), then each family's forward held against the serial
+    output saved at `serial_dir`."""
+    import numpy as np
+    from makani_tpu_torch.parallel import comm, partitioning, spmd
+    out = parallel_serve(torch, serial_dir, scales, TP_SERVE_STEPS)
+    dev = comm.get_device()
+    out["families"] = {}
+    for name in (VIT, AFNO_V2):
+        gc.collect()
+        torch.cuda.empty_cache()
+        net = tp_family(torch, name, dev,
+                        torch.Generator(device=dev).manual_seed(PARALLEL_SEED + 3))
+        net.eval()
+        shards = partitioning.shard_module(net)
+        x = tp_family_input(torch, dev)
+        spmd.moved.clear()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            y = net(x)
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        got = y.cpu().numpy()
+        check(bool(np.isfinite(got).all()), f"(d) {name} not finite")
+        want = np.load(serial_dir / f"{name}.npy")
+        out["families"][name] = dict(err=float(np.abs(got - want).max()) / family_scales[name],
+                                     ms=ms, moved=dict(spmd.moved), split=len(shards))
+        del net, x, y
+    return out
+
+
+def tp_kernel_rows(torch, spectral_mm, complex_kernels, dev, gen, reps=10, plain_reps=3):
+    """(c): each kernel at a fin rank's shapes (192 of 384 input channels),
+    3 passes, against float64 and its twin, timed beside its twin and its
+    phase 3 library call; returns rows."""
+    rows = []
+    L, M, Ci, Co = 240, 241, 192, 384
+
+    def row(name, shape, got, plain, e64, nbytes, flops, fn, plain_fn, library_fn):
+        etwin = rel_err(got, plain.double())
+        check(e64 < F64_TOL[3], f"{name} {shape} vs f64: {e64}")
+        check(etwin < TWIN_TOL, f"{name} {shape} vs twin: {etwin}")
+        b_ms, b_by = bound(nbytes, flops)
+        rows.append(dict(name=name, shape=shape, passes=3,
+                         max_abs_err=float((got - plain).abs().max()), rel_err_twin=etwin,
+                         rel_err_f64=e64, ms=cuda_ms(fn, reps),
+                         plain_ms=cuda_ms(plain_fn, plain_reps),
+                         library_ms=cuda_ms(library_fn, reps), bound_ms=b_ms, bound_by=b_by,
+                         gbytes=nbytes / 1e9, gflop=flops / 1e9))
+
+    for label, K, contract in (("full analysis", 721, "k"), ("full synthesis", 721, "l"),
+                               ("inner analysis", 240, "k"), ("inner synthesis", 240, "l")):
+        z = torch.randn((2 * M, Ci, K if contract == "k" else L), device=dev, generator=gen)
+        p = torch.randn((M, L, K), device=dev, generator=gen)
+        table = p.transpose(-1, -2) if contract == "k" else p
+        ref = torch.matmul(z.view(2, M, Ci, -1).double(), table.double()).reshape(2 * M, Ci, -1)
+        tables = torch.cat([table, table])
+        got = spectral_mm.legmm(z, p, 3, contract)
+        torch.cuda.synchronize()
+        row("legmm", f"{label} z{tuple(z.shape)} p{tuple(p.shape)}", got,
+            spectral_mm.legmm_plain(z, p, 3, contract), rel_err(got, ref),
+            (z.numel() + p.numel() + got.numel()) * 4, 2 * 2 * M * Ci * L * K * 3,
+            lambda: spectral_mm.legmm(z, p, 3, contract),
+            lambda: spectral_mm.legmm_plain(z, p, 3, contract), lambda: torch.bmm(z, tables))
+        del z, p, table, ref, tables, got
+    x = torch.randn((2, 1, L, Ci, M), device=dev, generator=gen)
+    w = torch.randn((2, L, Ci, Co), device=dev, generator=gen)
+    dy = torch.randn((2, 1, L, Co, M), device=dev, generator=gen)
+    wc = torch.complex(w[0], w[1])                       # (L, Ci, Co)
+
+    def planes_err(got, ref):
+        return max(float((got[0].double() - ref.real).abs().max()),
+                   float((got[1].double() - ref.imag).abs().max())) / float(ref.abs().max())
+
+    for label, inp, wdim, conj_w, wop in (
+            ("forward", x, 0, False, wc.transpose(-1, -2)),
+            ("dx", dy, 1, True, torch.conj(wc).resolve_conj())):
+        ic = torch.complex(inp[0], inp[1])
+        ref = torch.matmul(wop.to(torch.complex128), ic.to(torch.complex128))
+        got = spectral_mm.dhconv_mm(inp, w, 3, wdim=wdim, conj_w=conj_w)
+        torch.cuda.synchronize()
+        row("dhconv_mm", f"{label} x{tuple(inp.shape)} w{tuple(w.shape)}", got,
+            spectral_mm.dhconv_mm_plain(inp, w, 3, wdim=wdim, conj_w=conj_w),
+            planes_err(got, ref), (inp.numel() + w.numel() + got.numel()) * 4,
+            2 * L * Ci * Co * M * 3 * 3,
+            lambda: spectral_mm.dhconv_mm(inp, w, 3, wdim=wdim, conj_w=conj_w),
+            lambda: spectral_mm.dhconv_mm_plain(inp, w, 3, wdim=wdim, conj_w=conj_w),
+            lambda: torch.matmul(wop, ic))
+        del ic, ref, got
+    xcj = torch.conj(torch.complex(x[0], x[1]))                  # (1, L, Ci, M)
+    gct = torch.complex(dy[0], dy[1]).transpose(-1, -2)          # (1, L, M, Co)
+    ref = torch.matmul(xcj.to(torch.complex128), gct.to(torch.complex128))[0]
+    got = spectral_mm.dhconv_dw(x, dy, 3)
+    torch.cuda.synchronize()
+    row("dhconv_dw", f"x{tuple(x.shape)} g{tuple(dy.shape)}", got,
+        spectral_mm.dhconv_dw_plain(x, dy, 3), planes_err(got, ref),
+        (x.numel() + dy.numel() + got.numel()) * 4, 2 * L * Ci * Co * M * 3 * 3,
+        lambda: spectral_mm.dhconv_dw(x, dy, 3), lambda: spectral_mm.dhconv_dw_plain(x, dy, 3),
+        lambda: torch.matmul(xcj, gct))
+    del xcj, gct, ref, got
+    # the complex kernel: x (1, Ci, L, M), w (Ci, Co, L), batched over l
+    xk = torch.complex(x[0, 0], x[1, 0]).permute(1, 0, 2).unsqueeze(0).contiguous()
+    wk = wc.permute(1, 2, 0).contiguous()
+    xl, wl = xk[0].permute(1, 2, 0), wk.permute(2, 1, 0)         # (L, M, Ci), (L, Co, Ci)
+    ref = torch.matmul(wl.to(torch.complex128), xl.transpose(-1, -2).to(torch.complex128))
+    got = complex_kernels.contract_dhconv_raw(xk, wk, 3)
+    torch.cuda.synchronize()
+    plain = complex_kernels.contract_dhconv_plain(xk, wk, 3)
+    e64 = rel_err_c(got[0].permute(1, 0, 2), ref)
+    etwin = rel_err_c(got, plain.to(torch.complex128))
+    check(e64 < F64_TOL[3], f"dhconv_complex vs f64: {e64}")
+    check(etwin < TWIN_TOL, f"dhconv_complex vs twin: {etwin}")
+    nbytes = (xk.numel() + wk.numel() + got.numel()) * 8
+    b_ms, b_by = bound(nbytes, 2 * L * Ci * Co * M * 4 * 3)
+    rows.append(dict(name="dhconv_complex", shape=f"x{tuple(xk.shape)} w{tuple(wk.shape)}",
+                     passes=3, max_abs_err=float((got - plain).abs().max()),
+                     rel_err_twin=etwin, rel_err_f64=e64,
+                     ms=cuda_ms(lambda: complex_kernels.contract_dhconv_raw(xk, wk, 3), reps),
+                     plain_ms=cuda_ms(lambda: complex_kernels.contract_dhconv_plain(xk, wk, 3),
+                                      plain_reps),
+                     library_ms=cuda_ms(lambda: torch.matmul(wl, xl.transpose(-1, -2)), reps),
+                     bound_ms=b_ms, bound_by=b_by, gbytes=nbytes / 1e9,
+                     gflop=2 * L * Ci * Co * M * 4 * 3 / 1e9))
+    del x, w, dy, wc, xk, wk, xl, wl, ref, got, plain
+    torch.cuda.empty_cache()
+    return rows
+
+
+# (c)'s fused_adam shards: a (fout, fin) block of the flagship MLP's fc1
+# weight (768, 384), the rank at fout 1 and fin 1; a fin shard of a dhconv
+# weight (2, 240, 384, 384) over its C
+TP_ADAM_SHARDS = (
+    ("model.blocks.0.mlp.fc1.weight", (768, 384), ((0, "fout", 384, 384), (1, "fin", 192, 192))),
+    ("model.blocks.0.filter_layer.filter.weight", (2, 240, 384, 384), ((2, "fin", 192, 192),)),
+)
+
+
+def phase_tensor_parallel(torch, np, spectral_mm, kernels, dev, gen, card):
+    """Phase 18 (module docstring); prints each part when it is measured."""
+    from makani_tpu_torch.models.model_registry import get_model
+    from makani_tpu_torch.ops import complex_kernels, complex_ops, sht
+    from makani_tpu_torch.utils.trainer import Trainer
+    # the serial references at the settings a rank starts from: the "kernel"
+    # engine at the serving precision "high" (an AMP Trainer of an earlier
+    # phase leaves "default", 1 bf16 pass, in this process)
+    sht.set_coeff_engine("kernel")
+    sht.set_transform_precision("high")
+    complex_ops.set_contraction_precision("high")
+    rec = {"cuts": list(TP_CUTS)}
+    for cut in TP_CUTS:
+        print(f"[tp cut] {cut}", flush=True)
+    # (c) the kernels at a fin rank's shapes
+    rec["kernels"] = tp_kernel_rows(torch, spectral_mm, complex_kernels, dev, gen)
+    for r in rec["kernels"]:
+        print(f"[tp kernel] {r['name']} {r['shape']} p3: {r['ms']:.3f} ms (twin "
+              f"{r['plain_ms']:.3f}, library {r['library_ms']:.3f}, bound {r['bound_ms']:.3f} by "
+              f"{r['bound_by']}); vs twin {r['rel_err_twin']:.3g}, vs f64 {r['rel_err_f64']:.3g}",
+              flush=True)
+    rec["adam"] = []
+    for key, shape, splits in TP_ADAM_SHARDS:
+        a = parallel_adam_shard(torch, dev, key, shape, splits)
+        rec["adam"].append(a)
+        print(f"[tp kernel] fused_adam on {key}'s block {a['splits']} of {a['shape']} (base "
+              f"{a['base']}), bf16 moments, stochastic rounding, 2 steps: p, mu, nu differ from "
+              f"the twin in {a['vs_twin']} and from the whole leaf's slice in {a['vs_whole']} of "
+              f"{a['n']} elements (bound 0); control, base 0: {a['control']} differ (must not "
+              "be 0 in mu and nu)", flush=True)
+        check(a["vs_twin"] == [0, 0, 0] and a["vs_whole"] == [0, 0, 0],
+              f"fused_adam on {key}'s block vs twin {a['vs_twin']}, whole {a['vs_whole']}")
+        check(a["control"][1] > 0 and a["control"][2] > 0,
+              f"fused_adam's control with base 0 matches the whole leaf: {a['control']}")
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    TP_DIR.mkdir(parents=True)
+    try:
+        # (a) and (d): the serial outputs of the same weights, saved
+        params = flagship_params(1)
+        model = get_model(params, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(PARALLEL_SEED))
+        model.eval()
+        x = parallel_input(torch, dev, (1, params.N_in_channels, params.img_crop_shape_x,
+                                        params.img_crop_shape_y))
+        scales, serial_ms = [], []
+        with torch.inference_mode():
+            for step in range(TP_SERVE_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                x = model(x)
+                torch.cuda.synchronize()
+                serial_ms.append((time.perf_counter() - t0) * 1e3)
+                y = x.cpu().numpy()
+                scales.append(float(np.abs(y).max()))
+                np.save(TP_DIR / f"step{step}.npy", y)
+        del model, x, y
+        family_scales, family_ms = {}, {}
+        for name in (VIT, AFNO_V2):
+            gc.collect()
+            torch.cuda.empty_cache()
+            net = tp_family(torch, name, dev,
+                            torch.Generator(device=dev).manual_seed(PARALLEL_SEED + 3))
+            net.eval()
+            xf = tp_family_input(torch, dev)
+            with torch.inference_mode():
+                net(xf)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                y = net(xf).cpu().numpy()
+                family_ms[name] = (time.perf_counter() - t0) * 1e3
+            family_scales[name] = float(np.abs(y).max())
+            np.save(TP_DIR / f"{name}.npy", y)
+            del net, xf, y
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = run_ranks("tp_serve", *TP_SERVE, TP_DIR, scales, family_scales)
+        rec["serve"] = dict(ranks=ranks, wall_s=time.perf_counter() - t0, serial_ms=serial_ms,
+                            family_serial_ms=family_ms)
+        print_tp_serve(rec["serve"])
+        for i, r in enumerate(ranks):
+            check(max(r["errs"]) < PARALLEL_SERVE_TOL,
+                  f"(a) rank {i} vs serial, by step: {r['errs']}")
+            for name in ("legmm", "dhconv_mm"):
+                check(r["launches"][name] > 0, f"(a) {name} not launched on a rank")
+            for name, f in r["families"].items():
+                check(f["err"] < PARALLEL_SERVE_TOL, f"(d) {name} rank {i} vs serial: {f['err']}")
+        # (b) the serial reference at the same depth and level, then the ranks
+        trainer = Trainer(tp_train_params(batch_size=1), device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        _, _, logs = trainer.train_one_epoch()
+        serial_peak = torch.cuda.max_memory_allocated()
+        serial_losses = logs["step losses"]
+        ref_path = TP_DIR / "serial_weights.pt"
+        torch.save({k: p.detach().cpu() for k, p in trainer.model_params.items()}, ref_path)
+        del trainer, logs
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[tp serial] batch 1, {TP_TRAIN_LAYERS} blocks, checkpointing {TP_LEVEL}: losses "
+              f"{serial_losses}, peak {serial_peak / 2**30:.2f} GiB", flush=True)
+        t0 = time.perf_counter()
+        ranks = run_ranks("tp_train", *TP_TRAIN, ref_path, serial_losses)
+        devs, udevs = ranks[0]["param_devs"], ranks[0]["update_devs"]
+        worst = max(udevs, key=udevs.get)
+        rec["train"] = dict(ranks=ranks, wall_s=time.perf_counter() - t0,
+                            serial_losses=serial_losses, serial_peak_bytes=serial_peak,
+                            worst_leaf=worst, worst_update_dev=udevs[worst],
+                            median_update_dev=float(np.median(list(udevs.values()))),
+                            worst_dev=max(devs.values()),
+                            median_dev=float(np.median(list(devs.values()))))
+        print_tp_train(rec["train"])
+        check(udevs[worst] < PARALLEL_UPDATE_TOL,
+              f"(b) the update of {worst} vs serial: {udevs[worst]}")
+        check(rec["train"]["median_update_dev"] < PARALLEL_UPDATE_MEDIAN_TOL,
+              f"(b) the median leaf's update vs serial: {rec['train']['median_update_dev']}")
+        for r in ranks:
+            for name in ("legmm", "dhconv_mm", "dhconv_dw", "fused_adam", "gelu_bf16",
+                         "gelu_bf16_grad"):
+                check(r["launches"][name] > 0, f"(b) {name} not launched on a rank")
+        # the control: (b) with the fin sum of the filter's contraction dropped
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        fdevs = run_ranks("tp_train", *TP_TRAIN, ref_path, serial_losses, True)[0]["update_devs"]
+        fworst = max(fdevs, key=fdevs.get)
+        rec["train_fault"] = dict(wall_s=time.perf_counter() - t0, worst_leaf=fworst,
+                                  worst_update_dev=fdevs[fworst],
+                                  median_update_dev=float(np.median(list(fdevs.values()))))
+        f = rec["train_fault"]
+        print(f"[tp train control] {f['wall_s']:.1f} s; the fin sum of the filter's contraction "
+              f"dropped: updates vs serial, norm-wise: worst {f['worst_update_dev']:.3g} "
+              f"({fworst}), median {f['median_update_dev']:.3g} (must read above the bounds "
+              f"{PARALLEL_UPDATE_TOL} and {PARALLEL_UPDATE_MEDIAN_TOL})", flush=True)
+        check(f["worst_update_dev"] > PARALLEL_UPDATE_TOL
+              and f["median_update_dev"] > PARALLEL_UPDATE_MEDIAN_TOL,
+              f"(b)'s control reads {f['worst_update_dev']} and {f['median_update_dev']}, "
+              "within the bounds")
+    finally:
+        shutil.rmtree(TP_DIR, ignore_errors=True)
+    return rec
+
+
+def print_tp_serve(serve):
+    for i, r in enumerate(serve["ranks"]):
+        steps = len(r["step_ms"])
+        fams = "; ".join(f"{n}: error {f['err']:.3g}, {f['ms']:.1f} ms, {f['split']} split "
+                         f"leaves, bytes sent {f['moved']}" for n, f in r["families"].items())
+        print(f"[tp serve rank {i}] fin 2 x fout 2 on {r['device']}: step ms "
+              f"{', '.join(f'{t:.1f}' for t in r['step_ms'])} (serial "
+              f"{', '.join(f'{t:.1f}' for t in serve['serial_ms'])}); errors vs serial "
+              f"{', '.join(f'{e:.3g}' for e in r['errs'])} (bound {PARALLEL_SERVE_TOL}); "
+              f"launches legmm {r['launches']['legmm']}, dhconv_mm {r['launches']['dhconv_mm']};"
+              f" bytes sent a step { {k: v / steps for k, v in r['moved'].items()} }; peak "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB; (d) {fams}", flush=True)
+    print(f"[tp serve] {serve['wall_s']:.1f} s for the 4 ranks, start to end; (d) serial "
+          f"forwards { {k: round(v, 1) for k, v in serve['family_serial_ms'].items()} } ms",
+          flush=True)
+
+
+def print_tp_train(train):
+    for i, r in enumerate(train["ranks"]):
+        print(f"[tp train rank {i}] h 2 x fin 2, bf16 AMP, {TP_TRAIN_LAYERS} blocks, "
+              f"checkpointing {TP_LEVEL}: losses {r['losses']} (serial {train['serial_losses']}, "
+              f"bound {PARALLEL_LOSS_TOL}); epoch {r['epoch_s']:.2f} s "
+              f"({r['epoch_s'] * 1e3 / len(r['losses']):.1f} ms a step with the loader); "
+              f"launches "
+              f"{ {k: r['launches'][k] for k in ('legmm', 'dhconv_mm', 'dhconv_dw', 'fused_adam', 'gelu_bf16', 'gelu_bf16_grad')} }; "
+              f"bytes sent {r['moved']}; peak {r['peak_bytes'] / 2**30:.2f} GiB (reserved "
+              f"{r['reserved_bytes'] / 2**30:.2f})", flush=True)
+    print(f"[tp train] {train['wall_s']:.1f} s for the 4 ranks; serial peak "
+          f"{train['serial_peak_bytes'] / 2**30:.2f} GiB; split leaves "
+          f"{len(train['ranks'][0]['shards'])}; updates over {TP_TRAIN_STEPS} steps vs serial, "
+          f"norm-wise: worst {train['worst_update_dev']:.3g} ({train['worst_leaf']}), median "
+          f"{train['median_update_dev']:.3g} (bounds {PARALLEL_UPDATE_TOL}, "
+          f"{PARALLEL_UPDATE_MEDIAN_TOL}); the weights: worst {train['worst_dev']:.3g}, median "
+          f"{train['median_dev']:.3g}", flush=True)
 
 
 def main(argv=None):
@@ -4127,8 +4551,15 @@ def main(argv=None):
     par["phase_s"] = time.perf_counter() - t0
     record["parallel"] = par
     print(f"[parallel time] phase 17 in {par['phase_s']:.1f} s", flush=True)
+
+    # phase 18: channel (tensor) parallelism, the ranks sharing the card
+    t0 = time.perf_counter()
+    tp = phase_tensor_parallel(torch, np, spectral_mm, kernels, dev, gen, card)
+    tp["phase_s"] = time.perf_counter() - t0
+    record["tensor_parallel"] = tp
+    print(f"[tp time] phase 18 in {tp['phase_s']:.1f} s", flush=True)
     record["script_s"] = time.perf_counter() - t_script
-    print(f"[time] phases 1-17 in {record['script_s']:.1f} s, the kernels' build included",
+    print(f"[time] phases 1-18 in {record['script_s']:.1f} s, the kernels' build included",
           flush=True)
 
     # results
@@ -4192,7 +4623,11 @@ def main(argv=None):
                     launches_parallel_serve=[r["launches"][name]
                                              for r in par["serve"]["ranks"]],
                     launches_parallel_train=[r["launches"][name]
-                                             for r in par["train"]["ranks"]])
+                                             for r in par["train"]["ranks"]],
+                    # phase 18: each rank's launches, (a) fin 2 x fout 2 over
+                    # 2 rollout steps, (b) h 2 x fin 2 over 2 AMP train steps
+                    launches_tp_serve=[r["launches"][name] for r in tp["serve"]["ranks"]],
+                    launches_tp_train=[r["launches"][name] for r in tp["train"]["ranks"]])
 
     kernels = []
     # *_amp: the same counts on phase 9's AMP path, where every pass-taking
@@ -4219,6 +4654,15 @@ def main(argv=None):
                       and q["local_m"] == 121 and (label is None or q["shape"].startswith(label)))
             kernels[-1]["parallel_local"] = {k: lr[k] for k in (
                 "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+        # phase 18 (c): the kernel at a fin rank's shapes (192 input channels)
+        if name == "fused_adam":
+            kernels[-1]["tp_local"] = [{k: a[k] for k in ("key", "base", "vs_twin", "vs_whole",
+                                                           "control")} for a in tp["adam"]]
+        else:
+            tq = next(q for q in tp["kernels"] if q["name"] == name
+                      and (label is None or q["shape"].startswith(label)))
+            kernels[-1]["tp_local"] = {k: tq[k] for k in (
+                "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
     # fused_adam at the linear FNO's 2.12 B elements (phase 14 (d)): each
     # moment type's update time beside its bound, and torch's fused Adam
     a = fno["adam"]
@@ -4241,7 +4685,10 @@ def main(argv=None):
         launches_rollout_amp=0, **files_launches("dhconv_complex"),
         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
-        shape=r["shape"], passes=3))
+        shape=r["shape"], passes=3,
+        tp_local={k: q[k] for q in tp["kernels"] if q["name"] == "dhconv_complex"
+                  for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                            "max_abs_err")}))
     # the kernel-benchmark and probe path: launches counted over phase 8's
     # run of the three tools; no model path runs these kernels
     grid_sources = {"gridmm": ("makani_tpu_torch/csrc/gridmm.cu",

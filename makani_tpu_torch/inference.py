@@ -12,12 +12,14 @@ Modes:
           written as NetCDF (needs h5py)
 
 The flags are makani_tpu's, plus --device (default cuda; without CUDA it
-raises unless --device cpu). Several ranks over data and the spatial h and
-w axes are started by torchrun (`python -m torch.distributed.run --standalone
---nproc_per_node N -m makani_tpu_torch.inference ... --h_parallel_size 2`;
-parallel/comm): each rank scores its patch of its rows, and rank 0 writes
-the files. --fin/--fout_parallel_size above 1 and --split_data_channels on
-several ranks raise (ROADMAP, Queue 1 item 7b).
+raises unless --device cpu). Several ranks over data, the spatial h and w
+axes and the channel fin and fout axes are started by torchrun (`python -m
+torch.distributed.run --standalone --nproc_per_node N -m
+makani_tpu_torch.inference ... --h_parallel_size 2 --fin_parallel_size 2`;
+parallel/comm): each rank scores its patch of its rows (with
+--split_data_channels, its chunk of the metrics' channels), and rank 0 writes
+the files. The FNO, AFNO and ViT families under h * w > 1 raise (ROADMAP,
+Queue 1 item 7c).
 """
 
 import argparse
@@ -82,9 +84,6 @@ def main(argv=None):
     world_rank = comm.init(model_parallel_sizes=sizes,
                            model_parallel_names=["h", "w", "fin", "fout"],
                            device_type=args.device)
-    if args.split_data_channels and comm.get_world_size() > 1:
-        raise NotImplementedError("--split_data_channels is not ported yet "
-                                  + comm.TENSOR_PARALLEL_TODO)
 
     params = YParams(os.path.abspath(args.yaml_config), args.config)
     params["model_parallel_sizes"] = sizes

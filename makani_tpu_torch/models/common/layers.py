@@ -17,6 +17,19 @@ unrolled step of a multi-step forward) and the site's index (`Dropout.site`,
 under `use_dropout_key`. `remat` carries the key in force into the
 recomputation, so a block recomputed in backward draws the masks of its
 forward, bit for bit.
+
+Channel parallelism (fin, fout). A layer reads how its leaves are stored
+from spmd.leaf_axis (partitioning.shard_module tells it) and is told how its
+input's channels are split (`x_axis`: None for whole, or the mesh axis);
+its output's channels are split as its weight's output dimension is
+(`out_axis`). `parallel_linear` is makani_tpu's fin/fout ping-pong written
+out (partitioning.py:24-33): an input split over the axis that splits the
+weight's input dimension is contracted locally and summed over that axis;
+an input the weight wants otherwise is gathered or sliced first; a weight
+split over its output dimension gets its input through copy_to. Norms over
+channels sum their statistics over the split axis, and a whole affine leaf
+is cut to the rank's channels through spmd.scatter. Dropout masks are drawn
+at the whole channel count and cut, so every layout drops the same values.
 """
 
 import contextlib
@@ -71,19 +84,22 @@ def drop_mask(shape, keep, site, device):
     return torch.rand(tuple(shape), generator=gen, device=device) < keep
 
 
-def rank_mask(shape, keep, site, device, global_hw=None):
+def rank_mask(shape, keep, site, device, global_hw=None, channel=None):
     """drop_mask of a rank's part of a field: on several ranks the mask is
-    drawn at the whole batch's shape (and, for a spatially split field, at
-    its whole (H, W) = `global_hw`) and cut to the rank's part, so every rank
-    drops what one rank would. Serial: drop_mask."""
+    drawn at the whole batch's shape (for a spatially split field at its
+    whole (H, W) = `global_hw`, for channels split over a mesh axis at their
+    whole count: `channel` = (dim, axis, size)) and cut to the rank's part,
+    so every rank drops what one rank would. Serial: drop_mask."""
     full, index = list(shape), [slice(None)] * len(shape)
+    if channel is not None and channel[1] is not None and shape[channel[0]] > 1:
+        d, axis, size = channel
+        full[d], index[d] = size, spmd.patch_slice(size, axis)
     if spmd.data_distributed():
         b, r = shape[0], comm.get_rank("data")
         full[0], index[0] = b * comm.get_size("data"), slice(r * b, (r + 1) * b)
     if spmd.spatial_distributed() and len(shape) >= 3 and (shape[-2] > 1 or shape[-1] > 1):
         if global_hw is None:
-            raise NotImplementedError("dropout on a spatially split field needs its whole "
-                                      "shape " + comm.TENSOR_PARALLEL_TODO)
+            raise ValueError("dropout on a spatially split field needs its whole shape")
         full[-2], full[-1] = global_hw
         index[-2] = spmd.patch_slice(global_hw[0], "h")
         index[-1] = spmd.patch_slice(global_hw[1], "w")
@@ -105,6 +121,45 @@ def remat(fn, *args):
             return fn(*a)
 
     return checkpoint(run, *args, use_reentrant=False)
+
+
+def leaf_part(module, leaf, dim, axis, size=None):
+    """`module`'s parameter `leaf` as the rank's part along `dim` for
+    activations split over `axis` (None: whole): the leaf as it is where it
+    is stored split alike, else the rank's slice (spmd.scatter) of the whole
+    leaf, gathered first (global length `size`; the backward keeps the
+    rank's block of the gradient) where it is stored split otherwise."""
+    t = getattr(module, leaf)
+    stored = spmd.leaf_axis(module, leaf, dim)
+    if stored == axis:
+        return t
+    if stored is not None:
+        t = spmd.gather(t, dim, stored, size)
+    return spmd.scatter(t, dim, axis) if axis is not None else t
+
+
+def parallel_linear(x, dim, x_axis, in_axis, out_axis, size, matmul):
+    """matmul(x) contracting x's dimension `dim` (global length `size`, split
+    over `x_axis`) with a weight whose input dimension is split over
+    `in_axis` and output dimension over `out_axis` (None: whole): the input
+    is gathered or sliced to the weight's split, copied to a weight split
+    over its outputs, and the partial products summed over `in_axis`. The
+    result's channels are split over `out_axis`."""
+    if x_axis != in_axis:
+        if x_axis is not None:
+            x = spmd.gather(x, dim, x_axis, size)
+        if in_axis is not None:
+            x = spmd.scatter(x, dim, in_axis)
+    if out_axis is not None:
+        x = spmd.copy_to(x, out_axis)
+    y = matmul(x)
+    return spmd.all_reduce_sum(y, in_axis) if in_axis is not None else y
+
+
+def apply_norm(norm, x, x_axis):
+    """A channel norm of this module (or nn.Identity) on `x`, whose channels
+    are split over `x_axis`."""
+    return x if isinstance(norm, nn.Identity) else norm(x, x_axis)
 
 
 def normal_param(shape, std, device, generator):
@@ -134,13 +189,22 @@ class DenseLayer(nn.Module):
 
     def __init__(self, in_features, out_features, use_bias=True, device="cpu", generator=None):
         super().__init__()
+        self.in_features, self.out_features = in_features, out_features
         self.kernel = trunc_normal_param((in_features, out_features), 0.02, device, generator)
         self.bias = nn.Parameter(torch.zeros(out_features, device=device)) if use_bias else None
 
-    def forward(self, x):
+    @property
+    def out_axis(self):
+        return spmd.leaf_axis(self, "kernel", 1)
+
+    def forward(self, x, x_axis=None):
         x = promoted(x, self.kernel)
-        y = x @ self.kernel.to(x.dtype)
-        return y if self.bias is None else y + self.bias.to(x.dtype)
+        kernel = self.kernel.to(x.dtype)
+        y = parallel_linear(x, -1, x_axis, spmd.leaf_axis(self, "kernel", 0), self.out_axis,
+                            self.in_features, lambda v: v @ kernel)
+        if self.bias is None:
+            return y
+        return y + leaf_part(self, "bias", 0, self.out_axis, self.out_features).to(x.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -155,12 +219,20 @@ class LayerNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(num_features, device=device))
         self.bias = nn.Parameter(torch.zeros(num_features, device=device))
 
-    def forward(self, x):
+    def forward(self, x, x_axis=None):
         xf = promoted(x, self.scale)
-        mean = xf.mean(-1, keepdim=True)
-        var = torch.clamp_min((xf * xf).mean(-1, keepdim=True) - mean * mean, 0.0)
-        mul = torch.rsqrt(var + self.eps) * self.scale
-        return (xf - mean) * mul + self.bias
+        if x_axis is None:
+            mean = xf.mean(-1, keepdim=True)
+            msq = (xf * xf).mean(-1, keepdim=True)
+        else:
+            # E[x] and E[x^2] over the whole C: the rank's sums, summed over
+            # the axis that splits the channels
+            n = float(self.scale.shape[0])
+            sums = spmd.reduce_partial(torch.stack((xf.sum(-1), (xf * xf).sum(-1))), x_axis)
+            mean, msq = sums[0].unsqueeze(-1) / n, sums[1].unsqueeze(-1) / n
+        var = torch.clamp_min(msq - mean * mean, 0.0)
+        mul = torch.rsqrt(var + self.eps) * leaf_part(self, "scale", 0, x_axis)
+        return (xf - mean) * mul + leaf_part(self, "bias", 0, x_axis)
 
 
 class PatchEmbed(nn.Module):
@@ -188,9 +260,15 @@ class PatchEmbed(nn.Module):
         gh, gw = h // ph, w // pw
         patches = x.reshape(b, c, gh, ph, gw, pw).permute(0, 2, 4, 1, 3, 5)
         weight = self.weight.to(x.dtype).reshape(self.weight.shape[0], -1)
-        # (B, E, gh * gw) = W (E, K) @ patches (B, K, gh * gw)
-        y = weight @ patches.reshape(b, gh * gw, c * ph * pw).transpose(1, 2)
-        return y + self.bias.to(x.dtype)[:, None]
+        # (B, E, gh * gw) = W (E, K) @ patches (B, K, gh * gw); the embedding
+        # channels split over the weight's E
+        patches = patches.reshape(b, gh * gw, c * ph * pw).transpose(1, 2)
+        y = parallel_linear(patches, 1, None, None, self.out_axis, None, lambda v: weight @ v)
+        return y + leaf_part(self, "bias", 0, self.out_axis).to(x.dtype)[:, None]
+
+    @property
+    def out_axis(self):
+        return spmd.leaf_axis(self, "weight", 0)
 
 
 class Conv1x1(nn.Module):
@@ -200,19 +278,27 @@ class Conv1x1(nn.Module):
     def __init__(self, in_features, out_features, use_bias=True, gain=1.0, device="cpu",
                  generator=None):
         super().__init__()
+        self.in_features, self.out_features = in_features, out_features
         std = (gain / in_features) ** 0.5
         self.weight = normal_param((out_features, in_features), std, device, generator)
         self.bias = (nn.Parameter(torch.zeros(out_features, device=device))
                      if use_bias else None)
 
-    def forward(self, x):
-        b, c, h, w = x.shape
+    @property
+    def out_axis(self):
+        return spmd.leaf_axis(self, "weight", 0)
+
+    def forward(self, x, x_axis=None):
+        b, h, w = x.shape[0], x.shape[2], x.shape[3]
         # bmm against the broadcast weight: matmul of a 2D by a 3D operand
         # would transpose-copy the activation in and the output out
         weight = self.weight.to(x.dtype).expand(b, -1, -1)
-        y = torch.bmm(weight, x.reshape(b, c, h * w))
+        y = parallel_linear(x.reshape(b, x.shape[1], h * w), 1, x_axis,
+                            spmd.leaf_axis(self, "weight", 1), self.out_axis, self.in_features,
+                            lambda v: torch.bmm(weight, v))
         if self.bias is not None:
-            y = y + self.bias.to(x.dtype)[:, None]
+            bias = leaf_part(self, "bias", 0, self.out_axis, self.out_features)
+            y = y + bias.to(x.dtype)[:, None]
         return y.view(b, -1, h, w)
 
 
@@ -229,14 +315,16 @@ class Dropout(nn.Module):
         # ranks (set by the network)
         self.global_hw = None
 
-    def forward(self, x, deterministic=True):
+    def forward(self, x, deterministic=True, channel=None):
+        """`channel`: (dim, axis, size) where x's channels are split over a
+        mesh axis (rank_mask)."""
         if self.rate == 0.0 or deterministic:
             return x
         if self.rate == 1.0:
             return torch.zeros_like(x)
         keep = 1.0 - self.rate
         shape = [1 if d in self.broadcast_dims else s for d, s in enumerate(x.shape)]
-        mask = rank_mask(shape, keep, self.site, x.device, self.global_hw)
+        mask = rank_mask(shape, keep, self.site, x.device, self.global_hw, channel)
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -293,6 +381,7 @@ class MLP(nn.Module):
         self.checkpointing = checkpointing
         out_features = out_features or in_features
         hidden_features = hidden_features or in_features
+        self.sizes = (hidden_features, out_features)
         self.act_layer = act_layer
         self.fc1 = Conv1x1(in_features, hidden_features, use_bias=True, gain=2.0,
                            device=device, generator=generator)
@@ -304,14 +393,21 @@ class MLP(nn.Module):
         self.drop1 = Dropout(drop_rate, dims)
         self.drop2 = Dropout(drop_rate, dims)
 
-    def _body(self, x, deterministic):
-        x = self.drop1(self.act_layer(self.fc1(x)), deterministic)
-        return self.drop2(self.fc2(x), deterministic)
+    @property
+    def out_axis(self):
+        return self.fc2.out_axis
 
-    def forward(self, x, deterministic=True):
+    def _body(self, x, deterministic, x_axis):
+        hidden, out = self.fc1.out_axis, self.fc2.out_axis
+        x = self.drop1(self.act_layer(self.fc1(x, x_axis)), deterministic,
+                       (1, hidden, self.sizes[0]))
+        return self.drop2(self.fc2(x, hidden), deterministic, (1, out, self.sizes[1]))
+
+    def forward(self, x, deterministic=True, x_axis=None):
+        """x's channels split over `x_axis`; the output's over `out_axis`."""
         if self.checkpointing >= 2:
-            return remat(self._body, x, deterministic)
-        return self._body(x, deterministic)
+            return remat(self._body, x, deterministic, x_axis)
+        return self._body(x, deterministic, x_axis)
 
 
 class EncoderDecoder(nn.Module):
@@ -330,10 +426,16 @@ class EncoderDecoder(nn.Module):
         self.out = Conv1x1(current, output_dim, use_bias=False, gain=gain, device=device,
                            generator=generator)
 
-    def forward(self, x):
+    @property
+    def out_axis(self):
+        return self.out.out_axis
+
+    def forward(self, x, x_axis=None):
+        """x's channels split over `x_axis`; the output's over `out_axis`."""
         for i in range(self.num_layers):
-            x = self.act_layer(getattr(self, f"fwd_{i}")(x))
-        return self.out(x)
+            layer = getattr(self, f"fwd_{i}")
+            x, x_axis = self.act_layer(layer(x, x_axis)), layer.out_axis
+        return self.out(x, x_axis)
 
 
 class InstanceNorm2d(nn.Module):
@@ -349,7 +451,9 @@ class InstanceNorm2d(nn.Module):
         else:
             self.weight = self.bias = None
 
-    def forward(self, x):
+    def forward(self, x, x_axis=None):
+        """x's channels split over `x_axis` (the statistics are per channel;
+        the affine is cut to the rank's channels)."""
         xf = x.float()
         if spmd.spatial_distributed():
             mean, var = self._global_stats(xf)
@@ -360,7 +464,8 @@ class InstanceNorm2d(nn.Module):
             var = xc.square().mean(dim=(-2, -1), keepdim=True)
         y = xc * torch.rsqrt(var + self.eps)
         if self.weight is not None:
-            y = y * self.weight[None, :, None, None] + self.bias[None, :, None, None]
+            weight, bias = (leaf_part(self, k, 0, x_axis) for k in ("weight", "bias"))
+            y = y * weight[None, :, None, None] + bias[None, :, None, None]
         return y.to(x.dtype)
 
     @staticmethod
@@ -386,18 +491,28 @@ class LayerNorm2d(nn.Module):
     def __init__(self, num_features, eps=1e-6, affine=True, device="cpu"):
         super().__init__()
         self.eps = eps
+        self.num_features = num_features
         if affine:
             self.weight = nn.Parameter(torch.ones(num_features, device=device))
             self.bias = nn.Parameter(torch.zeros(num_features, device=device))
         else:
             self.weight = self.bias = None
 
-    def forward(self, x):
+    def forward(self, x, x_axis=None):
+        """x's channels split over `x_axis`: the two passes' channel sums are
+        summed over that axis."""
         xf = x.float()
-        mean = xf.mean(dim=1, keepdim=True)
-        xc = xf - mean
-        var = xc.square().mean(dim=1, keepdim=True)
+        if x_axis is None:
+            mean = xf.mean(dim=1, keepdim=True)
+            xc = xf - mean
+            var = xc.square().mean(dim=1, keepdim=True)
+        else:
+            n = float(self.num_features)
+            mean = spmd.reduce_partial(xf.sum(dim=1, keepdim=True), x_axis) / n
+            xc = xf - mean
+            var = spmd.reduce_partial(xc.square().sum(dim=1, keepdim=True), x_axis) / n
         y = xc * torch.rsqrt(var + self.eps)
         if self.weight is not None:
-            y = y * self.weight[None, :, None, None] + self.bias[None, :, None, None]
+            weight, bias = (leaf_part(self, k, 0, x_axis) for k in ("weight", "bias"))
+            y = y * weight[None, :, None, None] + bias[None, :, None, None]
         return y.to(x.dtype)

@@ -14,6 +14,14 @@ takes one of two paths, chosen per call as makani_tpu chooses them:
     transforms of the planar FNO): complex coefficients from the transform's
     `__call__`, complex_ops' contraction of the operator, the inverse
     transform.
+
+Channels split over fin (makani_tpu's filter rule: the weight's input
+channels over fin, :129-165): the transforms run on the rank's channels,
+the contraction over them is a partial sum, and reduce_scatter sums it over
+fin and leaves each rank its fin chunk of the output channels, which the
+inverse transform then synthesises (an all-reduce where fin does not divide
+the output channels). The separable operators mix no channels and need no
+sum.
 """
 
 import math
@@ -22,7 +30,7 @@ import torch
 from torch import nn
 
 from makani_tpu_torch.models.common.activations import ComplexReLU
-from makani_tpu_torch.models.common.layers import Dropout
+from makani_tpu_torch.models.common.layers import Dropout, leaf_part
 from makani_tpu_torch.ops import sht
 from makani_tpu_torch.parallel import spmd
 from makani_tpu_torch.ops.complex_ops import (
@@ -111,7 +119,36 @@ class SpectralConv(nn.Module):
             return torch.complex(self.weight[0], self.weight[1]).permute(1, 2, 0)  # (C, O, L)
         return view_as_complex(self.weight)
 
-    def forward(self, x):
+    @property
+    def in_axis(self):
+        """The axis the weight's input channels are split over (None: whole)."""
+        return spmd.leaf_axis(self, "weight", 2 if self.stacked_weight else 0)
+
+    @property
+    def out_axis(self):
+        """The axis the output's channels are split over."""
+        if self.separable:
+            return self.in_axis
+        return self.in_axis and spmd.channel_axis(self.out_channels, self.in_axis)
+
+    def _reduce(self, o, dim):
+        """The contraction's partial sum over the rank's input channels,
+        summed over their axis: the rank's chunk of the output channels
+        along `dim`, or all of them."""
+        axis = self.in_axis
+        if axis is None or self.separable:
+            return o
+        if self.out_axis is None:
+            return spmd.all_reduce_sum(o, axis)
+        return spmd.reduce_scatter(o, dim, axis)
+
+    def forward(self, x, x_axis=None):
+        """x's channels split over `x_axis`, which must be the weight's
+        `in_axis`; returns (out, residual), out's channels split over
+        `out_axis`, the residual's as x's."""
+        if x_axis != self.in_axis:
+            raise ValueError(f"the filter's input channels are split over {self.in_axis}, "
+                             f"its input's over {x_axis}")
         fwd_t, inv_t = self.forward_transform, self.inverse_transform
         dtype = x.dtype
         residual = x
@@ -121,22 +158,23 @@ class SpectralConv(nn.Module):
             if self.scale_residual:
                 residual = inv_t.synthesis_stacked(z).to(dtype)
             mmax = z.shape[0] // 2
-            B, L = z.shape[1], z.shape[-1]
-            zs = z.view(2, mmax, B, self.in_channels, L).permute(0, 2, 4, 3, 1).contiguous()
-            o = contract_dhconv_stacked(zs, self.weight)      # (2, B, L, O, mmax)
-            o = o.permute(0, 4, 1, 3, 2).reshape(2 * mmax, B, self.out_channels, L)
+            B, C, L = z.shape[1], z.shape[2], z.shape[-1]
+            zs = z.view(2, mmax, B, C, L).permute(0, 2, 4, 3, 1).contiguous()
+            o = self._reduce(contract_dhconv_stacked(zs, self.weight), 3)   # (2, B, L, O, mmax)
+            o = o.permute(0, 4, 1, 3, 2).reshape(2 * mmax, B, o.shape[3], L)
             x = inv_t.synthesis_stacked(o)
         else:
             x = fwd_t(x)                                      # (B, C, L, mmax) complex
             if self.scale_residual:
                 residual = inv_t(x).to(dtype)
             contract = get_contract_fun(self.operator_type, self.separable)
-            x = inv_t(contract(x, self.complex_weight()))
+            x = inv_t(self._reduce(contract(x, self.complex_weight()), 1))
 
         if self.bias_mode == "constant":
-            x = x + self.bias_const
+            x = x + leaf_part(self, "bias_const", 1, self.out_axis)
         elif self.bias_mode == "position":
-            x = x + spmd.local_patch(self.bias_pos, self.bias_pos.shape[-2:])
+            bias = leaf_part(self, "bias_pos", 1, self.out_axis)
+            x = x + spmd.local_patch(bias, bias.shape[-2:])
         return x.to(dtype), residual
 
 

@@ -170,6 +170,16 @@ def _filter_kwargs(cls, kwargs):
             for k, v in kwargs.items() if k in valid}
 
 
+def check_layout(nettype):
+    """Raises where the family cannot run on the process groups' layout: a
+    family without a spatially parallel path (AFNO, AFNO v1, the ViT) under
+    h * w > 1."""
+    cls = _model_registry[nettype]
+    if spmd.spatial_distributed() and not getattr(cls, "spatially_parallel", False):
+        raise NotImplementedError(f"{nettype} under a spatial decomposition is not ported yet "
+                                  + comm.SPATIAL_TODO)
+
+
 def get_model(params, device=None, generator=None):
     """Build the configured network on `device` (default "cuda"; raises when
     CUDA is absent unless device="cpu") and wrap it in a stepper. Weights are
@@ -191,9 +201,7 @@ def get_model(params, device=None, generator=None):
     all_kwargs = dict(params.to_dict())
     all_kwargs.update(inp_shape=tuple(inp_shape), out_shape=tuple(out_shape),
                       inp_chans=params.N_in_channels, out_chans=params.N_out_channels)
-    if spmd.spatial_distributed() and not getattr(cls, "spatially_parallel", False):
-        raise NotImplementedError(f"{params.nettype} under a spatial decomposition is not "
-                                  "ported yet " + comm.TENSOR_PARALLEL_TODO)
+    check_layout(params.nettype)
     net = cls(**_filter_kwargs(cls, all_kwargs), device=device, generator=generator)
 
     preprocessor = Preprocessor2D(params, device=device)
@@ -203,6 +211,7 @@ def get_model(params, device=None, generator=None):
                                  lsm_mask_channels=lsm_mask_channels)
     else:
         model = SingleStepWrapper(preprocessor, net, lsm_mask_channels=lsm_mask_channels)
-    # on spatial ranks the leaves split over h and w keep the rank's shard
+    # on model-parallel ranks the leaves split over h, w, fin and fout keep
+    # the rank's shard
     model.shards = partitioning.shard_module(model)
     return model

@@ -14,6 +14,16 @@ the position embedding and block 0's first residual, and float32 from block
 0's first norm on. `PrecipNet` puts a periodic pad (circular in longitude,
 zeros in latitude), a VALID 3x3 convolution (kernel HWIO, as flax's) and a
 ReLU after a backbone, whose weights it holds under ``backbone``.
+
+Channels split over fin. makani_tpu's rules split the patch embedding's
+channels, the position embedding's C and the head's input over fin, and
+also hit the filter's leaves: "fin" on the leading (re, im) axis of w1 and
+w2 and on the blocks of b1 and b2 (makani_tpu/models/networks/afnonet.py:
+67-70). The leaves are stored as the rules split them. The filter's
+computation cannot follow a split of its real and imaginary parts, so the
+network gathers the tokens' channels after the position embedding, runs
+the blocks on the whole channels with the filter's leaves gathered, and
+the head contracts the rank's fin chunk again.
 """
 
 from typing import Tuple
@@ -29,11 +39,13 @@ from makani_tpu_torch.models.common.layers import (
     DenseLayer,
     LayerNorm,
     PatchEmbed,
+    leaf_part,
     normal_param,
     number_dropout_sites,
     promoted,
     trunc_normal_param,
 )
+from makani_tpu_torch.parallel import spmd
 from makani_tpu_torch.models.networks.afnonet_v2 import softshrink
 
 
@@ -92,7 +104,9 @@ class AFNO2Dv1(nn.Module):
         xf = torch.fft.rfft2(x.float(), dim=(1, 2), norm="ortho")
         xf = xf.reshape(b, h, w // 2 + 1, self.num_blocks, c // self.num_blocks)
         mask = self.mode_mask(h, w, x.device)
-        w1, b1, w2, b2 = self.w1, self.b1, self.w2, self.b2
+        # the leaves whole where the rules split them (module docstring)
+        w1, w2 = (leaf_part(self, k, 0, None, 2) for k in ("w1", "w2"))
+        b1, b2 = (leaf_part(self, k, 1, None, self.num_blocks) for k in ("b1", "b2"))
 
         def mix(a, weight):
             return torch.einsum("bhwki,kio->bhwko", a, weight)
@@ -172,8 +186,12 @@ class AdaptiveFourierNeuralOperatorNetV1(nn.Module):
     def forward(self, x, deterministic=True):
         b = x.shape[0]
         h, w = self.grid
-        x = self.patch_embed(x).transpose(1, 2) + self.pos_embed.to(x.dtype)
-        x = self.pos_drop(x, deterministic).reshape(b, h, w, self.embed_dim)
+        axis = self.patch_embed.out_axis        # the embedding's channels: fin (or whole)
+        x = self.patch_embed(x).transpose(1, 2) + leaf_part(self, "pos_embed", 2, axis).to(x.dtype)
+        x = self.pos_drop(x, deterministic, (2, axis, self.embed_dim))
+        if axis is not None:
+            x = spmd.gather(x, 2, axis, self.embed_dim)
+        x = x.reshape(b, h, w, self.embed_dim)
         for blk in self.blocks:
             x = blk(x, deterministic=deterministic)
         x = self.head(x)

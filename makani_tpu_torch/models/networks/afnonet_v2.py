@@ -14,6 +14,16 @@ the network stays bf16 from the patch embedding to the head (its GELU is
 ops/gelu.py's kernel). Parameter names are makani_tpu's (``blocks.<i>`` for
 ``blocks_<i>``), and every weight keeps its layout. Dropout sites are
 numbered in registration order (models/common/layers.py).
+
+Channels split over fin (makani_tpu's rules; its DistributedAFNO2Dv2, makani
+mpu/layers.py:544-643): the embedding's channels are split over fin from the
+patch embedding on, and the filter's blocks with them (w1, w2 over their
+blocks, b1 over C), so each rank's filter runs on its own blocks; where fin
+divides C but not the number of blocks the filter runs on the gathered
+channels. The position embedding (1, C, N) is stored split over its tokens,
+as makani_tpu's 3-D rule has it, and gathered, then cut to the rank's
+channels; the skip gathers its input over fin; the MLP is fin -> fout ->
+fin; the head contracts fin.
 """
 
 from typing import Tuple
@@ -25,10 +35,14 @@ from torch import nn
 from makani_tpu_torch.models.common import MLP, DropPath, Dropout, InstanceNorm2d, get_activation
 from makani_tpu_torch.models.common.layers import (
     PatchEmbed,
+    apply_norm,
+    leaf_part,
     normal_param,
     number_dropout_sites,
+    parallel_linear,
     trunc_normal_param,
 )
+from makani_tpu_torch.parallel import spmd
 
 
 def softshrink(x, lambd):
@@ -52,6 +66,7 @@ class AFNO2Dv2(nn.Module):
             raise ValueError(f"hidden_size {hidden_size} is not a multiple of num_blocks "
                              f"{num_blocks}")
         self.num_blocks = num_blocks
+        self.hidden_size = hidden_size
         self.sparsity_threshold = sparsity_threshold
         self.hard_thresholding_fraction = hard_thresholding_fraction
         bs = hidden_size // num_blocks
@@ -73,20 +88,34 @@ class AFNO2Dv2(nn.Module):
         keep_m = torch.arange(total_w, device=device) < kept_w
         return (keep_h[:, None] & keep_m[None, :]).float()
 
-    def forward(self, x):
+    def forward(self, x, x_axis=None):
+        """x's channels split over `x_axis`; the output's alike."""
+        blocks_axis = spmd.leaf_axis(self, "w1", 0)
+        if x_axis != blocks_axis:
+            # the blocks do not follow the channels' split: the whole filter
+            # on the gathered channels, then the rank's chunk
+            if x_axis is not None:
+                x = spmd.gather(x, 1, x_axis, self.hidden_size)
+            w1, w2 = (leaf_part(self, k, 0, None, self.num_blocks) for k in ("w1", "w2"))
+            y = self._filter(x, w1, w2, leaf_part(self, "b1", 1, None, self.hidden_size))
+            return spmd.scatter(y, 1, x_axis) if x_axis is not None else y
+        return self._filter(x, self.w1, self.w2, self.b1)
+
+    def _filter(self, x, w1, w2, b1):
         bias, dtype = x, x.dtype
         b, c, h, w = x.shape
+        nb = w1.shape[0]
         xf = torch.fft.rfft2(x.float(), dim=(-2, -1), norm="ortho")
-        xf = xf.reshape(b, self.num_blocks, c // self.num_blocks, h, w // 2 + 1)
-        o1 = torch.einsum("bkihw,kio->bkohw", xf, _as_complex(self.w1))
+        xf = xf.reshape(b, nb, c // nb, h, w // 2 + 1)
+        o1 = torch.einsum("bkihw,kio->bkohw", xf, _as_complex(w1))
         o1 = torch.complex(torch.relu(o1.real), torch.relu(o1.imag))
-        o2 = torch.einsum("bkohw,koi->bkihw", o1, _as_complex(self.w2))
+        o2 = torch.einsum("bkohw,koi->bkihw", o1, _as_complex(w2))
         o2 = o2 * self.mode_mask(h, w, x.device)
         o2 = torch.complex(softshrink(o2.real, self.sparsity_threshold),
                            softshrink(o2.imag, self.sparsity_threshold))
         o2 = o2.reshape(b, c, h, w // 2 + 1)
         xout = torch.fft.irfft2(o2, s=(h, w), dim=(-2, -1), norm="ortho").to(dtype)
-        return xout + self.b1.to(dtype) + bias
+        return xout + b1.to(dtype) + bias
 
 
 class LayerNormHW(nn.Module):
@@ -102,12 +131,17 @@ class LayerNormHW(nn.Module):
         self.weight = nn.Parameter(torch.ones(tuple(shape), device=device))
         self.bias = nn.Parameter(torch.zeros(tuple(shape), device=device))
 
-    def forward(self, x):
+    def forward(self, x, x_axis=None):
+        """Per channel, x's channels split over `x_axis`; the affine, shared
+        by every channel, sums its gradient over that axis (copy_to)."""
         xf = x.float()
         mean = xf.mean(dim=(-2, -1), keepdim=True)
         var = (xf - mean).square().mean(dim=(-2, -1), keepdim=True)
         y = (x - mean.to(x.dtype)) * torch.rsqrt(var.to(x.dtype) + self.eps)
-        return y * self.weight.to(x.dtype) + self.bias.to(x.dtype)
+        weight, bias = self.weight, self.bias
+        if x_axis is not None:
+            weight, bias = spmd.copy_to(weight, x_axis), spmd.copy_to(bias, x_axis)
+        return y * weight.to(x.dtype) + bias.to(x.dtype)
 
 
 class BlockV2(nn.Module):
@@ -141,19 +175,25 @@ class BlockV2(nn.Module):
             return LayerNormHW(grid, eps=1e-6, device=device)
         raise NotImplementedError(f"Error, normalization {norm_layer} not implemented.")
 
-    def forward(self, x, deterministic=True):
+    def forward(self, x, deterministic=True, x_axis=None):
+        """x's channels split over `x_axis`, the output's alike."""
         residual = x
-        x = self.filter(self.norm1(x))
+        x = self.filter(apply_norm(self.norm1, x, x_axis), x_axis)
         if self.skip_fno == "linear":
             b, c, h, w = residual.shape
             weight = self.skip_weight.to(x.dtype).expand(b, -1, -1)
-            skip = torch.bmm(weight, residual.reshape(b, c, h * w)).view(b, -1, h, w)
-            x = x + skip + self.skip_bias.to(x.dtype)[None, :, None, None]
+            out_axis = spmd.leaf_axis(self, "skip_weight", 0)
+            skip = parallel_linear(residual.reshape(b, c, h * w), 1, x_axis,
+                                   spmd.leaf_axis(self, "skip_weight", 1), out_axis,
+                                   self.skip_weight.shape[1], lambda v: torch.bmm(weight, v))
+            bias = leaf_part(self, "skip_bias", 0, out_axis)
+            x = x + skip.view(b, -1, h, w) + bias.to(x.dtype)[None, :, None, None]
         elif self.skip_fno == "identity":
             x = x + residual
         if self.skip_fno in ("linear", "identity") and not self.nested_skip_fno:
             residual = x
-        x = self.mlp(self.norm2(x), deterministic=deterministic)
+        x = self.mlp(apply_norm(self.norm2, x, x_axis), deterministic=deterministic,
+                     x_axis=x_axis)
         return self.drop_path(x, deterministic=deterministic) + residual
 
 
@@ -202,14 +242,21 @@ class AdaptiveFourierNeuralOperatorNet(nn.Module):
     def forward(self, x, deterministic=True):
         b = x.shape[0]
         h, w = self.grid
-        x = self.patch_embed(x) + self.pos_embed.to(x.dtype)
-        x = self.pos_drop(x, deterministic).reshape(b, self.embed_dim, h, w)
+        axis = self.patch_embed.out_axis        # the embedding's channels: fin (or whole)
+        pos = leaf_part(self, "pos_embed", 2, None, h * w)
+        if axis is not None:
+            pos = spmd.scatter(pos, 1, axis)
+        x = self.patch_embed(x) + pos.to(x.dtype)
+        x = self.pos_drop(x, deterministic, (1, axis, self.embed_dim))
+        x = x.reshape(b, x.shape[1], h, w)
         for blk in self.blocks:
-            x = blk(x, deterministic=deterministic)
+            x = blk(x, deterministic=deterministic, x_axis=axis)
         # the 1x1 head, then the pixel shuffle with the reference's channel
         # order (p0, p1, c)
         weight = self.head_weight.to(x.dtype).expand(b, -1, -1)
-        x = torch.bmm(weight, x.reshape(b, self.embed_dim, h * w))
+        x = parallel_linear(x.reshape(b, x.shape[1], h * w), 1, axis,
+                            spmd.leaf_axis(self, "head_weight", 1), None, self.embed_dim,
+                            lambda v: torch.bmm(weight, v))
         p0, p1 = self.patch_size
         x = x.reshape(b, p0, p1, self.out_chans, h, w).permute(0, 3, 4, 1, 5, 2)
         return x.reshape(b, self.out_chans, h * p0, w * p1)

@@ -29,6 +29,18 @@ dropout masks (its own sites in layers.drop_mask's numbering). The first and
 last blocks run outside the scan, without block-level recomputation, as in
 makani_tpu.
 
+Channels split over fin and fout (makani_tpu's partitioning rules, each
+layer's leaves cut by parallel/partitioning.shard_module): the encoder's
+hidden layer is split over fout and its output over fin, the activations
+between blocks stay split over fin (the "direct" embedding, split over h
+and w only, is cut to the rank's channels), each block's filter contracts
+its fin chunk and reduce-scatters over fin, the MLP's hidden layer is split
+over fout, the outer skip gathers its input over fin, and the decoder's
+output, split over fin where fin divides the output channels, is gathered
+whole before the big skip. The non-linear and factorized filters, whose
+leaves makani_tpu keeps whole, run on the gathered channels and hand back
+the rank's chunk.
+
 Dropout in training: after the encoder (pos_drop_rate), in the blocks' MLPs
 (mlp_drop_rate, one draw per feature map), in the non-linear filter and as
 stochastic depth (path_drop_rate, linspace(0, rate, num_layers) over the
@@ -57,6 +69,8 @@ from makani_tpu_torch.models.common import (
 )
 from makani_tpu_torch.models.common.factorizations import FactorizedSpectralConv
 from makani_tpu_torch.models.common.layers import (
+    apply_norm,
+    leaf_part,
     normal_param,
     number_dropout_sites,
     remat,
@@ -92,6 +106,7 @@ class SpectralFilterLayer(nn.Module):
                  separable=False, complex_activation="real", spectral_layers=1, bias=False,
                  drop_rate=0.0, gain=1.0, device="cpu", generator=None):
         super().__init__()
+        self.embed_dim = embed_dim
         self.non_linear = filter_type == "non-linear"
         if self.non_linear:
             self.filter = SpectralAttention(
@@ -112,10 +127,20 @@ class SpectralFilterLayer(nn.Module):
                                    operator_type=operator_type, separable=separable, bias=bias,
                                    gain=gain, device=device, generator=generator)
 
-    def forward(self, x, deterministic=True):
+    def forward(self, x, deterministic=True, x_axis=None):
+        """x's channels split over `x_axis`; (out, residual), both split as x
+        is (the SpectralConv's layout, or x's gathered and cut again)."""
+        if isinstance(self.filter, SpectralConv):
+            return self.filter(x, x_axis)
+        if x_axis is not None:
+            x = spmd.gather(x, 1, x_axis, self.embed_dim)
         if self.non_linear:
-            return self.filter(x, deterministic=deterministic)
-        return self.filter(x)
+            out, residual = self.filter(x, deterministic=deterministic)
+        else:
+            out, residual = self.filter(x)
+        if x_axis is not None:
+            out, residual = spmd.scatter(out, 1, x_axis), spmd.scatter(residual, 1, x_axis)
+        return out, residual
 
 
 class FourierNeuralOperatorBlock(nn.Module):
@@ -160,13 +185,14 @@ class FourierNeuralOperatorBlock(nn.Module):
             return nn.Identity()
         raise NotImplementedError(f"normalization {norm_layer} not implemented")
 
-    def forward(self, x, deterministic=True):
-        x, residual = self.filter_layer(x, deterministic)
-        x = self.act(self.norm0(x))
+    def forward(self, x, deterministic=True, x_axis=None):
+        """x's channels split over `x_axis`; the output's as x's."""
+        x, residual = self.filter_layer(x, deterministic, x_axis)
+        x = self.act(apply_norm(self.norm0, x, x_axis))
         if self.mlp is not None:
-            x = self.mlp(x, deterministic=deterministic)
-        x = self.drop_path(self.norm1(x), deterministic=deterministic)
-        return x + self.outer_skip(residual)
+            x = self.mlp(x, deterministic=deterministic, x_axis=x_axis)
+        x = self.drop_path(apply_norm(self.norm1, x, x_axis), deterministic=deterministic)
+        return x + self.outer_skip(residual, x_axis)
 
 
 class ScannedBlocks(nn.Module):
@@ -198,16 +224,16 @@ class ScannedBlocks(nn.Module):
         self.site_base = base
         return len(self.sites) * self.length
 
-    def _layer(self, x, i, deterministic):
+    def _layer(self, x, i, deterministic, x_axis):
         for j, m in enumerate(self.sites):
             m.site = self.site_base + i * len(self.sites) + j
         weights = {name: p[i] for name, p in self.block.named_parameters()}
         return torch.func.functional_call(self.block, weights, (x,),
-                                          {"deterministic": deterministic})
+                                          {"deterministic": deterministic, "x_axis": x_axis})
 
-    def forward(self, x, deterministic=True):
+    def forward(self, x, deterministic=True, x_axis=None):
         for i in range(self.length):
-            x = remat(self._layer, x, i, deterministic)
+            x = remat(self._layer, x, i, deterministic, x_axis)
         return x
 
 
@@ -239,6 +265,8 @@ class SphericalFourierNeuralOperatorNet(nn.Module):
         self.out_shape = tuple(out_shape)
         self.big_skip = big_skip
         self.repeat_layers = repeat_layers
+        self.embed_dim = embed_dim
+        self.out_chans = out_chans
         self.act = get_activation(activation_function)
 
         h = int(self.inp_shape[0] // scale_factor)
@@ -251,7 +279,7 @@ class SphericalFourierNeuralOperatorNet(nn.Module):
         kind = spectral_transform
         if kind != "sht" and spmd.spatial_distributed():
             raise NotImplementedError("the FFT transforms under a spatial decomposition are "
-                                      "not ported yet " + comm.TENSOR_PARALLEL_TODO)
+                                      "not ported yet " + comm.SPATIAL_TODO)
         self.trans_down, _ = get_transform_pair(kind, *self.inp_shape, modes_lat, modes_lon,
                                                 model_grid_type, device)
         _, self.itrans_up = get_transform_pair(kind, *self.out_shape, modes_lat, modes_lon,
@@ -320,27 +348,31 @@ class SphericalFourierNeuralOperatorNet(nn.Module):
             w.data *= torch.ones(shape[-2:], dtype=torch.bool, device=device).tril(diagonal)
         return w
 
-    def _position_embedding(self):
+    def _position_embedding(self, axis):
+        """The embedding on the rank's patch and channels (split over `axis`)."""
         if self.pos_embed_kind == "direct":
-            return self.pos_embed
+            return leaf_part(self, "pos_embed", 1, axis)
         # the imaginary part of the m = 0 column is zero
         cpad = nn.functional.pad(self.pos_embed_c, (1, 0))
         coeffs = torch.complex(self.pos_embed_r, cpad)
+        if axis is not None:
+            coeffs = spmd.scatter(coeffs, 1, axis)
         if spmd.spatial_distributed():
             coeffs = spmd.coefficient_block(coeffs, diagonal=True)   # (l/h, m/w)
         return self.itrans_up(coeffs)
 
-    def _run_blocks(self, x, deterministic):
+    def _run_blocks(self, x, deterministic, axis):
         if self.scan:
-            x = self.blocks["0"](x, deterministic=deterministic)
-            x = self.scan_blocks(x, deterministic)
-            return self.blocks[str(self.scan_blocks.length + 1)](x, deterministic=deterministic)
+            x = self.blocks["0"](x, deterministic=deterministic, x_axis=axis)
+            x = self.scan_blocks(x, deterministic, axis)
+            return self.blocks[str(self.scan_blocks.length + 1)](x, deterministic=deterministic,
+                                                                 x_axis=axis)
         for _ in range(self.repeat_layers):
             for blk in self.blocks:
                 if self.checkpointing >= 3:
-                    x = remat(blk, x, deterministic)
+                    x = remat(blk, x, deterministic, axis)
                 else:
-                    x = blk(x, deterministic=deterministic)
+                    x = blk(x, deterministic=deterministic, x_axis=axis)
         return x
 
     def forward(self, x, deterministic=True):
@@ -350,11 +382,17 @@ class SphericalFourierNeuralOperatorNet(nn.Module):
             else:
                 residual = x
         x = remat(self.encoder, x) if self.checkpointing >= 1 else self.encoder(x)
+        axis = self.encoder.out_axis     # the embedding's channels: fin (or whole)
         if self.pos_embed_kind is not None:
-            x = x + self._position_embedding().to(x.dtype)
-        x = self.pos_drop(x, deterministic)
-        x = self._run_blocks(x, deterministic)
-        x = remat(self.decoder, x) if self.checkpointing >= 1 else self.decoder(x)
+            x = x + self._position_embedding(axis).to(x.dtype)
+        x = self.pos_drop(x, deterministic, (1, axis, self.embed_dim))
+        x = self._run_blocks(x, deterministic, axis)
+        if self.checkpointing >= 1:
+            x = remat(self.decoder, x, axis)
+        else:
+            x = self.decoder(x, axis)
+        if self.decoder.out_axis is not None:
+            x = spmd.gather(x, 1, self.decoder.out_axis, self.out_chans)
         if self.big_skip:
             b, c, h, w = residual.shape
             rw = self.residual_transform.to(residual.dtype).expand(b, -1, -1)

@@ -14,6 +14,18 @@ bf16 AMP the network is bf16 only in the patch embedding, the position
 embedding and block 0's first residual. Each block has one DropPath for the
 attention's branch and one for the MLP's, so the two draw their own masks
 as flax's two calls do.
+
+Channels split over fin and fout (makani_tpu's rules; its head-parallel
+attention, makani mpu/layers.py:454-524): the tokens' embedding channels are
+split over fin from the patch embedding on; the attention's heads over fout
+where fout divides their number. The qkv kernel (C, 3C) is stored as
+makani_tpu splits it, its 3C outputs in contiguous blocks over fout, which
+do not line up with heads (4 heads of 8 on fout 2: rank 0 holds all of q and
+half of k); the attention gathers the kernel's fout blocks (and the bias's)
+and takes the columns of the rank's heads, and the backward sums their
+gradients over fout before each rank keeps its block. The proj kernel's
+inputs are split over fout in head order, so it contracts the rank's heads
+and sums over fout; the MLP is fin -> fout -> fin; the head contracts fin.
 """
 
 from typing import Tuple
@@ -28,9 +40,12 @@ from makani_tpu_torch.models.common.layers import (
     DenseLayer,
     LayerNorm,
     PatchEmbed,
+    leaf_part,
     number_dropout_sites,
+    parallel_linear,
     trunc_normal_param,
 )
+from makani_tpu_torch.parallel import spmd
 
 
 class Attention(nn.Module):
@@ -42,6 +57,7 @@ class Attention(nn.Module):
         super().__init__()
         if dim % num_heads:
             raise ValueError("dim should be divisible by num_heads")
+        self.dim = dim
         self.num_heads = num_heads
         self.attn_drop_rate = attn_drop_rate
         self.qkv = DenseLayer(dim, 3 * dim, use_bias=qkv_bias, device=device, generator=generator)
@@ -49,21 +65,53 @@ class Attention(nn.Module):
         self.proj = DenseLayer(dim, dim, device=device, generator=generator)
         self.proj_drop = Dropout(proj_drop_rate)
 
-    def forward(self, x, deterministic=True):
-        b, n, c = x.shape
-        head_dim = c // self.num_heads
+    def _head_columns(self, t, dim, heads, head_axis):
+        """The q, k and v columns of the heads [heads.start, heads.stop) of a
+        qkv leaf `t` whose 3C outputs lie along `dim` (gathered whole from
+        their fout blocks where stored so); the gradient of the columns
+        sums over the ranks that take them before the gather's backward
+        keeps the rank's block."""
+        stored = spmd.leaf_axis(self.qkv, "kernel" if dim == 1 else "bias", dim)
+        if stored is not None:
+            t = spmd.gather(t, dim, stored, 3 * self.dim)
+        if heads.stop - heads.start == self.num_heads:
+            return t
+        t = spmd.copy_to(t, head_axis)
+        hd = self.dim // self.num_heads
+        cols = torch.cat([torch.arange(s * self.dim + heads.start * hd,
+                                       s * self.dim + heads.stop * hd) for s in range(3)])
+        return t.index_select(dim, cols.to(t.device))
+
+    def forward(self, x, deterministic=True, x_axis=None):
+        """x (B, N, C) with its channels split over `x_axis`; the output's
+        split over the proj kernel's outputs."""
+        b, n = x.shape[:2]
+        head_dim = self.dim // self.num_heads
         scale = head_dim ** -0.5
-        qkv = self.qkv(x).reshape(b, n, 3, self.num_heads, head_dim)
+        head_axis = spmd.channel_axis(self.num_heads, "fout")
+        heads = (spmd.patch_slice(self.num_heads, head_axis) if head_axis
+                 else slice(0, self.num_heads))
+        nh = heads.stop - heads.start
+        xp = x.to(torch.promote_types(x.dtype, self.qkv.kernel.dtype))
+        kernel = self._head_columns(self.qkv.kernel, 1, heads, head_axis).to(xp.dtype)
+        qkv = parallel_linear(xp, -1, x_axis, spmd.leaf_axis(self.qkv, "kernel", 0), head_axis,
+                              self.dim, lambda v: v @ kernel)
+        if self.qkv.bias is not None:
+            qkv = qkv + self._head_columns(self.qkv.bias, 0, heads, head_axis).to(xp.dtype)
+        qkv = qkv.reshape(b, n, 3, nh, head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]   # (B, N, H, D)
         if self.attn_drop_rate > 0.0 and not deterministic:
             attn = torch.softmax(torch.einsum("bnhd,bmhd->bhnm", q, k) * scale, dim=-1)
-            attn = self.attn_drop(attn, deterministic)
-            y = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(b, n, c)
+            # the heads' mask cut to the rank's heads where they are split
+            split = ((1, head_axis, self.num_heads),) if head_axis else ()
+            attn = self.attn_drop(attn, deterministic, *split)
+            y = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(b, n, nh * head_dim)
         else:
             q, k, v = (t.transpose(1, 2) for t in (q, k, v))
             y = scaled_dot_product_attention(q, k, v, scale=scale)
-            y = y.transpose(1, 2).reshape(b, n, c)
-        return self.proj_drop(self.proj(y), deterministic)
+            y = y.transpose(1, 2).reshape(b, n, nh * head_dim)
+        return self.proj_drop(self.proj(y, head_axis), deterministic,
+                              (2, self.proj.out_axis, self.dim))
 
 
 class ViTBlock(nn.Module):
@@ -78,17 +126,21 @@ class ViTBlock(nn.Module):
                               device=device, generator=generator)
         self.drop_path_attn = DropPath(path_drop_rate)
         self.norm2 = LayerNorm(dim, eps=1e-5, device=device)
+        self.sizes = (int(dim * mlp_ratio), dim)
         self.mlp_fc1 = DenseLayer(dim, int(dim * mlp_ratio), device=device, generator=generator)
         self.mlp_drop1 = Dropout(mlp_drop_rate)
         self.mlp_fc2 = DenseLayer(int(dim * mlp_ratio), dim, device=device, generator=generator)
         self.mlp_drop2 = Dropout(mlp_drop_rate)
         self.drop_path_mlp = DropPath(path_drop_rate)
 
-    def forward(self, x, deterministic=True):
-        y = self.attn(self.norm1(x), deterministic=deterministic)
-        x = self.norm2(x + self.drop_path_attn(y, deterministic=deterministic))
-        h = self.mlp_drop1(self.act(self.mlp_fc1(x)), deterministic)
-        h = self.mlp_drop2(self.mlp_fc2(h), deterministic)
+    def forward(self, x, deterministic=True, x_axis=None):
+        """x's channels split over `x_axis`, the output's alike."""
+        y = self.attn(self.norm1(x, x_axis), deterministic=deterministic, x_axis=x_axis)
+        x = self.norm2(x + self.drop_path_attn(y, deterministic=deterministic), x_axis)
+        hidden, out = self.mlp_fc1.out_axis, self.mlp_fc2.out_axis
+        h = self.mlp_drop1(self.act(self.mlp_fc1(x, x_axis)), deterministic,
+                           (2, hidden, self.sizes[0]))
+        h = self.mlp_drop2(self.mlp_fc2(h, hidden), deterministic, (2, out, self.sizes[1]))
         return x + self.drop_path_mlp(h, deterministic=deterministic)
 
 
@@ -128,11 +180,13 @@ class VisionTransformer(nn.Module):
     def forward(self, x, deterministic=True):
         b = x.shape[0]
         gh, gw = self.grid
-        x = self.patch_embed(x).transpose(1, 2) + self.pos_embed.to(x.dtype)
-        x = self.pos_drop(x, deterministic)
+        axis = self.patch_embed.out_axis        # the embedding's channels: fin (or whole)
+        x = self.patch_embed(x).transpose(1, 2) + leaf_part(self, "pos_embed", 2, axis).to(x.dtype)
+        x = self.pos_drop(x, deterministic, (2, axis, self.embed_dim))
         for blk in self.blocks:
-            x = blk(x, deterministic=deterministic)
-        x = self.head(self.norm(x).reshape(b, gh, gw, self.embed_dim))
+            x = blk(x, deterministic=deterministic, x_axis=axis)
+        x = self.norm(x, axis)
+        x = self.head(x.reshape(b, gh, gw, x.shape[-1]), axis)
         p, q = self.patch_size
         x = x.reshape(b, gh, gw, p, q, self.out_chans).permute(0, 5, 1, 3, 2, 4)
         return x.reshape(b, self.out_chans, self.inp_shape[0], self.inp_shape[1])

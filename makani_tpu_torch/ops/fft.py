@@ -7,9 +7,10 @@ the first `mmax` longitude frequencies; `InverseRealFFT2` zero-pads the
 middle rows back to `nlat` and synthesises on (nlat, nlon). Both compute in
 float32 and complex64 whatever the input's type (bf16 under AMP is cast
 first, as makani_tpu casts it). makani_tpu runs these as jnp.fft, not in a
-Pallas kernel, so the port calls torch.fft (cuFFT on the card). makani_tpu's
-spatially distributed DFT-matmul branch is not ported yet: the FNO under a
-spatial decomposition raises (ROADMAP Queue 1 item 7b).
+Pallas kernel, so the port calls torch.fft (cuFFT on the card). On channels
+split over fin each rank transforms its own. makani_tpu's spatially
+distributed DFT-matmul branch is not ported yet: the FNO under a spatial
+decomposition raises (ROADMAP Queue 1 item 7c).
 """
 
 import math

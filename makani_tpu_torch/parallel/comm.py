@@ -24,8 +24,10 @@ share a card (NCCL refuses two ranks on one device) and on the CPU it is
 gloo, whose collectives the callers stage through host memory. The choice is
 a rule of the layout, logged at init, not a retry after a failure.
 
-The tensor-parallel axes (fin, fout) are not ported yet: a size above 1
-raises (ROADMAP: Queue 1 item 7b).
+The channel axes fin and fout take any size: the modules split their
+channels over them (parallel/partitioning, parallel/spmd). The FFT pairs and
+the AFNO and ViT families under a spatial decomposition are not ported yet
+and raise where they are built (ROADMAP: Queue 1 item 7c).
 """
 
 import itertools
@@ -48,7 +50,7 @@ COMPOSITE = {
     "matmul": ("fin", "fout"),
 }
 
-TENSOR_PARALLEL_TODO = "(ROADMAP: Queue 1 item 7b)"
+SPATIAL_TODO = "(ROADMAP: Queue 1 item 7c)"
 
 # how long a collective waits for the other ranks before it raises
 TIMEOUT = timedelta(seconds=600)
@@ -79,10 +81,6 @@ def _axis_sizes(model_parallel_sizes, model_parallel_names, world):
     sizes = dict(zip(model_parallel_names, (int(s) for s in model_parallel_sizes)))
     for ax in MODEL_AXES:
         sizes.setdefault(ax, 1)
-    if sizes["fin"] * sizes["fout"] > 1:
-        raise NotImplementedError(
-            f"tensor parallelism (fin {sizes['fin']}, fout {sizes['fout']}) is not ported yet "
-            + TENSOR_PARALLEL_TODO)
     model = int(np.prod([sizes[ax] for ax in MODEL_AXES]))
     if world % model != 0:
         raise ValueError(f"Error, the number of ranks {world} must be divisible by the "

@@ -19,14 +19,26 @@ patch of (the "frequency" position embedding's coefficients, a position
 bias, a factorized filter's or an l-dependant non-linear filter's weight) is
 sliced there, and its gradient sums over the spatial group like any other.
 
-The tensor-parallel rules (fin, fout) are carried as data
-(`TENSOR_PARALLEL_RULES`, makani_tpu's path patterns and specs) and raise
-where fin * fout > 1 (ROADMAP: Queue 1 item 7b).
+The channel rules (fin, fout) are makani_tpu's `_RULES` entries for those
+axes (partitioning.py:24-68), carried as data (`TENSOR_PARALLEL_RULES`, path
+pattern and spec in makani_tpu's layout of the leaf) and mapped onto the
+port's layout (the stacked dhconv weight (2, L, C, O) takes the filter
+rule's "fin" on its C). As makani_tpu's `_fit_spec` does, an axis that does
+not divide its dimension leaves it whole (the 73 data channels under fin 2),
+and a scanned leaf keeps its leading layer axis whole (`spec_for_path`). A
+leaf split over fin or fout holds the whole gradient of its shard after the
+backward; a whole leaf that a module uses on a channel slice of its
+activations takes the slice through spmd.scatter, whose backward gathers
+the slices' gradients, so no channel axis is summed here: the modules make
+that choice where they use the leaf (the rule of parallel/spmd).
 
 `shard_module` cuts a model built at its global shapes to the rank's shards
 and returns each split leaf's `Shard` (its global shape and, per split
-dimension, the axis, start and length); `sync_params` broadcasts every leaf
-from the first rank of the ranks that hold the same shard; `reduce_gradients`
+dimension, the axis, start and length); it also tells each owning module
+which of its leaves' dimensions are split (`leaf_splits`, read through
+spmd.leaf_axis), so the forward follows the stored shards. `sync_params`
+broadcasts every leaf from the first rank of the ranks that hold the same
+shard; `reduce_gradients`
 reduces the gradients in one flattened buffer per dtype and group;
 `gather_full` and `local_slice` take a leaf between its shard and its whole.
 """
@@ -37,7 +49,12 @@ from collections import namedtuple
 import torch
 
 from makani_tpu_torch.parallel import comm, spmd
-from makani_tpu_torch.utils.param_layout import is_stacked_filter, layer_axes
+from makani_tpu_torch.utils.param_layout import (
+    is_stacked_filter,
+    jax_dims,
+    layer_axes,
+    torch_key_to_jax,
+)
 
 # one split dimension of a leaf: its index in the port's layout, the mesh
 # axis, the rank's start and length along it
@@ -48,7 +65,8 @@ Shard = namedtuple("Shard", ["global_shape", "splits"])
 SPATIAL = ("h", "w")
 
 # makani_tpu's channel-parallel rules (parallel/partitioning.py:26-68), flax
-# path pattern -> spec in makani_tpu's layout; ported with item 7b
+# path pattern -> spec in makani_tpu's layout of the leaf (a callable takes
+# the leaf's shape there); the spatial entries are `spatial_rules`'
 TENSOR_PARALLEL_RULES = [
     (r".*(mlp|encoder|decoder)/(fc1|fwd_\d+)/weight$", ("fout", "fin")),
     (r".*(mlp|encoder|decoder)/(fc1|fwd_\d+)/bias$", ("fout",)),
@@ -56,7 +74,8 @@ TENSOR_PARALLEL_RULES = [
     (r".*(mlp|encoder|decoder)/(fc2|out)/bias$", ("fin",)),
     (r".*filter/weight$", ("fin",)),
     (r".*(inner_skip|outer_skip)/weight$", ("fin", None)),
-    (r".*pos_embed$", (None, None, "fin")),
+    # the SFNO's (1, C, H, W) embedding is split over h and w only
+    (r".*pos_embed$", lambda shape: None if len(shape) == 4 else (None, None, "fin")),
     (r".*attn/qkv/kernel$", ("fin", "fout")),
     (r".*attn/qkv/bias$", ("fout",)),
     (r".*attn/proj/kernel$", ("fout", "fin")),
@@ -75,16 +94,37 @@ TENSOR_PARALLEL_RULES = [
 ]
 
 
-def tensor_parallel_spec(path):
-    """makani_tpu's channel-parallel spec of a flax path (None: replicated);
-    raises where the fin or fout axis has more than one rank."""
-    if comm.get_size("matmul") > 1:
-        raise NotImplementedError("tensor parallelism over fin/fout is not ported yet "
-                                  + comm.TENSOR_PARALLEL_TODO)
+def tensor_parallel_spec(path, shape=()):
+    """makani_tpu's channel-parallel spec of a flax path, for a leaf of
+    `shape` in makani_tpu's layout (without a scanned layer axis); None:
+    replicated."""
     for pattern, spec in TENSOR_PARALLEL_RULES:
         if re.match(pattern, path):
-            return spec
+            return spec(tuple(shape)) if callable(spec) else spec
     return None
+
+
+def fit_spec(spec, shape):
+    """makani_tpu's _fit_spec: an entry beyond the leaf's rank is dropped, and
+    so is one whose axis does not divide its dimension (or has one rank)."""
+    out = []
+    for size, axis in zip(shape, spec):
+        n = comm.get_size(axis) if axis else 1
+        out.append(axis if n > 1 and int(size) % n == 0 else None)
+    return tuple(out)
+
+
+def tensor_splits(key, shape):
+    """[(dim, axis)] of the port's leaf `key` of (global) `shape` split over
+    fin or fout, a scanned leaf's layer axis kept whole."""
+    lead = layer_axes(key)
+    order = jax_dims(key, shape)
+    jshape = [int(shape[d]) for d in order]
+    spec = tensor_parallel_spec(torch_key_to_jax(key), jshape[lead:])
+    if not spec:
+        return []
+    fitted = fit_spec(spec, jshape[lead:])
+    return [(order[lead + j], axis) for j, axis in enumerate(fitted) if axis]
 
 
 def _spectral_splits(key, conv, shape):
@@ -115,12 +155,18 @@ def spatial_rules(model):
 
 def shard_module(model):
     """Cuts every split leaf of `model` (built at its global shapes) to the
-    rank's shard, in place; returns {name: Shard}. Serial: nothing."""
-    if not spmd.spatial_distributed():
+    rank's shard, in place, and tells each owning module its leaves' split
+    dimensions (`leaf_splits`, behind a scanned layer axis); returns {name:
+    Shard}. Serial: nothing."""
+    if not spmd.model_distributed():
         return {}
     params = dict(model.named_parameters())
+    rules = spatial_rules(model)
+    if spmd.matmul_distributed():
+        for key, p in params.items():
+            rules[key] = rules.get(key, []) + tensor_splits(key, tuple(p.shape))
     shards = {}
-    for key, dims in spatial_rules(model).items():
+    for key, dims in rules.items():
         p = params[key]
         splits = []
         index = [slice(None)] * p.ndim
@@ -134,22 +180,27 @@ def shard_module(model):
             continue
         shards[key] = Shard(tuple(p.shape), tuple(splits))
         p.data = p.data[tuple(index)].contiguous()
+        *owner, leaf = key.split(".")
+        module = model.get_submodule(".".join(owner))
+        lead = layer_axes(key)
+        module.leaf_splits = {**getattr(module, "leaf_splits", {}),
+                              leaf: {s.dim - lead: s.axis for s in splits}}
     return shards
 
 
-def shared_axes(key, shards):
-    """The spatial axes over which leaf `key` is shared (not split)."""
+def shared_axes(key, shards, axes=SPATIAL):
+    """The axes among `axes` over which leaf `key` is shared (not split)."""
     split = {s.axis for s in shards[key].splits} if key in shards else set()
-    return tuple(ax for ax in SPATIAL if ax not in split and comm.get_size(ax) > 1)
+    return tuple(ax for ax in axes if ax not in split and comm.get_size(ax) > 1)
 
 
 def sync_params(params, shards):
     """Broadcasts every leaf from the first rank of the ranks that hold the
-    same shard of it (the data axis and its shared spatial axes), so every
-    rank starts from the same weights."""
+    same shard of it (the data axis and every model axis it is not split
+    over), so every rank starts from the same weights."""
     with torch.no_grad():
         for key, p in params.items():
-            spmd.broadcast_(p.data, ("data",) + shared_axes(key, shards))
+            spmd.broadcast_(p.data, ("data",) + shared_axes(key, shards, comm.MODEL_AXES))
 
 
 def reduce_gradients(grads, shards):

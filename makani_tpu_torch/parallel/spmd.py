@@ -1,4 +1,4 @@
-"""Explicit collectives for the spatial and data decomposition.
+"""Explicit collectives for the data, spatial and channel decomposition.
 
 Counterpart of makani_tpu/parallel/spmd.py. makani_tpu pins the sharding of
 intermediates and lets XLA's partitioner insert the collectives; here they
@@ -12,6 +12,17 @@ makani mpu/layers.py:38-169, mpu/mappings.py:30-174):
                           backward passes the (replicated) cotangent through
   copy_to                 identity; backward sums the partial cotangents
   gather_uneven           all-gather of uneven chunks; backward the own slice
+  scatter                 the rank's chunk of a replicated tensor; backward
+                          the all-gather of the chunks' cotangents
+  reduce_scatter          the rank's chunk of a sum of partial values;
+                          backward the all-gather
+
+The channel axes follow one rule throughout: a tensor that is replicated over
+an axis holds, on every rank, the whole cotangent in backward. So a tensor
+that ranks slice (scatter) gathers its cotangent, a tensor that feeds a
+computation whose outputs differ by rank (a weight split over its output
+channels) goes through copy_to, and a sum of partial products
+(all_reduce_sum, reduce_scatter) passes its cotangent on as it is.
 
 Uneven splits follow `split_shapes`, the ceil-division convention of
 jax.sharding (makani_tpu/data/dataset.py `sharding_split_shapes`), so a
@@ -57,6 +68,29 @@ def patch_slice(size, axis):
 
 def spatial_distributed():
     return comm.get_size("spatial") > 1
+
+
+def matmul_distributed():
+    return comm.get_size("matmul") > 1
+
+
+def model_distributed():
+    return comm.get_size("model") > 1
+
+
+def leaf_axis(module, leaf, dim):
+    """The axis that dimension `dim` of `module`'s parameter `leaf` is split
+    over (partitioning.shard_module tells the module), or None."""
+    return getattr(module, "leaf_splits", {}).get(leaf, {}).get(dim)
+
+
+def channel_axis(size, axis="fin"):
+    """`axis` where its group has more than one rank and divides `size`,
+    else None: makani_tpu splits a parameter's dimension only where the axis
+    divides it (partitioning._fit_spec), and the activations that meet that
+    parameter are split alike."""
+    n = comm.get_size(axis)
+    return axis if n > 1 and int(size) % n == 0 else None
 
 
 def data_distributed():
@@ -244,6 +278,56 @@ def gather_uneven(x, dim, group_name, sizes):
     if comm.get_size(group_name) == 1:
         return x
     return _GatherUneven.apply(x, dim, group_name, tuple(sizes))
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group_name):
+        ctx.args = (dim, group_name, tuple(split_shapes(x.shape[dim], comm.get_size(group_name))))
+        return x.narrow(dim, *patch(x.shape[dim], group_name)).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, group_name, sizes = ctx.args
+        return _gather(g.contiguous(), dim, group_name, sizes), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group_name):
+        ctx.args = (dim, group_name, tuple(split_shapes(x.shape[dim], comm.get_size(group_name))))
+        y = all_reduce_(x.contiguous().clone(), group_name)
+        return y.narrow(dim, *patch(x.shape[dim], group_name)).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, group_name, sizes = ctx.args
+        return _gather(g.contiguous(), dim, group_name, sizes), None, None
+
+
+def scatter(x, dim, group_name):
+    """The rank's chunk (split_shapes) of `x` along `dim`, `x` being the same
+    on every rank of the group; the backward gathers the chunks'
+    cotangents, so `x` gets its whole cotangent on every rank."""
+    if comm.get_size(group_name) == 1:
+        return x
+    return _Scatter.apply(x, dim % x.ndim, group_name)
+
+
+def reduce_scatter(x, dim, group_name):
+    """The rank's chunk along `dim` of the sum over the group of each rank's
+    partial `x` (an all-reduce, then the chunk); the backward gathers the
+    chunks' cotangents."""
+    if comm.get_size(group_name) == 1:
+        return x
+    return _ReduceScatter.apply(x, dim % x.ndim, group_name)
+
+
+def gather(x, dim, group_name, size):
+    """The whole of a dimension of global length `size` from the ranks'
+    chunks (split_shapes); the backward takes the rank's own slice of the
+    cotangent, which the rule above keeps whole on every rank."""
+    return gather_uneven(x, dim, group_name, split_shapes(size, comm.get_size(group_name)))
 
 
 def gather_patch(x, global_hw):

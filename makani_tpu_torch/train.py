@@ -14,19 +14,21 @@ makani_tpu's no-op flags (--jit_mode, --cuda_graph_mode, --disable_ddp,
 `log_video` renders the rollout videos (utils/visualize; matplotlib and PIL
 on the host).
 
-Several ranks, over data and the spatial h and w axes, are started by
-torchrun, each rank on its card (parallel/comm: NCCL with a card a rank,
-gloo where ranks share one, gloo on the CPU with --device cpu):
+Several ranks, over data, the spatial h and w axes and the channel fin and
+fout axes, are started by torchrun, each rank on its card (parallel/comm:
+NCCL with a card a rank, gloo where ranks share one, gloo on the CPU with
+--device cpu):
 
     python -m torch.distributed.run --standalone --nproc_per_node 4 \
         -m makani_tpu_torch.train --yaml_config Y --config NAME \
-        --h_parallel_size 2 [--w_parallel_size 2] [--device cpu]
+        [--h_parallel_size 2] [--w_parallel_size 2] [--fin_parallel_size 2] \
+        [--fout_parallel_size 2] [--split_data_channels] [--device cpu]
 
-The data size is the ranks left over (world // (h * w)), and --batch_size
-is the global batch, cut evenly over the data ranks, as in makani_tpu. Only
-rank 0 logs and writes. --fin/--fout_parallel_size above 1 and
---split_data_channels on several ranks raise (ROADMAP, Queue 1 item 7b), as
-do the FNO, AFNO and ViT families under h * w > 1.
+The data size is the ranks left over (world // (h * w * fin * fout)), and
+--batch_size is the global batch, cut evenly over the data ranks, as in
+makani_tpu. --split_data_channels splits the validation metrics' channels
+over fin and fout. Only rank 0 logs and writes. The FNO, AFNO and ViT
+families under h * w > 1 raise (ROADMAP, Queue 1 item 7c).
 """
 
 import argparse
@@ -98,9 +100,6 @@ def main(argv=None):
     world_rank = comm.init(model_parallel_sizes=sizes,
                            model_parallel_names=["h", "w", "fin", "fout"],
                            device_type=args.device)
-    if args.split_data_channels and comm.get_world_size() > 1:
-        raise NotImplementedError("--split_data_channels is not ported yet "
-                                  + comm.TENSOR_PARALLEL_TODO)
 
     params = YParams(os.path.abspath(args.yaml_config), args.config)
     params["fin_parallel_size"] = args.fin_parallel_size

@@ -40,8 +40,9 @@ The MetricsHandler and the loss are built at their first use: a rollout
 without metrics needs neither channel names nor stats files.
 
 On several ranks (parallel/comm, set up by the caller: inference.py under
-torchrun) over data and the spatial h and w axes, the rollouts run on each
-rank's patch of its rows; the weights are the checkpoint's slices; the
+torchrun) over data, the spatial h and w axes and the channel fin and fout
+axes, the rollouts run on each rank's patch of its rows (the model's
+outputs are whole in their channels); the weights are the checkpoint's slices; the
 scores sum over the spatial and data groups (the validation loss is the
 data ranks' mean, invariant to the layout as makani_tpu's,
 makani_tpu/utils/inferencer.py:125-135), and only what is exported or scored

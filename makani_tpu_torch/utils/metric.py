@@ -12,8 +12,11 @@ the quadratures sum their patches over the spatial group (utils/grids), the
 climatology is cut to the patch, and `finalize` sums the curves, the sample
 counts and the loss and L1 sums over the data group, the loss and L1 divided
 by the data size as makani_tpu divides them (makani_tpu/utils/metric.py:46-120).
-`split_data_channels`, which shards the metric's channels over fin/fout in
-makani_tpu, is not ported yet (ROADMAP, Queue 1 item 7b): the CLIs refuse it.
+`split_data_channels` (on ranks split over fin or fout): each rank scores
+its chunk of the channels (split_shapes over ("fin", "fout"), uneven where
+the channels do not divide), keeps its rows of the `acc_curve` and
+`rmse_curve` buffers, and `finalize` gathers the rows over ("fin", "fout")
+(makani_tpu/utils/metric.py:46-120); the L1 and the loss stay whole.
 
 `time_stats` is makani_tpu's Trainer._get_time_stats as a function, for the
 Inferencer and the Trainer: the output normalization's scale (`mult`) and
@@ -34,6 +37,9 @@ from makani_tpu_torch.utils.metrics.functions import (
 )
 
 DEFAULT_VAR_NAMES = ["u10m", "t2m", "u500", "z500", "r500", "q500"]
+
+# the axes split_data_channels splits the metric's channels over
+MATMUL = ("fin", "fout")
 
 
 def time_stats(params, dataloader):
@@ -76,9 +82,14 @@ class MetricsHandler:
         self.N_out_channels = params.N_out_channels
         self.valid_autoreg_steps = params.valid_autoreg_steps
 
-        self.mult = torch.from_numpy(
-            np.asarray(mult, dtype=np.float32).reshape(-1)).to(self.device)  # (C,)
-        clim = np.asarray(clim, dtype=np.float32)
+        self.split_data_channels = (bool(params.get("split_data_channels", False))
+                                    and comm.get_size("matmul") > 1)
+        # the channels this rank scores
+        self.channels = (spmd.patch_slice(self.N_out_channels, MATMUL)
+                         if self.split_data_channels else slice(None))
+        self.mult = torch.from_numpy(np.asarray(mult, dtype=np.float32).reshape(-1)[
+            self.channels].copy()).to(self.device)  # (C,)
+        clim = np.asarray(clim, dtype=np.float32)[self.channels]
         clim = np.ascontiguousarray(spmd.local_patch(clim, clim.shape[-2:]))
         self.clim = torch.from_numpy(clim[None]).to(self.device)  # (1, C, H, W)
 
@@ -103,7 +114,7 @@ class MetricsHandler:
                                        batch_reduction="sum", **kw)
 
     def initialize_buffers(self):
-        C, S = self.N_out_channels, self.valid_autoreg_steps + 1
+        C, S = self.mult.shape[0], self.valid_autoreg_steps + 1
 
         def zeros(*shape):
             return torch.zeros(shape, dtype=torch.float32, device=self.device)
@@ -113,8 +124,9 @@ class MetricsHandler:
     def update(self, buffers, prediction, target, loss, idt):
         """The buffers after AR step `idt` (an int) of a batch."""
         clim = self.clim.to(prediction.dtype)
-        acc = self.acc_handle(prediction - clim, target - clim)
-        rmse = self.mult * torch.sum(self.rmse_handle(prediction, target), dim=0)
+        pred, targ = prediction[:, self.channels], target[:, self.channels]
+        acc = self.acc_handle(pred - clim, targ - clim)
+        rmse = self.mult * torch.sum(self.rmse_handle(pred, targ), dim=0)
 
         buffers = dict(buffers)
         for key, value in (("acc_curve", acc), ("rmse_curve", rmse)):
@@ -141,6 +153,11 @@ class MetricsHandler:
                 spmd.all_reduce_(buffers[key], "data")
             buffers["valid_loss"] /= data
             buffers["valid_l1"] /= data
+        if self.split_data_channels:
+            buffers = dict(buffers)
+            for key in ("acc_curve", "rmse_curve"):
+                buffers[key] = spmd.gather(buffers[key].detach().contiguous(), 0, MATMUL,
+                                           self.N_out_channels)
         buffers = {k: v.detach().cpu().numpy() for k, v in buffers.items()}
         valid_steps = float(buffers["valid_steps"])
         valid_loss = float(buffers["valid_loss"]) / max(valid_steps, 1.0)

@@ -49,13 +49,7 @@ from makani_tpu_torch.ops.fused_adam import (
     trust_ratios,
 )
 from makani_tpu_torch.parallel import partitioning, spmd
-from makani_tpu_torch.utils.param_layout import (
-    is_stacked_filter,
-    jax_leaf_order,
-    jax_view,
-    layer_axes,
-    port_view,
-)
+from makani_tpu_torch.utils.param_layout import jax_dims, jax_leaf_order, jax_view, port_view
 
 GradientTransformation = namedtuple("GradientTransformation", ["init", "update"])
 
@@ -269,12 +263,8 @@ def _split_jax_dims(key, shard):
     dimensions."""
     if shard is None:
         return {}
-    # jax_view's permutation: dimension j of makani_tpu's layout is the
-    # port's order[j]
-    order = list(range(len(shard.global_shape)))
-    if is_stacked_filter(key, shard.global_shape):
-        lead = layer_axes(key)
-        order = list(range(lead)) + [lead + a for a in (2, 3, 1, 0)]
+    # dimension j of makani_tpu's layout is the port's order[j]
+    order = jax_dims(key, shard.global_shape)
     return {order.index(s.dim): (s.axis, shard.global_shape[s.dim]) for s in shard.splits}
 
 

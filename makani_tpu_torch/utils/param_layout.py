@@ -85,6 +85,15 @@ def _axes(lead, inner):
     return tuple(range(lead)) + tuple(lead + a for a in inner)
 
 
+def jax_dims(key, shape):
+    """The port's dimension of each dimension of makani_tpu's layout of the
+    leaf `key` of `shape` (jax_view's permutation: the stacked dhconv weight
+    (2, L, C, O) is makani_tpu's (C, O, L, 2))."""
+    if is_stacked_filter(key, shape):
+        return list(_axes(layer_axes(key), (2, 3, 1, 0)))
+    return list(range(len(shape)))
+
+
 def jax_index_strides(key, shape):
     """Per dimension of the port's leaf, the stride of that dimension in the
     flat index of makani_tpu's layout of the same leaf."""

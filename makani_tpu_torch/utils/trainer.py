@@ -65,10 +65,11 @@ when the Trainer is built, where a config would render (makani_tpu fails at
 the first render).
 
 Several ranks (parallel/comm, set up by the caller: train.py under
-torchrun) over the data axis and the spatial h and w axes: each rank's loader
-yields its rows and its (lat/h, lon/w) window of the global batch, the model
-keeps its shard of the leaves split over h and w (parallel/partitioning,
-weights broadcast at init), the step's gradients are summed over the spatial
+torchrun) over the data axis, the spatial h and w axes and the channel fin
+and fout axes: each rank's loader yields its rows and its (lat/h, lon/w)
+window of the global batch, the model keeps its shard of the leaves split
+over h, w, fin and fout (parallel/partitioning, weights broadcast at init;
+the channel collectives are the modules' own), the step's gradients are summed over the spatial
 axes that share each leaf and averaged over data in one flattened buffer per
 dtype and group, and the loss reported is the data ranks' mean, as
 makani_tpu divides its loss and gradients by the data size
@@ -77,9 +78,9 @@ rank's shards; the clip norm, LAMB's trust ratios and Adafactor's
 statistics are those of whole leaves. The augmentation's longitude roll is
 drawn for the global batch and applied across the w ranks. Checkpoints hold
 the serial file: every split leaf is gathered and rank 0 writes it; each
-rank restores its slice. Only rank 0 logs, renders and writes. The
-tensor-parallel axes (fin, fout) and `split_data_channels` raise
-NotImplementedError (ROADMAP, Queue 1 item 7b).
+rank restores its slice. Only rank 0 logs, renders and writes.
+`split_data_channels` splits the validation metrics' channels over fin and
+fout (utils/metric).
 """
 
 import functools
@@ -172,13 +173,7 @@ def _check_supported(params):
     sizes = list(params.get("model_parallel_sizes", None) or [1, 1, 1, 1])
     names = list(params.get("model_parallel_names", None) or ["h", "w", "fin", "fout"])
     asked = dict(zip(names, (int(s) for s in sizes)))
-    if asked.get("fin", 1) * asked.get("fout", 1) > 1:
-        raise NotImplementedError(f"tensor parallelism (model_parallel_sizes {sizes}) is not "
-                                  "ported yet " + comm.TENSOR_PARALLEL_TODO)
-    if params.get("split_data_channels", False) and comm.get_world_size() > 1:
-        raise NotImplementedError("split_data_channels is not ported yet "
-                                  + comm.TENSOR_PARALLEL_TODO)
-    for ax in ("h", "w"):
+    for ax in comm.MODEL_AXES:
         if asked.get(ax, 1) != comm.get_size(ax):
             raise ValueError(f"model_parallel_sizes asks for {ax} = {asked.get(ax, 1)}, the "
                              f"process groups have {comm.get_size(ax)}: start the ranks with "

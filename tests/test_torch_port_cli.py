@@ -130,18 +130,16 @@ def test_inference_cli_score_and_epoch_match_jax(cli_config, crossed, monkeypatc
 
 
 def test_inference_cli_refuses_model_parallelism(cli_config):
-    """Tensor parallelism (fin, fout) is refused; the h and w layouts are
-    ported (tests/test_torch_port_parallel*.py) and, in a serial process,
-    ask for the ranks that torchrun starts."""
+    """The h, w, fin and fout layouts are ported
+    (tests/test_torch_port_parallel*.py, tests/test_torch_port_tensor_parallel.py);
+    in a serial process each asks for the ranks that torchrun starts, as
+    --split_data_channels changes nothing there."""
     from makani_tpu_torch import inference as tinference
     yaml_path, name = cli_config
-    for flag in ("--fin_parallel_size", "--fout_parallel_size"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7b"):
+    for flag in ("--fin_parallel_size", "--fout_parallel_size", "--h_parallel_size"):
+        with pytest.raises(ValueError, match="ranks"):
             tinference.main(["--yaml_config", yaml_path, "--config", name, flag, "2",
-                             "--device", "cpu"])
-    with pytest.raises(ValueError, match="ranks"):
-        tinference.main(["--yaml_config", yaml_path, "--config", name, "--h_parallel_size", "2",
-                         "--device", "cpu"])
+                             "--split_data_channels", "--device", "cpu"])
 
 
 # --------------------------------------------------------------------------

@@ -1208,3 +1208,100 @@ def test_no_work_and_the_legmm_table_count():
     # mmax = 0 has no table for row g % mmax: refused, on any device
     with pytest.raises(ValueError, match="mmax"):
         spectral_mm.legmm(torch.zeros((2, 3, 4)), torch.zeros((0, 5, 4)))
+
+
+# --------------------------------------------------------------------------
+# the kernels at a fin rank's shapes (channel parallelism, fin 2): the
+# flagship's inner grid (L = 240 degrees, M = 241 orders) with a rank's 192
+# of 384 input channels, so the dhconv contraction runs Ci = 192 -> Co = 384
+# and its dx 384 -> 192; legmm on 192 channels; fused_adam on a (fout, fin)
+# block of an MLP weight and a fin shard of the dhconv weight
+# --------------------------------------------------------------------------
+
+FIN_L, FIN_M, FIN_CI, FIN_CO = 240, 241, 192, 384
+
+
+def _dhconv64(x, w, wdim, conj_w):
+    """The dhconv product in complex128: x (2, B, L, Ci, M), w (2, L, C, O)."""
+    xc = torch.complex(x[0].double(), x[1].double())
+    wc = torch.complex(w[0].double(), w[1].double())
+    wc = wc.conj() if conj_w else wc
+    return (torch.einsum("blcm,lco->blom", xc, wc) if wdim == 0
+            else torch.einsum("blom,lco->blcm", xc, wc))
+
+
+def _rel64(got, want):
+    """got as (2, ...) planes against a complex128 reference."""
+    err = max(float((got[0].double() - want.real).abs().max()),
+              float((got[1].double() - want.imag).abs().max()))
+    return err / float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [1, 3])
+def test_dhconv_kernels_at_a_fin_ranks_shapes(cuda, passes):
+    """dhconv_mm forward (Ci 192 -> Co 384) and dx (384 -> 192), dhconv_dw
+    into (2, 240, 192, 384) and the complex kernel (192 -> 384) against
+    their twins (TOL) and complex128 (5e-5 at 3 passes, 5e-2 at 1, the
+    bounds of tests/test_pallas_mm.py)."""
+    f64 = 5e-5 if passes == 3 else 5e-2
+    g = torch.Generator(device=cuda).manual_seed(20)
+    x = torch.randn((2, 1, FIN_L, FIN_CI, FIN_M), device=cuda, generator=g)
+    w = torch.randn((2, FIN_L, FIN_CI, FIN_CO), device=cuda, generator=g)
+    dy = torch.randn((2, 1, FIN_L, FIN_CO, FIN_M), device=cuda, generator=g)
+    before = dict(kernels.launches)
+    for inp, wdim, conj_w in ((x, 0, False), (dy, 1, True)):
+        got = spectral_mm.dhconv_mm(inp, w, passes=passes, wdim=wdim, conj_w=conj_w)
+        assert got.shape == (2, 1, FIN_L, FIN_CO if wdim == 0 else FIN_CI, FIN_M)
+        want = spectral_mm.dhconv_mm_plain(inp, w, passes=passes, wdim=wdim, conj_w=conj_w)
+        assert _rel(got, want) < TOL
+        assert _rel64(got, _dhconv64(inp, w, wdim, conj_w)) < f64
+    dw = spectral_mm.dhconv_dw(x, dy, passes=passes)
+    assert dw.shape == (2, FIN_L, FIN_CI, FIN_CO)
+    assert _rel(dw, spectral_mm.dhconv_dw_plain(x, dy, passes=passes)) < TOL
+    xc = torch.complex(x[0].double(), x[1].double())
+    gc = torch.complex(dy[0].double(), dy[1].double())
+    assert _rel64(dw, torch.einsum("blcm,blom->lco", xc.conj(), gc)) < f64
+    xk = torch.complex(x[0, 0], x[1, 0]).permute(1, 0, 2).unsqueeze(0).contiguous()
+    wk = torch.complex(w[0], w[1]).permute(1, 2, 0).contiguous()       # (C, O, L)
+    got = complex_kernels.contract_dhconv_raw(xk, wk, passes)
+    assert got.shape == (1, FIN_CO, FIN_L, FIN_M)
+    assert _rel(got, complex_kernels.contract_dhconv_plain(xk, wk, passes)) < TOL
+    want = torch.einsum("bclm,col->bolm", xk.to(torch.complex128), wk.to(torch.complex128))
+    assert float((got.to(torch.complex128) - want).abs().max() / want.abs().max()) < f64
+    torch.cuda.synchronize()
+    for name, n in (("dhconv_mm", 2), ("dhconv_dw", 1), ("dhconv_complex", 1)):
+        assert kernels.launches[name] == before[name] + n, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("contract,K", [("k", 721), ("l", 721), ("k", 240), ("l", 240)])
+def test_legmm_on_a_fin_ranks_192_channels(cuda, contract, K):
+    """The SHT's Legendre contractions on a fin rank's 192 channels, full
+    and inner grid, 3 passes, against the twin and float64."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    z = torch.randn((2 * FIN_M, FIN_CI, K if contract == "k" else FIN_L), device=cuda,
+                    generator=g)
+    p = torch.randn((FIN_M, FIN_L, K), device=cuda, generator=g)
+    got = spectral_mm.legmm(z, p, passes=3, contract=contract)
+    assert _rel(got, spectral_mm.legmm_plain(z, p, passes=3, contract=contract)) < TOL
+    table = (p.transpose(-1, -2) if contract == "k" else p).double()
+    want = torch.matmul(z.view(2, FIN_M, FIN_CI, -1).double(), table).reshape(got.shape)
+    assert float((got.double() - want).abs().max() / want.abs().max()) < 5e-5
+
+
+# a rank's block of a split leaf at flagship widths: the MLP's fc1 weight
+# (768, 384) as (fout, fin), the rank at fout 1 and fin 1 holding (384:768,
+# 192:384); the dhconv weight (2, 240, 384, 384) over fin on its C
+FIN_ADAM_SHARDS = [
+    ("model.blocks.0.mlp.fc1.weight", (768, 384), [(0, "fout", 384, 384), (1, "fin", 192, 192)]),
+    ("model.blocks.0.filter_layer.filter.weight", (2, 240, 384, 384), [(2, "fin", 192, 192)]),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key,shape,splits", FIN_ADAM_SHARDS)
+def test_fused_adam_on_a_fout_fin_block(cuda, key, shape, splits):
+    """test_fused_adam_on_a_shard_keeps_the_whole_leafs_indices on a block
+    split along two dimensions at once and on a fin shard."""
+    test_fused_adam_on_a_shard_keeps_the_whole_leafs_indices(cuda, key, shape, splits)

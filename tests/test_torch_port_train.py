@@ -530,10 +530,10 @@ def test_trainer_runs_an_epoch_and_refuses_what_is_not_ported(jax_trainer):
     # (tests/test_torch_port_multistep.py), the rollout videos too
     # (tests/test_torch_port_visualize.py), the data, h and w layouts too
     # (tests/test_torch_port_parallel*.py; a serial process asks for the
-    # ranks); what is still refused, tensor parallelism:
-    for override, match in [(dict(model_parallel_sizes=[1, 1, 2, 1]), "item 7b"),
-                            (dict(model_parallel_sizes=[1, 1, 1, 2]), "item 7b")]:
-        with pytest.raises(NotImplementedError, match=match):
+    # ranks), the fin and fout layouts too (tests/test_torch_port_tensor_parallel.py):
+    for override, match in [(dict(model_parallel_sizes=[1, 1, 2, 1]), "ranks"),
+                            (dict(model_parallel_sizes=[1, 1, 1, 2]), "ranks")]:
+        with pytest.raises(ValueError, match=match):
             Trainer(TYParams.from_dict(dict(tp.to_dict(), **override)), device="cpu")
     for override in (dict(world_size=2), dict(model_parallel_sizes=[1, 2, 1, 1])):
         with pytest.raises(ValueError, match="ranks"):

@@ -452,12 +452,14 @@ def test_trainer_refuses_what_is_not_ported(ref, tmp_path):
     params = _port_params(ref["data"], tmp_path / "exp")
     # the multi-step unroll and dropout are ported (tests/test_torch_port_multistep.py),
     # the rollout videos too (tests/test_torch_port_visualize.py); the data,
-    # h and w layouts too (tests/test_torch_port_parallel*.py): in a serial
-    # process they ask for the ranks torchrun starts. Tensor parallelism is
-    # still refused.
-    for override, match in [(dict(model_parallel_sizes=[1, 1, 2, 1]), "item 7b"),
-                            (dict(model_parallel_sizes=[1, 1, 1, 2]), "item 7b")]:
-        with pytest.raises(NotImplementedError, match=match):
+    # h and w layouts too (tests/test_torch_port_parallel*.py), the fin and
+    # fout layouts too (tests/test_torch_port_tensor_parallel.py): in a
+    # serial process they ask for the ranks torchrun starts.
+    for override, match in [(dict(model_parallel_sizes=[1, 1, 2, 1]), "ranks"),
+                            (dict(model_parallel_sizes=[1, 1, 1, 2]), "ranks"),
+                            (dict(model_parallel_sizes=[1, 1, 2, 2],
+                                  split_data_channels=True), "ranks")]:
+        with pytest.raises(ValueError, match=match):
             Trainer(TYParams.from_dict(dict(params.to_dict(), **override)), device="cpu")
     for override in (dict(model_parallel_sizes=[2, 1, 1, 1]), dict(world_size=2)):
         with pytest.raises(ValueError, match="ranks"):

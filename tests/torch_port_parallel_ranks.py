@@ -274,3 +274,82 @@ def augment_and_h1(inp, tar, seed):
     loss = GeometricH1Loss(tuple(hw))(x, y)
     return dict(inp=xa.numpy(), tar=ya.numpy(), h1=loss.numpy(),
                 lat=spmd.patch(hw[0], "h"), lon=spmd.patch(hw[1], "w"))
+
+
+def network_forward_and_grads(module, name, kwargs, state, x, engine="xla", precision="highest",
+                              dropout_seed=None):
+    """The network `module`.`name`(**kwargs) with the whole `state`, cut to
+    the rank's shards, on the coefficient `engine` at `precision`: its output
+    on the rank's patch of `x` (deterministic, or in training under
+    DropoutKey(dropout_seed, 1, 0)) and the gradients of mean(y**2) over the
+    whole output, reduced as the Trainer reduces them."""
+    import contextlib
+    import importlib
+    from makani_tpu_torch.models.common.layers import DropoutKey, use_dropout_key
+    from makani_tpu_torch.ops import complex_ops, sht
+    from makani_tpu_torch.parallel import partitioning, spmd
+    sht.set_coeff_engine(engine)
+    sht.set_transform_precision(precision)
+    complex_ops.set_contraction_precision(precision)
+    net = getattr(importlib.import_module(module), name)(**kwargs)
+    net.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    shards = partitioning.shard_module(net)
+    hw = x.shape[-2:]
+    train = dropout_seed is not None
+    with (use_dropout_key(DropoutKey(dropout_seed, 1, 0)) if train else contextlib.nullcontext()):
+        y = net(spmd.local_patch(torch.from_numpy(x), hw), deterministic=not train)
+    whole = float(np.prod(y.shape[:2]) * np.prod(hw))
+    loss = spmd.all_reduce_sum(y.square().sum(), "spatial") / whole
+    loss.backward()
+    grads = {k: p.grad for k, p in net.named_parameters()}
+    partitioning.reduce_gradients(grads, shards)
+    sht.set_coeff_engine("kernel")
+    return dict(y=y.detach().numpy(), grads=_numpy(grads), shards=dict(shards),
+                lat=spmd.patch(hw[0], "h"), lon=spmd.patch(hw[1], "w"))
+
+
+def run_cases(cases):
+    """Each (function name, args) of `cases` on the rank, in order: the list
+    of their results (one spawn of the ranks for many checks)."""
+    return [globals()[name](*args) for name, args in cases]
+
+
+def dropout_masks(module, name, kwargs, state, x, seed):
+    """network_forward_and_grads in training under DropoutKey(seed, 1, 0),
+    with every mask the network drew on the rank: (site, the (dim, start,
+    stop) of the channels it was cut to or None, the mask)."""
+    from makani_tpu_torch.models.common import layers
+    from makani_tpu_torch.parallel import spmd
+    masks, real = [], layers.rank_mask
+
+    def recording(shape, keep, site, device, global_hw=None, channel=None):
+        mask = real(shape, keep, site, device, global_hw, channel)
+        cut = None
+        if channel is not None and channel[1] is not None:
+            d, axis, size = channel
+            start, n = spmd.patch(size, axis)
+            cut = (d % len(shape), start, start + n)
+        masks.append((site, cut, mask.numpy().copy()))
+        return mask
+
+    layers.rank_mask = recording
+    try:
+        out = network_forward_and_grads(module, name, kwargs, state, x, "xla", "highest", seed)
+    finally:
+        layers.rank_mask = real
+    out["masks"] = masks
+    return out
+
+
+def validation_logs(params_dict, state):
+    """The Trainer's validation epoch on the rank from the whole `state`:
+    its logs, whether its metrics split the channels, and the rank's
+    channels [start, stop)."""
+    from makani_tpu_torch.utils.trainer import Trainer
+    from makani_tpu_torch.utils.yparams import YParams
+    trainer = Trainer(YParams.from_dict(params_dict), device="cpu")
+    _load_whole(trainer.model, state, trainer.shards)
+    _, _, logs = trainer.validate_one_epoch(1)
+    n = trainer.metrics.N_out_channels
+    return dict(logs=logs, split=trainer.metrics.split_data_channels,
+                channels=list(trainer.metrics.channels.indices(n)[:2]))
