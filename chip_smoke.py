@@ -248,15 +248,16 @@ Phases, in order; any failure exits non-zero:
      share it, and their collectives run on gloo, staged through host
      memory (NCCL refuses two ranks on one device); a card a rank would take
      NCCL. The backend chosen is printed. (a) flagship_synth_drive_bare at
-     full width and depth, float32, on h 2 x w 2 (4 ranks): a 3-step rollout
+     full width and depth, float32, on h 2 x w 2 (4 ranks): a 1-step rollout
      of each rank's (361 or 360, 720) patch against the serial rollout of
      the same weights on the card (PARALLEL_SERVE_TOL of each step's largest
      magnitude), with each rank's legmm and dhconv_mm launches, step ms and
-     bytes sent; (b) the same model under bf16 AMP on data 2 x h 2 (4 ranks,
-     global batch 2), 2 optimizer steps through fused_adam on each rank's
-     shards, against the serial Trainer at batch 2 on the card at the same
-     checkpointing level (PARALLEL_LEVEL): the losses (PARALLEL_LOSS_TOL) and
-     every leaf's update over the 2 steps (norm-wise, PARALLEL_UPDATE_TOL at
+     bytes sent; (b) the same model cut to PARALLEL_TRAIN_LAYERS blocks under
+     bf16 AMP on data 2 x h 2 (4 ranks, global batch 2), PARALLEL_TRAIN_STEPS
+     optimizer steps through fused_adam on each rank's shards, against the
+     serial Trainer at batch 2 on the card at the same checkpointing level
+     (PARALLEL_LEVEL): the losses (PARALLEL_LOSS_TOL) and every leaf's
+     update over the steps (norm-wise, PARALLEL_UPDATE_TOL at
      the worst leaf and PARALLEL_UPDATE_MEDIAN_TOL at the median),
      with each rank's launches of legmm, dhconv_mm, dhconv_dw and
      fused_adam, peak memory, bytes sent and its epoch's ms a step; (c)
@@ -266,22 +267,23 @@ Phases, in order; any failure exits non-zero:
      phase 3's bounds, and fused_adam on the second h rank's shard of a
      dhconv weight (bf16 moments, stochastic rounding, the whole leaf's
      indices from the shard's first one) bit for bit against its twin and
-     the whole leaf's update; the control of (b) reruns it with the spatial
-     sum of the replicated leaves' gradients dropped, and must read above
-     its bound. These times are not the port's speed on several cards: gloo
-     moves the transposes through the host.
+     the whole leaf's update; the control of (b), run by the same ranks
+     after it, drops the spatial sum of the replicated leaves' gradients and
+     must read above its bounds. These times are not the port's speed on
+     several cards: gloo moves the transposes through the host.
  18. channel (tensor) parallelism over fin and fout, the ranks sharing the
      card over gloo as in phase 17, cut as TP_CUTS lists: (a)
-     flagship_synth_drive_bare at full width and depth, float32, the
-     "kernel" engine, on fin 2 x fout 2 (4 ranks, each holding makani_tpu's
-     shards of the split leaves): a 2-step rollout against the serial one
+     flagship_synth_drive_bare at full width, TP_SERVE_LAYERS blocks,
+     float32, the "kernel" engine, on fin 2 x fout 2 (4 ranks, each holding
+     makani_tpu's
+     shards of the split leaves): a 1-step rollout against the serial one
      (PARALLEL_SERVE_TOL), each rank's legmm and dhconv_mm launches, bytes
      sent a step, step ms and peak; (b) bf16 AMP training on h 2 x fin 2 at
-     depth TP_TRAIN_LAYERS, 2 steps against the serial Trainer: losses and
-     every leaf's update (phase 17's bounds), each rank's launches of legmm,
-     dhconv_mm, dhconv_dw, fused_adam and the GELU kernels, and a control
-     with the fin sum of the filter's contraction dropped, which must read
-     above the bounds; (c) the kernels at a fin rank's shapes: legmm on 192
+     depth TP_TRAIN_LAYERS, TP_TRAIN_STEPS optimizer steps against the serial
+     Trainer: losses and every leaf's update (phase 17's bounds), each
+     rank's launches of legmm, dhconv_mm, dhconv_dw, fused_adam and the GELU
+     kernels, and a control run by the same ranks after it, with the fin sum
+     of the filter's contraction dropped, which must read above the bounds; (c) the kernels at a fin rank's shapes: legmm on 192
      channels (full and inner grid), dhconv_mm x (2, 1, 240, 192, 241) with
      w (2, 240, 192, 384) forward and dx, dhconv_dw into (2, 240, 192, 384),
      the complex kernel 192 -> 384, against float64 and their twins with
@@ -291,6 +293,28 @@ Phases, in order; any failure exits non-zero:
      (d) vit_backbone and afno_v2 at full width, depth TP_FAMILY_LAYERS, on
      fin 2 x fout 2: one float32 forward each against the serial forward
      (PARALLEL_SERVE_TOL).
+ 19. the last modules on spatial ranks, the ranks sharing the card over gloo
+     as in phase 17, one spawn for all of (a)-(d), cut as SP_CUTS lists: (a)
+     fno_linear_73ch at full width and depth (2.12 B parameters, a quarter
+     of each diagonal filter a rank, the ranks building the model in turn)
+     on h 2 x w 2, float32, a 2-step rollout against the serial one
+     (PARALLEL_SERVE_TOL), each rank's bytes sent, step ms and peak; (b) its
+     bf16 AMP Trainer at depth SP_TRAIN_LAYERS on h 2 x w 2, 2 steps against
+     the serial Trainer (phase 17's bounds), fused_adam once a leaf a step on
+     each rank's (h, w) blocks of the filters, the GELU kernels launched, and
+     a control with the spatial sum of the replicated leaves' gradients
+     dropped, which must read above the bounds; (c) afno_v2, afno_backbone
+     inside PrecipNet (its periodic pad a halo exchange) and vit_backbone at
+     full width, depth SP_FAMILY_LAYERS: one float32 forward each against the
+     serial forward (PARALLEL_SERVE_TOL); (d) the distributed FFT2 pair at
+     the FNO's full and inner grids against serial cuFFT (SP_FFT_TOL); and
+     in this process fused_adam on an (h, w) block of the FNO's filter, bit
+     for bit against its twin and the whole leaf's update, the control with
+     base 0 differing; (e) InstanceNorm2d's "bf16" statistics: the
+     flagship's AMP forward at "bf16" against "f32" statistics, below AMP's
+     own deviation from float32 in the run, with its launches of legmm,
+     dhconv_mm and gelu_bf16, and one norm at NORM_SHAPE in bf16 timed at
+     both modes.
 The last two lines are the kernels' JSON record (the AMP path's launches in
 each row's *_amp fields, phase 10's in *_files, phase 11's a scored step in
 launches_score, phase 12's run (a) in launches_trainer and a validation AR
@@ -303,7 +327,9 @@ launches_vit and their *_amp, phase 16's in launches_videos, phase 17's
 per rank in launches_parallel_serve and launches_parallel_train, and its
 (c) row at a rank's local shape in parallel_local, phase 18's per rank in
 launches_tp_serve and launches_tp_train, and its (c) row at a fin rank's
-shape in tp_local; fused_adam's
+shape in tp_local, phase 19's per rank in launches_spatial_serve and
+launches_spatial_train and (e)'s in launches_norm_bf16, fused_adam's (h, w)
+block in spatial_local; fused_adam's
 row also holds its times at the linear FNO's 2.12 B elements for each moment
 type) and the result line.
 --record PATH also writes every measurement of the run to PATH as JSON.
@@ -550,13 +576,22 @@ PARALLEL_DIR = ROOT / "build" / "chip_smoke_parallel"
 # (model_parallel_sizes [h, w, fin, fout], ranks): (a) h 2 x w 2, (b) data 2 x h 2
 PARALLEL_SERVE = ([2, 2, 1, 1], 4)
 PARALLEL_TRAIN = ([2, 1, 1, 1], 4)
-PARALLEL_SERVE_STEPS = 3
-# global batch 2 over 2 data ranks: 2 optimizer steps from 4 samples
-PARALLEL_TRAIN_STEPS = 2
+# 1 rollout step: a second and a third (~9 s each on the ranks) were cut to
+# leave the script's time to phase 19
+PARALLEL_SERVE_STEPS = 1
+# global batch 2 over 2 data ranks: 1 optimizer step from 2 samples (a second,
+# ~12 s on the ranks in (b) and again in its control, was cut to leave the
+# script's time to phase 19)
+PARALLEL_TRAIN_STEPS = 1
 PARALLEL_BATCH = 2
-# the lowest activation checkpointing level at which four ranks of (b) fit
-# the card with the serial batch-2 reference's process: at level 0 a rank ran
-# out of memory at 15.28 GiB of its own with the card full (H100 80GB HBM3)
+# (b)'s depth: 8 blocks cut to PARALLEL_TRAIN_LAYERS (width kept) to leave the
+# script's time to phase 19; each of (b)'s two runs took ~80 s at 8 blocks
+# and 2 steps
+PARALLEL_TRAIN_LAYERS = 2
+# checkpointing level 2, the lowest at which four ranks of (b) fit the card
+# at full depth with the serial batch-2 reference's process (at level 0 a
+# rank ran out of memory at 15.28 GiB of its own with the card full, H100
+# 80GB HBM3); kept at the cut depth, so the ranks recompute in backward
 PARALLEL_LEVEL = 2
 PARALLEL_SEED = 17
 # (a) each rank's patch of each step within PARALLEL_SERVE_TOL of the serial
@@ -566,8 +601,9 @@ PARALLEL_SEED = 17
 # other orders, and the instance norms' sums change order. On an H100 the
 # first step reads 2.0e-5-2.3e-5, the ordering gap of one serial forward
 # (phase 4's kernels against their twins: 2.84e-5, printed beside), and the
-# gap grows through the rollout to 1.53e-4-1.58e-4 at the third step; a
-# wrong slice or transpose gives O(1)
+# gap grows through the rollout to 5.4e-5-5.7e-5 at the second step (and
+# 1.53e-4-1.58e-4 at a third, when (a) ran 3); a wrong slice or transpose
+# gives O(1)
 PARALLEL_SERVE_TOL = 5e-4
 # (b) the losses within 2e-3 relative (bf16 AMP, the sums of the norms and
 # the loss in another order); the weights after 2 steps: each leaf's update
@@ -597,20 +633,27 @@ TP_DIR = ROOT / "build" / "chip_smoke_tp"
 # (b) h 2 x fin 2 (tests/test_distributed.py:230's mesh without its data axis)
 TP_SERVE = ([1, 1, 2, 2], 4)
 TP_TRAIN = ([2, 1, 2, 1], 4)
-TP_SERVE_STEPS = 2
-# (b): 2 optimizer steps at batch 1 (data 1), depth cut to TP_TRAIN_LAYERS
-# blocks (8 at full depth; width kept) to fit the script's time: gloo moves
-# each block's all-reduces through the host; the lowest checkpointing level
-TP_TRAIN_STEPS = 2
+# (a): 1 rollout step (a second, ~19 s on the ranks, was cut to leave the
+# script's time to phase 19), at TP_SERVE_LAYERS blocks (8 cut to 2, width
+# kept, likewise: the step moved ~9 GB a rank through the host at 8)
+TP_SERVE_STEPS = 1
+TP_SERVE_LAYERS = 2
+# (b): 1 optimizer step at batch 1 (data 1; a second, ~12 s on the ranks in
+# (b) and again in its control, was cut to leave the script's time to phase
+# 19), depth cut to TP_TRAIN_LAYERS blocks (8 at full depth; width kept) to
+# fit the script's time: gloo moves each block's all-reduces through the
+# host; the lowest checkpointing level
+TP_TRAIN_STEPS = 1
 TP_TRAIN_LAYERS = 2
 TP_LEVEL = 0
 # (d): the ViT and AFNO v2 at full width (16,200 tokens of embed 768), depth
 # cut to TP_FAMILY_LAYERS, one float32 forward each
 TP_FAMILY_LAYERS = 2
 TP_CUTS = (
-    f"(a) flagship_synth_drive_bare at full width and depth, {TP_SERVE_STEPS} rollout steps",
-    f"(b) num_layers 8 -> {TP_TRAIN_LAYERS}, {TP_TRAIN_STEPS} steps at batch 1, checkpointing "
-    f"{TP_LEVEL}",
+    f"(a) flagship_synth_drive_bare at full width, num_layers 8 -> {TP_SERVE_LAYERS}, "
+    f"{TP_SERVE_STEPS} rollout step",
+    f"(b) num_layers 8 -> {TP_TRAIN_LAYERS}, optimizer steps 2 -> {TP_TRAIN_STEPS} at batch 1, "
+    f"checkpointing {TP_LEVEL}",
     f"(d) vit_backbone depth 12 -> {TP_FAMILY_LAYERS}, afno_v2 num_layers 12 -> "
     f"{TP_FAMILY_LAYERS}, 73 channels in and out, random weights, one forward",
 )
@@ -622,6 +665,50 @@ TP_CUTS = (
 # (PARALLEL_LOSS_TOL, PARALLEL_UPDATE_TOL, PARALLEL_UPDATE_MEDIAN_TOL); its
 # control drops the fin sum of the spectral filter's contraction (each fin
 # rank keeps its own partial product) and must read above them
+
+
+# phase 19: the last modules on spatial ranks (the FFT pairs, the planar FNO,
+# AFNO v2, AFNO v1 with PrecipNet, the ViT) and InstanceNorm2d's "bf16"
+# statistics; the ranks share the card over gloo as in phases 17-18, one
+# spawn for (a)-(d)
+SP_DIR = ROOT / "build" / "chip_smoke_spatial"
+SP_SIZES = ([2, 2, 1, 1], 4)
+SP_SERVE_STEPS = 2
+# (b): fno_linear_73ch under bf16 AMP, depth cut to SP_TRAIN_LAYERS (8 at full
+# depth; width kept), batch 1, SP_TRAIN_STEPS steps, checkpointing SP_LEVEL
+SP_TRAIN_STEPS = 2
+SP_TRAIN_LAYERS = 2
+SP_LEVEL = 0
+# (c): the families at full width (the 720x1440 crop, 16,200 tokens of embed
+# 768), depth cut to SP_FAMILY_LAYERS, 73 channels in and out, PrecipNet's 1
+SP_FAMILY_LAYERS = 2
+SP_FAMILIES = (AFNO_V2, AFNO_V1, VIT)
+SP_CUTS = (
+    f"(a) {FNO_LINEAR} at full width and depth (73 channels, 721x1440, embed 64, 8 blocks, "
+    f"180x180 modes), {SP_SERVE_STEPS} rollout steps, float32",
+    f"(b) {FNO_LINEAR}, bf16 AMP, num_layers 8 -> {SP_TRAIN_LAYERS}, {SP_TRAIN_STEPS} steps at "
+    f"batch 1 (64), checkpointing {SP_LEVEL}, synthetic data",
+    f"(c) afno_v2, afno_backbone in PrecipNet and vit_backbone at full width, depth 12 -> "
+    f"{SP_FAMILY_LAYERS}, 73 channels, random weights, one float32 forward each",
+)
+# (d): the FFT2 pair at the FNO's full and inner grids, 64 channels, 180x180
+# modes, distributed against serial cuFFT: the coefficients and the round
+# trip within SP_FFT_TOL of their largest magnitude. The distributed DFTs
+# are float32 matmuls (TF32 off) of length 1440 and 721, cuFFT's sums are
+# shorter: the gap is float32 rounding, ~1e-6; a wrong slice or move O(1)
+SP_FFT_TOL = 1e-5
+SP_FFT_GRIDS = ((721, 1440), (360, 720))
+SP_FFT_CHANNELS, SP_FFT_MODES = 64, (180, 180)
+# the FNO's diagonal filter (i, o, l, m, 2); a rank holds its (l/h, m/w)
+# block, and fused_adam is checked on the block of the rank at h 1, w 1
+SP_FILTER = (64, 64, 180, 180, 2)
+SP_BLOCK = SP_FILTER[:2] + (SP_FILTER[2] // 2, SP_FILTER[3] // 2, 2)
+# (e): InstanceNorm2d at a flagship block's shape, bf16
+NORM_SHAPE = (1, 384, 240, 480)
+# (a), (c): phase 17's PARALLEL_SERVE_TOL of the serial output's largest
+# magnitude; (b): phase 17's bounds; (e): the "bf16" statistics' deviation
+# from "f32" under AMP must read below AMP's own deviation from float32,
+# both measured in the run
 
 
 def check(cond, msg):
@@ -3428,8 +3515,8 @@ def parallel_rank(rank, world, port, sizes, job, args, queue):
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         kernels.load_built()
         comm.init(sizes, device_type="cuda")
-        job_fn = {"serve": parallel_serve, "train": parallel_train, "tp_serve": tp_serve,
-                  "tp_train": tp_train}[job]
+        job_fn = {"serve": parallel_serve, "train": parallel_train_pair, "tp_serve": tp_serve,
+                  "tp_train": tp_train, "spatial": sp_rank}[job]
         queue.put((rank, True, job_fn(torch, *args)))
     except BaseException:
         queue.put((rank, False, traceback.format_exc()))
@@ -3474,16 +3561,18 @@ def parallel_input(torch, dev, shape):
                        generator=torch.Generator(device=dev).manual_seed(PARALLEL_SEED + 1))
 
 
-def parallel_serve(torch, serial_dir, scales, steps=PARALLEL_SERVE_STEPS):
-    """(a) on a rank: the flagship from PARALLEL_SEED, the rank's patch of
-    the seeded input, `steps` rollout steps held against the serial steps
-    saved at `serial_dir`."""
+def parallel_serve(torch, serial_dir, scales, steps=PARALLEL_SERVE_STEPS, layers=None):
+    """(a) on a rank: the flagship from PARALLEL_SEED (at `layers` blocks
+    where given), the rank's patch of the seeded input, `steps` rollout steps
+    held against the serial steps saved at `serial_dir`."""
     import numpy as np
     from makani_tpu_torch.models.model_registry import get_model
     from makani_tpu_torch.ops import kernels
     from makani_tpu_torch.parallel import comm, spmd
     dev = comm.get_device()
     params = flagship_params(1)
+    if layers is not None:
+        params["num_layers"] = layers
     model = get_model(params, device=dev,
                       generator=torch.Generator(device=dev).manual_seed(PARALLEL_SEED))
     model.eval()
@@ -3514,27 +3603,30 @@ def parallel_serve(torch, serial_dir, scales, steps=PARALLEL_SERVE_STEPS):
 
 def parallel_train_params(**overrides):
     params = train_params(amp_mode="bf16")
-    params.update_params(dict(checkpointing=PARALLEL_LEVEL,
+    params.update_params(dict(checkpointing=PARALLEL_LEVEL, num_layers=PARALLEL_TRAIN_LAYERS,
                               n_train_samples_per_epoch=PARALLEL_TRAIN_STEPS * PARALLEL_BATCH,
                               **overrides))
     return params
 
 
-def parallel_train(torch, ref_path, serial_losses, fault=False, tensor=False):
+def parallel_train(torch, ref_path, serial_losses, fault=False, tensor=False, spatial=False):
     """(b) on a rank: the AMP Trainer on data 2 x h 2 (its rows and latitude
-    window of each global batch), or with `tensor` phase 18's (b) on h 2 x
-    fin 2 at depth TP_TRAIN_LAYERS, PARALLEL_TRAIN_STEPS steps, then rank 0
-    holds every leaf's update against the serial one. `fault` plants the
-    control's fault (and the losses go unchecked): phase 17's drops the
-    spatial sum of the replicated leaves' gradients, phase 18's the fin sum
-    of the spectral filter's contraction (each fin rank keeps its own
-    partial product)."""
+    window of each global batch), with `tensor` phase 18's (b) on h 2 x fin 2
+    at depth TP_TRAIN_LAYERS, with `spatial` phase 19's (b), fno_linear_73ch
+    on h 2 x w 2 at depth SP_TRAIN_LAYERS; then rank 0 holds every leaf's
+    update against the serial one. `fault` plants the control's fault (and
+    the losses go unchecked): phases 17's and 19's drop the spatial sum of
+    the replicated leaves' gradients, phase 18's the fin sum of the spectral
+    filter's contraction (each fin rank keeps its own partial product)."""
     from makani_tpu_torch.models.common.spectral_convolution import SpectralConv
     from makani_tpu_torch.ops import kernels
     from makani_tpu_torch.parallel import comm, partitioning, spmd
     from makani_tpu_torch.utils.trainer import Trainer
     dev = comm.get_device()
-    if tensor:
+    if spatial:
+        sizes, world = SP_SIZES
+        params = sp_train_params(model_parallel_sizes=sizes, world_size=world)
+    elif tensor:
         sizes, world = TP_TRAIN
         params = tp_train_params(batch_size=1, model_parallel_sizes=sizes, world_size=world)
     else:
@@ -3567,8 +3659,8 @@ def parallel_train(torch, ref_path, serial_losses, fault=False, tensor=False):
     launches, moved = dict(kernels.launches), dict(spmd.moved)
     peak, reserved = torch.cuda.max_memory_allocated(dev), torch.cuda.max_memory_reserved(dev)
     losses = logs["step losses"]
-    check(len(losses) == (TP_TRAIN_STEPS if tensor else PARALLEL_TRAIN_STEPS),
-          f"(b) {len(losses)} steps")
+    steps = SP_TRAIN_STEPS if spatial else TP_TRAIN_STEPS if tensor else PARALLEL_TRAIN_STEPS
+    check(len(losses) == steps, f"(b) {len(losses)} steps")
     for got, want in zip(losses, serial_losses):
         # the data ranks' mean of batch-sum losses (makani_tpu's / data size)
         err = abs(got * comm.get_size("data") - want) / abs(want)
@@ -3588,7 +3680,29 @@ def parallel_train(torch, ref_path, serial_losses, fault=False, tensor=False):
                 peak_bytes=peak, reserved_bytes=reserved, param_devs=param_devs,
                 update_devs=update_devs,
                 shards={k: tuple(s.global_shape) for k, s in trainer.shards.items()},
-                backend=comm.get_backend(), data=comm.get_size("data"))
+                splits={k: tuple((x.dim, x.axis) for x in s.splits)
+                        for k, s in trainer.shards.items()},
+                leaves=len(trainer.model_params), backend=comm.get_backend(),
+                data=comm.get_size("data"))
+
+
+def parallel_train_pair(torch, ref_path, serial_losses, tensor=False, spatial=False):
+    """(b) and then its control on the same ranks, one spawn: parallel_train
+    as asked, then with the control's fault planted (the planted functions
+    restored after)."""
+    from makani_tpu_torch.models.common.spectral_convolution import SpectralConv
+    from makani_tpu_torch.parallel import partitioning
+    out = {"train": parallel_train(torch, ref_path, serial_losses, False, tensor, spatial)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    planted = partitioning.shared_axes, SpectralConv._reduce
+    t0 = time.perf_counter()
+    try:
+        out["fault"] = parallel_train(torch, ref_path, serial_losses, True, tensor, spatial)
+    finally:
+        partitioning.shared_axes, SpectralConv._reduce = planted
+    out["fault"]["wall_s"] = time.perf_counter() - t0
+    return out
 
 
 def parallel_adam_shard(torch, dev, key="model.blocks.0.filter_layer.filter.weight",
@@ -3718,12 +3832,14 @@ def phase_parallel(torch, np, spectral_mm, kernels, dev, gen, card, order_gap=No
         del trainer, logs
         gc.collect()
         torch.cuda.empty_cache()
-        print(f"[parallel serial] batch {PARALLEL_BATCH}, checkpointing {PARALLEL_LEVEL}: "
+        print(f"[parallel serial] batch {PARALLEL_BATCH}, {PARALLEL_TRAIN_LAYERS} blocks, "
+              f"checkpointing {PARALLEL_LEVEL}: "
               f"losses {serial_losses}, peak {serial_peak / 2**30:.2f} GiB; this process "
               f"keeps {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved while the "
               "ranks run", flush=True)
         t0 = time.perf_counter()
-        ranks = run_ranks("train", *PARALLEL_TRAIN, ref_path, serial_losses)
+        pairs = run_ranks("train", *PARALLEL_TRAIN, ref_path, serial_losses)
+        ranks = [p["train"] for p in pairs]
         devs, udevs = ranks[0]["param_devs"], ranks[0]["update_devs"]
         worst = max(udevs, key=udevs.get)
         rec["train"] = dict(ranks=ranks, wall_s=time.perf_counter() - t0,
@@ -3740,20 +3856,18 @@ def phase_parallel(torch, np, spectral_mm, kernels, dev, gen, card, order_gap=No
         for r in ranks:
             for name in ("legmm", "dhconv_mm", "dhconv_dw", "fused_adam"):
                 check(r["launches"][name] > 0, f"(b) {name} not launched on a rank")
-        # the control: (b) with the spatial sum of the replicated leaves dropped
-        gc.collect()
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        fdevs = run_ranks("train", *PARALLEL_TRAIN, ref_path, serial_losses, True)[0]["update_devs"]
+        # the control, run by the same ranks after (b): the spatial sum of the
+        # replicated leaves dropped
+        fdevs = pairs[0]["fault"]["update_devs"]
         fworst = max(fdevs, key=fdevs.get)
         split = rec["train"]["ranks"][0]["shards"]
         rec["train_fault"] = dict(
-            wall_s=time.perf_counter() - t0, worst_leaf=fworst, worst_update_dev=fdevs[fworst],
+            wall_s=pairs[0]["fault"]["wall_s"], worst_leaf=fworst, worst_update_dev=fdevs[fworst],
             median_update_dev=float(np.median(list(fdevs.values()))),
             split_worst=max((v for k, v in fdevs.items() if k in split), default=float("nan")))
         f = rec["train_fault"]
-        print(f"[parallel train control] {f['wall_s']:.1f} s; the spatial sum of the replicated "
-              f"leaves dropped: updates vs serial, norm-wise: worst {f['worst_update_dev']:.3g} "
+        print(f"[parallel train control] {f['wall_s']:.1f} s of them; the spatial sum of the "
+              f"replicated leaves dropped: updates vs serial, norm-wise: worst {f['worst_update_dev']:.3g} "
               f"({fworst}), median {f['median_update_dev']:.3g}, the split leaves' worst "
               f"{f['split_worst']:.3g} (must read above the bounds {PARALLEL_UPDATE_TOL} and "
               f"{PARALLEL_UPDATE_MEDIAN_TOL})", flush=True)
@@ -3782,15 +3896,16 @@ def print_parallel_serve(serve):
 
 def print_parallel_train(train):
     for i, r in enumerate(train["ranks"]):
-        print(f"[parallel train rank {i}] data {r['data']} x h 2, bf16 AMP, checkpointing "
-              f"{PARALLEL_LEVEL}: losses {r['losses']} (x{r['data']} vs serial batch "
+        print(f"[parallel train rank {i}] data {r['data']} x h 2, bf16 AMP, "
+              f"{PARALLEL_TRAIN_LAYERS} blocks, checkpointing {PARALLEL_LEVEL}: losses {r['losses']} (x{r['data']} vs serial batch "
               f"{PARALLEL_BATCH} {train['serial_losses']}, bound {PARALLEL_LOSS_TOL}); epoch "
               f"{r['epoch_s']:.2f} s ({r['epoch_s'] * 1e3 / len(r['losses']):.1f} ms a step "
               f"with the loader); launches "
               f"{ {k: r['launches'][k] for k in ('legmm', 'dhconv_mm', 'dhconv_dw', 'fused_adam', 'gelu_bf16', 'gelu_bf16_grad')} }; "
               f"bytes sent {r['moved']}; peak {r['peak_bytes'] / 2**30:.2f} GiB (reserved "
               f"{r['reserved_bytes'] / 2**30:.2f})", flush=True)
-    print(f"[parallel train] {train['wall_s']:.1f} s for the 4 ranks; serial batch "
+    print(f"[parallel train] {train['wall_s']:.1f} s for the 4 ranks with the control; "
+          f"serial batch "
           f"{PARALLEL_BATCH} peak {train['serial_peak_bytes'] / 2**30:.2f} GiB; split leaves "
           f"{len(train['ranks'][0]['shards'])}; updates over {PARALLEL_TRAIN_STEPS} steps vs "
           f"serial, norm-wise: worst {train['worst_update_dev']:.3g} ({train['worst_leaf']}), "
@@ -3810,21 +3925,29 @@ def tp_train_params(**overrides):
     return params
 
 
-def tp_train(torch, ref_path, serial_losses, fault=False):
-    return parallel_train(torch, ref_path, serial_losses, fault, tensor=True)
+def tp_train(torch, ref_path, serial_losses):
+    return parallel_train_pair(torch, ref_path, serial_losses, tensor=True)
 
 
-def tp_family(torch, name, dev, generator):
-    """(d)'s network `name` (vit_backbone's or afno_v2's widths, depth
-    TP_FAMILY_LAYERS, 73 channels in and out), weights from `generator`."""
+def tp_family(torch, name, dev, generator, layers=TP_FAMILY_LAYERS):
+    """(d)'s network `name` (vit_backbone's, afno_v2's or afno_backbone's
+    widths, depth `layers`, 73 channels in and out; afno_backbone inside
+    PrecipNet with 1 output channel), weights from `generator`."""
+    from makani_tpu_torch.models.networks.afnonet import (
+        AdaptiveFourierNeuralOperatorNetV1,
+        PrecipNet,
+    )
     from makani_tpu_torch.models.networks.afnonet_v2 import AdaptiveFourierNeuralOperatorNet
     from makani_tpu_torch.models.networks.vit import VisionTransformer
     common = dict(inp_shape=(720, 1440), patch_size=(8, 8), inp_chans=73, out_chans=73,
                   embed_dim=768, mlp_ratio=4.0, device=dev, generator=generator)
     if name == VIT:
-        return VisionTransformer(depth=TP_FAMILY_LAYERS, num_heads=12, **common)
+        return VisionTransformer(depth=layers, num_heads=12, **common)
+    if name == AFNO_V1:
+        backbone = AdaptiveFourierNeuralOperatorNetV1(num_layers=layers, num_blocks=8, **common)
+        return PrecipNet(backbone, out_chans=1, device=dev, generator=generator)
     return AdaptiveFourierNeuralOperatorNet(
-        num_layers=TP_FAMILY_LAYERS, num_blocks=8, normalization_layer="instance_norm",
+        num_layers=layers, num_blocks=8, normalization_layer="instance_norm",
         skip_fno="identity", nested_skip_fno=True, sparsity_threshold=0.01,
         hard_thresholding_fraction=1.0, **common)
 
@@ -3839,7 +3962,7 @@ def tp_serve(torch, serial_dir, scales, family_scales):
     output saved at `serial_dir`."""
     import numpy as np
     from makani_tpu_torch.parallel import comm, partitioning, spmd
-    out = parallel_serve(torch, serial_dir, scales, TP_SERVE_STEPS)
+    out = parallel_serve(torch, serial_dir, scales, TP_SERVE_STEPS, TP_SERVE_LAYERS)
     dev = comm.get_device()
     out["families"] = {}
     for name in (VIT, AFNO_V2):
@@ -4011,6 +4134,7 @@ def phase_tensor_parallel(torch, np, spectral_mm, kernels, dev, gen, card):
     try:
         # (a) and (d): the serial outputs of the same weights, saved
         params = flagship_params(1)
+        params["num_layers"] = TP_SERVE_LAYERS
         model = get_model(params, device=dev,
                           generator=torch.Generator(device=dev).manual_seed(PARALLEL_SEED))
         model.eval()
@@ -4073,7 +4197,8 @@ def phase_tensor_parallel(torch, np, spectral_mm, kernels, dev, gen, card):
         print(f"[tp serial] batch 1, {TP_TRAIN_LAYERS} blocks, checkpointing {TP_LEVEL}: losses "
               f"{serial_losses}, peak {serial_peak / 2**30:.2f} GiB", flush=True)
         t0 = time.perf_counter()
-        ranks = run_ranks("tp_train", *TP_TRAIN, ref_path, serial_losses)
+        pairs = run_ranks("tp_train", *TP_TRAIN, ref_path, serial_losses)
+        ranks = [p["train"] for p in pairs]
         devs, udevs = ranks[0]["param_devs"], ranks[0]["update_devs"]
         worst = max(udevs, key=udevs.get)
         rec["train"] = dict(ranks=ranks, wall_s=time.perf_counter() - t0,
@@ -4091,18 +4216,16 @@ def phase_tensor_parallel(torch, np, spectral_mm, kernels, dev, gen, card):
             for name in ("legmm", "dhconv_mm", "dhconv_dw", "fused_adam", "gelu_bf16",
                          "gelu_bf16_grad"):
                 check(r["launches"][name] > 0, f"(b) {name} not launched on a rank")
-        # the control: (b) with the fin sum of the filter's contraction dropped
-        gc.collect()
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        fdevs = run_ranks("tp_train", *TP_TRAIN, ref_path, serial_losses, True)[0]["update_devs"]
+        # the control, run by the same ranks after (b): the fin sum of the
+        # filter's contraction dropped
+        fdevs = pairs[0]["fault"]["update_devs"]
         fworst = max(fdevs, key=fdevs.get)
-        rec["train_fault"] = dict(wall_s=time.perf_counter() - t0, worst_leaf=fworst,
+        rec["train_fault"] = dict(wall_s=pairs[0]["fault"]["wall_s"], worst_leaf=fworst,
                                   worst_update_dev=fdevs[fworst],
                                   median_update_dev=float(np.median(list(fdevs.values()))))
         f = rec["train_fault"]
-        print(f"[tp train control] {f['wall_s']:.1f} s; the fin sum of the filter's contraction "
-              f"dropped: updates vs serial, norm-wise: worst {f['worst_update_dev']:.3g} "
+        print(f"[tp train control] {f['wall_s']:.1f} s of them; the fin sum of the filter's "
+              f"contraction dropped: updates vs serial, norm-wise: worst {f['worst_update_dev']:.3g} "
               f"({fworst}), median {f['median_update_dev']:.3g} (must read above the bounds "
               f"{PARALLEL_UPDATE_TOL} and {PARALLEL_UPDATE_MEDIAN_TOL})", flush=True)
         check(f["worst_update_dev"] > PARALLEL_UPDATE_TOL
@@ -4141,13 +4264,434 @@ def print_tp_train(train):
               f"{ {k: r['launches'][k] for k in ('legmm', 'dhconv_mm', 'dhconv_dw', 'fused_adam', 'gelu_bf16', 'gelu_bf16_grad')} }; "
               f"bytes sent {r['moved']}; peak {r['peak_bytes'] / 2**30:.2f} GiB (reserved "
               f"{r['reserved_bytes'] / 2**30:.2f})", flush=True)
-    print(f"[tp train] {train['wall_s']:.1f} s for the 4 ranks; serial peak "
+    print(f"[tp train] {train['wall_s']:.1f} s for the 4 ranks with the control; serial peak "
           f"{train['serial_peak_bytes'] / 2**30:.2f} GiB; split leaves "
           f"{len(train['ranks'][0]['shards'])}; updates over {TP_TRAIN_STEPS} steps vs serial, "
           f"norm-wise: worst {train['worst_update_dev']:.3g} ({train['worst_leaf']}), median "
           f"{train['median_update_dev']:.3g} (bounds {PARALLEL_UPDATE_TOL}, "
           f"{PARALLEL_UPDATE_MEDIAN_TOL}); the weights: worst {train['worst_dev']:.3g}, median "
           f"{train['median_dev']:.3g}", flush=True)
+
+
+# --------------------------------------------------------------------------
+# phase 19: the last modules on spatial ranks, and the "bf16" norm statistics
+# --------------------------------------------------------------------------
+
+def sp_fno_params(**overrides):
+    """config/icml_models.yaml's fno_linear_73ch on synthetic data, 73
+    channels in and out: the model alone."""
+    from makani_tpu_torch.models.model_registry import update_channel_params
+    from makani_tpu_torch.utils.yparams import YParams
+    p = YParams(str(ROOT / "config" / "icml_models.yaml"), FNO_LINEAR)
+    p.update_params(dict(enable_synthetic_data=True, in_channels=list(range(FILES_CHANNELS)),
+                         out_channels=list(range(FILES_CHANNELS)), **overrides))
+    return update_channel_params(p)
+
+
+def sp_train_params(**overrides):
+    """(b)'s Trainer: fno_linear_73ch under bf16 AMP, cut as SP_CUTS lists."""
+    return sp_fno_params(amp_mode="bf16", num_layers=SP_TRAIN_LAYERS, batch_size=1,
+                         n_train_samples_per_epoch=SP_TRAIN_STEPS, optimizer_fused=True,
+                         skip_validation=True, save_checkpoint="none", max_epochs=1,
+                         checkpointing=SP_LEVEL, log_to_screen=False, **overrides)
+
+
+def sp_fft(torch, serial_dir, scales):
+    """(d) on a rank: the FFT2 pair on its window of the seeded field at each
+    grid, its coefficient block and round-trip window against the serial
+    cuFFT pair's saved at `serial_dir`, relative to their largest
+    magnitudes; the pair's ms (one warm call first) and bytes sent."""
+    import numpy as np
+    from makani_tpu_torch.ops.fft import InverseRealFFT2, RealFFT2
+    from makani_tpu_torch.parallel import comm, spmd
+    dev = comm.get_device()
+    out = []
+    for grid in SP_FFT_GRIDS:
+        fwd, inv = RealFFT2(*grid, *SP_FFT_MODES), InverseRealFFT2(*grid, *SP_FFT_MODES)
+        x = spmd.local_patch(parallel_input(torch, dev, (1, SP_FFT_CHANNELS, *grid)),
+                             grid).contiguous()
+        with torch.inference_mode():
+            inv(fwd(x))
+            spmd.moved.clear()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            coeffs = fwd(x)
+            back = inv(coeffs)
+            torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        l, m = (spmd.patch_slice(n, ax) for n, ax in zip(SP_FFT_MODES, ("h", "w")))
+        lat, lon = (spmd.patch_slice(n, ax) for n, ax in zip(grid, ("h", "w")))
+        want_c = np.load(serial_dir / f"fft{grid[0]}_coeffs.npy", mmap_mode="r")[..., l, m]
+        want_b = np.load(serial_dir / f"fft{grid[0]}_back.npy", mmap_mode="r")[..., lat, lon]
+        sc, sb = scales[f"fft{grid[0]}"]
+        out.append(dict(grid=grid, block=tuple(coeffs.shape), ms=ms, moved=dict(spmd.moved),
+                        err_coeffs=float(np.abs(coeffs.cpu().numpy() - want_c).max()) / sc,
+                        err_back=float(np.abs(back.cpu().numpy() - want_b).max()) / sb))
+        del x, coeffs, back
+    return out
+
+
+def sp_serve(torch, serial_dir, scales):
+    """(a) on a rank: fno_linear_73ch from PARALLEL_SEED, built by the ranks
+    in turn (a whole float32 copy is 8.5 GB; each keeps its shard), its
+    window of the seeded input, SP_SERVE_STEPS rollout steps held against
+    the serial steps saved at `serial_dir`."""
+    import numpy as np
+    from makani_tpu_torch.models.model_registry import get_model
+    from makani_tpu_torch.ops import kernels
+    from makani_tpu_torch.parallel import comm, spmd
+    dev = comm.get_device()
+    params = sp_fno_params()
+    model = None
+    torch.cuda.reset_peak_memory_stats(dev)
+    for r in range(comm.get_world_size()):
+        if comm.get_world_rank() == r:
+            model = get_model(params, device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(PARALLEL_SEED))
+            gc.collect()
+            torch.cuda.empty_cache()
+        comm.barrier()
+    build_peak = torch.cuda.max_memory_allocated(dev)
+    model.eval()
+    hw = (params.img_crop_shape_x, params.img_crop_shape_y)
+    x = spmd.local_patch(parallel_input(torch, dev, (1, params.N_in_channels, *hw)),
+                         hw).contiguous()
+    lat, lon = (spmd.patch_slice(n, ax) for n, ax in zip(hw, ("h", "w")))
+    weight = model.model.blocks[1].filter_layer.filter.weight
+    errs, times = [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    spmd.moved.clear()
+    with torch.inference_mode():
+        for step in range(SP_SERVE_STEPS):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            x = model(x)
+            torch.cuda.synchronize(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+            got = x.cpu().numpy()
+            check(bool(np.isfinite(got).all()), f"(a) step {step} not finite")
+            want = np.load(serial_dir / f"fno_step{step}.npy", mmap_mode="r")[..., lat, lon]
+            errs.append(float(np.abs(got - want).max()) / scales[f"fno{step}"])
+    out = dict(errs=errs, step_ms=times, launches=dict(kernels.launches), moved=dict(spmd.moved),
+               peak_bytes=torch.cuda.max_memory_allocated(dev), build_peak_bytes=build_peak,
+               patch=tuple(x.shape[-2:]), filter_block=tuple(weight.shape),
+               local_params=sum(p.numel() for p in model.parameters()),
+               backend=comm.get_backend(), device=str(dev))
+    del model, x, weight
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_families(torch, serial_dir, scales):
+    """(c) on a rank: each family's forward on its window of the seeded
+    720x1440 input, held against the serial output saved at `serial_dir`."""
+    import numpy as np
+    from makani_tpu_torch.parallel import comm, partitioning, spmd
+    dev = comm.get_device()
+    hw = FAMILY_SHAPE
+    lat, lon = (spmd.patch_slice(n, ax) for n, ax in zip(hw, ("h", "w")))
+    out = {}
+    for name in SP_FAMILIES:
+        net = tp_family(torch, name, dev,
+                        torch.Generator(device=dev).manual_seed(PARALLEL_SEED + 3),
+                        SP_FAMILY_LAYERS)
+        net.eval()
+        split = len(partitioning.shard_module(net))
+        x = spmd.local_patch(tp_family_input(torch, dev), hw).contiguous()
+        spmd.moved.clear()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            y = net(x)
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        got = y.cpu().numpy()
+        check(bool(np.isfinite(got).all()), f"(c) {name} not finite")
+        want = np.load(serial_dir / f"{name}.npy", mmap_mode="r")[..., lat, lon]
+        out[name] = dict(err=float(np.abs(got - want).max()) / scales[name], ms=ms,
+                         moved=dict(spmd.moved), split=split, window=tuple(got.shape))
+        del net, x, y
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def sp_rank(torch, serial_dir, scales, ref_path, serial_losses):
+    """Phase 19 on a rank, one spawn: (d) the FFT pairs, (a) the FNO's
+    rollout, (c) the families' forwards, (b) the AMP Trainer, then its
+    control (the spatial sum of the replicated leaves' gradients dropped)."""
+    out = dict(fft=sp_fft(torch, serial_dir, scales), serve=sp_serve(torch, serial_dir, scales),
+               families=sp_families(torch, serial_dir, scales))
+    pair = parallel_train_pair(torch, ref_path, serial_losses, spatial=True)
+    out.update(train=pair["train"], train_fault=pair["fault"])
+    return out
+
+
+def sp_norm_stats(torch, sht, complex_ops, kernels, dev):
+    """(e): the flagship's AMP forward at "bf16" statistics against "f32"
+    statistics, beside AMP's deviation from the float32 forward, with the
+    launches of the "bf16" forward; one InstanceNorm2d at NORM_SHAPE on bf16
+    at both modes, timed with CUDA events beside its bytes bound."""
+    from makani_tpu_torch.models.common import layers
+    from makani_tpu_torch.models.model_registry import get_model
+    params = flagship_params(1)
+    params["amp_mode"] = "bf16"
+    model = get_model(params, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(PARALLEL_SEED))
+    model.eval()
+    x = parallel_input(torch, dev, (1, params.N_in_channels, params.img_crop_shape_x,
+                                    params.img_crop_shape_y))
+    out = {}
+    try:
+        with torch.inference_mode():
+            y32 = model(x).double()
+        sht.set_transform_precision("default")
+        complex_ops.set_contraction_precision("default")
+        xb = x.to(torch.bfloat16)
+        y_amp, out["f32_stats_ms"], _ = amp_forward(torch, kernels, model, xb, "(e) f32 stats")
+        layers.set_norm_stats_mode("bf16")
+        y_bf, out["bf16_stats_ms"], out["launches"] = amp_forward(torch, kernels, model, xb,
+                                                                  "(e) bf16 stats")
+    finally:
+        layers.set_norm_stats_mode("f32")
+        sht.set_transform_precision("high")
+        complex_ops.set_contraction_precision("high")
+    y_amp, y_bf = y_amp.double(), y_bf.double()
+    out.update(amp_dev_f32=dev_norm(y_amp, y32), bf16_dev_f32_stats=dev_norm(y_bf, y_amp),
+               bf16_dev_float32=dev_norm(y_bf, y32))
+    del model, x, xb, y32, y_amp, y_bf
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(PARALLEL_SEED + 4)
+    xn = (torch.randn(NORM_SHAPE, device=dev, generator=gen) * 1.7 + 0.6).to(torch.bfloat16)
+    norm = layers.InstanceNorm2d(NORM_SHAPE[1], device=dev)
+    ys, ms = {}, {}
+    try:
+        with torch.inference_mode():
+            for mode in ("f32", "bf16"):
+                layers.set_norm_stats_mode(mode)
+                ys[mode] = norm(xn).double()
+                ms[mode] = cuda_ms(lambda: norm(xn), 20)
+    finally:
+        layers.set_norm_stats_mode("f32")
+    out.update(norm_ms=ms, norm_dev=dev_norm(ys["bf16"], ys["f32"]),
+               norm_max_abs=float((ys["bf16"] - ys["f32"]).abs().max()))
+    out["norm_bound_ms"], out["norm_bound_by"] = bound(2 * xn.numel() * 2, 0)
+    del xn, ys
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_spatial(torch, np, sht, complex_ops, kernels, dev, card):
+    """Phase 19 (module docstring); prints each part when it is measured."""
+    from makani_tpu_torch.models.model_registry import get_model
+    from makani_tpu_torch.ops.fft import InverseRealFFT2, RealFFT2
+    from makani_tpu_torch.utils.trainer import Trainer
+    sht.set_coeff_engine("kernel")
+    sht.set_transform_precision("high")
+    complex_ops.set_contraction_precision("high")
+    rec = {"cuts": list(SP_CUTS)}
+    for cut in SP_CUTS:
+        print(f"[spatial cut] {cut}", flush=True)
+    # fused_adam on an (h, w) block of the FNO's diagonal filter: the rank at
+    # h 1, w 1, l and m 90-179 of the (64, 64, 180, 180, 2) leaf
+    key = "model.blocks.1.filter_layer.filter.weight"
+    a = rec["adam"] = parallel_adam_shard(torch, dev, key, SP_FILTER, (
+        (2, "h", SP_BLOCK[2], SP_BLOCK[2]), (3, "w", SP_BLOCK[3], SP_BLOCK[3])))
+    print(f"[spatial kernel] {card}: fused_adam on {key}'s (h, w) block {a['splits']} of "
+          f"{a['shape']} (base {a['base']}), bf16 moments, stochastic rounding, 2 steps: p, mu, "
+          f"nu differ from the twin in {a['vs_twin']} and from the whole leaf's slice in "
+          f"{a['vs_whole']} of {a['n']} elements (bound 0); control, base 0: {a['control']} "
+          "differ (must not be 0 in mu and nu)", flush=True)
+    check(a["vs_twin"] == [0, 0, 0] and a["vs_whole"] == [0, 0, 0],
+          f"fused_adam on the (h, w) block vs twin {a['vs_twin']}, whole {a['vs_whole']}")
+    check(a["control"][1] > 0 and a["control"][2] > 0,
+          f"fused_adam's control with base 0 matches the whole leaf: {a['control']}")
+    # (e) the "bf16" norm statistics
+    n = rec["norm"] = sp_norm_stats(torch, sht, complex_ops, kernels, dev)
+    print(f"[spatial norm] {card}: flagship_synth_drive_bare AMP forward at 'bf16' statistics "
+          f"against 'f32': {n['bf16_dev_f32_stats']:.4g} norm-wise (must read below AMP's own "
+          f"deviation from float32 in this run, {n['amp_dev_f32']:.4g}; PERF.md §2: 3.26e-2); "
+          f"against float32 {n['bf16_dev_float32']:.4g}; forward {n['bf16_stats_ms']:.1f} ms "
+          f"('f32' statistics {n['f32_stats_ms']:.1f}); launches {n['launches']}", flush=True)
+    print(f"[spatial norm] {card}: InstanceNorm2d {NORM_SHAPE} bf16: 'f32' statistics "
+          f"{n['norm_ms']['f32']:.4f} ms, 'bf16' {n['norm_ms']['bf16']:.4f} ms (bound "
+          f"{n['norm_bound_ms']:.4f} by {n['norm_bound_by']}); 'bf16' vs 'f32' "
+          f"{n['norm_dev']:.3g} norm-wise, {n['norm_max_abs']:.3g} at most (makani_tpu's gate: "
+          "0.05)", flush=True)
+    check(n["bf16_dev_f32_stats"] < n["amp_dev_f32"],
+          f"(e) bf16 statistics deviate by {n['bf16_dev_f32_stats']}, AMP by {n['amp_dev_f32']}")
+    check(n["norm_max_abs"] < 0.05, f"(e) the norm at bf16 statistics: {n['norm_max_abs']}")
+    for name in ("legmm", "dhconv_mm", "gelu_bf16"):
+        check(n["launches"].get(name, 0) > 0, f"(e) {name} not launched")
+    shutil.rmtree(SP_DIR, ignore_errors=True)
+    SP_DIR.mkdir(parents=True)
+    try:
+        scales, serial = {}, {}
+        # (d) the serial cuFFT pairs
+        for grid in SP_FFT_GRIDS:
+            fwd, inv = RealFFT2(*grid, *SP_FFT_MODES), InverseRealFFT2(*grid, *SP_FFT_MODES)
+            x = parallel_input(torch, dev, (1, SP_FFT_CHANNELS, *grid))
+            with torch.inference_mode():
+                coeffs = fwd(x)
+                back = inv(coeffs)
+                serial[f"fft{grid[0]}_ms"] = cuda_ms(lambda: inv(fwd(x)), 5)
+            c, b = coeffs.cpu().numpy(), back.cpu().numpy()
+            scales[f"fft{grid[0]}"] = (float(np.abs(c).max()), float(np.abs(b).max()))
+            np.save(SP_DIR / f"fft{grid[0]}_coeffs.npy", c)
+            np.save(SP_DIR / f"fft{grid[0]}_back.npy", b)
+            del x, coeffs, back, c, b
+        # (a) the serial rollout of the same weights
+        params = sp_fno_params()
+        model = get_model(params, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(PARALLEL_SEED))
+        model.eval()
+        rec["fno_params"] = sum(p.numel() for p in model.parameters())
+        weight = model.model.blocks[1].filter_layer.filter.weight
+        check(type(model.model).__name__ == "FourierNeuralOperatorNet"
+              and tuple(weight.shape) == SP_FILTER,
+              f"(a) {type(model.model).__name__}, filter {tuple(weight.shape)}")
+        del weight
+        hw = (params.img_crop_shape_x, params.img_crop_shape_y)
+        x = parallel_input(torch, dev, (1, params.N_in_channels, *hw))
+        serial["fno_ms"] = []
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            for step in range(SP_SERVE_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                x = model(x)
+                torch.cuda.synchronize()
+                serial["fno_ms"].append((time.perf_counter() - t0) * 1e3)
+                y = x.cpu().numpy()
+                scales[f"fno{step}"] = float(np.abs(y).max())
+                np.save(SP_DIR / f"fno_step{step}.npy", y)
+        serial["fno_peak_bytes"] = torch.cuda.max_memory_allocated()
+        del model, x, y
+        # (c) the serial family forwards
+        serial["family_ms"] = {}
+        for name in SP_FAMILIES:
+            gc.collect()
+            torch.cuda.empty_cache()
+            net = tp_family(torch, name, dev,
+                            torch.Generator(device=dev).manual_seed(PARALLEL_SEED + 3),
+                            SP_FAMILY_LAYERS)
+            net.eval()
+            xf = tp_family_input(torch, dev)
+            with torch.inference_mode():
+                net(xf)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                y = net(xf).cpu().numpy()
+                serial["family_ms"][name] = (time.perf_counter() - t0) * 1e3
+            scales[name] = float(np.abs(y).max())
+            np.save(SP_DIR / f"{name}.npy", y)
+            del net, xf, y
+        # (b) the serial reference at the same depth and level
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainer = Trainer(sp_train_params(), device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        _, _, logs = trainer.train_one_epoch()
+        serial["train_peak_bytes"] = torch.cuda.max_memory_allocated()
+        serial_losses = logs["step losses"]
+        ref_path = SP_DIR / "serial_weights.pt"
+        torch.save({k: p.detach().cpu() for k, p in trainer.model_params.items()}, ref_path)
+        del trainer, logs
+        gc.collect()
+        torch.cuda.empty_cache()
+        serial["train_losses"] = serial_losses
+        rec["serial"] = serial
+        print(f"[spatial serial] {card}: {FNO_LINEAR} {rec['fno_params']} parameters, rollout "
+              f"step ms {', '.join(f'{t:.1f}' for t in serial['fno_ms'])}, peak "
+              f"{serial['fno_peak_bytes'] / 2**30:.2f} GiB; family forwards "
+              f"{ {k: round(v, 1) for k, v in serial['family_ms'].items()} } ms; the FFT2 pair "
+              f"(cuFFT) {', '.join(f'{serial[k]:.3f}' for k in serial if k.startswith('fft'))} "
+              f"ms at {SP_FFT_GRIDS}; AMP Trainer at {SP_TRAIN_LAYERS} blocks: losses "
+              f"{serial_losses}, peak {serial['train_peak_bytes'] / 2**30:.2f} GiB", flush=True)
+        # the ranks: one spawn for (a)-(d)
+        t0 = time.perf_counter()
+        ranks = run_ranks("spatial", *SP_SIZES, SP_DIR, scales, ref_path, serial_losses)
+        rec["wall_s"] = time.perf_counter() - t0
+        rec["ranks"] = ranks
+        udevs = ranks[0]["train"]["update_devs"]
+        worst = max(udevs, key=udevs.get)
+        rec["train_worst"] = (worst, udevs[worst])
+        rec["train_median"] = float(np.median(list(udevs.values())))
+        fdevs = ranks[0]["train_fault"]["update_devs"]
+        fworst = max(fdevs, key=fdevs.get)
+        rec["fault_worst"] = (fworst, fdevs[fworst])
+        rec["fault_median"] = float(np.median(list(fdevs.values())))
+        print_spatial(rec, card)
+        for i, r in enumerate(ranks):
+            for f in r["fft"]:
+                check(max(f["err_coeffs"], f["err_back"]) < SP_FFT_TOL,
+                      f"(d) rank {i} FFT2 pair at {f['grid']}: {f['err_coeffs']}, {f['err_back']}")
+            check(max(r["serve"]["errs"]) < PARALLEL_SERVE_TOL,
+                  f"(a) rank {i} vs serial, by step: {r['serve']['errs']}")
+            check(r["serve"]["filter_block"] == SP_BLOCK,
+                  f"(a) rank {i} filter block {r['serve']['filter_block']}")
+            for name, f in r["families"].items():
+                check(f["err"] < PARALLEL_SERVE_TOL, f"(c) {name} rank {i} vs serial: {f['err']}")
+            t = r["train"]
+            check(t["launches"]["fused_adam"] == t["leaves"] * SP_TRAIN_STEPS,
+                  f"(b) rank {i} fused_adam launches {t['launches']['fused_adam']}, "
+                  f"{t['leaves']} leaves")
+            for name in ("gelu_bf16", "gelu_bf16_grad"):
+                check(t["launches"][name] > 0, f"(b) {name} not launched on rank {i}")
+            check(all(t["splits"][f"model.blocks.{b}.filter_layer.filter.weight"]
+                      == ((2, "h"), (3, "w")) for b in range(SP_TRAIN_LAYERS)),
+                  f"(b) rank {i} filter splits {t['splits']}")
+        check(udevs[worst] < PARALLEL_UPDATE_TOL,
+              f"(b) the update of {worst} vs serial: {udevs[worst]}")
+        check(rec["train_median"] < PARALLEL_UPDATE_MEDIAN_TOL,
+              f"(b) the median leaf's update vs serial: {rec['train_median']}")
+        check(fdevs[fworst] > PARALLEL_UPDATE_TOL
+              and rec["fault_median"] > PARALLEL_UPDATE_MEDIAN_TOL,
+              f"(b)'s control reads {fdevs[fworst]} and {rec['fault_median']}, within the bounds")
+    finally:
+        shutil.rmtree(SP_DIR, ignore_errors=True)
+    return rec
+
+
+def print_spatial(rec, card):
+    """Phase 19's rank lines, each with the card's name and power limit."""
+    for i, r in enumerate(rec["ranks"]):
+        s = r["serve"]
+        print(f"[spatial serve rank {i}] {card}: {FNO_LINEAR} on h 2 x w 2, window {s['patch']}, "
+              f"filter block {s['filter_block']}, {s['local_params']} parameters on the rank: "
+              f"step ms {', '.join(f'{t:.1f}' for t in s['step_ms'])} (serial "
+              f"{', '.join(f'{t:.1f}' for t in rec['serial']['fno_ms'])}); errors vs serial "
+              f"{', '.join(f'{e:.3g}' for e in s['errs'])} (bound {PARALLEL_SERVE_TOL}); bytes "
+              f"sent a step { {k: v / SP_SERVE_STEPS for k, v in s['moved'].items()} }; peak "
+              f"{s['peak_bytes'] / 2**30:.2f} GiB (building {s['build_peak_bytes'] / 2**30:.2f}); "
+              f"launches {s['launches']}", flush=True)
+        fams = "; ".join(f"{n}: window {f['window']}, error {f['err']:.3g}, {f['ms']:.1f} ms, "
+                         f"bytes sent {f['moved']}" for n, f in r["families"].items())
+        print(f"[spatial families rank {i}] {card}: {fams} (bound {PARALLEL_SERVE_TOL})",
+              flush=True)
+        ffts = "; ".join(f"{f['grid']}: block {f['block']}, coefficients {f['err_coeffs']:.3g}, "
+                         f"round trip {f['err_back']:.3g}, {f['ms']:.1f} ms, bytes sent "
+                         f"{f['moved']}" for f in r["fft"])
+        print(f"[spatial fft rank {i}] {card}: the FFT2 pair vs serial cuFFT, of the largest "
+              f"magnitude: {ffts} (bound {SP_FFT_TOL})", flush=True)
+        t = r["train"]
+        print(f"[spatial train rank {i}] {card}: {FNO_LINEAR}, bf16 AMP, {SP_TRAIN_LAYERS} "
+              f"blocks, checkpointing {SP_LEVEL}: losses {t['losses']} (serial "
+              f"{rec['serial']['train_losses']}, bound {PARALLEL_LOSS_TOL}); epoch "
+              f"{t['epoch_s']:.2f} s ({t['epoch_s'] * 1e3 / len(t['losses']):.1f} ms a step with "
+              f"the loader); launches {t['launches']} ({t['leaves']} leaves, {len(t['splits'])} "
+              f"split); bytes sent {t['moved']}; peak {t['peak_bytes'] / 2**30:.2f} GiB "
+              f"(reserved {t['reserved_bytes'] / 2**30:.2f})", flush=True)
+    (w, wd), (fw, fwd) = rec["train_worst"], rec["fault_worst"]
+    print(f"[spatial train] {card}: updates over {SP_TRAIN_STEPS} steps vs serial, norm-wise: "
+          f"worst {wd:.3g} ({w}), median {rec['train_median']:.3g} (bounds "
+          f"{PARALLEL_UPDATE_TOL}, {PARALLEL_UPDATE_MEDIAN_TOL}); control, the spatial sum of "
+          f"the replicated leaves dropped: worst {fwd:.3g} ({fw}), median "
+          f"{rec['fault_median']:.3g} (must read above the bounds); serial peak "
+          f"{rec['serial']['train_peak_bytes'] / 2**30:.2f} GiB", flush=True)
+    print(f"[spatial] {card}: {rec['wall_s']:.1f} s for the 4 ranks, start to end", flush=True)
 
 
 def main(argv=None):
@@ -4558,8 +5102,15 @@ def main(argv=None):
     tp["phase_s"] = time.perf_counter() - t0
     record["tensor_parallel"] = tp
     print(f"[tp time] phase 18 in {tp['phase_s']:.1f} s", flush=True)
+
+    # phase 19: the last modules on spatial ranks, the "bf16" norm statistics
+    t0 = time.perf_counter()
+    sp = phase_spatial(torch, np, sht, complex_ops, kernels, dev, card)
+    sp["phase_s"] = time.perf_counter() - t0
+    record["spatial"] = sp
+    print(f"[spatial time] phase 19 in {sp['phase_s']:.1f} s", flush=True)
     record["script_s"] = time.perf_counter() - t_script
-    print(f"[time] phases 1-18 in {record['script_s']:.1f} s, the kernels' build included",
+    print(f"[time] phases 1-19 in {record['script_s']:.1f} s, the kernels' build included",
           flush=True)
 
     # results
@@ -4618,16 +5169,25 @@ def main(argv=None):
                        for tag, family in (("afno_v2", AFNO_V2), ("afno_v1", AFNO_V1),
                                            ("vit", VIT)) for amp in ("", "_amp")},
                     launches_videos=videos["launches"][name],
-                    # phase 17: each rank's launches, (a) h 2 x w 2 over 3
+                    # phase 17: each rank's launches, (a) h 2 x w 2 over 2
                     # rollout steps, (b) data 2 x h 2 over 2 AMP train steps
+                    # of PARALLEL_TRAIN_LAYERS blocks
                     launches_parallel_serve=[r["launches"][name]
                                              for r in par["serve"]["ranks"]],
                     launches_parallel_train=[r["launches"][name]
                                              for r in par["train"]["ranks"]],
                     # phase 18: each rank's launches, (a) fin 2 x fout 2 over
-                    # 2 rollout steps, (b) h 2 x fin 2 over 2 AMP train steps
+                    # 1 rollout step, (b) h 2 x fin 2 over 2 AMP train steps
                     launches_tp_serve=[r["launches"][name] for r in tp["serve"]["ranks"]],
-                    launches_tp_train=[r["launches"][name] for r in tp["train"]["ranks"]])
+                    launches_tp_train=[r["launches"][name] for r in tp["train"]["ranks"]],
+                    # phase 19: each rank's launches, (a) the FNO's float32
+                    # rollout on h 2 x w 2, (b) its 2 AMP train steps; (e)
+                    # the flagship's AMP forward at "bf16" norm statistics
+                    launches_spatial_serve=[r["serve"]["launches"].get(name, 0)
+                                            for r in sp["ranks"]],
+                    launches_spatial_train=[r["train"]["launches"].get(name, 0)
+                                            for r in sp["ranks"]],
+                    launches_norm_bf16=sp["norm"]["launches"].get(name, 0))
 
     kernels = []
     # *_amp: the same counts on phase 9's AMP path, where every pass-taking
@@ -4658,6 +5218,9 @@ def main(argv=None):
         if name == "fused_adam":
             kernels[-1]["tp_local"] = [{k: a[k] for k in ("key", "base", "vs_twin", "vs_whole",
                                                            "control")} for a in tp["adam"]]
+            # phase 19: the kernel on an (h, w) block of the FNO's filter
+            kernels[-1]["spatial_local"] = {k: sp["adam"][k] for k in (
+                "key", "base", "vs_twin", "vs_whole", "control")}
         else:
             tq = next(q for q in tp["kernels"] if q["name"] == name
                       and (label is None or q["shape"].startswith(label)))

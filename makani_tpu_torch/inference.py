@@ -18,8 +18,7 @@ torch.distributed.run --standalone --nproc_per_node N -m
 makani_tpu_torch.inference ... --h_parallel_size 2 --fin_parallel_size 2`;
 parallel/comm): each rank scores its patch of its rows (with
 --split_data_channels, its chunk of the metrics' channels), and rank 0 writes
-the files. The FNO, AFNO and ViT families under h * w > 1 raise (ROADMAP,
-Queue 1 item 7c).
+the files.
 """
 
 import argparse

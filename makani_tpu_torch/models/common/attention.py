@@ -15,6 +15,10 @@ makani_tpu's jax.checkpoint on the scan body: a layer keeps only each
 step's carries. Only the last block holds padded keys, so the mask is
 applied there alone (elsewhere makani_tpu's jnp.where selects every logit).
 
+The queries may be fewer than the keys (a spatial rank's tokens against
+every token, models/networks/vit.py): the path and the key blocks follow the
+keys' count, so each query row is computed as the serial run computes it.
+
 This is not F.scaled_dot_product_attention: that is another function
 (rounding and summation order) and a library kernel, which the port does
 not run.
@@ -57,19 +61,21 @@ def _block_step(acc, m, l, q, kblk, vblk, scale, n_valid):
 
 def scaled_dot_product_attention(q, k, v, scale=None, block_size=None,
                                  min_blockwise_tokens=2048):
-    """Attention over (B, H, N, D) tensors; returns (B, H, N, D) in q's type."""
+    """Attention of q (B, H, N, D) over k, v (B, H, M, D); returns (B, H, N,
+    D) in q's type."""
     b, h, n, d = q.shape
+    m_keys = k.shape[-2]
     if scale is None:
         scale = d ** -0.5
     if block_size is None:
         block_size = _DEFAULT_BLOCK_SIZE
 
-    if n <= min_blockwise_tokens:
+    if m_keys <= min_blockwise_tokens:
         p = torch.softmax(_logits(q, k, scale), dim=-1)
         return _pv(p, v).to(v.dtype)
 
-    nb = -(-n // block_size)
-    pad = nb * block_size - n
+    nb = -(-m_keys // block_size)
+    pad = nb * block_size - m_keys
     if pad:
         k = torch.nn.functional.pad(k, (0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, pad))
@@ -78,7 +84,7 @@ def scaled_dot_product_attention(q, k, v, scale=None, block_size=None,
     l = torch.zeros((b, h, n, 1), dtype=torch.float32, device=q.device)
     for i in range(nb):
         blk = slice(i * block_size, (i + 1) * block_size)
-        n_valid = min(block_size, n - i * block_size)
+        n_valid = min(block_size, m_keys - i * block_size)
         acc, m, l = remat(_block_step, acc, m, l, q, k[..., blk, :], v[..., blk, :], scale,
                           n_valid)
     return (acc / l).to(q.dtype)

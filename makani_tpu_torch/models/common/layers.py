@@ -84,20 +84,26 @@ def drop_mask(shape, keep, site, device):
     return torch.rand(tuple(shape), generator=gen, device=device) < keep
 
 
-def rank_mask(shape, keep, site, device, global_hw=None, channel=None):
+def rank_mask(shape, keep, site, device, global_hw=None, channel=None, tokens=None):
     """drop_mask of a rank's part of a field: on several ranks the mask is
     drawn at the whole batch's shape (for a spatially split field at its
-    whole (H, W) = `global_hw`, for channels split over a mesh axis at their
-    whole count: `channel` = (dim, axis, size)) and cut to the rank's part,
-    so every rank drops what one rank would. Serial: drop_mask."""
+    whole (H, W) = `global_hw`, for the tokens of a rank's tile of a token
+    grid along one dimension, `tokens` = (dim, (gh, gw)), at every token,
+    for channels split over a mesh axis at their whole count: `channel` =
+    (dim, axis, size)) and cut to the rank's part, so every rank drops what
+    one rank would. Serial: drop_mask."""
     full, index = list(shape), [slice(None)] * len(shape)
+    token_dim = None
     if channel is not None and channel[1] is not None and shape[channel[0]] > 1:
         d, axis, size = channel
         full[d], index[d] = size, spmd.patch_slice(size, axis)
     if spmd.data_distributed():
         b, r = shape[0], comm.get_rank("data")
         full[0], index[0] = b * comm.get_size("data"), slice(r * b, (r + 1) * b)
-    if spmd.spatial_distributed() and len(shape) >= 3 and (shape[-2] > 1 or shape[-1] > 1):
+    if spmd.spatial_distributed() and tokens is not None and shape[tokens[0]] > 1:
+        token_dim, grid = tokens[0] % len(shape), tokens[1]
+        full[token_dim] = int(grid[0]) * int(grid[1])
+    elif spmd.spatial_distributed() and len(shape) >= 3 and (shape[-2] > 1 or shape[-1] > 1):
         if global_hw is None:
             raise ValueError("dropout on a spatially split field needs its whole shape")
         full[-2], full[-1] = global_hw
@@ -105,7 +111,10 @@ def rank_mask(shape, keep, site, device, global_hw=None, channel=None):
         index[-1] = spmd.patch_slice(global_hw[1], "w")
     if full == list(shape):
         return drop_mask(shape, keep, site, device)
-    return drop_mask(full, keep, site, device)[tuple(index)]
+    mask = drop_mask(full, keep, site, device)[tuple(index)]
+    if token_dim is not None:
+        mask = mask.index_select(token_dim, spmd.tile_tokens(tokens[1], mask.device))
+    return mask
 
 
 def remat(fn, *args):
@@ -252,10 +261,16 @@ class PatchEmbed(nn.Module):
         self.bias = nn.Parameter(torch.zeros(embed_dim, device=device))
 
     def forward(self, x):
+        """x the whole image, or on spatial ranks the rank's window of it,
+        which must hold whole patches (spmd.image_tile); the tokens are the
+        rank's tile of the grid, row-major."""
         b, c, h, w = x.shape
-        if (h, w) != self.img_size:
+        size = self.img_size
+        if spmd.spatial_distributed():
+            size = spmd.image_tile(self.img_size, self.patch_size)
+        if (h, w) != size:
             raise ValueError(f"Input image size ({h}*{w}) doesn't match model "
-                             f"({self.img_size[0]}*{self.img_size[1]}).")
+                             f"({size[0]}*{size[1]}).")
         ph, pw = self.patch_size
         gh, gw = h // ph, w // pw
         patches = x.reshape(b, c, gh, ph, gw, pw).permute(0, 2, 4, 1, 3, 5)
@@ -312,8 +327,10 @@ class Dropout(nn.Module):
         self.broadcast_dims = tuple(broadcast_dims)
         self.site = 0
         # the whole (H, W) of the field it drops on, where that is split over
-        # ranks (set by the network)
+        # ranks, or (dim, (gh, gw)) where dimension dim holds the tokens of a
+        # rank's tile of a token grid (set by the network)
         self.global_hw = None
+        self.tokens = None
 
     def forward(self, x, deterministic=True, channel=None):
         """`channel`: (dim, axis, size) where x's channels are split over a
@@ -324,7 +341,8 @@ class Dropout(nn.Module):
             return torch.zeros_like(x)
         keep = 1.0 - self.rate
         shape = [1 if d in self.broadcast_dims else s for d, s in enumerate(x.shape)]
-        mask = rank_mask(shape, keep, self.site, x.device, self.global_hw, channel)
+        tokens = {} if self.tokens is None else {"tokens": self.tokens}
+        mask = rank_mask(shape, keep, self.site, x.device, self.global_hw, channel, **tokens)
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -438,9 +456,29 @@ class EncoderDecoder(nn.Module):
         return self.out(x, x_axis)
 
 
+# how InstanceNorm2d takes its statistics (makani_tpu's set_norm_stats_mode):
+# "f32", the default, casts the input to float32 for two-pass statistics and
+# normalizes in float32; "bf16" gives a non-float32 input one-pass statistics
+# accumulated in float32, max(E[x^2] - E[x]^2, 0) with x * x rounded in the
+# input's type, and normalizes and applies the affine in the input's type. A
+# float32 input takes the "f32" path in either mode.
+_NORM_STATS = "f32"
+
+
+def set_norm_stats_mode(mode):
+    global _NORM_STATS
+    if mode not in ("f32", "bf16"):
+        raise ValueError(f"unknown norm statistics mode {mode!r}; one of 'f32', 'bf16'")
+    _NORM_STATS = mode
+
+
+def get_norm_stats_mode():
+    return _NORM_STATS
+
+
 class InstanceNorm2d(nn.Module):
-    """Per-sample, per-channel normalization over (H, W) with float32 two-pass
-    statistics (makani_tpu's "f32" stats mode), optional affine."""
+    """Per-sample, per-channel normalization over (H, W), optional affine;
+    its statistics as `set_norm_stats_mode` says."""
 
     def __init__(self, num_features, eps=1e-6, affine=True, device="cpu"):
         super().__init__()
@@ -454,6 +492,8 @@ class InstanceNorm2d(nn.Module):
     def forward(self, x, x_axis=None):
         """x's channels split over `x_axis` (the statistics are per channel;
         the affine is cut to the rank's channels)."""
+        if _NORM_STATS == "bf16" and x.dtype != torch.float32:
+            return self._one_pass(x, x_axis)
         xf = x.float()
         if spmd.spatial_distributed():
             mean, var = self._global_stats(xf)
@@ -467,6 +507,28 @@ class InstanceNorm2d(nn.Module):
             weight, bias = (leaf_part(self, k, 0, x_axis) for k in ("weight", "bias"))
             y = y * weight[None, :, None, None] + bias[None, :, None, None]
         return y.to(x.dtype)
+
+    def _one_pass(self, x, x_axis):
+        """The "bf16" mode (makani_tpu/models/common/layers.py:186-200): the
+        sums of x and of x * x (rounded in x's type) accumulated in float32,
+        on spatial ranks with the patch's point count summed over the
+        spatial group in one all-reduce; the mean and the rsqrt scale cast
+        to x's type, the normalization and the affine in x's type."""
+        b, c = x.shape[:2]
+        sums = torch.stack((x.float().sum(dim=(-2, -1)), (x * x).float().sum(dim=(-2, -1))))
+        count = float(x.shape[-2] * x.shape[-1])
+        if spmd.spatial_distributed():
+            n = x.new_full((1,), count, dtype=torch.float32)
+            s = spmd.reduce_partial(torch.cat([sums.reshape(-1), n]), "spatial")
+            sums, count = s[:-1].view(2, b, c), s[-1].detach()
+        mean, sq = (sums / count).view(2, b, c, 1, 1)
+        var = torch.clamp_min(sq - mean.square(), 0.0)
+        scale = torch.rsqrt(var + self.eps)
+        y = (x - mean.to(x.dtype)) * scale.to(x.dtype)
+        if self.weight is not None:
+            weight, bias = (leaf_part(self, k, 0, x_axis) for k in ("weight", "bias"))
+            y = y * weight.to(x.dtype)[None, :, None, None] + bias.to(x.dtype)[None, :, None, None]
+        return y
 
     @staticmethod
     def _global_stats(xf):

@@ -31,7 +31,7 @@ from makani_tpu_torch.models.networks.sfnonet import (
 from makani_tpu_torch.models.networks.vit import VisionTransformer
 from makani_tpu_torch.models.preprocessor import Preprocessor2D
 from makani_tpu_torch.models.stepper import MultiStepWrapper, SingleStepWrapper
-from makani_tpu_torch.parallel import comm, partitioning, spmd
+from makani_tpu_torch.parallel import partitioning, spmd
 from makani_tpu_torch.utils.device import resolve_device
 from makani_tpu_torch.utils.features import get_auxiliary_channels
 from makani_tpu_torch.utils.yparams import ParamsBase
@@ -172,12 +172,13 @@ def _filter_kwargs(cls, kwargs):
 
 def check_layout(nettype):
     """Raises where the family cannot run on the process groups' layout: a
-    family without a spatially parallel path (AFNO, AFNO v1, the ViT) under
-    h * w > 1."""
+    class without a spatially parallel path (no `spatially_parallel`; every
+    family of this registry has one, a class registered from a file may
+    not) under h * w > 1."""
     cls = _model_registry[nettype]
     if spmd.spatial_distributed() and not getattr(cls, "spatially_parallel", False):
-        raise NotImplementedError(f"{nettype} under a spatial decomposition is not ported yet "
-                                  + comm.SPATIAL_TODO)
+        raise NotImplementedError(f"{nettype} has no spatially parallel path (its class sets no "
+                                  "spatially_parallel): run it with h and w of 1")
 
 
 def get_model(params, device=None, generator=None):

@@ -24,6 +24,17 @@ computation cannot follow a split of its real and imaginary parts, so the
 network gathers the tokens' channels after the position embedding, runs
 the blocks on the whole channels with the filter's leaves gathered, and
 the head contracts the rank's fin chunk again.
+Spatial ranks (h, w; makani_tpu runs the family through its partitioner on
+inputs sharded over (h, w)): each rank takes its window of the image, whose
+patches are its tile of the token grid (spmd.image_tile), and gives back its
+window of the output. The patch embedding, the norms, the MLP and the head
+are per token and local; the whole position embedding is indexed at the
+tile's tokens. The filter's rfft2 is the distributed FFT pair untruncated
+(ops/fft.py, on the channels-first view): its block MLP is per mode and
+runs on the rank's (l/h, m/w) block under the window mask of the modes'
+global indices. PrecipNet's periodic pad is a one-wide halo exchange
+(spmd.halo): periodic in longitude across the w ranks, zeros at the global
+latitude edges, a neighbour's row or column everywhere else.
 """
 
 from typing import Tuple
@@ -45,6 +56,7 @@ from makani_tpu_torch.models.common.layers import (
     promoted,
     trunc_normal_param,
 )
+from makani_tpu_torch.ops.fft import InverseRealFFT2, RealFFT2
 from makani_tpu_torch.parallel import spmd
 from makani_tpu_torch.models.networks.afnonet_v2 import softshrink
 
@@ -90,19 +102,27 @@ class AFNO2Dv1(nn.Module):
         self.b2 = normal_param((2, num_blocks, bs), 0.02, device, generator)
 
     def mode_mask(self, h, w, device):
-        """makani_tpu's centred window as a (1, h, w // 2 + 1, 1, 1) mask."""
+        """makani_tpu's centred window as a (1, h, w // 2 + 1, 1, 1) mask; on
+        spatial ranks the rank's (l/h, m/w) block of it."""
         total = h // 2 + 1
         kept = int(total * self.hard_thresholding_fraction)
         kh = torch.arange(h, device=device)
         keep_h = (kh >= total - kept) & (kh < total + kept)
         keep_m = torch.arange(w // 2 + 1, device=device) < kept
-        return (keep_h[:, None] & keep_m[None, :]).float()[None, :, :, None, None]
+        mask = (keep_h[:, None] & keep_m[None, :]).float()
+        if spmd.spatial_distributed():
+            mask = mask[spmd.patch_slice(h, "h"), spmd.patch_slice(w // 2 + 1, "w")]
+        return mask[None, :, :, None, None]
 
-    def forward(self, x):
+    def forward(self, x, grid=None):
+        """x (B, h, w, C) tokens, on spatial ranks its tile of the token
+        `grid`."""
         bias, dtype = x, x.dtype
-        b, h, w, c = x.shape
-        xf = torch.fft.rfft2(x.float(), dim=(1, 2), norm="ortho")
-        xf = xf.reshape(b, h, w // 2 + 1, self.num_blocks, c // self.num_blocks)
+        b, c = x.shape[0], x.shape[-1]
+        h, w = grid or x.shape[1:3]
+        # the pair on the channels-first view: (b, c, l, m), the rank's block
+        xf = RealFFT2(h, w)(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        xf = xf.reshape(b, *xf.shape[1:3], self.num_blocks, c // self.num_blocks)
         mask = self.mode_mask(h, w, x.device)
         # the leaves whole where the rules split them (module docstring)
         w1, w2 = (leaf_part(self, k, 0, None, 2) for k in ("w1", "w2"))
@@ -118,8 +138,8 @@ class AFNO2Dv1(nn.Module):
         o2i = (mix(o1i, w2[0]) + mix(o1r, w2[1]) + b2[1]) * mask
         xf = torch.complex(softshrink(o2r, self.sparsity_threshold),
                            softshrink(o2i, self.sparsity_threshold))
-        xf = xf.reshape(b, h, w // 2 + 1, c)
-        return torch.fft.irfft2(xf, s=(h, w), dim=(1, 2), norm="ortho").to(dtype) + bias
+        xf = xf.reshape(b, *xf.shape[1:3], c).permute(0, 3, 1, 2)
+        return InverseRealFFT2(h, w)(xf).permute(0, 2, 3, 1).to(dtype) + bias
 
 
 class BlockV1(nn.Module):
@@ -140,19 +160,26 @@ class BlockV1(nn.Module):
                          generator=generator)
         self.drop_path = DropPath(path_drop_rate)
 
-    def forward(self, x, deterministic=True):
+    def forward(self, x, deterministic=True, grid=None):
         residual = x
-        x = self.filter(self.norm1(x))
+        x = self.filter(self.norm1(x), grid)
         if self.double_skip:
             x = x + residual
             residual = x
-        x = self.mlp(self.norm2(x), deterministic=deterministic)
+        # the token MLP on (B, h * w, C): its dropout masks are drawn on the
+        # tokens (the serial (B, h, w, C) draw, flattened)
+        x = self.mlp(self.norm2(x).flatten(1, 2), deterministic=deterministic)
+        x = x.unflatten(1, residual.shape[1:3])
         return self.drop_path(x, deterministic=deterministic) + residual
 
 
 class AdaptiveFourierNeuralOperatorNetV1(nn.Module):
     """AFNO v1; the arguments are makani_tpu's, plus `device` and the
-    `generator` the weights are drawn from."""
+    `generator` the weights are drawn from. On spatial ranks it takes and
+    returns the rank's window (module docstring)."""
+
+    # runs on a spatial decomposition (model_registry.check_layout asks)
+    spatially_parallel = True
 
     def __init__(self, inp_shape: Tuple[int, int] = (720, 1440),
                  patch_size: Tuple[int, int] = (16, 16), inp_chans=2, out_chans=2, embed_dim=768,
@@ -171,6 +198,7 @@ class AdaptiveFourierNeuralOperatorNetV1(nn.Module):
         self.pos_embed = trunc_normal_param((1, self.grid[0] * self.grid[1], embed_dim), 0.02,
                                             device, generator)
         self.pos_drop = Dropout(drop_rate)
+        self.pos_drop.tokens = (1, self.grid)
         dpr = np.linspace(0, drop_path_rate, num_layers)
         self.blocks = nn.ModuleList([
             BlockV1(embed_dim, mlp_ratio=mlp_ratio, drop_rate=drop_rate,
@@ -179,21 +207,27 @@ class AdaptiveFourierNeuralOperatorNetV1(nn.Module):
                     hard_thresholding_fraction=hard_thresholding_fraction,
                     activation_function=activation_function, device=device, generator=generator)
             for i in range(num_layers)])
+        for blk in self.blocks:
+            for drop in (blk.mlp.drop1, blk.mlp.drop2):
+                drop.tokens = (1, self.grid)
         self.head = DenseLayer(embed_dim, out_chans * self.patch_size[0] * self.patch_size[1],
                                use_bias=False, device=device, generator=generator)
         self.n_dropout_sites = number_dropout_sites(self)
 
     def forward(self, x, deterministic=True):
         b = x.shape[0]
-        h, w = self.grid
+        h, w = (spmd.patch(n, ax)[1] for n, ax in zip(self.grid, ("h", "w")))
         axis = self.patch_embed.out_axis        # the embedding's channels: fin (or whole)
-        x = self.patch_embed(x).transpose(1, 2) + leaf_part(self, "pos_embed", 2, axis).to(x.dtype)
+        pos = leaf_part(self, "pos_embed", 2, axis)
+        if spmd.spatial_distributed():
+            pos = pos.index_select(1, spmd.tile_tokens(self.grid, pos.device))
+        x = self.patch_embed(x).transpose(1, 2) + pos.to(x.dtype)
         x = self.pos_drop(x, deterministic, (2, axis, self.embed_dim))
         if axis is not None:
             x = spmd.gather(x, 2, axis, self.embed_dim)
         x = x.reshape(b, h, w, self.embed_dim)
         for blk in self.blocks:
-            x = blk(x, deterministic=deterministic)
+            x = blk(x, deterministic=deterministic, grid=self.grid)
         x = self.head(x)
         # the pixel shuffle with the reference's order (c last)
         p0, p1 = self.patch_size
@@ -203,7 +237,10 @@ class AdaptiveFourierNeuralOperatorNetV1(nn.Module):
 
 class PeriodicPad2d(nn.Module):
     """Circular pad in longitude, zero pad in latitude, `pad_width` each
-    side."""
+    side, as a halo (spmd.halo): the longitude neighbours' columns over w,
+    the ring wrapping at the ends, then the latitude neighbours' rows (of
+    the padded width, so the corners are the diagonal neighbours') over h,
+    zeros beyond the poles; serially the field's own far columns."""
 
     def __init__(self, pad_width=1):
         super().__init__()
@@ -211,15 +248,21 @@ class PeriodicPad2d(nn.Module):
 
     def forward(self, x):
         p = self.pad_width
-        x = torch.cat((x[..., :, -p:], x, x[..., :, :p]), dim=-1)
-        return F.pad(x, (0, 0, p, p))
+        west, east = spmd.halo(x, -1, "w", p, periodic=True)
+        x = torch.cat((west, x, east), dim=-1)
+        north, south = spmd.halo(x, -2, "h", p, periodic=False)
+        return torch.cat((north, x, south), dim=-2)
 
 
 class PrecipNet(nn.Module):
     """`backbone` -> periodic pad -> VALID 3x3 convolution `conv` (kernel
     (3, 3, in, out), bias) -> ReLU. The convolution's input channels are the
     backbone's `out_chans`; its weight is drawn as flax's Conv draws
-    (lecun_normal over fan_in 9 * in)."""
+    (lecun_normal over fan_in 9 * in). On spatial ranks the rank's window in
+    and out: the pad is a halo exchange, the convolution local."""
+
+    # runs on a spatial decomposition where its backbone does
+    spatially_parallel = True
 
     def __init__(self, backbone, out_chans=2, device="cpu", generator=None):
         super().__init__()

@@ -24,6 +24,18 @@ channels. The position embedding (1, C, N) is stored split over its tokens,
 as makani_tpu's 3-D rule has it, and gathered, then cut to the rank's
 channels; the skip gathers its input over fin; the MLP is fin -> fout ->
 fin; the head contracts fin.
+
+Spatial ranks (h, w; makani_tpu runs the family through its partitioner on
+inputs sharded over (h, w)): each rank takes its window of the image, whose
+patches are its tile of the (h, w) token grid (spmd.image_tile), and gives
+back its window of the output. The patch embedding, the skip, the MLP and
+the head are local; the position embedding, whole, is indexed at the tile's
+tokens. The filter's rfft2 is the distributed FFT pair untruncated
+(ops/fft.py, lmax = h, mmax = w // 2 + 1): its complex MLP is per mode, so
+it runs on the rank's (l/h, m/w) block, and the static mode mask takes the
+modes' global indices. LayerNormHW takes its statistics over the whole
+(H, W) through the spatial group and cuts its (H, W) affine to the rank's
+patch.
 """
 
 from typing import Tuple
@@ -42,6 +54,7 @@ from makani_tpu_torch.models.common.layers import (
     parallel_linear,
     trunc_normal_param,
 )
+from makani_tpu_torch.ops.fft import InverseRealFFT2, RealFFT2
 from makani_tpu_torch.parallel import spmd
 
 
@@ -79,17 +92,23 @@ class AFNO2Dv2(nn.Module):
     def mode_mask(self, h, w, device):
         """makani_tpu's static (h, w // 2 + 1) mask: latitude rows kept at
         both ends (every row when the kept count reaches h // 2 + 1), the
-        first longitudes."""
+        first longitudes; on spatial ranks the rank's (l/h, m/w) block of
+        it."""
         total_h, total_w = h // 2 + 1, w // 2 + 1
         kept_h = int(total_h * self.hard_thresholding_fraction)
         kept_w = int(total_w * self.hard_thresholding_fraction)
         kh = torch.arange(h, device=device)
         keep_h = (kh < kept_h) | (kh >= h - kept_h) if kept_h < total_h else kh >= 0
         keep_m = torch.arange(total_w, device=device) < kept_w
-        return (keep_h[:, None] & keep_m[None, :]).float()
+        mask = (keep_h[:, None] & keep_m[None, :]).float()
+        if spmd.spatial_distributed():
+            mask = mask[spmd.patch_slice(h, "h"), spmd.patch_slice(total_w, "w")]
+        return mask
 
-    def forward(self, x, x_axis=None):
-        """x's channels split over `x_axis`; the output's alike."""
+    def forward(self, x, x_axis=None, grid=None):
+        """x's channels split over `x_axis`, on spatial ranks its tile of the
+        token `grid` (h, w); the output's alike."""
+        grid = tuple(grid or x.shape[-2:])
         blocks_axis = spmd.leaf_axis(self, "w1", 0)
         if x_axis != blocks_axis:
             # the blocks do not follow the channels' split: the whole filter
@@ -97,24 +116,26 @@ class AFNO2Dv2(nn.Module):
             if x_axis is not None:
                 x = spmd.gather(x, 1, x_axis, self.hidden_size)
             w1, w2 = (leaf_part(self, k, 0, None, self.num_blocks) for k in ("w1", "w2"))
-            y = self._filter(x, w1, w2, leaf_part(self, "b1", 1, None, self.hidden_size))
+            y = self._filter(x, w1, w2, leaf_part(self, "b1", 1, None, self.hidden_size), grid)
             return spmd.scatter(y, 1, x_axis) if x_axis is not None else y
-        return self._filter(x, self.w1, self.w2, self.b1)
+        return self._filter(x, self.w1, self.w2, self.b1, grid)
 
-    def _filter(self, x, w1, w2, b1):
+    def _filter(self, x, w1, w2, b1, grid):
         bias, dtype = x, x.dtype
-        b, c, h, w = x.shape
+        b, c = x.shape[:2]
+        h, w = grid
         nb = w1.shape[0]
-        xf = torch.fft.rfft2(x.float(), dim=(-2, -1), norm="ortho")
-        xf = xf.reshape(b, nb, c // nb, h, w // 2 + 1)
+        fwd, inv = RealFFT2(h, w), InverseRealFFT2(h, w)
+        xf = fwd(x)                                  # (b, c, l, m): the rank's block
+        xf = xf.reshape(b, nb, c // nb, *xf.shape[-2:])
         o1 = torch.einsum("bkihw,kio->bkohw", xf, _as_complex(w1))
         o1 = torch.complex(torch.relu(o1.real), torch.relu(o1.imag))
         o2 = torch.einsum("bkohw,koi->bkihw", o1, _as_complex(w2))
         o2 = o2 * self.mode_mask(h, w, x.device)
         o2 = torch.complex(softshrink(o2.real, self.sparsity_threshold),
                            softshrink(o2.imag, self.sparsity_threshold))
-        o2 = o2.reshape(b, c, h, w // 2 + 1)
-        xout = torch.fft.irfft2(o2, s=(h, w), dim=(-2, -1), norm="ortho").to(dtype)
+        o2 = o2.reshape(b, c, *o2.shape[-2:])
+        xout = inv(o2).to(dtype)
         return xout + b1.to(dtype) + bias
 
 
@@ -123,7 +144,10 @@ class LayerNormHW(nn.Module):
     affine `weight`, `bias` (torch nn.LayerNorm(normalized_shape=(h, w))
     semantics): jnp's mean and two-pass variance, computed in float32 and
     returned in the input's type, then the normalization in the input's
-    type."""
+    type. On spatial ranks each pass's sums are summed over the spatial
+    group, and the affine, whole (makani_tpu's rules leave it replicated),
+    is cut to the rank's patch; its gradient sums over the group as every
+    shared leaf's does (partitioning.reduce_gradients)."""
 
     def __init__(self, shape, eps=1e-6, device="cpu"):
         super().__init__()
@@ -135,12 +159,19 @@ class LayerNormHW(nn.Module):
         """Per channel, x's channels split over `x_axis`; the affine, shared
         by every channel, sums its gradient over that axis (copy_to)."""
         xf = x.float()
-        mean = xf.mean(dim=(-2, -1), keepdim=True)
-        var = (xf - mean).square().mean(dim=(-2, -1), keepdim=True)
+        if spmd.spatial_distributed():
+            n = float(self.weight.numel())
+            mean = spmd.reduce_partial(xf.sum(dim=(-2, -1), keepdim=True), "spatial") / n
+            var = spmd.reduce_partial((xf - mean).square().sum(dim=(-2, -1), keepdim=True),
+                                      "spatial") / n
+        else:
+            mean = xf.mean(dim=(-2, -1), keepdim=True)
+            var = (xf - mean).square().mean(dim=(-2, -1), keepdim=True)
         y = (x - mean.to(x.dtype)) * torch.rsqrt(var.to(x.dtype) + self.eps)
         weight, bias = self.weight, self.bias
         if x_axis is not None:
             weight, bias = spmd.copy_to(weight, x_axis), spmd.copy_to(bias, x_axis)
+        weight, bias = (spmd.local_patch(t, t.shape) for t in (weight, bias))
         return y * weight.to(x.dtype) + bias.to(x.dtype)
 
 
@@ -153,6 +184,7 @@ class BlockV2(nn.Module):
                  hard_thresholding_fraction=1.0, skip_fno="linear", nested_skip_fno=True,
                  checkpointing=0, activation_function="gelu", device="cpu", generator=None):
         super().__init__()
+        self.grid = tuple(grid)
         self.skip_fno = skip_fno
         self.nested_skip_fno = nested_skip_fno
         self.norm1 = self._norm(norm_layer, dim, grid, device)
@@ -165,6 +197,8 @@ class BlockV2(nn.Module):
         self.mlp = MLP(dim, int(dim * mlp_ratio), act_layer=get_activation(activation_function),
                        drop_rate=drop_rate, checkpointing=checkpointing, device=device,
                        generator=generator)
+        for drop in (self.mlp.drop1, self.mlp.drop2):
+            drop.global_hw = self.grid
         self.drop_path = DropPath(path_drop_rate)
 
     @staticmethod
@@ -178,7 +212,7 @@ class BlockV2(nn.Module):
     def forward(self, x, deterministic=True, x_axis=None):
         """x's channels split over `x_axis`, the output's alike."""
         residual = x
-        x = self.filter(apply_norm(self.norm1, x, x_axis), x_axis)
+        x = self.filter(apply_norm(self.norm1, x, x_axis), x_axis, self.grid)
         if self.skip_fno == "linear":
             b, c, h, w = residual.shape
             weight = self.skip_weight.to(x.dtype).expand(b, -1, -1)
@@ -200,7 +234,11 @@ class BlockV2(nn.Module):
 class AdaptiveFourierNeuralOperatorNet(nn.Module):
     """AFNO v2: patch embed -> AFNO blocks -> pixel-shuffle head; the
     arguments are makani_tpu's, plus `device` and the `generator` the weights
-    are drawn from."""
+    are drawn from. On spatial ranks it takes and returns the rank's window
+    (module docstring)."""
+
+    # runs on a spatial decomposition (model_registry.check_layout asks)
+    spatially_parallel = True
 
     def __init__(self, inp_shape: Tuple[int, int] = (720, 1440),
                  patch_size: Tuple[int, int] = (16, 16), inp_chans=2, out_chans=2, embed_dim=768,
@@ -224,6 +262,7 @@ class AdaptiveFourierNeuralOperatorNet(nn.Module):
         self.pos_embed = trunc_normal_param((1, embed_dim, self.grid[0] * self.grid[1]), 0.02,
                                             device, generator)
         self.pos_drop = Dropout(drop_rate)
+        self.pos_drop.global_hw = self.grid
         dpr = np.linspace(0, drop_path_rate, num_layers)
         self.blocks = nn.ModuleList([
             BlockV2(embed_dim, self.grid, mlp_ratio=mlp_ratio, drop_rate=drop_rate,
@@ -241,14 +280,16 @@ class AdaptiveFourierNeuralOperatorNet(nn.Module):
 
     def forward(self, x, deterministic=True):
         b = x.shape[0]
-        h, w = self.grid
+        h, w = (spmd.patch(n, ax)[1] for n, ax in zip(self.grid, ("h", "w")))
         axis = self.patch_embed.out_axis        # the embedding's channels: fin (or whole)
-        pos = leaf_part(self, "pos_embed", 2, None, h * w)
+        pos = leaf_part(self, "pos_embed", 2, None, self.grid[0] * self.grid[1])
         if axis is not None:
             pos = spmd.scatter(pos, 1, axis)
-        x = self.patch_embed(x) + pos.to(x.dtype)
+        if spmd.spatial_distributed():
+            pos = pos.index_select(2, spmd.tile_tokens(self.grid, pos.device))
+        x = (self.patch_embed(x) + pos.to(x.dtype)).reshape(b, -1, h, w)
+        # the mask drawn on (B, C, h, w) holds the serial (B, C, h * w) draw
         x = self.pos_drop(x, deterministic, (1, axis, self.embed_dim))
-        x = x.reshape(b, x.shape[1], h, w)
         for blk in self.blocks:
             x = blk(x, deterministic=deterministic, x_axis=axis)
         # the 1x1 head, then the pixel shuffle with the reference's channel

@@ -7,7 +7,10 @@ from torch import nn
 
 class DebugNet(nn.Module):
     """One parameter, `factor` (ones, shape (1,)): returns factor * x in x's
-    dtype."""
+    dtype. Pointwise, so it runs on a spatial rank's patch as it is."""
+
+    # runs on a spatial decomposition (model_registry.check_layout asks)
+    spatially_parallel = True
 
     def __init__(self, device="cpu", generator=None):
         super().__init__()

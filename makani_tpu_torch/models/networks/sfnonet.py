@@ -77,7 +77,7 @@ from makani_tpu_torch.models.common.layers import (
     trunc_normal_param,
 )
 from makani_tpu_torch.ops import InverseRealFFT2, InverseRealSHT, RealFFT2, RealSHT
-from makani_tpu_torch.parallel import comm, spmd
+from makani_tpu_torch.parallel import spmd
 
 
 @lru_cache(maxsize=None)
@@ -240,9 +240,10 @@ class ScannedBlocks(nn.Module):
 class SphericalFourierNeuralOperatorNet(nn.Module):
     """SFNO as in Bonev et al.; the arguments are makani_tpu's, plus `device`
     and the `generator` the weights are drawn from. On spatial ranks it takes
-    and returns the rank's (B, C, lat/h, lon/w) patch; the spectral filters,
-    the norms and the position embedding see the decomposition, every other
-    layer is local."""
+    and returns the rank's (B, C, lat/h, lon/w) patch; the spectral
+    transforms (the SHT pair, or the FFT pair of the planar FNO), the
+    filters, the norms and the position embedding see the decomposition,
+    every other layer is local."""
 
     # runs on a spatial decomposition (model_registry.get_model asks)
     spatially_parallel = True
@@ -277,9 +278,6 @@ class SphericalFourierNeuralOperatorNet(nn.Module):
             modes_lat = int(h * hard_thresholding_fraction)
             modes_lon = int((w // 2 + 1) * hard_thresholding_fraction)
         kind = spectral_transform
-        if kind != "sht" and spmd.spatial_distributed():
-            raise NotImplementedError("the FFT transforms under a spatial decomposition are "
-                                      "not ported yet " + comm.SPATIAL_TODO)
         self.trans_down, _ = get_transform_pair(kind, *self.inp_shape, modes_lat, modes_lon,
                                                 model_grid_type, device)
         _, self.itrans_up = get_transform_pair(kind, *self.out_shape, modes_lat, modes_lon,

@@ -26,6 +26,20 @@ and takes the columns of the rank's heads, and the backward sums their
 gradients over fout before each rank keeps its block. The proj kernel's
 inputs are split over fout in head order, so it contracts the rank's heads
 and sums over fout; the MLP is fin -> fout -> fin; the head contracts fin.
+
+Spatial ranks (h, w; makani_tpu runs the ViT through its partitioner on
+inputs sharded over (h, w)): each rank takes its window of the image, whose
+patches are its tile of the (gh, gw) token grid (spmd.image_tile) and not a
+contiguous range of the serial token order, and gives back its window of
+the output. The norms, the MLP and the head are per token and local; the
+(1, N, C) position embedding stays whole over h and w (makani_tpu's rule
+(None, None, "fin")) and is indexed at the tile's tokens, its gradient
+summed over the spatial group as every shared leaf's. In the attention q
+stays local and k and v are gathered over the spatial group into the serial
+token order (spmd.gather_tokens), so the blockwise recurrence's key blocks
+and its padded last block fall where the serial run puts them; the backward
+sums the k and v cotangents back to their owners. The dropout masks are
+drawn at the whole token count and cut to the tile's tokens.
 """
 
 from typing import Tuple
@@ -82,9 +96,10 @@ class Attention(nn.Module):
                                        s * self.dim + heads.stop * hd) for s in range(3)])
         return t.index_select(dim, cols.to(t.device))
 
-    def forward(self, x, deterministic=True, x_axis=None):
-        """x (B, N, C) with its channels split over `x_axis`; the output's
-        split over the proj kernel's outputs."""
+    def forward(self, x, deterministic=True, x_axis=None, grid=None):
+        """x (B, N, C) with its channels split over `x_axis`, on spatial
+        ranks the tokens of its tile of the token `grid`; the output's split
+        over the proj kernel's outputs."""
         b, n = x.shape[:2]
         head_dim = self.dim // self.num_heads
         scale = head_dim ** -0.5
@@ -100,6 +115,9 @@ class Attention(nn.Module):
             qkv = qkv + self._head_columns(self.qkv.bias, 0, heads, head_axis).to(xp.dtype)
         qkv = qkv.reshape(b, n, 3, nh, head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]   # (B, N, H, D)
+        if spmd.spatial_distributed():
+            # every token's keys and values, in the serial order
+            k, v = (spmd.gather_tokens(t, 1, grid) for t in (k, v))
         if self.attn_drop_rate > 0.0 and not deterministic:
             attn = torch.softmax(torch.einsum("bnhd,bmhd->bhnm", q, k) * scale, dim=-1)
             # the heads' mask cut to the rank's heads where they are split
@@ -132,10 +150,13 @@ class ViTBlock(nn.Module):
         self.mlp_fc2 = DenseLayer(int(dim * mlp_ratio), dim, device=device, generator=generator)
         self.mlp_drop2 = Dropout(mlp_drop_rate)
         self.drop_path_mlp = DropPath(path_drop_rate)
+        # the token grid of the network (set by VisionTransformer)
+        self.grid = None
 
     def forward(self, x, deterministic=True, x_axis=None):
         """x's channels split over `x_axis`, the output's alike."""
-        y = self.attn(self.norm1(x, x_axis), deterministic=deterministic, x_axis=x_axis)
+        y = self.attn(self.norm1(x, x_axis), deterministic=deterministic, x_axis=x_axis,
+                      grid=self.grid)
         x = self.norm2(x + self.drop_path_attn(y, deterministic=deterministic), x_axis)
         hidden, out = self.mlp_fc1.out_axis, self.mlp_fc2.out_axis
         h = self.mlp_drop1(self.act(self.mlp_fc1(x, x_axis)), deterministic,
@@ -146,7 +167,11 @@ class ViTBlock(nn.Module):
 
 class VisionTransformer(nn.Module):
     """The ViT; the arguments are makani_tpu's, plus `device` and the
-    `generator` the weights are drawn from."""
+    `generator` the weights are drawn from. On spatial ranks it takes and
+    returns the rank's window (module docstring)."""
+
+    # runs on a spatial decomposition (model_registry.check_layout asks)
+    spatially_parallel = True
 
     def __init__(self, inp_shape: Tuple[int, int] = (224, 224),
                  patch_size: Tuple[int, int] = (16, 16), inp_chans=3, out_chans=3, embed_dim=768,
@@ -172,6 +197,12 @@ class VisionTransformer(nn.Module):
                      path_drop_rate=float(dpr[i]), activation_function=activation_function,
                      device=device, generator=generator)
             for i in range(depth)])
+        for blk in self.blocks:
+            blk.grid = self.grid
+            blk.attn.attn_drop.tokens = (2, self.grid)      # (B, H, N, M): the query rows
+            for drop in (blk.attn.proj_drop, blk.mlp_drop1, blk.mlp_drop2):
+                drop.tokens = (1, self.grid)
+        self.pos_drop.tokens = (1, self.grid)
         self.norm = LayerNorm(embed_dim, eps=1e-5, device=device)
         self.head = DenseLayer(embed_dim, out_chans * self.patch_size[0] * self.patch_size[1],
                                use_bias=False, device=device, generator=generator)
@@ -179,9 +210,12 @@ class VisionTransformer(nn.Module):
 
     def forward(self, x, deterministic=True):
         b = x.shape[0]
-        gh, gw = self.grid
+        gh, gw = (spmd.patch(n, ax)[1] for n, ax in zip(self.grid, ("h", "w")))
         axis = self.patch_embed.out_axis        # the embedding's channels: fin (or whole)
-        x = self.patch_embed(x).transpose(1, 2) + leaf_part(self, "pos_embed", 2, axis).to(x.dtype)
+        pos = leaf_part(self, "pos_embed", 2, axis)
+        if spmd.spatial_distributed():
+            pos = pos.index_select(1, spmd.tile_tokens(self.grid, pos.device))
+        x = self.patch_embed(x).transpose(1, 2) + pos.to(x.dtype)
         x = self.pos_drop(x, deterministic, (2, axis, self.embed_dim))
         for blk in self.blocks:
             x = blk(x, deterministic=deterministic, x_axis=axis)
@@ -189,4 +223,4 @@ class VisionTransformer(nn.Module):
         x = self.head(x.reshape(b, gh, gw, x.shape[-1]), axis)
         p, q = self.patch_size
         x = x.reshape(b, gh, gw, p, q, self.out_chans).permute(0, 5, 1, 3, 2, 4)
-        return x.reshape(b, self.out_chans, self.inp_shape[0], self.inp_shape[1])
+        return x.reshape(b, self.out_chans, gh * p, gw * q)

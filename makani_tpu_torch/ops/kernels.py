@@ -6,7 +6,10 @@ loaded with ctypes; one source may hold several kernels (gridmm.cu holds
 gridmm and grid_dot, probes.cu the seven probes, gelu.cu the bf16 GELU and its
 gradient). `build()` compiles the
 sources with nvcc at first use into build/kernels/ at the root of the
-checkout, one nvcc per source, all started together. `launches` counts kernel
+checkout, one nvcc per source, all started together; a library there that
+is newer than every kernel source, header and this module is loaded as it
+is, so a process started by one that built (a CLI's subprocess) compiles
+nothing. `launches` counts kernel
 launches per wrapper: each wrapper adds one where it launches its kernel, and
 callers reset and read the counts around a run. `launches_by_passes` counts
 the launches of the kernels that take a bf16 pass count by (kernel, passes),
@@ -62,11 +65,21 @@ def _nvcc():
     return str(path) if path.exists() else "nvcc"
 
 
+def _current(out):
+    """True for a built library newer than every kernel source and header
+    and than this module (its nvcc flags)."""
+    if not out.exists():
+        return False
+    inputs = [p for p in _CSRC.iterdir() if p.suffix in (".cu", ".cuh")] + [Path(__file__)]
+    return out.stat().st_mtime >= max(p.stat().st_mtime for p in inputs)
+
+
 def build():
-    """Compile every kernel source that is not loaded yet, one nvcc each, all
-    started together; load the libraries and declare their kernels' C
-    signatures. Returns the compiler's resource report (-Xptxas -v) per
-    source."""
+    """Compile every kernel source that is not loaded yet and has no current
+    library (`_current`), one nvcc each, all started together, each into a
+    temporary file renamed into place; load the libraries and declare their
+    kernels' C signatures. Returns the compiler's resource report (-Xptxas
+    -v) per source compiled."""
     todo = sorted({src for name, src in _SOURCES.items() if name not in _libs})
     if not todo:
         return {}
@@ -74,20 +87,25 @@ def build():
     procs = {}
     for src in todo:
         out = BUILD_DIR / f"lib{Path(src).stem}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(out), str(_CSRC / src)]
-        procs[src] = (out, subprocess.Popen(
+        if _current(out):
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp), str(_CSRC / src)]
+        procs[src] = (tmp, out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     reports = {}
     failed = []
-    for src, (out, proc) in procs.items():
+    for src, (tmp, out, proc) in procs.items():
         log, _ = proc.communicate()
         reports[Path(src).stem] = log
         if proc.returncode != 0:
             failed.append(f"{src}:\n{log}")
+        else:
+            os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed\n" + "\n".join(failed))
-    for src, (out, _) in procs.items():
-        lib = ctypes.CDLL(str(out))
+    for src in todo:
+        lib = ctypes.CDLL(str(BUILD_DIR / f"lib{Path(src).stem}.so"))
         for name in (n for n, s in _SOURCES.items() if s == src):
             _libs[name] = _declare(name, lib)
     return reports

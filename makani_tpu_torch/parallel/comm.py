@@ -25,9 +25,9 @@ gloo, whose collectives the callers stage through host memory. The choice is
 a rule of the layout, logged at init, not a retry after a failure.
 
 The channel axes fin and fout take any size: the modules split their
-channels over them (parallel/partitioning, parallel/spmd). The FFT pairs and
-the AFNO and ViT families under a spatial decomposition are not ported yet
-and raise where they are built (ROADMAP: Queue 1 item 7c).
+channels over them (parallel/partitioning, parallel/spmd); every model
+family runs on the spatial axes h and w (the transforms', the norms' and
+the attention's collectives are theirs).
 """
 
 import itertools
@@ -49,8 +49,6 @@ COMPOSITE = {
     "spatial": ("h", "w"),
     "matmul": ("fin", "fout"),
 }
-
-SPATIAL_TODO = "(ROADMAP: Queue 1 item 7c)"
 
 # how long a collective waits for the other ranks before it raises
 TIMEOUT = timedelta(seconds=600)

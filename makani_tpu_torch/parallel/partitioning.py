@@ -14,10 +14,15 @@ partitioning.py:35-45), on the port's layout of each leaf:
     over h and m over w (the diagonal one); its gradient sums over the
     other spatial axis (w for dhconv) and averages over data;
   - the "direct" position embedding (1, C, H, W): H over h, W over w.
-Every other leaf is replicated; a replicated leaf that the forward reads a
-patch of (the "frequency" position embedding's coefficients, a position
-bias, a factorized filter's or an l-dependant non-linear filter's weight) is
-sliced there, and its gradient sums over the spatial group like any other.
+A dimension that its axis does not divide, which makani_tpu's _fit_spec
+keeps whole, is cut unevenly (spmd.split_shapes) to match the rank's block
+of the coefficients it multiplies; the values are the same. Every other
+leaf is replicated; a replicated leaf that the forward reads a patch of
+(the "frequency" position embedding's coefficients, a position bias, a
+factorized filter's or an l-dependant non-linear filter's weight, AFNO v2's
+LayerNormHW (H, W) affine, the AFNO and ViT (1, N, C) position embeddings
+indexed at a rank's tokens) is sliced there, and its gradient sums over the
+spatial group like any other.
 
 The channel rules (fin, fout) are makani_tpu's `_RULES` entries for those
 axes (partitioning.py:24-68), carried as data (`TENSOR_PARALLEL_RULES`, path

@@ -16,6 +16,12 @@ makani mpu/layers.py:38-169, mpu/mappings.py:30-174):
                           the all-gather of the chunks' cotangents
   reduce_scatter          the rank's chunk of a sum of partial values;
                           backward the all-gather
+  gather_tokens           every token of a grid split over h and w, in the
+                          serial order; backward sums the ranks' cotangents
+                          and keeps the rank's tile's
+  halo                    a patch's neighbours' edge rows over one axis
+                          (periodic or zero beyond the ends); backward sums
+                          the edges' cotangents back to their owners
 
 The channel axes follow one rule throughout: a tensor that is replicated over
 an axis holds, on every rank, the whole cotangent in backward. So a tensor
@@ -353,3 +359,62 @@ def local_patch(x, global_hw):
         return x
     H, W = global_hw
     return x[..., patch_slice(H, "h"), patch_slice(W, "w")]
+
+
+def image_tile(img_size, patch_size):
+    """The rank's (rows, columns) of a (H, W) image whose (H / ph, W / pw)
+    token grid is split over h and w: its token tile times the patch. It
+    must be the rank's window of the image itself (the loader's split), else
+    a patch would straddle two ranks: that raises."""
+    tile = []
+    for size, p, axis in zip(img_size, patch_size, ("h", "w")):
+        start, n = patch(size // p, axis)
+        if (start * p, n * p) != patch(size, axis):
+            raise ValueError(f"the patch size {tuple(patch_size)} does not divide the "
+                             f"{axis} ranks' windows of the image {tuple(img_size)} evenly: "
+                             f"window {patch(size, axis)}, tokens {(start, n)}")
+        tile.append(n * p)
+    return tuple(tile)
+
+
+def tile_tokens(grid, device):
+    """int64 indices, in the serial (row-major) token order of the (gh, gw)
+    grid, of the rank's tile's tokens, row-major within the tile."""
+    (h0, hn), (w0, wn) = patch(grid[0], "h"), patch(grid[1], "w")
+    rows = torch.arange(h0, h0 + hn, device=device)[:, None] * int(grid[1])
+    return (rows + torch.arange(w0, w0 + wn, device=device)[None, :]).reshape(-1)
+
+
+def gather_tokens(x, dim, grid):
+    """All tokens of the (gh, gw) grid in the serial order, from each spatial
+    rank's tile (its tokens row-major along `dim`); every rank uses the
+    whole, so the backward sums the ranks' cotangents (copy_to) before each
+    keeps its tile's."""
+    if not spatial_distributed():
+        return x
+    dim %= x.dim()
+    (_, hn), (_, wn) = patch(grid[0], "h"), patch(grid[1], "w")
+    t = x.unflatten(dim, (hn, wn))
+    t = gather(t, dim + 1, "w", grid[1])
+    t = gather(t, dim, "h", grid[0])
+    return copy_to(t.flatten(dim, dim + 1), "spatial")
+
+
+def halo(x, dim, axis, width, periodic):
+    """The `width` entries before and after the rank's patch along `dim`,
+    from its neighbours over `axis` (periodic: the ring wraps; else zeros
+    beyond the global ends), as (before, after). One all-gather of every
+    rank's edges; the backward sums each edge's cotangents back to its
+    owner (copy_to). On one rank: the patch's own far edges, or zeros."""
+    n, r = comm.get_size(axis), comm.get_rank(axis)
+    dim %= x.dim()
+    size = x.shape[dim]
+    edges = torch.cat((x.narrow(dim, 0, width), x.narrow(dim, size - width, width)), dim=dim)
+    if n > 1:
+        edges = copy_to(gather_uneven(edges.contiguous(), dim, axis, [2 * width] * n), axis)
+
+    def edge(rank, side):
+        if not periodic and not 0 <= rank < n:
+            return torch.zeros_like(x.narrow(dim, 0, width))
+        return edges.narrow(dim, (rank % n) * 2 * width + side * width, width)
+    return edge(r - 1, 1), edge(r + 1, 0)

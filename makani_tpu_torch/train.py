@@ -27,8 +27,9 @@ NCCL with a card a rank, gloo where ranks share one, gloo on the CPU with
 The data size is the ranks left over (world // (h * w * fin * fout)), and
 --batch_size is the global batch, cut evenly over the data ranks, as in
 makani_tpu. --split_data_channels splits the validation metrics' channels
-over fin and fout. Only rank 0 logs and writes. The FNO, AFNO and ViT
-families under h * w > 1 raise (ROADMAP, Queue 1 item 7c).
+over fin and fout. Only rank 0 logs and writes. Every family runs on every
+layout; the AFNO and ViT families need their patch size to divide each
+rank's window of the crop (720 / 2 and 1440 / 2 by 8 at the 720x1440 crop).
 """
 
 import argparse

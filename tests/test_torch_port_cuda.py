@@ -317,6 +317,9 @@ ADAM_SHARDS = [
     ("model.scan_blocks.block.filter_layer.filter.weight", (3, 2, 9, 5, 7), [(2, "h", 5, 4)]),
     ("model.blocks.1.filter_layer.filter.weight", (3, 4, 9, 7, 2),
      [(2, "h", 5, 4), (3, "w", 4, 3)]),
+    # fno_linear_73ch's diagonal filter, the h 1 x w 1 rank's (l, m) block
+    ("model.blocks.1.filter_layer.filter.weight", (64, 64, 180, 180, 2),
+     [(2, "h", 90, 90), (3, "w", 90, 90)]),
 ]
 
 
@@ -394,6 +397,46 @@ def test_fft3_pair_on_the_card(cuda):
         want_x = inv(want)
         got_x = inv(want.to(cuda)).cpu()
         assert float((got_x - want_x).abs().max() / want_x.abs().max()) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nlat,nlon", [(721, 1440), (360, 720)])
+def test_distributed_fft_local_steps_at_a_ranks_shapes(cuda, nlat, nlon):
+    """The distributed FFT2 pair's DFT matmuls (ops/fft.py) at the shapes an
+    h 2 x w 2 rank gives them in fno_linear_73ch (64 channels, 180 x 180
+    modes, its full and inner grids): the longitude real DFT on 32 channels
+    of a 361- or 180-row window, the latitude DFT onto the kept rows on 32
+    channels of 90 modes, and both inverse steps, each against cuFFT's
+    transform of the same values: within TOL of the largest magnitude
+    (float32 matmuls, TF32 off)."""
+    from makani_tpu_torch.ops import fft
+    modes = 180
+    rows = list(fft.RealFFT2(nlat, nlon, modes, modes).rows())
+    C, S, Ck, Sk = fft._tables(nlat, nlon, modes, tuple(rows), -1, cuda)
+    Cs, Ss, Cki, Ski = fft._tables(nlat, nlon, modes, tuple(rows), 1, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(21)
+
+    def cplx(*shape):
+        return torch.complex(torch.randn(shape, device=cuda, generator=gen),
+                             torch.randn(shape, device=cuda, generator=gen))
+
+    x = torch.randn((1, 32, -(-nlat // 2), nlon), device=cuda, generator=gen)
+    want = torch.fft.rfft(x, dim=-1, norm="ortho")[..., :modes]
+    assert _rel(torch.complex(x @ C, -(x @ S)), want) < TOL
+    y = cplx(1, 32, modes // 2, nlat)                        # (.., m, k)
+    want = torch.fft.fft(y, dim=-1, norm="ortho")[..., rows]
+    got = torch.complex(y.real @ Ck - y.imag @ Sk, y.imag @ Ck + y.real @ Sk)
+    assert _rel(got, want) < TOL
+    z = cplx(1, 32, modes // 2, modes)                       # (.., m, l)
+    full = torch.zeros((1, 32, modes // 2, nlat), dtype=z.dtype, device=cuda)
+    full[..., rows] = z
+    want = torch.fft.ifft(full, dim=-1, norm="ortho")
+    got = torch.complex(z.real @ Cki.T - z.imag @ Ski.T, z.imag @ Cki.T + z.real @ Ski.T)
+    assert _rel(got, want) < TOL
+    w = cplx(1, 32, -(-nlat // 2), modes)
+    want = torch.fft.irfft(torch.nn.functional.pad(w, (0, nlon // 2 + 1 - modes)), n=nlon,
+                           dim=-1, norm="ortho")
+    assert _rel(w.real @ Cs - w.imag @ Ss, want) < TOL
 
 
 # (N, block, min_blockwise_tokens): the blockwise recurrence with padded

@@ -225,14 +225,11 @@ def test_checkpoints_cross_between_serial_and_distributed(sfno_state, tmp_path):
             assert a.read() == b.read(), name
 
 
-def test_tensor_parallelism_raises_item_7b(monkeypatch):
+def test_tensor_parallelism_raises_item_7b():
     """The fin and fout layouts are ported (item 7b,
     tests/test_torch_port_tensor_parallel.py): in a serial process they ask
-    for the ranks, as h and w do. What still raises is item 7c: the FFT
-    pair, the AFNO families and the ViT under a spatial decomposition."""
-    from makani_tpu_torch.models import model_registry
-    from makani_tpu_torch.models.networks.sfnonet import FourierNeuralOperatorNet
-    from makani_tpu_torch.parallel import comm, partitioning, spmd
+    for the ranks, as h and w do."""
+    from makani_tpu_torch.parallel import comm, partitioning
     for sizes in ([1, 1, 2, 1], [1, 1, 1, 2], [2, 1, 2, 1]):
         with pytest.raises(ValueError, match="ranks"):
             comm.init(sizes, device_type="cpu")
@@ -243,18 +240,36 @@ def test_tensor_parallelism_raises_item_7b(monkeypatch):
     assert partitioning.tensor_parallel_spec("model/residual_transform") is None
     assert partitioning.tensor_parallel_spec("model/pos_embed", (1, 4, 8, 16)) is None
     assert partitioning.tensor_parallel_spec("model/pos_embed", (1, 8, 16)) == (None, None, "fin")
-    monkeypatch.setattr(spmd, "spatial_distributed", lambda: True)
-    for nettype in ("AFNO", "AFNOv1", "ViT"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7c"):
-            model_registry.check_layout(nettype)
-    model_registry.check_layout("SFNO")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7c"):
-        FourierNeuralOperatorNet(inp_shape=(8, 16), out_shape=(8, 16), scale_factor=1,
-                                 embed_dim=4, num_layers=1)
     # serial: the spatial sizes ask for the ranks of a launcher
     with pytest.raises(ValueError, match="ranks"):
         comm.init([2, 1, 1, 1], device_type="cpu")
     assert os.environ.get("WORLD_SIZE") is None
+
+
+def test_every_family_takes_spatial_ranks(monkeypatch):
+    """Under a spatial decomposition every registered family passes
+    check_layout (tests/test_torch_port_spatial_families.py runs them) and
+    the FNO builds on its FFT pair; a class without a spatially parallel
+    path still raises."""
+    from torch import nn
+    from makani_tpu_torch.models import model_registry
+    from makani_tpu_torch.models.networks.sfnonet import FourierNeuralOperatorNet
+    from makani_tpu_torch.parallel import spmd
+    monkeypatch.setattr(spmd, "spatial_distributed", lambda: True)
+    assert set(model_registry.list_models()) == {"SFNO", "FNO", "AFNO", "AFNOv1", "ViT",
+                                                 "DebugNet"}
+    for nettype in model_registry.list_models():
+        model_registry.check_layout(nettype)
+    net = FourierNeuralOperatorNet(inp_shape=(8, 16), out_shape=(8, 16), scale_factor=1,
+                                   embed_dim=4, num_layers=1)
+    assert type(net.trans_down).__name__ == "RealFFT2"
+
+    class Planar(nn.Module):
+        pass
+
+    monkeypatch.setitem(model_registry._model_registry, "Planar", Planar)
+    with pytest.raises(NotImplementedError, match="no spatially parallel path"):
+        model_registry.check_layout("Planar")
 
 
 # --------------------------------------------------------------------------

@@ -99,6 +99,31 @@ def sht_pairs(cases):
     return out
 
 
+def fft_pairs(cases):
+    """For each (kind "fft2" or "fft3", input shape, transform kwargs, seed):
+    the rank's coefficient block of the seeded field's patch, its round trip
+    and the gradient of the round trip's sum of squares, with the rank's
+    (lat, lon) and (l, m) windows."""
+    from makani_tpu_torch.ops.fft import InverseRealFFT2, RealFFT2
+    from makani_tpu_torch.ops.fft3d import InverseRealFFT3, RealFFT3
+    from makani_tpu_torch.parallel import spmd
+    out = []
+    for kind, shape, kw, seed in cases:
+        x = torch.from_numpy(np.random.RandomState(seed).randn(*shape).astype(np.float32))
+        pair = (RealFFT2, InverseRealFFT2) if kind == "fft2" else (RealFFT3, InverseRealFFT3)
+        fwd, inv = (cls(*shape[2:], **kw) for cls in pair)
+        xl = spmd.local_patch(x, shape[-2:]).clone().requires_grad_(True)
+        coeffs = fwd(xl)
+        back = inv(coeffs)
+        spmd.all_reduce_sum(back.square().sum(), "spatial").backward()
+        lmax, mmax = (fwd.lmax, fwd.mmax) if kind == "fft2" else (fwd.lhmax, fwd.lwmax)
+        out.append(dict(coeffs=coeffs.detach().numpy(), back=back.detach().numpy(),
+                        grad=xl.grad.numpy(), lat=spmd.patch(shape[-2], "h"),
+                        lon=spmd.patch(shape[-1], "w"), l=spmd.patch(lmax, "h"),
+                        m=spmd.patch(mmax, "w")))
+    return out
+
+
 def _sfno(kwargs, state):
     from makani_tpu_torch.models.networks.sfnonet import SphericalFourierNeuralOperatorNet
     from makani_tpu_torch.parallel import partitioning
@@ -305,6 +330,52 @@ def network_forward_and_grads(module, name, kwargs, state, x, engine="xla", prec
     partitioning.reduce_gradients(grads, shards)
     sht.set_coeff_engine("kernel")
     return dict(y=y.detach().numpy(), grads=_numpy(grads), shards=dict(shards),
+                lat=spmd.patch(hw[0], "h"), lon=spmd.patch(hw[1], "w"))
+
+
+def precipnet(precip_out_chans=2, **backbone):
+    """PrecipNet of `precip_out_chans` over an AFNO v1 of `backbone`'s
+    arguments (a constructor for network_forward_and_grads)."""
+    from makani_tpu_torch.models.networks.afnonet import (
+        AdaptiveFourierNeuralOperatorNetV1,
+        PrecipNet,
+    )
+    return PrecipNet(AdaptiveFourierNeuralOperatorNetV1(**backbone), out_chans=precip_out_chans)
+
+
+def with_attention_block(block_size, name, args):
+    """The rank function `name`(*args) at the attention's key-block size
+    `block_size`, the default restored after."""
+    from makani_tpu_torch.models.common import attention
+    prev = attention._DEFAULT_BLOCK_SIZE
+    attention.set_attention_block_size(block_size)
+    try:
+        return globals()[name](*args)
+    finally:
+        attention.set_attention_block_size(prev)
+
+
+def norm_bf16(x, weight, bias, r):
+    """InstanceNorm2d at "bf16" statistics on the rank's patch of bf16 `x`:
+    its output, and the gradients of the sum over the whole field of y * r
+    (the input's on the patch; the affine's summed over the spatial group,
+    as the Trainer reduces a shared leaf's)."""
+    from makani_tpu_torch.models.common import layers
+    from makani_tpu_torch.parallel import partitioning, spmd
+    hw = x.shape[-2:]
+    m = layers.InstanceNorm2d(x.shape[1])
+    m.weight.data, m.bias.data = torch.from_numpy(weight), torch.from_numpy(bias)
+    xl = spmd.local_patch(torch.from_numpy(x), hw).to(torch.bfloat16).requires_grad_(True)
+    rl = spmd.local_patch(torch.from_numpy(r), hw).to(torch.bfloat16)
+    layers.set_norm_stats_mode("bf16")
+    try:
+        y = m(xl)
+    finally:
+        layers.set_norm_stats_mode("f32")
+    spmd.all_reduce_sum((y * rl).float().sum(), "spatial").backward()
+    grads = {"weight": m.weight.grad, "bias": m.bias.grad}
+    partitioning.reduce_gradients(grads, {})
+    return dict(y=y.detach().float().numpy(), gx=xl.grad.float().numpy(), grads=_numpy(grads),
                 lat=spmd.patch(hw[0], "h"), lon=spmd.patch(hw[1], "w"))
 
 
