@@ -14,9 +14,11 @@ Phases, in order; any failure exits non-zero:
      library call (float32 bmm for legmm, complex64 matmul for dhconv_mm and
      dhconv_dw, TF32 off); and the fused Adam kernel over the flagship's 87
      parameter leaves (572.5 M elements, bf16 moments under stochastic
-     rounding): bit-identical to its twin after 2 steps, timed per full
-     update beside the twin and torch.optim.Adam(fused=True) on float32
-     state (context only: no PyTorch call rounds moments stochastically);
+     rounding): one launch an update, bit-identical to its twin after 2
+     steps, timed per full update (CUDA events; the same behind a spin
+     kernel, the card's time alone; and the host's time to enqueue it)
+     beside the twin and torch.optim.Adam(fused=True) on float32 state
+     (context only: no PyTorch call rounds moments stochastically);
      and the bf16 GELU kernels, forward and gradient, at the blocks' MLP
      activation (1, 768, 240, 480) and the encoder's (1, 384, 721, 1440):
      bit-identical to their twins, timed at the second beside the twin and
@@ -34,7 +36,7 @@ Phases, in order; any failure exits non-zero:
   6. the training path: a Trainer of flagship_synth_drive_bare on synthetic
      data (fused Adam, checkpointing 0, no validation or checkpoints) runs
      one epoch of 3 steps at batch 1 with finite losses and its launch
-     counts per step asserted (36 legmm, 16 dhconv_mm, 8 dhconv_dw, 87
+     counts per step asserted (36 legmm, 16 dhconv_mm, 8 dhconv_dw, 1
      fused_adam); the train step timed on a resident batch (median of 3
      after a warm-up) with its peak device memory; the full-width gradients
      through the kernels against those through the twins (FORWARD_TOL per
@@ -50,7 +52,7 @@ Phases, in order; any failure exits non-zero:
      weights on the "kernel" engine and on "xla" without the kernel
      (FORWARD_TOL); 4-step Inferencer rollouts timed as in phase 5; a
      Trainer epoch of 3 steps with coefficient_engine "xla" (16
-     dhconv_complex and 87 fused_adam launches per step), its step time and
+     dhconv_complex and 1 fused_adam launch per step), its step time and
      peak memory, and its full-width
      gradients against the kernel engine's (FORWARD_TOL per leaf). The
      engine, precisions and kernel toggle are restored afterwards;
@@ -86,7 +88,7 @@ Phases, in order; any failure exits non-zero:
      per step, plus 18 gelu_bf16 and 18 gelu_bf16_grad; the train step timed
      on a resident batch with its peak memory; on the "xla" engine with its
      kernel, one forward (8 dhconv_complex) and one train step (16
-     dhconv_complex, 87 fused_adam), then that step timed (median of 3). The
+     dhconv_complex, 1 fused_adam), then that step timed (median of 3). The
      engine, precisions, kernel toggle and cuBLAS setting are restored
      afterwards;
  10. inputs from files at full width: flagship_synth_drive, all its
@@ -177,8 +179,12 @@ Phases, in order; any failure exits non-zero:
      step on a resident batch; (e) one LAMB update (bf16 moments) and one
      AdamW update (float32 moments), both clipped by the global norm, over
      (a)'s 87 leaves: the kernel's new modes against their twin, bit for
-     bit, one launch a leaf, each timed (CUDA events, and the host's time
-     to enqueue it) beside the plain mode and torch.optim.Adam(fused=True);
+     bit, one launch an update, each timed (CUDA events, the card's time
+     alone, and the host's time to enqueue it) beside the plain mode,
+     torch.optim.Adam(fused=True), and the clipped AdamW update as PyTorch
+     computes it (clip_grad_norm_(foreach=True), then
+     torch.optim.AdamW(fused=True)); the bounds count the clip's read of g
+     and LAMB's trust-ratio passes;
      (f) legmm, dhconv_mm (forward, dx) and
      dhconv_dw at the ICML shapes against float64 and their twins, with
      phase 3's bounds, timed as phase 3 times them.
@@ -188,7 +194,7 @@ Phases, in order; any failure exits non-zero:
      modes, 2.12 B parameters) and (b) fno_nonlinear_73ch (SpectralAttention
      on the FFT coefficients) through train.main at the lowest checkpointing
      level that fits (FNO_LEVELS), 2 steps each: finite losses, the launches
-     (fno_launches: the GELU kernels and one fused_adam a leaf), a train step
+     (fno_launches: the GELU kernels and one fused_adam a step), a train step
      on a resident batch with its peak memory, then a 4-step Inferencer
      rollout of the trained model timed as in phase 5; (c) at
      sfno_dhealy_73ch's width: scan_layers through train.main (37 leaves, the
@@ -215,7 +221,7 @@ Phases, in order; any failure exits non-zero:
      (AFNO v1) and config/vit.yaml's vit_backbone (12 heads of 64, the
      blockwise attention) through train.main, each (a)-(c) float32 as its
      YAML says, 2 steps, and (d) under bf16 AMP, 1 step: finite losses, the
-     launches (one fused_adam a leaf a step, 136, 148 and 150; under AMP
+     launches (one fused_adam a step over 136, 148 and 150 leaves; under AMP
      AFNO v2's 12 gelu_bf16 and 12 gelu_bf16_grad a step, none for the
      others, whose flax-style norms and dense layers compute in float32), a
      train step on a resident batch with its peak memory, and a 4-step
@@ -300,8 +306,8 @@ Phases, in order; any failure exits non-zero:
      on h 2 x w 2, float32, a 2-step rollout against the serial one
      (PARALLEL_SERVE_TOL), each rank's bytes sent, step ms and peak; (b) its
      bf16 AMP Trainer at depth SP_TRAIN_LAYERS on h 2 x w 2, 2 steps against
-     the serial Trainer (phase 17's bounds), fused_adam once a leaf a step on
-     each rank's (h, w) blocks of the filters, the GELU kernels launched, and
+     the serial Trainer (phase 17's bounds), fused_adam once a step on each
+     rank's leaves, its (h, w) blocks of the filters among them, the GELU kernels launched, and
      a control with the spatial sum of the replicated leaves' gradients
      dropped, which must read above the bounds; (c) afno_v2, afno_backbone
      inside PrecipNet (its periodic pad a halo exchange) and vit_backbone at
@@ -387,13 +393,13 @@ TOOL_REPS = 3
 DEVICE_RUNS = 3
 # launches per train step at checkpointing 0, read from the code: 18 forward
 # Legendre contractions and their 18 transposes; 8 dhconv forwards, 8 dx and
-# 8 dw; one fused Adam launch per parameter leaf (10 per block, 3 in the
-# encoder and the decoder each, the residual transform)
-TRAIN_LAUNCHES = {"legmm": 36, "dhconv_mm": 16, "dhconv_dw": 8, "fused_adam": 87}
+# 8 dw; one fused Adam launch for all 87 parameter leaves (10 per block, 3 in
+# the encoder and the decoder each, the residual transform)
+TRAIN_LAUNCHES = {"legmm": 36, "dhconv_mm": 16, "dhconv_dw": 8, "fused_adam": 1}
 # on the complex engine with the kernel on: 8 forward contractions and their 8
 # dx; dw is an einsum, and the Legendre contractions are float32 einsums
 COMPLEX_FORWARD_LAUNCHES = {"dhconv_complex": 8}
-COMPLEX_TRAIN_LAUNCHES = {"dhconv_complex": 16, "fused_adam": 87}
+COMPLEX_TRAIN_LAUNCHES = {"dhconv_complex": 16, "fused_adam": 1}
 # bf16 AMP's forward against float32, norm-wise: makani_tpu/utils/trainer.py
 # puts AMP's model-level deviation at ~1.5e-2; a deviation past this is a
 # fault, not rounding
@@ -888,10 +894,12 @@ def phase_kernels(torch, spectral_mm, dev, gen, mmax=241, Lin=240, Kin=240, Kful
     return rows
 
 
-def phase_adam(torch, dev, gen, shapes):
-    """The fused Adam kernel over the flagship's parameter leaves: 2 steps
-    bit-identical to the twin, then timed per full update."""
+def phase_adam(torch, kernels, dev, gen, shapes):
+    """The fused Adam kernel over the flagship's parameter leaves: 2 steps,
+    one launch each, bit-identical to the twin, then timed per full update
+    (CUDA events, the card alone, the host's enqueue)."""
     from makani_tpu_torch.ops import fused_adam
+    from makani_tpu_torch.tools.bench_fused_adam import device_ms
     from makani_tpu_torch.utils.optimizers import AdamState
     kw = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0, stochastic_rounding=True, seed=340)
     params = {k: torch.randn(s, device=dev, generator=gen) for k, s in shapes.items()}
@@ -905,10 +913,13 @@ def phase_adam(torch, dev, gen, shapes):
                           for k, s in shapes.items()})
 
     s_kernel, s_twin = state(), state()
+    kernels.reset_launches()
     for _ in range(2):
         fused_adam.fused_adam_apply(params, grads, s_kernel, 1e-3, **kw)
         fused_adam.fused_adam_apply_plain(twin, grads, s_twin, 1e-3, **kw)
     torch.cuda.synchronize()
+    launches = kernels.launches["fused_adam"]
+    check(launches == 2, f"fused_adam: {launches} launches over 2 updates")
     diff = 0.0
     for k in shapes:
         for a, b in ((params[k], twin[k]), (s_kernel.mu[k], s_twin.mu[k]),
@@ -918,7 +929,10 @@ def phase_adam(torch, dev, gen, shapes):
     n = sum(math.prod(s) for s in shapes.values())
     nbytes = n * (4 + 4 + 4 + 2 + 2 + 2 + 2)  # p read and written, g, mu and nu read and written
     b_ms, b_by = bound(nbytes, 0)
-    ms = cuda_ms(lambda: fused_adam.fused_adam_apply(params, grads, s_kernel, 1e-3, **kw), 10)
+    def update():
+        fused_adam.fused_adam_apply(params, grads, s_kernel, 1e-3, **kw)
+    ms, dev_ms = cuda_ms(update, 10), device_ms(update, 10)
+    enqueue_ms = host_enqueue_ms(torch, update, 10)
     plain_ms = cuda_ms(lambda: fused_adam.fused_adam_apply_plain(twin, grads, s_twin, 1e-3,
                                                                  **kw), 2)
     del twin, s_twin
@@ -928,12 +942,15 @@ def phase_adam(torch, dev, gen, shapes):
     for p, g in zip(leaves, grads.values()):
         p.grad = g
     opt = torch.optim.Adam(leaves, lr=1e-3, betas=(0.9, 0.999), eps=1e-8, fused=True)
-    library_ms = cuda_ms(opt.step, 10)
+    library_ms, library_device_ms = cuda_ms(opt.step, 10), device_ms(opt.step, 10)
+    library_enqueue_ms = host_enqueue_ms(torch, opt.step, 10)
     del opt, leaves, params, grads, s_kernel
     torch.cuda.empty_cache()
     return dict(name="fused_adam", shape=f"{len(shapes)} leaves, {n} elements", passes=None,
-                max_abs_err=diff, rel_err_twin=diff,
-                ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=diff, rel_err_twin=diff, launches_per_update=launches // 2,
+                ms=ms, device_ms=dev_ms, enqueue_ms=enqueue_ms, plain_ms=plain_ms,
+                library_ms=library_ms, library_device_ms=library_device_ms,
+                library_enqueue_ms=library_enqueue_ms, bound_ms=b_ms, bound_by=b_by,
                 gbytes=nbytes / 1e9, elements=n, leaves=len(shapes))
 
 
@@ -2317,20 +2334,20 @@ def phase_trainer(torch, np, kernels, dev):
     return rec
 
 
-def icml_launches(level, unroll, leaves, linear=True):
+def icml_launches(level, unroll, linear=True):
     """Launches of one ICML train step at checkpointing `level` with `unroll`
-    steps unrolled and `leaves` parameter leaves: per unrolled step a forward
+    steps unrolled: per unrolled step a forward
     and its backward (18 legmm each way, 8 dhconv_mm forward and 8 dx, 8
     dhconv_dw, 18 GELU each way), plus what checkpointing recomputes (from
     level 1 the encoder's and the decoder's GELU, from level 2 the MLPs' 8,
     at level 3 the blocks' forward: 18 legmm, 8 dhconv_mm, 16 GELU); one
-    fused_adam a leaf."""
+    fused_adam for all the leaves."""
     gelu = 18 + (2 if level >= 1 else 0) + (8 if level >= 2 else 0) + (16 if level >= 3 else 0)
     step = {"legmm": 36 + (18 if level >= 3 else 0), "gelu_bf16": gelu, "gelu_bf16_grad": 18}
     if linear:
         step.update(dhconv_mm=16 + (8 if level >= 3 else 0), dhconv_dw=8)
     out = {k: v * unroll for k, v in step.items()}
-    out["fused_adam"] = leaves
+    out["fused_adam"] = 1
     return out
 
 
@@ -2449,7 +2466,7 @@ def phase_icml(torch, np, spectral_mm, kernels, dev, gen):
           and p.scheduler == "CosineAnnealingLR" and p.filter_type == "linear",
           f"{ICML_PRETRAIN}'s recipe: {p.N_in_channels} channels, embed {p.embed_dim}, "
           f"{p.num_layers} blocks, scale {p.scale_factor}, {p.loss!r}, {p.scheduler}")
-    want = icml_launches(level, 1, run["leaves"])
+    want = icml_launches(level, 1)
     check(run["launches"] == launch_counts(kernels, {k: v * ICML_STEPS[ICML_PRETRAIN]
                                                      for k, v in want.items()})
           and run["one_pass"], f"(a) launches {run['launches']}, a step {want}")
@@ -2488,8 +2505,8 @@ def phase_icml(torch, np, spectral_mm, kernels, dev, gen):
           f"(b) did not start from (a)'s weights with a fresh optimizer: {restored}")
     # a 2-step unroll: twice a one-step train step's forward and backward
     # launches, one update
-    one = icml_launches(level, 1, run["leaves"])
-    want = icml_launches(level, 2, run["leaves"])
+    one = icml_launches(level, 1)
+    want = icml_launches(level, 2)
     check(all(want[k] == 2 * one[k] for k in one if k != "fused_adam")
           and run["launches"] == launch_counts(kernels, {k: v * ICML_STEPS[ICML_FINETUNE]
                                                          for k, v in want.items()})
@@ -2509,7 +2526,7 @@ def phase_icml(torch, np, spectral_mm, kernels, dev, gen):
           and type(filt).__name__ == "SpectralAttention" and filt.spectral_layers == 3
           and tuple(filt.w_0.shape) == (384, 768, 2),
           f"{ICML_NONLINEAR}: {p.filter_type} {p.operator_type}, {type(filt).__name__}")
-    want = icml_launches(level, 1, run["leaves"], linear=False)
+    want = icml_launches(level, 1, linear=False)
     check(run["launches"] == launch_counts(kernels, {k: v * ICML_STEPS[ICML_NONLINEAR]
                                                      for k, v in want.items()})
           and run["one_pass"], f"(c) launches {run['launches']}, a step {want}")
@@ -2596,10 +2613,16 @@ def icml_small_dropout(torch, dev):
 
 def icml_optimizers(torch, kernels, dev, gen, shapes):
     """The fused_adam modes at full width: LAMB and clipped AdamW against
-    their twin after one clipped update, with their launches; each timed
-    (CUDA events, and the host's time to enqueue an update) beside the plain
-    mode and torch.optim.Adam(fused=True)."""
+    their twin after one clipped update, one launch each; each timed (CUDA
+    events, the card alone, and the host's time to enqueue an update) beside
+    the plain mode, torch.optim.Adam(fused=True), and clipped AdamW as
+    PyTorch's calls compute it (clip_grad_norm_(foreach=True), then
+    torch.optim.AdamW(fused=True)). The bounds count what the update moves
+    beyond the kernel: the clip's read of g (its global norm), and LAMB's
+    trust-ratio passes (the norms of p and of the direction, and p - lr *
+    ratio * dir: p and the direction read, p written)."""
     from makani_tpu_torch.ops import fused_adam
+    from makani_tpu_torch.tools.bench_fused_adam import device_ms
     from makani_tpu_torch.utils.optimizers import AdamState, kernel_update_settings
     params = {k: torch.randn(s, device=dev, generator=gen) for k, s in shapes.items()}
     grads = {k: 1e-2 * torch.randn(s, device=dev, generator=gen) for k, s in shapes.items()}
@@ -2629,7 +2652,7 @@ def icml_optimizers(torch, kernels, dev, gen, shapes):
         fused_adam.fused_adam_apply(kernel_p, grads, s_kernel, 1e-3, **kw)
         torch.cuda.synchronize()
         launches = kernels.launches["fused_adam"]
-        check(launches == len(shapes), f"{name}: {launches} fused_adam launches")
+        check(launches == 1, f"{name}: {launches} fused_adam launches in an update")
         twin_ms = None
         if name != "plain":
             check(kw["max_norm"] == 1.0 and norm > 1.0 and kw["lamb"] == (name == "lamb"),
@@ -2647,22 +2670,39 @@ def icml_optimizers(torch, kernels, dev, gen, shapes):
             torch.cuda.empty_cache()
         def update():
             fused_adam.fused_adam_apply(kernel_p, grads, s_kernel, 1e-3, **kw)
-        ms = cuda_ms(update, 5)
+        ms, dev_ms = cuda_ms(update, 5), device_ms(update, 5)
         enqueue_ms = host_enqueue_ms(torch, update, 5)
         # each input read once and each output written once: p, g and the two
-        # moments read, p and the moments written
-        nbytes = n * (4 + 4 + 4 + 4 * dtype.itemsize)
+        # moments read, p and the moments written; the clip reads g once more
+        # for its norm; LAMB writes the direction and not p, then reads p and
+        # the direction for their norms, and both again to write p
+        nbytes = n * (4 + 4 + 4 + 4 * dtype.itemsize + (4 if kw["max_norm"] else 0)
+                      + (20 if kw["lamb"] else 0))
         b_ms, b_by = bound(nbytes, 0)
-        rec[name] = dict(launches=launches, ms=ms, enqueue_ms=enqueue_ms, plain_ms=twin_ms,
-                         bound_ms=b_ms, bound_by=b_by, moments=str(dtype).split(".")[-1])
+        rec[name] = dict(launches=launches, ms=ms, device_ms=dev_ms, enqueue_ms=enqueue_ms,
+                         plain_ms=twin_ms, bound_ms=b_ms, bound_by=b_by, gbytes=nbytes / 1e9,
+                         moments=str(dtype).split(".")[-1])
         del s_kernel, kernel_p
         torch.cuda.empty_cache()
     leaves = list(params.values())
     for p, g in zip(leaves, grads.values()):
         p.grad = g
     opt = torch.optim.Adam(leaves, lr=1e-3, betas=(0.9, 0.95), eps=1e-8, fused=True)
-    rec["library_ms"] = cuda_ms(opt.step, 5)
+    rec["library_ms"], rec["library_device_ms"] = cuda_ms(opt.step, 5), device_ms(opt.step, 5)
     rec["library_enqueue_ms"] = host_enqueue_ms(torch, opt.step, 5)
+    del opt
+    torch.cuda.empty_cache()
+    # clipped AdamW (float32 moments) as PyTorch computes it: the clip scales
+    # the gradients in place, then the fused AdamW
+    opt = torch.optim.AdamW(leaves, lr=1e-3, betas=(0.9, 0.95), eps=1e-8, weight_decay=0.05,
+                            fused=True)
+
+    def clipped_adamw():
+        torch.nn.utils.clip_grad_norm_(leaves, 1.0, foreach=True)
+        opt.step()
+    rec["library_adamw_ms"] = cuda_ms(clipped_adamw, 5)
+    rec["library_adamw_device_ms"] = device_ms(clipped_adamw, 5)
+    rec["library_adamw_enqueue_ms"] = host_enqueue_ms(torch, clipped_adamw, 5)
     del opt, leaves, params, grads
     torch.cuda.empty_cache()
     return rec
@@ -2693,14 +2733,18 @@ def print_icml(icml):
     o = icml["optimizers"]
     print(f"[icml optimizers] {o['elements']} elements in {o['leaves']} leaves, global gradient "
           f"norm {o['grad_norm']:.4g}: " + "; ".join(
-              f"{name} ({o[name]['moments']} moments) {o[name]['ms']:.3f} ms (host enqueue "
-              f"{o[name]['enqueue_ms']:.3f})"
+              f"{name} ({o[name]['moments']} moments) {o[name]['ms']:.3f} ms (the card alone "
+              f"{o[name]['device_ms']:.3f}, host enqueue {o[name]['enqueue_ms']:.3f})"
               + ("" if o[name]["plain_ms"] is None else
                  f", twin {o[name]['plain_ms']:.1f} ms, bit-identical")
-              + f", {o[name]['launches']} launches, bound {o[name]['bound_ms']:.3f} ms"
+              + f", {o[name]['launches']} launch, bound {o[name]['bound_ms']:.3f} ms "
+              f"({o[name]['gbytes']:.2f} GB)"
               for name in ("lamb", "clipped_adamw", "plain"))
-          + f"; torch.optim.Adam(fused=True), float32 moments, {o['library_ms']:.3f} ms "
-          f"(host enqueue {o['library_enqueue_ms']:.3f})",
+          + f"; torch.optim.Adam(fused=True), float32 moments, {o['library_ms']:.3f} ms (alone "
+          f"{o['library_device_ms']:.3f}, host enqueue {o['library_enqueue_ms']:.3f}); "
+          f"clip_grad_norm_(foreach=True) + AdamW(fused=True) {o['library_adamw_ms']:.3f} ms "
+          f"(alone {o['library_adamw_device_ms']:.3f}, host enqueue "
+          f"{o['library_adamw_enqueue_ms']:.3f})",
           flush=True)
     print("[icml kernels] name | shape | passes | rel err vs twin | vs f64 | ms | plain ms | "
           "library ms | bound ms (by)")
@@ -2710,12 +2754,12 @@ def print_icml(icml):
               f"{r['library_ms']:.4f} | {r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
 
 
-def fno_launches(level, leaves):
+def fno_launches(level):
     """Launches of one FNO train step at checkpointing `level`: the GELU
     kernels of icml_launches and one fused_adam a leaf; no legmm and no
     dhconv (the FFTs are cuFFT's, the diagonal and non-linear filters
     complex einsums, as makani_tpu leaves them to XLA)."""
-    step = icml_launches(level, 1, leaves, linear=False)
+    step = icml_launches(level, 1, linear=False)
     del step["legmm"]
     return step
 
@@ -2739,7 +2783,7 @@ def fno_run(torch, np, kernels, dev, gen, name):
     if linear:
         weight = net.blocks[1].filter_layer.filter.weight
         check(tuple(weight.shape) == (64, 64, 180, 180, 2), f"{name}: filter {weight.shape}")
-    want = fno_launches(level, run["leaves"])
+    want = fno_launches(level)
     check(run["launches"] == launch_counts(kernels, {k: v * ICML_STEPS[name]
                                                      for k, v in want.items()})
           and run["one_pass"], f"{name} launches {run['launches']}, a step {want}")
@@ -2898,9 +2942,11 @@ def fno_adam(torch, kernels, dev, gen, shapes):
     """Phase 14 (d): fused_adam over fno_linear_73ch's leaves (2.12 B
     elements): float16 moments against the twin bit for bit after 2 updates,
     with the share of nu below float16's smallest normal; then one update
-    timed with float16, bf16 (stochastic rounding) and float32 moments beside
-    the bound and torch.optim.Adam(fused=True) on float32 state."""
+    timed with float16, bf16 (stochastic rounding) and float32 moments (CUDA
+    events, the card alone, the host's enqueue) beside the bound and
+    torch.optim.Adam(fused=True) on float32 state."""
     from makani_tpu_torch.ops import fused_adam
+    from makani_tpu_torch.tools.bench_fused_adam import device_ms
     from makani_tpu_torch.utils.optimizers import kernel_update_settings
     base = dict(optimizer_type="Adam", optimizer_beta1=0.9, optimizer_beta2=0.95, global_seed=333)
     params = {k: torch.randn(s, device=dev, generator=gen) for k, s in shapes.items()}
@@ -2922,7 +2968,7 @@ def fno_adam(torch, kernels, dev, gen, shapes):
         torch.cuda.synchronize()
         t_twin = (time.perf_counter() - t0) * 1e3
     launches = kernels.launches["fused_adam"]
-    check(launches == 2 * len(shapes), f"float16: {launches} fused_adam launches")
+    check(launches == 2, f"float16: {launches} fused_adam launches over 2 updates")
     differ = [k for k in shapes if not (
         torch.equal(params[k], twin_p[k]) and torch.equal(s_kernel.mu[k], s_twin.mu[k])
         and torch.equal(s_kernel.nu[k], s_twin.nu[k]))]
@@ -2944,7 +2990,8 @@ def fno_adam(torch, kernels, dev, gen, shapes):
         ms = cuda_ms(update, 5)
         nbytes = n * (4 + 4 + 4 + 4 * dtype.itemsize)
         b_ms, b_by = bound(nbytes, 0)
-        rec[name] = dict(ms=ms, enqueue_ms=host_enqueue_ms(torch, update, 3), bound_ms=b_ms,
+        rec[name] = dict(ms=ms, device_ms=device_ms(update, 5),
+                         enqueue_ms=host_enqueue_ms(torch, update, 3), bound_ms=b_ms,
                          bound_by=b_by, gbytes=nbytes / 1e9)
         if name == "float16":
             rec[name]["plain_ms"] = t_twin
@@ -2954,7 +3001,7 @@ def fno_adam(torch, kernels, dev, gen, shapes):
     for p, g in zip(leaves, grads.values()):
         p.grad = g
     opt = torch.optim.Adam(leaves, lr=1e-3, betas=(0.9, 0.95), eps=1e-8, fused=True)
-    rec["library_ms"] = cuda_ms(opt.step, 5)
+    rec["library_ms"], rec["library_device_ms"] = cuda_ms(opt.step, 5), device_ms(opt.step, 5)
     del opt, leaves, params, grads
     torch.cuda.empty_cache()
     return rec
@@ -3025,7 +3072,7 @@ def phase_fno(torch, np, sht, complex_ops, kernels, dev, gen):
         check(net.scan and net.scan_blocks.length == 6
               and tuple(stacked.shape) == (6, 2, 180, 384, 384) and run["leaves"] == 37,
               f"scan_layers: {run['leaves']} leaves, stacked filter {tuple(stacked.shape)}")
-        want = icml_launches(level, 1, run["leaves"])
+        want = icml_launches(level, 1)
         for k, extra in (("legmm", 12), ("dhconv_mm", 6), ("gelu_bf16", 12)):
             want[k] += extra
         check(run["launches"] == launch_counts(kernels, {
@@ -3071,7 +3118,7 @@ def phase_fno(torch, np, sht, complex_ops, kernels, dev, gen):
               and all(v.dtype == torch.float16 for v in (*state.mu.values(), *state.nu.values()))
               and state.count == ICML_STEPS[ICML_PRETRAIN],
               f"float16 Trainer: settings {trainer.fused_kw}, count {state.count}")
-        want = icml_launches(level, 1, run["leaves"])
+        want = icml_launches(level, 1)
         check(run["launches"] == launch_counts(kernels, {
             k: v * ICML_STEPS[ICML_PRETRAIN] for k, v in want.items()}) and run["one_pass"],
               f"float16 Trainer launches {run['launches']}")
@@ -3131,11 +3178,12 @@ def print_fno(fno):
           f"elements: float16 moments bit-identical to the twin after 2 updates "
           f"({a['float16_launches']} launches an update; {100 * a['nu_subnormal_share']:.1f}% "
           f"of the filter's nu subnormal in float16); one update " + "; ".join(
-              f"{name} {a[name]['ms']:.3f} ms (host enqueue {a[name]['enqueue_ms']:.3f}), bound "
-              f"{a[name]['bound_ms']:.3f} ms ({a[name]['gbytes']:.2f} GB)"
+              f"{name} {a[name]['ms']:.3f} ms (the card alone {a[name]['device_ms']:.3f}, host "
+              f"enqueue {a[name]['enqueue_ms']:.3f}), bound {a[name]['bound_ms']:.3f} ms "
+              f"({a[name]['gbytes']:.2f} GB)"
               for name in ("float16", "bf16_sr", "float32"))
           + f"; twin {a['float16']['plain_ms']:.1f} ms; torch.optim.Adam(fused=True), float32 "
-          f"moments, {a['library_ms']:.3f} ms", flush=True)
+          f"moments, {a['library_ms']:.3f} ms (alone {a['library_device_ms']:.3f})", flush=True)
     t = fno["f16_trainer"]
     print(f"[fno float16 trainer] {ICML_PRETRAIN} with optimizer_moment_dtype float16: losses "
           f"{t['losses']}, peak {t['peak_bytes'] / 2**30:.2f} GiB, launches {t['launches']}",
@@ -3172,7 +3220,7 @@ def family_run(torch, np, kernels, dev, gen, name, amp):
           f"{name}: {type(net).__name__}, {run['leaves']} leaves, crop "
           f"{(p.img_crop_shape_x, p.img_crop_shape_y)}, amp {trainer.amp_dtype}")
     gelu = FAMILY_AMP_GELU[name] if amp else 0
-    per_step = {"fused_adam": leaves, "gelu_bf16": gelu, "gelu_bf16_grad": gelu}
+    per_step = {"fused_adam": 1, "gelu_bf16": gelu, "gelu_bf16_grad": gelu}
     check(run["launches"] == launch_counts(kernels, {k: v * steps for k, v in per_step.items()}),
           f"{name} launches {run['launches']}, a step {per_step}")
     run.update(amp=amp, steps=steps, launches_per_step=per_step)
@@ -3416,7 +3464,7 @@ def phase_videos(torch, np, kernels, dev):
         # the train steps', then the validation's: the first batch's
         # one-step comparison and every AR step
         want = {k: v * train_steps
-                for k, v in icml_launches(ICML_LEVELS[ICML_PRETRAIN], 1, run["leaves"]).items()}
+                for k, v in icml_launches(ICML_LEVELS[ICML_PRETRAIN], 1).items()}
         forwards = FILES_EVAL * steps + 1
         for k, v in VALID_STEP_LAUNCHES.items():
             want[k] = want.get(k, 0) + v * forwards
@@ -3854,8 +3902,11 @@ def phase_parallel(torch, np, spectral_mm, kernels, dev, gen, card, order_gap=No
         check(rec["train"]["median_update_dev"] < PARALLEL_UPDATE_MEDIAN_TOL,
               f"(b) the median leaf's update vs serial: {rec['train']['median_update_dev']}")
         for r in ranks:
-            for name in ("legmm", "dhconv_mm", "dhconv_dw", "fused_adam"):
+            for name in ("legmm", "dhconv_mm", "dhconv_dw"):
                 check(r["launches"][name] > 0, f"(b) {name} not launched on a rank")
+            check(r["launches"]["fused_adam"] == PARALLEL_TRAIN_STEPS,
+                  f"(b) {r['launches']['fused_adam']} fused_adam launches on a rank over "
+                  f"{PARALLEL_TRAIN_STEPS} steps")
         # the control, run by the same ranks after (b): the spatial sum of the
         # replicated leaves dropped
         fdevs = pairs[0]["fault"]["update_devs"]
@@ -4213,9 +4264,11 @@ def phase_tensor_parallel(torch, np, spectral_mm, kernels, dev, gen, card):
         check(rec["train"]["median_update_dev"] < PARALLEL_UPDATE_MEDIAN_TOL,
               f"(b) the median leaf's update vs serial: {rec['train']['median_update_dev']}")
         for r in ranks:
-            for name in ("legmm", "dhconv_mm", "dhconv_dw", "fused_adam", "gelu_bf16",
-                         "gelu_bf16_grad"):
+            for name in ("legmm", "dhconv_mm", "dhconv_dw", "gelu_bf16", "gelu_bf16_grad"):
                 check(r["launches"][name] > 0, f"(b) {name} not launched on a rank")
+            check(r["launches"]["fused_adam"] == TP_TRAIN_STEPS,
+                  f"(b) {r['launches']['fused_adam']} fused_adam launches on a rank over "
+                  f"{TP_TRAIN_STEPS} steps")
         # the control, run by the same ranks after (b): the fin sum of the
         # filter's contraction dropped
         fdevs = pairs[0]["fault"]["update_devs"]
@@ -4635,9 +4688,9 @@ def phase_spatial(torch, np, sht, complex_ops, kernels, dev, card):
             for name, f in r["families"].items():
                 check(f["err"] < PARALLEL_SERVE_TOL, f"(c) {name} rank {i} vs serial: {f['err']}")
             t = r["train"]
-            check(t["launches"]["fused_adam"] == t["leaves"] * SP_TRAIN_STEPS,
-                  f"(b) rank {i} fused_adam launches {t['launches']['fused_adam']}, "
-                  f"{t['leaves']} leaves")
+            check(t["launches"]["fused_adam"] == SP_TRAIN_STEPS,
+                  f"(b) rank {i} fused_adam launches {t['launches']['fused_adam']} over "
+                  f"{SP_TRAIN_STEPS} steps of {t['leaves']} leaves")
             for name in ("gelu_bf16", "gelu_bf16_grad"):
                 check(t["launches"][name] > 0, f"(b) {name} not launched on rank {i}")
             check(all(t["splits"][f"model.blocks.{b}.filter_layer.filter.weight"]
@@ -4744,12 +4797,16 @@ def main(argv=None):
     from makani_tpu_torch.models.model_registry import get_model
     params = flagship_params(ROLLOUT_STEPS)
     model = get_model(params, device=dev)
-    adam = phase_adam(torch, dev, gen, {k: tuple(p.shape) for k, p in model.named_parameters()})
+    adam = phase_adam(torch, kernels, dev, gen,
+                      {k: tuple(p.shape) for k, p in model.named_parameters()})
     rows.append(adam)
     print(f"  fused_adam | {adam['shape']} | bf16 SR | bit-identical (max abs diff "
-          f"{adam['max_abs_err']}) | - | {adam['ms']:.4f} | {adam['plain_ms']:.4f} | "
-          f"{adam['library_ms']:.4f} (torch fused Adam, f32 moments) | {adam['bound_ms']:.4f} "
-          f"({adam['bound_by']})", flush=True)
+          f"{adam['max_abs_err']}), {adam['launches_per_update']} launch an update | - | "
+          f"{adam['ms']:.4f} (the card alone {adam['device_ms']:.4f}, host enqueue "
+          f"{adam['enqueue_ms']:.4f}) | {adam['plain_ms']:.4f} | {adam['library_ms']:.4f} (torch "
+          f"fused Adam, f32 moments; alone {adam['library_device_ms']:.4f}, enqueue "
+          f"{adam['library_enqueue_ms']:.4f}) | {adam['bound_ms']:.4f} ({adam['bound_by']})",
+          flush=True)
     gelu_rows = phase_gelu(torch, dev, gen)
     record["gelu_kernels"] = gelu_rows
     for r in gelu_rows:
@@ -5231,8 +5288,12 @@ def main(argv=None):
     a = fno["adam"]
     row = next(r for r in kernels if r["name"] == "fused_adam")
     row.update(elements_fno=a["elements"], library_ms_fno=a["library_ms"], **{
-        f"{k}_fno": {f: a[k][f] for f in ("ms", "bound_ms", "bound_by")}
+        f"{k}_fno": {f: a[k][f] for f in ("ms", "device_ms", "enqueue_ms", "bound_ms", "bound_by")}
         for k in ("float16", "bf16_sr", "float32")})
+    # phase 3's update: the card's time alone and the host's enqueue, beside
+    # the CUDA-event `ms`
+    row.update({k: adam[k] for k in ("device_ms", "enqueue_ms", "launches_per_update",
+                                     "library_device_ms", "library_enqueue_ms")})
     row["float16_fno"]["plain_ms"] = a["float16"]["plain_ms"]
     # the complex dhconv kernel: launches over phase 7's training epoch, the
     # path that runs it forward and backward

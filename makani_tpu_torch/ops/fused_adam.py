@@ -2,10 +2,18 @@
 float32, or float16 moments rounded to nearest), as a Hopper kernel.
 
 Counterpart of makani_tpu/ops/pallas_adam.py. `fused_adam_apply` updates
-every parameter leaf and its two moments in one pass per leaf
-(csrc/fused_adam.cu, one launch per leaf, as on the TPU), in place: the
-parameters and the moment tensors of `state` are overwritten and
-`state.count` advances. Two modes extend it to makani_tpu's optax chains:
+every parameter leaf and its two moments in one pass (csrc/fused_adam.cu),
+in place: the parameters and the moment tensors of `state` are overwritten
+and `state.count` advances. Where the TPU kernel launches once per leaf, the
+card's kernel launches once per update: the wrapper packs one descriptor a
+non-empty leaf (LEAF_DTYPE: its tensors' addresses, its index dims, the
+first flat index of a shard, its salts) into a table that one asynchronous
+copy from page-locked memory puts on the card. What a parameter set fixes of
+the table (LeafLayout: every check, the index dims, the work units) is built
+once and reused while the same tensors hold the same memory; an update
+checks its gradients and fills in their addresses and its salts. The leaves
+of one update lie on one device and carry moments of one dtype, or it
+raises. Two modes extend it to makani_tpu's optax chains:
 gradient clipping by the global norm (read by the kernel from the device),
 and LAMB (the kernel writes the decayed direction, the trust ratio applies
 it). On CPU tensors it runs the plain twin
@@ -32,8 +40,14 @@ it is not always the correctly rounded power (0.999**2958 and 0.999**3606 are
 one ulp off).
 """
 
+import collections
+import contextlib
 import ctypes
 import ctypes.util
+import functools
+import math
+import operator
+import weakref
 
 import numpy as np
 import torch
@@ -62,12 +76,25 @@ def bias_corrections(count, b1, b2):
     return bc(b1), bc(b2)
 
 
+def salt_terms(j):
+    """The part of the salt of moment j (2 * leaf + 0 for mu, + 1 for nu)
+    that no step changes, as uint32."""
+    j = np.asarray(j, dtype=np.uint64)
+    terms = (j * np.uint64(0x68E31DA4) + np.uint64(0xB5297A4D)) & np.uint64(_M32)
+    return terms.astype(np.uint32)
+
+
+def step_salts(seed, count, terms):
+    """The salts of one step from salt_terms' `terms` (uint32 arithmetic,
+    wrapping as the reference's does)."""
+    base = np.uint32((((int(seed) & _M32) ^ (int(count) & _M32)) * 0x9E3779B1) & _M32)
+    return (terms ^ base) * np.uint32(0x1B56C4E9)
+
+
 def moment_salts(seed, count, n_leaves):
     """The dither salts of one step: [mu of leaf 0, nu of leaf 0, mu of leaf 1,
     ...] (utils/optimizers.py:85-88, pallas_adam.py:159-173)."""
-    base = (((int(seed) & _M32) ^ (int(count) & _M32)) * 0x9E3779B1) & _M32
-    return [((base ^ ((j * 0x68E31DA4 + 0xB5297A4D) & _M32)) * 0x1B56C4E9) & _M32
-            for j in range(2 * max(n_leaves, 1))]
+    return step_salts(seed, count, salt_terms(np.arange(2 * max(n_leaves, 1)))).tolist()
 
 
 # --------------------------------------------------------------------------
@@ -275,62 +302,239 @@ def _leaf_plain(key, p, g, mu, nu, lr, bc1, bc2, b1, b2, eps, wd, salts, stochas
         store_moment(nu, v, key, salts[1], stochastic, shard)
 
 
-def _leaf_kernel(key, p, g, mu, nu, lr, bc1, bc2, b1, b2, eps, wd, salts, stochastic,
-                 norm=None, max_norm=None, direction=None, shard=None):
-    kind = _moment_kind(mu, stochastic)
-    leaf = (p, g, mu, nu) if direction is None else (p, g, mu, nu, direction)
-    for t in leaf:
-        if t.device != p.device or not t.is_contiguous():
-            raise ValueError(f"{key}: fused Adam takes contiguous tensors on one device")
+# --------------------------------------------------------------------------
+# the kernel's table of leaves
+# --------------------------------------------------------------------------
+
+# csrc/fused_adam.cu: a thread takes VEC consecutive elements, a work unit is
+# its block's 256 runs, and the grid BLOCKS_PER_SM blocks an SM
+VEC = 8
+UNIT = 256 * VEC
+BLOCKS_PER_SM = 2
+
+# csrc/fused_adam.cu's LeafDesc, field for field (120 bytes)
+LEAF_DTYPE = np.dtype([(f, "<u8") for f in ("p", "g", "mu", "nu", "dir")]
+                      + [(f, "<u4") for f in ("n", "unit0", "s1", "m1", "l1", "s2", "m2", "l2",
+                                              "s3", "m3", "l3", "j0", "j1", "j2", "j3", "base",
+                                              "salt_mu", "salt_nu", "vec", "pad")])
+
+
+def divider(d):
+    """(m, l) of the kernel's division by d, 1 <= d < 2^32: for every 32-bit
+    i, i // d = (t + ((i - t) >> min(l, 1))) >> max(l - 1, 0) with t the
+    high 32 bits of i * m (Granlund and Montgomery's division by an
+    invariant integer)."""
+    d = int(d)
+    l = (d - 1).bit_length()
+    return (((1 << l) - d) << 32) // d + 1, l
+
+
+def leaf_index_fields(key, shape, shard=None):
+    """The index fields of a leaf's descriptor: the last three of its four
+    merged sizes (kernel_index_dims, padded in front with 1) with their
+    dividers, the four index strides (0 in front) and the flat index of its
+    first element (shard_strides)."""
+    sizes, strides = kernel_index_dims(key, shape, shard)
+    n = math.prod(shape)
+    total = n if shard is None else math.prod(shard.global_shape)
+    if total >= 2 ** 32 or n > 2 ** 32 - UNIT or len(sizes) > 4:
+        raise ValueError(f"{key}: leaf of shape {tuple(shape)} exceeds the kernel's indexing")
+    pad = 4 - len(sizes)
+    sizes, strides = (1,) * pad + sizes, (0,) * pad + strides
+    out = {f"j{d}": j for d, j in enumerate(strides)}
+    for d in (1, 2, 3):
+        out[f"s{d}"] = sizes[d]
+        out[f"m{d}"], out[f"l{d}"] = divider(sizes[d])
+    out["base"] = shard_strides(key, shape, shard)[1]
+    return out
+
+
+def _check_leaf(key, p, mu, nu, device, moment_dtype):
+    for t in (p, mu, nu):
+        if t.device != device:
+            raise ValueError(f"{key}: the update's leaves lie on {t.device} and {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{key}: fused Adam takes contiguous tensors")
         if t.shape != p.shape:
             raise ValueError(f"{key}: shapes differ: {tuple(t.shape)} vs {tuple(p.shape)}")
-    if p.dtype != torch.float32 or g.dtype != torch.float32 or nu.dtype != mu.dtype:
-        raise TypeError(f"{key}: fused Adam takes float32 p and g and moments of one dtype")
-    if direction is not None and direction.dtype != torch.float32:
-        raise TypeError(f"{key}: the direction buffer must be float32")
-    if norm is not None and (norm.device != p.device or norm.dtype != torch.float32
+    if p.dtype != torch.float32:
+        raise TypeError(f"{key}: fused Adam takes float32 parameters, got {p.dtype}")
+    if mu.dtype != moment_dtype or nu.dtype != moment_dtype:
+        raise TypeError(f"{key}: the update's moments mix {mu.dtype}, {nu.dtype} and "
+                        f"{moment_dtype}")
+
+
+class LeafLayout:
+    """What a parameter set fixes of the kernel's table (one row a non-empty
+    leaf of `order`: the p, mu and nu addresses, n, the first work unit, the
+    index fields, the salts' constant part), checked and built once; every
+    update then checks only that it still holds (the same p, mu, nu and
+    shards, each p on the same memory) and its gradients."""
+
+    def __init__(self, order, params, mu, nu, shards):
+        self.order = list(order)
+        self.device = params[order[0]].device
+        moment_dtype = mu[order[0]].dtype
+        _moment_kind(mu[order[0]], False)   # raises on a dtype the kernel does not take
+        rows, live = [], []
+        for pos, key in enumerate(order):
+            p, m, v, shard = params[key], mu[key], nu[key], shards.get(key)
+            _check_leaf(key, p, m, v, self.device, moment_dtype)
+            if p.numel():
+                live.append(pos)
+                rows.append(dict(leaf_index_fields(key, p.shape, shard), p=p.data_ptr(),
+                                 mu=m.data_ptr(), nu=v.data_ptr(), n=p.numel()))
+        ps = [params[k] for k in order]
+        self.refs = [[weakref.ref(t) for t in ps], [weakref.ref(mu[k]) for k in order],
+                     [weakref.ref(nu[k]) for k in order]]
+        self.p_addresses = [p.data_ptr() for p in ps]
+        self.shapes = [p.shape for p in ps]
+        self.shards = [shards.get(k) for k in order]
+        self.live = np.array(live, dtype=np.int64)
+        table = np.zeros(len(rows), LEAF_DTYPE)
+        for field in LEAF_DTYPE.names:
+            if rows and field in rows[0]:
+                table[field] = [r[field] for r in rows]
+        units = -(-table["n"].astype(np.int64) // UNIT)
+        table["unit0"] = np.cumsum(units) - units
+        self.n_units = int(units.sum())
+        self.aligned = (table["p"] | table["mu"] | table["nu"]) % 16 == 0
+        self.salt_terms = salt_terms(np.stack([2 * self.live, 2 * self.live + 1]))
+        self.rows = table.view(np.uint8)
+
+    def gradients(self, params, mu, nu, grads, shards):
+        """The address of every leaf's gradient, each checked; None where the
+        layout no longer holds."""
+        keys = self.order
+        ps = list(map(params.__getitem__, keys))
+        held = zip((ps, map(mu.__getitem__, keys), map(nu.__getitem__, keys)), self.refs)
+        if (not all(all(map(operator.is_, ts, map(_deref, refs))) for ts, refs in held)
+                or list(map(torch.Tensor.data_ptr, ps)) != self.p_addresses
+                or list(map(shards.get, keys)) != self.shards):
+            return None
+        gs = list(map(grads.__getitem__, keys))
+        dev = self.device.index if self.device.type == "cuda" else -1
+        if (list(map(_shape, gs)) != self.shapes or set(map(_dtype, gs)) != {torch.float32}
+                or not all(map(torch.Tensor.is_contiguous, gs))
+                or set(map(torch.Tensor.get_device, gs)) != {dev}):
+            for key, g, shape in zip(keys, gs, self.shapes):
+                if (g.shape != shape or g.dtype != torch.float32 or not g.is_contiguous()
+                        or g.get_device() != dev):
+                    raise ValueError(f"{key}: the gradient must be a contiguous float32 tensor "
+                                     f"of shape {tuple(shape)} on {self.device}, got {g.dtype} "
+                                     f"{tuple(g.shape)} on {g.device}")
+        return list(map(torch.Tensor.data_ptr, gs))
+
+    def table(self, grads, seed, count, dirs=None, out=None):
+        """The kernel's table of one update, in `out` (uint8, the table's
+        bytes) where given: the layout's rows with each leaf's gradient
+        address (`grads`, from `gradients`) and its direction buffer's, the
+        step's two salts of each leaf, and `vec` where all its addresses lie
+        on 16 bytes."""
+        if out is None:
+            out = np.empty_like(self.rows)
+        out[:] = self.rows
+        table = out.view(LEAF_DTYPE)
+        live = self.live
+        g = np.asarray(grads, dtype=np.uint64)
+        if len(live) < len(g):
+            g = g[live]
+        table["g"] = g
+        table["salt_mu"], table["salt_nu"] = step_salts(seed, count, self.salt_terms)
+        vec = self.aligned & (g % 16 == 0)
+        if dirs:
+            d = np.asarray([dirs[self.order[i]].data_ptr() for i in live], dtype=np.uint64)
+            table["dir"] = d
+            vec &= d % 16 == 0
+        table["vec"] = vec
+        return table
+
+
+_deref = weakref.ref.__call__
+_shape = operator.attrgetter("shape")
+_dtype = operator.attrgetter("dtype")
+_LAYOUTS = collections.OrderedDict()
+_SMS = {}
+
+
+def _prepare(order, params, state, grads, shards):
+    """The LeafLayout of `order`'s leaves, cached (a few parameter sets
+    kept) and rebuilt where it no longer holds, and the update's gradient
+    addresses."""
+    layout = _LAYOUTS.get(order)
+    addresses = None if layout is None else layout.gradients(params, state.mu, state.nu, grads,
+                                                              shards)
+    if addresses is None:
+        layout = _LAYOUTS[order] = LeafLayout(order, params, state.mu, state.nu, shards)
+        while len(_LAYOUTS) > 8:
+            _LAYOUTS.popitem(last=False)
+        addresses = layout.gradients(params, state.mu, state.nu, grads, shards)
+    return layout, addresses
+
+
+def _kernel_update(order, params, grads, state, count, lr, bc1, bc2, b1, b2, eps, wd, seed,
+                   stochastic, norm, max_norm, dirs, shards):
+    """One launch for every leaf: the table written into page-locked memory
+    and copied to the card (the caching host allocator keeps the buffer
+    until the copy has run), then the kernel, all on the current stream, no
+    sync."""
+    layout, addresses = _prepare(order, params, state, grads, shards)
+    dev = layout.device
+    if norm is not None and (norm.device != dev or norm.dtype != torch.float32
                              or norm.numel() != 1):
-        raise ValueError(f"{key}: the global norm must be one float32 on the leaf's device")
-    n = p.numel()
-    sizes, strides = kernel_index_dims(key, p.shape, shard)
-    base = shard_strides(key, p.shape, shard)[1]
-    total = n if shard is None else int(np.prod(shard.global_shape))
-    if total >= 2 ** 32 or len(sizes) > 4:
-        raise ValueError(f"{key}: leaf of shape {tuple(p.shape)} exceeds the kernel's indexing")
-    shape = (1,) * (4 - len(sizes)) + sizes
-    strides = (0,) * (4 - len(sizes)) + strides
+        raise ValueError(f"the global norm must be one float32 on {dev}")
+    if layout.n_units == 0:
+        return
+    host = torch.empty(layout.rows.size, dtype=torch.uint8, pin_memory=True)
+    table = layout.table(addresses, seed, count, dirs, out=host.numpy())
+    kind = _moment_kind(state.mu[order[0]], stochastic)
+    mode = (1 if norm is not None else 0) | (2 if dirs else 0)
     decay = np.float32(1.0) - np.float32(lr) * np.float32(wd)
-    mode = (1 if norm is not None else 0) | (2 if direction is not None else 0)
+    # float32 scalars, passed as the Python floats that hold them exactly
+    scalars = [float(np.float32(v)) for v in
+               (lr, bc1, bc2, b1, b2, 1.0 - b1, 1.0 - b2, eps, decay,
+                0.0 if max_norm is None else max_norm, wd)]
     launch = kernels.launcher("fused_adam")
-    with torch.cuda.device(p.device):
-        # float32 scalars, passed as the Python floats that hold them exactly
-        scalars = [float(np.float32(v)) for v in
-                   (lr, bc1, bc2, b1, b2, 1.0 - b1, 1.0 - b2, eps, decay,
-                    0.0 if max_norm is None else max_norm, wd)]
-        rc = launch(p.data_ptr(), g.data_ptr(), mu.data_ptr(), nu.data_ptr(),
-                    None if direction is None else direction.data_ptr(),
-                    None if norm is None else norm.data_ptr(), n,
-                    shape[1], shape[2], shape[3], *strides, base, *scalars,
-                    salts[0], salts[1], kind, mode, torch.cuda.current_stream().cuda_stream)
+    if dev.index not in _SMS:
+        _SMS[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = min(layout.n_units, BLOCKS_PER_SM * _SMS[dev.index])
+    on_card = torch.empty(layout.rows.size, dtype=torch.uint8, device=dev)
+    guard = (torch.cuda.device(dev) if torch.cuda.current_device() != dev.index
+             else contextlib.nullcontext())
+    with guard:
+        on_card.copy_(host, non_blocking=True)
+        rc = launch(on_card.data_ptr(), len(table), layout.n_units, blocks,
+                    None if norm is None else norm.data_ptr(), *scalars, kind, mode,
+                    torch._C._cuda_getCurrentRawStream(dev.index))
     kernels.raise_on(rc, "fused_adam")
     kernels.count_launch("fused_adam")
 
 
-def _apply(leaf_fn, params, grads, state, lr, b1, b2, eps, weight_decay, stochastic_rounding,
-           seed, max_norm, lamb, shards=None):
+@functools.lru_cache(maxsize=16)
+def _leaf_order(keys):
+    return tuple(jax_leaf_order(keys))
+
+
+def _apply(params, grads, state, lr, b1, b2, eps, weight_decay, stochastic_rounding, seed,
+           max_norm, lamb, shards, kernel):
     count = state.count + 1
     bc1, bc2 = bias_corrections(count, b1, b2)
-    order = jax_leaf_order(grads)
-    salts = moment_salts(seed, count, len(order))
+    order = _leaf_order(tuple(grads))
     norm = None
     if max_norm:
         norm = (global_norm(grads[k] for k in order) if shards is None else
                 partitioning.global_norm(order, [grads[k] for k in order], shards))
     dirs = {k: torch.empty_like(params[k]) for k in order} if lamb else {}
-    for i, key in enumerate(order):
-        leaf_fn(key, params[key], grads[key], state.mu[key], state.nu[key], lr, bc1, bc2, b1, b2,
-                eps, weight_decay, salts[2 * i: 2 * i + 2], stochastic_rounding,
-                norm, max_norm, dirs.get(key), None if shards is None else shards.get(key))
+    if kernel:
+        _kernel_update(order, params, grads, state, count, lr, bc1, bc2, b1, b2, eps,
+                       weight_decay, seed, stochastic_rounding, norm, max_norm, dirs, shards or {})
+    else:
+        salts = moment_salts(seed, count, len(order))
+        for i, key in enumerate(order):
+            _leaf_plain(key, params[key], grads[key], state.mu[key], state.nu[key], lr, bc1,
+                        bc2, b1, b2, eps, weight_decay, salts[2 * i: 2 * i + 2],
+                        stochastic_rounding, norm, max_norm, dirs.get(key),
+                        None if shards is None else shards.get(key))
     if lamb:
         trust_ratio_apply(params, dirs, lr, shards)
     state.count = count
@@ -341,8 +545,8 @@ def fused_adam_apply_plain(params, grads, state, lr, *, b1=0.9, b2=0.999, eps=1e
                            weight_decay=0.0, stochastic_rounding=True, seed=1234, max_norm=None,
                            lamb=False, shards=None):
     """Plain twin of `fused_adam_apply`, on any device."""
-    return _apply(_leaf_plain, params, grads, state, lr, b1, b2, eps, weight_decay,
-                  stochastic_rounding, seed, max_norm, lamb, shards)
+    return _apply(params, grads, state, lr, b1, b2, eps, weight_decay, stochastic_rounding, seed,
+                  max_norm, lamb, shards, kernel=False)
 
 
 def fused_adam_apply(params, grads, state, lr, *, b1=0.9, b2=0.999, eps=1e-8,
@@ -350,8 +554,9 @@ def fused_adam_apply(params, grads, state, lr, *, b1=0.9, b2=0.999, eps=1e-8,
                      lamb=False, shards=None):
     """One fused Adam(W) step over `params` and `grads` (dicts name -> tensor,
     named like the model's parameters) and `state` (count, mu, nu), in place.
-    Returns (params, state). Leaves on CUDA launch the kernel; leaves on the
-    CPU run the twin.
+    Returns (params, state). Leaves on a card launch the kernel once for the
+    whole update; leaves on the CPU run the twin; leaves on both, or on two
+    cards, raise.
 
     max_norm (> 0) first clips the gradients by their global norm, computed
     on the device (optax.clip_by_global_norm). lamb=True makes the step
@@ -364,9 +569,8 @@ def fused_adam_apply(params, grads, state, lr, *, b1=0.9, b2=0.999, eps=1e-8,
     rank's shard of a leaf split over ranks: their elements keep the whole
     leaf's indices in the stochastic rounding, and the global norm and the
     trust ratios take the whole leaves' norms."""
-    def leaf(key, p, *rest):
-        fn = _leaf_kernel if kernels.dispatch(p) else _leaf_plain
-        fn(key, p, *rest)
-
-    return _apply(leaf, params, grads, state, lr, b1, b2, eps, weight_decay,
-                  stochastic_rounding, seed, max_norm, lamb, shards)
+    kernel = bool(grads) and kernels.dispatch(params[next(iter(grads))])
+    if not kernel and any(params[k].device.type != "cpu" for k in grads):
+        raise ValueError("fused Adam's leaves lie on the CPU and on a card")
+    return _apply(params, grads, state, lr, b1, b2, eps, weight_decay, stochastic_rounding, seed,
+                  max_norm, lamb, shards, kernel)

@@ -119,12 +119,11 @@ def _declare(name, lib):
         # x, w, scratch, out, b, l, c, o, m, wdim, conj_w, m3, passes, stream
         "dhconv_mm": [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp],
         "dhconv_dw": [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp],
-        # p, g, mu, nu, dir, the global norm (device), n, sizes[3], index
-        # strides[4], the first element's flat index, the eleven float
-        # scalars (lr .. decay, max_norm, wd), two salts, moment kind, mode,
-        # stream
-        "fused_adam": [vp, vp, vp, vp, vp, vp, cu, cu, cu, cu, cu, cu, cu, cu, cu,
-                       cf, cf, cf, cf, cf, cf, cf, cf, cf, cf, cf, cu, cu, ci, ci, vp],
+        # the leaves' descriptor table (device), leaves, work units, blocks,
+        # the global norm (device), the eleven float scalars (lr .. decay,
+        # max_norm, wd), moment kind, mode, stream
+        "fused_adam": [vp, ci, cu, ci, vp, cf, cf, cf, cf, cf, cf, cf, cf, cf, cf, cf,
+                       ci, ci, vp],
         # x, w, scratch, out, b, c, o, l, m, w's strides (c, o, l), conj_w, passes, stream
         "dhconv_complex": [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp],
         # x, t, scratch, out, r, k, n, x_bf16, out_bf16, passes, stream

@@ -16,10 +16,11 @@ where makani_tpu's do, the loss is taken on the float32 prediction, and the
 parameters, gradients and optimizer state stay float32 (bf16 moments where
 the config asks for them). Validation casts its input and takes its
 prediction back to float32 the same way.
-The update is the fused Adam kernel (ops/fused_adam, one launch per parameter
-leaf, in place; its twin on the CPU) for every Adam-family config (Adam,
-AdamW, LAMB; float32 or bf16 moments; clipped by the global gradient norm,
-computed on the device, where the config asks), whatever `optimizer_fused`
+The update is the fused Adam kernel (ops/fused_adam, one launch per update
+for all the parameter leaves, in place; its twin on the CPU) for every
+Adam-family config (Adam, AdamW, LAMB; float32 or bf16 moments; clipped by
+the global gradient norm, computed on the device, where the config asks),
+whatever `optimizer_fused`
 says: without clipping or LAMB it gives the bits of makani_tpu's fused stage,
 and for bf16 moments those of its optax chain too. Adafactor and SGD run
 utils/optimizers' chain (float32 tensor ops on either device); float16

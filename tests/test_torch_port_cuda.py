@@ -228,7 +228,8 @@ def test_fused_adam_kernel_bitwise_against_plain(cuda, moments, stochastic, wd):
         before = kernels.launches["fused_adam"]
         fused_adam.fused_adam_apply(params, grads, s_kernel, 1e-3, **kw)
         torch.cuda.synchronize()
-        assert kernels.launches["fused_adam"] == before + len(params)
+        # one launch an update, whatever the number of leaves
+        assert kernels.launches["fused_adam"] == before + 1
         fused_adam.fused_adam_apply_plain(twin, grads, s_twin, 1e-3, **kw)
     for k in params:
         assert torch.equal(params[k], twin[k]), k
@@ -265,8 +266,145 @@ def test_fused_adam_modes_bitwise_against_plain(cuda, moments, stochastic, max_n
         before = kernels.launches["fused_adam"]
         fused_adam.fused_adam_apply(params, grads, s_kernel, 1e-3, **kw)
         torch.cuda.synchronize()
-        assert kernels.launches["fused_adam"] == before + len(params)
+        assert kernels.launches["fused_adam"] == before + 1
         fused_adam.fused_adam_apply_plain(twin, grads, s_twin, 1e-3, **kw)
+    for k in params:
+        assert torch.equal(params[k], twin[k]), k
+        assert torch.equal(s_kernel.mu[k], s_twin.mu[k]), k
+        assert torch.equal(s_kernel.nu[k], s_twin.nu[k]), k
+
+
+def _vit_like_shapes(layers=12, c=36):
+    """150 leaves of mixed sizes, named and shaped as a ViT's (12 layers of
+    12 leaves, the patch embedding, the position embedding, the final norm
+    and the head): widths that are not multiples of a run of 8, and leaves
+    from 36 to 5,184 elements."""
+    shapes = {"model.pos_embed": (1, 45, c), "model.patch_embed.proj.weight": (c, 7, 3, 3),
+              "model.patch_embed.proj.bias": (c,), "model.norm.weight": (c,),
+              "model.norm.bias": (c,), "model.head.weight": (7 * 9, c)}
+    for i in range(layers):
+        b = f"model.blocks.{i}."
+        shapes.update({b + "norm1.weight": (c,), b + "norm1.bias": (c,),
+                       b + "attn.qkv.weight": (3 * c, c), b + "attn.qkv.bias": (3 * c,),
+                       b + "attn.proj.weight": (c, c), b + "attn.proj.bias": (c,),
+                       b + "norm2.weight": (c,), b + "norm2.bias": (c,),
+                       b + "mlp.fc1.weight": (4 * c, c), b + "mlp.fc1.bias": (4 * c,),
+                       b + "mlp.fc2.weight": (c, 4 * c), b + "mlp.fc2.bias": (c,)})
+    return shapes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moments,stochastic,max_norm,lamb", [
+    (torch.bfloat16, True, None, False), (torch.float32, False, 2.0, False),
+    (torch.float16, False, None, False), (torch.bfloat16, True, 2.0, True)])
+def test_fused_adam_150_leaves_in_one_launch(cuda, moments, stochastic, max_norm, lamb):
+    """A ViT-like update of 150 leaves of mixed sizes, one of them with
+    every tensor 1 element past 16 bytes (element by element): one launch an
+    update, bit for bit against the twin after 2 updates."""
+    shapes = _vit_like_shapes()
+    assert len(shapes) == 150
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    params = {k: torch.randn(s, device=cuda, generator=gen) for k, s in shapes.items()}
+    odd = "model.blocks.3.mlp.fc1.weight"
+    params[odd] = _sliced_randn(shapes[odd], cuda, gen)
+    twin = {k: v.clone() for k, v in params.items()}
+
+    def state():
+        def moment(k, s):
+            lead = int(k == odd)
+            return torch.zeros(int(np.prod(s)) + lead, device=cuda, dtype=moments)[lead:].view(s)
+        return AdamState(0, {k: moment(k, s) for k, s in shapes.items()},
+                         {k: moment(k, s) for k, s in shapes.items()})
+
+    s_kernel, s_twin = state(), state()
+    assert s_kernel.mu[odd].data_ptr() % 16 != 0
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.01, stochastic_rounding=stochastic,
+              seed=340, max_norm=max_norm, lamb=lamb)
+    for _ in range(2):
+        grads = {k: 0.3 * torch.randn(s, device=cuda, generator=gen) for k, s in shapes.items()}
+        grads[odd] = 0.3 * _sliced_randn(shapes[odd], cuda, gen)
+        before = kernels.launches["fused_adam"]
+        fused_adam.fused_adam_apply(params, grads, s_kernel, 1e-3, **kw)
+        torch.cuda.synchronize()
+        assert kernels.launches["fused_adam"] == before + 1
+        fused_adam.fused_adam_apply_plain(twin, grads, s_twin, 1e-3, **kw)
+    for k in shapes:
+        assert torch.equal(params[k], twin[k]), k
+        assert torch.equal(s_kernel.mu[k], s_twin.mu[k]), k
+        assert torch.equal(s_kernel.nu[k], s_twin.nu[k]), k
+
+
+@pytest.mark.cuda
+def test_fused_adam_empty_leaves_launch_nothing(cuda):
+    """Empty leaves have no row in the table: an update of empty leaves
+    alone launches nothing and counts nothing, and one with an empty leaf
+    among others launches once and keeps the others' salts (their
+    positions among all the leaves), bit for bit against the twin."""
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    params = {"a": torch.zeros(0, device=cuda), "b.w": torch.zeros(3, 0, device=cuda)}
+    state = AdamState(0, {k: torch.zeros_like(v, dtype=torch.bfloat16) for k, v in params.items()},
+                      {k: torch.zeros_like(v, dtype=torch.bfloat16) for k, v in params.items()})
+    before = kernels.launches["fused_adam"]
+    fused_adam.fused_adam_apply(params, {k: torch.zeros_like(v) for k, v in params.items()},
+                                state, 1e-3, seed=340)
+    assert kernels.launches["fused_adam"] == before and state.count == 1
+    params = dict(_adam_leaves(gen, cuda), **{"a.empty": torch.zeros(0, 5, device=cuda)})
+    twin = {k: v.clone() for k, v in params.items()}
+
+    def moments():
+        return AdamState(0, {k: torch.zeros_like(v, dtype=torch.bfloat16)
+                             for k, v in params.items()},
+                         {k: torch.zeros_like(v, dtype=torch.bfloat16)
+                          for k, v in params.items()})
+
+    s_kernel, s_twin = moments(), moments()
+    grads = {k: 0.1 * torch.randn(v.shape, device=cuda, generator=gen) for k, v in params.items()}
+    before = kernels.launches["fused_adam"]
+    fused_adam.fused_adam_apply(params, grads, s_kernel, 1e-3, seed=340)
+    torch.cuda.synchronize()
+    assert kernels.launches["fused_adam"] == before + 1
+    fused_adam.fused_adam_apply_plain(twin, grads, s_twin, 1e-3, seed=340)
+    for k in params:
+        assert torch.equal(params[k], twin[k]), k
+        assert torch.equal(s_kernel.mu[k], s_twin.mu[k]), k
+        assert torch.equal(s_kernel.nu[k], s_twin.nu[k]), k
+
+
+@pytest.mark.cuda
+def test_fused_adam_back_to_back_updates_keep_their_tables(cuda):
+    """Two updates enqueued behind a spin kernel, each with new gradient
+    tensors and the first's freed before the second is made, so both
+    tables' copies are pending at once: the second table cannot overwrite
+    the first's page-locked buffer or its copy on the card. Bit for bit
+    against the twin, one launch each."""
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    params = _adam_leaves(gen, cuda)
+    twin = {k: v.clone() for k, v in params.items()}
+
+    def state():
+        return AdamState(0, {k: torch.zeros_like(v, dtype=torch.bfloat16)
+                             for k, v in params.items()},
+                         {k: torch.zeros_like(v, dtype=torch.bfloat16)
+                          for k, v in params.items()})
+
+    s_kernel, s_twin = state(), state()
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01, stochastic_rounding=True,
+              seed=340)
+    steps = [{k: 0.1 * torch.randn(v.shape, device=cuda, generator=gen)
+              for k, v in params.items()} for _ in range(2)]
+    torch.cuda.synchronize()
+    before = kernels.launches["fused_adam"]
+    torch.cuda._sleep(200_000_000)
+    for g in steps:
+        # new tensors, computed behind the spin kernel
+        grads = {k: v * 1.0 for k, v in g.items()}
+        fused_adam.fused_adam_apply(params, grads, s_kernel, 1e-3, **kw)
+        del grads
+    assert not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    assert kernels.launches["fused_adam"] == before + 2
+    for g in steps:
+        fused_adam.fused_adam_apply_plain(twin, g, s_twin, 1e-3, **kw)
     for k in params:
         assert torch.equal(params[k], twin[k]), k
         assert torch.equal(s_kernel.mu[k], s_twin.mu[k]), k

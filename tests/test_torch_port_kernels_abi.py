@@ -17,7 +17,8 @@ from types import SimpleNamespace
 import pytest
 
 from makani_tpu_torch.ops import kernels
-from makani_tpu_torch.tools import _ablation, dhconv_ablation, legmm_ablation, probe_ablation
+from makani_tpu_torch.tools import (_ablation, adam_ablation, dhconv_ablation, legmm_ablation,
+                                    probe_ablation)
 
 _LAUNCHER = re.compile(r'extern "C" int (\w+)_launch\(([^)]*)\)')
 _SCALARS = {"int": ctypes.c_int, "uint32_t": ctypes.c_uint32, "unsigned": ctypes.c_uint32,
@@ -120,6 +121,16 @@ def test_probe_ablation_edits_apply_to_the_source(variant):
     assert changed == {f for f, _, _ in probe_ablation.VARIANTS[variant]}
 
 
+@pytest.mark.parametrize("variant", sorted(adam_ablation.VARIANTS))
+def test_adam_ablation_edits_apply_to_the_source(variant):
+    """tools/adam_ablation.py rebuilds fused_adam.cu with parts switched off
+    in the same way: each edit must find its text once."""
+    texts = _ablation.edited_sources(adam_ablation.SOURCES, adam_ablation.VARIANTS[variant])
+    originals = {f: (kernels._CSRC / f).read_text() for f in adam_ablation.SOURCES}
+    changed = {f for f in texts if texts[f] != originals[f]}
+    assert changed == {f for f, _, _ in adam_ablation.VARIANTS[variant]}
+
+
 def test_ptxas_usage_reads_each_instantiation():
     """The ablation tools print ptxas's registers and spills for every
     instantiation of a kernel, not the first one the log names."""
@@ -164,22 +175,74 @@ def test_device_ms_discards_sessions_that_lost_records(monkeypatch, sessions, wa
 
 def test_fused_adam_launcher_takes_the_norm_the_direction_and_the_mode():
     """fused_adam_launch's parameters by name, against the ctypes types at
-    their positions: the direction buffer and the device pointer to the
-    global norm after the moments, the first element's flat index (a rank's
-    shard of a split leaf) after the index strides, max_norm and wd after
-    the nine update scalars, the mode after the moment kind."""
+    their positions: the table of the leaves' descriptors (each holding its
+    leaf's p, g, mu, nu and direction addresses, LeafDesc), the counts of
+    leaves and work units and the grid, the device pointer to the global
+    norm, max_norm and wd after the nine update scalars, the mode after the
+    moment kind."""
     src = (kernels._CSRC / "fused_adam.cu").read_text()
     [(name, params)] = [m for m in _LAUNCHER.findall(src) if m[0] == "fused_adam"]
     names = [" ".join(p.split()).replace("*", " ").split()[-1] for p in params.split(",")]
-    assert names == ["p", "g", "mu", "nu", "dir", "norm", "n", "s1", "s2", "s3", "j0", "j1",
-                     "j2", "j3", "base", "lr", "bc1", "bc2", "b1", "b2", "a1", "a2", "eps", "decay",
-                     "max_norm", "wd", "salt_mu", "salt_nu", "kind", "mode", "stream"]
+    assert names == ["leaves", "n_leaves", "n_units", "blocks", "norm", "lr", "bc1", "bc2", "b1",
+                     "b2", "a1", "a2", "eps", "decay", "max_norm", "wd", "kind", "mode", "stream"]
     argtypes, _ = _declared("fused_adam")
-    want = {"dir": ctypes.c_void_p, "norm": ctypes.c_void_p, "max_norm": ctypes.c_float,
+    want = {"leaves": ctypes.c_void_p, "n_leaves": ctypes.c_int, "n_units": ctypes.c_uint32,
+            "blocks": ctypes.c_int, "norm": ctypes.c_void_p, "max_norm": ctypes.c_float,
             "wd": ctypes.c_float, "kind": ctypes.c_int, "mode": ctypes.c_int,
-            "salt_nu": ctypes.c_uint32, "stream": ctypes.c_void_p, "base": ctypes.c_uint32}
+            "stream": ctypes.c_void_p}
     for key, ctype in want.items():
         assert argtypes[names.index(key)] is ctype, key
+
+
+_C_FIELD_BYTES = {"uint64_t": 8, "uint32_t": 4}
+
+
+def _c_struct_fields(src, struct):
+    """[(name, offset, size)] of a C struct of fixed-width unsigned fields,
+    each at the next multiple of its size, and the struct's size (rounded to
+    its widest field), read from the source."""
+    body = re.search(r"struct %s \{(.*?)\n\};" % struct, src, re.S).group(1)
+    fields, offset, widest = [], 0, 1
+    for line in body.splitlines():
+        decl = line.split("//")[0].strip().rstrip(";")
+        if not decl:
+            continue
+        ctype, names = decl.split(None, 1)
+        size = _C_FIELD_BYTES[ctype]
+        widest = max(widest, size)
+        for field in names.split(","):
+            offset = -(-offset // size) * size
+            fields.append((field.strip(), offset, size))
+            offset += size
+    return fields, -(-offset // widest) * widest
+
+
+def test_fused_adam_descriptor_layout_matches_the_source():
+    """ops/fused_adam.LEAF_DTYPE, the rows the wrapper copies to the card,
+    against csrc/fused_adam.cu's LeafDesc read from the source: every field's
+    name, offset and width, the struct's size, and the size its
+    static_assert pins; and the work unit and run length the wrapper counts
+    in against the kernel's."""
+    from makani_tpu_torch.ops import fused_adam
+    src = (kernels._CSRC / "fused_adam.cu").read_text()
+    fields, size = _c_struct_fields(src, "LeafDesc")
+    dtype = fused_adam.LEAF_DTYPE
+    assert [f for f, _, _ in fields] == list(dtype.names)
+    for name, offset, width in fields:
+        ftype, foffset = dtype.fields[name][:2]
+        assert (foffset, ftype.itemsize, ftype.kind, ftype.byteorder in "<=|") == (
+            offset, width, "u", True), name
+    assert size == dtype.itemsize == 120
+    assert f"static_assert(sizeof(LeafDesc) == {dtype.itemsize}," in src
+    assert f"constexpr uint32_t kVec = {fused_adam.VEC};" in src
+    assert "constexpr int kThreads = 256;" in src and fused_adam.UNIT == 256 * fused_adam.VEC
+    assert "constexpr uint32_t kUnit = kThreads * kVec;" in src
+
+
+def test_c_struct_parser_reads_offsets():
+    fields, size = _c_struct_fields(
+        "struct S {\n  uint32_t a;  // x\n  uint64_t b, c;\n  uint32_t d;\n};", "S")
+    assert fields == [("a", 0, 4), ("b", 8, 8), ("c", 16, 8), ("d", 24, 4)] and size == 32
 
 
 def test_fused_adam_moment_kinds():
