@@ -36,7 +36,7 @@ Phases, in order; any failure exits non-zero:
   6. the training path: a Trainer of flagship_synth_drive_bare on synthetic
      data (fused Adam, checkpointing 0, no validation or checkpoints) runs
      one epoch of 3 steps at batch 1 with finite losses and its launch
-     counts per step asserted (36 legmm, 16 dhconv_mm, 8 dhconv_dw, 1
+     counts per step asserted (36 legmm, 36 gridmm, 16 dhconv_mm, 8 dhconv_dw, 1
      fused_adam); the train step timed on a resident batch (median of 3
      after a warm-up) with its peak device memory; the full-width gradients
      through the kernels against those through the twins (FORWARD_TOL per
@@ -76,9 +76,9 @@ Phases, in order; any failure exits non-zero:
   9. bf16 AMP at full width (amp_mode "bf16", precision "default": every
      kernel launch at 1 bf16 pass, checked by kernels.launches_by_passes;
      cuBLAS's bf16 reduced-precision reductions off): one forward through the
-     kernels (18 legmm, 8 dhconv_mm, 18 gelu_bf16), its deviation from one
+     kernels (18 legmm, 18 gridmm, 8 dhconv_mm, 18 gelu_bf16), its deviation from one
      through the twins and from phase 4's float32 forward of the same
-     weights and input, both below AMP_DEV_MAX; every legmm and dhconv_mm
+     weights and input, both below AMP_DEV_MAX; every legmm, dhconv_mm and gridmm
      call of an AMP forward against its twin on the same inputs (TWIN_TOL);
      each block and the decoder on the kernels' own input to it, kernels
      against twins below BLOCK_SHARE of the twins' own AMP deviation from
@@ -121,7 +121,7 @@ Phases, in order; any failure exits non-zero:
      the evaluation files (score_model, n_eval_samples 2 at
      valid_autoreg_steps 4): finite logs, ACC and RMSE curves of (73, 5), the
      four npy exports, the same scoring through the twins within
-     FORWARD_TOL, 18 legmm and 8 dhconv_mm launches a scored step, all at 3
+     FORWARD_TOL, 18 legmm, 18 gridmm and 8 dhconv_mm launches a scored step, all at 3
      passes, the ms a scored step (score_model's wall, and a metrics
      rollout on a resident batch) and the peak memory; (c)
      inference_single with metrics and data, inference_lite with two
@@ -148,7 +148,7 @@ Phases, in order; any failure exits non-zero:
      per-epoch checkpoints {1, 2} (keep 2) and the best one, counters iters 6
      and epoch 2, a torch.profiler trace of the first 2 steps that names
      legmm and dhconv_mm, and the launches of the run: 6 AMP train steps at
-     phase 9's counts and 20 validation AR steps at 18 legmm, 8 dhconv_mm
+     phase 9's counts and 20 validation AR steps at 18 legmm, 18 gridmm, 8 dhconv_mm
      and 18 gelu_bf16 each, all at 1 pass; a validation AR step timed on a
      resident batch (median of 3 rollouts) with its launches; (b) the same
      main with max_epochs 3 resumes from epoch 2: before its epoch runs, the
@@ -321,6 +321,24 @@ Phases, in order; any failure exits non-zero:
      own deviation from float32 in the run, with its launches of legmm,
      dhconv_mm and gelu_bf16, and one norm at NORM_SHAPE in bf16 timed at
      both modes.
+ 20. the SHT's grid stage (the longitude DFT and its inverse, gridmm through
+     spectral_mm.griddot) at every precision mode, at the flagship's shapes
+     (GRID_STAGE_SHAPES: the full-grid analysis of 276,864 rows of 1440, the
+     full-grid synthesis into them, the inner pair of 92,160 rows at
+     480/482): (a) each mode's stage forward and backward on the "kernel"
+     engine against the "stacked" engine's twin on the same inputs
+     (TWIN_TOL; a cotangent rounded to bf16 one bf16 ulp more) and against
+     float64 (grid_f64_bound: 5e-5 at 3 passes or 2 on an
+     operand exact in bf16, else 5e-2; half a bf16 ulp more where rounded;
+     "highest" 1e-5), one gridmm launch each way at the mode's passes (none
+     under "highest"), timed with CUDA events beside gridmm alone on
+     row-major operands, the float32 torch.matmul the stage replaced and the
+     transpose copy of the m-leading side that the kernel's layouts (a
+     K-major x, a transposed output) spare; (b) one flagship forward on the "kernel" engine under
+     each of the seven mode names: 18 gridmm and 18 legmm at the mode's
+     passes (none under "highest"), its ms and its deviation from
+     "highest"; (c) phase 9's AMP forward deviation from float32, below
+     AMP_DEV_MAX.
 The last two lines are the kernels' JSON record (the AMP path's launches in
 each row's *_amp fields, phase 10's in *_files, phase 11's a scored step in
 launches_score, phase 12's run (a) in launches_trainer and a validation AR
@@ -335,15 +353,17 @@ per rank in launches_parallel_serve and launches_parallel_train, and its
 launches_tp_serve and launches_tp_train, and its (c) row at a fin rank's
 shape in tp_local, phase 19's per rank in launches_spatial_serve and
 launches_spatial_train and (e)'s in launches_norm_bf16, fused_adam's (h, w)
-block in spatial_local; fused_adam's
+block in spatial_local; gridmm's row also holds phase 8's tools' launches in
+launches_tools and phase 20's grid stage in grid_stage; fused_adam's
 row also holds its times at the linear FNO's 2.12 B elements for each moment
 type) and the result line.
 --record PATH also writes every measurement of the run to PATH as JSON.
 
 TF32 is off for matmuls and cuDNN (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 = False): the float32 references, the
-longitude DFT and the 1x1 channel mixes run in full float32. Serving
-precision is "high", i.e. 3 bf16 passes in the kernels.
+longitude DFT at "highest" and the 1x1 channel mixes run in full float32.
+Serving precision is "high", i.e. 3 bf16 passes in the kernels, the
+longitude DFT's gridmm included.
 """
 
 import argparse
@@ -392,14 +412,17 @@ TOOL_REPS = 3
 # phase 8: device times taken of each probe and its PyTorch call, the median kept
 DEVICE_RUNS = 3
 # launches per train step at checkpointing 0, read from the code: 18 forward
-# Legendre contractions and their 18 transposes; 8 dhconv forwards, 8 dx and
-# 8 dw; one fused Adam launch for all 87 parameter leaves (10 per block, 3 in
-# the encoder and the decoder each, the residual transform)
-TRAIN_LAUNCHES = {"legmm": 36, "dhconv_mm": 16, "dhconv_dw": 8, "fused_adam": 1}
+# Legendre contractions and their 18 transposes, and as many longitude DFTs
+# (gridmm: the grid stage of each of the 18 transforms, forward and backward,
+# at every precision mode but "highest"); 8 dhconv forwards, 8 dx and 8 dw;
+# one fused Adam launch for all 87 parameter leaves (10 per block, 3 in the
+# encoder and the decoder each, the residual transform)
+TRAIN_LAUNCHES = {"legmm": 36, "gridmm": 36, "dhconv_mm": 16, "dhconv_dw": 8, "fused_adam": 1}
 # on the complex engine with the kernel on: 8 forward contractions and their 8
-# dx; dw is an einsum, and the Legendre contractions are float32 einsums
-COMPLEX_FORWARD_LAUNCHES = {"dhconv_complex": 8}
-COMPLEX_TRAIN_LAUNCHES = {"dhconv_complex": 16, "fused_adam": 1}
+# dx; dw is an einsum, and the Legendre contractions are float32 einsums; the
+# longitude DFTs on gridmm as on the kernel engine
+COMPLEX_FORWARD_LAUNCHES = {"dhconv_complex": 8, "gridmm": 18}
+COMPLEX_TRAIN_LAUNCHES = {"dhconv_complex": 16, "gridmm": 36, "fused_adam": 1}
 # bf16 AMP's forward against float32, norm-wise: makani_tpu/utils/trainer.py
 # puts AMP's model-level deviation at ~1.5e-2; a deviation past this is a
 # fault, not rounding
@@ -416,6 +439,17 @@ BLOCK_SHARE = 1.0
 # the encoder and the decoder each; the gradient as many in a train step
 AMP_FORWARD_GELU = {"gelu_bf16": 18}
 AMP_TRAIN_GELU = {"gelu_bf16": 18, "gelu_bf16_grad": 18}
+# phase 20: the SHT's grid stage at each precision mode, at the flagship's
+# shapes (label, rows, nlon, mmax, analysis): the full grid 721 x 1440 of 384
+# channels and the inner grid 240 x 480
+GRID_STAGE_SHAPES = (("full analysis", 384 * 721, 1440, 241, True),
+                     ("full synthesis", 384 * 721, 1440, 241, False),
+                     ("inner analysis", 384 * 240, 480, 241, True),
+                     ("inner synthesis", 384 * 240, 480, 241, False))
+GRID_MODES = ("default", "split2", "tf32", "mixed", "mixed2", "high", "highest")
+GRID_REPS = 5
+# "highest", the float32 torch.matmul (TF32 off), against float64
+GRID_HIGHEST_TOL = 1e-5
 # the MLP's output bias feeds an instance norm, which removes it: its exact
 # gradient is zero, and its rounding noise is measured against the largest
 # gradient of the model instead of its own
@@ -469,7 +503,7 @@ TRAIN_CUTS = (
     f"experiment dir under {FILES_DIR.name}",
 )
 # a validation AR step: the forward's launches and its GELU under AMP
-VALID_STEP_LAUNCHES = {"legmm": 18, "dhconv_mm": 8, "gelu_bf16": 18}
+VALID_STEP_LAUNCHES = {"legmm": 18, "gridmm": 18, "dhconv_mm": 8, "gelu_bf16": 18}
 # phase 13: config/icml_models.yaml's SFNO recipes on phase 10's dataset, cut
 # as ICML_CUTS lists; runs under ICML_DIR
 ICML_PRETRAIN = "sfno_dhealy_73ch"
@@ -1456,11 +1490,12 @@ def amp_forward(torch, kernels, model, xb, label):
 
 
 def amp_kernel_calls(torch, model, xb):
-    """Every legmm and dhconv_mm call of an AMP forward of `xb` against its
-    twin on the same inputs: the largest relative error of each kernel over
-    its calls, and the count of calls checked."""
+    """Every legmm, dhconv_mm and gridmm call of an AMP forward of `xb` against
+    its twin on the same inputs: the largest relative error of each kernel
+    over its calls, and the count of calls checked."""
     from makani_tpu_torch.ops import spectral_mm
-    kernels = {"legmm": spectral_mm.legmm_plain, "dhconv_mm": spectral_mm.dhconv_mm_plain}
+    kernels = {"legmm": spectral_mm.legmm_plain, "dhconv_mm": spectral_mm.dhconv_mm_plain,
+               "gridmm": spectral_mm.gridmm_plain}
     worst, calls = dict.fromkeys(kernels, 0.0), dict.fromkeys(kernels, 0)
     launch = {name: getattr(spectral_mm, name) for name in kernels}
 
@@ -1540,7 +1575,8 @@ def phase_amp(torch, np, sht, complex_ops, kernels, dev, x, y_f32):
     y, rec["forward_ms"], rec["launches_per_forward"] = amp_forward(
         torch, kernels, model, xb, "AMP")
     check(rec["launches_per_forward"] == launch_counts(
-        kernels, {"legmm": 18, "dhconv_mm": 8, **AMP_FORWARD_GELU}) and at_one_pass(kernels),
+        kernels, {"legmm": 18, "gridmm": 18, "dhconv_mm": 8, **AMP_FORWARD_GELU})
+          and at_one_pass(kernels),
           f"AMP launches per forward {rec['launches_per_forward']}, "
           f"by passes {dict(kernels.launches_by_passes)}")
     sht.set_coeff_engine("stacked")
@@ -1560,7 +1596,7 @@ def phase_amp(torch, np, sht, complex_ops, kernels, dev, x, y_f32):
           f"{rec['forward_dev_twin']}")
     del y, y_twin, yf, twin
     rec["call_rel_err_twin"], rec["calls_checked"] = amp_kernel_calls(torch, model, xb)
-    check(rec["calls_checked"] == {"legmm": 18, "dhconv_mm": 8}
+    check(rec["calls_checked"] == {"legmm": 18, "dhconv_mm": 8, "gridmm": 18}
           and max(rec["call_rel_err_twin"].values()) < TWIN_TOL,
           f"AMP forward's kernel calls against their twins {rec['call_rel_err_twin']} over "
           f"{rec['calls_checked']} calls")
@@ -1596,7 +1632,7 @@ def phase_amp(torch, np, sht, complex_ops, kernels, dev, x, y_f32):
         torch, np, kernels, inferencer, xd, "AMP rollout")
     rec["step_ms"] = statistics.median(rec["step_ms_all"])
     rec["peak_bytes"] = torch.cuda.max_memory_allocated()
-    per_step = {"legmm": 18, "dhconv_mm": 8, **AMP_FORWARD_GELU}
+    per_step = {"legmm": 18, "gridmm": 18, "dhconv_mm": 8, **AMP_FORWARD_GELU}
     check(rec["rollout_launches"] == launch_counts(
         kernels, {k: v * ROLLOUT_STEPS for k, v in per_step.items()}),
           f"AMP rollout launches {rec['rollout_launches']}")
@@ -1826,7 +1862,8 @@ def phase_files_serve(torch, np, sht, complex_ops, kernels, dev):
         sht.set_coeff_engine("stacked")
         y_plain = model(x, unpredicted_inp=u)
         sht.set_coeff_engine("kernel")
-    check(rec["launches_per_forward"] == launch_counts(kernels, {"legmm": 18, "dhconv_mm": 8}),
+    check(rec["launches_per_forward"] == launch_counts(kernels, {"legmm": 18, "gridmm": 18,
+                                                                 "dhconv_mm": 8}),
           f"phase 10 launches per forward {rec['launches_per_forward']}")
     check(tuple(y_kernel.shape) == (1, FILES_CHANNELS, *FILES_SHAPE)
           and bool(torch.isfinite(y_kernel).all()),
@@ -1856,6 +1893,7 @@ def phase_files_serve(torch, np, sht, complex_ops, kernels, dev):
     rec["rollout_peak_bytes"] = torch.cuda.max_memory_allocated()
     rec.update(rollout_steps=steps, step_ms_all=times, step_ms=statistics.median(times))
     check(rec["rollout_launches"] == launch_counts(kernels, {"legmm": 18 * steps,
+                                                             "gridmm": 18 * steps,
                                                              "dhconv_mm": 8 * steps}),
           f"phase 10 rollout launches {rec['rollout_launches']}")
     del inferencer, model
@@ -1968,8 +2006,10 @@ def phase_serve(torch, np, sht, complex_ops, kernels, dev):
     rec["launches_per_scored_step"] = {k: v // scored_steps for k, v in
                                        rec["score_launches"].items()}
     check(rec["score_launches"] == launch_counts(kernels, {"legmm": 18 * scored_steps,
+                                                           "gridmm": 18 * scored_steps,
                                                            "dhconv_mm": 8 * scored_steps})
           and dict(kernels.launches_by_passes) == {("legmm", 3): 18 * scored_steps,
+                                                   ("gridmm", 3): 18 * scored_steps,
                                                    ("dhconv_mm", 3): 8 * scored_steps},
           f"score launches {rec['score_launches']}, by passes {rec['score_launches_by_passes']}")
     base = logs["base"]
@@ -2116,6 +2156,7 @@ def phase_serve(torch, np, sht, complex_ops, kernels, dev):
               for f in fields) and rec["loop_rel_err_twin"] < FORWARD_TOL,
           f"TimeLoop kernels vs twins: {rec['loop_rel_err_twin']}")
     check(rec["loop_launches"] == launch_counts(kernels, {"legmm": 18 * SERVE_LOOP_STEPS,
+                                                          "gridmm": 18 * SERVE_LOOP_STEPS,
                                                           "dhconv_mm": 8 * SERVE_LOOP_STEPS}),
           f"TimeLoop launches {rec['loop_launches']}")
     rec.update(loop_step_ms_all=times, loop_step_ms=statistics.median(times))
@@ -2234,7 +2275,7 @@ def phase_trainer(torch, np, kernels, dev):
           f"{counters['iters']} epoch {counters['epoch']}")
     rec["trace_kernels"] = trace_names(trainer.profile_path)
     rec["trace_bytes"] = Path(trainer.profile_path).stat().st_size
-    check({"legmm", "dhconv_mm"} <= set(rec["trace_kernels"]),
+    check({"legmm", "gridmm", "dhconv_mm"} <= set(rec["trace_kernels"]),
           f"the profiler trace names {rec['trace_kernels']}")
     n_valid = TRAIN_EPOCHS * FILES_EVAL * (FILES_AUTOREG + 1)
     n_train = TRAIN_EPOCHS * TRAIN_STEPS
@@ -2337,13 +2378,14 @@ def phase_trainer(torch, np, kernels, dev):
 def icml_launches(level, unroll, linear=True):
     """Launches of one ICML train step at checkpointing `level` with `unroll`
     steps unrolled: per unrolled step a forward
-    and its backward (18 legmm each way, 8 dhconv_mm forward and 8 dx, 8
-    dhconv_dw, 18 GELU each way), plus what checkpointing recomputes (from
-    level 1 the encoder's and the decoder's GELU, from level 2 the MLPs' 8,
-    at level 3 the blocks' forward: 18 legmm, 8 dhconv_mm, 16 GELU); one
-    fused_adam for all the leaves."""
+    and its backward (18 legmm and 18 gridmm each way, 8 dhconv_mm forward
+    and 8 dx, 8 dhconv_dw, 18 GELU each way), plus what checkpointing
+    recomputes (from level 1 the encoder's and the decoder's GELU, from
+    level 2 the MLPs' 8, at level 3 the blocks' forward: 18 legmm, 18
+    gridmm, 8 dhconv_mm, 16 GELU); one fused_adam for all the leaves."""
     gelu = 18 + (2 if level >= 1 else 0) + (8 if level >= 2 else 0) + (16 if level >= 3 else 0)
-    step = {"legmm": 36 + (18 if level >= 3 else 0), "gelu_bf16": gelu, "gelu_bf16_grad": 18}
+    sht_calls = 36 + (18 if level >= 3 else 0)
+    step = {"legmm": sht_calls, "gridmm": sht_calls, "gelu_bf16": gelu, "gelu_bf16_grad": 18}
     if linear:
         step.update(dhconv_mm=16 + (8 if level >= 3 else 0), dhconv_dw=8)
     out = {k: v * unroll for k, v in step.items()}
@@ -2756,11 +2798,11 @@ def print_icml(icml):
 
 def fno_launches(level):
     """Launches of one FNO train step at checkpointing `level`: the GELU
-    kernels of icml_launches and one fused_adam a leaf; no legmm and no
+    kernels of icml_launches and one fused_adam a leaf; no legmm, gridmm or
     dhconv (the FFTs are cuFFT's, the diagonal and non-linear filters
     complex einsums, as makani_tpu leaves them to XLA)."""
     step = icml_launches(level, 1, linear=False)
-    del step["legmm"]
+    del step["legmm"], step["gridmm"]
     return step
 
 
@@ -2842,7 +2884,8 @@ def option_forward(torch, sht, kernels, dev, gen, x, extra_legmm=0, **overrides)
     err = rel_err(y, y_plain.double())
     check(tuple(y.shape) == (1, FILES_CHANNELS, 721, 1440) and bool(torch.isfinite(y).all())
           and err < FORWARD_TOL, f"{overrides}: forward {tuple(y.shape)}, vs twins {err}")
-    check(launches == launch_counts(kernels, {"legmm": 18 + extra_legmm, "dhconv_mm": 8}),
+    check(launches == launch_counts(kernels, {"legmm": 18 + extra_legmm,
+                                              "gridmm": 18 + extra_legmm, "dhconv_mm": 8}),
           f"{overrides}: launches {launches}")
     shapes = {k: tuple(v.shape) for k, v in model.named_parameters()}
     del model, y, y_plain
@@ -2874,8 +2917,9 @@ def factorized_step(torch, sht, complex_ops, kernels, dev, gen, x):
     ms = (time.perf_counter() - t0) * 1e3
     launches = dict(kernels.launches)
     one_pass = at_one_pass(kernels)
-    check(launches == launch_counts(kernels, {"dhconv_complex": 16, "gelu_bf16": 18,
-                                              "gelu_bf16_grad": 18}) and one_pass,
+    check(launches == launch_counts(kernels, {"dhconv_complex": 16, "gridmm": 36,
+                                              "gelu_bf16": 18, "gelu_bf16_grad": 18})
+          and one_pass,
           f"factorized launches {launches}")
     grads = [p.grad for n, p in model.named_parameters() if ".weight." in n]
     check(len(grads) == 4 * 8 and all(g is not None and bool(torch.isfinite(g).all())
@@ -2927,8 +2971,9 @@ def csphase_pair(torch, np, sht, kernels, dev, gen):
         check(max(rec[f"{nlat}x{nlon}"]) < 5e-5 and not fwd.csphase,
               f"csphase=False SHT pair at {nlat}x{nlon} vs float64: {rec[f'{nlat}x{nlon}']}")
     rec["launches"] = dict(kernels.launches)
-    check(rec["launches"] == launch_counts(kernels, {"legmm": 4}) and
-          kernels.launches_by_passes["legmm", 3] == 4, f"csphase launches {rec['launches']}")
+    check(rec["launches"] == launch_counts(kernels, {"legmm": 4, "gridmm": 4})
+          and kernels.launches_by_passes["legmm", 3] == 4
+          and kernels.launches_by_passes["gridmm", 3] == 4, f"csphase launches {rec['launches']}")
     return rec
 
 
@@ -3073,7 +3118,7 @@ def phase_fno(torch, np, sht, complex_ops, kernels, dev, gen):
               and tuple(stacked.shape) == (6, 2, 180, 384, 384) and run["leaves"] == 37,
               f"scan_layers: {run['leaves']} leaves, stacked filter {tuple(stacked.shape)}")
         want = icml_launches(level, 1)
-        for k, extra in (("legmm", 12), ("dhconv_mm", 6), ("gelu_bf16", 12)):
+        for k, extra in (("legmm", 12), ("gridmm", 12), ("dhconv_mm", 6), ("gelu_bf16", 12)):
             want[k] += extra
         check(run["launches"] == launch_counts(kernels, {
             k: v * ICML_STEPS[ICML_PRETRAIN] for k, v in want.items()}) and run["one_pass"],
@@ -3869,6 +3914,8 @@ def phase_parallel(torch, np, spectral_mm, kernels, dev, gen, card, order_gap=No
                   f"(a) rank {i} patch vs serial, by step: {r['errs']}")
             for name in ("legmm", "dhconv_mm"):
                 check(r["launches"][name] > 0, f"(a) {name} not launched on a rank")
+            check(r["launches"]["gridmm"] == r["launches"]["legmm"],
+                  f"(a) gridmm {r['launches']['gridmm']}, legmm {r['launches']['legmm']}")
         # (b) the serial batch-2 reference, then the ranks
         trainer = Trainer(parallel_train_params(batch_size=PARALLEL_BATCH), device=dev)
         torch.cuda.reset_peak_memory_stats()
@@ -3904,6 +3951,8 @@ def phase_parallel(torch, np, spectral_mm, kernels, dev, gen, card, order_gap=No
         for r in ranks:
             for name in ("legmm", "dhconv_mm", "dhconv_dw"):
                 check(r["launches"][name] > 0, f"(b) {name} not launched on a rank")
+            check(r["launches"]["gridmm"] == r["launches"]["legmm"],
+                  f"(b) gridmm {r['launches']['gridmm']}, legmm {r['launches']['legmm']}")
             check(r["launches"]["fused_adam"] == PARALLEL_TRAIN_STEPS,
                   f"(b) {r['launches']['fused_adam']} fused_adam launches on a rank over "
                   f"{PARALLEL_TRAIN_STEPS} steps")
@@ -3937,7 +3986,8 @@ def print_parallel_serve(serve):
               f"step ms {', '.join(f'{t:.1f}' for t in r['step_ms'])} (serial "
               f"{', '.join(f'{t:.1f}' for t in serve['serial_ms'])}); errors vs serial "
               f"{', '.join(f'{e:.3g}' for e in r['errs'])} (bound {PARALLEL_SERVE_TOL}); "
-              f"launches legmm {r['launches']['legmm']}, dhconv_mm {r['launches']['dhconv_mm']};"
+              f"launches legmm {r['launches']['legmm']}, gridmm {r['launches']['gridmm']}, "
+              f"dhconv_mm {r['launches']['dhconv_mm']};"
               f" bytes sent {r['moved']}; peak {r['peak_bytes'] / 2**30:.2f} GiB", flush=True)
     gap = serve["order_gap"]
     print(f"[parallel serve] {serve['wall_s']:.1f} s for the 4 ranks, start to end; the ordering "
@@ -3952,7 +4002,7 @@ def print_parallel_train(train):
               f"{PARALLEL_BATCH} {train['serial_losses']}, bound {PARALLEL_LOSS_TOL}); epoch "
               f"{r['epoch_s']:.2f} s ({r['epoch_s'] * 1e3 / len(r['losses']):.1f} ms a step "
               f"with the loader); launches "
-              f"{ {k: r['launches'][k] for k in ('legmm', 'dhconv_mm', 'dhconv_dw', 'fused_adam', 'gelu_bf16', 'gelu_bf16_grad')} }; "
+              f"{ {k: r['launches'][k] for k in ('legmm', 'gridmm', 'dhconv_mm', 'dhconv_dw', 'fused_adam', 'gelu_bf16', 'gelu_bf16_grad')} }; "
               f"bytes sent {r['moved']}; peak {r['peak_bytes'] / 2**30:.2f} GiB (reserved "
               f"{r['reserved_bytes'] / 2**30:.2f})", flush=True)
     print(f"[parallel train] {train['wall_s']:.1f} s for the 4 ranks with the control; "
@@ -4232,6 +4282,8 @@ def phase_tensor_parallel(torch, np, spectral_mm, kernels, dev, gen, card):
                   f"(a) rank {i} vs serial, by step: {r['errs']}")
             for name in ("legmm", "dhconv_mm"):
                 check(r["launches"][name] > 0, f"(a) {name} not launched on a rank")
+            check(r["launches"]["gridmm"] == r["launches"]["legmm"],
+                  f"(a) gridmm {r['launches']['gridmm']}, legmm {r['launches']['legmm']}")
             for name, f in r["families"].items():
                 check(f["err"] < PARALLEL_SERVE_TOL, f"(d) {name} rank {i} vs serial: {f['err']}")
         # (b) the serial reference at the same depth and level, then the ranks
@@ -4266,6 +4318,8 @@ def phase_tensor_parallel(torch, np, spectral_mm, kernels, dev, gen, card):
         for r in ranks:
             for name in ("legmm", "dhconv_mm", "dhconv_dw", "gelu_bf16", "gelu_bf16_grad"):
                 check(r["launches"][name] > 0, f"(b) {name} not launched on a rank")
+            check(r["launches"]["gridmm"] == r["launches"]["legmm"],
+                  f"(b) gridmm {r['launches']['gridmm']}, legmm {r['launches']['legmm']}")
             check(r["launches"]["fused_adam"] == TP_TRAIN_STEPS,
                   f"(b) {r['launches']['fused_adam']} fused_adam launches on a rank over "
                   f"{TP_TRAIN_STEPS} steps")
@@ -4299,7 +4353,8 @@ def print_tp_serve(serve):
               f"{', '.join(f'{t:.1f}' for t in r['step_ms'])} (serial "
               f"{', '.join(f'{t:.1f}' for t in serve['serial_ms'])}); errors vs serial "
               f"{', '.join(f'{e:.3g}' for e in r['errs'])} (bound {PARALLEL_SERVE_TOL}); "
-              f"launches legmm {r['launches']['legmm']}, dhconv_mm {r['launches']['dhconv_mm']};"
+              f"launches legmm {r['launches']['legmm']}, gridmm {r['launches']['gridmm']}, "
+              f"dhconv_mm {r['launches']['dhconv_mm']};"
               f" bytes sent a step { {k: v / steps for k, v in r['moved'].items()} }; peak "
               f"{r['peak_bytes'] / 2**30:.2f} GiB; (d) {fams}", flush=True)
     print(f"[tp serve] {serve['wall_s']:.1f} s for the 4 ranks, start to end; (d) serial "
@@ -4314,7 +4369,7 @@ def print_tp_train(train):
               f"bound {PARALLEL_LOSS_TOL}); epoch {r['epoch_s']:.2f} s "
               f"({r['epoch_s'] * 1e3 / len(r['losses']):.1f} ms a step with the loader); "
               f"launches "
-              f"{ {k: r['launches'][k] for k in ('legmm', 'dhconv_mm', 'dhconv_dw', 'fused_adam', 'gelu_bf16', 'gelu_bf16_grad')} }; "
+              f"{ {k: r['launches'][k] for k in ('legmm', 'gridmm', 'dhconv_mm', 'dhconv_dw', 'fused_adam', 'gelu_bf16', 'gelu_bf16_grad')} }; "
               f"bytes sent {r['moved']}; peak {r['peak_bytes'] / 2**30:.2f} GiB (reserved "
               f"{r['reserved_bytes'] / 2**30:.2f})", flush=True)
     print(f"[tp train] {train['wall_s']:.1f} s for the 4 ranks with the control; serial peak "
@@ -4578,6 +4633,8 @@ def phase_spatial(torch, np, sht, complex_ops, kernels, dev, card):
     check(n["norm_max_abs"] < 0.05, f"(e) the norm at bf16 statistics: {n['norm_max_abs']}")
     for name in ("legmm", "dhconv_mm", "gelu_bf16"):
         check(n["launches"].get(name, 0) > 0, f"(e) {name} not launched")
+    check(n["launches"].get("gridmm", 0) == n["launches"]["legmm"],
+          f"(e) gridmm {n['launches'].get('gridmm', 0)}, legmm {n['launches']['legmm']}")
     shutil.rmtree(SP_DIR, ignore_errors=True)
     SP_DIR.mkdir(parents=True)
     try:
@@ -4747,6 +4804,181 @@ def print_spatial(rec, card):
     print(f"[spatial] {card}: {rec['wall_s']:.1f} s for the 4 ranks, start to end", flush=True)
 
 
+def grid_f64_bound(passes, exact):
+    """The pass bound against float64 of a grid-stage product: 3 passes, or
+    2 on an operand exact in bf16 (the table split alone), keep 5e-5; 1 pass
+    or 2 on a float32 operand (its bf16 rounding) 5e-2."""
+    return F64_TOL[3] if passes == 3 or (passes == 2 and exact) else F64_TOL[1]
+
+
+def grid_stage_rows(torch, sht, spectral_mm, kernels, dev, gen):
+    """Phase 20 (a): each mode's grid stage, forward and backward, at each of
+    GRID_STAGE_SHAPES, against the twin and float64, timed."""
+    rows = []
+    for label, R, nlon, mmax, analysis in GRID_STAGE_SHAPES:
+        table = sht._rdft_tensor if analysis else sht._irdft_tensor
+        dft, dft_t = table(nlon, mmax, dev), sht._transposed(table, nlon, mmax, dev)
+        t, t_t = (dft_t, dft) if analysis else (dft, dft_t)   # (K, N) and (N, K)
+        K, N = t.shape
+        z = torch.randn((R, nlon) if analysis else (2 * mmax, R), device=dev, generator=gen)
+        g = torch.randn((2 * mmax, R) if analysis else (R, nlon), device=dev, generator=gen)
+        z_rows, g_rows = (z, g.T) if analysis else (z.T, g)   # (R, K) and (R, N)
+        # float64 references: the rows as given and rounded to bf16, the
+        # cotangent through the transposed table
+        ref_x = z_rows.double() @ t.double()
+        ref_xb = z_rows.bfloat16().double() @ t.double()
+        ref_g = g_rows.double() @ t_t.double()
+        # the float32 call the stage replaced, gridmm alone on row-major
+        # operands, and the transpose copy of the (2 * mmax, R) m-leading side
+        # that the kernel's layouts spare (one each way)
+        f32_ms = cuda_ms(lambda: torch.matmul(dft, z.T) if analysis else torch.matmul(z.T, dft),
+                         GRID_REPS)
+        m_side = torch.empty((2 * mmax, R), device=dev)
+        copy_ms = cuda_ms(lambda: m_side.T.contiguous(), GRID_REPS)
+        copy_bytes = 2 * m_side.numel() * 4
+        del m_side
+        x_c = z_rows.contiguous()
+        for mode in GRID_MODES:
+            sht.set_transform_precision(mode)
+            res = {}
+            for engine in ("kernel", "stacked"):
+                sht.set_coeff_engine(engine)
+                zz = z.detach().requires_grad_(True)
+                kernels.reset_launches()
+                out = sht._grid_stage(zz, dft, dft_t, analysis)
+                (dz,) = torch.autograd.grad(out, zz, g)
+                torch.cuda.synchronize()
+                res[engine] = (out.detach(), dz, {k: v for k, v in
+                                                  kernels.launches_by_passes.items() if v})
+                del out, zz
+            (out, dz, launched), (tw, tw_dz, tw_launched) = res["kernel"], res["stacked"]
+            del res
+            out_rows, dz_rows = (out.T, dz) if analysis else (out, dz.T)
+            row = dict(shape=label, mode=mode, rows=R, K=K, N=N)
+            if mode == "highest":
+                check(not launched and not tw_launched, f"(a) {label} highest launched {launched}")
+                row.update(passes=None, grad_passes=None, rel_err_twin=rel_err(out, tw.double()),
+                           rel_err_f64=rel_err(out_rows, ref_x),
+                           grad_rel_err_f64=rel_err(dz_rows, ref_g))
+                check(max(row["rel_err_f64"], row["grad_rel_err_f64"]) < GRID_HIGHEST_TOL,
+                      f"(a) {label} highest vs float64: {row}")
+            else:
+                fwd, bwd, rounded = sht._GRID[mode]
+                want = {("gridmm", fwd): 1}
+                want[("gridmm", bwd)] = want.get(("gridmm", bwd), 0) + 1
+                check(launched == want and not tw_launched,
+                      f"(a) {label} {mode}: launches {launched}, the twin's {tw_launched}")
+                row.update(passes=fwd, grad_passes=bwd, grad_bf16=rounded,
+                           rel_err_twin=rel_err(out, tw.double()))
+                slack = TWIN_TOL * tw_dz.abs().max() + (bf16_ulp(tw_dz) if rounded else 0)
+                gap = (dz - tw_dz).abs()
+                row["grad_twin_within"] = bool((gap <= slack).all())
+                row["grad_rel_err_twin"] = float(gap.max() / tw_dz.abs().max())
+                check(row["rel_err_twin"] < TWIN_TOL and row["grad_twin_within"],
+                      f"(a) {label} {mode} kernel vs twin: {row}")
+                ref = ref_xb if rounded else ref_x
+                row["rel_err_f64"] = rel_err(out_rows, ref)
+                row["f64_bound"] = grid_f64_bound(fwd, True)
+                err = (dz_rows.double() - ref_g).abs()
+                gbound = grid_f64_bound(bwd, False)
+                row["grad_rel_err_f64"] = float(err.max() / ref_g.abs().max())
+                row["grad_f64_bound"] = gbound
+                gslack = gbound * ref_g.abs().max() + (BF16_OUT * ref_g.abs() if rounded else 0)
+                check(row["rel_err_f64"] < row["f64_bound"] and bool((err <= gslack).all()),
+                      f"(a) {label} {mode} vs float64: {row}")
+            del out, dz, tw, tw_dz, out_rows, dz_rows
+            # times: the stage each way on the kernel engine, gridmm alone
+            sht.set_coeff_engine("kernel")
+            zz = z.detach().requires_grad_(True)
+            row["ms"] = cuda_ms(lambda: sht._grid_stage(zz, dft, dft_t, analysis), GRID_REPS)
+            out = sht._grid_stage(zz, dft, dft_t, analysis)
+            row["grad_ms"] = cuda_ms(lambda: torch.autograd.grad(out, zz, g, retain_graph=True),
+                                     GRID_REPS)
+            del out, zz
+            if mode != "highest":
+                row["gridmm_ms"] = cuda_ms(lambda: spectral_mm.gridmm(x_c, t, fwd), GRID_REPS)
+                row["bound_ms"], row["bound_by"] = bound(R * K * 4 + K * N * 4 + R * N * 4,
+                                                         2.0 * R * K * N * fwd)
+            row.update(f32_ms=f32_ms, copy_ms=copy_ms, copy_bytes=copy_bytes)
+            rows.append(row)
+            print(f"  {label} | {mode} | p{row['passes']}/p{row['grad_passes']} | "
+                  f"vs twin {row['rel_err_twin']:.3g} / {row.get('grad_rel_err_twin', 0):.3g} | "
+                  f"vs f64 {row['rel_err_f64']:.3g} / {row['grad_rel_err_f64']:.3g} | stage "
+                  f"{row['ms']:.4f} / {row['grad_ms']:.4f} ms | gridmm "
+                  f"{row.get('gridmm_ms', float('nan')):.4f} | f32 mm {f32_ms:.4f} | copy "
+                  f"{copy_ms:.4f} ({copy_bytes / 1e9:.3f} GB) | bound "
+                  f"{row.get('bound_ms', float('nan')):.4f}", flush=True)
+        del z, g, z_rows, g_rows, x_c, ref_x, ref_xb, ref_g
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_grid_stage(torch, sht, complex_ops, spectral_mm, kernels, dev, gen, amp):
+    """Phase 20: the grid stage at every precision mode (the docstring)."""
+    from makani_tpu_torch.models.model_registry import get_model
+    rec = {}
+    t0 = time.perf_counter()
+    print("[grid stage] shape | mode | passes fwd/bwd | vs twin fwd / bwd | vs float64 fwd / "
+          "bwd | stage ms fwd / bwd | gridmm ms, row-major | float32 torch.matmul ms | the "
+          "transpose copy the layouts spare, ms | bound ms", flush=True)
+    try:
+        rec["rows"] = grid_stage_rows(torch, sht, spectral_mm, kernels, dev, gen)
+        # (b) the flagship forward under each mode name
+        sht.set_coeff_engine("kernel")
+        model = get_model(flagship_params(ROLLOUT_STEPS), device=dev).eval()
+        x = torch.randn((1, 73, 721, 1440), device=dev, generator=gen)
+        forwards, y_highest = {}, None
+        with torch.inference_mode():
+            for mode in ("highest", *(m for m in GRID_MODES if m != "highest")):
+                sht.set_transform_precision(mode)
+                complex_ops.set_contraction_precision(mode)
+                model(x)
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                t1 = time.perf_counter()
+                y = model(x)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t1) * 1e3
+                by = {f"{k}/p{p}": v for (k, p), v in kernels.launches_by_passes.items()
+                      if v and k in ("gridmm", "legmm")}
+                if mode == "highest":
+                    want = {}
+                else:
+                    want = {f"gridmm/p{sht._GRID[mode][0]}": 18,
+                            f"legmm/p{sht._PASSES[mode]}": 18}
+                check(by == want and bool(torch.isfinite(y).all()),
+                      f"(b) forward at {mode!r}: launches {by}, expected {want}")
+                if y_highest is None:
+                    y_highest = y
+                forwards[mode] = dict(ms=ms, launches=by,
+                                      dev_highest=dev_norm(y.double(), y_highest.double()))
+                del y
+        rec["forwards"] = forwards
+        del model, x, y_highest
+        torch.cuda.empty_cache()
+        # (c) AMP's forward against float32 (phase 9), the DFT at 1 pass
+        rec["amp_dev_f32"] = amp["forward_dev_f32"]
+        check(rec["amp_dev_f32"] < AMP_DEV_MAX,
+              f"(c) AMP deviates from float32 by {rec['amp_dev_f32']}")
+    finally:
+        sht.set_coeff_engine("kernel")
+        sht.set_transform_precision("high")
+        complex_ops.set_contraction_precision("high")
+        torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec
+
+
+def print_grid_stage(rec, card):
+    for mode, f in rec["forwards"].items():
+        print(f"[grid stage forward] {card}: flagship forward at {mode!r}: {f['ms']:.1f} ms, "
+              f"launches {f['launches']}, deviation from 'highest' {f['dev_highest']:.4g}",
+              flush=True)
+    print(f"[grid stage] {card}: AMP's forward deviates from float32 by "
+          f"{rec['amp_dev_f32']:.4g} (bound {AMP_DEV_MAX}); phase 20 in "
+          f"{rec['phase_s']:.1f} s", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--record", type=Path, help="write every measurement to this JSON file")
@@ -4832,8 +5064,8 @@ def main(argv=None):
         torch.cuda.synchronize()
         fwd_plain_ms = (time.perf_counter() - t0) * 1e3
         sht.set_coeff_engine("kernel")
-    check(per_forward == launch_counts(kernels, {"legmm": 18, "dhconv_mm": 8}),
-          f"launches per forward {per_forward}, expected 18 legmm and 8 dhconv_mm")
+    check(per_forward == launch_counts(kernels, {"legmm": 18, "gridmm": 18, "dhconv_mm": 8}),
+          f"launches per forward {per_forward}, expected 18 legmm, 18 gridmm and 8 dhconv_mm")
     check(tuple(y_kernel.shape) == (1, 73, 721, 1440), f"forward shape {tuple(y_kernel.shape)}")
     fwd_err = rel_err(y_kernel, y_plain.double())
     check(bool(torch.isfinite(y_kernel).all()), "forward output not finite")
@@ -4856,6 +5088,7 @@ def main(argv=None):
     launches, step_all = timed_rollouts(torch, np, kernels, inferencer, x, "rollout")
     peak = torch.cuda.max_memory_allocated()
     check(launches == launch_counts(kernels, {"legmm": 18 * ROLLOUT_STEPS,
+                                              "gridmm": 18 * ROLLOUT_STEPS,
                                               "dhconv_mm": 8 * ROLLOUT_STEPS}),
           f"rollout launches {launches}")
     step_ms = statistics.median(step_all)
@@ -5166,8 +5399,12 @@ def main(argv=None):
     sp["phase_s"] = time.perf_counter() - t0
     record["spatial"] = sp
     print(f"[spatial time] phase 19 in {sp['phase_s']:.1f} s", flush=True)
+    # phase 20: the grid stage at every precision mode
+    grid_stage = phase_grid_stage(torch, sht, complex_ops, spectral_mm, kernels, dev, gen, amp)
+    record["grid_stage"] = grid_stage
+    print_grid_stage(grid_stage, card)
     record["script_s"] = time.perf_counter() - t_script
-    print(f"[time] phases 1-19 in {record['script_s']:.1f} s, the kernels' build included",
+    print(f"[time] phases 1-20 in {record['script_s']:.1f} s, the kernels' build included",
           flush=True)
 
     # results
@@ -5313,11 +5550,33 @@ def main(argv=None):
         tp_local={k: q[k] for q in tp["kernels"] if q["name"] == "dhconv_complex"
                   for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                             "max_abs_err")}))
+    # gridmm, the longitude DFT of every SHT: launches over phase 6's training
+    # epoch and phase 5's rollout as the other main rows, phase 8's tools in
+    # launches_tools, phase 20's grid stage in grid_stage; its times are
+    # phase 8's flagship analysis with a float32 x at 3 passes (its bound's
+    # shape)
+    r = next(r for r in grid_rows if r["name"] == "gridmm")
+    kernels.append(dict(
+        name="gridmm", route="cuda", source="makani_tpu_torch/csrc/gridmm.cu",
+        replaces="makani_tpu/ops/pallas_mm.py:82",
+        launches=train["train_launches"]["gridmm"],
+        launches_per_train_step=train["train_launches_per_step"]["gridmm"],
+        launches_rollout=launches["gridmm"],
+        launches_amp=amp["train_launches"]["gridmm"],
+        launches_per_train_step_amp=amp["train_launches_per_step"]["gridmm"],
+        launches_rollout_amp=amp["rollout_launches"]["gridmm"],
+        launches_tools=tools["launches"]["gridmm"], **files_launches("gridmm"),
+        max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+        bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+        shape=r["shape"], passes=r["passes"],
+        grid_stage=[{k: q.get(k) for k in ("shape", "mode", "passes", "grad_passes", "ms",
+                                           "grad_ms", "gridmm_ms", "f32_ms", "copy_ms",
+                                           "rel_err_twin", "rel_err_f64", "grad_rel_err_f64")}
+                    for q in grid_stage["rows"]]))
     # the kernel-benchmark and probe path: launches counted over phase 8's
     # run of the three tools; no model path runs these kernels
-    grid_sources = {"gridmm": ("makani_tpu_torch/csrc/gridmm.cu",
-                               "makani_tpu/ops/pallas_mm.py:82"),
-                    "grid_dot": ("makani_tpu_torch/csrc/gridmm.cu", "scripts/bench_gridmm.py:63")}
+    grid_sources = {"grid_dot": ("makani_tpu_torch/csrc/gridmm.cu",
+                                 "scripts/bench_gridmm.py:63")}
     probe_calls = {"probe_copy": 41, "probe_dot_plain": 54, "probe_dot_transposed": 67,
                    "probe_grid_blocks": 82, "probe_stacked_output": 103,
                    "probe_multi_output": 125, "probe_bf16_split": 149}
@@ -5325,8 +5584,7 @@ def main(argv=None):
                                 f"scripts/pallas_isolate.py:{line}")
                          for name, line in probe_calls.items()})
     for name, (source, replaces) in grid_sources.items():
-        # gridmm: the flagship analysis with a float32 x at 3 passes (its
-        # bound's shape); grid_dot: the script's bf16 analysis
+        # grid_dot: the script's bf16 analysis
         r = next(r for r in grid_rows if r["name"] == name)
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,

@@ -23,6 +23,15 @@
 // 1.166 ms at 989 TFLOP/s: bound by operations. A bf16 x at 2 passes moves
 // 1.33 GB (0.40 ms) for 7.7e11 operations (0.78 ms): bound by operations too.
 //
+// Layouts (the SHT's grid stage, ops/sht.py): x is read row-major (R, K),
+// or K-major when it is the transpose of a contiguous (K, R) float32 tensor
+// (XK: the m-leading coefficients of the inverse DFT and the cotangent of
+// the DFT), and the output is stored row-major (R, N) or transposed (N, R)
+// (out_t: the m-leading DFT output and the inverse DFT's dx), so the
+// stage's layouts cost no transpose copy. A float32 output may be rounded
+// to bf16 values (round_out: the cotangent of an x that makani_tpu casts to
+// bf16, kept in float32 storage).
+//
 // Design, in the launcher's order:
 //   1. The table is prepared once a call (prep_table): its bf16 hi (and lo)
 //      parts are written to scratch in the layout the consumer reads
@@ -38,21 +47,29 @@
 //      (K = 482, or a slice at an odd row) landing moved by their
 //      misalignment, chosen from each row's address. Ragged R and K are
 //      zero-filled by the copies, ragged N masked on the store: nothing is
-//      padded in device memory. One barrier a stage.
+//      padded in device memory. One barrier a stage. A K-major x is staged
+//      as 32 depth rows of the block's 128 rows (pitch 132 floats, 4 banks
+//      apart a depth: the fragments' column reads are conflict-free), each
+//      depth row moved by its own misalignment where R is not a multiple of
+//      4.
 //   3. A block covers 128 rows and 256 columns (N = 482 in 2 column blocks,
 //      1440 in 6), two warpgroups of 64 rows. Each warp reads its 16 rows of
 //      the staged x tile once a 16-deep step and splits them in registers
 //      into the A fragments: each x tile is split once per block and the
-//      split writes nothing to shared memory.
+//      split writes nothing to shared memory. A K-major tile is read one
+//      element at a time (two depths make a fragment's pair).
 //   4. The consumer: wgmma.mma_async m64n256k16, A from those registers, B
 //      the prepared table from shared memory through a descriptor; 128
 //      float32 accumulators a thread. A warpgroup waits for its stage's
 //      group before it splits the next; the other warpgroup's group runs
 //      meanwhile.
 // The output is stored from the accumulators: four lanes write 32 whole
-// bytes of a row (float2, or bf16x2 rounded once from the float32 sum).
-// PASSES, the x type and the output type are template parameters, so each
-// build forms only the products and splits it uses. Tried on the H100 and
+// bytes of a row (float2, or bf16x2 rounded once from the float32 sum);
+// transposed, eight lanes write 32 bytes of an output row (N, R) a column.
+// PASSES, the x type, the output type and x's layout are template
+// parameters, so each build forms only the products and splits it uses; the
+// output's layout and rounding are arguments (uniform branches in the
+// store). Tried on the H100 and
 // slower: a producer warp issuing all the copies, the consumers held by
 // mbarriers alone (one warp's cp.async of 128 rows a stage does not keep the
 // ring full); clusters of 2 or 4 row bands sharing each table tile by
@@ -73,14 +90,17 @@ constexpr int BN = 256;         // output columns per block
 constexpr int BK = 32;          // depth of a stage: two 16-deep steps
 constexpr int THREADS = 256;    // two warpgroups
 constexpr int XPITCH = BK + 8;  // pitch of a staged x row: room for the shift, no bank conflicts
+constexpr int XKPITCH = BM + 4;  // pitch of a staged depth row of a K-major x: 4 banks apart
 constexpr int SLAB = BN * 16;   // bf16 of one part of a 16-deep table step
 constexpr int SMEM_MAX = 232448;
 
-template <typename XT, int PASSES>
+// XK: x K-major, staged as BK depth rows of BM rows (float32 only)
+template <typename XT, int PASSES, bool XK = false>
 struct Layout {
   static constexpr int PARTS = PASSES >= 2 ? 2 : 1;  // the table's hi (and lo)
-  using TileX = StagedTile<BM, BK, true, THREADS, XT, XPITCH>;
-  static constexpr int X_BYTES = BM * XPITCH * (int)sizeof(XT);
+  using TileX = std::conditional_t<XK, StagedTile<BK, BM, true, THREADS, XT, XKPITCH>,
+                                   StagedTile<BM, BK, true, THREADS, XT, XPITCH>>;
+  static constexpr int X_BYTES = (XK ? BK * XKPITCH : BM * XPITCH) * (int)sizeof(XT);
   static constexpr int T_BYTES = 2 * PARTS * SLAB * 2;
   static constexpr int STAGE_BYTES = X_BYTES + T_BYTES;
   static constexpr int FIT = (SMEM_MAX - 8 * 6) / STAGE_BYTES;
@@ -132,17 +152,44 @@ __device__ __forceinline__ void put2(bf16* p, float a, float b) {
 __device__ __forceinline__ void put1(float* p, float a) { *p = a; }
 __device__ __forceinline__ void put1(bf16* p, float a) { *p = __float2bfloat16_rn(a); }
 
-// x (R, K) of XT, the prepared table tp, out (R, N) of OT; block b covers
-// rows (b / ncol) * BM and columns (b % ncol) * BN, so the column blocks of
-// one row band run side by side and read the band from device memory once.
-template <typename XT, typename OT, int PASSES>
+__device__ __forceinline__ float round_bf16(float a) {
+  return __bfloat162float(__float2bfloat16_rn(a));
+}
+
+// This lane's A fragment of one 16-deep step from a K-major staged tile:
+// d0, d1, d8, d9 the depth rows 2t, 2t + 1, 2t + 8, 2t + 9 of the step, each
+// at its shift; ra, rb the lane's rows g and g + 8 (split_gemm.cuh's a_frag
+// order).
+template <bool LO>
+__device__ __forceinline__ void a_frag_kmajor(const float* d0, const float* d1, const float* d8,
+                                              const float* d9, int ra, int rb, uint32_t (&hi)[4],
+                                              uint32_t (&lo)[4]) {
+  const float2 v[4] = {make_float2(d0[ra], d1[ra]), make_float2(d0[rb], d1[rb]),
+                       make_float2(d8[ra], d9[ra]), make_float2(d8[rb], d9[rb])};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    hi[i] = pack_bf16(v[i].x, v[i].y);
+    if constexpr (LO) {
+      const float2 h = unpack_bf16(hi[i]);
+      lo[i] = pack_bf16(v[i].x - h.x, v[i].y - h.y);
+    }
+  }
+}
+
+// x (R, K) of XT (XK: stored (K, R)), the prepared table tp, out (R, N) of
+// OT (out_t: stored (N, R); round_out: a float32 output rounded to bf16
+// values); block b covers rows (b / ncol) * BM and columns (b % ncol) * BN,
+// so the column blocks of one row band run side by side and read the band
+// from device memory once.
+template <typename XT, typename OT, int PASSES, bool XK>
 __global__ void __launch_bounds__(THREADS, 1)
 gridmm_kernel(const XT* __restrict__ x, const bf16* __restrict__ tp, OT* __restrict__ out, int R,
-              int K, int N, int ncol) {
-  using S = Layout<XT, PASSES>;
+              int K, int N, int ncol, int out_t, int round_out) {
+  using S = Layout<XT, PASSES, XK>;
   using TX = typename S::TileX;
   constexpr bool X_LO = PASSES == 3;
   static_assert(!(X_LO && std::is_same<XT, bf16>::value), "a bf16 x has no lo part");
+  static_assert(!XK || std::is_same<XT, float>::value, "a K-major x is float32");
   constexpr int STAGES = S::STAGES;
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BARS);  // a slot's table tile landed
@@ -158,22 +205,33 @@ gridmm_kernel(const XT* __restrict__ x, const bf16* __restrict__ tp, OT* __restr
   const unsigned char* tblk =
       reinterpret_cast<const unsigned char*>(tp + (long long)nb * 2 * nk * S::PARTS * SLAB);
 
-  // the x rows this thread copies, their addresses at depth 0
-  const XT* xrow[TX::RPT];
+  // the x rows this thread copies, their addresses at depth 0 (row-major x)
+  const XT* xrow[XK ? 1 : TX::RPT];
+  if constexpr (!XK) {
 #pragma unroll
-  for (int i = 0; i < TX::RPT; ++i) {
-    const long long r = r0 + TX::row(i);
-    xrow[i] = r < R ? x + r * K : nullptr;
+    for (int i = 0; i < TX::RPT; ++i) {
+      const long long r = r0 + TX::row(i);
+      xrow[i] = r < R ? x + r * K : nullptr;
+    }
   }
-  // stage k into slot: this thread's chunks of the x rows (cp.async) and, by
-  // thread 0, the table tile (one contiguous run: one bulk copy, counted by
-  // the slot's mbarrier)
+  // stage k into slot: this thread's chunks of the x rows (cp.async; for a
+  // K-major x, of the stage's depth rows from column r0) and, by thread 0,
+  // the table tile (one contiguous run: one bulk copy, counted by the slot's
+  // mbarrier)
   auto load = [&](int k, int slot) {
     unsigned char* st = smem + slot * S::STAGE_BYTES;
     const int k0 = k * BK;
-    TX::copy(reinterpret_cast<XT*>(st), [&](int i) {
-      return TX::locate(xrow[i] ? xrow[i] + k0 : nullptr, K - k0);
-    }, tp);
+    if constexpr (XK) {
+      TX::copy(reinterpret_cast<XT*>(st), [&](int i) {
+        const int d = k0 + TX::row(i);
+        return TX::locate(d < K ? x + (long long)d * R + r0 : nullptr,
+                          static_cast<int>(R - r0));
+      }, tp);
+    } else {
+      TX::copy(reinterpret_cast<XT*>(st), [&](int i) {
+        return TX::locate(xrow[i] ? xrow[i] + k0 : nullptr, K - k0);
+      }, tp);
+    }
     if (threadIdx.x == 0) {
       mbar_expect_tx(full + slot, S::T_BYTES);
       bulk_copy(st + S::X_BYTES, tblk + (long long)k * S::T_BYTES, S::T_BYTES, full + slot);
@@ -189,8 +247,11 @@ gridmm_kernel(const XT* __restrict__ x, const bf16* __restrict__ tp, OT* __restr
   auto shift = [&](int r) {
     return r0 + r < R ? TX::locate(x + (r0 + r) * K, 1).s : 0;
   };
-  const int sa = shift(ra), sb = shift(rb);
+  const int sa = XK ? 0 : shift(ra), sb = XK ? 0 : shift(rb);
   const bool ea = sa % 2 == 0, eb = sb % 2 == 0;
+  // K-major: the shift of depth row d is (x's element address + d R + r0) % 4
+  const unsigned sx =
+      static_cast<unsigned>(reinterpret_cast<uintptr_t>(x) / sizeof(XT) + r0) & 3u;
 
   float acc[128];
 #pragma unroll
@@ -217,9 +278,23 @@ gridmm_kernel(const XT* __restrict__ x, const bf16* __restrict__ tp, OT* __restr
     const bf16* tb = reinterpret_cast<const bf16*>(st + S::X_BYTES);
     uint32_t ah[2][4], al[2][4];
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
-      a_frag<X_LO>(xs + ra * XPITCH + sa + 16 * h, ea, xs + rb * XPITCH + sb + 16 * h, eb, t,
-                   ah[h], al[h]);
+    for (int h = 0; h < 2; ++h) {
+      if constexpr (XK) {
+        auto depth = [&](int d) {  // depth row d of the stage, at its shift
+          // (a row past K was zero-filled unshifted: the copy had no source)
+          const unsigned dg = static_cast<unsigned>(k * BK + d);
+          const unsigned sh =
+              dg < static_cast<unsigned>(K) ? (sx + dg * static_cast<unsigned>(R)) & 3u : 0u;
+          return xs + d * XKPITCH + sh;
+        };
+        const int d = 16 * h + 2 * t;
+        a_frag_kmajor<X_LO>(depth(d), depth(d + 1), depth(d + 8), depth(d + 9), ra, rb, ah[h],
+                            al[h]);
+      } else {
+        a_frag<X_LO>(xs + ra * XPITCH + sa + 16 * h, ea, xs + rb * XPITCH + sb + 16 * h, eb, t,
+                     ah[h], al[h]);
+      }
+    }
     mbar_wait(full + k % STAGES, (k / STAGES) & 1);  // the table tile of stage k
     // One wgmma group a stage, waited for before the next stage's split: an
     // instruction that writes a wgmma's A or accumulator registers while a
@@ -245,12 +320,16 @@ gridmm_kernel(const XT* __restrict__ x, const bf16* __restrict__ tp, OT* __restr
   for (int half = 0; half < 2; ++half) {
     const long long r = r0 + (half ? rb : ra);
     if (r >= R) continue;
-    OT* o = out + r * N;
+    OT* o = out + (out_t ? r : r * N);
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
       const int c = n0 + 8 * j;
-      const float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
-      if (pairs) {
+      float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
+      if (round_out) v0 = round_bf16(v0), v1 = round_bf16(v1);
+      if (out_t) {  // element (r, c) at c R + r
+        if (c < N) put1(o + (long long)c * R, v0);
+        if (c + 1 < N) put1(o + (long long)(c + 1) * R, v1);
+      } else if (pairs) {
         if (c < N) put2(o + c, v0, v1);
       } else {
         if (c < N) put1(o + c, v0);
@@ -260,45 +339,54 @@ gridmm_kernel(const XT* __restrict__ x, const bf16* __restrict__ tp, OT* __restr
   }
 }
 
-template <typename XT, typename OT, int PASSES>
-int launch(const void* x, const bf16* tp, void* out, int r, int k, int n, cudaStream_t s) {
-  auto kernel = gridmm_kernel<XT, OT, PASSES>;
-  constexpr int bytes = Layout<XT, PASSES>::BYTES;
+// the output's layout and rounding, passed to the kernel
+struct Store {
+  int out_t, round_out;
+};
+
+template <typename XT, typename OT, int PASSES, bool XK>
+int launch(const void* x, const bf16* tp, void* out, int r, int k, int n, Store st,
+           cudaStream_t s) {
+  auto kernel = gridmm_kernel<XT, OT, PASSES, XK>;
+  constexpr int bytes = Layout<XT, PASSES, XK>::BYTES;
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int ncol = (n + BN - 1) / BN;
   const unsigned blocks = (unsigned)(((long long)r + BM - 1) / BM * ncol);
   kernel<<<blocks, THREADS, bytes, s>>>(static_cast<const XT*>(x), tp, static_cast<OT*>(out), r,
-                                        k, n, ncol);
+                                        k, n, ncol, st.out_t, st.round_out);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename XT, typename OT>
+template <typename XT, typename OT, bool XK = false>
 int launch_passes(const void* x, const bf16* tp, void* out, int r, int k, int n, int passes,
-                  cudaStream_t s) {
+                  Store st, cudaStream_t s) {
   switch (passes) {
     case 1:
-      return launch<XT, OT, 1>(x, tp, out, r, k, n, s);
+      return launch<XT, OT, 1, XK>(x, tp, out, r, k, n, st, s);
     case 2:
-      return launch<XT, OT, 2>(x, tp, out, r, k, n, s);
+      return launch<XT, OT, 2, XK>(x, tp, out, r, k, n, st, s);
     default:
       // a bf16 x has lo = 0: the 2-pass build gives the 3-pass value
       if constexpr (std::is_same<XT, bf16>::value)
-        return launch<XT, OT, 2>(x, tp, out, r, k, n, s);
+        return launch<XT, OT, 2, XK>(x, tp, out, r, k, n, st, s);
       else
-        return launch<XT, OT, 3>(x, tp, out, r, k, n, s);
+        return launch<XT, OT, 3, XK>(x, tp, out, r, k, n, st, s);
   }
 }
 
 // Prepares the table into tp, then runs the main kernel. Refuses (before
-// launching anything) a shape whose grid or indices do not fit.
+// launching anything) a shape whose grid or indices do not fit, and a
+// K-major bf16 x or a rounded bf16 output.
 int run(const void* x, const float* t, const bf16* th, const bf16* tl, bf16* tp, void* out, int r,
-        int k, int n, int x_bf16, int out_bf16, int passes, cudaStream_t s) {
+        int k, int n, int x_bf16, int out_bf16, int passes, int x_kmajor, Store st,
+        cudaStream_t s) {
   const long long ncol = ((long long)n + BN - 1) / BN;
   const long long blocks = ((long long)r + BM - 1) / BM * ncol;
   const int steps = 2 * ((k + BK - 1) / BK);
-  if (r < 1 || k < 1 || n < 1 || blocks > 2147483647LL || passes < 1 || passes > 3)
+  if (r < 1 || k < 1 || n < 1 || blocks > 2147483647LL || passes < 1 || passes > 3 ||
+      (x_kmajor && x_bf16) || (st.round_out && out_bf16))
     return static_cast<int>(cudaErrorInvalidValue);
   const int parts = passes >= 2 ? 2 : 1;
   const long long total = ncol * steps * SLAB;
@@ -306,25 +394,32 @@ int run(const void* x, const float* t, const bf16* th, const bf16* tl, bf16* tp,
                                                              total);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
+  if (x_kmajor)
+    return out_bf16 ? launch_passes<float, bf16, true>(x, tp, out, r, k, n, passes, st, s)
+                    : launch_passes<float, float, true>(x, tp, out, r, k, n, passes, st, s);
   if (x_bf16)
-    return out_bf16 ? launch_passes<bf16, bf16>(x, tp, out, r, k, n, passes, s)
-                    : launch_passes<bf16, float>(x, tp, out, r, k, n, passes, s);
-  return out_bf16 ? launch_passes<float, bf16>(x, tp, out, r, k, n, passes, s)
-                  : launch_passes<float, float>(x, tp, out, r, k, n, passes, s);
+    return out_bf16 ? launch_passes<bf16, bf16>(x, tp, out, r, k, n, passes, st, s)
+                    : launch_passes<bf16, float>(x, tp, out, r, k, n, passes, st, s);
+  return out_bf16 ? launch_passes<float, bf16>(x, tp, out, r, k, n, passes, st, s)
+                  : launch_passes<float, float>(x, tp, out, r, k, n, passes, st, s);
 }
 
 }  // namespace
 
-// x (r, k) float32 (x_bf16 == 0) or bfloat16, t (k, n) float32, out (r, n)
-// float32 (out_bf16 == 0) or bfloat16; passes 1, 2 or 3; scratch, 16-byte
-// aligned, for the prepared table: ceil(n / 256) * 2 ceil(k / 32) * parts *
-// 4096 bf16, parts 2 at 2 or 3 passes, else 1.
-// x's rows need not start on 16 bytes; every tensor is contiguous. Returns
-// cudaGetLastError() after the launches.
+// x (r, k) float32 (x_bf16 == 0) or bfloat16, stored (k, r) when x_kmajor
+// (float32 only), t (k, n) float32, out (r, n) float32 (out_bf16 == 0) or
+// bfloat16, stored (n, r) when out_t, a float32 output rounded to bf16
+// values when round_out; passes 1, 2 or 3; scratch, 16-byte aligned, for
+// the prepared table: ceil(n / 256) * 2 ceil(k / 32) * parts * 4096 bf16,
+// parts 2 at 2 or 3 passes, else 1.
+// x's rows need not start on 16 bytes; every tensor is contiguous in its
+// layout. Returns cudaGetLastError() after the launches.
 extern "C" int gridmm_launch(const void* x, const void* t, void* scratch, void* out, int r, int k,
-                             int n, int x_bf16, int out_bf16, int passes, void* stream) {
+                             int n, int x_bf16, int out_bf16, int passes, int x_kmajor, int out_t,
+                             int round_out, void* stream) {
   return run(x, static_cast<const float*>(t), nullptr, nullptr, static_cast<bf16*>(scratch), out,
-             r, k, n, x_bf16, out_bf16, passes, static_cast<cudaStream_t>(stream));
+             r, k, n, x_bf16, out_bf16, passes, x_kmajor, Store{out_t, round_out},
+             static_cast<cudaStream_t>(stream));
 }
 
 // x (r, k) float32 or bfloat16, th and tl (k, n) bfloat16 (the table's hi and
@@ -334,6 +429,6 @@ extern "C" int grid_dot_launch(const void* x, const void* th, const void* tl, vo
                                void* out, int r, int k, int n, int x_bf16, int out_bf16,
                                void* stream) {
   return run(x, nullptr, static_cast<const bf16*>(th), static_cast<const bf16*>(tl),
-             static_cast<bf16*>(scratch), out, r, k, n, x_bf16, out_bf16, x_bf16 ? 2 : 3,
-             static_cast<cudaStream_t>(stream));
+             static_cast<bf16*>(scratch), out, r, k, n, x_bf16, out_bf16, x_bf16 ? 2 : 3, 0,
+             Store{0, 0}, static_cast<cudaStream_t>(stream));
 }

@@ -18,6 +18,7 @@ nothing to compute (`no_work`) launches nothing and counts nothing.
 """
 
 import collections
+import contextlib
 import ctypes
 import math
 import os
@@ -126,8 +127,9 @@ def _declare(name, lib):
                        ci, ci, vp],
         # x, w, scratch, out, b, c, o, l, m, w's strides (c, o, l), conj_w, passes, stream
         "dhconv_complex": [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp],
-        # x, t, scratch, out, r, k, n, x_bf16, out_bf16, passes, stream
-        "gridmm": [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp],
+        # x, t, scratch, out, r, k, n, x_bf16, out_bf16, passes, x_kmajor, out_t,
+        # round_out, stream
+        "gridmm": [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp],
         # x, th, tl, scratch, out, r, k, n, x_bf16, out_bf16, stream
         "grid_dot": [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp],
         # x, y, n, stream
@@ -173,6 +175,15 @@ def launcher(name):
 def raise_on(rc, name):
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def on_device(device):
+    """The context a launch on `device` runs in: none when it is the current
+    CUDA device (entering torch.cuda.device sets the device twice a call),
+    else torch.cuda.device(device)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def no_work(shape, depth, device, dtype=torch.float32):

@@ -17,6 +17,23 @@ Conventions (as makani_tpu, parity with torch-harmonics):
   - "ortho" normalization, theta in [0, pi] (north pole first, ERA5
     ordering), the Condon-Shortley phase (-1)^m unless csphase=False.
 
+The longitude DFT and its inverse (the grid stage, `_grid_stage`) run at
+the precision mode's bf16 passes as makani_tpu runs them on an accelerator
+(makani_tpu/ops/sht.py:137-182, stage="grid"), on the gridmm kernel through
+spectral_mm.griddot for CUDA tensors on the "kernel" and "xla" engines, and
+on its plain twin on any device on the "stacked" engine:
+  mode                      forward                  backward (dx = g . T^T)
+  "default", "mixed"/"tf32" 1 pass                   1 pass, rounded to bf16
+  "split2"                  2 (x rounded to bf16)    2, rounded to bf16
+  "mixed2"                  2 (bf16 x at HIGH)       3, rounded to bf16
+  "high"                    3 (a bf16 x stays bf16)  3 (bf16 for a bf16 x)
+  "highest"                 float32 torch.matmul
+On CPU tensors the "kernel" and "xla" engines take the float32 matmul in
+every mode, as makani_tpu's CPU branch takes its float32 einsum (:156-160).
+The m-leading layouts cost no copy: the kernel stores the analysis output
+(and the synthesis cotangent) transposed and reads the synthesis input (and
+the analysis cotangent) K-major.
+
 The quadrature weights multiply the DFT output before the Legendre
 contraction, so one (mmax, lmax, nlat) table serves both directions of a grid.
 Tables are float64 host precomputes stored in float32, one device copy per
@@ -33,9 +50,7 @@ latitude, and degrees <-> channels over h, so the coefficients are the rank's
 (B, C, l/h, m/w) block; synthesis is the mirror. Each move is an explicit
 all-to-all (parallel/spmd.distributed_transpose). The stacked-real layout
 keeps the "kernel" engine's legmm on the local blocks (M2 = 2 * the rank's
-m-slice), and the "xla" engine's complex branch makes the same moves. The longitude DFT is a float32 matmul whatever the precision
-mode: on the GPU it keeps full float32 while TF32 matmuls are off (PyTorch's
-default).
+m-slice), and the "xla" engine's complex branch makes the same moves.
 """
 
 from functools import lru_cache
@@ -43,7 +58,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from makani_tpu_torch.ops import spectral_mm
+from makani_tpu_torch.ops import kernels, spectral_mm
 from makani_tpu_torch.ops.dft import irdft_matrices, rdft_matrices
 from makani_tpu_torch.ops.legendre import precompute_legpoly
 from makani_tpu_torch.ops.quadrature import quadrature_nodes_weights
@@ -67,6 +82,15 @@ def set_transform_precision(name: str):
 
 def get_transform_precision():
     return _PRECISION
+
+
+# The grid stage (the longitude DFT and its inverse) per mode, as makani_tpu's
+# transform_einsum(..., stage="grid") runs it on an accelerator: (forward
+# passes, backward passes, backward rounded to bf16). The forward's passes
+# read only x's bf16 hi part below 3, so x needs no rounding copy: "mixed2"'s
+# bf16 x at HIGH is the 2-pass value, its float32 cotangent takes all 3.
+_GRID = {"default": (1, 1, True), "tf32": (1, 1, True), "mixed": (1, 1, True),
+         "split2": (2, 2, True), "mixed2": (2, 3, True), "high": (3, 3, False)}
 
 
 def _coeff_passes():
@@ -110,6 +134,21 @@ def _stacked_engine_active():
 def _legendre_dot(z, p, contract):
     """(2*mmax, R, K|L) x (mmax, L, K) per-m contraction on the active engine."""
     return spectral_mm.legdot(z, p, contract, _coeff_passes(), plain=_COEFF_ENGINE == "stacked")
+
+
+def _grid_stage(z, dft, dft_t, analysis):
+    """The longitude DFT (analysis: real rows z (R, nlon) -> (2*mmax, R), m
+    leading, contiguous) or its inverse (z (2*mmax, R) -> (R, nlon)), with
+    dft the (2*mmax, nlon) table and dft_t its transpose, at the precision
+    mode's passes (_GRID; the module docstring)."""
+    mode = _GRID.get(_PRECISION)
+    plain = _COEFF_ENGINE == "stacked"
+    if mode is None or not (plain or kernels.dispatch(z)):
+        # float32: "highest", and every mode on the CPU (the kernel and xla engines)
+        return torch.matmul(dft, z.float().T) if analysis else torch.matmul(z.float().T, dft)
+    if analysis:
+        return spectral_mm.griddot(z, dft_t, dft, *mode, plain=plain, out_t=True)
+    return spectral_mm.griddot(z.T, dft, dft_t, *mode, plain=plain)
 
 
 def _legendre_einsum(eq, z, p):
@@ -179,6 +218,13 @@ def _irdft_tensor(nlon, mmax, device):
     return torch.from_numpy(np.concatenate([Cs, -Ss], axis=0)).to(device)
 
 
+@lru_cache(maxsize=None)
+def _transposed(table_fn, nlon, mmax, device):
+    """The (nlon, 2*mmax) transpose of a DFT table, contiguous: the kernel's
+    table of the analysis and the synthesis backward."""
+    return table_fn(nlon, mmax, device).T.contiguous()
+
+
 class RealSHT:
     """Analysis: real (..., nlat, nlon) -> complex (..., lmax, mmax)."""
 
@@ -195,12 +241,16 @@ class RealSHT:
         self.csphase = csphase
         self.pct = _pct_tensor(grid, nlat, self.lmax, self.mmax, csphase, self.device)
         self.dft = _rdft_tensor(nlon, self.mmax, self.device)
+        self.dft_t = _transposed(_rdft_tensor, nlon, self.mmax, self.device)
 
     def _dft(self, x):
         """Real grid (..., nlat, nlon) -> the weighted longitude DFT
-        (2*mmax, R, nlat), re rows then im rows."""
-        xf = x.float().reshape(-1, self.nlon)                 # (R*nlat, nlon)
-        z = torch.matmul(self.dft, xf.T)                       # (2*mmax, R*nlat)
+        (2*mmax, R, nlat), re rows then im rows. A bf16 (AMP) x stays bf16
+        into the kernel."""
+        xf = x.reshape(-1, self.nlon)                                # (R*nlat, nlon)
+        if xf.dtype != torch.bfloat16:
+            xf = xf.float()
+        z = _grid_stage(xf, self.dft, self.dft_t, True)              # (2*mmax, R*nlat)
         return z.view(2 * self.mmax, -1, self.nlat).mul_(self.wq)
 
     def analysis_stacked(self, x):
@@ -221,7 +271,7 @@ class RealSHT:
         # azimuth: channels over w, longitude local
         x = spmd.distributed_transpose(x.float(), 1, 3, "w", c_w, sp.lon)           # (B, C/w, lat/h, nlon)
         hl = x.shape[2]
-        z = torch.matmul(self.dft, x.reshape(-1, self.nlon).T)      # (2*mmax, B*C/w*lat/h)
+        z = _grid_stage(x.reshape(-1, self.nlon), self.dft, self.dft_t, True)  # (2*mmax, B*C/w*lat/h)
         wq = self.wq[sp.lat0: sp.lat0 + sp.nlat_local]
         z = z.view(2, self.mmax, B, x.shape[1], hl).mul_(wq)
         # modes over w, channels local; then channels over h, latitude local
@@ -266,10 +316,11 @@ class InverseRealSHT:
         self.csphase = csphase
         self.pct = _pct_tensor(grid, nlat, self.lmax, self.mmax, csphase, self.device)
         self.dft = _irdft_tensor(nlon, self.mmax, self.device)
+        self.dft_t = _transposed(_irdft_tensor, nlon, self.mmax, self.device)
 
     def _idft(self, o, batch_shape):
         """(2*mmax, R, nlat) Legendre output -> real grid (..., nlat, nlon)."""
-        out = torch.matmul(o.reshape(o.shape[0], -1).T, self.dft)  # (R*nlat, nlon)
+        out = _grid_stage(o.reshape(o.shape[0], -1), self.dft, self.dft_t, False)  # (R*nlat, nlon)
         return out.view(*batch_shape, self.nlat, self.nlon)
 
     def synthesis_stacked(self, z):
@@ -301,7 +352,7 @@ class InverseRealSHT:
         o = spmd.distributed_transpose(o, 4, 3, "h", sp.lat, c_h)                   # (2, ml, B, C, lat/h)
         o = spmd.distributed_transpose(o, 3, 1, "w", c_w, sp.m)                     # (2, mmax, B, C/w, lat/h)
         cw, hl = o.shape[3], o.shape[4]
-        out = torch.matmul(o.reshape(2 * self.mmax, -1).T, self.dft)  # (B*C/w*lat/h, nlon)
+        out = _grid_stage(o.reshape(2 * self.mmax, -1), self.dft, self.dft_t, False)  # (B*C/w*lat/h, nlon)
         out = out.view(B, cw, hl, self.nlon)
         # longitude over w, channels local
         return spmd.distributed_transpose(out, 3, 1, "w", sp.lon, c_w)              # (B, C, lat/h, lon/w)

@@ -11,14 +11,15 @@ and bound through a plain C interface loaded with ctypes:
              (replaces pallas_mm.dhconv_mm / _dhconv_mm_kernel)
   dhconv_dw  the dhconv filter's weight gradient
              (replaces pallas_mm.dhconv_dw / _dhconv_dw_kernel)
-  gridmm     (R, K) @ (K, N) with a resident table, bf16 or float32 in and out
-             (replaces pallas_mm.gridmm / _gridmm_kernel; no model path of
-             makani_tpu calls it, the kernel benchmarks do)
+  gridmm     (R, K) @ (K, N) with a resident table, bf16 or float32 in and out:
+             the longitude DFT and its inverse of every SHT on the card
+             (replaces pallas_mm.gridmm / _gridmm_kernel)
 
 `legdot` and `dhconv` are the differentiable wrappers, the counterparts of
-pallas_mm's custom VJPs: torch.autograd.Functions whose forward and backward
-both run the kernels. The raw wrappers carry no gradient and raise when asked
-to.
+pallas_mm's custom VJPs, and `griddot` the longitude DFT's (makani_tpu
+differentiates its grid-stage einsums, ops/sht.py transform_einsum):
+torch.autograd.Functions whose forward and backward both run the kernels.
+The raw wrappers carry no gradient and raise when asked to.
 
 `passes` selects the accuracy point of the bf16 operand split
 (hi = bf16(a), lo = bf16(a - hi)), products accumulated in float32:
@@ -38,7 +39,14 @@ counts their launches.
 import torch
 from torch.autograd.function import once_differentiable
 
-from makani_tpu_torch.ops.kernels import count_launch, dispatch, launcher, no_work, raise_on
+from makani_tpu_torch.ops.kernels import (
+    count_launch,
+    dispatch,
+    launcher,
+    no_work,
+    on_device,
+    raise_on,
+)
 
 
 def _check_cuda(*tensors):
@@ -279,7 +287,7 @@ def dhconv_dw(x, g, passes=3, m3=True):
 _GRID_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _gridmm_checks(x, t, passes, out_dtype):
+def _gridmm_checks(x, t, passes, out_dtype, round_bf16):
     if x.ndim != 2 or t.ndim != 2 or x.shape[1] != t.shape[0]:
         raise ValueError(f"expected x (R, K) and t (K, N), got {tuple(x.shape)} and "
                          f"{tuple(t.shape)}")
@@ -288,14 +296,25 @@ def _gridmm_checks(x, t, passes, out_dtype):
                         f"bfloat16, got {x.dtype}, {t.dtype} and {out_dtype}")
     if passes not in (1, 2, 3):
         raise ValueError(f"passes must be 1, 2 or 3, got {passes}")
+    if round_bf16 and out_dtype != torch.float32:
+        raise ValueError("round_bf16 rounds a float32 output")
 
 
-def gridmm_plain(x, t, passes=3, out_dtype=torch.float32):
+def _kmajor(x):
+    """True for a float32 x (R, K) that is the transpose of a contiguous
+    (K, R) tensor (and not itself contiguous): the kernel reads it K-major."""
+    return x.dtype == torch.float32 and not x.is_contiguous() and x.T.is_contiguous()
+
+
+def gridmm_plain(x, t, passes=3, out_dtype=torch.float32, out_t=False, round_bf16=False):
     """Plain twin of `gridmm`: _mp_matmul's sum hh + (hl + lh) in float32 (a
-    bf16 x splits with lo = 0), rounded once to `out_dtype`."""
+    bf16 x splits with lo = 0), rounded once to `out_dtype` (or to bf16
+    values in float32 with round_bf16), transposed with out_t."""
     no_grad_through("gridmm_plain", None, x, t)
-    _gridmm_checks(x, t, passes, out_dtype)
-    return _mp_matmul(x.float(), t, passes).to(out_dtype)
+    _gridmm_checks(x, t, passes, out_dtype, round_bf16)
+    out = _mp_matmul(x.float(), t, passes)
+    out = out.to(torch.bfloat16).float() if round_bf16 else out.to(out_dtype)
+    return out.T.contiguous() if out_t else out
 
 
 def grid_table_scratch(K, N, parts, device):
@@ -306,35 +325,44 @@ def grid_table_scratch(K, N, parts, device):
                        dtype=torch.bfloat16)
 
 
-def gridmm(x, t, passes=3, out_dtype=torch.float32):
+def gridmm(x, t, passes=3, out_dtype=torch.float32, out_t=False, round_bf16=False):
     """(R, K) @ (K, N) -> (R, N) in multi-pass bf16 with float32 accumulation,
     the table resident (pallas_mm.gridmm): x float32 or bfloat16, t float32,
     the output float32 or bfloat16, rounded once from the float32 sum.
+
+    Layouts: x contiguous, or (float32) the transpose of a contiguous (K, R)
+    tensor, which the kernel reads K-major; out_t returns the product
+    transposed, (N, R), contiguous. round_bf16 rounds a float32 output to
+    bf16 values. So the SHT's m-leading layouts cost no copy.
 
     pallas_mm.gridmm's row tile `tr` has no counterpart: the kernel tiles the
     rows itself (128 x 256 a block) and masks the ragged edges of R, K and N,
     so nothing of x is padded or copied; the table is split once a call into
     scratch (`grid_table_scratch`). No VJP, as in makani_tpu: the wrapper
-    refuses inputs that require grad.
+    refuses inputs that require grad; `griddot` differentiates it.
     """
     no_grad_through("gridmm", None, x, t)
-    _gridmm_checks(x, t, passes, out_dtype)
+    _gridmm_checks(x, t, passes, out_dtype, round_bf16)
     if not dispatch(x):
-        return gridmm_plain(x, t, passes, out_dtype)
+        return gridmm_plain(x, t, passes, out_dtype, out_t, round_bf16)
     if t.device != x.device:
         raise ValueError(f"tensors on different devices: {t.device} vs {x.device}")
-    if not (x.is_contiguous() and t.is_contiguous()):
-        raise ValueError("kernel takes contiguous tensors")
+    x_kmajor = _kmajor(x)
+    if not ((x.is_contiguous() or x_kmajor) and t.is_contiguous()):
+        raise ValueError("kernel takes a contiguous table, and x contiguous or (float32) the "
+                         "transpose of a contiguous tensor")
     (R, K), N = x.shape, t.shape[1]
-    out = no_work((R, N), K, x.device, out_dtype)
+    shape = (N, R) if out_t else (R, N)
+    out = no_work(shape, K, x.device, out_dtype)
     if out is not None:
         return out
-    out = torch.empty((R, N), device=x.device, dtype=out_dtype)
+    out = torch.empty(shape, device=x.device, dtype=out_dtype)
     scratch = grid_table_scratch(K, N, 2 if passes >= 2 else 1, x.device)
     launch = launcher("gridmm")
-    with torch.cuda.device(x.device):
+    with on_device(x.device):
         rc = launch(x.data_ptr(), t.data_ptr(), scratch.data_ptr(), out.data_ptr(), R, K, N,
                     int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), passes,
+                    int(x_kmajor), int(out_t), int(round_bf16),
                     torch.cuda.current_stream().cuda_stream)
     raise_on(rc, "gridmm")
     count_launch("gridmm", passes)
@@ -404,3 +432,50 @@ def dhconv(x, w, passes=3, m3=True, plain=False):
     w (2, L, C, O) -> (2, B, L, O, M). plain=True runs the twins on any
     device (the "stacked" coefficient engine)."""
     return _DhConv.apply(x, w, passes, m3, plain)
+
+
+def _grid_operand(a):
+    """a as the kernel reads it: contiguous, or a float32 transpose of a
+    contiguous tensor; any other view is copied."""
+    return a if a.is_contiguous() or _kmajor(a) else a.contiguous()
+
+
+class _GridDot(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, t, t_t, passes, grad_passes, grad_bf16, plain, out_t):
+        ctx.save_for_backward(t_t)
+        ctx.grad_passes, ctx.plain, ctx.x_dtype, ctx.out_t = grad_passes, plain, x.dtype, out_t
+        # the cotangent of an x taken as bf16 is rounded to bf16 (the VJP of
+        # the cast): a bf16 x's in bf16, a float32 x's to bf16 values
+        ctx.round = grad_bf16 and x.dtype == torch.float32
+        # the cotangent comes back in x's layout (K-major for a transposed x)
+        ctx.x_t = not x.is_contiguous() and x.T.is_contiguous()
+        return (gridmm_plain if plain else gridmm)(_grid_operand(x), t, passes, out_t=out_t)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        # linear in x: dx = g . t^T against the transposed table (a
+        # transposed output's cotangent read K-major), stored in x's layout
+        (t_t,) = ctx.saved_tensors
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = (gridmm_plain if ctx.plain else gridmm)(
+                _grid_operand(g.T if ctx.out_t else g), t_t, ctx.grad_passes, ctx.x_dtype,
+                out_t=ctx.x_t, round_bf16=ctx.round)
+            if ctx.x_t:
+                dx = dx.T
+        return dx, None, None, None, None, None, None, None
+
+
+def griddot(x, t, t_t, passes=3, grad_passes=3, grad_bf16=False, plain=False, out_t=False):
+    """Differentiable `gridmm`: x (R, K) @ t (K, N) -> (R, N) float32 at
+    `passes` (out_t: its transpose (N, R), contiguous), dx = g @ t_t (t_t
+    = t^T, contiguous, the caller's cached copy) at `grad_passes`, rounded
+    once to bf16 when `grad_bf16` or x is bf16, in x's layout. x and the
+    cotangent are read as they lie when contiguous or the transpose of a
+    contiguous float32 tensor (the SHT's m-leading layouts), else copied.
+    plain=True runs the twin on any device (the "stacked" coefficient
+    engine). The table gets no gradient: it is a constant of the
+    transform."""
+    return _GridDot.apply(x, t, t_t, passes, grad_passes, grad_bf16, plain, out_t)

@@ -34,6 +34,7 @@ from makani_tpu_torch.ops.kernels import (
     dispatch,
     launcher,
     no_work,
+    on_device,
     raise_on,
 )
 from makani_tpu_torch.ops.spectral_mm import split_bf16
@@ -65,7 +66,7 @@ def _launch(name, inputs, shapes, *dims, depth=1):
     if all(t is not None for t in outputs):
         return outputs
     outputs = [torch.empty(s, device=dev, dtype=torch.float32) for s in shapes]
-    with torch.cuda.device(dev):
+    with on_device(dev):
         rc = launcher(name)(*(t.data_ptr() for t in (*inputs, *outputs)), *dims,
                             torch.cuda.current_stream().cuda_stream)
     raise_on(rc, name)

@@ -21,7 +21,9 @@ kernel, copy and set intervals) and its share of the wall, the device time by
 phase (with --train: the kernels inside the step's forward and optimizer
 ranges, the rest is backward) and by category (the port's kernels by name,
 cuBLAS products by the operator that launched them, those launched inside an
-einsum apart, copies, and the rest: elementwise and reductions), the peak
+einsum apart, copies, and the rest: elementwise and reductions; the SHT's
+longitude DFT is gridmm and its table prep, or cuBLAS mm under "highest"),
+the peak
 device memory of the profiled run, then PyTorch's table by operator and
 kernel; for a ViT whose attention runs blockwise, the kernels of its
 block steps (the logit tiles' products and elementwise work, forward and
@@ -43,10 +45,12 @@ ROOT = Path(__file__).resolve().parents[2]
 
 # the port's kernels by name (csrc/dhconv_gemm.cuh's GEMM serves dhconv_mm on
 # stacked planes and dhconv_complex on complex64; each prepares its weight
-# with prep_weight first)
+# with prep_weight first; gridmm, the longitude DFT, prepares its table with
+# prep_table)
 _OWN = {"legmm_kernel": "legmm", "dhconv_dw_kernel": "dhconv_dw",
         "fused_adam_kernel": "fused_adam", "dhconv_gemm<false": "dhconv_mm",
         "dhconv_gemm<true": "dhconv_complex", "prep_weight": "dhconv weight prep",
+        "gridmm_kernel": "gridmm", "prep_table": "gridmm table prep",
         "gelu_bf16_kernel": "gelu_bf16", "gelu_bf16_grad_kernel": "gelu_bf16_grad"}
 _EINSUM = "einsums (cuBLAS): the complex engine's Legendre contractions and dhconv dw"
 _GEMM_OPS = {"aten::bmm": "1x1 channel mixes (cuBLAS bmm)",

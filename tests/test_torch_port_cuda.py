@@ -22,6 +22,7 @@ round to neighbouring bf16 values: they are held to one bf16 ulp of each
 element on top of the float32 bound.
 """
 
+import collections
 import functools
 
 import numpy as np
@@ -998,10 +999,74 @@ def test_grid_kernels_read_a_slice_at_an_odd_row(cuda, kernel, xdtype, K):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("passes", [1, 2, 3])
+@pytest.mark.parametrize("x_kmajor,out_t,rounded", [(True, False, False), (False, True, False),
+                                                    (True, False, True), (False, True, True),
+                                                    (True, True, False)])
+@pytest.mark.parametrize("R,K,N", [(300, 97, 201), (1001, 482, 1440), (129, 1440, 482),
+                                   (257, 97, 257), (130, 482, 200)])
+def test_gridmm_layouts_match_plain(cuda, R, K, N, x_kmajor, out_t, rounded, passes):
+    """The SHT's layouts at ragged R, K and N: x read K-major (the transpose
+    of a contiguous (K, R) tensor; R off 4 floats moves each depth row by its
+    own misalignment), the product returned transposed (N, R), a float32
+    output rounded to bf16 values: the twin's values in the same layout, one
+    launch."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn((K, R), device=cuda, generator=g).T if x_kmajor else torch.randn(
+        (R, K), device=cuda, generator=g)
+    t = torch.randn((K, N), device=cuda, generator=g)
+    before = kernels.launches["gridmm"]
+    got = spectral_mm.gridmm(x, t, passes, out_t=out_t, round_bf16=rounded)
+    torch.cuda.synchronize()
+    assert kernels.launches["gridmm"] == before + 1
+    assert got.shape == ((N, R) if out_t else (R, N)) and got.is_contiguous()
+    want = spectral_mm.gridmm_plain(x, t, passes, out_t=out_t, round_bf16=rounded)
+    slack = TOL * want.abs().max() + (_bf16_ulp(want) if rounded else 0)
+    assert bool(((got - want).abs() <= slack).all())
+    if rounded:
+        assert torch.equal(got, got.bfloat16().float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [1, 3])
+def test_gridmm_kmajor_after_a_nan_call(cuda, passes):
+    """A K-major x with K past its last 32-deep stage's rows (66: rows 66-95
+    zero-filled) and R off 4 floats (198, the shifted depth rows), after a
+    call on NaNs that leaves NaNs in shared memory: the zero-filled rows are
+    read where the copy put them, so the finite call stays finite."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    t = torch.randn((66, 64), device=cuda, generator=g)
+    spectral_mm.gridmm(torch.full((66, 198), float("nan"), device=cuda).T, t, passes)
+    x = torch.randn((66, 198), device=cuda, generator=g).T
+    got = spectral_mm.gridmm(x, t, passes)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    _check_grid(got, spectral_mm.gridmm_plain(x, t, passes))
+
+@pytest.mark.cuda
+def test_gridmm_reads_a_kmajor_slice(cuda):
+    """A K-major x whose base lies one float past an allocation's start: every
+    depth row off 16 bytes."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    base = torch.randn((97 * 301 + 1,), device=cuda, generator=g)[1:]
+    x = base.view(97, 301).T
+    t = torch.randn((97, 482), device=cuda, generator=g)
+    got = spectral_mm.gridmm(x, t, 3, out_t=True)
+    torch.cuda.synchronize()
+    _check_grid(got, spectral_mm.gridmm_plain(x, t, 3).T.contiguous())
+
+@pytest.mark.cuda
 def test_grid_kernels_refuse_what_they_do_not_take(cuda):
+    """gridmm reads x contiguous or, float32, K-major (the transpose of a
+    contiguous tensor); any other view is refused, and so is a rounded
+    bf16 output."""
     x, t = torch.randn((8, 6), device=cuda), torch.randn((6, 5), device=cuda)
     with pytest.raises(ValueError):
-        spectral_mm.gridmm(x.T.contiguous().T, t)
+        spectral_mm.gridmm(x.T.contiguous().T.bfloat16(), t)
+    with pytest.raises(ValueError):
+        spectral_mm.gridmm(torch.randn((8, 12), device=cuda)[:, ::2], t)
+    with pytest.raises(ValueError):
+        spectral_mm.gridmm(x, t, 3, torch.bfloat16, round_bf16=True)
     with pytest.raises(ValueError):
         spectral_mm.gridmm(x, t.cpu())
     with pytest.raises(RuntimeError, match="no VJP"):
@@ -1010,6 +1075,120 @@ def test_grid_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         bench_gridmm.grid_dot(x.detach(), th.T.contiguous().T, tl)
 
+
+
+# the grid stage of the SHT (ops/sht.py _grid_stage) at each precision mode:
+# (R, nlon, mmax) with R off the 128-row blocks, K = nlon or 2 * mmax off 16
+# bytes (97, 40) and on them (480, 1440), N = 2 * mmax or nlon across one or
+# several 256-column blocks, ragged
+GRID_STAGE_SHAPES = [(300, 97, 20), (1001, 480, 241), (129, 1440, 241)]
+GRID_MODES = ("default", "split2", "tf32", "mixed", "mixed2", "high", "highest")
+
+
+def _grid_stage_run(sht, engine, z, g, dft, dft_t, analysis):
+    sht.set_coeff_engine(engine)
+    zz = z.clone().requires_grad_(True)
+    before = collections.Counter(kernels.launches_by_passes)
+    out = sht._grid_stage(zz, dft, dft_t, analysis)
+    out.backward(g)
+    torch.cuda.synchronize()
+    counted = collections.Counter(kernels.launches_by_passes)
+    counted.subtract(before)
+    return out.detach(), zz.grad, {k: v for k, v in counted.items() if v}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("analysis", [True, False])
+@pytest.mark.parametrize("mode", GRID_MODES)
+@pytest.mark.parametrize("R,nlon,mmax", GRID_STAGE_SHAPES)
+def test_grid_stage_kernel_matches_twin(cuda, R, nlon, mmax, mode, analysis):
+    """The "kernel" engine's grid stage (griddot over gridmm, the transpose
+    copies of the m-leading layouts) against the "stacked" engine's twin on
+    the same card inputs, forward and backward: one gridmm launch each way
+    at the mode's passes (none under "highest"); a cotangent rounded to bf16
+    one bf16 ulp more."""
+    from makani_tpu_torch.ops import sht
+    table = sht._rdft_tensor if analysis else sht._irdft_tensor
+    dft, dft_t = table(nlon, mmax, cuda), sht._transposed(table, nlon, mmax, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    shape = (R, nlon) if analysis else (2 * mmax, R)
+    z = torch.randn(shape, device=cuda, generator=gen)
+    g = torch.randn((2 * mmax, R) if analysis else (R, nlon), device=cuda, generator=gen)
+    prev = (sht.get_coeff_engine(), sht.get_transform_precision())
+    sht.set_transform_precision(mode)
+    try:
+        out, dz, counted = _grid_stage_run(sht, "kernel", z, g, dft, dft_t, analysis)
+        want, want_dz, plain_counted = _grid_stage_run(sht, "stacked", z, g, dft, dft_t, analysis)
+    finally:
+        sht.set_coeff_engine(prev[0])
+        sht.set_transform_precision(prev[1])
+    assert not plain_counted
+    if mode == "highest":
+        assert not counted
+        assert torch.equal(out, want) and torch.equal(dz, want_dz)
+        return
+    fwd, bwd, rounded = sht._GRID[mode]
+    assert counted == collections.Counter({("gridmm", fwd): 1}) + collections.Counter(
+        {("gridmm", bwd): 1})
+    assert out.shape == want.shape and out.is_contiguous() and dz.shape == z.shape
+    assert _rel(out, want) < TOL
+    slack = TOL * want_dz.abs().max() + (_bf16_ulp(want_dz) if rounded else 0)
+    assert bool(((dz - want_dz).abs() <= slack).all())
+    if rounded:
+        assert torch.equal(dz, dz.bfloat16().float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["default", "high"])
+def test_grid_stage_takes_a_bf16_x(cuda, mode):
+    """Under AMP a bf16 x goes into the kernel as it is (the 2-pass build at
+    "high"), and its cotangent comes back bf16."""
+    from makani_tpu_torch.ops import sht
+    nlon, mmax, R = 480, 241, 1001
+    dft = sht._rdft_tensor(nlon, mmax, cuda)
+    dft_t = sht._transposed(sht._rdft_tensor, nlon, mmax, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    z = torch.randn((R, nlon), device=cuda, generator=gen).bfloat16()
+    g = torch.randn((2 * mmax, R), device=cuda, generator=gen)
+    prev = (sht.get_coeff_engine(), sht.get_transform_precision())
+    sht.set_transform_precision(mode)
+    try:
+        out, dz, _ = _grid_stage_run(sht, "kernel", z, g, dft, dft_t, True)
+        want, want_dz, _ = _grid_stage_run(sht, "stacked", z, g, dft, dft_t, True)
+    finally:
+        sht.set_coeff_engine(prev[0])
+        sht.set_transform_precision(prev[1])
+    assert dz.dtype == torch.bfloat16
+    assert _rel(out, want) < TOL
+    _check_grid(dz, want_dz)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["kernel", "xla"])
+@pytest.mark.parametrize("mode", ["default", "mixed2", "high", "highest"])
+def test_sht_pair_launches_gridmm(cuda, engine, mode):
+    """An SHT pair forward and backward on the card: four gridmm launches at
+    the mode's passes (none under "highest"), as many as legmm's on the
+    "kernel" engine."""
+    from makani_tpu_torch.ops import sht
+    prev = (sht.get_coeff_engine(), sht.get_transform_precision())
+    sht.set_coeff_engine(engine)
+    sht.set_transform_precision(mode)
+    try:
+        fwd = sht.RealSHT(33, 64, grid="equiangular", device=cuda)
+        inv = sht.InverseRealSHT(33, 64, grid="equiangular", device=cuda)
+        x = torch.randn((2, 3, 33, 64), device=cuda).requires_grad_(True)
+        before = dict(kernels.launches)
+        inv(fwd(x)).square().sum().backward()
+        torch.cuda.synchronize()
+    finally:
+        sht.set_coeff_engine(prev[0])
+        sht.set_transform_precision(prev[1])
+    launched = {k: kernels.launches[k] - before[k] for k in ("gridmm", "legmm")}
+    grid = 0 if mode == "highest" else 4
+    legmm = grid if engine == "kernel" else 0
+    assert launched == {"gridmm": grid, "legmm": legmm}
+    assert torch.isfinite(x.grad).all()
 
 @pytest.mark.cuda
 def test_probe_battery_nine_pass(cuda, capsys):
@@ -1308,6 +1487,9 @@ def _no_work_cases():
         ("dhconv_complex depth 0", "dhconv_complex", [(1, 0, 3, 5), (0, 6, 3)], None),
         ("gridmm empty", "gridmm", [(0, 7), (7, 5)], spectral_mm.gridmm),
         ("gridmm depth 0", "gridmm", [(4, 0), (0, 5)], spectral_mm.gridmm),
+        # griddot: the SHT's grid stage with no rows, or no depth
+        ("griddot empty", "gridmm", [(0, 7), (7, 5), (5, 7)], spectral_mm.griddot),
+        ("griddot depth 0", "gridmm", [(4, 0), (0, 5), (5, 0)], spectral_mm.griddot),
         ("grid_dot empty", "grid_dot", [(4, 7), (7, 0)], gd),
         ("grid_dot depth 0", "grid_dot", [(4, 0), (0, 5)], gd),
         ("probe_copy empty", "probe_copy", [(0, 128)], ki.probe_copy),

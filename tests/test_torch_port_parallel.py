@@ -47,15 +47,18 @@ from makani_tpu_torch.utils.optimizers import AdamState
 
 from torch_port_parallel_ranks import (
     checkpoint_round_trip,
+    run_cases,
     run_ranks,
     sfno_forward_and_grads,
-    sht_pairs,
 )
 
 SPATIAL = [2, 2, 1, 1]
 WORLD = 4
 SHT_CASES = [(engine, nlat, 64, "legendre-gauss" if nlat % 2 == 0 else "equiangular", 0)
              for engine in ("kernel", "xla") for nlat in (32, 33)]
+# the grid stage's passes on spatial ranks: the "stacked" engine at "default"
+GRID_CASES = [("stacked", 33, 64, "equiangular", 2)]
+GRID_TOL = 1e-6
 SFNO = dict(inp_shape=(33, 70), out_shape=(33, 70), scale_factor=2, inp_chans=3, out_chans=3,
             embed_dim=11, num_layers=2, operator_type="dhconv",
             normalization_layer="instance_norm", use_mlp=True, mlp_ratio=2.0)
@@ -93,8 +96,49 @@ def _dev(got, want, whole):
 
 
 @pytest.fixture(scope="module")
-def sht_ranks():
-    return run_ranks(sht_pairs, SPATIAL, WORLD, SHT_CASES)
+def sht_spawn():
+    return run_ranks(run_cases, SPATIAL, WORLD, [("sht_pairs", (SHT_CASES,)),
+                                                 ("sht_pairs_at", ("default", GRID_CASES))])
+
+
+@pytest.fixture(scope="module")
+def sht_ranks(sht_spawn):
+    return [r[0] for r in sht_spawn]
+
+
+def test_distributed_grid_stage_at_default_matches_serial(sht_spawn):
+    """The "stacked" engine at "default" (the grid stage's twin at 1 pass)
+    on h 2 x w 2 against the port's serial run: coefficients, round trip and
+    the gradient of its sum of squares, within GRID_TOL of the largest
+    magnitude (the rows' sums in other orders)."""
+    (engine, nlat, nlon, grid, seed), = GRID_CASES
+    x = torch.from_numpy(np.random.RandomState(seed).randn(2, 3, nlat, nlon).astype(np.float32))
+    prev = sht.get_transform_precision()
+    sht.set_coeff_engine(engine)
+    sht.set_transform_precision("default")
+    try:
+        fwd, inv = sht.RealSHT(nlat, nlon, grid=grid), sht.InverseRealSHT(nlat, nlon, grid=grid)
+        x.requires_grad_(True)
+        coeffs = fwd(x)
+        back = inv(coeffs)
+        back.square().sum().backward()
+        serial = dict(coeffs=coeffs.detach().numpy(), back=back.detach().numpy(),
+                      grad=x.grad.numpy())
+        f32 = sht.InverseRealSHT(nlat, nlon, grid=grid)
+        sht.set_transform_precision("highest")
+        control = f32(sht.RealSHT(nlat, nlon, grid=grid)(x.detach())).numpy()
+    finally:
+        sht.set_coeff_engine("kernel")
+        sht.set_transform_precision(prev)
+    # the mode is applied: 1 pass is far from float32
+    assert _dev(serial["back"], control, control) > 1e-4
+    for rank in sht_spawn:
+        got = rank[1][(engine, nlat)]
+        for name, windows in (("coeffs", (got["l"], got["m"])), ("back", (got["lat"], got["lon"])),
+                              ("grad", (got["lat"], got["lon"]))):
+            block = _block(serial[name], *windows)
+            assert got[name].shape == block.shape, name
+            assert _dev(got[name], block, serial[name]) < GRID_TOL, name
 
 
 @pytest.mark.parametrize("engine,nlat,nlon,grid,seed", SHT_CASES)

@@ -99,6 +99,16 @@ def sht_pairs(cases):
     return out
 
 
+def sht_pairs_at(precision, cases):
+    """sht_pairs at the transform `precision` ("high" again after it)."""
+    from makani_tpu_torch.ops import sht
+    sht.set_transform_precision(precision)
+    try:
+        return sht_pairs(cases)
+    finally:
+        sht.set_transform_precision("high")
+
+
 def fft_pairs(cases):
     """For each (kind "fft2" or "fft3", input shape, transform kwargs, seed):
     the rank's coefficient block of the seeded field's patch, its round trip
