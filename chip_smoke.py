@@ -63,12 +63,16 @@ Phases, in order; any failure exits non-zero:
      and grid_dot at tools/bench_gridmm.py's shapes, against float64 and
      their twins, timed beside the twin, a float32 torch.mm (TF32 off) and a
      bf16 torch.mm with float32 sums; the seven probe kernels at
-     scripts/pallas_isolate.py's shapes against their twins, timed beside
-     one PyTorch call each, with CUDA events around a call (the host's launch
-     path, at these few-KB inputs) and on the device (torch.profiler's kernel
-     records over kernel_isolate.DEVICE_REPS calls, three times for each
-     probe and each call, the median kept and the spread printed beside
-     probe_copy's device time, the launch floor); then the three tools end
+     scripts/pallas_isolate.py's shapes against their twins (probe_copy bit
+     for bit, and probe_dot_plain bit for bit with the fused multiply-adds
+     in order of c, read from probe_dot_transposed on a^T), timed beside one
+     PyTorch call each, with CUDA events around a call (the host's launch
+     path, at these few-KB inputs; three rounds, the probe and its call
+     interleaved), the host's enqueue of a call (tools/launch_path.py) and
+     on the device (torch.profiler's kernel records over
+     kernel_isolate.DEVICE_REPS calls, three times for each probe and each
+     call, the median kept and the spread printed beside probe_copy's device
+     time, the launch floor); then the three tools end
      to end
      (tools/bench_spectral_mm.py all, tools/bench_gridmm.py,
      tools/kernel_isolate.py: nine PASS), each returning 0, with the launches
@@ -1292,7 +1296,7 @@ def phase_grid(torch, spectral_mm, kernels, dev, gen):
     seven probe kernels against their twins, timed. Returns rows."""
     from makani_tpu_torch.tools.bench_gridmm import grid_dot, grid_dot_plain, split_table
     from makani_tpu_torch.tools.bench_spectral_mm import bf16_mm_f32
-    from makani_tpu_torch.tools import kernel_isolate
+    from makani_tpu_torch.tools import kernel_isolate, launch_path
     f32, bf16 = torch.float32, torch.bfloat16
     R, Rin, K, Kin, N = 384 * 721, 384 * 240, 1440, 480, 2 * 241
     rows = []
@@ -1377,6 +1381,15 @@ def phase_grid(torch, spectral_mm, kernels, dev, gen):
         want = want if isinstance(want, tuple) else (want,)
         etwin = max(rel_err(g, w.double()) for g, w in zip(got, want))
         check(etwin < TWIN_TOL, f"probe {name} vs twin: {etwin}")
+        # bit for bit: probe_copy with its twin; probe_dot_plain with the
+        # fused multiply-adds in order of c that its body keeps, read
+        # from probe_dot_transposed's unchanged chain on a^T
+        if name == "copy":
+            check(torch.equal(got[0], want[0]), "probe copy is not its twin bit for bit")
+        if name == "dot_plain":
+            chain = kernel_isolate.probe_dot_transposed(inputs[0].T.contiguous(), inputs[1])
+            check(torch.equal(got[0].view(torch.int32), chain.view(torch.int32)),
+                  "probe dot_plain is not the fused multiply-add chain bit for bit")
         nbytes = 4 * (sum(t.numel() for t in inputs) + sum(g.numel() for g in got))
         if name == "copy":
             flops, rate = inputs[0].numel(), F32_FLOPS
@@ -1388,38 +1401,30 @@ def phase_grid(torch, spectral_mm, kernels, dev, gen):
             b, l, o, m = want[0].shape[-4:]
             flops, rate = 2 * b * l * o * inputs[1].shape[1] * m, F32_FLOPS
         b_ms, b_by = bound(nbytes, flops, rate)
+        probe, library = (lambda: kernel(*inputs)), launch_path.library_call(name, *inputs)
+        # CUDA events around a call: the probe and its PyTorch call in
+        # DEVICE_RUNS interleaved rounds, so that a drift of the host's speed
+        # falls on both
+        events = {"ms": [], "library_ms": []}
+        for _ in range(DEVICE_RUNS):
+            events["ms"].append(cuda_ms(probe, 50))
+            events["library_ms"].append(cuda_ms(library, 50))
         rows.append(dict(
             name=kernel.__name__, shape=" ".join(str(tuple(t.shape)) for t in inputs),
             passes=3 if name == "bf16_split" else None,
             max_abs_err=max(float((g - w).abs().max()) for g, w in zip(got, want)),
             rel_err_twin=etwin, rel_err_f64=None,
-            ms=cuda_ms(lambda: kernel(*inputs), 50), plain_ms=cuda_ms(lambda: twin(*inputs), 50),
-            library_ms=cuda_ms(probe_library(torch, name, *inputs), 50),
+            **{k: statistics.median(v) for k, v in events.items()},
+            **{f"{k}_runs": v for k, v in events.items()},
+            plain_ms=cuda_ms(lambda: twin(*inputs), 50),
+            enqueue_us=launch_path.enqueue_us(probe),
+            library_enqueue_us=launch_path.enqueue_us(library),
             bound_ms=b_ms, bound_by=b_by, gbytes=nbytes / 1e9, gflop=flops / 1e9))
-        for key, fn in (("device_ms", lambda: kernel(*inputs)),
-                        ("library_device_ms", probe_library(torch, name, *inputs))):
+        for key, fn in (("device_ms", probe), ("library_device_ms", library)):
             runs = [kernel_isolate.device_ms(fn, kernel_isolate.DEVICE_REPS)
                     for _ in range(DEVICE_RUNS)]
             rows[-1].update({key: statistics.median(runs), f"{key}_runs": runs})
     return rows
-
-
-def probe_library(torch, name, a, b=None):
-    """One PyTorch call of probe `name`'s function, its operands prepared
-    here, outside the timing."""
-    if name == "copy":
-        return lambda: torch.mul(a, 2.0)
-    if name == "dot_plain":
-        return lambda: torch.matmul(a, b)
-    if name in ("dot_transposed", "bf16_split"):
-        return lambda: torch.matmul(a.T, b)
-    wt = b.transpose(-1, -2)
-    if name == "grid_blocks":
-        return lambda: torch.matmul(wt, a)
-    # stacked_output_5d and multi_output: r and -r from one product with
-    # [w^T, -w^T]
-    w2 = torch.stack([wt, -wt]).unsqueeze(1)
-    return lambda: torch.matmul(w2, a)
 
 
 def tool_launches(reps, probes):
@@ -5180,6 +5185,13 @@ def main(argv=None):
               for r in probe_rows)
           + f"; probe_copy {1e3 * copy_ms:.3f} (the launch floor); profiler sessions discarded "
           f"for lost records: {kernel_isolate.discarded_sessions}", flush=True)
+    for r in probe_rows:
+        print(f"[probe host] {r['name']}: CUDA events ms, median ({DEVICE_RUNS} interleaved "
+              f"rounds), the kernel {r['ms']:.4f} ({', '.join(f'{t:.4f}' for t in r['ms_runs'])})"
+              f" / its PyTorch call {r['library_ms']:.4f} "
+              f"({', '.join(f'{t:.4f}' for t in r['library_ms_runs'])}); host enqueue us "
+              f"{r['enqueue_us']:.2f} / {r['library_enqueue_us']:.2f}; device us "
+              f"{1e3 * r['device_ms']:.3f} / {1e3 * r['library_device_ms']:.3f}", flush=True)
     tools = phase_tools(torch, kernels)
     record["tools"] = tools
     print(f"[tools] bench_spectral_mm all, bench_gridmm, kernel_isolate: all returned 0 in "
@@ -5594,7 +5606,8 @@ def main(argv=None):
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             shape=r["shape"], passes=r["passes"],
-            **{k: r[k] for k in ("device_ms", "library_device_ms") if k in r}))
+            **{k: r[k] for k in ("device_ms", "library_device_ms", "enqueue_us",
+                                 "library_enqueue_us") if k in r}))
     # the bf16 GELU kernels run on phase 9's AMP path alone: launches over
     # its training epoch; times from phase 3
     for r in gelu_rows:

@@ -21,6 +21,9 @@
 //
 // Design: the float32 dot probes give one thread to each output element,
 // which sums over the contraction with fused multiply-adds in order of c.
+// probe_dot_plain stages its operands in shared memory first
+// (probe_dot_plain_kernel below), so a thread waits on one round of loads,
+// not on each of its c; its sums stay dot_om's, bit for bit.
 // probe_grid_blocks, probe_stacked_output and probe_multi_output share one
 // body, gridded_kernel (below): the (b, l) work spread over many blocks, the
 // operands staged in shared memory once a block, r and -r stored from the
@@ -32,6 +35,7 @@
 // added once as (hh + hl) + lh, the probe's left-to-right order.
 
 #include <climits>
+#include <cstdint>
 
 #include "split_mma.cuh"
 
@@ -55,11 +59,67 @@ __global__ void probe_copy_kernel(const float* __restrict__ x, float* __restrict
   if (i < n) out[i] = x[i] * 2.f;
 }
 
-// a (O, C), b (C, M) -> out (O, M)
-__global__ void probe_dot_plain_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                                       float* __restrict__ out, int O, int C, int M) {
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i < O * M) out[i] = dot_om(a, C, 1, b, C, M, i / M, i % M);
+// a (O, C), b (C, M) -> out (O, M). One block a PO x PM tile of out, one
+// element a thread: lanes along m (coalesced stores, conflict-free reads of
+// b's staged rows), warps along o (a staged a value read is a broadcast).
+// A block stages its rows of a (PO x PK) and its columns of b (PK x PM) in
+// shared memory, PK rows of c at a time, every load of a chunk issued before
+// one barrier: 16-byte loads of four floats where the rows allow them (va,
+// vb: a row's length a multiple of 4 floats from a 16-byte base), four
+// scalar loads otherwise; zeros past O, C and M. Each output is then
+// dot_om's chain: fused multiply-adds in order of c from 0.
+namespace plain {
+constexpr int PM = 32;  // columns of m a block
+constexpr int PO = 8;   // rows of o a block
+constexpr int PK = 16;  // rows of c staged at once
+constexpr int PT = PM * PO;  // threads a block
+static_assert(PO * PK / 4 <= PT && PK * PM / 4 <= PT, "a quad of each tile a thread at most");
+}  // namespace plain
+
+// four floats of row `row` from column `col` on: one 16-byte load (vec),
+// else scalars; zeros past `rows` and `cols`
+__device__ __forceinline__ float4 load_quad(const float* __restrict__ p, int rows, int cols,
+                                            int row, int col, bool vec) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (row >= rows) return v;
+  const float* r = p + (long long)row * cols;
+  if (vec) {
+    if (col < cols) v = *reinterpret_cast<const float4*>(r + col);
+  } else {
+    if (col < cols) v.x = r[col];
+    if (col + 1 < cols) v.y = r[col + 1];
+    if (col + 2 < cols) v.z = r[col + 2];
+    if (col + 3 < cols) v.w = r[col + 3];
+  }
+  return v;
+}
+
+__global__ void __launch_bounds__(plain::PT)
+probe_dot_plain_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                       float* __restrict__ out, int O, int C, int M, int mtiles, bool va,
+                       bool vb) {
+  using namespace plain;
+  __shared__ __align__(16) float as[PO][PK];
+  __shared__ __align__(16) float bs[PK][PM];
+  constexpr int AQ = PK / 4, BQ = PM / 4;  // quads a row of each tile
+  const int t = threadIdx.x;
+  const int m0 = (blockIdx.x % mtiles) * PM, o0 = (blockIdx.x / mtiles) * PO;
+  const int mi = t % PM, oi = t / PM;
+  float acc = 0.f;
+  for (int c0 = 0; c0 < C; c0 += PK) {
+    if (c0 > 0) __syncthreads();  // every read of the last chunk is done
+    float4 av{}, bv{};
+    if (t < PO * AQ) av = load_quad(a, O, C, o0 + t / AQ, c0 + 4 * (t % AQ), va);
+    if (t < PK * BQ) bv = load_quad(b, C, M, c0 + t / BQ, m0 + 4 * (t % BQ), vb);
+    if (t < PO * AQ) *reinterpret_cast<float4*>(&as[t / AQ][4 * (t % AQ)]) = av;
+    if (t < PK * BQ) *reinterpret_cast<float4*>(&bs[t / BQ][4 * (t % BQ)]) = bv;
+    __syncthreads();
+    const int cn = min(PK, C - c0);
+#pragma unroll 4
+    for (int c = 0; c < cn; ++c) acc = fmaf(as[oi][c], bs[c][mi], acc);
+  }
+  const int o = o0 + oi, m = m0 + mi;
+  if (o < O && m < M) out[(long long)o * M + m] = acc;
 }
 
 // a (C, O), b (C, M) -> out (O, M), contracting dim 0 of both
@@ -224,9 +284,16 @@ extern "C" int probe_copy_launch(const void* x, void* out, int n, void* stream) 
 
 extern "C" int probe_dot_plain_launch(const void* a, const void* b, void* out, int o, int c,
                                       int m, void* stream) {
-  probe_dot_plain_kernel<<<blocks(o * m), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  using namespace plain;
+  const int mtiles = (m + PM - 1) / PM;
+  const long long n = (long long)mtiles * ((o + PO - 1) / PO);
+  if (n == 0) return done();  // nothing to compute: an empty grid is no launch
+  if (n > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const bool va = c % 4 == 0 && reinterpret_cast<std::uintptr_t>(a) % 16 == 0;
+  const bool vb = m % 4 == 0 && reinterpret_cast<std::uintptr_t>(b) % 16 == 0;
+  probe_dot_plain_kernel<<<static_cast<unsigned>(n), PT, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(out), o, c,
-      m);
+      m, mtiles, va, vb);
   return done();
 }
 

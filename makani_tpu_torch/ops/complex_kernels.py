@@ -37,7 +37,7 @@ outside the kernel.
 import torch
 from torch.autograd.function import once_differentiable
 
-from makani_tpu_torch.ops.kernels import count_launch, dispatch, launcher, no_work, raise_on
+from makani_tpu_torch.ops.kernels import dispatch, launch, no_work
 from makani_tpu_torch.ops.spectral_mm import dhconv_weight_scratch, no_grad_through, split_bf16
 
 _WRAPPER = "complex_kernels.contract_dhconv_kernel"
@@ -108,13 +108,8 @@ def contract_dhconv_raw(x, w, passes=3):
         raise ValueError(f"w's strides {w.stride()} exceed the kernel's 32-bit indices")
     out = torch.empty((B, O, L, M), device=x.device, dtype=torch.complex64)
     scratch = dhconv_weight_scratch(L, C, O, 3, 2 if passes == 3 else 1, x.device)
-    launch = launcher("dhconv_complex")
-    with torch.cuda.device(x.device):
-        rc = launch(x.data_ptr(), w.data_ptr(), scratch.data_ptr(), out.data_ptr(), B, C, O, L, M,
-                    *w.stride(), int(w.is_conj()), passes,
-                    torch.cuda.current_stream().cuda_stream)
-    raise_on(rc, "dhconv_complex")
-    count_launch("dhconv_complex", passes)
+    launch("dhconv_complex", x.device.index, x.data_ptr(), w.data_ptr(), scratch.data_ptr(),
+           out.data_ptr(), B, C, O, L, M, *w.stride(), int(w.is_conj()), passes, passes=passes)
     return out
 
 

@@ -41,7 +41,6 @@ one ulp off).
 """
 
 import collections
-import contextlib
 import ctypes
 import ctypes.util
 import functools
@@ -494,20 +493,14 @@ def _kernel_update(order, params, grads, state, count, lr, bc1, bc2, b1, b2, eps
     scalars = [float(np.float32(v)) for v in
                (lr, bc1, bc2, b1, b2, 1.0 - b1, 1.0 - b2, eps, decay,
                 0.0 if max_norm is None else max_norm, wd)]
-    launch = kernels.launcher("fused_adam")
     if dev.index not in _SMS:
         _SMS[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
     blocks = min(layout.n_units, BLOCKS_PER_SM * _SMS[dev.index])
+    # the copy runs on the current stream of dev, the stream the kernel takes
     on_card = torch.empty(layout.rows.size, dtype=torch.uint8, device=dev)
-    guard = (torch.cuda.device(dev) if torch.cuda.current_device() != dev.index
-             else contextlib.nullcontext())
-    with guard:
-        on_card.copy_(host, non_blocking=True)
-        rc = launch(on_card.data_ptr(), len(table), layout.n_units, blocks,
-                    None if norm is None else norm.data_ptr(), *scalars, kind, mode,
-                    torch._C._cuda_getCurrentRawStream(dev.index))
-    kernels.raise_on(rc, "fused_adam")
-    kernels.count_launch("fused_adam")
+    on_card.copy_(host, non_blocking=True)
+    kernels.launch("fused_adam", dev.index, on_card.data_ptr(), len(table), layout.n_units,
+                   blocks, None if norm is None else norm.data_ptr(), *scalars, kind, mode)
 
 
 @functools.lru_cache(maxsize=16)

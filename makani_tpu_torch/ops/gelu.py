@@ -15,13 +15,7 @@ import math
 
 import torch
 
-from makani_tpu_torch.ops.kernels import (
-    count_launch,
-    dispatch,
-    launcher,
-    no_work,
-    raise_on,
-)
+from makani_tpu_torch.ops.kernels import dispatch, launch, no_work
 
 # jax.nn.gelu's constants as bf16 rounds them (csrc/gelu.cu's kS and kC)
 SQRT_2_OVER_PI = float(torch.tensor(math.sqrt(2 / math.pi)).bfloat16())  # 0.796875
@@ -66,11 +60,7 @@ def gelu_bf16_forward(x):
     if out is not None:
         return out
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        rc = launcher("gelu_bf16")(x.data_ptr(), y.data_ptr(), x.numel(),
-                                   torch.cuda.current_stream().cuda_stream)
-    raise_on(rc, "gelu_bf16")
-    count_launch("gelu_bf16")
+    launch("gelu_bf16", x.device.index, x.data_ptr(), y.data_ptr(), x.numel())
     return y
 
 
@@ -85,11 +75,8 @@ def gelu_bf16_backward(x, g):
     if out is not None:
         return out
     dx = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        rc = launcher("gelu_bf16_grad")(x.data_ptr(), g.data_ptr(), dx.data_ptr(), x.numel(),
-                                        torch.cuda.current_stream().cuda_stream)
-    raise_on(rc, "gelu_bf16_grad")
-    count_launch("gelu_bf16_grad")
+    launch("gelu_bf16_grad", x.device.index, x.data_ptr(), g.data_ptr(), dx.data_ptr(),
+           x.numel())
     return dx
 
 

@@ -10,15 +10,21 @@ checkout, one nvcc per source, all started together; a library there that
 is newer than every kernel source, header and this module is loaded as it
 is, so a process started by one that built (a CLI's subprocess) compiles
 nothing. `launches` counts kernel
-launches per wrapper: each wrapper adds one where it launches its kernel, and
+launches per wrapper: `launch` adds one where it launches a kernel, and
 callers reset and read the counts around a run. `launches_by_passes` counts
 the launches of the kernels that take a bf16 pass count by (kernel, passes),
 so a run can show at which accuracy point its kernels ran. A call with
 nothing to compute (`no_work`) launches nothing and counts nothing.
+
+Every wrapper launches through `launch`, the one launch path: the launcher,
+the device test, the current stream's raw handle (`stream`), the error
+check and the count. Its host time is what a caller waits for when a
+kernel runs for a microsecond or two (the probes at their script's shapes,
+tools/launch_path.py), so it builds no torch object a call: no stream
+object, no device context on the current device.
 """
 
 import collections
-import contextlib
 import ctypes
 import math
 import os
@@ -50,14 +56,6 @@ def reset_launches():
     for k in launches:
         launches[k] = 0
     launches_by_passes.clear()
-
-
-def count_launch(name, passes=None):
-    """One launch of kernel `name` (at `passes` bf16 passes, where it takes a
-    pass count); each wrapper calls it where it launches its kernel."""
-    launches[name] += 1
-    if passes is not None:
-        launches_by_passes[name, passes] += 1
 
 
 def _nvcc():
@@ -177,13 +175,35 @@ def raise_on(rc, name):
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
-def on_device(device):
-    """The context a launch on `device` runs in: none when it is the current
-    CUDA device (entering torch.cuda.device sets the device twice a call),
-    else torch.cuda.device(device)."""
-    if device.index is None or device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
+def stream(index):
+    """The raw handle of the current CUDA stream of device `index`, which
+    every launch takes: torch.cuda.current_stream(index).cuda_stream without
+    building a torch.cuda.Stream. It follows torch.cuda.stream(s). A CPU
+    build of torch lacks it, so it is looked up at each call, never at
+    import."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def launch(name, index, *args, passes=None):
+    """Launches kernel `name` on CUDA device `index`: its C launcher gets
+    `args`, then the current stream of that device. The device context is
+    entered only when `index` is not the current device (entering
+    torch.cuda.device sets the device twice a call), which
+    torch._C._cuda_getDevice() gives without torch.cuda.current_device()'s
+    lazy-init check: a launch has a CUDA tensor in hand. Raises on the
+    launcher's CUDA error, else counts one launch (by `passes` too, where
+    the kernel takes a pass count)."""
+    fn = _libs.get(name) or launcher(name)
+    if index == torch._C._cuda_getDevice():
+        rc = fn(*args, stream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, stream(index))
+    if rc:
+        raise_on(rc, name)
+    launches[name] += 1
+    if passes is not None:
+        launches_by_passes[name, passes] += 1
 
 
 def no_work(shape, depth, device, dtype=torch.float32):
@@ -201,7 +221,7 @@ def no_work(shape, depth, device, dtype=torch.float32):
 
 def dispatch(x):
     """True to launch the kernel, False to run the plain twin (CPU tensors)."""
-    if x.device.type == "cuda":
+    if x.is_cuda:
         return True
     if x.device.type == "cpu":
         return False

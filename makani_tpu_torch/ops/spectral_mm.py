@@ -39,14 +39,7 @@ counts their launches.
 import torch
 from torch.autograd.function import once_differentiable
 
-from makani_tpu_torch.ops.kernels import (
-    count_launch,
-    dispatch,
-    launcher,
-    no_work,
-    on_device,
-    raise_on,
-)
+from makani_tpu_torch.ops.kernels import dispatch, launch, no_work
 
 
 def _check_cuda(*tensors):
@@ -141,13 +134,9 @@ def legmm(z, p, passes=3, contract="k"):
     out = no_work(shape, K if contract == "k" else L, z.device)
     if out is not None:
         return out
-    out = torch.empty(shape, device=z.device, dtype=torch.float32)
-    launch = launcher("legmm")
-    with torch.cuda.device(z.device):
-        rc = launch(z.data_ptr(), p.data_ptr(), out.data_ptr(), M2, mmax, C, L, K,
-                    int(contract == "k"), passes, torch.cuda.current_stream().cuda_stream)
-    raise_on(rc, "legmm")
-    count_launch("legmm", passes)
+    out = z.new_empty(shape)
+    launch("legmm", z.device.index, z.data_ptr(), p.data_ptr(), out.data_ptr(), M2, mmax, C, L,
+           K, int(contract == "k"), passes, passes=passes)
     return out
 
 
@@ -215,14 +204,10 @@ def dhconv_mm(x, w, passes=3, m3=True, wdim=0, conj_w=False):
     out = no_work((2, B, L, co, M), ci, x.device)
     if out is not None:
         return out
-    out = torch.empty((2, B, L, co, M), device=x.device, dtype=torch.float32)
+    out = x.new_empty((2, B, L, co, M))
     scratch = dhconv_weight_scratch(L, ci, co, 3 if m3 else 2, 2 if passes == 3 else 1, x.device)
-    launch = launcher("dhconv_mm")
-    with torch.cuda.device(x.device):
-        rc = launch(x.data_ptr(), w.data_ptr(), scratch.data_ptr(), out.data_ptr(), B, L, C, O, M,
-                    wdim, int(conj_w), int(m3), passes, torch.cuda.current_stream().cuda_stream)
-    raise_on(rc, "dhconv_mm")
-    count_launch("dhconv_mm", passes)
+    launch("dhconv_mm", x.device.index, x.data_ptr(), w.data_ptr(), scratch.data_ptr(),
+           out.data_ptr(), B, L, C, O, M, wdim, int(conj_w), int(m3), passes, passes=passes)
     return out
 
 
@@ -274,13 +259,9 @@ def dhconv_dw(x, g, passes=3, m3=True):
     out = no_work((2, L, C, O), B * M, x.device)
     if out is not None:
         return out
-    out = torch.empty((2, L, C, O), device=x.device, dtype=torch.float32)
-    launch = launcher("dhconv_dw")
-    with torch.cuda.device(x.device):
-        rc = launch(x.data_ptr(), g.data_ptr(), out.data_ptr(), B, L, C, O, M, int(m3), passes,
-                    torch.cuda.current_stream().cuda_stream)
-    raise_on(rc, "dhconv_dw")
-    count_launch("dhconv_dw", passes)
+    out = x.new_empty((2, L, C, O))
+    launch("dhconv_dw", x.device.index, x.data_ptr(), g.data_ptr(), out.data_ptr(), B, L, C, O,
+           M, int(m3), passes, passes=passes)
     return out
 
 
@@ -356,16 +337,12 @@ def gridmm(x, t, passes=3, out_dtype=torch.float32, out_t=False, round_bf16=Fals
     out = no_work(shape, K, x.device, out_dtype)
     if out is not None:
         return out
-    out = torch.empty(shape, device=x.device, dtype=out_dtype)
+    out = x.new_empty(shape, dtype=out_dtype)
     scratch = grid_table_scratch(K, N, 2 if passes >= 2 else 1, x.device)
-    launch = launcher("gridmm")
-    with on_device(x.device):
-        rc = launch(x.data_ptr(), t.data_ptr(), scratch.data_ptr(), out.data_ptr(), R, K, N,
-                    int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), passes,
-                    int(x_kmajor), int(out_t), int(round_bf16),
-                    torch.cuda.current_stream().cuda_stream)
-    raise_on(rc, "gridmm")
-    count_launch("gridmm", passes)
+    launch("gridmm", x.device.index, x.data_ptr(), t.data_ptr(), scratch.data_ptr(),
+           out.data_ptr(), R, K, N, int(x.dtype == torch.bfloat16),
+           int(out_dtype == torch.bfloat16), passes, int(x_kmajor), int(out_t), int(round_bf16),
+           passes=passes)
     return out
 
 

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from makani_tpu_torch.ops import spectral_mm
-from makani_tpu_torch.ops.kernels import count_launch, dispatch, launcher, no_work, raise_on
+from makani_tpu_torch.ops.kernels import dispatch, launch, no_work
 from makani_tpu_torch.tools.bench_spectral_mm import bf16_mm_f32, maxrel, report, timeit
 from makani_tpu_torch.utils.device import resolve_device
 
@@ -89,14 +89,9 @@ def grid_dot(x, th, tl, out_dtype=torch.float32):
         return out
     out = torch.empty((R, N), device=x.device, dtype=out_dtype)
     scratch = spectral_mm.grid_table_scratch(K, N, 2, x.device)
-    launch = launcher("grid_dot")
-    with torch.cuda.device(x.device):
-        rc = launch(x.data_ptr(), th.data_ptr(), tl.data_ptr(), scratch.data_ptr(),
-                    out.data_ptr(), R, K, N,
-                    int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-                    torch.cuda.current_stream().cuda_stream)
-    raise_on(rc, "grid_dot")
-    count_launch("grid_dot", 2 if x.dtype == torch.bfloat16 else 3)
+    launch("grid_dot", x.device.index, x.data_ptr(), th.data_ptr(), tl.data_ptr(),
+           scratch.data_ptr(), out.data_ptr(), R, K, N, int(x.dtype == torch.bfloat16),
+           int(out_dtype == torch.bfloat16), passes=2 if x.dtype == torch.bfloat16 else 3)
     return out
 
 

@@ -110,7 +110,7 @@ def run(family="mm", reps=20):
     gen = torch.Generator(device=dev).manual_seed(0)
     B, L, C, M = 1, 240, 384, 241
     x = torch.randn((2, B, L, C, M), device=dev, generator=gen)
-    stream = torch.cuda.current_stream().cuda_stream
+    stream = kernels.stream(x.device.index)
     ok = True
     if family == "mm":
         w = torch.randn((2, L, C, C), device=dev, generator=gen)

@@ -28,15 +28,7 @@ import numpy as np
 import torch
 
 from makani_tpu_torch.ops import complex_kernels
-from makani_tpu_torch.ops.kernels import (
-    BUILD_DIR,
-    count_launch,
-    dispatch,
-    launcher,
-    no_work,
-    on_device,
-    raise_on,
-)
+from makani_tpu_torch.ops.kernels import BUILD_DIR, dispatch, launch, no_work
 from makani_tpu_torch.ops.spectral_mm import split_bf16
 from makani_tpu_torch.utils.device import resolve_device
 
@@ -53,32 +45,41 @@ discarded_sessions = 0
 SPIN_CYCLES = 1000
 
 
-def _launch(name, inputs, shapes, *dims, depth=1):
-    """Launches probe `name` on contiguous float32 CUDA tensors and returns
-    its float32 outputs, one of each shape in `shapes`. A call with nothing to
-    compute (kernels.no_work: the outputs empty, or a contraction of length
-    `depth` 0) returns them without a launch or a count."""
+def _device_of(name, inputs):
+    """The device of probe `name`'s inputs, which must be contiguous float32
+    tensors on one device (the first's; each other is compared with it)."""
     dev = inputs[0].device
     for t in inputs:
-        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+        if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} takes contiguous float32 tensors on one device")
-    outputs = [no_work(s, depth, dev) for s in shapes]
-    if all(t is not None for t in outputs):
-        return outputs
-    outputs = [torch.empty(s, device=dev, dtype=torch.float32) for s in shapes]
-    with on_device(dev):
-        rc = launcher(name)(*(t.data_ptr() for t in (*inputs, *outputs)), *dims,
-                            torch.cuda.current_stream().cuda_stream)
-    raise_on(rc, name)
-    count_launch(name)
+    for t in inputs[1:]:
+        if t.device != dev:
+            raise ValueError(f"{name} takes contiguous float32 tensors on one device")
+    return dev
+
+
+def _launch(name, inputs, shapes, *dims, depth=1):
+    """Launches probe `name` on CUDA tensors (`_device_of`) and returns its
+    float32 outputs, one of each shape in `shapes`; the launcher takes the
+    inputs' and the outputs' addresses, then `dims`. Every probe's dims hold
+    its output's sizes and its contraction length `depth`, so a 0 among them
+    is a call with nothing to compute (kernels.no_work: the outputs empty,
+    or zeros for a contraction of length 0), which returns them without a
+    launch or a count."""
+    dev = _device_of(name, inputs)
+    if 0 in dims:
+        return [no_work(s, depth, dev) for s in shapes]
+    outputs = [inputs[0].new_empty(*s) for s in shapes]
+    launch(name, dev.index, *[t.data_ptr() for t in inputs],
+           *[t.data_ptr() for t in outputs], *dims)
     return outputs
 
 
 def _dot_shapes(a, b, transposed):
-    if a.ndim != 2 or b.ndim != 2 or a.shape[0 if transposed else 1] != b.shape[0]:
-        raise ValueError(f"{tuple(a.shape)} does not contract with {tuple(b.shape)}")
-    o = a.shape[1] if transposed else a.shape[0]
-    return o, b.shape[0], b.shape[1]
+    sa, sb = a.shape, b.shape
+    if len(sa) != 2 or len(sb) != 2 or sa[0 if transposed else 1] != sb[0]:
+        raise ValueError(f"{tuple(sa)} does not contract with {tuple(sb)}")
+    return sa[1] if transposed else sa[0], sb[0], sb[1]
 
 
 def _block_shapes(x, w):
@@ -131,16 +132,32 @@ def bf16_split_plain(a, b):
 
 
 # ---- the kernels' wrappers ----
+# A probe runs for a microsecond or two on the card, so a caller waits on the
+# host's path to the launch: probe_copy and the dot probes take the least
+# Python to kernels.launch (no lists, no packed arguments), the gridded ones
+# `_launch`.
 
 def probe_copy(x):
     if not dispatch(x):
         return copy_plain(x)
-    return _launch("probe_copy", (x,), [x.shape], x.numel())[0]
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("probe_copy takes contiguous float32 tensors on one device")
+    n = x.numel()
+    if n == 0:
+        return no_work(x.shape, 1, x.device)
+    out = torch.empty_like(x)
+    launch("probe_copy", x.device.index, x.data_ptr(), out.data_ptr(), n)
+    return out
 
 
 def _dot(name, a, b, transposed):
     o, c, m = _dot_shapes(a, b, transposed)
-    return _launch(name, (a, b), [(o, m)], o, c, m, depth=c)[0]
+    dev = _device_of(name, (a, b))
+    if not (o and c and m):
+        return no_work((o, m), c, dev)
+    out = a.new_empty(o, m)
+    launch(name, dev.index, a.data_ptr(), b.data_ptr(), out.data_ptr(), o, c, m)
+    return out
 
 
 def probe_dot_plain(a, b):

@@ -82,7 +82,7 @@ def run(reps=20):
         z = torch.randn((2 * mmax, C, D), device=dev, generator=gen)
         p = torch.randn((mmax, L, K), device=dev, generator=gen)
         out = torch.empty((2 * mmax, C, N), device=dev)
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = kernels.stream(z.device.index)
         for passes in (1, 3):
             cells = []
             for variant, launch in launchers.items():

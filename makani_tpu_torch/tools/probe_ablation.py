@@ -1,10 +1,11 @@
 """Where the device time of the gridded probes (probe_grid_blocks,
-probe_stacked_output, probe_multi_output) goes on the card, and how they
-compare with another tree's: csrc/probes.cu rebuilt with parts of
-gridded_kernel switched off or its tile changed, timed at
-scripts/pallas_isolate.py's shapes (B = 2, L = 4, C = O = 16, M = 128).
+probe_stacked_output, probe_multi_output), or of probe_dot_plain, goes on
+the card, and how they compare with another tree's: csrc/probes.cu rebuilt
+with parts of gridded_kernel (or probe_dot_plain_kernel) switched off or its
+tile changed, timed at scripts/pallas_isolate.py's shapes (B = 2, L = 4,
+C = O = 16, M = 128).
 
-    python3 -m makani_tpu_torch.tools.probe_ablation [--parent DIR]
+    python3 -m makani_tpu_torch.tools.probe_ablation [gridded|dot] [--parent DIR]
 
 Variants, each a text edit of csrc/probes.cu built with nvcc into
 build/kernels/ablation_probes/, all nvcc started together; ptxas's registers
@@ -23,6 +24,14 @@ multi_output, ILb1E):
   ot1          1 output along o a thread, 16 groups (512 threads a block)
   ot4          4 outputs along o a thread, 4 groups (128 threads a block)
   ck32         32 rows of c staged at once
+
+The dot family (probe_dot_plain, a (16, 16) . b (16, 128)) has its own
+variants (DOT_VARIANTS): the kernel as it is (an 8 x 32 tile of the output
+a block, its operands staged in shared memory 16 rows of c at a time), the
+same threads with their operands loaded into registers instead
+("registers"), scalar loads in place of 16-byte ones, no loads
+(constants), no products, an empty body (the grid's launch floor), and two
+other tiles.
 
 With --parent DIR, DIR/makani_tpu_torch/csrc/probes.cu (another checkout,
 e.g. the parent commit unpacked with `git archive`) is built as "parent".
@@ -80,6 +89,73 @@ VARIANTS = {
 }
 # the variants that compute r
 COMPUTING = ("kernel", "tm64", "og4", "ot1", "ot4", "ck32", "parent")
+
+_DOT_TILE = {k: f"constexpr int {k} = {v};" for k, v in (("PM", 32), ("PO", 8))}
+# probe_dot_plain_kernel's loop over staged chunks, and its output's indices
+_DOT_BODY = """  float acc = 0.f;
+  for (int c0 = 0; c0 < C; c0 += PK) {
+    if (c0 > 0) __syncthreads();  // every read of the last chunk is done
+    float4 av{}, bv{};
+    if (t < PO * AQ) av = load_quad(a, O, C, o0 + t / AQ, c0 + 4 * (t % AQ), va);
+    if (t < PK * BQ) bv = load_quad(b, C, M, c0 + t / BQ, m0 + 4 * (t % BQ), vb);
+    if (t < PO * AQ) *reinterpret_cast<float4*>(&as[t / AQ][4 * (t % AQ)]) = av;
+    if (t < PK * BQ) *reinterpret_cast<float4*>(&bs[t / BQ][4 * (t % BQ)]) = bv;
+    __syncthreads();
+    const int cn = min(PK, C - c0);
+#pragma unroll 4
+    for (int c = 0; c < cn; ++c) acc = fmaf(as[oi][c], bs[c][mi], acc);
+  }
+  const int o = o0 + oi, m = m0 + mi;
+"""
+# the same threads with their operands loaded into registers instead, PK
+# values of c at a time, every load of a chunk issued before its products:
+# no shared memory, no barrier; the same fused multiply-adds in order of c
+_DOT_REGISTERS = """  const int o = o0 + oi, m = m0 + mi;
+  float acc = 0.f;
+  if (o < O && m < M) {
+    for (int c0 = 0; c0 < C; c0 += PK) {
+      float ar[PK], br[PK];
+#pragma unroll
+      for (int j = 0; j < PK; ++j) {
+        ar[j] = c0 + j < C ? a[(long long)o * C + c0 + j] : 0.f;
+        br[j] = c0 + j < C ? b[(long long)(c0 + j) * M + m] : 0.f;
+      }
+      const int cn = min(PK, C - c0);
+#pragma unroll
+      for (int j = 0; j < PK; ++j)
+        if (j < cn) acc = fmaf(ar[j], br[j], acc);
+    }
+  }
+"""
+
+
+def _dot_tile(**sizes):
+    return [("probes.cu", _DOT_TILE[k], f"constexpr int {k} = {v};") for k, v in sizes.items()]
+
+
+# probe_dot_plain's variants: edits of probes.cu, each text present once
+DOT_VARIANTS = {
+    "kernel": [],
+    "registers": [("probes.cu", _DOT_BODY, _DOT_REGISTERS)],
+    "scalar": [("probes.cu", "const bool va = c % 4 == 0 &&", "const bool va = false &&"),
+               ("probes.cu", "const bool vb = m % 4 == 0 &&", "const bool vb = false &&")],
+    "no_loads": [("probes.cu",
+                  "av = load_quad(a, O, C, o0 + t / AQ, c0 + 4 * (t % AQ), va);",
+                  "av = make_float4(1.f, 1.f, 1.f, 1.f);"),
+                 ("probes.cu",
+                  "bv = load_quad(b, C, M, c0 + t / BQ, m0 + 4 * (t % BQ), vb);",
+                  "bv = make_float4(2.f, 2.f, 2.f, 2.f);")],
+    "no_products": [("probes.cu", "acc = fmaf(as[oi][c], bs[c][mi], acc);",
+                     "acc = 0.f * bs[c][mi];")],
+    "empty": [("probes.cu", "  using namespace plain;\n  __shared__",
+               "  return;\n  using namespace plain;\n  __shared__")],
+    "po16": _dot_tile(PM=16, PO=16),
+    "pm64": _dot_tile(PM=64, PO=4),
+}
+# the dot variants that compute a . b
+DOT_COMPUTING = ("kernel", "registers", "scalar", "po16", "pm64", "parent")
+DOT_SCRIPT = ((kernel_isolate.O, kernel_isolate.C), (kernel_isolate.C, kernel_isolate.M))
+DOT_RAGGED = ((33, 70), (70, 130))
 SCRIPT = ((kernel_isolate.B, kernel_isolate.L, kernel_isolate.C, kernel_isolate.M),
           (kernel_isolate.L, kernel_isolate.C, kernel_isolate.O))
 RAGGED = ((3, 2, 70, 130), (2, 70, 33))
@@ -101,7 +177,7 @@ def build_variants(parent=None):
 def _call(launch, name, x, w, outs):
     b, l, c, m = x.shape
     rc = launch(x.data_ptr(), w.data_ptr(), *(o.data_ptr() for o in outs), b, l, c, w.shape[2],
-                m, torch.cuda.current_stream().cuda_stream)
+                m, kernels.stream(x.device.index))
     kernels.raise_on(rc, name)
 
 
@@ -180,14 +256,71 @@ def run(parent=None):
     return 0 if ok else 1
 
 
+def run_dot(parent=None):
+    """The dot family: bits of every computing variant against the
+    reference ("parent" if given, else "kernel") at the script's shape and a
+    ragged one, "kernel" against the twin, then device time a call in ROUNDS
+    rounds of every variant in turns ("empty": the launch floor of this
+    grid)."""
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"device: {torch.cuda.get_device_name(dev)}", flush=True)
+    csrc = None if parent is None else Path(parent).resolve() / "makani_tpu_torch" / "csrc"
+    built, logs = _ablation.build_variants("ablation_dot", SOURCES, DOT_VARIANTS,
+                                           ("probe_dot_plain",), csrc)
+    launchers = {v: ls["probe_dot_plain"] for v, ls in built.items()}
+    for variant, log in logs.items():
+        for entry, regs, spill in _ablation.ptxas_usage(log, "probe_dot_plain_kernel"):
+            print(f"[ptxas {variant}] {regs} registers, {spill} bytes spill stores", flush=True)
+
+    def call(variant, a, b, out):
+        o, c = a.shape
+        rc = launchers[variant](a.data_ptr(), b.data_ptr(), out.data_ptr(), o, c, b.shape[1],
+                                kernels.stream(a.device.index))
+        kernels.raise_on(rc, f"probe_dot_plain {variant}")
+
+    ref = "parent" if "parent" in launchers else "kernel"
+    ok = True
+    for shapes in (DOT_SCRIPT, DOT_RAGGED):
+        a, b = kernel_isolate.case_inputs(shapes, 3, dev)
+        got = {}
+        for variant in (v for v in DOT_COMPUTING if v in launchers):
+            got[variant] = torch.full((a.shape[0], b.shape[1]), float("nan"), device=dev)
+            call(variant, a, b, got[variant])
+        torch.cuda.synchronize()
+        same = {v: torch.equal(t.view(torch.int32), got[ref].view(torch.int32))
+                for v, t in got.items()}
+        err = kernel_isolate.rel_err(got["kernel"], kernel_isolate.dot_plain_plain(a, b))
+        ok &= all(same.values()) and err < kernel_isolate.TWIN_TOL
+        print(f"bits a{tuple(a.shape)} b{tuple(b.shape)}: "
+              + ", ".join(f"{v} {'=' if s else '!='} {ref}" for v, s in same.items())
+              + f"; kernel vs twin {err:.1e}", flush=True)
+    a, b = kernel_isolate.case_inputs(DOT_SCRIPT, 0, dev)
+    out = torch.empty((a.shape[0], b.shape[1]), device=dev)
+    order = list(launchers)
+    us = {v: [] for v in order}
+    reps = kernel_isolate.DEVICE_REPS
+    for r in range(ROUNDS):
+        for variant in order if r % 2 == 0 else order[::-1]:
+            us[variant].append(1e3 * kernel_isolate.device_ms(
+                lambda: call(variant, a, b, out), reps))
+    print(f"device us a call, {ROUNDS} rounds of {reps} calls, median (all); a{tuple(a.shape)} "
+          f"b{tuple(b.shape)}", flush=True)
+    for variant in order:
+        print(f"  {variant}: {statistics.median(us[variant]):.3f} "
+              f"({', '.join(f'{t:.3f}' for t in us[variant])})", flush=True)
+    return 0 if ok else 1
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("family", nargs="?", default="gridded", choices=("gridded", "dot"))
     ap.add_argument("--parent", type=Path, help="a checkout whose probes.cu is built as 'parent'")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("probe_ablation: CUDA is not available", file=sys.stderr)
         return 1
-    return run(args.parent)
+    return (run if args.family == "gridded" else run_dot)(args.parent)
 
 
 if __name__ == "__main__":

@@ -1274,6 +1274,84 @@ def test_gridded_probes_after_a_nan_call(cuda, probe):
                   torch.randn((3, 17, 5), device=cuda, generator=g))
 
 
+# probe_dot_plain's staged body against the fused multiply-adds in order of
+# c that it keeps, read from probe_dot_transposed (dot_om, unchanged) on a^T:
+# the script's shape (16-byte loads of a and b), the ragged shape of
+# test_probe_kernels_at_ragged_shapes (rows of 70 and 130 floats: scalar
+# loads), rows that are not a multiple of 4 floats in a, in b or in both, c
+# past one staged chunk (257: sixteen chunks and a one-row tail), a single
+# element, and b 4 bytes past a 16-byte boundary (rows of 128 floats read
+# by scalars)
+DOT_PLAIN_SHAPES = [((16, 16), (16, 128)), ((33, 70), (70, 130)), ((5, 7), (7, 9)),
+                    ((9, 12), (12, 30)), ((9, 13), (13, 64)), ((20, 257), (257, 36)),
+                    ((1, 1), (1, 1)), "b off 16 bytes"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shapes", DOT_PLAIN_SHAPES, ids=str)
+def test_probe_dot_plain_is_the_fma_chain_bit_for_bit(cuda, shapes):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    if shapes == "b off 16 bytes":
+        a = torch.randn((16, 16), device=cuda, generator=g)
+        b = _sliced_randn((16, 128), cuda, g)
+        assert b.data_ptr() % 16 == 4
+    else:
+        a, b = (torch.randn(s, device=cuda, generator=g) for s in shapes)
+    before = kernels.launches["probe_dot_plain"]
+    got = kernel_isolate.probe_dot_plain(a, b)
+    chain = kernel_isolate.probe_dot_transposed(a.T.contiguous(), b)
+    torch.cuda.synchronize()
+    assert kernels.launches["probe_dot_plain"] == before + 1
+    assert torch.equal(got.view(torch.int32), chain.view(torch.int32))
+    assert _rel(got, kernel_isolate.dot_plain_plain(a, b)) < TOL
+
+
+# ~0.1 s of spinning at the H100's 1.98 GHz: far longer than a launch
+STREAM_SPIN_CYCLES = 200_000_000
+
+
+def _stream_case(kind, dev):
+    """(call, twin's result, kernel counted) for the side-stream test."""
+    if kind == "legmm":
+        g = torch.Generator(device=dev).manual_seed(10)
+        z, p = torch.randn((10, 7, 33), device=dev, generator=g), torch.randn(
+            (5, 19, 33), device=dev, generator=g)
+        return (lambda: spectral_mm.legmm(z, p, 3, "k"),
+                spectral_mm.legmm_plain(z, p, 3, "k"), "legmm")
+    _, shapes, kernel, twin = next(c for c in kernel_isolate.CASES if c[0] == kind)
+    inputs = kernel_isolate.case_inputs(shapes, 8, dev)
+    return (lambda: kernel(*inputs)), twin(*inputs), kernel.__name__
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["copy", "dot_plain", "legmm"])
+def test_launch_follows_the_current_stream(cuda, kind):
+    """A launch under torch.cuda.stream(s) goes on s: behind a spin kernel
+    on s it is not done while s spins, the default stream stays idle, and
+    after s.synchronize() the result is right."""
+    call, want, name = _stream_case(kind, cuda)
+    # a kernel's first launch in a process loads its module, which waits for
+    # the card (CUDA's lazy loading): launch it once before the spin
+    call()
+    torch.cuda.synchronize()
+    index = torch.cuda.current_device()
+    s = torch.cuda.Stream()
+    before = kernels.launches[name]
+    with torch.cuda.stream(s):
+        assert kernels.stream(index) == s.cuda_stream != torch.cuda.default_stream().cuda_stream
+        torch.cuda._sleep(STREAM_SPIN_CYCLES)
+        got = call()
+        done = torch.cuda.Event()
+        done.record()
+    assert kernels.stream(index) == torch.cuda.current_stream().cuda_stream
+    assert not done.query()
+    assert torch.cuda.default_stream().query()
+    s.synchronize()
+    assert done.query()
+    assert kernels.launches[name] == before + 1
+    assert _rel(got, want) < TOL
+
+
 @pytest.mark.cuda
 def test_bench_tools_run_on_card(cuda):
     shapes = dict(dhconv=dict(B=2, L=3, C=70, O=45, M=130), legendre=dict(mmax=5, C=70, K=97, L=33),

@@ -121,6 +121,18 @@ def test_probe_ablation_edits_apply_to_the_source(variant):
     assert changed == {f for f, _, _ in probe_ablation.VARIANTS[variant]}
 
 
+@pytest.mark.parametrize("variant", sorted(probe_ablation.DOT_VARIANTS))
+def test_dot_ablation_edits_apply_to_the_source(variant):
+    """probe_ablation's dot family rebuilds probes.cu with
+    probe_dot_plain_kernel's parts switched off, its tile changed or its
+    operands in registers: each edit must find its text once."""
+    edits = probe_ablation.DOT_VARIANTS[variant]
+    texts = _ablation.edited_sources(probe_ablation.SOURCES, edits)
+    originals = {f: (kernels._CSRC / f).read_text() for f in probe_ablation.SOURCES}
+    changed = {f for f in texts if texts[f] != originals[f]}
+    assert changed == {f for f, _, _ in edits}
+
+
 @pytest.mark.parametrize("variant", sorted(adam_ablation.VARIANTS))
 def test_adam_ablation_edits_apply_to_the_source(variant):
     """tools/adam_ablation.py rebuilds fused_adam.cu with parts switched off
