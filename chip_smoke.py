@@ -64,15 +64,17 @@ Phases, in order; any failure exits non-zero:
      their twins, timed beside the twin, a float32 torch.mm (TF32 off) and a
      bf16 torch.mm with float32 sums; the seven probe kernels at
      scripts/pallas_isolate.py's shapes against their twins (probe_copy bit
-     for bit, and probe_dot_plain bit for bit with the fused multiply-adds
-     in order of c, read from probe_dot_transposed on a^T), timed beside one
-     PyTorch call each, with CUDA events around a call (the host's launch
-     path, at these few-KB inputs; three rounds, the probe and its call
-     interleaved), the host's enqueue of a call (tools/launch_path.py) and
-     on the device (torch.profiler's kernel records over
+     for bit, and the two dot probes bit for bit with the fused
+     multiply-adds in order of c, read from the reference chain,
+     kernel_isolate.dot_chain), timed beside one PyTorch call each, with
+     CUDA events around a call (the host's launch path, at these few-KB
+     inputs) and the host's enqueue of a call (tools/launch_path.py), three
+     rounds, the probe and its call interleaved, all before any profiler
+     session; then on the device (torch.profiler's kernel records over
      kernel_isolate.DEVICE_REPS calls, three times for each probe and each
      call, the median kept and the spread printed beside probe_copy's device
-     time, the launch floor); then the three tools end
+     time, the launch floor), and the enqueue once more after those
+     sessions; then the three tools end
      to end
      (tools/bench_spectral_mm.py all, tools/bench_gridmm.py,
      tools/kernel_isolate.py: nine PASS), each returning 0, with the launches
@@ -372,6 +374,7 @@ longitude DFT's gridmm included.
 
 import argparse
 import datetime
+import functools
 import gc
 import json
 import math
@@ -1372,7 +1375,11 @@ def phase_grid(torch, spectral_mm, kernels, dev, gen):
     torch.cuda.empty_cache()
 
     # the probes at scripts/pallas_isolate.py's shapes, each beside one
-    # PyTorch call of the same function
+    # PyTorch call of the same function: first every host reading (CUDA
+    # events, the enqueue), then the profiler's device time, then the
+    # enqueue once more: a profiler session slows the process's later
+    # launches, so the readings kept come before any session
+    probes = []
     for name, shapes, kernel, twin in kernel_isolate.CASES[:7]:
         inputs = kernel_isolate.case_inputs(shapes, 0, dev)
         got, want = kernel(*inputs), twin(*inputs)
@@ -1381,15 +1388,15 @@ def phase_grid(torch, spectral_mm, kernels, dev, gen):
         want = want if isinstance(want, tuple) else (want,)
         etwin = max(rel_err(g, w.double()) for g, w in zip(got, want))
         check(etwin < TWIN_TOL, f"probe {name} vs twin: {etwin}")
-        # bit for bit: probe_copy with its twin; probe_dot_plain with the
-        # fused multiply-adds in order of c that its body keeps, read
-        # from probe_dot_transposed's unchanged chain on a^T
+        # bit for bit: probe_copy with its twin; the dot probes with the
+        # fused multiply-adds in order of c that their body keeps, read from
+        # the reference chain
         if name == "copy":
             check(torch.equal(got[0], want[0]), "probe copy is not its twin bit for bit")
-        if name == "dot_plain":
-            chain = kernel_isolate.probe_dot_transposed(inputs[0].T.contiguous(), inputs[1])
+        if name in ("dot_plain", "dot_transposed"):
+            chain = kernel_isolate.dot_chain(*inputs, transposed=name == "dot_transposed")
             check(torch.equal(got[0].view(torch.int32), chain.view(torch.int32)),
-                  "probe dot_plain is not the fused multiply-add chain bit for bit")
+                  f"probe {name} is not the fused multiply-add chain bit for bit")
         nbytes = 4 * (sum(t.numel() for t in inputs) + sum(g.numel() for g in got))
         if name == "copy":
             flops, rate = inputs[0].numel(), F32_FLOPS
@@ -1401,29 +1408,35 @@ def phase_grid(torch, spectral_mm, kernels, dev, gen):
             b, l, o, m = want[0].shape[-4:]
             flops, rate = 2 * b * l * o * inputs[1].shape[1] * m, F32_FLOPS
         b_ms, b_by = bound(nbytes, flops, rate)
-        probe, library = (lambda: kernel(*inputs)), launch_path.library_call(name, *inputs)
-        # CUDA events around a call: the probe and its PyTorch call in
-        # DEVICE_RUNS interleaved rounds, so that a drift of the host's speed
-        # falls on both
-        events = {"ms": [], "library_ms": []}
+        probe = functools.partial(kernel, *inputs)
+        library = launch_path.library_call(name, *inputs)
+        # CUDA events around a call, and the host's enqueue: the probe and
+        # its PyTorch call in DEVICE_RUNS interleaved rounds, so that a drift
+        # of the host's speed falls on both
+        host = {"ms": [], "library_ms": [], "enqueue_us": [], "library_enqueue_us": []}
         for _ in range(DEVICE_RUNS):
-            events["ms"].append(cuda_ms(probe, 50))
-            events["library_ms"].append(cuda_ms(library, 50))
+            host["ms"].append(cuda_ms(probe, 50))
+            host["library_ms"].append(cuda_ms(library, 50))
+            host["enqueue_us"].append(launch_path.enqueue_us(probe))
+            host["library_enqueue_us"].append(launch_path.enqueue_us(library))
         rows.append(dict(
             name=kernel.__name__, shape=" ".join(str(tuple(t.shape)) for t in inputs),
             passes=3 if name == "bf16_split" else None,
             max_abs_err=max(float((g - w).abs().max()) for g, w in zip(got, want)),
             rel_err_twin=etwin, rel_err_f64=None,
-            **{k: statistics.median(v) for k, v in events.items()},
-            **{f"{k}_runs": v for k, v in events.items()},
+            **{k: statistics.median(v) for k, v in host.items()},
+            **{f"{k}_runs": v for k, v in host.items()},
             plain_ms=cuda_ms(lambda: twin(*inputs), 50),
-            enqueue_us=launch_path.enqueue_us(probe),
-            library_enqueue_us=launch_path.enqueue_us(library),
             bound_ms=b_ms, bound_by=b_by, gbytes=nbytes / 1e9, gflop=flops / 1e9))
+        probes.append((rows[-1], probe, library))
+    for row, probe, library in probes:
         for key, fn in (("device_ms", probe), ("library_device_ms", library)):
             runs = [kernel_isolate.device_ms(fn, kernel_isolate.DEVICE_REPS)
                     for _ in range(DEVICE_RUNS)]
-            rows[-1].update({key: statistics.median(runs), f"{key}_runs": runs})
+            row.update({key: statistics.median(runs), f"{key}_runs": runs})
+    for row, probe, library in probes:
+        row.update(enqueue_after_profiler_us=launch_path.enqueue_us(probe),
+                   library_enqueue_after_profiler_us=launch_path.enqueue_us(library))
     return rows
 
 
@@ -5185,12 +5198,15 @@ def main(argv=None):
               for r in probe_rows)
           + f"; probe_copy {1e3 * copy_ms:.3f} (the launch floor); profiler sessions discarded "
           f"for lost records: {kernel_isolate.discarded_sessions}", flush=True)
+    def runs(r, key, fmt):
+        return f"{r[key]:{fmt}} ({', '.join(f'{t:{fmt}}' for t in r[f'{key}_runs'])})"
     for r in probe_rows:
-        print(f"[probe host] {r['name']}: CUDA events ms, median ({DEVICE_RUNS} interleaved "
-              f"rounds), the kernel {r['ms']:.4f} ({', '.join(f'{t:.4f}' for t in r['ms_runs'])})"
-              f" / its PyTorch call {r['library_ms']:.4f} "
-              f"({', '.join(f'{t:.4f}' for t in r['library_ms_runs'])}); host enqueue us "
-              f"{r['enqueue_us']:.2f} / {r['library_enqueue_us']:.2f}; device us "
+        print(f"[probe host] {r['name']}: median ({DEVICE_RUNS} interleaved rounds), the kernel "
+              f"/ its PyTorch call: CUDA events ms {runs(r, 'ms', '.4f')} / "
+              f"{runs(r, 'library_ms', '.4f')}; host enqueue us {runs(r, 'enqueue_us', '.2f')} / "
+              f"{runs(r, 'library_enqueue_us', '.2f')}, after the profiler's sessions "
+              f"{r['enqueue_after_profiler_us']:.2f} / "
+              f"{r['library_enqueue_after_profiler_us']:.2f}; device us "
               f"{1e3 * r['device_ms']:.3f} / {1e3 * r['library_device_ms']:.3f}", flush=True)
     tools = phase_tools(torch, kernels)
     record["tools"] = tools

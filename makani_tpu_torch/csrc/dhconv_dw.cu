@@ -8,7 +8,7 @@
 // takes rr = xr.gr^T, ii = xi.gi^T, cross = (xr - xi).(gr + gi)^T (both sums
 // in float32 before the split), re = rr + ii, im = (cross - rr) + ii, in the
 // TPU kernel's order (:278-289); the 4M form im = xr.gi^T - xi.gr^T, both in
-// one accumulator. x is the first operand of every product (split_mma.cuh):
+// one accumulator. x is the first operand of every product (split_gemm.cuh):
 //   passes 1: xh.gh   2: + xh.gl   3: + xl.gh
 // one float32 accumulator a product, each 16-deep step adding its terms in
 // that order; the sum over b runs inside the accumulator (depth b-major,

@@ -9,7 +9,7 @@
 // ii = wi.xi, cross = (wr + wi).(xr + xi); re = rr - ii, im = (cross - rr)
 // - ii, the sums formed in float32 before the split) or four in the 4M form
 // (re = rr - ii, im = wr.xi + wi.xr). Each real product a.b is formed from
-// bf16 parts with the weight the first operand (split_mma.cuh):
+// bf16 parts with the weight the first operand (split_gemm.cuh):
 //   passes 1: wh.xh   2: + wh.xl   3: + wl.xh
 // one float32 accumulator a product (the 4M form's wr.xi and wi.xr share
 // one), each 16-deep step adding its terms in that order.

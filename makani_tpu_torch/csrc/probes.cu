@@ -21,23 +21,26 @@
 //
 // Design: the float32 dot probes give one thread to each output element,
 // which sums over the contraction with fused multiply-adds in order of c.
-// probe_dot_plain stages its operands in shared memory first
-// (probe_dot_plain_kernel below), so a thread waits on one round of loads,
-// not on each of its c; its sums stay dot_om's, bit for bit.
-// probe_grid_blocks, probe_stacked_output and probe_multi_output share one
-// body, gridded_kernel (below): the (b, l) work spread over many blocks, the
-// operands staged in shared memory once a block, r and -r stored from the
-// same registers (stacked_output: -r in plane 1 of its output;
-// multi_output: in its second output). probe_bf16_split goes through
-// split_mma.cuh: one warp per
-// 16 x 16 output tile splits both operands into bf16 hi/lo in shared memory
-// (zero beyond the edges) and keeps hh, hl and lh in three WMMA accumulators,
-// added once as (hh + hl) + lh, the probe's left-to-right order.
+// probe_dot_plain and probe_dot_transposed launch one body, probe_dot_kernel
+// (below), a's layout its template argument: a block stages its operands in
+// shared memory first, so a thread waits on one round of loads, not on each
+// of its c; the sums stay dot_om's, bit for bit with probe_dot_chain, the
+// one-thread-an-output chain kept as their reference. probe_grid_blocks,
+// probe_stacked_output and probe_multi_output share one body, gridded_kernel
+// (below): the (b, l) work spread over many blocks, the operands staged in
+// shared memory once a block, r and -r stored from the same registers
+// (stacked_output: -r in plane 1 of its output; multi_output: in its second
+// output). probe_bf16_split runs mma.sync on register fragments
+// (split_gemm.cuh's layout): each lane loads its own elements of the A and B
+// fragments, splits them into bf16 hi/lo in registers, keeps hh, hl and lh in
+// three accumulators, adds them once as (hh + hl) + lh, the probe's
+// left-to-right order, and stores its accumulator pairs straight to the
+// output: no shared memory, no barrier.
 
 #include <climits>
 #include <cstdint>
 
-#include "split_mma.cuh"
+#include "split_gemm.cuh"
 
 namespace {
 
@@ -59,21 +62,26 @@ __global__ void probe_copy_kernel(const float* __restrict__ x, float* __restrict
   if (i < n) out[i] = x[i] * 2.f;
 }
 
-// a (O, C), b (C, M) -> out (O, M). One block a PO x PM tile of out, one
-// element a thread: lanes along m (coalesced stores, conflict-free reads of
-// b's staged rows), warps along o (a staged a value read is a broadcast).
-// A block stages its rows of a (PO x PK) and its columns of b (PK x PM) in
-// shared memory, PK rows of c at a time, every load of a chunk issued before
-// one barrier: 16-byte loads of four floats where the rows allow them (va,
-// vb: a row's length a multiple of 4 floats from a 16-byte base), four
-// scalar loads otherwise; zeros past O, C and M. Each output is then
-// dot_om's chain: fused multiply-adds in order of c from 0.
+// a (O, C), or (TRANS) a (C, O) contracted on dim 0, and b (C, M) -> out
+// (O, M). One block a PO x PM tile of out, one element a thread: lanes along
+// m (coalesced stores, conflict-free reads of b's staged rows), warps along o
+// (a staged a value read is a broadcast). A block stages its PO rows of o of
+// a (PO x PK) and its PM columns of b (PK x PM) in shared memory, PK rows of
+// c at a time, every load of a chunk issued before one barrier. Global loads
+// take four floats along a row of each operand, which for a (C, O) (TRANS)
+// runs along o: 16-byte loads where the rows allow them (va, vb: a row's
+// length a multiple of 4 floats from a 16-byte base), four scalar loads
+// otherwise; zeros past O, C and M. TRANS stores such a quad down a column
+// of the a tile, so both layouts read it alike, four values of c in one
+// shared load. Each output is then dot_om's chain: fused multiply-adds in
+// order of c from 0.
 namespace plain {
 constexpr int PM = 32;  // columns of m a block
 constexpr int PO = 8;   // rows of o a block
 constexpr int PK = 16;  // rows of c staged at once
 constexpr int PT = PM * PO;  // threads a block
 static_assert(PO * PK / 4 <= PT && PK * PM / 4 <= PT, "a quad of each tile a thread at most");
+static_assert(PO % 4 == 0 && PK % 4 == 0, "whole quads a row of either a tile");
 }  // namespace plain
 
 // four floats of row `row` from column `col` on: one 16-byte load (vec),
@@ -94,14 +102,14 @@ __device__ __forceinline__ float4 load_quad(const float* __restrict__ p, int row
   return v;
 }
 
+template <bool TRANS>
 __global__ void __launch_bounds__(plain::PT)
-probe_dot_plain_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                       float* __restrict__ out, int O, int C, int M, int mtiles, bool va,
-                       bool vb) {
+probe_dot_kernel(const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ out,
+                 int O, int C, int M, int mtiles, bool va, bool vb) {
   using namespace plain;
-  __shared__ __align__(16) float as[PO][PK];
-  __shared__ __align__(16) float bs[PK][PM];
-  constexpr int AQ = PK / 4, BQ = PM / 4;  // quads a row of each tile
+  __shared__ __align__(16) float as[PO * PK];
+  __shared__ __align__(16) float bs[PK * PM];
+  constexpr int AQ = (TRANS ? PO : PK) / 4, BQ = PM / 4;  // quads a row of each tile
   const int t = threadIdx.x;
   const int m0 = (blockIdx.x % mtiles) * PM, o0 = (blockIdx.x / mtiles) * PO;
   const int mi = t % PM, oi = t / PM;
@@ -109,25 +117,38 @@ probe_dot_plain_kernel(const float* __restrict__ a, const float* __restrict__ b,
   for (int c0 = 0; c0 < C; c0 += PK) {
     if (c0 > 0) __syncthreads();  // every read of the last chunk is done
     float4 av{}, bv{};
-    if (t < PO * AQ) av = load_quad(a, O, C, o0 + t / AQ, c0 + 4 * (t % AQ), va);
+    if (t < PO * PK / 4)
+      av = TRANS ? load_quad(a, C, O, c0 + t / AQ, o0 + 4 * (t % AQ), va)
+                 : load_quad(a, O, C, o0 + t / AQ, c0 + 4 * (t % AQ), va);
     if (t < PK * BQ) bv = load_quad(b, C, M, c0 + t / BQ, m0 + 4 * (t % BQ), vb);
-    if (t < PO * AQ) *reinterpret_cast<float4*>(&as[t / AQ][4 * (t % AQ)]) = av;
-    if (t < PK * BQ) *reinterpret_cast<float4*>(&bs[t / BQ][4 * (t % BQ)]) = bv;
+    if (t < PO * PK / 4) {
+      if constexpr (TRANS) {  // row c = t / AQ, rows o .. o + 3 of the tile
+        float* col = &as[4 * (t % AQ) * PK + t / AQ];
+        col[0] = av.x;
+        col[PK] = av.y;
+        col[2 * PK] = av.z;
+        col[3 * PK] = av.w;
+      } else {
+        *reinterpret_cast<float4*>(&as[4 * t]) = av;
+      }
+    }
+    if (t < PK * BQ) *reinterpret_cast<float4*>(&bs[4 * t]) = bv;
     __syncthreads();
     const int cn = min(PK, C - c0);
 #pragma unroll 4
-    for (int c = 0; c < cn; ++c) acc = fmaf(as[oi][c], bs[c][mi], acc);
+    for (int c = 0; c < cn; ++c) acc = fmaf(as[oi * PK + c], bs[c * PM + mi], acc);
   }
   const int o = o0 + oi, m = m0 + mi;
   if (o < O && m < M) out[(long long)o * M + m] = acc;
 }
 
-// a (C, O), b (C, M) -> out (O, M), contracting dim 0 of both
-__global__ void probe_dot_transposed_kernel(const float* __restrict__ a,
-                                            const float* __restrict__ b, float* __restrict__ out,
-                                            int O, int C, int M) {
+// The bit reference of both dot probes: each output dot_om's chain, one
+// thread an output, a's element (o, c) at a[o * so + c * sc]
+__global__ void probe_dot_chain_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                                       float* __restrict__ out, int O, int C, int M, int so,
+                                       int sc) {
   const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i < O * M) out[i] = dot_om(a, 1, O, b, C, M, i / M, i % M);
+  if (i < O * M) out[i] = dot_om(a, so, sc, b, C, M, i / M, i % M);
 }
 
 // The gridded product r[b, l] = w[l]^T x[b, l], x (B, L, C, M), w (L, C, O),
@@ -211,45 +232,87 @@ gridded_kernel(const float* __restrict__ x, const float* __restrict__ w, float* 
   }
 }
 
-// a (C, O), b (C, M) -> out (O, M) = a^T b in 3 bf16 passes; one warp per
-// 16 x 16 output tile (o0, m0) = (16 blockIdx.y, 16 blockIdx.x)
-__global__ void __launch_bounds__(32)
+// a (C, O), b (C, M) -> out (O, M) = a^T b in 3 bf16 passes on mma.sync
+// m16n8k16 (the tile mma.sync takes: wgmma's 64 rows would leave three
+// quarters of a warpgroup idle at O = 16). A block a 16-row O tile and BM
+// columns of m, WB warps along m, NW n8 tiles a warp. For each 16-deep chunk
+// of c a lane loads its own elements of the A fragment (A[o][k] = a[c0 + k]
+// [o]) and of its B fragments (B[k][n] = b[c0 + k][n]), every load issued
+// before any is split, zeros past O, C and M; splits them into bf16 hi/lo
+// pairs in registers and runs hh += ah bh, hl += ah bl, lh += al bh. The
+// chunks and their order are those of a WMMA 16 x 16 x 16 product, which
+// lowers to the same m16n8k16 instructions: its bits.
+namespace split {
+// the tile measured fastest at the script's shapes (tools/probe_ablation.py split)
+constexpr int NW = 1;  // n8 tiles of m a warp
+constexpr int WB = 4;  // warps a block, along m
+constexpr int BM = 8 * NW * WB;  // columns of m a block
+}  // namespace split
+
+// The bf16 hi and lo parts of the pair (x, y), x in the low half as the
+// fragments want the lower k: hi = bf16_rn(v), lo = bf16_rn(v - float(hi))
+__device__ __forceinline__ void split_pair(float x, float y, uint32_t& hi, uint32_t& lo) {
+  hi = pack_bf16(x, y);
+  const float2 h = unpack_bf16(hi);
+  lo = pack_bf16(x - h.x, y - h.y);
+}
+
+// vo: float2 stores (M even, out 8-byte aligned)
+__global__ void __launch_bounds__(32 * split::WB)
 probe_bf16_split_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                        float* __restrict__ out, int C, int O, int M) {
-  __shared__ __align__(32) bf16 ah[256], al[256], bh[256], bl[256];
-  __shared__ __align__(32) float stage[256];
-  const int o0 = blockIdx.y * 16, m0 = blockIdx.x * 16;
-  FragC hh, hl, lh;
-  wmma::fill_fragment(hh, 0.f);
-  wmma::fill_fragment(hl, 0.f);
-  wmma::fill_fragment(lh, 0.f);
+                        float* __restrict__ out, int C, int O, int M, int mtiles, bool vo) {
+  using namespace split;
+  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;  // the fragments' group and lane in it
+  const int o0 = blockIdx.x / mtiles * 16;
+  const int n0 = blockIdx.x % mtiles * BM + threadIdx.x / 32 * 8 * NW;
+  float hh[NW][4] = {}, hl[NW][4] = {}, lh[NW][4] = {};
   for (int c0 = 0; c0 < C; c0 += 16) {
-    for (int i = threadIdx.x; i < 256; i += 32) {
-      const int r = i / 16, q = i % 16;
-      // the A tile [o][c] = a[c][o]; the B tile [c][m]
-      const bool in_a = o0 + r < O && c0 + q < C;
-      const bool in_b = c0 + r < C && m0 + q < M;
-      split_store(in_a ? a[(c0 + q) * O + o0 + r] : 0.f, ah, al, i);
-      split_store(in_b ? b[(c0 + r) * M + m0 + q] : 0.f, bh, bl, i);
+    // A's element e: row g + 8 (e / 2 % 2), column 2 t + e % 2 + 8 (e / 4);
+    // B's: row 2 t + e % 2 + 8 (e / 2), column g
+    float av[8], bv[NW][4];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int k = c0 + 2 * t + e % 2 + 8 * (e / 4), o = o0 + g + 8 * (e / 2 % 2);
+      av[e] = k < C && o < O ? a[(long long)k * O + o] : 0.f;
     }
-    __syncwarp();
-    FragA fah, fal;
-    FragB fbh, fbl;
-    wmma::load_matrix_sync(fah, ah, 16);
-    wmma::load_matrix_sync(fal, al, 16);
-    wmma::load_matrix_sync(fbh, bh, 16);
-    wmma::load_matrix_sync(fbl, bl, 16);
-    wmma::mma_sync(hh, fah, fbh, hh);
-    wmma::mma_sync(hl, fah, fbl, hl);
-    wmma::mma_sync(lh, fal, fbh, lh);
-    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < NW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = c0 + 2 * t + e % 2 + 8 * (e / 2), n = n0 + 8 * j + g;
+        bv[j][e] = k < C && n < M ? b[(long long)k * M + n] : 0.f;
+      }
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) split_pair(av[2 * r], av[2 * r + 1], ah[r], al[r]);
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      uint32_t bh[2], bl[2];
+      split_pair(bv[j][0], bv[j][1], bh[0], bl[0]);
+      split_pair(bv[j][2], bv[j][3], bh[1], bl[1]);
+      mma_bf16_16816(hh[j], ah, bh[0], bh[1]);
+      mma_bf16_16816(hl[j], ah, bl[0], bl[1]);
+      mma_bf16_16816(lh[j], al, bh[0], bh[1]);
+    }
   }
-  for (int e = 0; e < hh.num_elements; ++e) hh.x[e] = (hh.x[e] + hl.x[e]) + lh.x[e];
-  wmma::store_matrix_sync(stage, hh, 16, wmma::mem_row_major);
-  __syncwarp();
-  for (int i = threadIdx.x; i < 256; i += 32) {
-    const int r = i / 16, q = i % 16;
-    if (o0 + r < O && m0 + q < M) out[(o0 + r) * M + m0 + q] = stage[i];
+  // accumulator element e at row g + 8 (e / 2), column 2 t + e % 2
+#pragma unroll
+  for (int j = 0; j < NW; ++j) {
+    const int n = n0 + 8 * j + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int o = o0 + g + 8 * h;
+      const float x = (hh[j][2 * h] + hl[j][2 * h]) + lh[j][2 * h];
+      const float y = (hh[j][2 * h + 1] + hl[j][2 * h + 1]) + lh[j][2 * h + 1];
+      if (o >= O || n >= M) continue;
+      float* p = out + (long long)o * M + n;
+      if (vo && n + 1 < M) {
+        *reinterpret_cast<float2*>(p) = make_float2(x, y);
+      } else {
+        p[0] = x;
+        if (n + 1 < M) p[1] = y;
+      }
+    }
   }
 }
 
@@ -271,6 +334,22 @@ int launch_gridded(const void* x, const void* w, void* out, void* neg, int b, in
   return done();
 }
 
+// a (o, c), or (TRANS) a (c, o)
+template <bool TRANS>
+int launch_dot(const void* a, const void* b, void* out, int o, int c, int m, void* stream) {
+  using namespace plain;
+  const int mtiles = (m + PM - 1) / PM;
+  const long long n = (long long)mtiles * ((o + PO - 1) / PO);
+  if (n == 0) return done();  // nothing to compute: an empty grid is no launch
+  if (n > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const bool va = (TRANS ? o : c) % 4 == 0 && reinterpret_cast<std::uintptr_t>(a) % 16 == 0;
+  const bool vb = m % 4 == 0 && reinterpret_cast<std::uintptr_t>(b) % 16 == 0;
+  probe_dot_kernel<TRANS><<<static_cast<unsigned>(n), PT, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(out), o, c,
+      m, mtiles, va, vb);
+  return done();
+}
+
 }  // namespace
 
 // Every tensor float32 and contiguous; each launcher returns
@@ -284,24 +363,21 @@ extern "C" int probe_copy_launch(const void* x, void* out, int n, void* stream) 
 
 extern "C" int probe_dot_plain_launch(const void* a, const void* b, void* out, int o, int c,
                                       int m, void* stream) {
-  using namespace plain;
-  const int mtiles = (m + PM - 1) / PM;
-  const long long n = (long long)mtiles * ((o + PO - 1) / PO);
-  if (n == 0) return done();  // nothing to compute: an empty grid is no launch
-  if (n > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const bool va = c % 4 == 0 && reinterpret_cast<std::uintptr_t>(a) % 16 == 0;
-  const bool vb = m % 4 == 0 && reinterpret_cast<std::uintptr_t>(b) % 16 == 0;
-  probe_dot_plain_kernel<<<static_cast<unsigned>(n), PT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(out), o, c,
-      m, mtiles, va, vb);
-  return done();
+  return launch_dot<false>(a, b, out, o, c, m, stream);
 }
 
 extern "C" int probe_dot_transposed_launch(const void* a, const void* b, void* out, int o, int c,
                                            int m, void* stream) {
-  probe_dot_transposed_kernel<<<blocks(o * m), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  return launch_dot<true>(a, b, out, o, c, m, stream);
+}
+
+// The dot probes' bit reference, never a probe's path: a's element (o, c) at
+// a[o * so + c * sc], so (c, 1) for a (o, c) and (1, o) for a (c, o)
+extern "C" int probe_dot_chain_launch(const void* a, const void* b, void* out, int o, int c,
+                                      int m, int so, int sc, void* stream) {
+  probe_dot_chain_kernel<<<blocks(o * m), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(out), o, c,
-      m);
+      m, so, sc);
   return done();
 }
 
@@ -326,9 +402,15 @@ extern "C" int probe_multi_output_launch(const void* x, const void* w, void* out
 // a (c, o), b (c, m), out (o, m)
 extern "C" int probe_bf16_split_launch(const void* a, const void* b, void* out, int o, int c,
                                        int m, void* stream) {
-  probe_bf16_split_kernel<<<dim3((m + 15) / 16, (o + 15) / 16), 32, 0,
+  using namespace split;
+  const int mtiles = (m + BM - 1) / BM;
+  const long long n = (long long)mtiles * ((o + 15) / 16);
+  if (n == 0) return done();  // nothing to compute: an empty grid is no launch
+  if (n > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const bool vo = m % 2 == 0 && reinterpret_cast<std::uintptr_t>(out) % 8 == 0;
+  probe_bf16_split_kernel<<<static_cast<unsigned>(n), 32 * WB, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(out), c, o,
-      m);
+      m, mtiles, vo);
   return done();
 }

@@ -1,5 +1,5 @@
-// The consumer side of the multi-pass bf16 matmul kernels (gridmm.cu and
-// dhconv_gemm.cuh): A fragments read from a staged float32 or bf16 tile and
+// The consumer side of the multi-pass bf16 matmul kernels (gridmm.cu,
+// dhconv_gemm.cuh, dhconv_dw.cu; probes.cu's mma.sync probe): A fragments read from a staged float32 or bf16 tile and
 // split into bf16 hi/lo in registers, so the split writes nothing back to
 // shared memory, and Hopper's warpgroup product wgmma.mma_async m64n256k16
 // (gridmm) or m64n96k16 (dhconv), bf16 in, float32 accumulate, with A from
@@ -21,6 +21,15 @@
 // a[1] (g + 8, 2t), a[2] (g, 2t + 8), a[3] (g + 8, 2t + 8), two bf16 each,
 // the lower depth in the low half. The accumulator of m64nN: d[4j + e] is
 // row 16w + g + 8 (e / 2), column 8j + 2t + e % 2.
+//
+// The passes: a float32 operand a is split into two bfloat16 values,
+//   hi = bf16_rn(a),  lo = bf16_rn(a - float(hi)),
+// and a product a*b is formed from the bf16 parts on the tensor cores:
+//   passes 1: ah*bh
+//   passes 2: ah*bh + ah*bl          (second operand split, first rounded)
+//   passes 3: ah*bh + (ah*bl + al*bh)
+// Each bf16 x bf16 product is exact in float32 and is accumulated in float32,
+// as in _mp_dot (makani_tpu/ops/pallas_mm.py:40-55).
 #pragma once
 
 #include "cp_async_ring.cuh"

@@ -3,14 +3,14 @@
 Every kernel has a plain C launcher (`<name>_launch`, returning
 cudaGetLastError()) in a CUDA C++ source in makani_tpu_torch/csrc/ for sm_90a,
 loaded with ctypes; one source may hold several kernels (gridmm.cu holds
-gridmm and grid_dot, probes.cu the seven probes, gelu.cu the bf16 GELU and its
-gradient). `build()` compiles the
-sources with nvcc at first use into build/kernels/ at the root of the
-checkout, one nvcc per source, all started together; a library there that
-is newer than every kernel source, header and this module is loaded as it
-is, so a process started by one that built (a CLI's subprocess) compiles
-nothing. `launches` counts kernel
-launches per wrapper: `launch` adds one where it launches a kernel, and
+gridmm and grid_dot, probes.cu the seven probes and probe_dot_chain, the
+dot probes' bit reference, gelu.cu the bf16 GELU and its gradient).
+`build()` compiles the sources with nvcc at first use into build/kernels/
+at the root of the checkout, one nvcc per source, all started together; a
+library there that is newer than every kernel source, header and this
+module is loaded as it is, so a process started by one that built (a CLI's
+subprocess) compiles nothing. `launches` counts kernel launches per
+wrapper: `launch` adds one where it launches a kernel, and
 callers reset and read the counts around a run. `launches_by_passes` counts
 the launches of the kernels that take a bf16 pass count by (kernel, passes),
 so a run can show at which accuracy point its kernels ran. A call with
@@ -42,7 +42,7 @@ _SOURCES = {"legmm": "legmm.cu", "dhconv_mm": "dhconv_mm.cu", "dhconv_dw": "dhco
             "fused_adam": "fused_adam.cu", "dhconv_complex": "dhconv_complex.cu",
             "gridmm": "gridmm.cu", "grid_dot": "gridmm.cu",
             "gelu_bf16": "gelu.cu", "gelu_bf16_grad": "gelu.cu",
-            **{name: "probes.cu" for name in PROBES}}
+            **{name: "probes.cu" for name in (*PROBES, "probe_dot_chain")}}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -140,6 +140,8 @@ def _declare(name, lib):
         "probe_dot_plain": [vp, vp, vp, ci, ci, ci, vp],
         "probe_dot_transposed": [vp, vp, vp, ci, ci, ci, vp],
         "probe_bf16_split": [vp, vp, vp, ci, ci, ci, vp],
+        # a, b, out, o, c, m, a's strides along o and c, stream
+        "probe_dot_chain": [vp, vp, vp, ci, ci, ci, ci, ci, vp],
         # x, w, out, b, l, c, o, m, stream
         "probe_grid_blocks": [vp, vp, vp, ci, ci, ci, ci, ci, vp],
         "probe_stacked_output": [vp, vp, vp, ci, ci, ci, ci, ci, vp],

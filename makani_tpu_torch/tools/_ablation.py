@@ -24,8 +24,10 @@ def edited_sources(sources, edits, csrc=kernels._CSRC):
 def build_variants(subdir, sources, variants, names, parent=None):
     """Writes each variant's sources ({variant: edits}; sources[0] is the one
     compiled) into build/kernels/<subdir>/<variant>/ and builds it, all nvcc
-    started together. With `parent`, a csrc directory of another checkout,
-    its sources unedited are built as the variant "parent". Returns
+    started together; a header not among `sources` is read from the csrc
+    directory the variant came from. With `parent`, a csrc directory of
+    another checkout, its sources unedited are built as the variant
+    "parent". Returns
     ({variant: {kernel name: launcher}}, {variant: nvcc's log})."""
     root = kernels.BUILD_DIR / subdir
     todo = {v: (kernels._CSRC, edits) for v, edits in variants.items()}
@@ -38,8 +40,8 @@ def build_variants(subdir, sources, variants, names, parent=None):
         for f, text in edited_sources(sources, edits, csrc).items():
             (d / f).write_text(text)
         lib = d / f"lib{Path(sources[0]).stem}.so"
-        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(d), "-o", str(lib),
-               str(d / sources[0])]
+        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(d), "-I", str(csrc), "-o",
+               str(lib), str(d / sources[0])]
         procs[variant] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                 stderr=subprocess.STDOUT, text=True))
     launchers, logs = {}, {}

@@ -150,13 +150,13 @@ def probe_copy(x):
     return out
 
 
-def _dot(name, a, b, transposed):
+def _dot(name, a, b, transposed, *strides):
     o, c, m = _dot_shapes(a, b, transposed)
     dev = _device_of(name, (a, b))
     if not (o and c and m):
         return no_work((o, m), c, dev)
     out = a.new_empty(o, m)
-    launch(name, dev.index, a.data_ptr(), b.data_ptr(), out.data_ptr(), o, c, m)
+    launch(name, dev.index, a.data_ptr(), b.data_ptr(), out.data_ptr(), o, c, m, *strides)
     return out
 
 
@@ -176,6 +176,19 @@ def probe_bf16_split(a, b):
     if not dispatch(a):
         return bf16_split_plain(a, b)
     return _dot("probe_bf16_split", a, b, True)
+
+
+def dot_chain(a, b, transposed=False):
+    """The dot probes' bit reference (csrc/probes.cu probe_dot_chain): each
+    output the fused multiply-adds of its products in order of c from 0, one
+    thread an output reading a through its strides; a (O, C), or (C, O) when
+    `transposed`. For the card tests and chip_smoke.py, never a probe's
+    path; on CPU tensors the twin."""
+    if not dispatch(a):
+        return (dot_transposed_plain if transposed else dot_plain_plain)(a, b)
+    _dot_shapes(a, b, transposed)
+    n = a.shape[1]  # a's row: O when transposed, else C
+    return _dot("probe_dot_chain", a, b, transposed, *((1, n) if transposed else (n, 1)))
 
 
 def probe_grid_blocks(x, w):

@@ -20,15 +20,17 @@ measures that path four ways:
            times a kernel), the median of EVENT_REPS calls, the probe and its
            PyTorch call in ROUNDS interleaved rounds;
   device   kernel_isolate.device_ms of each probe and its PyTorch call
-           (torch.profiler's kernel records), ROUNDS times.
+           (torch.profiler's kernel records), ROUNDS times;
+  after    the enqueue once more, after those profiler sessions (it reads a
+           few microseconds higher after them on the H100, so an enqueue
+           that is compared is read before any session).
 
 Host times are medians over batches of BATCH calls timed with
 time.perf_counter_ns, the card synchronised between batches and never
 inside one, so the launch queue stays far from full; the loop's own cost (a
 call of an empty function) is subtracted. It also checks that probe_copy
-gives its twin's bits and probe_dot_plain the bits of the same fused
-multiply-adds in the order of c, read from probe_dot_transposed on aᵀ (the
-chain both bodies share).
+gives its twin's bits and probe_dot_plain those of probe_dot_transposed on
+aᵀ (both keep the fused multiply-adds in the order of c).
 
 The package imported is whichever is first on the path, so the tool times an
 older checkout's launch path from that checkout's root:
@@ -197,17 +199,17 @@ def card():
 
 
 def bits(dev):
-    """(probe_copy equals its twin bit for bit, probe_dot_plain equals the
-    fused multiply-add chain in the order of c bit for bit), at the script's
-    shapes and at a ragged one whose rows are not a multiple of 4 floats."""
+    """(probe_copy equals its twin bit for bit, probe_dot_plain equals
+    probe_dot_transposed on aᵀ bit for bit), at the script's shapes and at
+    ragged ones whose rows are not a multiple of 4 floats."""
     (x,) = kernel_isolate.case_inputs([(8, 128)], 0, dev)
     copy_same = torch.equal(kernel_isolate.probe_copy(x), kernel_isolate.copy_plain(x))
     dot_same = True
     for shapes in ([(16, 16), (16, 128)], [(33, 70), (70, 130)], [(5, 7), (7, 9)]):
         a, b = kernel_isolate.case_inputs(shapes, 1, dev)
         got = kernel_isolate.probe_dot_plain(a, b)
-        chain = kernel_isolate.probe_dot_transposed(a.T.contiguous(), b)
-        dot_same &= torch.equal(got.view(torch.int32), chain.view(torch.int32))
+        same = kernel_isolate.probe_dot_transposed(a.T.contiguous(), b)
+        dot_same &= torch.equal(got.view(torch.int32), same.view(torch.int32))
     return copy_same, dot_same
 
 
@@ -220,7 +222,7 @@ def run():
     cases = {c[0]: c for c in kernel_isolate.CASES[:7]}
     inputs = {name: kernel_isolate.case_inputs(c[1], 0, dev) for name, c in cases.items()}
 
-    rec["bits"] = dict(zip(("copy_equals_twin", "dot_plain_equals_fma_chain"), bits(dev)))
+    rec["bits"] = dict(zip(("copy_equals_twin", "dot_plain_equals_transposed"), bits(dev)))
     print(f"bits: {rec['bits']}", flush=True)
 
     # parts of the two redesigned probes' launch path
@@ -263,6 +265,16 @@ def run():
                   f"({', '.join(fmt.format(t) for t in k)}) / "
                   f"{fmt.format(statistics.median(lib))} ({', '.join(fmt.format(t) for t in lib)})",
                   flush=True)
+
+    # the enqueue again, after the profiler's sessions above
+    rec["enqueue_after_profiler_us"] = {}
+    for name, (_, _, kernel, _) in cases.items():
+        args = inputs[name]
+        rec["enqueue_after_profiler_us"][name] = (enqueue_us(lambda: kernel(*args)),
+                                                  enqueue_us(library_call(name, *args)))
+    print("[enqueue after the profiler] host us a call, the probe / its PyTorch call: "
+          + "; ".join(f"{n} {k:.2f} / {lib:.2f}"
+                      for n, (k, lib) in rec["enqueue_after_profiler_us"].items()), flush=True)
     return rec
 
 

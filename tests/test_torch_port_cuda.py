@@ -1274,36 +1274,103 @@ def test_gridded_probes_after_a_nan_call(cuda, probe):
                   torch.randn((3, 17, 5), device=cuda, generator=g))
 
 
-# probe_dot_plain's staged body against the fused multiply-adds in order of
-# c that it keeps, read from probe_dot_transposed (dot_om, unchanged) on a^T:
-# the script's shape (16-byte loads of a and b), the ragged shape of
+# The dot probes' staged body (probe_dot_kernel, both layouts of a) against
+# the fused multiply-adds in order of c that it keeps, read from the
+# reference chain (probe_dot_chain, one thread an output): the script's
+# shape (16-byte loads of a and b), the ragged shape of
 # test_probe_kernels_at_ragged_shapes (rows of 70 and 130 floats: scalar
 # loads), rows that are not a multiple of 4 floats in a, in b or in both, c
 # past one staged chunk (257: sixteen chunks and a one-row tail), a single
-# element, and b 4 bytes past a 16-byte boundary (rows of 128 floats read
-# by scalars)
+# element, and b, or a, 4 bytes past a 16-byte boundary (rows of 128 or 16
+# floats read by scalars). The transposed probe takes each case's a^T, so
+# its rows of o take the 16-byte loads where O is a multiple of 4.
 DOT_PLAIN_SHAPES = [((16, 16), (16, 128)), ((33, 70), (70, 130)), ((5, 7), (7, 9)),
                     ((9, 12), (12, 30)), ((9, 13), (13, 64)), ((20, 257), (257, 36)),
                     ((1, 1), (1, 1)), "b off 16 bytes"]
 
 
+def _dot_operands(shapes, dev, transposed):
+    """(a, b) of a DOT_PLAIN_SHAPES case, a (O, C), or (C, O) when
+    `transposed`; "a off 16 bytes": a (16, 16) 4 bytes past a 16-byte
+    boundary."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    if shapes in ("b off 16 bytes", "a off 16 bytes"):
+        a = (_sliced_randn((16, 16), dev, g) if shapes[0] == "a"
+             else torch.randn((16, 16), device=dev, generator=g))
+        b = (_sliced_randn((16, 128), dev, g) if shapes[0] == "b"
+             else torch.randn((16, 128), device=dev, generator=g))
+        assert (a if shapes[0] == "a" else b).data_ptr() % 16 == 4
+        return a, b
+    a, b = (torch.randn(s, device=dev, generator=g) for s in shapes)
+    return (a.T.contiguous() if transposed else a), b
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shapes", DOT_PLAIN_SHAPES, ids=str)
 def test_probe_dot_plain_is_the_fma_chain_bit_for_bit(cuda, shapes):
-    g = torch.Generator(device=cuda).manual_seed(9)
-    if shapes == "b off 16 bytes":
-        a = torch.randn((16, 16), device=cuda, generator=g)
-        b = _sliced_randn((16, 128), cuda, g)
-        assert b.data_ptr() % 16 == 4
-    else:
-        a, b = (torch.randn(s, device=cuda, generator=g) for s in shapes)
+    a, b = _dot_operands(shapes, cuda, False)
     before = kernels.launches["probe_dot_plain"]
     got = kernel_isolate.probe_dot_plain(a, b)
-    chain = kernel_isolate.probe_dot_transposed(a.T.contiguous(), b)
+    chain = kernel_isolate.dot_chain(a, b)
     torch.cuda.synchronize()
     assert kernels.launches["probe_dot_plain"] == before + 1
     assert torch.equal(got.view(torch.int32), chain.view(torch.int32))
     assert _rel(got, kernel_isolate.dot_plain_plain(a, b)) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shapes", [*DOT_PLAIN_SHAPES, "a off 16 bytes"], ids=str)
+def test_probe_dot_transposed_is_the_fma_chain_bit_for_bit(cuda, shapes):
+    a, b = _dot_operands(shapes, cuda, True)
+    before = kernels.launches["probe_dot_transposed"]
+    got = kernel_isolate.probe_dot_transposed(a, b)
+    chain = kernel_isolate.dot_chain(a, b, transposed=True)
+    torch.cuda.synchronize()
+    assert kernels.launches["probe_dot_transposed"] == before + 1
+    assert torch.equal(got.view(torch.int32), chain.view(torch.int32))
+    assert _rel(got, kernel_isolate.dot_transposed_plain(a, b)) < TOL
+
+
+# probe_bf16_split against mma.sync m16n8k16's tiles (16 rows of o, n8 tiles
+# of m, 16-deep chunks of c): C = 1, 17 and 257 (a chunk's tail), O = 1 and
+# 33, M = 1, 7 (odd: scalar stores) and 130, and a and b 4 bytes past a
+# 16-byte boundary. Each launch writes into an output filled with NaN, so an
+# element never stored shows; held within TOL of the twin (the same bf16
+# products summed in another order) and within the 3-pass bound of float64
+# (5e-5, tests/test_pallas_mm.py)
+BF16_SPLIT_SHAPES = [(c, o, m) for c in (1, 17, 257) for o, m in ((1, 1), (33, 7), (33, 130),
+                                                                 (1, 130))]
+
+
+def _bf16_split_case(a, b):
+    o, c, m = a.shape[1], a.shape[0], b.shape[1]
+    out = torch.full((o, m), float("nan"), device=a.device)
+    before = kernels.launches["probe_bf16_split"]
+    kernels.launch("probe_bf16_split", a.device.index, a.data_ptr(), b.data_ptr(),
+                   out.data_ptr(), o, c, m)
+    got = kernel_isolate.probe_bf16_split(a, b)
+    torch.cuda.synchronize()
+    assert kernels.launches["probe_bf16_split"] == before + 2
+    assert bool(torch.isfinite(out).all())
+    assert torch.equal(out.view(torch.int32), got.view(torch.int32))
+    assert _rel(got, kernel_isolate.bf16_split_plain(a, b)) < TOL
+    assert _rel(got.double(), a.double().T @ b.double()) < 5e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,o,m", BF16_SPLIT_SHAPES)
+def test_probe_bf16_split_at_fragment_edges(cuda, c, o, m):
+    g = torch.Generator(device=cuda).manual_seed(11)
+    _bf16_split_case(torch.randn((c, o), device=cuda, generator=g),
+                     torch.randn((c, m), device=cuda, generator=g))
+
+
+@pytest.mark.cuda
+def test_probe_bf16_split_reads_off_16_bytes(cuda):
+    g = torch.Generator(device=cuda).manual_seed(12)
+    a, b = _sliced_randn((17, 33), cuda, g), _sliced_randn((17, 130), cuda, g)
+    assert a.data_ptr() % 16 == 4 and b.data_ptr() % 16 == 4
+    _bf16_split_case(a, b)
 
 
 # ~0.1 s of spinning at the H100's 1.98 GHz: far longer than a launch

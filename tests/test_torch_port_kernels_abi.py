@@ -133,6 +133,23 @@ def test_dot_ablation_edits_apply_to_the_source(variant):
     assert changed == {f for f, _, _ in edits}
 
 
+@pytest.mark.parametrize("family,variant", [
+    (f, v) for f in ("transposed", "split")
+    for v in sorted(probe_ablation.DOT_FAMILIES[f].variants)])
+def test_probe_family_ablation_edits_apply_to_the_source(family, variant):
+    """probe_ablation's transposed and split families rebuild probes.cu with
+    probe_dot_kernel's or probe_bf16_split_kernel's parts switched off or
+    their tiles changed: each edit must find its text once, and every
+    variant that computes is one the family checks bit for bit."""
+    fam = probe_ablation.DOT_FAMILIES[family]
+    edits = fam.variants[variant]
+    texts = _ablation.edited_sources(probe_ablation.SOURCES, edits)
+    originals = {f: (kernels._CSRC / f).read_text() for f in probe_ablation.SOURCES}
+    changed = {f for f in texts if texts[f] != originals[f]}
+    assert changed == {f for f, _, _ in edits}
+    assert fam.probe in kernels._SOURCES and set(fam.computing) - {"parent"} <= set(fam.variants)
+
+
 @pytest.mark.parametrize("variant", sorted(adam_ablation.VARIANTS))
 def test_adam_ablation_edits_apply_to_the_source(variant):
     """tools/adam_ablation.py rebuilds fused_adam.cu with parts switched off

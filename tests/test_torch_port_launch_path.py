@@ -110,6 +110,21 @@ def test_probe_wrapper_hands_the_launcher_pointers_dims_and_stream(path, probe):
     assert kernels.launches == {**before, name: before[name] + 1}
 
 
+@pytest.mark.parametrize("transposed", [False, True])
+def test_dot_chain_hands_the_launcher_a_by_its_strides(path, transposed):
+    """The dot probes' bit reference reads a (O, C) at strides (C, 1) and a
+    (C, O) at (1, O), counted as probe_dot_chain."""
+    a, b = kernel_isolate.case_inputs([(5, 3) if transposed else (3, 5), (5, 7)], 0,
+                                      torch.device("cpu"))
+    before = dict(kernels.launches)
+    got = kernel_isolate.dot_chain(a, b, transposed=transposed)
+    [args] = path.recorders["probe_dot_chain"].calls
+    strides = (1, 3) if transposed else (5, 1)
+    assert args == (*_ptrs(a, b, got), 3, 5, 7, *strides, STREAM)
+    assert len(args) == _n_args("probe_dot_chain")
+    assert kernels.launches == {**before, "probe_dot_chain": before["probe_dot_chain"] + 1}
+
+
 def _refusals():
     f32 = torch.randn
     return {
