@@ -281,8 +281,27 @@ Phases, in order; any failure exits non-zero:
      indices from the shard's first one) bit for bit against its twin and
      the whole leaf's update; the control of (b), run by the same ranks
      after it, drops the spatial sum of the replicated leaves' gradients and
-     must read above its bounds. These times are not the port's speed on
-     several cards: gloo moves the transposes through the host.
+     must read above its bounds; (e) and (f), run by (a)'s ranks after it,
+     each model freed first: the flagship held in a class registered from a
+     file (FILE_CLASS, written under PARALLEL_DIR) that sets no
+     spatially_parallel, built by get_model from its "path.py:FileSFNO"
+     nettype, so each rank gathers the whole field, runs the class on it
+     with the model axes serial and keeps its patch: (e) at full depth, a
+     1-step float32 rollout against (a)'s serial steps (PARALLEL_SERVE_TOL)
+     with each rank's launches (the serial forward's 18 legmm, 18 gridmm and
+     8 dhconv_mm), bytes sent, step ms and peak; (f) at
+     PARALLEL_TRAIN_LAYERS blocks, float32, checkpointing FILE_CLASS_LEVEL,
+     the gradients of mean(y**2) over the whole output reduced as the
+     Trainer reduces them, every leaf whole, against the serial gradients
+     of the same weights, both held against the serial ones at "highest"
+     (float32): each leaf of the ranks within FILE_CLASS_GRAD_FACTOR times
+     the serial run's deviation plus TWIN_TOL, the ranks' partial gradients
+     before the spatial sum (the control) above it, with 18 legmm, 18 gridmm, 6
+     dhconv_mm (the blocks recomputed in backward) and 2 dhconv_dw a rank;
+     the ranks take their backward in turn, since four at once do not fit
+     the card. These times are not the
+     port's speed on several cards: gloo moves the transposes through the
+     host.
  18. channel (tensor) parallelism over fin and fout, the ranks sharing the
      card over gloo as in phase 17, cut as TP_CUTS lists: (a)
      flagship_synth_drive_bare at full width, TP_SERVE_LAYERS blocks,
@@ -354,7 +373,8 @@ launches_fno_linear, launches_fno_nonlinear, launches_scan,
 launches_factorized, launches_csphase, launches_fp16_trainer and
 launches_fp16_update, phase 15's in launches_afno_v2, launches_afno_v1,
 launches_vit and their *_amp, phase 16's in launches_videos, phase 17's
-per rank in launches_parallel_serve and launches_parallel_train, and its
+per rank in launches_parallel_serve and launches_parallel_train, (e)'s and
+(f)'s in launches_file_class_serve and launches_file_class_grad, and its
 (c) row at a rank's local shape in parallel_local, phase 18's per rank in
 launches_tp_serve and launches_tp_train, and its (c) row at a fin rank's
 shape in tp_local, phase 19's per rank in launches_spatial_serve and
@@ -672,6 +692,59 @@ PARALLEL_LOSS_TOL = 2e-3
 PARALLEL_UPDATE_TOL = 0.5
 PARALLEL_UPDATE_MEDIAN_TOL = 0.25
 PARALLEL_TIMEOUT = 600
+# (e) and (f): the flagship held in a class registered from a file
+# (FILE_CLASS, written under PARALLEL_DIR), which sets no spatially_parallel:
+# each rank gathers the whole field, runs the class on it with the model axes
+# serial and keeps its patch (spmd.whole_field), in the spawn of (a), after
+# it. (e) a 1-step float32 rollout at full depth against (a)'s serial steps
+# (PARALLEL_SERVE_TOL); each rank runs the serial forward on the serial
+# shapes, so its launches are the serial ones. (f) the gradients of
+# mean(y**2) over the whole output at PARALLEL_TRAIN_LAYERS blocks, float32,
+# checkpointing FILE_CLASS_LEVEL (every block recomputed in backward, with
+# the model axes serial again), reduced as the Trainer reduces them,
+# against the serial gradients of the same weights. Each rank backpropagates
+# its own patch's share of the cotangent, so its kernels round other partial
+# contractions than the serial run's, and the sum of the four partials
+# differs from the serial gradient by two roundings at 3 bf16 passes, not
+# by a reordered float32 sum. Both are held against the serial gradients at
+# "highest" (float32 throughout, no kernel): every leaf of the ranks within
+# FILE_CLASS_GRAD_FACTOR times the serial run's own deviation from them,
+# plus TWIN_TOL (a leaf that no kernel reaches), each relative to the leaf's
+# largest magnitude (the MLP's output bias, whose exact gradient is zero,
+# against the largest of all: ZERO_GRAD). So the ranks are no less exact
+# than one card. The control, each rank's partial gradients before the
+# spatial sum, must fail the same bound
+FILE_CLASS_GRAD_FACTOR = 2.0
+FILE_CLASS = "FileSFNO"
+FILE_CLASS_SOURCE = """
+import inspect
+
+import torch
+
+from makani_tpu_torch.models.networks.sfnonet import SphericalFourierNeuralOperatorNet
+
+
+class FileSFNO(torch.nn.Module):
+    # the port's SFNO by composition: this class sets no spatially_parallel
+    def __init__(self, device="cpu", generator=None, **kwargs):
+        super().__init__()
+        self.net = SphericalFourierNeuralOperatorNet(device=device, generator=generator, **kwargs)
+
+    def forward(self, x, deterministic=True):
+        return self.net(x, deterministic=deterministic)
+
+
+# get_model passes the config's keys that the SFNO takes
+FileSFNO.__init__.__signature__ = inspect.signature(SphericalFourierNeuralOperatorNet.__init__)
+"""
+# (f)'s level: at PARALLEL_LEVEL a rank's whole-field forward alone held
+# 17.64 GiB, and the fourth ran out of memory (H100 80GB HBM3); at 3 a
+# rank keeps only each block's input through the forward. The recomputed
+# blocks launch their forward kernels again in backward: 18 legmm, 18
+# gridmm and 6 dhconv_mm where level 2 launches 12, 12 and 4
+FILE_CLASS_LEVEL = 3
+FILE_CLASS_SERVE_LAUNCHES = {"legmm": 18, "gridmm": 18, "dhconv_mm": 8}
+FILE_CLASS_GRAD_LAUNCHES = {"legmm": 18, "gridmm": 18, "dhconv_mm": 6, "dhconv_dw": 2}
 
 # phase 18: channel (tensor) parallelism on one card, the ranks sharing it
 # over gloo as in phase 17
@@ -3626,7 +3699,7 @@ def parallel_rank(rank, world, port, sizes, job, args, queue):
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         kernels.load_built()
         comm.init(sizes, device_type="cuda")
-        job_fn = {"serve": parallel_serve, "train": parallel_train_pair, "tp_serve": tp_serve,
+        job_fn = {"serve": parallel_serve_all, "train": parallel_train_pair, "tp_serve": tp_serve,
                   "tp_train": tp_train, "spatial": sp_rank}[job]
         queue.put((rank, True, job_fn(torch, *args)))
     except BaseException:
@@ -3672,10 +3745,12 @@ def parallel_input(torch, dev, shape):
                        generator=torch.Generator(device=dev).manual_seed(PARALLEL_SEED + 1))
 
 
-def parallel_serve(torch, serial_dir, scales, steps=PARALLEL_SERVE_STEPS, layers=None):
+def parallel_serve(torch, serial_dir, scales, steps=PARALLEL_SERVE_STEPS, layers=None,
+                   nettype=None):
     """(a) on a rank: the flagship from PARALLEL_SEED (at `layers` blocks
-    where given), the rank's patch of the seeded input, `steps` rollout steps
-    held against the serial steps saved at `serial_dir`."""
+    where given; held in the class `nettype` names where given, (e)), the
+    rank's patch of the seeded input, `steps` rollout steps held against the
+    serial steps saved at `serial_dir`."""
     import numpy as np
     from makani_tpu_torch.models.model_registry import get_model
     from makani_tpu_torch.ops import kernels
@@ -3684,6 +3759,8 @@ def parallel_serve(torch, serial_dir, scales, steps=PARALLEL_SERVE_STEPS, layers
     params = flagship_params(1)
     if layers is not None:
         params["num_layers"] = layers
+    if nettype is not None:
+        params["nettype"] = nettype
     model = get_model(params, device=dev,
                       generator=torch.Generator(device=dev).manual_seed(PARALLEL_SEED))
     model.eval()
@@ -3691,7 +3768,7 @@ def parallel_serve(torch, serial_dir, scales, steps=PARALLEL_SERVE_STEPS, layers
     (h0, hn), (w0, wn) = spmd.patch(H, "h"), spmd.patch(W, "w")
     x = parallel_input(torch, dev, (1, params.N_in_channels, H, W))
     x = x[..., h0:h0 + hn, w0:w0 + wn].contiguous()
-    errs, times = [], []
+    errs, diffs, times = [], [], []
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launches()
     spmd.moved.clear()
@@ -3705,11 +3782,109 @@ def parallel_serve(torch, serial_dir, scales, steps=PARALLEL_SERVE_STEPS, layers
             want = np.load(serial_dir / f"step{step}.npy", mmap_mode="r")
             got = x.cpu().numpy()
             check(bool(np.isfinite(got).all()), f"(a) step {step} not finite")
-            errs.append(float(np.abs(got - want[..., h0:h0 + hn, w0:w0 + wn]).max())
-                        / scales[step])
+            diffs.append(float(np.abs(got - want[..., h0:h0 + hn, w0:w0 + wn]).max()))
+            errs.append(diffs[-1] / scales[step])
     return dict(errs=errs, step_ms=times, launches=dict(kernels.launches),
                 moved=dict(spmd.moved), peak_bytes=torch.cuda.max_memory_allocated(dev),
-                patch=(hn, wn), backend=comm.get_backend(), device=str(dev))
+                patch=(hn, wn), backend=comm.get_backend(), device=str(dev),
+                max_abs_errs=diffs)
+
+
+def file_class_params(nettype):
+    """(f)'s configuration: the flagship at PARALLEL_TRAIN_LAYERS blocks,
+    checkpointing FILE_CLASS_LEVEL, held in the class `nettype` names."""
+    params = flagship_params(1)
+    params.update_params(dict(nettype=nettype, num_layers=PARALLEL_TRAIN_LAYERS,
+                              checkpointing=FILE_CLASS_LEVEL))
+    return params
+
+
+def file_class_grad(torch, nettype, ref_path):
+    """(f) on a rank: the gradients of mean(y**2) over the whole output of
+    the file class from PARALLEL_SEED on the rank's patch of the seeded
+    input, reduced as the Trainer reduces them, against the serial ones
+    saved at `ref_path` ("serial", at the run's precision, and "float32", at
+    "highest"), and the control's (the rank's partial gradients)."""
+    import numpy as np
+    from makani_tpu_torch.models.model_registry import get_model
+    from makani_tpu_torch.ops import kernels
+    from makani_tpu_torch.parallel import comm, partitioning, spmd
+    dev = comm.get_device()
+    params = file_class_params(nettype)
+    model = get_model(params, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(PARALLEL_SEED))
+    H, W = params.img_crop_shape_x, params.img_crop_shape_y
+    (h0, hn), (w0, wn) = spmd.patch(H, "h"), spmd.patch(W, "w")
+    x = parallel_input(torch, dev, (1, params.N_in_channels, H, W))
+    x = x[..., h0:h0 + hn, w0:w0 + wn].contiguous()
+    # the recomputation (torch.utils.checkpoint) imports torch._dynamo at its
+    # first use, seconds of host time: paid before the timed step
+    import torch._dynamo  # noqa: F401
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    spmd.moved.clear()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    y = model(x)
+    whole = float(y.shape[0] * y.shape[1] * H * W)
+    loss = spmd.all_reduce_sum(y.square().sum(), "spatial") / whole
+    torch.cuda.synchronize(dev)
+    forward_ms = (time.perf_counter() - t0) * 1e3
+    # the four ranks share one card, where four whole-field backward passes
+    # at once do not fit (each peaks near the serial reference's peak,
+    # printed beside; over 20 GiB on an H100 80GB HBM3): the ranks take
+    # their backward in turn (it holds no collective), so one recomputes at
+    # a time, and each hands its cached memory back before and after its
+    # turn
+    torch.cuda.empty_cache()
+    for turn in range(comm.get_world_size()):
+        if turn == comm.get_world_rank():
+            t1 = time.perf_counter()
+            loss.backward()
+            torch.cuda.synchronize(dev)
+            backward_ms = (time.perf_counter() - t1) * 1e3
+            torch.cuda.empty_cache()
+        comm.barrier()
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    partial = {k: g.detach().clone() for k, g in grads.items()}    # the control
+    partitioning.reduce_gradients(grads, model.shards)
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches, moved = dict(kernels.launches), dict(spmd.moved)
+    peak = torch.cuda.max_memory_allocated(dev)
+    for k, g in grads.items():
+        check(bool(torch.isfinite(g).all()), f"(f) {k} not finite")
+    ref = torch.load(ref_path, map_location=dev, weights_only=True)
+    check(set(ref["serial"]) == set(grads), "(f) the leaves differ from the serial model's")
+    vs_serial = leaf_errors(grads, ref["serial"])
+    exact = {name: leaf_errors(g, ref["float32"])
+             for name, g in (("ranks", grads), ("serial", ref["serial"]), ("control", partial))}
+    bound = {k: FILE_CLASS_GRAD_FACTOR * e + TWIN_TOL for k, e in exact["serial"].items()}
+    margin = {name: {k: e / bound[k] for k, e in errs.items()} for name, errs in exact.items()}
+    worst = max(margin["ranks"], key=margin["ranks"].get)
+    control = max(margin["control"], key=margin["control"].get)
+    rs = max(vs_serial, key=vs_serial.get)
+    return dict(worst_leaf=worst, worst_margin=margin["ranks"][worst],
+                worst_exact=exact["ranks"][worst], worst_serial_exact=exact["serial"][worst],
+                control_leaf=control, control_margin=margin["control"][control],
+                vs_serial_leaf=rs, vs_serial=vs_serial[rs],
+                vs_serial_median=float(np.median(list(vs_serial.values()))),
+                leaves=len(grads), split=len(model.shards), loss=float(loss), step_ms=ms,
+                forward_ms=forward_ms, backward_ms=backward_ms, launches=launches, moved=moved,
+                peak_bytes=peak, patch=(hn, wn))
+
+
+def parallel_serve_all(torch, serial_dir, scales, nettype, grad_ref):
+    """(a), then (e) and (f) on the same ranks, each model freed before the
+    next is built."""
+    out = {"serve": parallel_serve(torch, serial_dir, scales)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["file_serve"] = parallel_serve(torch, serial_dir, scales, nettype=nettype)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["file_grad"] = file_class_grad(torch, nettype, grad_ref)
+    return out
 
 
 def parallel_train_params(**overrides):
@@ -3866,6 +4041,7 @@ def phase_parallel(torch, np, spectral_mm, kernels, dev, gen, card, order_gap=No
     `order_gap` is phase 4's forward error of the kernels against their
     twins, printed beside (a)'s."""
     from makani_tpu_torch.models.model_registry import get_model
+    from makani_tpu_torch.ops import complex_ops, sht
     from makani_tpu_torch.parallel import comm
     from makani_tpu_torch.utils.trainer import Trainer
     rec = {"backend": comm.choose_backend("cuda", PARALLEL_SERVE[1]),
@@ -3921,12 +4097,55 @@ def phase_parallel(torch, np, spectral_mm, kernels, dev, gen, card, order_gap=No
         del model, x, y
         gc.collect()
         torch.cuda.empty_cache()
+        # (f) the serial gradients of the file class, from the same weights
+        # and input
+        file_path = PARALLEL_DIR / "file_sfno.py"
+        file_path.write_text(FILE_CLASS_SOURCE)
+        nettype = f"{file_path}:{FILE_CLASS}"
+        params = file_class_params(nettype)
+        model = get_model(params, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(PARALLEL_SEED))
+        check(type(model.model).__name__ == FILE_CLASS
+              and not hasattr(model.model, "spatially_parallel"),
+              f"(f) the file class {type(model.model).__name__}")
+        import torch._dynamo  # noqa: F401  (file_class_grad says why)
+        x = parallel_input(torch, dev, (1, params.N_in_channels, params.img_crop_shape_x,
+                                        params.img_crop_shape_y))
+        refs, serial = {}, {}
+        prec = sht.get_transform_precision(), complex_ops.get_contraction_precision()
+        try:
+            for name, modes in (("float32", ("highest", "highest")), ("serial", prec)):
+                sht.set_transform_precision(modes[0])
+                complex_ops.set_contraction_precision(modes[1])
+                model.zero_grad(set_to_none=True)
+                torch.cuda.reset_peak_memory_stats()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model(x).square().mean().backward()
+                torch.cuda.synchronize()
+                serial["ms" if name == "serial" else "float32_ms"] = \
+                    (time.perf_counter() - t0) * 1e3
+                refs[name] = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+        finally:
+            sht.set_transform_precision(prec[0])
+            complex_ops.set_contraction_precision(prec[1])
+        serial["peak_bytes"] = torch.cuda.max_memory_allocated()
+        grad_ref = PARALLEL_DIR / "file_class_grads.pt"
+        torch.save(refs, grad_ref)
+        del model, x, refs
+        gc.collect()
+        torch.cuda.empty_cache()
         rec["parent_reserved_bytes"] = torch.cuda.memory_reserved()
         t0 = time.perf_counter()
-        ranks = run_ranks("serve", *PARALLEL_SERVE, PARALLEL_DIR, scales)
-        rec["serve"] = dict(ranks=ranks, wall_s=time.perf_counter() - t0, serial_ms=serial_ms,
+        out = run_ranks("serve", *PARALLEL_SERVE, PARALLEL_DIR, scales, nettype, grad_ref)
+        wall_s = time.perf_counter() - t0
+        ranks = [r["serve"] for r in out]
+        rec["serve"] = dict(ranks=ranks, wall_s=wall_s, serial_ms=serial_ms,
                             order_gap=order_gap)
+        rec["file_serve"] = dict(ranks=[r["file_serve"] for r in out])
+        rec["file_grad"] = dict(ranks=[r["file_grad"] for r in out], **serial)
         print_parallel_serve(rec["serve"])
+        print_file_class(rec)
         for i, r in enumerate(ranks):
             check(max(r["errs"]) < PARALLEL_SERVE_TOL,
                   f"(a) rank {i} patch vs serial, by step: {r['errs']}")
@@ -3934,6 +4153,18 @@ def phase_parallel(torch, np, spectral_mm, kernels, dev, gen, card, order_gap=No
                 check(r["launches"][name] > 0, f"(a) {name} not launched on a rank")
             check(r["launches"]["gridmm"] == r["launches"]["legmm"],
                   f"(a) gridmm {r['launches']['gridmm']}, legmm {r['launches']['legmm']}")
+        for i, (e, f) in enumerate(zip(rec["file_serve"]["ranks"], rec["file_grad"]["ranks"])):
+            check(max(e["errs"]) < PARALLEL_SERVE_TOL,
+                  f"(e) rank {i} patch vs serial, by step: {e['errs']}")
+            check(launch_counts(kernels, FILE_CLASS_SERVE_LAUNCHES) == e["launches"],
+                  f"(e) rank {i} launches {e['launches']}")
+            check(f["worst_margin"] < 1 and f["split"] == 0,
+                  f"(f) rank {i}: {f['worst_leaf']} at {f['worst_margin']} of its bound, "
+                  f"{f['split']} split leaves")
+            check(f["control_margin"] > 1,
+                  f"(f)'s control reads {f['control_margin']} of the bound")
+            check(launch_counts(kernels, FILE_CLASS_GRAD_LAUNCHES) == f["launches"],
+                  f"(f) rank {i} launches {f['launches']}")
         # (b) the serial batch-2 reference, then the ranks
         trainer = Trainer(parallel_train_params(batch_size=PARALLEL_BATCH), device=dev)
         torch.cuda.reset_peak_memory_stats()
@@ -4011,6 +4242,36 @@ def print_parallel_serve(serve):
     print(f"[parallel serve] {serve['wall_s']:.1f} s for the 4 ranks, start to end; the ordering "
           "gap of one serial forward (phase 4, kernels vs twins): "
           + ("not measured" if gap is None else f"{gap:.3g}"), flush=True)
+
+
+def print_file_class(rec):
+    for i, r in enumerate(rec["file_serve"]["ranks"]):
+        print(f"[parallel file class serve rank {i}] {FILE_CLASS} from a file, no "
+              f"spatially_parallel, h 2 x w 2, the whole field on the rank, patch {r['patch']}: "
+              f"step ms {', '.join(f'{t:.1f}' for t in r['step_ms'])}; errors vs serial "
+              f"{', '.join(f'{e:.3g}' for e in r['errs'])} (bound {PARALLEL_SERVE_TOL}; max abs "
+              f"{', '.join(f'{e:.3g}' for e in r['max_abs_errs'])}); launches legmm "
+              f"{r['launches']['legmm']}, gridmm {r['launches']['gridmm']}, dhconv_mm "
+              f"{r['launches']['dhconv_mm']}; bytes sent {r['moved']}; peak "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+    g = rec["file_grad"]
+    for i, r in enumerate(g["ranks"]):
+        print(f"[parallel file class grad rank {i}] {PARALLEL_TRAIN_LAYERS} blocks, float32, "
+              f"checkpointing {FILE_CLASS_LEVEL}: {r['leaves']} leaves, {r['split']} split; "
+              f"gradients vs the serial run's per leaf: worst {r['vs_serial']:.3g} "
+              f"({r['vs_serial_leaf']}), median {r['vs_serial_median']:.3g}; against float32 "
+              f"(\"highest\"): the worst leaf {r['worst_leaf']} {r['worst_exact']:.3g}, the serial "
+              f"run's {r['worst_serial_exact']:.3g}, {r['worst_margin']:.3g} of the bound "
+              f"({FILE_CLASS_GRAD_FACTOR} x the serial run's + {TWIN_TOL}; must be below 1); the "
+              f"control, the partial gradients before the spatial sum, {r['control_margin']:.3g} "
+              f"of it ({r['control_leaf']}; must be above 1); forward "
+              f"{r['forward_ms']:.1f} ms, its backward {r['backward_ms']:.1f} ms (the ranks in "
+              f"turn), the step {r['step_ms']:.1f} ms; launches "
+              f"{ {k: r['launches'][k] for k in FILE_CLASS_GRAD_LAUNCHES} }; bytes sent "
+              f"{r['moved']}; peak {r['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+    print(f"[parallel file class] serial gradients {g['ms']:.1f} ms, peak "
+          f"{g['peak_bytes'] / 2**30:.2f} GiB; at \"highest\" {g['float32_ms']:.1f} ms",
+          flush=True)
 
 
 def print_parallel_train(train):
@@ -5498,6 +5759,14 @@ def main(argv=None):
                                              for r in par["serve"]["ranks"]],
                     launches_parallel_train=[r["launches"][name]
                                              for r in par["train"]["ranks"]],
+                    # (e) and (f): the flagship in a class from a file, the
+                    # whole field on each rank, 1 float32 rollout step at 8
+                    # blocks, and 1 forward and backward at
+                    # PARALLEL_TRAIN_LAYERS
+                    launches_file_class_serve=[r["launches"][name]
+                                               for r in par["file_serve"]["ranks"]],
+                    launches_file_class_grad=[r["launches"][name]
+                                              for r in par["file_grad"]["ranks"]],
                     # phase 18: each rank's launches, (a) fin 2 x fout 2 over
                     # 1 rollout step, (b) h 2 x fin 2 over 2 AMP train steps
                     launches_tp_serve=[r["launches"][name] for r in tp["serve"]["ranks"]],

@@ -18,7 +18,9 @@ torch.distributed.run --standalone --nproc_per_node N -m
 makani_tpu_torch.inference ... --h_parallel_size 2 --fin_parallel_size 2`;
 parallel/comm): each rank scores its patch of its rows (with
 --split_data_channels, its chunk of the metrics' channels), and rank 0 writes
-the files.
+the files. Every network runs on every layout, one registered from a file
+without `spatially_parallel` on the whole field on each rank
+(models/model_registry).
 """
 
 import argparse

@@ -16,7 +16,7 @@ unrolled step of a multi-step forward) and the site's index (`Dropout.site`,
 `DropPath.site`, numbered by the network). A forward that drops must run
 under `use_dropout_key`. `remat` carries the key in force into the
 recomputation, so a block recomputed in backward draws the masks of its
-forward, bit for bit.
+forward, bit for bit; it carries comm.serial_model_axes() in alike.
 
 Channel parallelism (fin, fout). A layer reads how its leaves are stored
 from spmd.leaf_axis (partitioning.shard_module tells it) and is told how its
@@ -120,13 +120,16 @@ def rank_mask(shape, keep, site, device, global_hw=None, channel=None, tokens=No
 def remat(fn, *args):
     """fn(*args), its activations recomputed in backward instead of saved
     (makani_tpu's nn.remat); a plain call when no gradient is recorded. The
-    recomputation runs under the dropout key of the call."""
+    recomputation runs under the dropout key of the call, and inside
+    comm.serial_model_axes() where the call was."""
     if not torch.is_grad_enabled():
         return fn(*args)
     key = _dropout_key
+    serial = comm.in_serial_model_axes()
 
     def run(*a):
-        with use_dropout_key(key):
+        with use_dropout_key(key), \
+                (comm.serial_model_axes() if serial else contextlib.nullcontext()):
             return fn(*a)
 
     return checkpoint(run, *args, use_reentrant=False)

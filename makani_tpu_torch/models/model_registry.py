@@ -8,6 +8,14 @@ torch.nn.Module subclass or a "path/to/file.py:ClassName" string, and
 makani_tpu's does. A registered class is built with the config's keys that
 name parameters of its __init__, plus `device` and `generator`.
 
+Every network runs on every layout of parallel/comm (data, h, w, fin,
+fout). The registry's families take a rank's (h, w) patch and split their
+own work (`spatially_parallel`); a class that does not say so, as one
+registered from a file, runs on the whole field on every rank
+(spmd.whole_field: the patches gathered, the class run with the model axes
+serial, the output cut back to the rank's patch) with every leaf whole, as
+XLA's partitioner lets makani_tpu run any network on its mesh.
+
 `update_channel_params` ports the channel math of makani_tpu's
 Trainer._update_parameters (utils/trainer.py:291-335): the channel counts and
 the image, crop and local shapes come from a dataset where one is given (the
@@ -31,7 +39,7 @@ from makani_tpu_torch.models.networks.sfnonet import (
 from makani_tpu_torch.models.networks.vit import VisionTransformer
 from makani_tpu_torch.models.preprocessor import Preprocessor2D
 from makani_tpu_torch.models.stepper import MultiStepWrapper, SingleStepWrapper
-from makani_tpu_torch.parallel import partitioning, spmd
+from makani_tpu_torch.parallel import partitioning
 from makani_tpu_torch.utils.device import resolve_device
 from makani_tpu_torch.utils.features import get_auxiliary_channels
 from makani_tpu_torch.utils.yparams import ParamsBase
@@ -170,17 +178,6 @@ def _filter_kwargs(cls, kwargs):
             for k, v in kwargs.items() if k in valid}
 
 
-def check_layout(nettype):
-    """Raises where the family cannot run on the process groups' layout: a
-    class without a spatially parallel path (no `spatially_parallel`; every
-    family of this registry has one, a class registered from a file may
-    not) under h * w > 1."""
-    cls = _model_registry[nettype]
-    if spmd.spatial_distributed() and not getattr(cls, "spatially_parallel", False):
-        raise NotImplementedError(f"{nettype} has no spatially parallel path (its class sets no "
-                                  "spatially_parallel): run it with h and w of 1")
-
-
 def get_model(params, device=None, generator=None):
     """Build the configured network on `device` (default "cuda"; raises when
     CUDA is absent unless device="cpu") and wrap it in a stepper. Weights are
@@ -202,17 +199,18 @@ def get_model(params, device=None, generator=None):
     all_kwargs = dict(params.to_dict())
     all_kwargs.update(inp_shape=tuple(inp_shape), out_shape=tuple(out_shape),
                       inp_chans=params.N_in_channels, out_chans=params.N_out_channels)
-    check_layout(params.nettype)
     net = cls(**_filter_kwargs(cls, all_kwargs), device=device, generator=generator)
 
     preprocessor = Preprocessor2D(params, device=device)
     lsm_mask_channels = tuple(params.get("lsm_mask_channels", ()) or ())
     if params.n_future > 0:
         model = MultiStepWrapper(preprocessor, net, n_future=params.n_future,
-                                 lsm_mask_channels=lsm_mask_channels)
+                                 lsm_mask_channels=lsm_mask_channels, global_hw=inp_shape)
     else:
-        model = SingleStepWrapper(preprocessor, net, lsm_mask_channels=lsm_mask_channels)
+        model = SingleStepWrapper(preprocessor, net, lsm_mask_channels=lsm_mask_channels,
+                                  global_hw=inp_shape)
     # on model-parallel ranks the leaves split over h, w, fin and fout keep
-    # the rank's shard
+    # the rank's shard (a network that is not spatially parallel keeps them
+    # whole)
     model.shards = partitioning.shard_module(model)
     return model

@@ -9,7 +9,7 @@ class DebugNet(nn.Module):
     """One parameter, `factor` (ones, shape (1,)): returns factor * x in x's
     dtype. Pointwise, so it runs on a spatial rank's patch as it is."""
 
-    # runs on a spatial decomposition (model_registry.check_layout asks)
+    # runs on a spatial decomposition (spmd.spatially_parallel reads it)
     spatially_parallel = True
 
     def __init__(self, device="cpu", generator=None):

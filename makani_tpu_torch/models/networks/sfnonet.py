@@ -245,7 +245,7 @@ class SphericalFourierNeuralOperatorNet(nn.Module):
     filters, the norms and the position embedding see the decomposition,
     every other layer is local."""
 
-    # runs on a spatial decomposition (model_registry.get_model asks)
+    # runs on a spatial decomposition (spmd.spatially_parallel reads it)
     spatially_parallel = True
 
     def __init__(self, spectral_transform="sht", model_grid_type="equiangular",

@@ -170,7 +170,7 @@ class VisionTransformer(nn.Module):
     `generator` the weights are drawn from. On spatial ranks it takes and
     returns the rank's window (module docstring)."""
 
-    # runs on a spatial decomposition (model_registry.check_layout asks)
+    # runs on a spatial decomposition (spmd.spatially_parallel reads it)
     spatially_parallel = True
 
     def __init__(self, inp_shape: Tuple[int, int] = (224, 224),

@@ -3,23 +3,33 @@
 Counterpart of makani_tpu/models/stepper.py: preprocess -> model ->
 denormalize, with the configurable land-sea-mask gate (`lsm_mask_channels`).
 MultiStepWrapper unrolls n_future + 1 steps in training and takes one in
-eval.
+eval. A network that is not spatially parallel (a class registered from a
+file) is called through spmd.whole_field, on the whole field of its input
+(global (H, W) `global_hw`) on every layout; no module wraps it, so the
+state dict's keys are the same serially and on ranks.
 """
 
 import torch
 from torch import nn
 
 from makani_tpu_torch.models.common.layers import current_dropout_key, use_dropout_key
+from makani_tpu_torch.parallel import spmd
 
 
 class SingleStepWrapper(nn.Module):
     """preprocess -> model -> denormalize."""
 
-    def __init__(self, preprocessor, model, lsm_mask_channels=()):
+    def __init__(self, preprocessor, model, lsm_mask_channels=(), global_hw=None):
         super().__init__()
         self.preprocessor = preprocessor
         self.model = model
         self.lsm_mask_channels = tuple(lsm_mask_channels)
+        self.global_hw = None if global_hw is None else tuple(global_hw)
+
+    def _network(self, x, deterministic):
+        if spmd.spatially_parallel(self.model):
+            return self.model(x, deterministic=deterministic)
+        return spmd.whole_field(self.model, x, self.global_hw, deterministic=deterministic)
 
     def _lsm_gate(self, x, lsm):
         """Multiply the configured channels by the land plane (the last input
@@ -38,7 +48,7 @@ class SingleStepWrapper(nn.Module):
         if self.lsm_mask_channels:
             lsm = inpans[:, -1]
             inpans = self._lsm_gate(inpans, lsm)
-        yn = self.model(inpans, deterministic=deterministic)
+        yn = self._network(inpans, deterministic)
         y = prep.history_denormalize(yn, stats, target=True)
         if self.lsm_mask_channels:
             y = self._lsm_gate(y, lsm)
@@ -56,8 +66,8 @@ class MultiStepWrapper(SingleStepWrapper):
     flattened target. Each unrolled step draws its dropout masks under its own
     substep of the dropout key."""
 
-    def __init__(self, preprocessor, model, n_future=0, lsm_mask_channels=()):
-        super().__init__(preprocessor, model, lsm_mask_channels)
+    def __init__(self, preprocessor, model, n_future=0, lsm_mask_channels=(), global_hw=None):
+        super().__init__(preprocessor, model, lsm_mask_channels, global_hw)
         self.n_future = n_future
 
     def forward(self, inp, unpredicted_inp=None, unpredicted_tar=None, deterministic=True):

@@ -27,9 +27,12 @@ a rule of the layout, logged at init, not a retry after a failure.
 The channel axes fin and fout take any size: the modules split their
 channels over them (parallel/partitioning, parallel/spmd); every model
 family runs on the spatial axes h and w (the transforms', the norms' and
-the attention's collectives are theirs).
+the attention's collectives are theirs). Inside `serial_model_axes()` the
+model axes read as one rank, so a network without a spatially parallel
+path runs on the whole field as it does serially (spmd.whole_field).
 """
 
+import contextlib
 import itertools
 import logging
 import os
@@ -56,6 +59,8 @@ TIMEOUT = timedelta(seconds=600)
 # sizes and coordinates by axis, the groups by frozenset of axes, the backend
 # and the rank's device; None when serial
 _STATE = None
+# how deep the calls are nested in serial_model_axes()
+_SERIAL_DEPTH = 0
 
 
 def _launcher_env():
@@ -166,10 +171,45 @@ def is_initialized():
     return _STATE is not None
 
 
+@contextlib.contextmanager
+def serial_model_axes():
+    """Inside, h, w, fin and fout (and the composites over them) read as one
+    rank in get_size, get_rank, get_group and get_group_ranks; the data
+    axis keeps its size. It nests, and the layout comes back on exit, an
+    exception's too.
+
+    Autograd runs the backward of what was recorded inside after the scope
+    has closed, so nothing recorded inside may read the layout in backward:
+    no collective of parallel/spmd is recorded (each returns its input on a
+    group of one rank); the autograd Functions of the SFNO's path
+    (spectral_mm's legdot, dhconv and griddot, complex_kernels'
+    contract_dhconv_kernel, gelu's gelu_bf16) read none in backward; and
+    layers.remat enters the scope again for the forward it recomputes."""
+    global _SERIAL_DEPTH
+    _SERIAL_DEPTH += 1
+    try:
+        yield
+    finally:
+        _SERIAL_DEPTH -= 1
+
+
+def in_serial_model_axes():
+    """Whether the calls run inside serial_model_axes()."""
+    return _SERIAL_DEPTH > 0
+
+
 def _axes(name):
     if isinstance(name, str):
         return COMPOSITE.get(name, (name,))
     return tuple(name)
+
+
+def _size(ax):
+    return 1 if _SERIAL_DEPTH and ax in MODEL_AXES else _STATE["sizes"][ax]
+
+
+def _group_key(name):
+    return frozenset(ax for ax in _axes(name) if _size(ax) > 1)
 
 
 def get_size(name):
@@ -177,7 +217,7 @@ def get_size(name):
     serial)."""
     if _STATE is None:
         return 1
-    return int(np.prod([_STATE["sizes"][ax] for ax in _axes(name)]))
+    return int(np.prod([_size(ax) for ax in _axes(name)]))
 
 
 def get_rank(name):
@@ -187,7 +227,8 @@ def get_rank(name):
         return 0
     rank = 0
     for ax in _axes(name):
-        rank = rank * _STATE["sizes"][ax] + _STATE["coords"][ax]
+        if _size(ax) > 1:
+            rank = rank * _STATE["sizes"][ax] + _STATE["coords"][ax]
     return rank
 
 
@@ -196,7 +237,7 @@ def get_group(name):
     of axes; None where that group has one rank."""
     if _STATE is None:
         return None
-    key = frozenset(ax for ax in _axes(name) if _STATE["sizes"][ax] > 1)
+    key = _group_key(name)
     if not key:
         return None
     return _STATE["groups"][key][0]
@@ -206,7 +247,7 @@ def get_group_ranks(name):
     """The world ranks of the rank's group over `name`, in group order."""
     if _STATE is None:
         return [0]
-    key = frozenset(ax for ax in _axes(name) if _STATE["sizes"][ax] > 1)
+    key = _group_key(name)
     return _STATE["groups"][key][1] if key else [_STATE["rank"]]
 
 

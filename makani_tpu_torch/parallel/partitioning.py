@@ -37,6 +37,13 @@ activations takes the slice through spmd.scatter, whose backward gathers
 the slices' gradients, so no channel axis is summed here: the modules make
 that choice where they use the leaf (the rule of parallel/spmd).
 
+A network that is not spatially parallel (spmd.spatially_parallel: a class
+registered from a file) runs on the whole field on every rank
+(spmd.whole_field), so none of its leaves is split, on any axis, whatever
+the rules above would find in it; its gradients follow the rule of the
+replicated leaves: the sum over h and w (the loss of a rank sees its patch
+of the output) and the mean over data.
+
 `shard_module` cuts a model built at its global shapes to the rank's shards
 and returns each split leaf's `Shard` (its global shape and, per split
 dimension, the axis, start and length); it also tells each owning module
@@ -158,12 +165,20 @@ def spatial_rules(model):
     return rules
 
 
+def _network(model):
+    """The network of a stepper (its `model`), or `model` itself."""
+    from makani_tpu_torch.models.stepper import SingleStepWrapper
+    return model.model if isinstance(model, SingleStepWrapper) else model
+
+
 def shard_module(model):
-    """Cuts every split leaf of `model` (built at its global shapes) to the
-    rank's shard, in place, and tells each owning module its leaves' split
-    dimensions (`leaf_splits`, behind a scanned layer axis); returns {name:
-    Shard}. Serial: nothing."""
-    if not spmd.model_distributed():
+    """Cuts every split leaf of `model` (a stepper or a network, built at
+    its global shapes) to the rank's shard, in place, and tells each owning
+    module its leaves' split dimensions (`leaf_splits`, behind a scanned
+    layer axis); returns {name: Shard}. Serial: nothing. A network that is
+    not spatially parallel runs whole on every rank: nothing is split, and
+    reduce_gradients sums every leaf's gradient over h and w."""
+    if not spmd.model_distributed() or not spmd.spatially_parallel(_network(model)):
         return {}
     params = dict(model.named_parameters())
     rules = spatial_rules(model)

@@ -22,6 +22,10 @@ makani mpu/layers.py:38-169, mpu/mappings.py:30-174):
   halo                    a patch's neighbours' edge rows over one axis
                           (periodic or zero beyond the ends); backward sums
                           the edges' cotangents back to their owners
+  whole_field             a network without a spatially parallel path on
+                          the whole field: the patches gathered, the network
+                          run with the model axes serial, the output cut
+                          back to the rank's patch
 
 The channel axes follow one rule throughout: a tensor that is replicated over
 an axis holds, on every rank, the whole cotangent in backward. So a tensor
@@ -418,3 +422,35 @@ def halo(x, dim, axis, width, periodic):
             return torch.zeros_like(x.narrow(dim, 0, width))
         return edges.narrow(dim, (rank % n) * 2 * width + side * width, width)
     return edge(r - 1, 1), edge(r + 1, 0)
+
+
+def spatially_parallel(net):
+    """Whether `net` runs on a rank's (h, w) patch and splits its own work
+    over the model axes: its class sets `spatially_parallel`, as every
+    network of the port's registry does. Any other network (a class
+    registered from a file) runs in whole_field, its leaves whole
+    (partitioning.shard_module)."""
+    return bool(getattr(net, "spatially_parallel", False))
+
+
+def whole_field(net, x, global_hw, **kwargs):
+    """net(x, **kwargs) for a network that is not spatially_parallel, on any
+    layout, as serial makani_tpu computes it. Under h * w > 1 the rank's
+    patch `x` of the (H, W) = `global_hw` field is gathered, w then h, and
+    the network's output is cut to the rank's patch of its own (H, W);
+    every rank runs the network on the whole field, inside
+    comm.serial_model_axes(), so port modules inside it take their serial
+    branches (under fin and fout alone every rank computes the same output).
+    The whole field goes through copy_to: each rank's cotangent of it holds
+    only its own patch's share of the output's, and the sum over the ranks
+    comes before the gathers' backward keeps the rank's patch."""
+    if spatial_distributed():
+        if global_hw is None:
+            raise ValueError("a network without a spatially parallel path needs its input's "
+                             "global (H, W) on spatial ranks")
+        H, W = global_hw
+        x = gather(x, -1, "w", W)
+        x = copy_to(gather(x, -2, "h", H), "spatial")
+    with comm.serial_model_axes():
+        y = net(x, **kwargs)
+    return local_patch(y, y.shape[-2:])

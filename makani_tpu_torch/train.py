@@ -30,6 +30,10 @@ makani_tpu. --split_data_channels splits the validation metrics' channels
 over fin and fout. Only rank 0 logs and writes. Every family runs on every
 layout; the AFNO and ViT families need their patch size to divide each
 rank's window of the crop (720 / 2 and 1440 / 2 by 8 at the 720x1440 crop).
+A network registered from a file ("path.py:Class" nettype) that sets no
+`spatially_parallel` runs on every layout too: each rank gathers the whole
+field, runs it with the model axes serial and keeps its patch of the
+output, every leaf whole (models/model_registry).
 """
 
 import argparse

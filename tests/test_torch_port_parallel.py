@@ -290,30 +290,144 @@ def test_tensor_parallelism_raises_item_7b():
     assert os.environ.get("WORLD_SIZE") is None
 
 
-def test_every_family_takes_spatial_ranks(monkeypatch):
-    """Under a spatial decomposition every registered family passes
-    check_layout (tests/test_torch_port_spatial_families.py runs them) and
-    the FNO builds on its FFT pair; a class without a spatially parallel
-    path still raises."""
-    from torch import nn
+def _fake_layout(monkeypatch, sizes, coords=None):
+    """parallel.comm's state for the layout `sizes` ({axis: size}) with this
+    process at `coords` (0 on every axis not given), without process groups:
+    whatever reads the layout sees it, and no collective can run (a group is
+    a name)."""
+    import itertools
+    from makani_tpu_torch.parallel import comm
+    sizes = {ax: int(sizes.get(ax, 1)) for ax in comm.AXES}
+    coords = {ax: int((coords or {}).get(ax, 0)) for ax in comm.AXES}
+    live = [ax for ax in comm.AXES if sizes[ax] > 1]
+    groups = {frozenset(sub): ("+".join(sub), [])
+              for k in range(1, len(live) + 1) for sub in itertools.combinations(live, k)}
+    monkeypatch.setattr(comm, "_STATE", dict(
+        sizes=sizes, coords=coords, rank=0, world=int(np.prod(list(sizes.values()))),
+        local_rank=0, backend="gloo", device=torch.device("cpu"), groups=groups))
+
+
+PLANAR_FILE = """
+import torch
+from torch import nn
+
+from makani_tpu_torch.models.networks.sfnonet import SphericalFourierNeuralOperatorNet
+
+
+class Planar(nn.Module):
+    # a port SFNO inside (its filter weight a SpectralConv, which the spatial
+    # rules cut) and a leaf that a channel rule matches (mlp.fc1.weight)
+    def __init__(self, inp_shape, out_shape, inp_chans, out_chans, device="cpu",
+                 generator=None):
+        super().__init__()
+        self.inner = SphericalFourierNeuralOperatorNet(
+            inp_shape=inp_shape, out_shape=out_shape, scale_factor=1, inp_chans=inp_chans,
+            out_chans=out_chans, embed_dim=4, num_layers=1, device=device, generator=generator)
+        self.mlp = nn.ModuleDict({"fc1": nn.Linear(out_chans, 6, bias=False, device=device)})
+
+    def forward(self, x, deterministic=True):
+        return self.inner(x, deterministic=deterministic)
+"""
+
+
+def test_every_family_takes_spatial_ranks(monkeypatch, tmp_path):
+    """Under a spatial decomposition every registered family runs on its
+    patches (tests/test_torch_port_spatial_families.py runs them) and the
+    FNO builds on its FFT pair. A class without a spatially parallel path,
+    registered from a file, builds on every layout too: get_model wraps it
+    in no module of its own (the state dict's keys are the serial ones) and
+    shard_module leaves every leaf of it whole, on h and w and on fin, where
+    the rules would cut the SpectralConv and the `mlp.fc1` leaf inside it."""
     from makani_tpu_torch.models import model_registry
     from makani_tpu_torch.models.networks.sfnonet import FourierNeuralOperatorNet
-    from makani_tpu_torch.parallel import spmd
-    monkeypatch.setattr(spmd, "spatial_distributed", lambda: True)
+    from makani_tpu_torch.parallel import partitioning, spmd
+    from makani_tpu_torch.utils.yparams import ParamsBase
     assert set(model_registry.list_models()) == {"SFNO", "FNO", "AFNO", "AFNOv1", "ViT",
                                                  "DebugNet"}
     for nettype in model_registry.list_models():
-        model_registry.check_layout(nettype)
+        assert spmd.spatially_parallel(model_registry._model_registry[nettype]), nettype
     net = FourierNeuralOperatorNet(inp_shape=(8, 16), out_shape=(8, 16), scale_factor=1,
                                    embed_dim=4, num_layers=1)
     assert type(net.trans_down).__name__ == "RealFFT2"
 
-    class Planar(nn.Module):
-        pass
+    monkeypatch.setattr(model_registry, "_model_registry", dict(model_registry._model_registry))
+    path = tmp_path / "planar.py"
+    path.write_text(PLANAR_FILE)
+    params = ParamsBase.from_dict(dict(
+        nettype=f"{path}:Planar", img_shape_x=8, img_shape_y=16, img_crop_shape_x=8,
+        img_crop_shape_y=16, N_in_channels=3, N_out_channels=4, n_history=0, n_future=0,
+        target="default", global_seed=3))
+    serial = model_registry.get_model(params, device="cpu")
+    assert not spmd.spatially_parallel(serial.model) and serial.shards == {}
+    shapes = {k: tuple(p.shape) for k, p in serial.state_dict().items()}
+    filt = "model.inner.blocks.0.filter_layer.filter.weight"
+    assert "model.mlp.fc1.weight" in shapes and filt in shapes
+    for sizes in ({"h": 2, "w": 2}, {"h": 2, "fin": 2}):
+        with monkeypatch.context() as m:
+            _fake_layout(m, sizes, {"h": 1})
+            assert spmd.spatial_distributed()
+            model = model_registry.get_model(params, device="cpu")
+            assert model.shards == {} and model.global_hw == (8, 16)
+            assert {k: tuple(p.shape) for k, p in model.state_dict().items()} == shapes
+            # the rules find leaves to cut where the class's flag would allow it
+            assert partitioning.spatial_rules(model)
+            if "fin" in sizes:
+                assert partitioning.tensor_splits("model.mlp.fc1.weight", shapes[
+                    "model.mlp.fc1.weight"]) == [(1, "fin")]
+            inner = model.model.inner
+            assert partitioning.shard_module(inner) and \
+                inner.blocks[0].filter_layer.filter.weight.shape != shapes[filt]
 
-    monkeypatch.setitem(model_registry._model_registry, "Planar", Planar)
-    with pytest.raises(NotImplementedError, match="no spatially parallel path"):
-        model_registry.check_layout("Planar")
+
+def test_serial_model_axes_read_the_model_axes_as_one_rank(monkeypatch):
+    """comm.serial_model_axes(): h, w, fin and fout read as one rank inside,
+    the data axis as it is; it nests, and the layout comes back on exit and
+    after an exception. layers.remat recomputes inside it in backward, where
+    autograd runs outside it."""
+    from makani_tpu_torch.models.common.layers import remat
+    from makani_tpu_torch.parallel import comm, spmd
+    _fake_layout(monkeypatch, {"data": 2, "h": 2, "w": 2, "fin": 2},
+                 {"data": 1, "h": 1, "w": 1, "fin": 1})
+
+    def layout():
+        return (spmd.spatial_distributed(), spmd.matmul_distributed(),
+                spmd.model_distributed(), comm.get_size("world"), comm.get_rank("world"))
+
+    outside = (True, True, True, 16, 15)
+    assert layout() == outside and not comm.in_serial_model_axes()
+    assert comm.get_group("spatial") == "h+w" and spmd.patch(13, "h") == (7, 6)
+    with comm.serial_model_axes():
+        inside = (False, False, False, 2, 1)
+        assert layout() == inside and comm.in_serial_model_axes()
+        assert (comm.get_size("data"), comm.get_rank("data")) == (2, 1)
+        assert comm.get_group("spatial") is None and comm.get_group("world") == "data"
+        assert comm.get_group_ranks("h") == [0] and spmd.patch(13, "h") == (0, 13)
+        assert spmd.channel_axis(8, "fin") is None
+        with comm.serial_model_axes():
+            assert layout() == inside
+        assert layout() == inside
+    assert layout() == outside and not comm.in_serial_model_axes()
+    with pytest.raises(RuntimeError, match="inside"):
+        with comm.serial_model_axes():
+            raise RuntimeError("inside")
+    assert layout() == outside and not comm.in_serial_model_axes()
+
+    seen = []
+
+    def body(x):
+        seen.append(comm.get_size("h"))
+        return x * x
+
+    for scoped, want in ((True, [1, 1]), (False, [2, 2])):
+        seen.clear()
+        x = torch.arange(3.0, requires_grad=True)
+        if scoped:
+            with comm.serial_model_axes():
+                y = remat(body, x)
+        else:
+            y = remat(body, x)
+        y.sum().backward()
+        assert seen == want and torch.equal(x.grad, 2 * x.detach())
 
 
 # --------------------------------------------------------------------------

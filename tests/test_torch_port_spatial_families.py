@@ -36,7 +36,20 @@ family allows it:
   - two Trainer steps of afno_smoke (AFNO v1) on h 2 x w 2 against
     makani_tpu's serial Trainer, and the Inferencer's scored epoch there
     against the serial port's (the validation loss and the files rank 0
-    writes of the whole field).
+    writes of the whole field);
+  - networks registered from a file (FILE_NETS), which set no
+    spatially_parallel and so run on the whole field on every rank
+    (spmd.whole_field), through get_model: a non-local one (a 3x3
+    convolution periodic in longitude and zero-padded in latitude, plus the
+    mean over (H, W) of a 1x1 mix, plus a pointwise MLP whose `mlp.fc1`
+    leaf a channel rule would cut) on h 2 x w 2 and on h 2 x fin 2 against
+    makani_tpu's registration of the same file's flax class, every leaf
+    whole and the state dict's keys the serial ones; the same net run on
+    the patch alone, which must miss; its 2-step MultiStepWrapper unroll on
+    h 2 x w 2 against the serial port's, with a control by the same ranks
+    without the gathered field's copy_to, which must miss the gradients;
+    and a 1-block port SFNO held in a file class, recomputed in backward
+    (checkpointing 3), against the serial port.
 
 Tolerances: the FFT pairs at makani_tpu's own gate, rtol and atol 1e-5
 (the port's distributed DFTs are float32 matmuls, makani_tpu's serial ones
@@ -54,7 +67,9 @@ the largest output (2**-7 of it: the patch sums reach the float32 mean in
 another order, and a mean or scale may round to the other bf16 neighbour);
 the Trainer by tests/test_torch_port_train.py's bounds; the scored epoch by
 tests/test_torch_port_parallel_trainer.py's (the loss rtol 1e-5, the files
-rtol 1e-4 and atol 1e-6: sums in another order).
+rtol 1e-4 and atol 1e-6: sums in another order); the networks from a file
+by the networks' bounds, the serial port's unroll and SFNO as makani_tpu's
+(test_torch_port_multistep.py holds the port's unroll to makani_tpu's).
 """
 
 import numpy as np
@@ -103,6 +118,119 @@ GRAD_TOL = 2e-4
 NORM_SHAPE = (2, 5, 12, 20)
 ZERO_GRAD = ("mlp.fc2.bias", "filter.b1", "skip_bias", "norm1.bias")
 MOD = "makani_tpu_torch.models.networks."
+# the networks registered from a file: (B, C, H, W) inputs, H and W split
+# unevenly (13: 7 + 6, 21: 11 + 10); FILE_OUT output channels where one
+# step is taken, the input's where the unroll feeds the output back
+FILE_SHAPE = (2, 4, 13, 21)
+FILE_OUT = 5
+FILE_WIDTH = 6
+# A file registered in both packages; `__getattr__` builds the class asked
+# for, so each package imports only its own framework
+FILE_NETS = """
+import inspect
+
+
+def __getattr__(name):
+    if name == "FileNet":
+        return _torch_net()
+    if name == "JaxFileNet":
+        return _flax_net()
+    if name == "FileSFNO":
+        return _torch_sfno()
+    raise AttributeError(name)
+
+
+def _torch_net():
+    import torch
+    from torch import nn
+
+    class Weight(nn.Module):
+        def __init__(self, shape, device, generator):
+            super().__init__()
+            self.weight = nn.Parameter(
+                0.3 * torch.randn(shape, device=device, generator=generator))
+
+    class FileNet(nn.Module):
+        def __init__(self, inp_chans, out_chans, embed_dim=2, device="cpu", generator=None):
+            super().__init__()
+            kw = dict(device=device, generator=generator)
+            self.conv = Weight((out_chans, inp_chans, 3, 3), **kw)
+            self.mix = Weight((out_chans, inp_chans), **kw)
+            self.mlp = nn.ModuleDict({"fc1": Weight((embed_dim, inp_chans), **kw),
+                                      "fc2": Weight((out_chans, embed_dim), **kw)})
+
+        def forward(self, x, deterministic=True):
+            xp = nn.functional.pad(x, (1, 1, 0, 0), mode="circular")
+            y = nn.functional.conv2d(nn.functional.pad(xp, (0, 0, 1, 1)), self.conv.weight)
+            y = y + torch.einsum("oc,bc->bo", self.mix.weight, x.mean((-2, -1)))[..., None, None]
+            h = torch.tanh(torch.einsum("kc,bchw->bkhw", self.mlp["fc1"].weight, x))
+            return y + torch.einsum("ok,bkhw->bohw", self.mlp["fc2"].weight, h)
+
+    return FileNet
+
+
+def _flax_net():
+    import jax
+    import jax.numpy as jnp
+    import flax.linen as nn
+
+    normal = nn.initializers.normal(0.3)
+    hi = jax.lax.Precision.HIGHEST
+
+    class Weight(nn.Module):
+        shape: tuple
+
+        @nn.compact
+        def __call__(self):
+            return self.param("weight", normal, self.shape)
+
+    class Mlp(nn.Module):
+        shapes: tuple
+
+        @nn.compact
+        def __call__(self, x):
+            fc1, fc2 = (Weight(shape, name=n)() for n, shape in zip(("fc1", "fc2"), self.shapes))
+            h = jnp.tanh(jnp.einsum("kc,bchw->bkhw", fc1, x, precision=hi))
+            return jnp.einsum("ok,bkhw->bohw", fc2, h, precision=hi)
+
+    class JaxFileNet(nn.Module):
+        inp_chans: int = 2
+        out_chans: int = 2
+        embed_dim: int = 2
+
+        @nn.compact
+        def __call__(self, x, deterministic=True):
+            o, c, k = self.out_chans, self.inp_chans, self.embed_dim
+            conv = Weight((o, c, 3, 3), name="conv")()
+            xp = jnp.pad(x, ((0, 0), (0, 0), (0, 0), (1, 1)), mode="wrap")
+            xp = jnp.pad(xp, ((0, 0), (0, 0), (1, 1), (0, 0)))
+            y = jax.lax.conv_general_dilated(xp, conv, (1, 1), "VALID", precision=hi,
+                                             dimension_numbers=("NCHW", "OIHW", "NCHW"))
+            mix = Weight((o, c), name="mix")()
+            y = y + jnp.einsum("oc,bc->bo", mix, x.mean((-2, -1)), precision=hi)[..., None, None]
+            return y + Mlp(((k, c), (o, k)), name="mlp")(x)
+
+    return JaxFileNet
+
+
+def _torch_sfno():
+    import torch
+    from makani_tpu_torch.models.networks.sfnonet import SphericalFourierNeuralOperatorNet
+
+    class FileSFNO(torch.nn.Module):
+        # the port's SFNO by composition: this class sets no spatially_parallel
+        def __init__(self, device="cpu", generator=None, **kwargs):
+            super().__init__()
+            self.net = SphericalFourierNeuralOperatorNet(device=device, generator=generator,
+                                                         **kwargs)
+
+        def forward(self, x, deterministic=True):
+            return self.net(x, deterministic=deterministic)
+
+    # get_model passes the config's keys that the SFNO takes
+    FileSFNO.__init__.__signature__ = inspect.signature(SphericalFourierNeuralOperatorNet.__init__)
+    return FileSFNO
+"""
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -210,8 +338,71 @@ def _norm_inputs():
     return x, w, b, rng.randn(*NORM_SHAPE).astype(np.float32)
 
 
+def _file_config(path, cls, out, **overrides):
+    """The port's flagship_synth_drive_bare config at the file's shapes,
+    nettype the file's `cls`, `out` output channels."""
+    from makani_tpu_torch.models import model_registry as tregistry
+    from makani_tpu_torch.utils.yparams import YParams as TYParams
+    _, c, h, w = FILE_SHAPE
+    tp = TYParams("config/sfnonet.yaml", "flagship_synth_drive_bare")
+    tp.update_params(dict(nettype=f"{path}:{cls}", img_shape_x=h, img_shape_y=w,
+                          embed_dim=FILE_WIDTH, num_layers=1, in_channels=list(range(c)),
+                          out_channels=list(range(out)), global_seed=7, **overrides))
+    return tregistry.update_channel_params(tp)
+
+
+def _serial_port(tp, x, unroll=False):
+    """The serial port's stepper for `tp` from its own seeded weights: (the
+    config, its state, x, its output, the gradients of mean(y**2))."""
+    from makani_tpu_torch.models import model_registry as tregistry
+    model = tregistry.get_model(tp, device="cpu")
+    y = model(torch.from_numpy(x), deterministic=not unroll)
+    y.square().mean().backward()
+    return (tp.to_dict(), {k: v.detach().numpy().copy() for k, v in model.state_dict().items()},
+            x, y.detach().numpy(), {k: p.grad.numpy() for k, p in model.named_parameters()})
+
+
 @pytest.fixture(scope="module")
-def spatial(refs, drop_states, smoke):
+def file_nets(tmp_path_factory):
+    """The networks registered from FILE_NETS: makani_tpu's serial run of
+    its flax class (the port's state from its initial weights, output and
+    gradients, and the serial port's state-dict keys); the serial port's
+    2-step unroll, and its 1-block SFNO held in a file class at
+    checkpointing 3. Both registries forget the file's classes after."""
+    from makani_tpu.models import model_registry as jregistry
+    from makani_tpu.utils.yparams import YParams as JYParams
+    from makani_tpu_torch.models import model_registry as tregistry
+    path = tmp_path_factory.mktemp("file_nets") / "file_nets.py"
+    path.write_text(FILE_NETS)
+    names = [f"{path}:{cls}" for cls in ("FileNet", "JaxFileNet", "FileSFNO")]
+    try:
+        tp = _file_config(path, "FileNet", FILE_OUT)
+        jp = JYParams("config/sfnonet.yaml", "flagship_synth_drive_bare")
+        jp.update_params(dict(tp.to_dict(), nettype=names[1]))
+        template = tregistry.get_model(tp, device="cpu").state_dict()
+        x = np.random.RandomState(31).randn(*FILE_SHAPE).astype(np.float32)
+        state, y, grads = _reference(jregistry.get_model(jp), template, x)
+        yield dict(
+            net=(tp.to_dict(), state, x, y, grads, list(template)),
+            unroll=_serial_port(_file_config(path, "FileNet", FILE_SHAPE[1], n_future=1),
+                                np.random.RandomState(32).randn(*FILE_SHAPE)
+                                .astype(np.float32), unroll=True),
+            sfno=_serial_port(_file_config(path, "FileSFNO", FILE_OUT, checkpointing=3),
+                              np.random.RandomState(33).randn(*FILE_SHAPE).astype(np.float32)))
+    finally:
+        for registry in (tregistry._model_registry, jregistry._model_registry):
+            for name in names:
+                registry.pop(name, None)
+
+
+def _file_case(case, **kw):
+    tp, state, x = case[:3]
+    return ("registered_model", (tp, state, x, *(kw.get(k, False) for k in (
+        "unroll", "control", "patch_only"))))
+
+
+@pytest.fixture(scope="module")
+def spatial(refs, drop_states, smoke, file_nets):
     """Every case of h 2 x w 2, one spawn of the ranks."""
     vit = _net(refs["vit"], MOD + "vit", "VisionTransformer", VIT)
     cases = [("fft_pairs", (FFT_CASES,)),
@@ -227,17 +418,22 @@ def spatial(refs, drop_states, smoke):
         _, state, x = drop_states[name]
         cases.append(("network_forward_and_grads", (module, cls, dict(kw), state, x, "xla",
                                                     "highest", DROP_SEEDS[name])))
+    cases += [_file_case(file_nets["net"], patch_only=True),
+              _file_case(file_nets["unroll"], unroll=True),
+              _file_case(file_nets["unroll"], unroll=True, control=True),
+              _file_case(file_nets["sfno"])]
     ranks = run_ranks(run_cases, SPATIAL, 4, cases + smoke["cases"])
-    names = ("fft", "fno", "afno2", "precip", "vit", "norm", "afno1_drop", "vit_drop", "trainer",
-             "scores")
+    names = ("fft", "fno", "afno2", "precip", "vit", "norm", "afno1_drop", "vit_drop", "file_net",
+             "file_unroll", "file_control", "file_sfno", "trainer", "scores")
     return {name: [r[i] for r in ranks] for i, name in enumerate(names)}
 
 
 @pytest.fixture(scope="module")
-def h_fin(refs):
+def h_fin(refs, file_nets):
     vit = _net(refs["vit"], MOD + "vit", "VisionTransformer", VIT)
-    ranks = run_ranks(run_cases, H_FIN, 4, [("with_attention_block", (ATTN_BLOCK, *vit))])
-    return [r[0] for r in ranks]
+    ranks = run_ranks(run_cases, H_FIN, 4, [("with_attention_block", (ATTN_BLOCK, *vit)),
+                                            _file_case(file_nets["net"])])
+    return {name: [r[i] for r in ranks] for i, name in enumerate(("vit", "file_net"))}
 
 
 def _block(a, lat, lon):
@@ -373,8 +569,8 @@ def test_vit_blockwise_attention_on_spatial_ranks_matches_serial_jax(refs, spati
 def test_vit_on_h_and_fin_ranks_matches_serial_jax(refs, h_fin):
     """The spatial split beside the channel split over fin."""
     _, y, grads, _ = refs["vit"]
-    _check_forward(h_fin, y)
-    split = _check_grads(h_fin, grads)
+    _check_forward(h_fin["vit"], y)
+    split = _check_grads(h_fin["vit"], grads)
     assert split["pos_embed"] == ((2, "fin"),)
     assert not any(ax in ("h", "w") for dims in split.values() for _, ax in dims)
 
@@ -397,6 +593,84 @@ def test_dropout_on_spatial_ranks_matches_the_serial_port(drop_states, spatial, 
     _check_forward(ranks, y)
     for rank in ranks:
         _check_grads([dict(rank, shards={})], want)
+
+
+# --------------------------------------------------------------------------
+# networks registered from a file: the whole field on every rank
+# --------------------------------------------------------------------------
+
+def _worst_grad_dev(ranks, want):
+    """The largest deviation of any rank's gradient of any leaf from
+    `want`'s, relative to that leaf's largest magnitude."""
+    return max(np.abs(g - want[k]).max() / np.abs(want[k]).max()
+               for r in ranks for k, g in r["grads"].items())
+
+
+def test_file_class_on_spatial_ranks_matches_serial_jax(file_nets, spatial):
+    """The non-local file class on h 2 x w 2 against makani_tpu's
+    registration of the same file's flax class: each rank gathers the whole
+    field, runs the class on it and keeps its patch; every leaf whole, its
+    gradient summed over the ranks; the state dict's keys the serial ones."""
+    _, _, _, y, grads, keys = file_nets["net"]
+    ranks = spatial["file_net"]
+    _check_forward(ranks, y)
+    assert _check_grads(ranks, grads) == {}
+    assert all(r["keys"] == keys for r in ranks)
+    assert {(r["lat"], r["lon"]) for r in ranks} == {((0, 7), (0, 11)), ((0, 7), (11, 10)),
+                                                    ((7, 6), (0, 11)), ((7, 6), (11, 10))}
+
+
+def test_file_class_on_its_patch_alone_misses_serial_jax(file_nets, spatial):
+    """The control of the case above: the class run on a rank's patch
+    alone, nothing gathered, misses the forward bound on every rank (the
+    class is not local: its convolution reads the neighbours' edges and its
+    mix the whole field's mean)."""
+    y = file_nets["net"][3]
+    errs = [np.abs(r["alone"] - _block(y, r["lat"], r["lon"])).max()
+            for r in spatial["file_net"]]
+    print(f"the file class on the patch alone: max error {errs} (forward bound 2e-4)")
+    assert min(errs) > 2e-4
+
+
+def test_file_class_on_h_and_fin_ranks_matches_serial_jax(file_nets, h_fin):
+    """h 2 x fin 2: the rules would cut `mlp.fc1.weight` (6, 4) over fin; the
+    class keeps it whole, as every other leaf, and every rank of a fin group
+    computes the same output."""
+    _, _, _, y, grads, keys = file_nets["net"]
+    ranks = h_fin["file_net"]
+    _check_forward(ranks, y)
+    assert _check_grads(ranks, grads) == {}
+    assert all(r["keys"] == keys for r in ranks)
+    assert ranks[0]["grads"]["model.mlp.fc1.weight"].shape == (FILE_WIDTH, FILE_SHAPE[1])
+
+
+def test_file_class_unroll_on_spatial_ranks_matches_the_serial_port(file_nets, spatial):
+    """The MultiStepWrapper's 2-step unroll (n_future 1: step 2 runs on step
+    1's output) on h 2 x w 2 against the serial port's. The control, run by
+    the same ranks, drops the whole field's copy_to: the gather's backward
+    then keeps the rank's own share of the input's cotangent, and step 1's
+    gradients miss."""
+    _, _, _, y, grads = file_nets["unroll"]
+    ranks = spatial["file_unroll"]
+    _check_forward(ranks, y)
+    assert _check_grads(ranks, grads) == {}
+    held = _worst_grad_dev(ranks, grads)
+    control = _worst_grad_dev(spatial["file_control"], grads)
+    print(f"the 2-step unroll: gradients within {held:.3g} of each leaf's largest; without "
+          f"copy_to {control:.3g} (bound {GRAD_TOL})")
+    assert control > GRAD_TOL
+
+
+def test_port_sfno_inside_a_file_class_on_spatial_ranks_matches_the_serial_port(
+        file_nets, spatial):
+    """A 1-block port SFNO held in a file class: inside the whole-field call
+    the model axes read serial, so its transforms, norms and filter take
+    their serial branches on the whole field, also where checkpointing 3
+    recomputes the block in backward; its SpectralConv stays whole."""
+    _, _, _, y, grads = file_nets["sfno"]
+    ranks = spatial["file_sfno"]
+    _check_forward(ranks, y)
+    assert _check_grads(ranks, grads) == {}
 
 
 def test_bf16_norm_stats_on_spatial_ranks_match_serial_jax(spatial):

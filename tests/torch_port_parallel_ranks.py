@@ -389,6 +389,43 @@ def norm_bf16(x, weight, bias, r):
                 lat=spmd.patch(hw[0], "h"), lon=spmd.patch(hw[1], "w"))
 
 
+def registered_model(params_dict, state, x, unroll=False, control=False, patch_only=False):
+    """The stepper get_model builds on the rank for `params_dict` (a network
+    registered from a file, which sets no spatially_parallel), with the
+    whole `state`: its output on the rank's patch of `x` (with `unroll` the
+    MultiStepWrapper's unrolled steps in training), the gradients of
+    mean(y**2) over the whole output, reduced as the Trainer reduces them,
+    its split leaves and its state dict's keys; with `patch_only` also the
+    network's output on the patch alone, nothing gathered (`alone`).
+    `control` runs spmd.whole_field without its copy_to, so the gathered
+    field's cotangent keeps only the rank's own share."""
+    from makani_tpu_torch.models.model_registry import get_model
+    from makani_tpu_torch.parallel import partitioning, spmd
+    from makani_tpu_torch.utils.yparams import ParamsBase
+    model = get_model(ParamsBase.from_dict(params_dict), device="cpu")
+    _load_whole(model, state, model.shards)
+    hw = x.shape[-2:]
+    xl = spmd.local_patch(torch.from_numpy(x), hw)
+    copy_to = spmd.copy_to
+    if control:
+        spmd.copy_to = lambda t, group_name: t
+    try:
+        y = model(xl, deterministic=not unroll)
+        whole = float(np.prod(y.shape[:2]) * np.prod(hw))
+        (spmd.all_reduce_sum(y.square().sum(), "spatial") / whole).backward()
+    finally:
+        spmd.copy_to = copy_to
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    partitioning.reduce_gradients(grads, model.shards)
+    out = dict(y=y.detach().numpy(), grads=_numpy(grads), shards=dict(model.shards),
+               keys=list(model.state_dict()), lat=spmd.patch(hw[0], "h"),
+               lon=spmd.patch(hw[1], "w"))
+    if patch_only:
+        with torch.no_grad():
+            out["alone"] = model.model(xl).numpy()
+    return out
+
+
 def run_cases(cases):
     """Each (function name, args) of `cases` on the rank, in order: the list
     of their results (one spawn of the ranks for many checks)."""
