@@ -41,6 +41,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from makani_tpu_torch.parallel import comm, spmd
+from makani_tpu_torch.utils.tracing import span
 
 # what a training forward's masks are drawn from: the run's seed, the
 # optimizer step and the unrolled step (MultiStepWrapper)
@@ -170,8 +171,11 @@ def parallel_linear(x, dim, x_axis, in_axis, out_axis, size, matmul):
 
 def apply_norm(norm, x, x_axis):
     """A channel norm of this module (or nn.Identity) on `x`, whose channels
-    are split over `x_axis`."""
-    return x if isinstance(norm, nn.Identity) else norm(x, x_axis)
+    are split over `x_axis`; the span "model.norm"."""
+    if isinstance(norm, nn.Identity):
+        return x
+    with span("model.norm"):
+        return norm(x, x_axis)
 
 
 def normal_param(shape, std, device, generator):

@@ -56,6 +56,7 @@ from makani_tpu_torch.models.common.layers import (
 )
 from makani_tpu_torch.ops.fft import InverseRealFFT2, RealFFT2
 from makani_tpu_torch.parallel import spmd
+from makani_tpu_torch.utils.tracing import span
 
 
 def softshrink(x, lambd):
@@ -212,7 +213,9 @@ class BlockV2(nn.Module):
     def forward(self, x, deterministic=True, x_axis=None):
         """x's channels split over `x_axis`, the output's alike."""
         residual = x
-        x = self.filter(apply_norm(self.norm1, x, x_axis), x_axis, self.grid)
+        x = apply_norm(self.norm1, x, x_axis)
+        with span("model.filter"):
+            x = self.filter(x, x_axis, self.grid)
         if self.skip_fno == "linear":
             b, c, h, w = residual.shape
             weight = self.skip_weight.to(x.dtype).expand(b, -1, -1)
@@ -226,8 +229,9 @@ class BlockV2(nn.Module):
             x = x + residual
         if self.skip_fno in ("linear", "identity") and not self.nested_skip_fno:
             residual = x
-        x = self.mlp(apply_norm(self.norm2, x, x_axis), deterministic=deterministic,
-                     x_axis=x_axis)
+        x = apply_norm(self.norm2, x, x_axis)
+        with span("model.mlp"):
+            x = self.mlp(x, deterministic=deterministic, x_axis=x_axis)
         return self.drop_path(x, deterministic=deterministic) + residual
 
 

@@ -78,6 +78,7 @@ from makani_tpu_torch.models.common.layers import (
 )
 from makani_tpu_torch.ops import InverseRealFFT2, InverseRealSHT, RealFFT2, RealSHT
 from makani_tpu_torch.parallel import spmd
+from makani_tpu_torch.utils.tracing import span
 
 
 @lru_cache(maxsize=None)
@@ -127,9 +128,11 @@ class SpectralFilterLayer(nn.Module):
                                    operator_type=operator_type, separable=separable, bias=bias,
                                    gain=gain, device=device, generator=generator)
 
+    @span("model.filter")
     def forward(self, x, deterministic=True, x_axis=None):
         """x's channels split over `x_axis`; (out, residual), both split as x
-        is (the SpectralConv's layout, or x's gathered and cut again)."""
+        is (the SpectralConv's layout, or x's gathered and cut again); the
+        span "model.filter"."""
         if isinstance(self.filter, SpectralConv):
             return self.filter(x, x_axis)
         if x_axis is not None:
@@ -190,7 +193,8 @@ class FourierNeuralOperatorBlock(nn.Module):
         x, residual = self.filter_layer(x, deterministic, x_axis)
         x = self.act(apply_norm(self.norm0, x, x_axis))
         if self.mlp is not None:
-            x = self.mlp(x, deterministic=deterministic, x_axis=x_axis)
+            with span("model.mlp"):
+                x = self.mlp(x, deterministic=deterministic, x_axis=x_axis)
         x = self.drop_path(apply_norm(self.norm1, x, x_axis), deterministic=deterministic)
         return x + self.outer_skip(residual, x_axis)
 

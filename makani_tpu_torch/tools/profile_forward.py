@@ -18,8 +18,9 @@ the complex dhconv kernel on; --amp runs it under bf16 AMP (amp_mode "bf16",
 precision "default": a bf16 input, 1 bf16 pass in the kernels). From the
 Chrome trace it prints the wall time, the device's busy time (the union of
 kernel, copy and set intervals) and its share of the wall, the device time by
-phase (with --train: the kernels inside the step's forward and optimizer
-ranges, the rest is backward) and by category (the port's kernels by name,
+phase (with --train: the kernels inside the step's "train_step.forward" and
+".optimizer" ranges, the rest is backward; the model's "model.*" spans are
+not phases) and by category (the port's kernels by name,
 cuBLAS products by the operator that launched them, those launched inside an
 einsum apart, copies, and the rest: elementwise and reductions; the SHT's
 longitude DFT is gridmm and its table prep, or cuBLAS mm under "highest"),
@@ -32,6 +33,9 @@ build/profile_trace.json). --memory also records the device memory each
 operator allocates and does not free within itself, and prints the
 operators by that sum: what the run keeps (saved for backward, or
 gradients).
+
+The ranges are the port's spans (utils/tracing.py, the one place they come
+from): free when no profiler runs, recorded while this tool's profiler does.
 """
 
 import argparse
@@ -117,7 +121,7 @@ def summarize(trace_path, wall_ms, block=None, labels=_SFNO_LABELS):
     ops = {e["args"].get("External id"): e for e in cpu_ops if "args" in e}
     einsums = [(e["ts"], e["ts"] + e["dur"]) for e in cpu_ops if e["name"] == "aten::einsum"]
     phases = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
-              if e.get("cat") == "gpu_user_annotation"}
+              if e.get("cat") == "gpu_user_annotation" and e["name"].startswith("train_step.")}
     busy = busy_ms(device)
     by_phase, by_category = defaultdict(float), defaultdict(float)
     for e in device:

@@ -39,6 +39,10 @@ donate their buffers).
 The MetricsHandler and the loss are built at their first use: a rollout
 without metrics needs neither channel names nor stats files.
 
+Each `lite_step` is a unit of the host-lead counter's "serve" loop
+(utils/tracing.mark), whose finished units a rollout's closing synchronize
+settles.
+
 On several ranks (parallel/comm, set up by the caller: inference.py under
 torchrun) over data, the spatial h and w axes and the channel fin and fout
 axes, the rollouts run on each rank's patch of its rows (the model's
@@ -61,6 +65,7 @@ import torch
 from makani_tpu_torch.data.dataloader import get_dataloader, init_data_params, to_device
 from makani_tpu_torch.models.model_registry import as_params, get_model, update_channel_params
 from makani_tpu_torch.parallel import comm, spmd
+from makani_tpu_torch.utils import tracing
 from makani_tpu_torch.utils.checkpoint import restore_checkpoint
 from makani_tpu_torch.utils.device import resolve_device
 from makani_tpu_torch.utils.losses import LossHandler
@@ -146,6 +151,7 @@ class Inferencer:
 
     @torch.inference_mode()
     def lite_step(self, inpt, uinp, zen_tar, idt):
+        tracing.mark("serve", self.device)
         prep = self.preprocessor
         pred = self._fwd(inpt, uinp)
         if self.sst_persistence_channels:
@@ -175,6 +181,7 @@ class Inferencer:
     def _finish(self, *buffers):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+            tracing.settle("serve")
         if spmd.spatial_distributed():
             # the whole fields, from every spatial rank's patches
             buffers = tuple(spmd.gather_patch(b, self._global_hw()) for b in buffers)

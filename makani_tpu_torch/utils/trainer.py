@@ -25,11 +25,14 @@ says: without clipping or LAMB it gives the bits of makani_tpu's fused stage,
 and for bf16 moments those of its optax chain too. Adafactor and SGD run
 utils/optimizers' chain (float32 tensor ops on either device); float16
 moments run it on the CPU only. The step's
-forward, backward and optimizer update are profiler ranges
-("train_step.forward", ".backward", ".optimizer"), which
-tools/profile_forward.py --train reads; they cost a few microseconds a step
-when no profiler runs. `profile_steps` > 0 traces the first that many steps
-of epoch 1 with torch.profiler into <experiment_dir>/profile/trace.json.
+forward, backward and optimizer update are spans ("train_step.forward",
+".backward", ".optimizer"), which tools/profile_forward.py --train and the
+benchmark's optimizer_ms read; like every span they come from
+utils/tracing.py and are free when no profiler runs (a check, under 1 us a
+span on the host). Each `train_step` is a unit of the host-lead counter's "train"
+loop (utils/tracing.mark). `profile_steps` > 0 traces the first that many
+steps of epoch 1 with torch.profiler into
+<experiment_dir>/profile/trace.json.
 
 The data: the training loader reads `train_data_path` and the evaluation
 loader `valid_data_path` (data/dataloader.get_dataloader: the native reader
@@ -91,7 +94,7 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
 from makani_tpu_torch.data.dataloader import get_dataloader, init_data_params, to_device
 from makani_tpu_torch.models.common.layers import DropoutKey, use_dropout_key
@@ -100,6 +103,7 @@ from makani_tpu_torch.ops import complex_ops, sht
 from makani_tpu_torch.ops.fused_adam import fused_adam_apply
 from makani_tpu_torch.parallel import comm, partitioning, spmd
 from makani_tpu_torch.utils import checkpoint as ckpt_lib
+from makani_tpu_torch.utils import tracing
 from makani_tpu_torch.utils.device import resolve_device
 from makani_tpu_torch.utils.imports import import_optional
 from makani_tpu_torch.utils.losses import LossHandler
@@ -321,7 +325,7 @@ class Trainer:
         the config clips)."""
         return next(s for s in self.opt_state if isinstance(s, AdamState))
 
-    @record_function("train_step.optimizer")
+    @tracing.span("train_step.optimizer")
     def apply_updates(self, grads, lr):
         """The optimizer update of makani_tpu's train step, in place."""
         if self.fused_kw is not None:
@@ -344,16 +348,17 @@ class Trainer:
         """Loss of the batch and the gradient of every parameter (dict); in
         training the forward draws its dropout masks from `dropout_key()`."""
         prep = self.preprocessor
-        inp = self._amp(prep.flatten_history(inp))
-        tar = prep.flatten_history(tar)
         for p in self.model_params.values():
             p.grad = None
-        with record_function("train_step.forward"), \
+        # the input's flattening and cast are the forward's work
+        with tracing.span("train_step.forward"), \
                 use_dropout_key(None if deterministic else self.dropout_key()):
+            inp = self._amp(prep.flatten_history(inp))
+            tar = prep.flatten_history(tar)
             pred = self.model(inp, unpredicted_inp=zen_inp, unpredicted_tar=zen_tar,
                               deterministic=deterministic)
             loss = self.loss_obj(pred.float(), tar, inp, training=True)
-        with record_function("train_step.backward"):
+        with tracing.span("train_step.backward"):
             loss.backward()
         grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for k, p in self.model_params.items()}
@@ -369,6 +374,7 @@ class Trainer:
 
     def train_step(self, inp, tar, zen_inp, zen_tar, lr):
         """One optimizer step on a device batch; returns the loss (a tensor)."""
+        tracing.mark("train", self.device)
         if self.do_roll or self.noise_std > 0.0:
             inp, tar, zen_inp, zen_tar = augment_batch(
                 inp, tar, zen_inp, zen_tar, self.aug_generator, self.do_roll, self.noise_std,
