@@ -22,7 +22,12 @@ Phases, in order; any failure exits non-zero:
      and the bf16 GELU kernels, forward and gradient, at the blocks' MLP
      activation (1, 768, 240, 480) and the encoder's (1, 384, 721, 1440):
      bit-identical to their twins, timed at the second beside the twin and
-     PyTorch's fused tanh-form GELU and its gradient on bf16;
+     PyTorch's fused tanh-form GELU and its gradient on bf16; and the
+     instance norm kernels, forward and backward, at the flagship's inner
+     (1, 384, 240, 480) and full (1, 384, 721, 1440) grids and AFNO v2's
+     (1, 768, 90, 180) in bf16: within one bf16 ulp of their twins (the
+     eager chain, the closed-form backward), timed beside them and
+     F.instance_norm with its autograd backward;
   4. the flagship_synth_drive_bare SFNO at full width (73 channels on
      721x1440, embed 384, 8 blocks, random weights from a seed): one forward
      through the kernels with its launch counts, against one through the plain
@@ -82,7 +87,8 @@ Phases, in order; any failure exits non-zero:
   9. bf16 AMP at full width (amp_mode "bf16", precision "default": every
      kernel launch at 1 bf16 pass, checked by kernels.launches_by_passes;
      cuBLAS's bf16 reduced-precision reductions off): one forward through the
-     kernels (18 legmm, 18 gridmm, 8 dhconv_mm, 18 gelu_bf16), its deviation from one
+     kernels (18 legmm, 18 gridmm, 8 dhconv_mm, 18 gelu_bf16, 16
+     instance_norm_fwd, no norm on the eager path), its deviation from one
      through the twins and from phase 4's float32 forward of the same
      weights and input, both below AMP_DEV_MAX; every legmm, dhconv_mm and gridmm
      call of an AMP forward against its twin on the same inputs (TWIN_TOL);
@@ -91,7 +97,8 @@ Phases, in order; any failure exits non-zero:
      float32 there; a 4-step
      Inferencer lite rollout timed as in phase 5 with its peak memory; a
      Trainer epoch of 3 steps with finite losses and phase 6's launch counts
-     per step, plus 18 gelu_bf16 and 18 gelu_bf16_grad; the train step timed
+     per step, plus 18 gelu_bf16 and 18 gelu_bf16_grad and 16 instance_norm_fwd
+     and 16 instance_norm_bwd (no eager norm); the train step timed
      on a resident batch with its peak memory; on the "xla" engine with its
      kernel, one forward (8 dhconv_complex) and one train step (16
      dhconv_complex, 1 fused_adam), then that step timed (median of 3). The
@@ -229,7 +236,9 @@ Phases, in order; any failure exits non-zero:
      YAML says, 2 steps, and (d) under bf16 AMP, 1 step: finite losses, the
      launches (one fused_adam a step over 136, 148 and 150 leaves; under AMP
      AFNO v2's 12 gelu_bf16 and 12 gelu_bf16_grad a step, none for the
-     others, whose flax-style norms and dense layers compute in float32), a
+     others, whose flax-style norms and dense layers compute in float32;
+     AFNO v2's 24 instance_norm_fwd and 24 instance_norm_bwd a step, float32
+     and AMP, and 24 instance_norm_fwd a rollout step, no norm eager), a
      train step on a resident batch with its peak memory, and a 4-step
      Inferencer rollout of the trained model timed as in phase 5; a
      PrecipNet over an AFNO v1 of afno_backbone's widths, forward and
@@ -466,6 +475,11 @@ BLOCK_SHARE = 1.0
 # the encoder and the decoder each; the gradient as many in a train step
 AMP_FORWARD_GELU = {"gelu_bf16": 18}
 AMP_TRAIN_GELU = {"gelu_bf16": 18, "gelu_bf16_grad": 18}
+# the instance norm kernels: 16 norms a flagship forward (norm0 and norm1 of
+# 8 blocks), each one forward launch and one backward launch; no call takes
+# the eager path ("f32" statistics, one card)
+FORWARD_NORMS = {"instance_norm_fwd": 16}
+TRAIN_NORMS = {"instance_norm_fwd": 16, "instance_norm_bwd": 16}
 # phase 20: the SHT's grid stage at each precision mode, at the flagship's
 # shapes (label, rows, nlon, mmax, analysis): the full grid 721 x 1440 of 384
 # channels and the inner grid 240 x 480
@@ -604,6 +618,9 @@ FAMILY_SHAPE = (720, 1440)
 FAMILY_STEPS, FAMILY_AMP_STEPS = 2, 1
 # AFNO v2 stays bf16 under AMP: one GELU a block each way (12 blocks)
 FAMILY_AMP_GELU = {AFNO_V2: 12, AFNO_V1: 0, VIT: 0}
+# instance norm kernel launches a forward (AFNO v2: norm1 and norm2 of 12
+# blocks, float32 and AMP alike); AFNO v1 and the ViT use flax-style layer norms
+FAMILY_NORMS = {AFNO_V2: 24, AFNO_V1: 0, VIT: 0}
 # the PrecipNet check on the card against the CPU: afno_backbone's widths
 # (73 channels, patch 8, embed 768, 8 blocks) on a 64x128 grid, 2 layers
 PRECIP_SHAPE, PRECIP_LAYERS = (64, 128), 2
@@ -873,9 +890,25 @@ def rel_err_c(got, ref):
     return float((got.to(torch.complex128) - ref).abs().max() / ref.abs().max())
 
 
+class _AnyCount:
+    """Equal to any launch count: the instance norm kernels' count where a
+    check does not name it."""
+
+    def __eq__(self, other):
+        return True
+
+    def __repr__(self):
+        return "any"
+
+
+NORM_KERNELS = ("instance_norm_fwd", "instance_norm_bwd")
+
+
 def launch_counts(kernels, expected):
-    """`expected` with every other kernel at zero launches."""
-    return {k: expected.get(k, 0) for k in kernels.launches}
+    """`expected` with every other kernel at zero launches; the instance norm
+    kernels, which every model with InstanceNorm2d launches, are held to a
+    count only where `expected` names them (phases 3, 9 and 15)."""
+    return {k: expected.get(k, _AnyCount() if k in NORM_KERNELS else 0) for k in kernels.launches}
 
 
 def timed_rollouts(torch, np, kernels, inferencer, x, label):
@@ -1097,6 +1130,54 @@ def phase_gelu(torch, dev, gen):
             name=name, shape=f"x{tuple(x.shape)} bf16", passes=None, max_abs_err=0.0,
             ms=cuda_ms(fn, 20), plain_ms=cuda_ms(plain, 5), library_ms=cuda_ms(library, 20),
             bound_ms=b_ms, bound_by=b_by, gbytes=nbytes / 1e9, gflop=flops / 1e9))
+    return rows
+
+
+def phase_instance_norm(torch, dev, gen):
+    """The instance norm kernels at the paths' shapes in bf16 (the flagship's
+    inner and full grids at embed 384, AFNO v2's 90 x 180 tokens at 768):
+    y and dx within one bf16 ulp of each element of the twins' plus 1e-6 of
+    the largest magnitude (their float32 statistics summed in other orders),
+    then each kernel timed beside its twin (the eager chain forward, the
+    closed form backward) and PyTorch's F.instance_norm forward and its
+    autograd backward. Bounds: 4 bytes an element forward (x read, y
+    written), 6 backward (x and g read, dx written)."""
+    import torch.nn.functional as F
+
+    from makani_tpu_torch.ops import instance_norm as inorm
+    rows = []
+    for shape in ((1, 384, 240, 480), (1, 384, 721, 1440), (1, 768, 90, 180)):
+        x = (1.7 * torch.randn(shape, device=dev, generator=gen) + 0.6).bfloat16()
+        g = torch.randn(shape, device=dev, generator=gen).bfloat16()
+        w = 1 + 0.3 * torch.randn(shape[1], device=dev, generator=gen)
+        b = 0.2 * torch.randn(shape[1], device=dev, generator=gen)
+        y, stats = inorm.instance_norm_forward(x, w, b, 1e-6)
+        dx, _, _ = inorm.instance_norm_backward(x, g, w, stats)
+        y_t, stats_t = inorm.instance_norm_plain(x, w, b, 1e-6)
+        dx_t, _, _ = inorm.instance_norm_grad_plain(x, g, w, stats_t)
+        for name, got, want in (("instance_norm_fwd", y, y_t), ("instance_norm_bwd", dx, dx_t)):
+            err = (got.float() - want.float()).abs()
+            ulp = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp_min(1e-38))) - 7)
+            check(bool((err <= ulp + 1e-6 * want.float().abs().max()).all()),
+                  f"{name} {shape} vs twin: {int((err > ulp).sum())} elements past one ulp")
+        del y, dx, y_t, dx_t, stats_t
+        xl = x.detach().requires_grad_(True)
+        y_lib = F.instance_norm(xl, weight=w, bias=b, eps=1e-6)
+        n = x.numel()
+        for name, fn, plain, library, nbytes in (
+                ("instance_norm_fwd", lambda: inorm.instance_norm_forward(x, w, b, 1e-6),
+                 lambda: inorm.instance_norm_plain(x, w, b, 1e-6),
+                 lambda: F.instance_norm(x, weight=w, bias=b, eps=1e-6), 4 * n),
+                ("instance_norm_bwd", lambda: inorm.instance_norm_backward(x, g, w, stats),
+                 lambda: inorm.instance_norm_grad_plain(x, g, w, stats),
+                 lambda: torch.autograd.grad(y_lib, xl, g, retain_graph=True), 6 * n)):
+            b_ms, b_by = bound(nbytes, 0, F32_FLOPS)
+            rows.append(dict(
+                name=name, shape=f"x{shape} bf16", passes=None, ms=cuda_ms(fn, 20),
+                plain_ms=cuda_ms(plain, 5), library_ms=cuda_ms(library, 5), bound_ms=b_ms,
+                bound_by=b_by, gbytes=nbytes / 1e9))
+        del x, g, xl, y_lib, stats
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1666,8 +1747,8 @@ def phase_amp(torch, np, sht, complex_ops, kernels, dev, x, y_f32):
     y, rec["forward_ms"], rec["launches_per_forward"] = amp_forward(
         torch, kernels, model, xb, "AMP")
     check(rec["launches_per_forward"] == launch_counts(
-        kernels, {"legmm": 18, "gridmm": 18, "dhconv_mm": 8, **AMP_FORWARD_GELU})
-          and at_one_pass(kernels),
+        kernels, {"legmm": 18, "gridmm": 18, "dhconv_mm": 8, **AMP_FORWARD_GELU,
+                  **FORWARD_NORMS}) and at_one_pass(kernels) and not kernels.eager_calls,
           f"AMP launches per forward {rec['launches_per_forward']}, "
           f"by passes {dict(kernels.launches_by_passes)}")
     sht.set_coeff_engine("stacked")
@@ -1723,10 +1804,11 @@ def phase_amp(torch, np, sht, complex_ops, kernels, dev, x, y_f32):
         torch, np, kernels, inferencer, xd, "AMP rollout")
     rec["step_ms"] = statistics.median(rec["step_ms_all"])
     rec["peak_bytes"] = torch.cuda.max_memory_allocated()
-    per_step = {"legmm": 18, "gridmm": 18, "dhconv_mm": 8, **AMP_FORWARD_GELU}
+    per_step = {"legmm": 18, "gridmm": 18, "dhconv_mm": 8, **AMP_FORWARD_GELU, **FORWARD_NORMS}
     check(rec["rollout_launches"] == launch_counts(
-        kernels, {k: v * ROLLOUT_STEPS for k, v in per_step.items()}),
-          f"AMP rollout launches {rec['rollout_launches']}")
+        kernels, {k: v * ROLLOUT_STEPS for k, v in per_step.items()})
+          and not kernels.eager_calls, f"AMP rollout launches {rec['rollout_launches']}, "
+          f"eager norms {dict(kernels.eager_calls)}")
     del inferencer, xd
     torch.cuda.empty_cache()
 
@@ -1745,9 +1827,10 @@ def phase_amp(torch, np, sht, complex_ops, kernels, dev, x, y_f32):
     check(len(losses) == TRAIN_STEPS and all(math.isfinite(v) for v in losses),
           f"AMP train losses {losses}")
     check(total == launch_counts(kernels, {
-        k: v * TRAIN_STEPS for k, v in {**TRAIN_LAUNCHES, **AMP_TRAIN_GELU}.items()})
-          and at_one_pass(kernels), f"AMP launches over {TRAIN_STEPS} train steps {total}, "
-          f"by passes {dict(kernels.launches_by_passes)}")
+        k: v * TRAIN_STEPS for k, v in {**TRAIN_LAUNCHES, **AMP_TRAIN_GELU, **TRAIN_NORMS}.items()})
+          and at_one_pass(kernels) and not kernels.eager_calls,
+          f"AMP launches over {TRAIN_STEPS} train steps {total}, by passes "
+          f"{dict(kernels.launches_by_passes)}, eager norms {dict(kernels.eager_calls)}")
     rec.update(train_losses=losses, train_launches=total,
                train_launches_per_step={k: v // TRAIN_STEPS for k, v in total.items()})
     inp, tar = (torch.from_numpy(a[None]).to(dev) for a in trainer.train_dataset[0])
@@ -3355,8 +3438,9 @@ def family_run(torch, np, kernels, dev, gen, name, amp):
           and trainer.amp_dtype == (torch.bfloat16 if amp else None),
           f"{name}: {type(net).__name__}, {run['leaves']} leaves, crop "
           f"{(p.img_crop_shape_x, p.img_crop_shape_y)}, amp {trainer.amp_dtype}")
-    gelu = FAMILY_AMP_GELU[name] if amp else 0
-    per_step = {"fused_adam": 1, "gelu_bf16": gelu, "gelu_bf16_grad": gelu}
+    gelu, norms = FAMILY_AMP_GELU[name] if amp else 0, FAMILY_NORMS[name]
+    per_step = {"fused_adam": 1, "gelu_bf16": gelu, "gelu_bf16_grad": gelu,
+                "instance_norm_fwd": norms, "instance_norm_bwd": norms}
     check(run["launches"] == launch_counts(kernels, {k: v * steps for k, v in per_step.items()}),
           f"{name} launches {run['launches']}, a step {per_step}")
     run.update(amp=amp, steps=steps, launches_per_step=per_step)
@@ -3373,8 +3457,10 @@ def family_run(torch, np, kernels, dev, gen, name, amp):
     torch.cuda.reset_peak_memory_stats()
     x = torch.randn((1, FILES_CHANNELS, *FAMILY_SHAPE), device=dev, generator=gen)
     launches, times = timed_rollouts(torch, np, kernels, inferencer, x, f"{name} rollout")
-    check(launches == launch_counts(kernels, {"gelu_bf16": gelu * ROLLOUT_STEPS}),
-          f"{name} rollout launches {launches}")
+    check(launches == launch_counts(kernels, {"gelu_bf16": gelu * ROLLOUT_STEPS,
+                                              "instance_norm_fwd": norms * ROLLOUT_STEPS})
+          and not kernels.eager_calls,
+          f"{name} rollout launches {launches}, eager norms {dict(kernels.eager_calls)}")
     run.update(rollout_ms=statistics.median(times), rollout_ms_all=times,
                rollout_peak_bytes=torch.cuda.max_memory_allocated(), rollout_launches=launches)
     del inferencer, x
@@ -5324,6 +5410,12 @@ def main(argv=None):
         print(f"  {r['name']} | {r['shape']} | - | bit-identical | - | {r['ms']:.4f} | "
               f"{r['plain_ms']:.4f} | {r['library_ms']:.4f} (PyTorch's fused GELU, rounded "
               f"once) | {r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+    norm_rows = phase_instance_norm(torch, dev, gen)
+    record["norm_kernels"] = norm_rows
+    for r in norm_rows:
+        print(f"  {r['name']} | {r['shape']} | - | within 1 ulp | - | {r['ms']:.4f} | "
+              f"{r['plain_ms']:.4f} | {r['library_ms']:.4f} (F.instance_norm, autograd "
+              f"backward) | {r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
 
     # phase 4: full-width forward, kernels vs twins; small SFNO card vs CPU
     model.eval()

@@ -40,6 +40,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from makani_tpu_torch.ops import instance_norm
 from makani_tpu_torch.parallel import comm, spmd
 from makani_tpu_torch.utils.tracing import span
 
@@ -485,7 +486,11 @@ def get_norm_stats_mode():
 
 class InstanceNorm2d(nn.Module):
     """Per-sample, per-channel normalization over (H, W), optional affine;
-    its statistics as `set_norm_stats_mode` says."""
+    its statistics as `set_norm_stats_mode` says. At "f32" statistics (or a
+    float32 input) off spatial ranks it runs ops/instance_norm.py: the
+    kernels on the card, their twin on the CPU. Spatial ranks, whose
+    statistics are summed over the spatial group, and the "bf16" statistics
+    stay eager, counted on the card in kernels.eager_calls."""
 
     def __init__(self, num_features, eps=1e-6, affine=True, device="cpu"):
         super().__init__()
@@ -496,24 +501,24 @@ class InstanceNorm2d(nn.Module):
         else:
             self.weight = self.bias = None
 
+    def _affine(self, x_axis):
+        if self.weight is None:
+            return None, None
+        return tuple(leaf_part(self, k, 0, x_axis) for k in ("weight", "bias"))
+
     def forward(self, x, x_axis=None):
         """x's channels split over `x_axis` (the statistics are per channel;
         the affine is cut to the rank's channels)."""
         if _NORM_STATS == "bf16" and x.dtype != torch.float32:
+            instance_norm.count_eager(x)
             return self._one_pass(x, x_axis)
+        weight, bias = self._affine(x_axis)
+        if not spmd.spatial_distributed():
+            return instance_norm.instance_norm(x, weight, bias, self.eps)
+        instance_norm.count_eager(x)
         xf = x.float()
-        if spmd.spatial_distributed():
-            mean, var = self._global_stats(xf)
-            xc = xf - mean
-        else:
-            mean = xf.mean(dim=(-2, -1), keepdim=True)
-            xc = xf - mean
-            var = xc.square().mean(dim=(-2, -1), keepdim=True)
-        y = xc * torch.rsqrt(var + self.eps)
-        if self.weight is not None:
-            weight, bias = (leaf_part(self, k, 0, x_axis) for k in ("weight", "bias"))
-            y = y * weight[None, :, None, None] + bias[None, :, None, None]
-        return y.to(x.dtype)
+        mean, var = self._global_stats(xf)
+        return instance_norm.normalized_plain(xf - mean, var, weight, bias, self.eps, x.dtype)[0]
 
     def _one_pass(self, x, x_axis):
         """The "bf16" mode (makani_tpu/models/common/layers.py:186-200): the
@@ -533,7 +538,7 @@ class InstanceNorm2d(nn.Module):
         scale = torch.rsqrt(var + self.eps)
         y = (x - mean.to(x.dtype)) * scale.to(x.dtype)
         if self.weight is not None:
-            weight, bias = (leaf_part(self, k, 0, x_axis) for k in ("weight", "bias"))
+            weight, bias = self._affine(x_axis)
             y = y * weight.to(x.dtype)[None, :, None, None] + bias.to(x.dtype)[None, :, None, None]
         return y
 

@@ -4,7 +4,8 @@ Every kernel has a plain C launcher (`<name>_launch`, returning
 cudaGetLastError()) in a CUDA C++ source in makani_tpu_torch/csrc/ for sm_90a,
 loaded with ctypes; one source may hold several kernels (gridmm.cu holds
 gridmm and grid_dot, probes.cu the seven probes and probe_dot_chain, the
-dot probes' bit reference, gelu.cu the bf16 GELU and its gradient).
+dot probes' bit reference, gelu.cu the bf16 GELU and its gradient,
+instance_norm.cu the norm's forward and backward).
 `build()` compiles the sources with nvcc at first use into build/kernels/
 at the root of the checkout, one nvcc per source, all started together; a
 library there that is newer than every kernel source, header and this
@@ -15,6 +16,10 @@ callers reset and read the counts around a run. `launches_by_passes` counts
 the launches of the kernels that take a bf16 pass count by (kernel, passes),
 so a run can show at which accuracy point its kernels ran. A call with
 nothing to compute (`no_work`) launches nothing and counts nothing.
+`eager_calls` counts, by layer, the calls on the card that took a layer's
+eager path instead of its kernel (InstanceNorm2d on spatial ranks or at
+"bf16" statistics), so launches / (launches + eager calls) is the share of
+a layer's calls that the kernel took.
 
 Every wrapper launches through `launch`, the one launch path: the launcher,
 the device test, the current stream's raw handle (`stream`), the error
@@ -42,12 +47,14 @@ _SOURCES = {"legmm": "legmm.cu", "dhconv_mm": "dhconv_mm.cu", "dhconv_dw": "dhco
             "fused_adam": "fused_adam.cu", "dhconv_complex": "dhconv_complex.cu",
             "gridmm": "gridmm.cu", "grid_dot": "gridmm.cu",
             "gelu_bf16": "gelu.cu", "gelu_bf16_grad": "gelu.cu",
+            "instance_norm_fwd": "instance_norm.cu", "instance_norm_bwd": "instance_norm.cu",
             **{name: "probes.cu" for name in (*PROBES, "probe_dot_chain")}}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 launches = {name: 0 for name in _SOURCES}
 launches_by_passes = collections.Counter()
+eager_calls = collections.Counter()
 
 _libs = {}
 
@@ -56,6 +63,7 @@ def reset_launches():
     for k in launches:
         launches[k] = 0
     launches_by_passes.clear()
+    eager_calls.clear()
 
 
 def _nvcc():
@@ -134,6 +142,10 @@ def _declare(name, lib):
         "gelu_bf16": [vp, vp, ci, vp],
         # x, g, dx, n, stream
         "gelu_bf16_grad": [vp, vp, vp, ci, vp],
+        # x, w, b, y, mean, rstd, planes, channels, n, eps, is_bf16, stream
+        "instance_norm_fwd": [vp, vp, vp, vp, vp, vp, ci, ci, ci, cf, ci, vp],
+        # x, g, w, mean, rstd, dx, dw, db, planes, channels, n, is_bf16, stream
+        "instance_norm_bwd": [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp],
         # x, out, n, stream
         "probe_copy": [vp, vp, ci, vp],
         # a, b, out, o, c, m, stream

@@ -29,7 +29,8 @@ import numpy as np
 import pytest
 import torch
 
-from makani_tpu_torch.ops import complex_kernels, fused_adam, gelu, kernels, spectral_mm
+from makani_tpu_torch.ops import (complex_kernels, fused_adam, gelu, instance_norm, kernels,
+                                  spectral_mm)
 from makani_tpu_torch.tools import bench_gridmm, bench_spectral_mm, kernel_isolate
 from makani_tpu_torch.utils.optimizers import AdamState
 
@@ -1481,6 +1482,116 @@ def test_gelu_bf16_function_on_card(cuda):
 
 
 # --------------------------------------------------------------------------
+# the instance norm kernels (csrc/instance_norm.cu) against their twins on the
+# card, forward and backward: the flagship's inner and full planes, AFNO v2's
+# and a ragged one at batch 2; x off 16 bytes (the element-by-element path).
+# y and dx within one ulp of x's type of each element plus 1e-6 of the
+# largest magnitude (kernel and twin sum the statistics in other orders in
+# float32, which moves an element whose value is a small difference of
+# larger terms by a few float32 ulps of those terms); the affine's float32
+# gradients within 2**-16 of the sums of magnitudes they add (float32 sums
+# over up to 1.04 M terms in other orders)
+# --------------------------------------------------------------------------
+
+NORM_SHAPES = [(1, 384, 240, 480), (1, 384, 721, 1440), (1, 768, 90, 180), (2, 8, 7, 13)]
+
+
+def _ulp_of(t, dtype):
+    a = t.float().abs().clamp_min(torch.finfo(dtype).tiny)
+    return torch.exp2(torch.floor(torch.log2(a)) - (7 if dtype == torch.bfloat16 else 23))
+
+
+def _within_ulp(got, want):
+    err = (got.float() - want.float()).abs()
+    return bool((err <= _ulp_of(want, got.dtype) + 1e-6 * want.float().abs().max()).all())
+
+
+def _norm_inputs(shape, dtype, device, seed, offset=0, affine=True):
+    g = torch.Generator(device=device).manual_seed(seed)
+    n = int(np.prod(shape))
+    x, dy = ((1.7 * torch.randn(n + offset, device=device, generator=g) + 0.6).to(dtype)
+             [offset:].view(shape) for _ in range(2))
+    c = shape[1]
+    w = 1.0 + 0.3 * torch.randn(c, device=device, generator=g) if affine else None
+    b = 0.2 * torch.randn(c, device=device, generator=g) if affine else None
+    return x, dy, w, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,offset,affine", [(s, 0, True) for s in NORM_SHAPES]
+                         + [((2, 8, 7, 13), 1, True), ((2, 8, 7, 13), 0, False),
+                            ((1, 16, 90, 180), 1, True)], ids=str)
+def test_instance_norm_kernels_match_twins(cuda, shape, dtype, offset, affine):
+    x, dy, w, b = _norm_inputs(shape, dtype, cuda, seed=shape[1], offset=offset, affine=affine)
+    before = dict(kernels.launches)
+    y, stats = instance_norm.instance_norm_forward(x, w, b, 1e-6)
+    dx, dw, db = instance_norm.instance_norm_backward(x, dy, w, stats)
+    torch.cuda.synchronize()
+    assert kernels.launches["instance_norm_fwd"] == before["instance_norm_fwd"] + 1
+    assert kernels.launches["instance_norm_bwd"] == before["instance_norm_bwd"] + 1
+    y_t, stats_t = instance_norm.instance_norm_plain(x, w, b, 1e-6)
+    assert y.dtype == dtype and _within_ulp(y, y_t)
+    assert _rel(stats[0], stats_t[0]) < 1e-5 and _rel(stats[1], stats_t[1]) < 1e-5
+    del y, y_t
+    dx_t, dw_t, db_t = instance_norm.instance_norm_grad_plain(x, dy, w, stats_t)
+    mean_t, rstd_t = stats_t
+    assert dx.dtype == dtype and _within_ulp(dx, dx_t)
+    del dx, dx_t
+    if affine:
+        gf = dy.float()
+        xhat = (x.float() - mean_t[..., None, None]) * rstd_t[..., None, None]
+        for got, want, scale in ((dw, dw_t, (gf * xhat).abs().sum(dim=(0, 2, 3))),
+                                 (db, db_t, gf.abs().sum(dim=(0, 2, 3)))):
+            assert got.dtype == torch.float32 and got.shape == (shape[1],)
+            assert bool(((got - want).abs() <= 2.0 ** -16 * scale).all())
+    else:
+        assert dw is None and db is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 384, 721, 1440), (2, 768, 90, 180)], ids=str)
+def test_instance_norm_kernels_repeat_their_bits(cuda, shape):
+    """Two runs of each kernel give the same bits: the statistics and the
+    affine's sums are taken in a fixed order, with no float atomics."""
+    x, dy, w, b = _norm_inputs(shape, torch.bfloat16, cuda, seed=11)
+    runs = []
+    for _ in range(2):
+        y, stats = instance_norm.instance_norm_forward(x, w, b, 1e-6)
+        runs.append((y, stats, *instance_norm.instance_norm_backward(x, dy, w, stats)))
+    torch.cuda.synchronize()
+    for a, c in zip(*runs):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_instance_norm_layer_takes_the_kernels_on_the_card(cuda):
+    """InstanceNorm2d on a bf16 CUDA tensor: one forward and one backward
+    launch, no eager call, the float32 statistics saved beside x, the
+    affine's gradients those of the twins on the CPU."""
+    from makani_tpu_torch.models.common.layers import InstanceNorm2d
+    x, dy, w, b = _norm_inputs((2, 6, 33, 40), torch.bfloat16, "cpu", seed=2)
+    m = InstanceNorm2d(6)
+    m.weight.data, m.bias.data = w, b
+    want = m(x.requires_grad_(True))
+    want.backward(dy)
+    m_cpu_grads = (m.weight.grad.clone(), m.bias.grad.clone(), x.grad.clone())
+    m.zero_grad()
+    m = m.to(cuda)
+    kernels.reset_launches()
+    xd = x.detach().to(cuda).requires_grad_(True)
+    y = m(xd)
+    y.backward(dy.to(cuda))
+    torch.cuda.synchronize()
+    assert kernels.launches["instance_norm_fwd"] == 1 and kernels.launches["instance_norm_bwd"] == 1
+    assert kernels.eager_calls["instance_norm"] == 0
+    assert _within_ulp(y.detach().cpu(), want.detach())
+    assert _within_ulp(xd.grad.cpu(), m_cpu_grads[2])
+    for got, ref in zip((m.weight.grad, m.bias.grad), m_cpu_grads[:2]):
+        assert float((got.cpu() - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+# --------------------------------------------------------------------------
 # the distributed transposes: two ranks on the one card, exchanging over gloo
 # (NCCL refuses two ranks on one device), every transform's compute on the
 # card through the kernels
@@ -1657,6 +1768,12 @@ def _no_work_cases():
          lambda x: gelu.gelu_bf16_forward(x.bfloat16())),
         ("gelu_bf16_grad empty", "gelu_bf16_grad", [(0, 3), (0, 3)],
          lambda x, g: gelu.gelu_bf16_backward(x.bfloat16(), g.bfloat16())),
+        # the norm over an empty plane
+        ("instance_norm_fwd empty", "instance_norm_fwd", [(2, 3, 0, 5)],
+         lambda x: instance_norm.instance_norm_forward(x.bfloat16(), None, None, 1e-6)[0]),
+        ("instance_norm_bwd empty", "instance_norm_bwd",
+         [(2, 3, 4, 0), (2, 3, 4, 0), (3,), (2, 2, 3)],
+         lambda x, g, w, stats: instance_norm.instance_norm_backward(x, g, w, stats)[0]),
     ]
 
 

@@ -25,7 +25,7 @@ from types import SimpleNamespace
 import pytest
 import torch
 
-from makani_tpu_torch.ops import complex_kernels, gelu, kernels, spectral_mm
+from makani_tpu_torch.ops import complex_kernels, gelu, instance_norm, kernels, spectral_mm
 from makani_tpu_torch.tools import bench_gridmm, kernel_isolate
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -55,7 +55,8 @@ def path(monkeypatch):
     monkeypatch.setattr(kernels, "stream", lambda index: streams.append(index) or STREAM)
     # a CPU tensor's device index is None: it is "the current device" here
     monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: None, raising=False)
-    for module in (kernel_isolate, spectral_mm, gelu, complex_kernels, bench_gridmm):
+    for module in (kernel_isolate, spectral_mm, gelu, instance_norm, complex_kernels,
+                   bench_gridmm):
         monkeypatch.setattr(module, "dispatch", lambda x: True)
     return SimpleNamespace(recorders=recorders, streams=streams)
 
@@ -176,7 +177,8 @@ def test_launch_path_never_runs_at_import():
     function: the two lookups (present or not in this build) raise if
     called, and every import still succeeds."""
     modules = ["makani_tpu_torch.ops." + m for m in
-               ("kernels", "spectral_mm", "gelu", "complex_kernels", "fused_adam", "sht")]
+               ("kernels", "spectral_mm", "gelu", "instance_norm", "complex_kernels", "fused_adam",
+                "sht")]
     modules += ["makani_tpu_torch.tools." + m for m in
                 ("kernel_isolate", "bench_gridmm", "bench_spectral_mm", "launch_path",
                  "legmm_ablation", "dhconv_ablation", "probe_ablation", "adam_ablation")]
@@ -260,6 +262,14 @@ def _wrapper_cases():
         x, g_ = f(3, 5).bfloat16(), f(3, 5).bfloat16()
         return (x, g_), gelu.gelu_bf16_backward(x, g_)
 
+    def norm_forward():
+        x, w, b = f(2, 3, 5, 7).bfloat16(), f(3), f(3)
+        return (x, w, b), instance_norm.instance_norm_forward(x, w, b, 1e-6)[0]
+
+    def norm_backward():
+        x, g_, w, stats = f(2, 3, 5, 7), f(2, 3, 5, 7), f(3), f(2, 2, 3)
+        return (x, g_, w, stats), instance_norm.instance_norm_backward(x, g_, w, stats)[0]
+
     def dhconv_complex():
         x = torch.complex(f(1, 4, 3, 5), f(1, 4, 3, 5))
         w = torch.complex(f(4, 6, 3), f(4, 6, 3))
@@ -274,6 +284,8 @@ def _wrapper_cases():
             ("dhconv_dw", "dhconv_dw", dhconv_dw), ("gridmm", "gridmm", gridmm),
             ("gelu_bf16", "gelu_bf16", gelu_forward),
             ("gelu_bf16_grad", "gelu_bf16_grad", gelu_backward),
+            ("instance_norm_fwd", "instance_norm_fwd", norm_forward),
+            ("instance_norm_bwd", "instance_norm_bwd", norm_backward),
             ("dhconv_complex", "dhconv_complex", dhconv_complex),
             ("grid_dot", "grid_dot", grid_dot)]
 
